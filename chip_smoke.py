@@ -4,15 +4,19 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``faabric_tpu_torch/ops/csrc``, holds
-each kernel against its plain PyTorch version at the serving shapes,
-then serves the flagship transformer at full width (``ModelConfig()``:
-vocab 32000, d_model 512, 4 layers, 8 heads, d_ff 2048, random weights
-from seed 0) through the port's entry points: a scoring forward over
-8 x 512 tokens, a forward at 1 x 2048, and greedy ``generate`` of 32
-tokens after 8 x 512-token prompts. It checks the outputs, shows from
-the kernels' launch counts that this path ran through them, times the
-kernels, their plain versions and the nearest PyTorch library calls,
-and prints one JSON line of kernel numbers and, last, the device line.
+each kernel against its plain PyTorch version at the serving and
+training shapes, then runs the flagship transformer at full width
+(``ModelConfig()``: vocab 32000, d_model 512, 4 layers, 8 heads, d_ff
+2048, random weights from seed 0) through the port's entry points. The
+serving path: a scoring forward over 8 x 512 tokens, a forward at
+1 x 2048, and greedy ``generate`` of 32 tokens after 8 x 512-token
+prompts. The training path: 10 AdamW steps on 8 x 512 batches from the
+``DataLoader`` (remat on, bf16 compute over fp32 parameters), with a
+checkpoint saved and restored mid-run and ``evaluate_perplexity`` after.
+For each path it checks the outputs and shows from the kernels' launch
+counts that the path ran through them; it times the kernels, their
+plain versions and the nearest PyTorch library calls, and prints one
+JSON line of kernel numbers and, last, the device line.
 
 It needs a CUDA card and exits non-zero without one. It imports nothing
 of JAX or of the JAX package. Any failed check raises and the script
@@ -26,6 +30,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -43,6 +48,10 @@ FP32_FLOP_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
 # tolerance, 3e-2).
 RMS_ATOL = {torch.float32: 1e-5, torch.bfloat16: 3.2e-2}
 FLASH_ATOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# Backward kernels against their plain version in fp32: summation order
+# only, at the JAX package's gradient tolerance. bf16 has no fixed bound:
+# see check_bwd.
+BWD_ATOL, BWD_RTOL = 2e-4, 1e-3
 
 
 def log(*args) -> None:
@@ -79,7 +88,8 @@ def time_ms(fn, reps: int = 20, iters: int = 10) -> float:
 def profile_top(fn, label: str, top: int = 6) -> None:
     """Device time by kernel over one call of ``fn``, from torch.profiler:
     the device's busy time against the call's wall time, and the kernels
-    that take most of it."""
+    that take most of it. Annotated ranges (such as the optimizer's
+    step) span kernels counted on their own, so they are left out."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -91,7 +101,8 @@ def profile_top(fn, label: str, top: int = 6) -> None:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(e.self_device_time_total for e in kernels)
     log(f"profile {label}: wall {wall_us:.0f} us, device busy {busy_us:.0f} us "
         f"({100 * busy_us / wall_us:.1f}%)")
@@ -123,6 +134,26 @@ def check(ok: bool, what: str) -> None:
     log(f"  ok  {what}")
 
 
+def close_or_as_close(got, want, f32, what: str) -> float:
+    """fp32 ``got`` within BWD_ATOL + BWD_RTOL |want| of ``want``; bf16
+    ``got`` as close to the fp32 computation ``f32`` as the plain bf16
+    ``want`` is: max within 2x, mean within 1.25x. Returns max |got -
+    want|."""
+    err = max_err(got, want)
+    if got.dtype == torch.float32:
+        ok = bool(((got - want).abs() <= BWD_ATOL + BWD_RTOL * want.abs()).all())
+        check(ok, f"{what}: max |err| {err:.3g}")
+        return err
+    err_k = (got.float() - f32).abs()
+    err_r = (want.float() - f32).abs()
+    check(float(err_k.max()) <= 2 * float(err_r.max()) + 1e-6
+          and float(err_k.mean()) <= 1.25 * float(err_r.mean()) + 1e-7,
+          f"{what}: max |err| {err:.3g}; vs fp32 max {float(err_k.max()):.3g} "
+          f"mean {float(err_k.mean()):.3g} (plain bf16: max "
+          f"{float(err_r.max()):.3g} mean {float(err_r.mean()):.3g})")
+    return err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -135,18 +166,33 @@ def main() -> int:
         return 2
     sys.path.insert(0, here)
 
+    from faabric_tpu_torch.data import DataLoader, TokenDataset
     from faabric_tpu_torch.models import (
         ModelConfig,
         Transformer,
+        evaluate_perplexity,
         forward,
         forward_with_cache,
         generate,
         init_kv_cache,
+        init_train_state,
+        loss_fn,
+        make_optimizer,
+        make_train_step,
+        restore_train_state,
+        save_train_state,
     )
     from faabric_tpu_torch.ops import _build
     from faabric_tpu_torch.ops.flash_attention import (
+        _kernel_flash_bwd_dkv,
+        _kernel_flash_bwd_dq,
         _reference_attention,
+        _reference_bwd_dkv,
+        _reference_bwd_dq,
+        _reference_flash_bwd,
         _reference_lse,
+        _row_correction,
+        flash_attention,
         flash_attention_with_lse,
     )
     from faabric_tpu_torch.ops.rms_norm import _reference_rms_norm, rms_norm
@@ -336,10 +382,247 @@ def main() -> int:
         f"{decode_ms:.3f} ms/token-step (8 sequences)")
     log(f"peak memory on the main path: {peak_gib:.3f} GiB")
 
-    def row(name, source, replaces, t, bounds, err):
+
+    # -- 8. backward kernels against their plain version ---------------------
+    log("phase 8: flash backward kernels (dQ, dK/dV) vs plain")
+
+    def bwd_inputs(b, s_q, s_k, d, causal, dtype, g_lse=False,
+                   strided=False):
+        """q, k, v (views of one QKV product when ``strided``), a
+        cotangent, the forward kernel's lse and the row correction."""
+        h = 8 if d == 64 else 2
+        if strided:
+            qkv = torch.randn(b, s_q, 3, h, d, device=dev,
+                              generator=gen).to(dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        else:
+            q, k, v = (torch.randn(b, s, h, d, device=dev, generator=gen
+                                   ).to(dtype) for s in (s_q, s_k, s_k))
+        do = torch.randn(b, s_q, h, d, device=dev, generator=gen).to(dtype)
+        with torch.no_grad():
+            out, lse = flash_attention_with_lse(q, k, v, causal)
+        g = (torch.randn(b * h, s_q, device=dev, generator=gen)
+             if g_lse else None)
+        return q, k, v, do, lse, _row_correction(do, out, g)
+
+    bwd_cases = [(b, s_q, s_k, d, causal, dtype, g_lse, strided)
+                 for dtype in (torch.bfloat16, torch.float32)
+                 for b, s_q, s_k, d, causal, g_lse, strided in [
+                     (8, 512, 512, 64, True, False, False),
+                     (8, 512, 512, 64, False, False, False),
+                     (8, 128, 512, 64, True, False, False),
+                     (2, 100, 157, 32, True, False, False),
+                     (1, 2048, 2048, 64, True, False, False),
+                     (8, 512, 512, 64, True, True, False),
+                     (8, 512, 512, 64, True, False, True)]]
+    for b, s_q, s_k, d, causal, dtype, g_lse, strided in bwd_cases:
+        ins = bwd_inputs(b, s_q, s_k, d, causal, dtype, g_lse, strided)
+        got = (_kernel_flash_bwd_dq(*ins, causal),
+               *_kernel_flash_bwd_dkv(*ins, causal))
+        torch.cuda.synchronize()
+        want = _reference_flash_bwd(*ins, causal)
+        q, k, v, do, lse, delta = ins
+        f32 = _reference_flash_bwd(q.float(), k.float(), v.float(),
+                                   do.float(), lse, delta, causal)
+        label = (f"({b}, {s_q}/{s_k}, {q.shape[2]}, {d}) causal={causal} "
+                 f"{str(dtype)[6:]}{' g_lse' if g_lse else ''}"
+                 f"{' strided' if strided else ''}")
+        e = [close_or_as_close(g, w, y, f"{n} {label}")
+             for n, g, w, y in zip(("dq", "dk", "dv"), got, want, f32)]
+        if (b, s_q, causal, dtype, g_lse, strided) == (
+                8, 512, True, torch.bfloat16, False, False):
+            errs["flash_bwd_dq"], errs["flash_bwd_dkv"] = e[0], max(e[1:])
+        del ins, got, want, f32
+
+    # The whole Function (forward kernel, delta, both backward kernels)
+    # against autograd through the plain attention and lse
+    base = [torch.randn(8, 512, 8, 64, device=dev, generator=gen)
+            for _ in range(3)]
+    g_out = torch.randn(8, 512, 8, 64, device=dev, generator=gen)
+    g_lse = torch.randn(64, 512, device=dev, generator=gen)
+
+    def attn_grads(fn, dtype, with_lse):
+        ts = [t.to(dtype).requires_grad_() for t in base]
+        out, lse = fn(*ts)
+        loss = (out.float() * g_out).sum()
+        if with_lse:
+            loss = loss + (lse * g_lse).sum()
+        return torch.autograd.grad(loss, ts)
+
+    def plain_attn(q, k, v):
+        return _reference_attention(q, k, v), _reference_lse(q, k, True)
+
+    for with_lse in (False, True):
+        def kernel_attn(q, k, v):
+            if with_lse:
+                return flash_attention_with_lse(q, k, v)
+            return flash_attention(q, k, v), None
+
+        f32 = attn_grads(plain_attn, torch.float32, with_lse)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = attn_grads(kernel_attn, dtype, with_lse)
+            want = attn_grads(plain_attn, dtype, with_lse)
+            for n, g, w, y in zip(("dq", "dk", "dv"), got, want, f32):
+                close_or_as_close(
+                    g, w, y, f"autograd {n} (8, 512, 8, 64) {str(dtype)[6:]}"
+                    f"{' with g_lse' if with_lse else ''}")
+    del base, g_out, g_lse, f32, got, want
+
+    # -- 9. the training path at full width ----------------------------------
+    log("phase 9: training, ModelConfig() defaults, 8 x 512 batches")
+    n_steps, resume_at = 10, 5
+    corpus = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, 8 * 512 * 16 + 1).astype(np.int32)
+    dataset = TokenDataset(corpus, 512)
+    spec = make_optimizer(lr=3e-4, warmup_steps=2, total_steps=20,
+                          clip_norm=1.0)
+    train_model, opt = init_train_state(
+        torch.Generator(device=dev).manual_seed(0), cfg, dev, spec)
+    init_weights = {k: v.clone() for k, v in train_model.state_dict().items()}
+    step = make_train_step(cfg, spec)
+    held = next(iter(DataLoader(dataset, 8, device=dev, seed=0)))
+    with torch.no_grad():
+        held_before = float(loss_fn(train_model, *held))
+    ckpt_dir = tempfile.TemporaryDirectory()
+    ckpt = os.path.join(ckpt_dir.name, "train_state.pt")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    batches, losses = [], []
+    for i, (tok, tgt) in zip(range(n_steps), DataLoader(dataset, 8,
+                                                         device=dev, seed=0)):
+        batches.append((tok, tgt))
+        losses.append(step(train_model, opt, tok, tgt))
+        if i + 1 == resume_at:
+            save_train_state(ckpt, train_model, opt, step=resume_at)
+    torch.cuda.synchronize()
+    train_launches = dict(_build.LAUNCHES)
+    train_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in losses]
+    log(f"training path launches: {train_launches}")
+    log(f"losses: {', '.join(f'{x:.4f}' for x in losses)}")
+    check(all(np.isfinite(losses)) and len(losses) == n_steps,
+          f"{n_steps} steps, losses finite")
+    per_step = {"flash_attention": 8, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}
+    for name, n in per_step.items():
+        check(train_launches.get(name, 0) == n * n_steps,
+              f"training path launched {name} {train_launches.get(name, 0)} "
+              f"times ({n} per step)")
+    check(train_launches.get("rms_norm", 0) > 0,
+          f"training path launched rms_norm {train_launches.get('rms_norm', 0)}"
+          " times")
+    with torch.no_grad():
+        held_after = float(loss_fn(train_model, *held))
+    check(held_after < held_before, f"loss on a repeated batch falls: "
+          f"{held_before:.4f} -> {held_after:.4f}")
+
+    resumed, resumed_opt = init_train_state(
+        torch.Generator(device=dev).manual_seed(1), cfg, dev, spec)
+    check(restore_train_state(ckpt, resumed, resumed_opt) == resume_at,
+          "checkpoint restores its step")
+    again = [float(step(resumed, resumed_opt, *b)) for b in batches[resume_at:]]
+    resume_err = max(abs(a - b) for a, b in zip(again, losses[resume_at:]))
+    check(resume_err <= 1e-5, f"restored run continues with the same losses "
+          f"(max |diff| {resume_err:.3g})")
+    ckpt_dir.cleanup()
+    del resumed, resumed_opt
+
+    ppl = evaluate_perplexity(train_model, DataLoader(dataset, 8, device=dev,
+                                                      seed=1), max_batches=2)
+    check(ppl["tokens"] == 2 * 8 * 512 and np.isfinite(ppl["nll"]),
+          f"evaluate_perplexity on two batches: nll {ppl['nll']:.4f}, "
+          f"perplexity {ppl['perplexity']:.1f}")
+
+    # One step's loss and gradients from the same weights: the kernel path
+    # against the plain bf16 path, both against an fp32 step. bf16 rounds
+    # at other places in the kernels than in the plain path, so the kernel
+    # path is held to the plain bf16 path's distance from fp32, per
+    # parameter: relative L2 error within 2x.
+    tok, tgt = batches[0]
+
+    def one_step_grads(**changes):
+        m = Transformer(dataclasses.replace(cfg, **changes), device=dev)
+        m.load_state_dict(init_weights)
+        loss = loss_fn(m, tok, tgt)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad
+                                      for n, p in m.named_parameters()}
+
+    loss_k, grads_k = one_step_grads(attention_impl="flash", norm_impl="fused")
+    loss_r, grads_r = one_step_grads(attention_impl="reference",
+                                     norm_impl="reference")
+    loss_32, grads_32 = one_step_grads(attention_impl="reference",
+                                       norm_impl="reference",
+                                       compute_dtype=torch.float32)
+    log(f"  one-step loss: kernel path {loss_k:.6f}, plain bf16 {loss_r:.6f}, "
+        f"fp32 {loss_32:.6f}")
+    check(abs(loss_k - loss_32) <= 2 * abs(loss_r - loss_32) + 1e-3,
+          "kernel-path loss as close to fp32 as the plain bf16 path's")
+    worst = 0.0
+    for name, g32 in grads_32.items():
+        ref = float(g32.norm())
+        rel_k = float((grads_k[name] - g32).norm()) / ref
+        rel_r = float((grads_r[name] - g32).norm()) / ref
+        worst = max(worst, rel_k / max(rel_r, 1e-12))
+        log(f"    {name:22s} rel L2 err: kernel {rel_k:.3e}, plain bf16 "
+            f"{rel_r:.3e}")
+        check(rel_k <= 2 * rel_r, f"{name} gradient as close to fp32 as the "
+              "plain bf16 path's")
+    log(f"  worst kernel/plain gradient error ratio: {worst:.3f}")
+    del grads_k, grads_r, grads_32
+
+    # -- 10. training timings -------------------------------------------------
+    log("phase 10: training timings")
+    tok, tgt = batches[0]
+    step_ms = host_ms(lambda: step(train_model, opt, tok, tgt))
+    profile_top(lambda: step(train_model, opt, tok, tgt), "train step 8x512",
+                top=10)
+    q, k, v, do, lse, delta = bwd_inputs(8, 512, 512, 64, True,
+                                         torch.bfloat16)
+    out, _ = flash_attention_with_lse(q, k, v, True)
+    bwd_args = (q, k, v, do, lse, delta, True)
+
+    qt, kt, vt, dot_ = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (qt, kt, vt))
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(o, (qg, kg, vg), dot_)
+
+    dq_t = {"ms": time_ms(lambda: _kernel_flash_bwd_dq(*bwd_args)),
+            "plain_ms": time_ms(lambda: _reference_bwd_dq(*bwd_args))}
+    dkv_t = {"ms": time_ms(lambda: _kernel_flash_bwd_dkv(*bwd_args)),
+             "plain_ms": time_ms(lambda: _reference_bwd_dkv(*bwd_args))}
+    delta_ms = time_ms(lambda: _row_correction(do, out))
+    sdpa_bwd_ms = (time_ms(sdpa_fwd_bwd)
+                   - time_ms(lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True)))
+    dq_t["library_ms"] = dkv_t["library_ms"] = sdpa_bwd_ms
+    pairs = 8 * 8 * 512 * 513 // 2
+    qkv_bytes = q.numel() * 2
+    stat_bytes = 2 * 64 * 512 * 4
+    dq_bounds = {"bytes": (5 * qkv_bytes + stat_bytes) / HBM_BYTES_PER_S * 1e3,
+                 "operations": 6 * 64 * pairs / BF16_FLOP_PER_S * 1e3}
+    dkv_bounds = {"bytes": (6 * qkv_bytes + stat_bytes) / HBM_BYTES_PER_S * 1e3,
+                  "operations": 8 * 64 * pairs / BF16_FLOP_PER_S * 1e3}
+    for name, t, bounds in (("flash_bwd_dq", dq_t, dq_bounds),
+                            ("flash_bwd_dkv", dkv_t, dkv_bounds)):
+        log(f"{name} (8, 512, 8, 64) bf16 causal: kernel {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, bound "
+            f"{max(bounds.values()):.4f} ms ({max(bounds, key=bounds.get)}), "
+            f"{per_step[name]} launches per step")
+    log(f"backward kernels + delta: {dq_t['ms'] + dkv_t['ms'] + delta_ms:.4f} "
+        f"ms (delta {delta_ms:.4f} ms); sdpa backward (fwd+bwd - fwd): "
+        f"{sdpa_bwd_ms:.4f} ms")
+    log(f"train step 8x512: {step_ms:.3f} ms host, "
+        f"{8 * 512 / step_ms * 1e3:.0f} tokens/s")
+    log(f"peak memory on the training path: {train_peak_gib:.3f} GiB")
+
+    def row(name, source, replaces, t, bounds, err, path_launches):
         bound_by = max(bounds, key=bounds.get)
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches.get(name, 0),
+                "replaces": replaces, "launches": path_launches.get(name, 0),
                 "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": bounds[bound_by], "bound_by": bound_by,
                 "library_ms": t["library_ms"]}
@@ -347,10 +630,17 @@ def main() -> int:
     kernels = [
         row("rms_norm", "faabric_tpu_torch/ops/csrc/rms_norm.cu",
             "faabric_tpu/ops/rms_norm.py:26", rms, rms_bounds,
-            errs["rms_norm"]),
+            errs["rms_norm"], launches),
         row("flash_attention", "faabric_tpu_torch/ops/csrc/flash_attention.cu",
             "faabric_tpu/ops/flash_attention.py:61", fl, fl_bounds,
-            errs["flash_attention"]),
+            errs["flash_attention"], launches),
+        row("flash_bwd_dq", "faabric_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            "faabric_tpu/ops/flash_attention.py:125", dq_t, dq_bounds,
+            errs["flash_bwd_dq"], train_launches),
+        row("flash_bwd_dkv",
+            "faabric_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            "faabric_tpu/ops/flash_attention.py:176", dkv_t, dkv_bounds,
+            errs["flash_bwd_dkv"], train_launches),
     ]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -1,6 +1,7 @@
-"""Load the JAX package's parameter pytree into a :class:`Transformer`.
+"""Move parameters between the JAX package's pytree and a
+:class:`Transformer`.
 
-The pytree arrives as numpy arrays (for example
+The pytree travels as numpy arrays (for example
 ``jax.tree.map(np.asarray, init_params(key, cfg))``), so this module
 needs no JAX. The layouts are the same, and each array is copied bit
 for bit.
@@ -36,3 +37,15 @@ def params_from_jax(np_params: dict, cfg: ModelConfig,
             for name in _BLOCK_KEYS:
                 load(getattr(blk, name), src[name])
     return model
+
+
+def params_to_numpy(model: Transformer) -> dict:
+    """The model's parameters as the JAX package's pytree of float32 numpy
+    arrays: the inverse of :func:`params_from_jax`."""
+    def arr(p: torch.Tensor) -> np.ndarray:
+        return p.detach().to("cpu", torch.float32).numpy().copy()
+
+    return {"embed": arr(model.embed),
+            "blocks": [{name: arr(getattr(blk, name)) for name in _BLOCK_KEYS}
+                       for blk in model.blocks],
+            "ln_f": arr(model.ln_f), "lm_head": arr(model.lm_head)}

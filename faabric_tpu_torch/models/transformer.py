@@ -9,11 +9,12 @@ cast to the bfloat16 compute dtype at each use (mixed precision, as in
 the JAX package).
 
 ``attention_impl`` picks plain attention ("reference") or the flash
-kernel ("flash"); ``norm_impl`` the model's own RMS norm ("reference")
+kernels ("flash"); ``norm_impl`` the model's own RMS norm ("reference")
 or the fused kernel ("fused"). "auto" resolves to the kernels on CUDA
-and to the plain versions on the CPU. ``remat`` is accepted for parity
-with the JAX config and has no effect: serving keeps no activations for
-a backward pass.
+and to the plain versions on the CPU. ``remat`` wraps each block in
+``torch.utils.checkpoint`` when gradients are taken, as ``jax.checkpoint``
+does in the JAX package: a block keeps only its input, and its forward
+(flash kernel included) runs again in the backward pass.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from faabric_tpu_torch.util.device import resolve_device
 
@@ -225,8 +227,14 @@ def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     x = _embed(model, tokens, cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
     for blk in model.blocks:
-        x = _block(x, blk, positions, cfg)
+        if remat:
+            # The blocks draw no random numbers: no RNG state to replay
+            x = checkpoint(_block, x, blk, positions, cfg,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _block(x, blk, positions, cfg)
     return _logits(model, x, cfg)
 
 

@@ -6,10 +6,12 @@ the repository root. Only ``csrc/binding.cpp`` includes PyTorch's headers;
 the ``.cu`` files keep a plain C interface, so nvcc never compiles those
 headers. Where ``ninja`` (which ``load`` needs) is missing, the ``.cu``
 files are built with ``nvcc -shared`` into a plain library loaded through
-``ctypes`` instead, behind the same two functions:
+``ctypes`` instead, behind the same four functions:
 
     rms_norm_fwd(x, scale, out, eps)
     flash_fwd(q, k, v, o, lse, scale, causal)
+    flash_bwd_dq(q, k, v, do, lse, delta, dq, scale, causal)
+    flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, scale, causal)
 
 A build failure raises; nothing swaps in the plain PyTorch versions.
 
@@ -78,6 +80,12 @@ def _load_with_nvcc():
     lib.faabric_flash_fwd.argtypes = ([p] * 5 + [i] * 5 + [i64] * 9
                                       + [f, i, i, p])
     lib.faabric_flash_fwd.restype = i
+    lib.faabric_flash_bwd_dq.argtypes = ([p] * 7 + [i] * 5 + [i64] * 12
+                                         + [f, i, i, p])
+    lib.faabric_flash_bwd_dq.restype = i
+    lib.faabric_flash_bwd_dkv.argtypes = ([p] * 8 + [i] * 5 + [i64] * 12
+                                          + [f, i, i, p])
+    lib.faabric_flash_bwd_dkv.restype = i
 
     def dtype_code(t):
         return {torch.float32: 0, torch.bfloat16: 1}[t.dtype]
@@ -98,9 +106,28 @@ def _load_with_nvcc():
             *k.stride()[:3], *v.stride()[:3], scale, int(causal),
             dtype_code(q), stream(q)))
 
+    def bwd_shape(q, k):
+        b, s_q, h, d = q.shape
+        return (b, h, s_q, k.shape[1], d, *q.stride()[:3], *k.stride()[:3])
+
+    def flash_bwd_dq(q, k, v, do, lse, delta, dq, scale, causal):
+        _check_rc("flash_bwd_dq", lib.faabric_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *bwd_shape(q, k), *v.stride()[:3], *do.stride()[:3], scale,
+            int(causal), dtype_code(q), stream(q)))
+
+    def flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, scale, causal):
+        _check_rc("flash_bwd_dkv", lib.faabric_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *bwd_shape(q, k), *v.stride()[:3], *do.stride()[:3], scale,
+            int(causal), dtype_code(q), stream(q)))
+
     # The ctypes functions hold ``lib``; keep it alive with them
     return SimpleNamespace(rms_norm_fwd=rms_norm_fwd, flash_fwd=flash_fwd,
-                           lib=lib)
+                           flash_bwd_dq=flash_bwd_dq,
+                           flash_bwd_dkv=flash_bwd_dkv, lib=lib)
 
 
 @functools.cache

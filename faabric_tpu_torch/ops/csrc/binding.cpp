@@ -24,6 +24,20 @@ extern "C" int faabric_flash_fwd(
     int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale, int causal,
     int dtype, void* stream);
+extern "C" int faabric_flash_bwd_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int batch, int n_heads,
+    int s_q, int s_k, int d, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+    int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
+    int64_t v_sh, int64_t do_sb, int64_t do_ss, int64_t do_sh, float scale,
+    int causal, int dtype, void* stream);
+extern "C" int faabric_flash_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int batch,
+    int n_heads, int s_q, int s_k, int d, int64_t q_sb, int64_t q_ss,
+    int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
+    int64_t v_ss, int64_t v_sh, int64_t do_sb, int64_t do_ss, int64_t do_sh,
+    float scale, int causal, int dtype, void* stream);
 
 namespace {
 
@@ -63,31 +77,48 @@ void rms_norm_fwd(const at::Tensor& x, const at::Tensor& scale,
       current_stream(x)));
 }
 
-// q (B, S_q, H, D), k/v (B, S_k, H, D) with unit last stride; o
-// contiguous like q; lse (B*H, S_q) float32 contiguous
+// q (B, S_q, H, D), k/v (B, S_k, H, D) with unit last stride, on CUDA,
+// of one dtype
+void check_qkv(const char* name, const at::Tensor& q, const at::Tensor& k,
+               const at::Tensor& v) {
+  for (const at::Tensor* t : std::initializer_list<const at::Tensor*>{&q, &k, &v})
+    TORCH_CHECK(t->is_cuda() && t->dim() == 4, name,
+                ": q, k, v are CUDA (B, S, H, D)");
+  TORCH_CHECK(q.stride(3) == 1 && k.stride(3) == 1 && v.stride(3) == 1,
+              name, ": last dim must be contiguous");
+  TORCH_CHECK(k.sizes() == v.sizes() && q.size(0) == k.size(0) &&
+                  q.size(2) == k.size(2) && q.size(3) == k.size(3),
+              name, ": shape mismatch");
+  TORCH_CHECK(k.scalar_type() == q.scalar_type() &&
+                  v.scalar_type() == q.scalar_type(),
+              name, ": q, k, v must share a dtype");
+}
+
+// A contiguous CUDA output of the given shape and dtype
+void check_out(const char* name, const at::Tensor& o, at::IntArrayRef sizes,
+               at::ScalarType dtype) {
+  TORCH_CHECK(o.is_cuda() && o.is_contiguous() && o.sizes() == sizes &&
+                  o.scalar_type() == dtype,
+              name, ": outputs must be contiguous CUDA tensors of the "
+              "input's shape and dtype");
+}
+
+// A per-row statistic: contiguous float32 (B*H, S_q) on CUDA
+void check_stat(const char* name, const at::Tensor& st, const at::Tensor& q) {
+  TORCH_CHECK(st.is_cuda() && st.scalar_type() == at::kFloat &&
+                  st.is_contiguous() && st.dim() == 2 &&
+                  st.size(0) == q.size(0) * q.size(2) &&
+                  st.size(1) == q.size(1),
+              name, ": lse and delta must be contiguous float32 (B*H, S_q)");
+}
+
+// o contiguous like q; lse (B*H, S_q) float32 contiguous
 void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
                const at::Tensor& o, const at::Tensor& lse, double scale,
                bool causal) {
-  for (const at::Tensor* t :
-       std::initializer_list<const at::Tensor*>{&q, &k, &v, &o, &lse})
-    TORCH_CHECK(t->is_cuda() && t->dim() >= 2, "flash_fwd: CUDA tensors");
-  TORCH_CHECK(q.dim() == 4 && k.dim() == 4 && v.dim() == 4,
-              "flash_fwd: q, k, v are (B, S, H, D)");
-  TORCH_CHECK(q.stride(3) == 1 && k.stride(3) == 1 && v.stride(3) == 1,
-              "flash_fwd: last dim must be contiguous");
-  TORCH_CHECK(k.sizes() == v.sizes() && q.size(0) == k.size(0) &&
-                  q.size(2) == k.size(2) && q.size(3) == k.size(3),
-              "flash_fwd: shape mismatch");
-  TORCH_CHECK(k.scalar_type() == q.scalar_type() &&
-                  v.scalar_type() == q.scalar_type() &&
-                  o.scalar_type() == q.scalar_type(),
-              "flash_fwd: q, k, v, o must share a dtype");
-  TORCH_CHECK(o.is_contiguous() && o.sizes() == q.sizes(),
-              "flash_fwd: o must be contiguous like q");
-  TORCH_CHECK(lse.scalar_type() == at::kFloat && lse.is_contiguous() &&
-                  lse.dim() == 2 && lse.size(0) == q.size(0) * q.size(2) &&
-                  lse.size(1) == q.size(1),
-              "flash_fwd: lse must be contiguous float32 (B*H, S_q)");
+  check_qkv("flash_fwd", q, k, v);
+  check_out("flash_fwd", o, q.sizes(), q.scalar_type());
+  check_stat("flash_fwd", lse, q);
   const c10::cuda::CUDAGuard guard(q.device());
   check_launch(faabric_flash_fwd(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
@@ -99,9 +130,64 @@ void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
       current_stream(q)));
 }
 
+// dout like q with unit last stride; lse and delta (B*H, S_q) float32
+void check_bwd(const char* name, const at::Tensor& q, const at::Tensor& k,
+               const at::Tensor& v, const at::Tensor& dout,
+               const at::Tensor& lse, const at::Tensor& delta) {
+  check_qkv(name, q, k, v);
+  TORCH_CHECK(dout.is_cuda() && dout.sizes() == q.sizes() &&
+                  dout.scalar_type() == q.scalar_type() &&
+                  dout.stride(3) == 1,
+              name, ": dout must be like q with a contiguous last dim");
+  check_stat(name, lse, q);
+  check_stat(name, delta, q);
+}
+
+void flash_bwd_dq(const at::Tensor& q, const at::Tensor& k,
+                  const at::Tensor& v, const at::Tensor& dout,
+                  const at::Tensor& lse, const at::Tensor& delta,
+                  const at::Tensor& dq, double scale, bool causal) {
+  check_bwd("flash_bwd_dq", q, k, v, dout, lse, delta);
+  check_out("flash_bwd_dq", dq, q.sizes(), q.scalar_type());
+  const c10::cuda::CUDAGuard guard(q.device());
+  check_launch(faabric_flash_bwd_dq(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+      lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+      static_cast<int>(q.size(0)), static_cast<int>(q.size(2)),
+      static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
+      static_cast<int>(q.size(3)), q.stride(0), q.stride(1), q.stride(2),
+      k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1),
+      v.stride(2), dout.stride(0), dout.stride(1), dout.stride(2),
+      static_cast<float>(scale), causal ? 1 : 0, dtype_code(q),
+      current_stream(q)));
+}
+
+void flash_bwd_dkv(const at::Tensor& q, const at::Tensor& k,
+                   const at::Tensor& v, const at::Tensor& dout,
+                   const at::Tensor& lse, const at::Tensor& delta,
+                   const at::Tensor& dk, const at::Tensor& dv, double scale,
+                   bool causal) {
+  check_bwd("flash_bwd_dkv", q, k, v, dout, lse, delta);
+  check_out("flash_bwd_dkv", dk, k.sizes(), k.scalar_type());
+  check_out("flash_bwd_dkv", dv, v.sizes(), v.scalar_type());
+  const c10::cuda::CUDAGuard guard(q.device());
+  check_launch(faabric_flash_bwd_dkv(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+      lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+      static_cast<int>(q.size(0)), static_cast<int>(q.size(2)),
+      static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
+      static_cast<int>(q.size(3)), q.stride(0), q.stride(1), q.stride(2),
+      k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1),
+      v.stride(2), dout.stride(0), dout.stride(1), dout.stride(2),
+      static_cast<float>(scale), causal ? 1 : 0, dtype_code(q),
+      current_stream(q)));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("rms_norm_fwd", &rms_norm_fwd, "RMS norm forward kernel");
   m.def("flash_fwd", &flash_fwd, "flash attention forward kernel");
+  m.def("flash_bwd_dq", &flash_bwd_dq, "flash attention dQ kernel");
+  m.def("flash_bwd_dkv", &flash_bwd_dkv, "flash attention dK/dV kernel");
 }

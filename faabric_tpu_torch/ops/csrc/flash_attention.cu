@@ -40,40 +40,15 @@
 // (last dim contiguous), so the model's q/k/v views need no copy. O is
 // written contiguous.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
 #include <initializer_list>
 #include <type_traits>
+
+#include "flash_common.cuh"
 
 namespace {
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 32;   // FMA body's key tile
-constexpr int kColsPerThread = 16;
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-// p in the dtype of V, as the TPU kernel's p.astype(v.dtype)
-template <typename T> __device__ __forceinline__ float round_like(float v) {
-  return to_float(from_float<T>(v));
-}
-
-struct Strides {
-  int64_t b, s, h;
-};
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kBlockQ * (D / kColsPerThread))
@@ -200,28 +175,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaBlockK = 64;
-constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  const __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -233,10 +186,7 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4): A holds
-// rows g and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9; B holds
-// k = 2t, 2t + 1 and 2t + 8, 2t + 9 of column g; C holds rows g and g + 8,
-// columns 2t and 2t + 1.
+// Fragment layout of mma.m16n8k16: see flash_common.cuh.
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -421,12 +371,8 @@ struct Args {
 // The tensor-core body reads bf16 pairs as 32-bit words: every pointer
 // and stride must keep pairs 4-byte aligned.
 bool pairs_aligned(const Args& a) {
-  const auto even = [](int64_t x) { return x % 2 == 0; };
-  for (const void* p : {a.q, a.k, a.v})
-    if (reinterpret_cast<uintptr_t>(p) % 4 != 0) return false;
-  for (const Strides& st : {a.qs, a.ks, a.vs})
-    if (!even(st.b) || !even(st.s) || !even(st.h)) return false;
-  return true;
+  return pair_aligned(a.q, a.qs) && pair_aligned(a.k, a.ks) &&
+         pair_aligned(a.v, a.vs);
 }
 
 template <typename T, int D>

@@ -1,25 +1,29 @@
-"""Flash attention forward: a CUDA kernel on the card, the plain version
-on the CPU.
+"""Flash attention, forward and backward: CUDA kernels on the card, the
+plain versions on the CPU.
 
 Counterpart of ``faabric_tpu/ops/flash_attention.py``. Layout is the
 JAX package's: q (B, S_q, H, D), k and v (B, S_k, H, D), out like q, and
 the per-row log-sum-exp as (B*H, S_q) fp32 with heads folded after batch.
 
-The kernel (``csrc/flash_attention.cu``) keeps the TPU kernel's
+The forward kernel (``csrc/flash_attention.cu``) keeps the TPU kernel's
 semantics: online softmax in fp32, end-aligned causal mask
-(``causal_offset = S_k - S_q``) and the causal early exit. It handles
-ragged S_q and S_k itself with bounds masks, so the only routing left in
-``_uses_kernel`` is semantic: causal attention with S_q > S_k goes to the
-plain version, whose fully masked rows get a uniform softmax. The TPU
-tiling rules (D < 64, block multiples of 128 lanes, the lane-broadcast
-lse) have no meaning here and are gone, as are the block-size arguments:
-the kernel's tiles are fixed. It takes float32 and bfloat16 with head
-dims 16, 32, 64 and 128.
+(``causal_offset = S_k - S_q``) and the causal early exit. The backward
+is the TPU package's two passes (``csrc/flash_attention_bwd.cu``): a dQ
+kernel over q tiles and a dK/dV kernel over key tiles, both recomputing
+P from the forward's lse; the row correction Δ = rowsum(dO·O) − g_lse is
+plain PyTorch, as in the JAX package. ``flash_attention`` and
+``flash_attention_with_lse`` go through one ``torch.autograd.Function``,
+differentiable in both out and lse; ``flash_attention`` drops the lse,
+whose missing cotangent costs nothing.
 
-Only the forward is ported. On the kernel path a gradient raises
-NotImplementedError; it is never taken through the plain version
-quietly. The plain path (the semantic fallback) differentiates by
-autograd, as the JAX package's fallback does.
+The kernels handle ragged S_q and S_k themselves with bounds masks, so
+the only routing left in ``_uses_kernel`` is semantic: causal attention
+with S_q > S_k goes to the plain version, whose fully masked rows get a
+uniform softmax, and differentiates by autograd, as the JAX package's
+fallback does. The TPU tiling rules (D < 64, block multiples of 128
+lanes, the lane-broadcast lse) have no meaning here and are gone, as are
+the block-size arguments: the kernels' tiles are fixed. They take
+float32 and bfloat16 with head dims 16, 32, 64 and 128.
 """
 
 from __future__ import annotations
@@ -65,11 +69,13 @@ def _uses_kernel(q_shape, k_shape, causal: bool) -> bool:
     return not (causal and q_shape[1] > k_shape[1])
 
 
-def _kernel_flash(q, k, v, causal: bool):
-    """Launch the forward kernel: (out (B, S_q, H, D), lse (B*H, S_q))."""
+def _check_qkv(q, k, v) -> None:
+    """What the kernels take: (B, S, H, D) q, k, v of one float32 or
+    bfloat16 dtype on one device, a head dim they are built for, and a
+    contiguous last dim (other strides are free)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash kernel takes (B, S, H, D) q, k, v")
-    b, s_q, h, d = q.shape
+    b, _, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"flash kernel: q {tuple(q.shape)} does not match "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
@@ -83,6 +89,12 @@ def _kernel_flash(q, k, v, causal: bool):
         raise ValueError("flash kernel: q, k, v on different devices")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash kernel: the head dim must be contiguous")
+
+
+def _kernel_flash(q, k, v, causal: bool):
+    """Launch the forward kernel: (out (B, S_q, H, D), lse (B*H, S_q))."""
+    _check_qkv(q, k, v)
+    b, s_q, h, d = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, s_q), dtype=torch.float32, device=q.device)
     _build.kernels().flash_fwd(q, k, v, out, lse, 1.0 / math.sqrt(d),
@@ -91,13 +103,85 @@ def _kernel_flash(q, k, v, causal: bool):
     return out, lse
 
 
-def _flash_forward(q, k, v, causal: bool):
-    """(out, lse) on the kernel path; (plain out, None) on the semantic
-    fallback."""
-    if not _uses_kernel(q.shape, k.shape, causal):
-        return _reference_attention(q, k, v, causal), None
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError("flash backward kernels: next slice")
+def _check_bwd_inputs(q, k, v, do, lse, delta) -> None:
+    _check_qkv(q, k, v)
+    b, s_q, h, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError("flash backward: dO must be like q")
+    if do.stride(-1) != 1:
+        raise ValueError("flash backward: dO's head dim must be contiguous")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != (b * h, s_q) or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"flash backward: {name} must be contiguous "
+                             f"float32 ({b * h}, {s_q})")
+
+
+def _kernel_flash_bwd_dq(q, k, v, do, lse, delta, causal: bool):
+    """Launch the dQ kernel: dq (B, S_q, H, D) like q."""
+    _check_bwd_inputs(q, k, v, do, lse, delta)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _build.kernels().flash_bwd_dq(q, k, v, do, lse, delta, dq,
+                                  1.0 / math.sqrt(q.shape[-1]), bool(causal))
+    _build.LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def _kernel_flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
+    """Launch the dK/dV kernel: (dk, dv) (B, S_k, H, D) like k and v."""
+    _check_bwd_inputs(q, k, v, do, lse, delta)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _build.kernels().flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv,
+                                   1.0 / math.sqrt(q.shape[-1]), bool(causal))
+    _build.LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def _reference_p_ds(q, k, v, do, lse, delta, causal: bool):
+    """P and dS in fp32 as the backward kernels recompute them: scores of
+    the fp32 products under the forward's mask, P = exp(s - lse) (0 where
+    masked), dP = dO.V^T with dO in V's dtype, dS = P (dP - delta) scale."""
+    b, s_q, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    f = torch.float32
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(f), k.to(f)) * scale
+    if causal:
+        s = s.masked_fill(~_causal_mask(s_q, k.shape[1], q.device), NEG_INF)
+    p = torch.exp(s - lse.reshape(b, h, s_q, 1))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.to(v.dtype).to(f), v.to(f))
+    return p, p * (dp - delta.reshape(b, h, s_q, 1)) * scale
+
+
+def _reference_bwd_dq(q, k, v, do, lse, delta, causal: bool):
+    """The dQ kernel's function: dq = dS.K with dS rounded to K's dtype,
+    summed in fp32, rounded once to q's dtype."""
+    _, ds = _reference_p_ds(q, k, v, do, lse, delta, causal)
+    f = torch.float32
+    return torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).to(f),
+                        k.to(f)).to(q.dtype)
+
+
+def _reference_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
+    """The dK/dV kernel's function: dv = P^T.dO with P rounded to dO's
+    dtype, dk = dS^T.Q with dS rounded to Q's dtype, fp32 sums."""
+    p, ds = _reference_p_ds(q, k, v, do, lse, delta, causal)
+    f = torch.float32
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).to(f), do.to(f))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).to(f), q.to(f))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _reference_flash_bwd(q, k, v, do, lse, delta, causal: bool):
+    """Plain PyTorch version of the two backward kernels: (dq, dk, dv)
+    from the forward's lse and the row correction delta, with the
+    kernels' mask and rounding points."""
+    return (_reference_bwd_dq(q, k, v, do, lse, delta, causal),
+            *_reference_bwd_dkv(q, k, v, do, lse, delta, causal))
+
+
+def _forward(q, k, v, causal: bool):
+    """(out, lse): the kernel on CUDA, the plain version on the CPU."""
     if q.device.type == "cpu":
         return _reference_attention(q, k, v, causal), _reference_lse(q, k, causal)
     if q.device.type != "cuda":
@@ -105,17 +189,60 @@ def _flash_forward(q, k, v, causal: bool):
     return _kernel_flash(q, k, v, causal)
 
 
+def _row_correction(do, out, g_lse=None) -> torch.Tensor:
+    """delta = rowsum(dO * O) - g_lse, contiguous (B*H, S_q) fp32: the
+    softmax Jacobian's row term, with the lse cotangent folded in (since
+    d lse / d s = P)."""
+    b, s_q, h, _ = out.shape
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, s_q)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    return delta.contiguous()
+
+
+def _backward(q, k, v, out, lse, g_out, g_lse, causal: bool):
+    """(dq, dk, dv) for the cotangents of out and lse (either may be
+    None): the row correction in plain PyTorch, then the two kernels on
+    CUDA or their plain version on the CPU."""
+    do = torch.zeros_like(out) if g_out is None else g_out.to(q.dtype)
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    delta = _row_correction(do, out, g_lse)
+    if q.device.type == "cpu":
+        return _reference_flash_bwd(q, k, v, do, lse, delta, causal)
+    return (_kernel_flash_bwd_dq(q, k, v, do, lse, delta, causal),
+            *_kernel_flash_bwd_dkv(q, k, v, do, lse, delta, causal))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """(out, lse), differentiable in both."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = _forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        # An unused output's cotangent stays None and costs nothing
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        return (*_backward(*ctx.saved_tensors, g_out, g_lse, ctx.causal), None)
+
+
 def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     """Attention, (B, S, H, D) -> (B, S, H, D)."""
-    return _flash_forward(q, k, v, causal)[0]
+    if not _uses_kernel(q.shape, k.shape, causal):
+        return _reference_attention(q, k, v, causal)
+    return _FlashAttention.apply(q, k, v, causal)[0]
 
 
 def flash_attention_with_lse(q, k, v, causal: bool = True):
-    """(out (B, S_q, H, D), lse (B*H, S_q) fp32)."""
-    out, lse = _flash_forward(q, k, v, causal)
-    if lse is None:
-        lse = _reference_lse(q, k, causal)
-    return out, lse
+    """(out (B, S_q, H, D), lse (B*H, S_q) fp32), differentiable in both."""
+    if not _uses_kernel(q.shape, k.shape, causal):
+        return _reference_attention(q, k, v, causal), _reference_lse(q, k, causal)
+    return _FlashAttention.apply(q, k, v, causal)
 
 
 def merge_attention_blocks(outs, lses):

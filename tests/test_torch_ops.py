@@ -16,6 +16,7 @@ jnp = jax.numpy
 
 from faabric_tpu.ops.flash_attention import (  # noqa: E402
     _reference_attention as jax_reference_attention,
+    _reference_lse as jax_reference_lse,
     flash_attention as jax_flash_attention,
     flash_attention_with_lse as jax_flash_with_lse,
     merge_attention_blocks as jax_merge,
@@ -26,6 +27,9 @@ from faabric_tpu.ops.rms_norm import (  # noqa: E402
 )
 from faabric_tpu_torch.ops.flash_attention import (  # noqa: E402
     _reference_attention,
+    _reference_flash_bwd,
+    _reference_lse,
+    _row_correction,
     flash_attention,
     flash_attention_with_lse,
     merge_attention_blocks,
@@ -191,12 +195,142 @@ def test_merge_attention_blocks_matches_jax():
     np.testing.assert_allclose(as_np(tl), as_np(full_lse), atol=2e-4)
 
 
-def test_flash_kernel_path_refuses_gradients():
-    q, k, v = (torch.tensor(a, requires_grad=True) for a in qkv_np(s_q=64))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        flash_attention(q, k, v)
-    with torch.no_grad():
-        assert flash_attention(q, k, v).shape == q.shape
+# (s_q, s_k, causal) as in the JAX package's gradient tests
+# (tests/unit/test_ops.py): there its Pallas dQ and dK/dV kernels run in
+# interpret mode; here the Function's backward takes the kernels' plain
+# version on the CPU
+GRAD_CASES = {
+    "causal": (256, 256, True),
+    "non_causal": (256, 256, False),
+    "cross_length": (128, 256, True),
+}
+
+
+def torch_grads(fn, *arrays):
+    ts = [torch.as_tensor(a).clone().requires_grad_() for a in arrays]
+    fn(*ts).backward()
+    return [t.grad for t in ts]
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_flash_gradients_match_jax(case):
+    """jax.grad through JAX's flash backward kernels against the port's
+    Function, loss sum(out^2), at the JAX tests' atol 2e-4, rtol 1e-3."""
+    s_q, s_k, causal = GRAD_CASES[case]
+    q, k, v = qkv_np(b=1, s_q=s_q, s_k=s_k, h=2, d=16, seed=9)
+    jg = jax.grad(lambda q, k, v: jnp.sum(
+        jax_flash_attention(q, k, v, causal) ** 2), argnums=(0, 1, 2))(
+            *(jnp.asarray(a) for a in (q, k, v)))
+    tg = torch_grads(lambda q, k, v: (flash_attention(q, k, v, causal) ** 2
+                                      ).sum(), q, k, v)
+    for got, want in zip(tg, jg):
+        np.testing.assert_allclose(as_np(got), as_np(want), atol=2e-4,
+                                   rtol=1e-3)
+
+
+def test_flash_with_lse_gradients_including_lse_cotangent_match_jax():
+    """A loss that uses the lse output (test_ops.py's
+    test_flash_with_lse_gradients_including_lse_cotangent): g_lse folds
+    into the row correction on both sides. atol 2e-4, rtol 1e-3."""
+    q, k, v = qkv_np(b=1, s_q=256, h=2, d=16, seed=17)
+
+    def jloss(q, k, v):
+        out, lse = jax_flash_with_lse(q, k, v)
+        return jnp.sum(out ** 2) + 0.3 * jnp.sum(jnp.sin(lse))
+
+    def tloss(q, k, v):
+        out, lse = flash_attention_with_lse(q, k, v)
+        return (out ** 2).sum() + 0.3 * torch.sin(lse).sum()
+
+    def tloss_plain(q, k, v):
+        out = _reference_attention(q, k, v)
+        return (out ** 2).sum() + 0.3 * torch.sin(_reference_lse(q, k, True)).sum()
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    tg = torch_grads(tloss, q, k, v)
+    for got, want, plain in zip(tg, jg, torch_grads(tloss_plain, q, k, v)):
+        np.testing.assert_allclose(as_np(got), as_np(want), atol=2e-4,
+                                   rtol=1e-3)
+        np.testing.assert_allclose(as_np(got), as_np(plain), atol=2e-4,
+                                   rtol=1e-3)
+
+
+def test_flash_lse_only_loss_takes_no_output_cotangent():
+    """Only lse reaches the loss: the output's cotangent stays None, dv is
+    zero, and dq, dk equal autograd through the plain lse (fp32, 1e-5)."""
+    q, k, v = qkv_np(b=1, s_q=64, h=2, d=16, seed=4)
+    got = torch_grads(lambda q, k, v: flash_attention_with_lse(q, k, v)[1]
+                      .sum(), q, k, v)
+    want = torch_grads(lambda q, k: _reference_lse(q, k, True).sum(), q, k)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(as_np(g), as_np(w), atol=1e-5)
+    assert not got[2].any()
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+@pytest.mark.parametrize("with_g_lse", [False, True])
+def test_reference_flash_bwd_matches_jax_vjp_and_autograd(case, with_g_lse):
+    """The kernels' plain version, fed the forward's lse and the row
+    correction, against JAX's vjp through its backward kernels and
+    against torch autograd through the plain attention and lse (fp32:
+    atol 2e-4, rtol 1e-3)."""
+    s_q, s_k, causal = GRAD_CASES[case]
+    q, k, v = qkv_np(b=1, s_q=s_q, s_k=s_k, h=2, d=16, seed=12)
+    rng = np.random.RandomState(13)
+    g = rng.randn(1, s_q, 2, 16).astype(np.float32)
+    g_lse = rng.randn(2, s_q).astype(np.float32) if with_g_lse else None
+
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    _, vjp = jax.vjp(lambda q, k, v: jax_flash_with_lse(q, k, v, causal),
+                     jq, jk, jv)
+    jg = vjp((jnp.asarray(g), jnp.asarray(
+        g_lse if with_g_lse else np.zeros((2, s_q), np.float32))))
+
+    tq, tk, tv = (torch.tensor(a) for a in (q, k, v))
+    tgo = torch.tensor(g)
+    out, lse = flash_attention_with_lse(tq, tk, tv, causal)
+    delta = _row_correction(tgo, out,
+                            torch.tensor(g_lse) if with_g_lse else None)
+    got = _reference_flash_bwd(tq, tk, tv, tgo, lse, delta, causal)
+
+    ts = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    loss = (_reference_attention(*ts, causal) * tgo).sum()
+    if with_g_lse:
+        loss = loss + (_reference_lse(ts[0], ts[1], causal)
+                       * torch.tensor(g_lse)).sum()
+    autograd = torch.autograd.grad(loss, ts)
+    for a, want, plain in zip(got, jg, autograd):
+        np.testing.assert_allclose(as_np(a), as_np(want), atol=2e-4,
+                                   rtol=1e-3)
+        np.testing.assert_allclose(as_np(a), as_np(plain), atol=2e-4,
+                                   rtol=1e-3)
+
+
+def test_flash_bf16_gradients_match_jax():
+    """bf16 (test_ops.py's test_flash_attention_bf16_forward_and_gradients):
+    both sides round P and dS to bf16 before their products. The port's
+    gradients and JAX's are each held to the plain bf16 autograd's own
+    distance from the fp32 gradient of the same (bf16-rounded) inputs:
+    max within 2x, mean within 1.25x."""
+    q, k, v = qkv_np(b=1, s_q=256, h=2, d=16, seed=23)
+    bf = [torch.tensor(a).to(torch.bfloat16) for a in (q, k, v)]
+
+    def loss(attn):
+        return lambda q, k, v: (attn(q, k, v).float() ** 2).sum()
+
+    fp32 = torch_grads(loss(_reference_attention), *(t.float() for t in bf))
+    plain = torch_grads(loss(_reference_attention), *bf)
+    port = torch_grads(loss(flash_attention), *bf)
+    jg = jax.grad(lambda q, k, v: jnp.sum(
+        jax_flash_attention(q, k, v).astype(jnp.float32) ** 2),
+        argnums=(0, 1, 2))(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+    for ref, p, got, want in zip(fp32, plain, port, jg):
+        assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+        err_plain = (p.float() - ref).abs()
+        for g in (got.float(), torch.tensor(as_np(want))):
+            err = (g - ref).abs()
+            assert err.max() <= 2 * err_plain.max()
+            assert err.mean() <= 1.25 * err_plain.mean()
 
 
 def test_flash_plain_fallback_gradients_match_jax():

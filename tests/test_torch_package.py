@@ -57,3 +57,21 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
                                 n_heads=2, d_ff=32, max_seq=16))
     fn, (model, tokens) = entry(device="cpu")
     assert model.device.type == "cpu" and tokens.shape == (2, 128)
+
+
+def test_training_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
+    import numpy as np
+
+    from faabric_tpu_torch.data import DataLoader, TokenDataset
+    from faabric_tpu_torch.models import ModelConfig, init_train_state
+
+    cfg = ModelConfig(vocab_size=32, d_model=16, n_layers=1, n_heads=2,
+                      d_ff=32, max_seq=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_train_state(None, cfg)
+    ds = TokenDataset(np.arange(100, dtype=np.int32), 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DataLoader(ds, 2)
+    model, opt = init_train_state(None, cfg, "cpu")
+    assert model.device.type == "cpu"
+    assert DataLoader(ds, 2, device="cpu").device.type == "cpu"
