@@ -13,8 +13,13 @@ serving path: a scoring forward over 8 x 512 tokens, a forward at
 prompts. The training path: 10 AdamW steps on 8 x 512 batches from the
 ``DataLoader`` (remat on, bf16 compute over fp32 parameters), with a
 checkpoint saved and restored mid-run and ``evaluate_perplexity`` after.
-For each path it checks the outputs and shows from the kernels' launch
-counts that the path ran through them; it times the kernels, their
+The MPI path: a 4-rank ``MpiWorld`` whose ranks are threads of this
+process, all on the one card, activates its device plane and runs
+allreduce of a 45,355,520-element fp32 gradient (the flagship's
+parameter count), allgather and reduce_scatter, ``ring_permute`` and the
+``allgather.ring`` schedule, whose ring phase is the ring-permute
+kernel. For each path it checks the outputs and shows from the kernels'
+launch counts that the path ran through them; it times the kernels, their
 plain versions and the nearest PyTorch library calls, and prints one
 JSON line of kernel numbers and, last, the device line.
 
@@ -52,6 +57,10 @@ FLASH_ATOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # only, at the JAX package's gradient tolerance. bf16 has no fixed bound:
 # see check_bwd.
 BWD_ATOL, BWD_RTOL = 2e-4, 1e-3
+# The MPI phases: the flagship's 45,355,520 fp32 parameters as one
+# gradient per rank, and over 4 ranks as 11,338,880-element shards
+GRAD_ELEMS = 45_355_520
+MPI_RANKS = 4
 
 
 def log(*args) -> None:
@@ -89,17 +98,24 @@ def profile_top(fn, label: str, top: int = 6) -> None:
     """Device time by kernel over one call of ``fn``, from torch.profiler:
     the device's busy time against the call's wall time, and the kernels
     that take most of it. Annotated ranges (such as the optimizer's
-    step) span kernels counted on their own, so they are left out."""
-    from torch.profiler import ProfilerActivity, profile
+    step) span kernels counted on their own, so they are left out. One
+    warm-up call runs under the tracer first: without it, a call made on
+    rank threads lost its first kernel from the trace on the card."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        prof.step()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
@@ -152,6 +168,260 @@ def close_or_as_close(got, want, f32, what: str) -> float:
           f"mean {float(err_k.mean()):.3g} (plain bf16: max "
           f"{float(err_r.max()):.3g} mean {float(err_r.mean()):.3g})")
     return err
+
+
+def run_ranks(n: int, fn) -> dict:
+    """``fn(rank)`` on n threads, the ranks of one MPI world; re-raises
+    the first error (a swallowed rank error would present as a hang)."""
+    import threading
+
+    results, errors = {}, []
+
+    def run(r):
+        try:
+            results[r] = fn(r)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("an MPI rank thread hung")
+    return results
+
+
+def world_ms(n: int, fn, iters: int = 10) -> float:
+    """Wall ms per call of ``fn`` on n rank threads that are already
+    running: rank 0's clock from a barrier to the end of ``iters`` calls,
+    ending in a synchronize (thread start-up is not counted)."""
+    import threading
+
+    barrier = threading.Barrier(n)
+
+    def body(r):
+        fn(r)
+        torch.cuda.synchronize()
+        barrier.wait()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(r)
+        torch.cuda.synchronize()
+        barrier.wait()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    return run_ranks(n, body)[0]
+
+
+def ring_kernel_phase(dev) -> tuple[dict, dict, float]:
+    """Phase 11: the ring-permute kernel against its plain version,
+    bitwise, then its times at the main path's shape (4 ranks of
+    11,338,880 fp32, the flagship's 45,355,520 parameters over 4)."""
+    from faabric_tpu_torch.ops.ring_permute import (
+        _reference_ring_permute,
+        ring_permute,
+    )
+
+    log("phase 11: ring_permute kernel vs plain")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n, m_main = MPI_RANKS, GRAD_ELEMS // MPI_RANKS
+    worst = 0.0
+    sizes = (m_main, 1_000_003, 1)
+    for dtype in (torch.int32, torch.float32, torch.bfloat16, torch.uint8):
+        for m in sizes:
+            for off in (0, 1):
+                bases = [torch.randint(0, 255, (m + off,), device=dev,
+                                       generator=gen).to(dtype)
+                         if not dtype.is_floating_point else
+                         torch.randn(m + off, device=dev,
+                                     generator=gen).to(dtype)
+                         for _ in range(n)]
+                ins = [b[off:] for b in bases]
+                for shift in (1, 2, 3):
+                    got = ring_permute(ins, shift)
+                    want = [torch.empty_like(t) for t in ins]
+                    _reference_ring_permute(ins, want, shift)
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(g, w) for g, w in zip(got, want))
+                    worst = max(worst, max(max_err(g, w)
+                                           for g, w in zip(got, want)))
+                    if not same:
+                        raise AssertionError(
+                            f"ring_permute {dtype} m={m} offset={off} "
+                            f"shift={shift}: not bitwise equal")
+                del bases, ins, got, want
+        log(f"  ok  ring_permute {str(dtype)[6:]}: m in {sizes}, aligned and "
+            f"one element off, shifts 1-3, bitwise")
+    ins = [torch.randn(m_main, device=dev, generator=gen) for _ in range(n)]
+    outs = [torch.empty_like(t) for t in ins]
+    # The library's one call for the same function: a multi-tensor copy
+    # into the outputs taken in ring order
+    permuted = [outs[(r + 1) % n] for r in range(n)]
+    torch._foreach_copy_(permuted, ins)
+    check(all(torch.equal(outs[(r + 1) % n], ins[r]) for r in range(n)),
+          "torch._foreach_copy_ computes the ring hop")
+
+    t = {"ms": time_ms(lambda: ring_permute(ins, 1, outs)),
+         "plain_ms": time_ms(lambda: _reference_ring_permute(ins, outs, 1)),
+         "library_ms": time_ms(lambda: torch._foreach_copy_(permuted, ins))}
+    moved = 2 * n * m_main * 4
+    bounds = {"bytes": moved / HBM_BYTES_PER_S * 1e3, "operations": 0.0}
+    log(f"ring_permute 4 x {m_main} fp32: kernel {t['ms']:.4f} ms, plain "
+        f"(copy_ loop) {t['plain_ms']:.4f} ms, torch._foreach_copy_ "
+        f"{t['library_ms']:.4f} ms, bound "
+        f"{bounds['bytes']:.4f} ms (bytes: {moved} moved), "
+        f"{moved / t['ms'] / 1e6:.0f} GB/s")
+    return t, bounds, worst
+
+
+def mpi_world_phase(dev, build) -> dict:
+    """Phase 12: a 4-rank MpiWorld whose ranks are threads of this
+    process, every rank on ``dev``, driven through the device plane with
+    device-resident tensors. Returns the ring-kernel launches of the
+    phase's main run."""
+    from faabric_tpu_torch.batch_scheduler import SchedulingDecision
+    from faabric_tpu_torch.device_plane import (
+        device_copy_totals,
+        reset_device_copy_totals,
+    )
+    from faabric_tpu_torch.mpi import MpiOp, MpiWorld
+    from faabric_tpu_torch.mpi.schedule_compile import compile_schedule
+    from faabric_tpu_torch.mpi.types import MpiMessageType
+    from faabric_tpu_torch.transport import PointToPointBroker
+
+    log("phase 12: MPI world of 4 ranks on one card")
+    n, grad_elems = MPI_RANKS, GRAD_ELEMS
+    k = grad_elems // n
+    broker = PointToPointBroker("card")
+    decision = SchedulingDecision(app_id=12, group_id=12)
+    for r in range(n):
+        decision.add_message("card", 120 + r, r, r, device_id=r)
+    broker.set_up_local_mappings_from_decision(decision)
+    world = MpiWorld(broker, 12, n, 12)
+    world.refresh_rank_hosts()
+    check(all(run_ranks(n, world.activate_device_plane).values()),
+          "activate_device_plane on every rank")
+    plane = world.device_plane()
+    check(plane is not None and plane.device == dev
+          and plane.devices == [dev] * n,
+          f"plane active, all {n} ranks on {plane.device}")
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    grads = [torch.randn(grad_elems, device=dev, generator=gen)
+             for _ in range(n)]
+    shards = [torch.randn(k, device=dev, generator=gen) for _ in range(n)]
+    sched = compile_schedule("allgather.ring", "allgather", world.topology())
+
+    def ring_schedule(r, inputs):
+        env = {("in", 0): inputs[r]}
+        world._run_schedule(r, sched, env, None, lambda sym, e: k,
+                            MpiMessageType.ALLGATHER)
+        return torch.cat([torch.as_tensor(env[("out", q)]).to(dev)
+                          for q in range(n)])
+
+    calls = {
+        "allreduce": lambda r: world.allreduce(r, grads[r], MpiOp.SUM),
+        "allgather": lambda r: world.allgather(r, shards[r]),
+        "reduce_scatter": lambda r: world.reduce_scatter(r, grads[r],
+                                                         MpiOp.SUM),
+        **{f"ring_permute shift {s}":
+           (lambda r, s=s: plane.ring_permute(r, shards[r], s))
+           for s in (1, 2, 3)},
+        "allgather.ring schedule": lambda r: ring_schedule(r, shards),
+    }
+    ring_per_call = {"ring_permute shift 1": 1, "ring_permute shift 2": 1,
+                     "ring_permute shift 3": 1,
+                     "allgather.ring schedule": n - 1}
+
+    def fold(parts):
+        acc = parts[0] + parts[1]
+        for t in parts[2:]:
+            acc += t
+        return acc
+
+    # The plain results, in plain torch ops (the ring's are views)
+    gathered = torch.cat(shards)
+    want = {"allreduce": [fold(grads)] * n,
+            "allgather": [gathered] * n,
+            "reduce_scatter": [fold([g[r * k:(r + 1) * k] for g in grads])
+                               for r in range(n)],
+            "allgather.ring schedule": [gathered] * n,
+            **{f"ring_permute shift {s}": [shards[(r - s) % n]
+                                           for r in range(n)]
+               for s in (1, 2, 3)}}
+
+    torch.cuda.synchronize()
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    reset_device_copy_totals()
+    build.reset_launch_counts()
+    for name, fn in calls.items():
+        before = build.LAUNCHES["ring_permute"]
+        outs = run_ranks(n, fn)
+        torch.cuda.synchronize()
+        grew = build.LAUNCHES["ring_permute"] - before
+        check(plane.disabled_reason is None
+              and grew == ring_per_call.get(name, 0),
+              f"{name}: plane enabled, ring kernel launched {grew} times")
+        check(all(torch.equal(outs[r], want[name][r])
+                  and outs[r].device == dev for r in range(n))
+              and len({outs[r].data_ptr() for r in range(n)}) == n,
+              f"{name}: bitwise equal to the plain result, one tensor a rank")
+        del outs
+    launches = dict(build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 - held_gib
+    log(f"MPI phase launches: {launches}")
+    copies = device_copy_totals()
+    check(copies["count"] == 0, f"resident rounds moved no host copies "
+          f"({copies})")
+    del want
+
+    # One host (numpy) round: one placement and one readback per rank
+    host = [s[:1 << 20].cpu().numpy() for s in shards]
+    reset_device_copy_totals()
+    out = run_ranks(n, lambda r: world.allreduce(r, host[r], MpiOp.SUM))
+    copies = device_copy_totals()["by_reason"]
+    check(copies.get("h2d.input", {}).get("count") == n
+          and copies.get("d2h.readback", {}).get("count") == n
+          and set(copies) == {"h2d.input", "d2h.readback"}
+          and all(np.array_equal(out[r], fold([torch.from_numpy(h)
+                                               for h in host]).numpy())
+                  for r in range(n)),
+          f"numpy allreduce round: {n} h2d.input and {n} d2h.readback")
+
+    # A ring kernel that does not build fails the resident schedule on
+    # the caller: no host steps, no staging copy, the plane stays enabled
+    def no_build():
+        raise RuntimeError("injected: kernel build failed")
+
+    kernels, build.kernels = build.kernels, no_build
+    reset_device_copy_totals()
+    try:
+        run_ranks(n, lambda r: ring_schedule(r, shards))
+        raised = None
+    except RuntimeError as e:
+        raised = e
+    finally:
+        build.kernels = kernels
+    check(raised is not None and "injected" in str(raised)
+          and device_copy_totals()["count"] == 0
+          and plane.disabled_reason is None,
+          "a failing ring kernel raises to the caller, no host re-run")
+
+    log("MPI collectives, 4 ranks on one card (wall: rank 0's host clock "
+        "over 10 calls by running rank threads, ending in a synchronize; "
+        "device: busy time of one call from torch.profiler)")
+    for name, fn in calls.items():
+        log(f"  {name}: {world_ms(n, fn):.3f} ms wall per call")
+        profile_top(lambda fn=fn: run_ranks(n, fn), name, top=3)
+    check(plane.disabled_reason is None, "plane still enabled after timing")
+    log(f"peak memory in the MPI phase: {peak_gib:.3f} GiB above the "
+        f"{held_gib:.3f} GiB allocated when its collectives began")
+    return launches
 
 
 def main() -> int:
@@ -618,6 +888,15 @@ def main() -> int:
     log(f"train step 8x512: {step_ms:.3f} ms host, "
         f"{8 * 512 / step_ms * 1e3:.0f} tokens/s")
     log(f"peak memory on the training path: {train_peak_gib:.3f} GiB")
+    del train_model, opt, batches, init_weights
+    torch.cuda.empty_cache()
+
+    # -- 11/12. the ring kernel and the MPI world on the card ---------------
+    ring_t, ring_bounds, ring_err = ring_kernel_phase(dev)
+    mpi_launches = mpi_world_phase(dev, _build)
+    check(mpi_launches.get("ring_permute", 0) > 0,
+          f"MPI phase launched ring_permute "
+          f"{mpi_launches.get('ring_permute', 0)} times")
 
     def row(name, source, replaces, t, bounds, err, path_launches):
         bound_by = max(bounds, key=bounds.get)
@@ -641,6 +920,9 @@ def main() -> int:
             "faabric_tpu_torch/ops/csrc/flash_attention_bwd.cu",
             "faabric_tpu/ops/flash_attention.py:176", dkv_t, dkv_bounds,
             errs["flash_bwd_dkv"], train_launches),
+        row("ring_permute", "faabric_tpu_torch/ops/csrc/ring_permute.cu",
+            "faabric_tpu/device_plane/pallas_ring.py:77", ring_t,
+            ring_bounds, ring_err, mpi_launches),
     ]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -1,6 +1,9 @@
-"""faabric_tpu_torch: the PyTorch/CUDA port of faabric_tpu's device half.
+"""faabric_tpu_torch: the PyTorch/CUDA port of faabric_tpu.
 
-It imports ``torch`` and nothing of JAX or of ``faabric_tpu``. Entry
+So far it holds the flagship transformer's serving and training paths
+(``models/``, ``data/``) and the single-host MPI world with its device
+plane (``mpi/``, ``device_plane/``, and the host modules they run on:
+``transport/``, ``batch_scheduler/``, ``telemetry/``). It imports ``torch`` and nothing of JAX or of ``faabric_tpu``. Entry
 points run on the CUDA card unless the caller passes ``device="cpu"``;
 without a card and without that request they raise. Hand-written CUDA
 kernels for Hopper live in ``ops/csrc/`` and are built at first use.

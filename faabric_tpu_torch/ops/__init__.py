@@ -4,6 +4,7 @@ from faabric_tpu_torch.ops.flash_attention import (
     flash_attention_with_lse,
     merge_attention_blocks,
 )
+from faabric_tpu_torch.ops.ring_permute import ring_permute
 from faabric_tpu_torch.ops.rms_norm import rms_norm
 
 __all__ = [
@@ -12,5 +13,6 @@ __all__ = [
     "flash_attention_with_lse",
     "merge_attention_blocks",
     "reset_launch_counts",
+    "ring_permute",
     "rms_norm",
 ]

@@ -6,12 +6,13 @@ the repository root. Only ``csrc/binding.cpp`` includes PyTorch's headers;
 the ``.cu`` files keep a plain C interface, so nvcc never compiles those
 headers. Where ``ninja`` (which ``load`` needs) is missing, the ``.cu``
 files are built with ``nvcc -shared`` into a plain library loaded through
-``ctypes`` instead, behind the same four functions:
+``ctypes`` instead, behind the same five functions:
 
     rms_norm_fwd(x, scale, out, eps)
     flash_fwd(q, k, v, o, lse, scale, causal)
     flash_bwd_dq(q, k, v, do, lse, delta, dq, scale, causal)
     flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, scale, causal)
+    ring_permute(ins, outs, shift)
 
 A build failure raises; nothing swaps in the plain PyTorch versions.
 
@@ -86,6 +87,8 @@ def _load_with_nvcc():
     lib.faabric_flash_bwd_dkv.argtypes = ([p] * 8 + [i] * 5 + [i64] * 12
                                           + [f, i, i, p])
     lib.faabric_flash_bwd_dkv.restype = i
+    lib.faabric_ring_permute.argtypes = [p, p, i, i, i64, p]
+    lib.faabric_ring_permute.restype = i
 
     def dtype_code(t):
         return {torch.float32: 0, torch.bfloat16: 1}[t.dtype]
@@ -124,10 +127,19 @@ def _load_with_nvcc():
             *bwd_shape(q, k), *v.stride()[:3], *do.stride()[:3], scale,
             int(causal), dtype_code(q), stream(q)))
 
+    def ring_permute(ins, outs, shift):
+        n = len(ins)
+        srcs = (ctypes.c_void_p * n)(*(t.data_ptr() for t in ins))
+        dsts = (ctypes.c_void_p * n)(*(t.data_ptr() for t in outs))
+        _check_rc("ring_permute", lib.faabric_ring_permute(
+            srcs, dsts, n, shift, ins[0].numel() * ins[0].element_size(),
+            stream(ins[0])))
+
     # The ctypes functions hold ``lib``; keep it alive with them
     return SimpleNamespace(rms_norm_fwd=rms_norm_fwd, flash_fwd=flash_fwd,
                            flash_bwd_dq=flash_bwd_dq,
-                           flash_bwd_dkv=flash_bwd_dkv, lib=lib)
+                           flash_bwd_dkv=flash_bwd_dkv,
+                           ring_permute=ring_permute, lib=lib)
 
 
 @functools.cache

@@ -14,6 +14,7 @@
 
 #include <cstdint>
 #include <initializer_list>
+#include <vector>
 
 extern "C" int faabric_rms_norm_fwd(const void* x, const void* scale,
                                     void* out, int64_t rows, int d,
@@ -38,6 +39,9 @@ extern "C" int faabric_flash_bwd_dkv(
     int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
     int64_t v_ss, int64_t v_sh, int64_t do_sb, int64_t do_ss, int64_t do_sh,
     float scale, int causal, int dtype, void* stream);
+extern "C" int faabric_ring_permute(const void* const* srcs,
+                                    void* const* dsts, int n, int shift,
+                                    int64_t nbytes, void* stream);
 
 namespace {
 
@@ -183,6 +187,35 @@ void flash_bwd_dkv(const at::Tensor& q, const at::Tensor& k,
       current_stream(q)));
 }
 
+// ins, outs: n contiguous CUDA tensors of one dtype, numel and device;
+// outs[(r + shift) % n] receives ins[r]
+void ring_permute(const std::vector<at::Tensor>& ins,
+                  const std::vector<at::Tensor>& outs, int64_t shift) {
+  const int64_t n = static_cast<int64_t>(ins.size());
+  TORCH_CHECK(n >= 1 && static_cast<int64_t>(outs.size()) == n,
+              "ring_permute: as many outputs as inputs, at least one");
+  TORCH_CHECK(shift >= 0 && shift < n, "ring_permute: 0 <= shift < n");
+  std::vector<const void*> srcs(n);
+  std::vector<void*> dsts(n);
+  for (int64_t r = 0; r < n; ++r) {
+    for (const at::Tensor* t :
+         std::initializer_list<const at::Tensor*>{&ins[r], &outs[r]})
+      TORCH_CHECK(t->is_cuda() && t->is_contiguous() &&
+                      t->device() == ins[0].device() &&
+                      t->scalar_type() == ins[0].scalar_type() &&
+                      t->numel() == ins[0].numel(),
+                  "ring_permute: contiguous CUDA tensors of one device, "
+                  "dtype and numel");
+    srcs[r] = ins[r].data_ptr();
+    dsts[r] = outs[r].data_ptr();
+  }
+  const c10::cuda::CUDAGuard guard(ins[0].device());
+  check_launch(faabric_ring_permute(
+      srcs.data(), dsts.data(), static_cast<int>(n), static_cast<int>(shift),
+      ins[0].numel() * static_cast<int64_t>(ins[0].element_size()),
+      current_stream(ins[0])));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -190,4 +223,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_fwd", &flash_fwd, "flash attention forward kernel");
   m.def("flash_bwd_dq", &flash_bwd_dq, "flash attention dQ kernel");
   m.def("flash_bwd_dkv", &flash_bwd_dkv, "flash attention dK/dV kernel");
+  m.def("ring_permute", &ring_permute, "device-plane ring permute kernel");
 }

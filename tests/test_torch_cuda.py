@@ -251,3 +251,177 @@ def test_flash_gradients_match_autograd_of_plain_attention(
         assert g.dtype == torch.bfloat16
         assert (float((g.float() - y).abs().max())
                 <= 2 * float((w.float() - y).abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# Device-plane ring permute
+# ---------------------------------------------------------------------------
+
+RING_DTYPES = [torch.int32, torch.float32, torch.bfloat16, torch.uint8]
+
+
+def ring_inputs(device, n, m, dtype, misaligned, seed):
+    """n shards of m elements from one generator; ``misaligned`` makes
+    each a view one element past a 16-byte boundary."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    off = 1 if misaligned else 0
+    if dtype.is_floating_point:
+        bases = [torch.randn(m + off, device=device, generator=gen).to(dtype)
+                 for _ in range(n)]
+    else:
+        info = torch.iinfo(dtype)
+        bases = [torch.randint(info.min, info.max, (m + off,), device=device,
+                               generator=gen, dtype=torch.int64).to(dtype)
+                 for _ in range(n)]
+    return [b[off:] for b in bases]
+
+
+# Bitwise: the kernel and its plain version move bytes, no arithmetic
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [11_338_880, 1_000_003, 1])
+@pytest.mark.parametrize("dtype", RING_DTYPES, ids=str)
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_ring_permute_kernel_matches_plain(cuda_device, m, dtype,
+                                           misaligned):
+    from faabric_tpu_torch.ops.ring_permute import (
+        _reference_ring_permute,
+        ring_permute,
+    )
+
+    n = 4
+    ins = ring_inputs(cuda_device, n, m, dtype, misaligned, m + n)
+    assert (ins[0].data_ptr() % 16 != 0) == misaligned
+    for shift in (1, 2, 3):
+        before = _build.LAUNCHES["ring_permute"]
+        got = ring_permute(ins, shift)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["ring_permute"] == before + 1
+        want = [torch.empty_like(t) for t in ins]
+        _reference_ring_permute(ins, want, shift)
+        for r in range(n):
+            assert torch.equal(got[r], want[r])
+            assert torch.equal(got[r], ins[(r - shift) % n])
+
+
+@pytest.mark.cuda
+def test_ring_permute_kernel_refuses_what_it_does_not_take(cuda_device):
+    from faabric_tpu_torch.ops.ring_permute import MAX_RANKS, ring_permute
+
+    x = torch.zeros(8, device=cuda_device)
+    with pytest.raises(ValueError, match="at most"):
+        ring_permute([x] * (MAX_RANKS + 1), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ring_permute([torch.zeros(8, 2, device=cuda_device)[:, 0]] * 2, 1)
+    with pytest.raises(ValueError, match="one device"):
+        ring_permute([x, x.double()], 1)
+
+
+def card_world(n: int, group: int):
+    """A world of n rank threads whose ranks all map to the card, and its
+    allgather.ring schedule."""
+    from faabric_tpu_torch.batch_scheduler import SchedulingDecision
+    from faabric_tpu_torch.mpi import MpiWorld
+    from faabric_tpu_torch.mpi.schedule_compile import compile_schedule
+    from faabric_tpu_torch.transport import PointToPointBroker
+
+    broker = PointToPointBroker("card")
+    d = SchedulingDecision(app_id=group, group_id=group)
+    for r in range(n):
+        d.add_message("card", r, r, r, device_id=r)
+    broker.set_up_local_mappings_from_decision(d)
+    world = MpiWorld(broker, group, n, group)
+    return world, compile_schedule("allgather.ring", "allgather",
+                                   world.topology())
+
+
+def on_rank_threads(n: int, fn) -> tuple[dict, dict]:
+    """``fn(rank)`` on n threads: (results, exceptions) by rank."""
+    import threading
+
+    results, errors = {}, {}
+
+    def rank(r):
+        try:
+            results[r] = fn(r)
+        except Exception as e:  # noqa: BLE001 — returned to the test
+            errors[r] = e
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads), "a rank thread hung"
+    return results, errors
+
+
+@pytest.mark.cuda
+def test_world_on_one_card_runs_allgather_ring_through_the_kernel(
+        cuda_device):
+    """Four rank threads on cuda:0: the plane activates with every rank
+    on the one card, and the allgather.ring schedule's ring phase is
+    three launches of the ring kernel, with no host copies."""
+    from faabric_tpu_torch.device_plane import (
+        device_copy_totals,
+        reset_device_copy_totals,
+    )
+    from faabric_tpu_torch.mpi.types import MpiMessageType
+
+    n, k = 4, 1 << 16
+    world, sched = card_world(n, 960)
+    shards = [torch.arange(k, device=cuda_device, dtype=torch.float32)
+              + 1e6 * r for r in range(n)]
+
+    def rank(r):
+        assert world.activate_device_plane(r)
+        env = {("in", 0): shards[r]}
+        world._run_schedule(r, sched, env, None, lambda s, e: k,
+                            MpiMessageType.ALLGATHER)
+        return torch.cat([env[("out", q)] for q in range(n)])
+
+    before = _build.LAUNCHES["ring_permute"]
+    reset_device_copy_totals()
+    results, errors = on_rank_threads(n, rank)
+    assert not errors, errors
+    torch.cuda.synchronize()
+    plane = world.device_plane()
+    assert plane.device == cuda_device and plane.disabled_reason is None
+    assert _build.LAUNCHES["ring_permute"] == before + n - 1
+    assert device_copy_totals()["count"] == 0
+    want = torch.cat(shards)
+    for r in range(n):
+        assert torch.equal(results[r], want)
+
+
+@pytest.mark.cuda
+def test_world_on_one_card_raises_when_the_ring_kernel_fails(
+        cuda_device, monkeypatch):
+    """A ring kernel that does not build fails the resident allgather.ring
+    on every rank: no host steps, no staging copy, the plane stays
+    enabled."""
+    from faabric_tpu_torch.device_plane import (
+        device_copy_totals,
+        reset_device_copy_totals,
+    )
+    from faabric_tpu_torch.mpi.types import MpiMessageType
+
+    n, k = 4, 1 << 10
+    world, sched = card_world(n, 961)
+    results, errors = on_rank_threads(n, world.activate_device_plane)
+    assert not errors and all(results.values())
+    shards = [torch.full((k,), r, device=cuda_device) for r in range(n)]
+
+    def no_build():
+        raise RuntimeError("injected: kernel build failed")
+
+    monkeypatch.setattr(_build, "kernels", no_build)
+    before = _build.LAUNCHES["ring_permute"]
+    reset_device_copy_totals()
+    _, errors = on_rank_threads(n, lambda r: world._run_schedule(
+        r, sched, {("in", 0): shards[r]}, None, lambda s, e: k,
+        MpiMessageType.ALLGATHER))
+    assert sorted(errors) == list(range(n))
+    assert all("injected" in str(e) for e in errors.values()), errors
+    assert _build.LAUNCHES["ring_permute"] == before
+    assert device_copy_totals()["count"] == 0
+    assert world.device_plane().disabled_reason is None

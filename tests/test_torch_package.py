@@ -18,6 +18,8 @@ def test_importing_every_module_pulls_in_no_jax_and_no_faabric_tpu():
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in PKG.rglob("*.py"))
     assert "faabric_tpu_torch.ops.flash_attention" in modules
+    assert {"faabric_tpu_torch.mpi.world", "faabric_tpu_torch.device_plane",
+            "faabric_tpu_torch.ops.ring_permute"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
@@ -75,3 +77,23 @@ def test_training_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
     model, opt = init_train_state(None, cfg, "cpu")
     assert model.device.type == "cpu"
     assert DataLoader(ds, 2, device="cpu").device.type == "cpu"
+
+
+def test_device_plane_activation_raises_without_cuda_unless_cpu_is_asked(
+        no_cuda):
+    from faabric_tpu_torch.batch_scheduler import SchedulingDecision
+    from faabric_tpu_torch.mpi import MpiWorld
+    from faabric_tpu_torch.transport import PointToPointBroker
+
+    broker = PointToPointBroker("solo")
+    d = SchedulingDecision(app_id=950, group_id=950)
+    d.add_message("solo", 1, 0, 0, device_id=0)
+    broker.set_up_local_mappings_from_decision(d)
+    world = MpiWorld(broker, 950, 1, 950)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        world.activate_device_plane(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        world.activate_device_plane(0, device="cuda")
+    assert world.device_plane() is None
+    assert world.activate_device_plane(0, device="cpu")
+    assert world.device_plane().device == torch.device("cpu")
