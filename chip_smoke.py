@@ -94,10 +94,11 @@ def time_ms(fn, reps: int = 20, iters: int = 10) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in pairs])) / reps
 
 
-def profile_top(fn, label: str, top: int = 6) -> None:
+def profile_top(fn, label: str, top: int = 6) -> tuple[float, dict]:
     """Device time by kernel over one call of ``fn``, from torch.profiler:
-    the device's busy time against the call's wall time, and the kernels
-    that take most of it. Annotated ranges (such as the optimizer's
+    logs the device's busy time against the call's wall time and the
+    kernels that take most of it; returns the busy µs and the µs by
+    kernel name. Annotated ranges (such as the optimizer's
     step) span kernels counted on their own, so they are left out. One
     warm-up call runs under the tracer first: without it, a call made on
     rank threads lost its first kernel from the trace on the card."""
@@ -125,6 +126,7 @@ def profile_top(fn, label: str, top: int = 6) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"    {e.self_device_time_total:9.1f} us  x{e.count:<4d} "
             f"{e.key[:90]}")
+    return busy_us, {e.key: e.self_device_time_total for e in kernels}
 
 
 def host_ms(fn, iters: int = 5) -> float:
@@ -454,14 +456,14 @@ def main() -> int:
     )
     from faabric_tpu_torch.ops import _build
     from faabric_tpu_torch.ops.flash_attention import (
+        _bwd_body,
         _kernel_flash_bwd_dkv,
         _kernel_flash_bwd_dq,
         _reference_attention,
         _reference_bwd_dkv,
-        _reference_bwd_dq,
+        _reference_bwd_dq_with_delta,
         _reference_flash_bwd,
         _reference_lse,
-        _row_correction,
         flash_attention,
         flash_attention_with_lse,
     )
@@ -654,12 +656,13 @@ def main() -> int:
 
 
     # -- 8. backward kernels against their plain version ---------------------
-    log("phase 8: flash backward kernels (dQ, dK/dV) vs plain")
+    log("phase 8: flash backward kernels (dQ with delta, dK/dV) vs plain")
 
     def bwd_inputs(b, s_q, s_k, d, causal, dtype, g_lse=False,
                    strided=False):
         """q, k, v (views of one QKV product when ``strided``), a
-        cotangent, the forward kernel's lse and the row correction."""
+        cotangent, the forward kernel's O and lse, and the lse's cotangent
+        (None unless ``g_lse``)."""
         h = 8 if d == 64 else 2
         if strided:
             qkv = torch.randn(b, s_q, 3, h, d, device=dev,
@@ -673,7 +676,12 @@ def main() -> int:
             out, lse = flash_attention_with_lse(q, k, v, causal)
         g = (torch.randn(b * h, s_q, device=dev, generator=gen)
              if g_lse else None)
-        return q, k, v, do, lse, _row_correction(do, out, g)
+        return q, k, v, do, out, lse, g
+
+    def bwd_kernels(q, k, v, do, out, lse, g, causal):
+        dq, delta = _kernel_flash_bwd_dq(q, k, v, do, out, lse, g, causal)
+        return (dq, *_kernel_flash_bwd_dkv(q, k, v, do, lse, delta, causal),
+                delta)
 
     bwd_cases = [(b, s_q, s_k, d, causal, dtype, g_lse, strided)
                  for dtype in (torch.bfloat16, torch.float32)
@@ -681,28 +689,44 @@ def main() -> int:
                      (8, 512, 512, 64, True, False, False),
                      (8, 512, 512, 64, False, False, False),
                      (8, 128, 512, 64, True, False, False),
+                     (2, 100, 157, 64, True, False, False),
                      (2, 100, 157, 32, True, False, False),
                      (1, 2048, 2048, 64, True, False, False),
                      (8, 512, 512, 64, True, True, False),
                      (8, 512, 512, 64, True, False, True)]]
     for b, s_q, s_k, d, causal, dtype, g_lse, strided in bwd_cases:
         ins = bwd_inputs(b, s_q, s_k, d, causal, dtype, g_lse, strided)
-        got = (_kernel_flash_bwd_dq(*ins, causal),
-               *_kernel_flash_bwd_dkv(*ins, causal))
+        q, k, v, do, out, lse, g = ins
+        body = _bwd_body(q, k, v, do, out)
+        before = dict(_build.LAUNCHES)
+        *got, delta = bwd_kernels(*ins, causal)
+        again = bwd_kernels(*ins, causal)
         torch.cuda.synchronize()
-        want = _reference_flash_bwd(*ins, causal)
-        q, k, v, do, lse, delta = ins
+        grew = {n: _build.LAUNCHES[n] - before.get(n, 0)
+                for n in (f"flash_bwd_dq.{body}", f"flash_bwd_dkv.{body}")}
+        dq_r, delta_r = _reference_bwd_dq_with_delta(q, k, v, do, out, lse,
+                                                     g, causal)
+        want = (dq_r, *_reference_bwd_dkv(q, k, v, do, lse, delta_r, causal))
         f32 = _reference_flash_bwd(q.float(), k.float(), v.float(),
-                                   do.float(), lse, delta, causal)
+                                   do.float(), lse, delta_r, causal)
         label = (f"({b}, {s_q}/{s_k}, {q.shape[2]}, {d}) causal={causal} "
                  f"{str(dtype)[6:]}{' g_lse' if g_lse else ''}"
-                 f"{' strided' if strided else ''}")
-        e = [close_or_as_close(g, w, y, f"{n} {label}")
-             for n, g, w, y in zip(("dq", "dk", "dv"), got, want, f32)]
+                 f"{' strided' if strided else ''} [{body}]")
+        if dtype == torch.bfloat16 and d == 64:
+            check(body == "wgmma" and all(n == 2 for n in grew.values()),
+                  f"{label}: both passes took the wgmma body ({grew})")
+        check(all(torch.equal(x, y) for x, y in zip((*got, delta), again)),
+              f"{label}: a second call repeats dq, dk, dv and delta bitwise")
+        err_d = max_err(delta, delta_r)
+        check(bool(((delta - delta_r).abs()
+                    <= 1e-5 + 1e-5 * delta_r.abs()).all()),
+              f"{label}: delta vs _row_correction max |err| {err_d:.3g}")
+        e = [close_or_as_close(gt, w, y, f"{n} {label}")
+             for n, gt, w, y in zip(("dq", "dk", "dv"), got, want, f32)]
         if (b, s_q, causal, dtype, g_lse, strided) == (
                 8, 512, True, torch.bfloat16, False, False):
             errs["flash_bwd_dq"], errs["flash_bwd_dkv"] = e[0], max(e[1:])
-        del ins, got, want, f32
+        del ins, got, again, want, f32
 
     # The whole Function (forward kernel, delta, both backward kernels)
     # against autograd through the plain attention and lse
@@ -846,12 +870,20 @@ def main() -> int:
     log("phase 10: training timings")
     tok, tgt = batches[0]
     step_ms = host_ms(lambda: step(train_model, opt, tok, tgt))
-    profile_top(lambda: step(train_model, opt, tok, tgt), "train step 8x512",
-                top=10)
-    q, k, v, do, lse, delta = bwd_inputs(8, 512, 512, 64, True,
-                                         torch.bfloat16)
-    out, _ = flash_attention_with_lse(q, k, v, True)
-    bwd_args = (q, k, v, do, lse, delta, True)
+    step_busy, step_kernels = profile_top(
+        lambda: step(train_model, opt, tok, tgt), "train step 8x512", top=10)
+    bwd_us = {n: us for n, us in step_kernels.items() if "flash_bwd" in n}
+    log(f"  flash backward kernels in the step: {sum(bwd_us.values()):.1f} "
+        f"of {step_busy:.1f} us busy "
+        f"({100 * sum(bwd_us.values()) / step_busy:.2f}%): "
+        + "; ".join(f"{n[:60]} {us:.1f} us" for n, us in bwd_us.items()))
+    q, k, v, do, out, lse, _ = bwd_inputs(8, 512, 512, 64, True,
+                                          torch.bfloat16)
+    check(_bwd_body(q, k, v, do, out) == "wgmma",
+          "the timed training shape takes the wgmma body")
+    _, delta = _kernel_flash_bwd_dq(q, k, v, do, out, lse, None, True)
+    dq_args = (q, k, v, do, out, lse, None, True)
+    dkv_args = (q, k, v, do, lse, delta, True)
 
     qt, kt, vt, dot_ = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
     qg, kg, vg = (t.clone().requires_grad_() for t in (qt, kt, vt))
@@ -860,31 +892,49 @@ def main() -> int:
         o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
         torch.autograd.grad(o, (qg, kg, vg), dot_)
 
-    dq_t = {"ms": time_ms(lambda: _kernel_flash_bwd_dq(*bwd_args)),
-            "plain_ms": time_ms(lambda: _reference_bwd_dq(*bwd_args))}
-    dkv_t = {"ms": time_ms(lambda: _kernel_flash_bwd_dkv(*bwd_args)),
-             "plain_ms": time_ms(lambda: _reference_bwd_dkv(*bwd_args))}
-    delta_ms = time_ms(lambda: _row_correction(do, out))
+    dq_t = {"ms": time_ms(lambda: _kernel_flash_bwd_dq(*dq_args)),
+            "plain_ms": time_ms(lambda: _reference_bwd_dq_with_delta(
+                *dq_args))}
+    dkv_t = {"ms": time_ms(lambda: _kernel_flash_bwd_dkv(*dkv_args)),
+             "plain_ms": time_ms(lambda: _reference_bwd_dkv(*dkv_args))}
     sdpa_bwd_ms = (time_ms(sdpa_fwd_bwd)
                    - time_ms(lambda: F.scaled_dot_product_attention(
                        qt, kt, vt, is_causal=True)))
     dq_t["library_ms"] = dkv_t["library_ms"] = sdpa_bwd_ms
     pairs = 8 * 8 * 512 * 513 // 2
     qkv_bytes = q.numel() * 2
-    stat_bytes = 2 * 64 * 512 * 4
-    dq_bounds = {"bytes": (5 * qkv_bytes + stat_bytes) / HBM_BYTES_PER_S * 1e3,
+    stat_bytes = 64 * 512 * 4
+    # dQ reads q, k, v, dO, O and lse and writes dQ and delta (no g_lse
+    # here); dK/dV reads q, k, v, dO, lse and delta and writes dK and dV
+    dq_bounds = {"bytes": (6 * qkv_bytes + 2 * stat_bytes)
+                 / HBM_BYTES_PER_S * 1e3,
                  "operations": 6 * 64 * pairs / BF16_FLOP_PER_S * 1e3}
-    dkv_bounds = {"bytes": (6 * qkv_bytes + stat_bytes) / HBM_BYTES_PER_S * 1e3,
+    dkv_bounds = {"bytes": (6 * qkv_bytes + 2 * stat_bytes)
+                  / HBM_BYTES_PER_S * 1e3,
                   "operations": 8 * 64 * pairs / BF16_FLOP_PER_S * 1e3}
     for name, t, bounds in (("flash_bwd_dq", dq_t, dq_bounds),
                             ("flash_bwd_dkv", dkv_t, dkv_bounds)):
-        log(f"{name} (8, 512, 8, 64) bf16 causal: kernel {t['ms']:.4f} ms, "
-            f"plain {t['plain_ms']:.4f} ms, bound "
+        log(f"{name} (8, 512, 8, 64) bf16 causal [wgmma]: kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
             f"{max(bounds.values()):.4f} ms ({max(bounds, key=bounds.get)}), "
             f"{per_step[name]} launches per step")
-    log(f"backward kernels + delta: {dq_t['ms'] + dkv_t['ms'] + delta_ms:.4f} "
-        f"ms (delta {delta_ms:.4f} ms); sdpa backward (fwd+bwd - fwd): "
-        f"{sdpa_bwd_ms:.4f} ms")
+    log(f"backward kernels (dQ with delta + dK/dV): "
+        f"{dq_t['ms'] + dkv_t['ms']:.4f} ms; sdpa backward (fwd+bwd - fwd): "
+        f"{sdpa_bwd_ms:.4f} ms; ratio "
+        f"{(dq_t['ms'] + dkv_t['ms']) / sdpa_bwd_ms:.3f}")
+    # At (1, 2048, 8, 64) a pass is 256 CTAs, one wave, so it lasts about
+    # as long as its longest CTA: 32 tiles in a row (it shares its SM with
+    # one other CTA). ms / 32 is one tile of that chain.
+    q, k, v, do, out, lse, _ = bwd_inputs(1, 2048, 2048, 64, True,
+                                          torch.bfloat16)
+    _, delta = _kernel_flash_bwd_dq(q, k, v, do, out, lse, None, True)
+    long_dq = time_ms(lambda: _kernel_flash_bwd_dq(q, k, v, do, out, lse,
+                                                   None, True))
+    long_dkv = time_ms(lambda: _kernel_flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                     True))
+    log(f"backward at (1, 2048, 8, 64) bf16 causal: dQ {long_dq:.4f} ms, "
+        f"dK/dV {long_dkv:.4f} ms; per tile of the longest CTA's chain: "
+        f"dQ {long_dq / 32 * 1e3:.3f} us, dK/dV {long_dkv / 32 * 1e3:.3f} us")
     log(f"train step 8x512: {step_ms:.3f} ms host, "
         f"{8 * 512 / step_ms * 1e3:.0f} tokens/s")
     log(f"peak memory on the training path: {train_peak_gib:.3f} GiB")

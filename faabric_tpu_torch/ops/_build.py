@@ -10,8 +10,9 @@ files are built with ``nvcc -shared`` into a plain library loaded through
 
     rms_norm_fwd(x, scale, out, eps)
     flash_fwd(q, k, v, o, lse, scale, causal)
-    flash_bwd_dq(q, k, v, do, lse, delta, dq, scale, causal)
-    flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, scale, causal)
+    flash_bwd_dq(q, k, v, do, out, lse, g_lse, delta, dq, scale, causal,
+                 body)
+    flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, scale, causal, body)
     ring_permute(ins, outs, shift)
 
 A build failure raises; nothing swaps in the plain PyTorch versions.
@@ -81,11 +82,11 @@ def _load_with_nvcc():
     lib.faabric_flash_fwd.argtypes = ([p] * 5 + [i] * 5 + [i64] * 9
                                       + [f, i, i, p])
     lib.faabric_flash_fwd.restype = i
-    lib.faabric_flash_bwd_dq.argtypes = ([p] * 7 + [i] * 5 + [i64] * 12
-                                         + [f, i, i, p])
+    lib.faabric_flash_bwd_dq.argtypes = ([p] * 9 + [i] * 5 + [i64] * 15
+                                         + [f, i, i, i, p])
     lib.faabric_flash_bwd_dq.restype = i
     lib.faabric_flash_bwd_dkv.argtypes = ([p] * 8 + [i] * 5 + [i64] * 12
-                                          + [f, i, i, p])
+                                          + [f, i, i, i, p])
     lib.faabric_flash_bwd_dkv.restype = i
     lib.faabric_ring_permute.argtypes = [p, p, i, i, i64, p]
     lib.faabric_ring_permute.restype = i
@@ -113,19 +114,22 @@ def _load_with_nvcc():
         b, s_q, h, d = q.shape
         return (b, h, s_q, k.shape[1], d, *q.stride()[:3], *k.stride()[:3])
 
-    def flash_bwd_dq(q, k, v, do, lse, delta, dq, scale, causal):
+    def flash_bwd_dq(q, k, v, do, out, lse, g_lse, delta, dq, scale, causal,
+                     body):
         _check_rc("flash_bwd_dq", lib.faabric_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *bwd_shape(q, k), *v.stride()[:3], *do.stride()[:3], scale,
-            int(causal), dtype_code(q), stream(q)))
+            out.data_ptr(), lse.data_ptr(),
+            None if g_lse is None else g_lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), *bwd_shape(q, k), *v.stride()[:3],
+            *do.stride()[:3], *out.stride()[:3], scale, int(causal),
+            dtype_code(q), body, stream(q)))
 
-    def flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, scale, causal):
+    def flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, scale, causal, body):
         _check_rc("flash_bwd_dkv", lib.faabric_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *bwd_shape(q, k), *v.stride()[:3], *do.stride()[:3], scale,
-            int(causal), dtype_code(q), stream(q)))
+            int(causal), dtype_code(q), body, stream(q)))
 
     def ring_permute(ins, outs, shift):
         n = len(ins)

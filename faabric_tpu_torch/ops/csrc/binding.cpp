@@ -27,18 +27,19 @@ extern "C" int faabric_flash_fwd(
     int dtype, void* stream);
 extern "C" int faabric_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, int batch, int n_heads,
-    int s_q, int s_k, int d, int64_t q_sb, int64_t q_ss, int64_t q_sh,
-    int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
-    int64_t v_sh, int64_t do_sb, int64_t do_ss, int64_t do_sh, float scale,
-    int causal, int dtype, void* stream);
+    const void* out, const void* lse, const void* g_lse, void* delta,
+    void* dq, int batch, int n_heads, int s_q, int s_k, int d, int64_t q_sb,
+    int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+    int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t do_sb, int64_t do_ss,
+    int64_t do_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh, float scale,
+    int causal, int dtype, int body, void* stream);
 extern "C" int faabric_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int batch,
     int n_heads, int s_q, int s_k, int d, int64_t q_sb, int64_t q_ss,
     int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
     int64_t v_ss, int64_t v_sh, int64_t do_sb, int64_t do_ss, int64_t do_sh,
-    float scale, int causal, int dtype, void* stream);
+    float scale, int causal, int dtype, int body, void* stream);
 extern "C" int faabric_ring_permute(const void* const* srcs,
                                     void* const* dsts, int n, int shift,
                                     int64_t nbytes, void* stream);
@@ -113,7 +114,8 @@ void check_stat(const char* name, const at::Tensor& st, const at::Tensor& q) {
                   st.is_contiguous() && st.dim() == 2 &&
                   st.size(0) == q.size(0) * q.size(2) &&
                   st.size(1) == q.size(1),
-              name, ": lse and delta must be contiguous float32 (B*H, S_q)");
+              name, ": lse, g_lse and delta must be contiguous float32 "
+              "(B*H, S_q)");
 }
 
 // o contiguous like q; lse (B*H, S_q) float32 contiguous
@@ -134,35 +136,44 @@ void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
       current_stream(q)));
 }
 
-// dout like q with unit last stride; lse and delta (B*H, S_q) float32
+// dout like q with unit last stride; lse (B*H, S_q) float32
 void check_bwd(const char* name, const at::Tensor& q, const at::Tensor& k,
                const at::Tensor& v, const at::Tensor& dout,
-               const at::Tensor& lse, const at::Tensor& delta) {
+               const at::Tensor& lse) {
   check_qkv(name, q, k, v);
   TORCH_CHECK(dout.is_cuda() && dout.sizes() == q.sizes() &&
                   dout.scalar_type() == q.scalar_type() &&
                   dout.stride(3) == 1,
               name, ": dout must be like q with a contiguous last dim");
   check_stat(name, lse, q);
-  check_stat(name, delta, q);
 }
 
+// body: 0 = fma, 1 = mma, 2 = wgmma (ops/flash_attention.py::_bwd_body)
 void flash_bwd_dq(const at::Tensor& q, const at::Tensor& k,
                   const at::Tensor& v, const at::Tensor& dout,
-                  const at::Tensor& lse, const at::Tensor& delta,
-                  const at::Tensor& dq, double scale, bool causal) {
-  check_bwd("flash_bwd_dq", q, k, v, dout, lse, delta);
+                  const at::Tensor& out, const at::Tensor& lse,
+                  const c10::optional<at::Tensor>& g_lse,
+                  const at::Tensor& delta, const at::Tensor& dq, double scale,
+                  bool causal, int64_t body) {
+  check_bwd("flash_bwd_dq", q, k, v, dout, lse);
+  TORCH_CHECK(out.is_cuda() && out.sizes() == q.sizes() &&
+                  out.scalar_type() == q.scalar_type() && out.stride(3) == 1,
+              "flash_bwd_dq: out must be like q with a contiguous last dim");
+  if (g_lse.has_value()) check_stat("flash_bwd_dq", *g_lse, q);
+  check_stat("flash_bwd_dq", delta, q);
   check_out("flash_bwd_dq", dq, q.sizes(), q.scalar_type());
   const c10::cuda::CUDAGuard guard(q.device());
   check_launch(faabric_flash_bwd_dq(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-      lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-      static_cast<int>(q.size(0)), static_cast<int>(q.size(2)),
+      out.data_ptr(), lse.data_ptr(),
+      g_lse.has_value() ? g_lse->data_ptr() : nullptr, delta.data_ptr(),
+      dq.data_ptr(), static_cast<int>(q.size(0)), static_cast<int>(q.size(2)),
       static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
       static_cast<int>(q.size(3)), q.stride(0), q.stride(1), q.stride(2),
       k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1),
       v.stride(2), dout.stride(0), dout.stride(1), dout.stride(2),
-      static_cast<float>(scale), causal ? 1 : 0, dtype_code(q),
+      out.stride(0), out.stride(1), out.stride(2), static_cast<float>(scale),
+      causal ? 1 : 0, dtype_code(q), static_cast<int>(body),
       current_stream(q)));
 }
 
@@ -170,8 +181,9 @@ void flash_bwd_dkv(const at::Tensor& q, const at::Tensor& k,
                    const at::Tensor& v, const at::Tensor& dout,
                    const at::Tensor& lse, const at::Tensor& delta,
                    const at::Tensor& dk, const at::Tensor& dv, double scale,
-                   bool causal) {
-  check_bwd("flash_bwd_dkv", q, k, v, dout, lse, delta);
+                   bool causal, int64_t body) {
+  check_bwd("flash_bwd_dkv", q, k, v, dout, lse);
+  check_stat("flash_bwd_dkv", delta, q);
   check_out("flash_bwd_dkv", dk, k.sizes(), k.scalar_type());
   check_out("flash_bwd_dkv", dv, v.sizes(), v.scalar_type());
   const c10::cuda::CUDAGuard guard(q.device());
@@ -184,7 +196,7 @@ void flash_bwd_dkv(const at::Tensor& q, const at::Tensor& k,
       k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1),
       v.stride(2), dout.stride(0), dout.stride(1), dout.stride(2),
       static_cast<float>(scale), causal ? 1 : 0, dtype_code(q),
-      current_stream(q)));
+      static_cast<int>(body), current_stream(q)));
 }
 
 // ins, outs: n contiguous CUDA tensors of one dtype, numel and device;

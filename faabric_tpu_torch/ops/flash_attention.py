@@ -10,8 +10,14 @@ semantics: online softmax in fp32, end-aligned causal mask
 (``causal_offset = S_k - S_q``) and the causal early exit. The backward
 is the TPU package's two passes (``csrc/flash_attention_bwd.cu``): a dQ
 kernel over q tiles and a dK/dV kernel over key tiles, both recomputing
-P from the forward's lse; the row correction Δ = rowsum(dO·O) − g_lse is
-plain PyTorch, as in the JAX package. ``flash_attention`` and
+P from the forward's lse. The row correction Δ = rowsum(dO·O) − g_lse,
+which the JAX package computes outside its kernels, is computed by the
+dQ kernel for its rows and handed to the dK/dV kernel; on the CPU it is
+``_row_correction``, ahead of the plain versions. Each backward pass
+runs one of three kernel bodies, which ``_bwd_body`` picks from the
+operands' dtype, head dim and layout: ``wgmma`` (TMA and Hopper's
+warpgroup products), ``mma`` (warp-level tensor-core products) or
+``fma`` (fp32 FMAs). ``flash_attention`` and
 ``flash_attention_with_lse`` go through one ``torch.autograd.Function``,
 differentiable in both out and lse; ``flash_attention`` drops the lse,
 whose missing cotangent costs nothing.
@@ -103,38 +109,92 @@ def _kernel_flash(q, k, v, causal: bool):
     return out, lse
 
 
-def _check_bwd_inputs(q, k, v, do, lse, delta) -> None:
-    _check_qkv(q, k, v)
+def _bwd_body(q, k, v, do, out=None) -> str:
+    """The backward kernel body for these operands (``out``, O, only for
+    the dQ pass): "wgmma" for bfloat16 at head dim 64 whose base pointers
+    and strides TMA can describe (16-byte aligned; a dim of extent 1 is
+    never stepped, so its stride is free); "mma" for other bfloat16 at
+    head dims up to 64 whose bf16 pairs are 4-byte aligned; "fma" for
+    float32, head dim 128 and the rest."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] > 64:
+        return "fma"
+
+    def tma_ok(t) -> bool:
+        return t.data_ptr() % 16 == 0 and all(
+            t.stride(i) > 0 and t.stride(i) % 8 == 0
+            for i in range(3) if t.shape[i] > 1)
+
+    def pairs_ok(t) -> bool:  # as the mma body's C launcher checks
+        return t.data_ptr() % 4 == 0 and all(s % 2 == 0
+                                             for s in t.stride()[:3])
+
+    operands = [t for t in (q, k, v, do, out) if t is not None]
+    if q.shape[-1] == 64 and all(map(tma_ok, operands)):
+        return "wgmma"
+    if all(map(pairs_ok, (q, k, v, do))):
+        return "mma"
+    return "fma"
+
+
+BWD_BODIES = {"fma": 0, "mma": 1, "wgmma": 2}
+
+
+def _check_stat(name: str, t, q) -> None:
     b, s_q, h, _ = q.shape
+    if (t.shape != (b * h, s_q) or t.dtype != torch.float32
+            or not t.is_contiguous() or t.device != q.device):
+        raise ValueError(f"flash backward: {name} must be contiguous "
+                         f"float32 ({b * h}, {s_q})")
+
+
+def _check_bwd_inputs(q, k, v, do, lse) -> None:
+    _check_qkv(q, k, v)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError("flash backward: dO must be like q")
     if do.stride(-1) != 1:
         raise ValueError("flash backward: dO's head dim must be contiguous")
-    for name, t in (("lse", lse), ("delta", delta)):
-        if (t.shape != (b * h, s_q) or t.dtype != torch.float32
-                or not t.is_contiguous() or t.device != q.device):
-            raise ValueError(f"flash backward: {name} must be contiguous "
-                             f"float32 ({b * h}, {s_q})")
+    _check_stat("lse", lse, q)
 
 
-def _kernel_flash_bwd_dq(q, k, v, do, lse, delta, causal: bool):
-    """Launch the dQ kernel: dq (B, S_q, H, D) like q."""
-    _check_bwd_inputs(q, k, v, do, lse, delta)
+def _count_bwd_launch(name: str, body: str) -> None:
+    _build.LAUNCHES[name] += 1
+    _build.LAUNCHES[f"{name}.{body}"] += 1
+
+
+def _kernel_flash_bwd_dq(q, k, v, do, out, lse, g_lse, causal: bool):
+    """Launch the dQ kernel, which also computes the row correction:
+    (dq (B, S_q, H, D) like q, delta (B*H, S_q) fp32). ``g_lse``, the
+    lse's cotangent, may be None."""
+    _check_bwd_inputs(q, k, v, do, lse)
+    if (out.shape != q.shape or out.dtype != q.dtype
+            or out.device != q.device or out.stride(-1) != 1):
+        raise ValueError("flash backward: O must be like q with a "
+                         "contiguous head dim")
+    if g_lse is not None:
+        _check_stat("g_lse", g_lse, q)
+    body = _bwd_body(q, k, v, do, out)
+    b, s_q, h, _ = q.shape
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _build.kernels().flash_bwd_dq(q, k, v, do, lse, delta, dq,
-                                  1.0 / math.sqrt(q.shape[-1]), bool(causal))
-    _build.LAUNCHES["flash_bwd_dq"] += 1
-    return dq
+    delta = torch.empty((b * h, s_q), dtype=torch.float32, device=q.device)
+    _build.kernels().flash_bwd_dq(q, k, v, do, out, lse, g_lse, delta, dq,
+                                  1.0 / math.sqrt(q.shape[-1]), bool(causal),
+                                  BWD_BODIES[body])
+    _count_bwd_launch("flash_bwd_dq", body)
+    return dq, delta
 
 
 def _kernel_flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
-    """Launch the dK/dV kernel: (dk, dv) (B, S_k, H, D) like k and v."""
-    _check_bwd_inputs(q, k, v, do, lse, delta)
+    """Launch the dK/dV kernel with the dQ kernel's row correction:
+    (dk, dv) (B, S_k, H, D) like k and v."""
+    _check_bwd_inputs(q, k, v, do, lse)
+    _check_stat("delta", delta, q)
+    body = _bwd_body(q, k, v, do)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _build.kernels().flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv,
-                                   1.0 / math.sqrt(q.shape[-1]), bool(causal))
-    _build.LAUNCHES["flash_bwd_dkv"] += 1
+                                   1.0 / math.sqrt(q.shape[-1]), bool(causal),
+                                   BWD_BODIES[body])
+    _count_bwd_launch("flash_bwd_dkv", body)
     return dk, dv
 
 
@@ -160,6 +220,13 @@ def _reference_bwd_dq(q, k, v, do, lse, delta, causal: bool):
     f = torch.float32
     return torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).to(f),
                         k.to(f)).to(q.dtype)
+
+
+def _reference_bwd_dq_with_delta(q, k, v, do, out, lse, g_lse,
+                                 causal: bool):
+    """The dQ kernel's function, row correction included: (dq, delta)."""
+    delta = _row_correction(do, out, g_lse)
+    return _reference_bwd_dq(q, k, v, do, lse, delta, causal), delta
 
 
 def _reference_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
@@ -202,16 +269,19 @@ def _row_correction(do, out, g_lse=None) -> torch.Tensor:
 
 def _backward(q, k, v, out, lse, g_out, g_lse, causal: bool):
     """(dq, dk, dv) for the cotangents of out and lse (either may be
-    None): the row correction in plain PyTorch, then the two kernels on
-    CUDA or their plain version on the CPU."""
+    None). On CUDA the dQ kernel computes the row correction and the
+    dK/dV kernel reads it; on the CPU, ``_row_correction`` and then the
+    kernels' plain version compute the same function step by step."""
     do = torch.zeros_like(out) if g_out is None else g_out.to(q.dtype)
     if do.stride(-1) != 1:
         do = do.contiguous()
-    delta = _row_correction(do, out, g_lse)
     if q.device.type == "cpu":
+        delta = _row_correction(do, out, g_lse)
         return _reference_flash_bwd(q, k, v, do, lse, delta, causal)
-    return (_kernel_flash_bwd_dq(q, k, v, do, lse, delta, causal),
-            *_kernel_flash_bwd_dkv(q, k, v, do, lse, delta, causal))
+    if g_lse is not None:
+        g_lse = g_lse.float().contiguous()
+    dq, delta = _kernel_flash_bwd_dq(q, k, v, do, out, lse, g_lse, causal)
+    return (dq, *_kernel_flash_bwd_dkv(q, k, v, do, lse, delta, causal))
 
 
 class _FlashAttention(torch.autograd.Function):

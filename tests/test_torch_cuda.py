@@ -14,6 +14,7 @@ import torch
 
 from faabric_tpu_torch.ops import _build
 from faabric_tpu_torch.ops.flash_attention import (
+    _bwd_body,
     _kernel_flash_bwd_dkv,
     _kernel_flash_bwd_dq,
     _reference_attention,
@@ -125,10 +126,16 @@ def test_flash_kernel_bf16_with_odd_strides(cuda_device):
 # Backward kernels
 # ---------------------------------------------------------------------------
 
+# (b, s_q, s_k, h, d, causal): the training shape, non-causal, cross
+# length (S_q < S_k), S not a multiple of 64 (100/157, 100/100), long,
+# and every head dim (wgmma takes bf16 at 64, mma bf16 at 16 and 32, fma
+# float32 and D = 128)
 BWD_SHAPES = [
     (8, 512, 512, 8, 64, True),
     (8, 512, 512, 8, 64, False),
     (8, 128, 512, 8, 64, True),
+    (2, 100, 157, 2, 64, True),
+    (2, 100, 100, 2, 64, False),
     (2, 100, 157, 2, 32, True),
     (1, 2048, 2048, 8, 64, True),
     (1, 130, 130, 2, 128, False),
@@ -139,7 +146,8 @@ BWD_SHAPES = [
 def bwd_inputs(device, b, s_q, s_k, h, d, causal, dtype, g_lse=False,
                strided=False):
     """q, k, v (views of one QKV product when ``strided``), a cotangent,
-    and the forward's lse with the row correction delta."""
+    the forward's O and lse, and the lse's cotangent (None unless
+    ``g_lse``)."""
     gen = torch.Generator(device=device).manual_seed(s_q * d + s_k + b)
     if strided:
         qkv = torch.randn(b, s_q, 3, h, d, device=device, generator=gen)
@@ -151,15 +159,24 @@ def bwd_inputs(device, b, s_q, s_k, h, d, causal, dtype, g_lse=False,
     out, lse = flash_attention_with_lse(q, k, v, causal)
     g = (torch.randn(b * h, s_q, device=device, generator=gen)
          if g_lse else None)
-    return q, k, v, do, lse, _row_correction(do, out, g)
+    return q, k, v, do, out, lse, g
 
 
-def assert_bwd_close(got, q, k, v, do, lse, delta, causal):
+def run_bwd_kernels(q, k, v, do, out, lse, g_lse, causal):
+    """(dq, dk, dv, delta) from the two kernels, as the Function runs them."""
+    dq, delta = _kernel_flash_bwd_dq(q, k, v, do, out, lse, g_lse, causal)
+    return (dq, *_kernel_flash_bwd_dkv(q, k, v, do, lse, delta, causal),
+            delta)
+
+
+def assert_bwd_close(got, q, k, v, do, out, lse, g_lse, causal):
     """fp32: the kernels and the plain version differ only in the order of
     fp32 sums (the JAX tests' 2e-4 / 1e-3). bf16: both round at the same
     places, so each gradient is held to the plain bf16 version's own
     distance from the fp32 computation on the same inputs: max within 2x,
-    mean within 1.25x."""
+    mean within 1.25x. The plain version takes the row correction from
+    ``_row_correction``."""
+    delta = _row_correction(do, out, g_lse)
     want = _reference_flash_bwd(q, k, v, do, lse, delta, causal)
     if q.dtype == torch.float32:
         for g, w in zip(got, want):
@@ -181,13 +198,15 @@ def assert_bwd_close(got, q, k, v, do, lse, delta, causal):
 def test_flash_bwd_kernels_match_plain(cuda_device, b, s_q, s_k, h, d,
                                        causal, dtype):
     ins = bwd_inputs(cuda_device, b, s_q, s_k, h, d, causal, DTYPES[dtype])
+    body = _bwd_body(*ins[:5])
     before = dict(_build.LAUNCHES)
-    dq = _kernel_flash_bwd_dq(*ins, causal)
-    dk, dv = _kernel_flash_bwd_dkv(*ins, causal)
+    *grads, _ = run_bwd_kernels(*ins, causal)
     torch.cuda.synchronize()
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert _build.LAUNCHES[name] == before.get(name, 0) + 1
-    assert_bwd_close((dq, dk, dv), *ins, causal)
+        assert (_build.LAUNCHES[f"{name}.{body}"]
+                == before.get(f"{name}.{body}", 0) + 1)
+    assert_bwd_close(grads, *ins, causal)
 
 
 @pytest.mark.cuda
@@ -197,9 +216,86 @@ def test_flash_bwd_kernels_with_lse_cotangent_and_views(cuda_device, dtype,
                                                         variant):
     ins = bwd_inputs(cuda_device, 2, 192, 192, 4, 64, True, DTYPES[dtype],
                      g_lse=variant == "g_lse", strided=variant == "strided")
-    dq = _kernel_flash_bwd_dq(*ins, True)
-    dk, dv = _kernel_flash_bwd_dkv(*ins, True)
-    assert_bwd_close((dq, dk, dv), *ins, True)
+    if dtype == "bfloat16":
+        assert _bwd_body(*ins[:5]) == "wgmma"
+    *grads, _ = run_bwd_kernels(*ins, True)
+    assert_bwd_close(grads, *ins, True)
+
+
+# The row correction as the dQ kernel writes it against _row_correction:
+# fp32 sums of D products in another order (rtol 1e-5, and atol 1e-5 for
+# rows whose sum cancels to near zero)
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s_q,s_k,h,d,dtype", [
+    (8, 512, 512, 8, 64, "bfloat16"),
+    (2, 100, 157, 2, 64, "bfloat16"),
+    (2, 100, 157, 2, 32, "bfloat16"),
+    (1, 130, 130, 2, 128, "bfloat16"),
+    (2, 100, 157, 2, 64, "float32"),
+])
+@pytest.mark.parametrize("with_g_lse", [False, True])
+def test_flash_bwd_dq_writes_the_row_correction(cuda_device, b, s_q, s_k, h,
+                                                 d, dtype, with_g_lse):
+    q, k, v, do, out, lse, g = bwd_inputs(cuda_device, b, s_q, s_k, h, d,
+                                          True, DTYPES[dtype], with_g_lse)
+    _, delta = _kernel_flash_bwd_dq(q, k, v, do, out, lse, g, True)
+    assert delta.shape == (b * h, s_q) and delta.dtype == torch.float32
+    torch.testing.assert_close(delta, _row_correction(do, out, g),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s_q,s_k,h,d,causal,dtype", [
+    (8, 512, 512, 8, 64, True, "bfloat16"),
+    (2, 100, 157, 2, 64, True, "bfloat16"),
+    (2, 100, 157, 2, 32, True, "bfloat16"),
+    (2, 100, 157, 2, 64, True, "float32"),
+])
+def test_flash_bwd_kernels_repeat_bitwise(cuda_device, b, s_q, s_k, h, d,
+                                          causal, dtype):
+    """Two passes and no atomics: two calls give the same bits, which the
+    checkpoint-resumed training run relies on."""
+    ins = bwd_inputs(cuda_device, b, s_q, s_k, h, d, causal, DTYPES[dtype],
+                     g_lse=True)
+    first = run_bwd_kernels(*ins, causal)
+    second = run_bwd_kernels(*ins, causal)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype,body", [
+    (64, "bfloat16", "wgmma"), (32, "bfloat16", "mma"),
+    (64, "float32", "fma"), (128, "bfloat16", "fma")])
+def test_flash_bwd_counts_launches_per_body(cuda_device, d, dtype, body):
+    """The training shape takes the wgmma body, fp32 and D = 128 the fma
+    body and bf16 at D = 32 the mma body; each pass counts one launch
+    under its own name and one under its body's."""
+    ins = bwd_inputs(cuda_device, 8 if d == 64 else 2, 512, 512,
+                     8 if d == 64 else 2, d, True, DTYPES[dtype])
+    assert _bwd_body(*ins[:5]) == body
+    before = dict(_build.LAUNCHES)
+    run_bwd_kernels(*ins, True)
+    grew = {n: c - before.get(n, 0) for n, c in _build.LAUNCHES.items()
+            if n.startswith("flash_bwd") and c != before.get(n, 0)}
+    assert grew == {"flash_bwd_dq": 1, f"flash_bwd_dq.{body}": 1,
+                    "flash_bwd_dkv": 1, f"flash_bwd_dkv.{body}": 1}
+
+
+@pytest.mark.cuda
+def test_flash_bwd_mma_body_keeps_pair_aligned_bf16_views(cuda_device):
+    """bf16 views two values past a 16-byte boundary: TMA cannot take
+    them, the mma body can, and it matches the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    b, s, h, d = 2, 160, 2, 64
+    flat = [torch.randn(b * s * h * d + 2, device=cuda_device, generator=gen
+                        ).to(torch.bfloat16)[2:].view(b, s, h, d)
+            for _ in range(4)]
+    q, k, v, do = flat
+    out, lse = flash_attention_with_lse(q, k, v, True)
+    assert _bwd_body(q, k, v, do, out) == "mma"
+    *grads, _ = run_bwd_kernels(q, k, v, do, out, lse, None, True)
+    assert_bwd_close(grads, q, k, v, do, out, lse, None, True)
 
 
 @pytest.mark.cuda

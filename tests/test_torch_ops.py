@@ -15,18 +15,25 @@ jax = pytest.importorskip("jax")
 jnp = jax.numpy
 
 from faabric_tpu.ops.flash_attention import (  # noqa: E402
+    DEFAULT_BLOCK_K,
+    DEFAULT_BLOCK_Q,
+    _flash_forward as jax_flash_forward,
+    _fold_heads as jax_fold_heads,
     _reference_attention as jax_reference_attention,
     _reference_lse as jax_reference_lse,
     flash_attention as jax_flash_attention,
     flash_attention_with_lse as jax_flash_with_lse,
     merge_attention_blocks as jax_merge,
+    _run_bwd_kernels as jax_run_bwd_kernels,
 )
 from faabric_tpu.ops.rms_norm import (  # noqa: E402
     _reference_rms_norm as jax_reference_rms_norm,
     rms_norm as jax_rms_norm,
 )
 from faabric_tpu_torch.ops.flash_attention import (  # noqa: E402
+    _bwd_body,
     _reference_attention,
+    _reference_bwd_dq_with_delta,
     _reference_flash_bwd,
     _reference_lse,
     _row_correction,
@@ -304,6 +311,97 @@ def test_reference_flash_bwd_matches_jax_vjp_and_autograd(case, with_g_lse):
                                    rtol=1e-3)
         np.testing.assert_allclose(as_np(a), as_np(plain), atol=2e-4,
                                    rtol=1e-3)
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+@pytest.mark.parametrize("with_g_lse", [False, True])
+def test_reference_dq_with_delta_matches_jax_bwd_kernels(case, with_g_lse):
+    """The dQ kernel's plain version, row correction included, against
+    JAX's _run_bwd_kernels (its Pallas dQ kernel in interpret mode) fed
+    the same cotangents: dQ and Δ = rowsum(dO·O) − g_lse, which JAX
+    computes there outside its kernels (fp32: atol 2e-4, rtol 1e-3)."""
+    s_q, s_k, causal = GRAD_CASES[case]
+    q, k, v = qkv_np(b=1, s_q=s_q, s_k=s_k, h=2, d=16, seed=14)
+    rng = np.random.RandomState(15)
+    g = rng.randn(1, s_q, 2, 16).astype(np.float32)
+    g_lse = rng.randn(2, s_q).astype(np.float32) if with_g_lse else None
+
+    jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+    jout, jlse = jax_flash_forward(jq, jk, jv, causal, DEFAULT_BLOCK_Q,
+                                   DEFAULT_BLOCK_K)
+    assert jlse is not None  # JAX ran its kernels
+    jg_lse = None if g_lse is None else jnp.asarray(g_lse)
+    jdq, _, _ = jax_run_bwd_kernels(jq, jk, jv, jg, jout, jlse, causal,
+                                    DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K,
+                                    g_lse=jg_lse)
+    jdelta = jnp.sum(jax_fold_heads(jg) * jax_fold_heads(jout), axis=-1)
+    if g_lse is not None:
+        jdelta = jdelta - jg_lse
+
+    tq, tk, tv, tg = (torch.tensor(a) for a in (q, k, v, g))
+    out, lse = flash_attention_with_lse(tq, tk, tv, causal)
+    dq, delta = _reference_bwd_dq_with_delta(
+        tq, tk, tv, tg, out, lse,
+        None if g_lse is None else torch.tensor(g_lse), causal)
+    assert delta.shape == (2, s_q) and delta.dtype == torch.float32
+    np.testing.assert_allclose(as_np(delta), as_np(jdelta), atol=2e-4,
+                               rtol=1e-3)
+    np.testing.assert_allclose(as_np(dq), as_np(jdq), atol=2e-4, rtol=1e-3)
+
+
+def _routing_operands(dtype=torch.bfloat16, d=64, layout="contiguous"):
+    """q, k, v, dO and O on the CPU in the layouts the model and the
+    tests hand the backward."""
+    b, s, h = 2, 96, 4
+    if layout == "qkv_views":  # views of one (B, S, 3, H, D) product
+        qkv = torch.zeros(b, s, 3, h, d, dtype=dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    elif layout == "odd_head_stride":  # (B, S, H, D + 1) sliced to D
+        q = k = v = torch.zeros(b, s, h, d + 1, dtype=dtype)[..., :d]
+    elif layout == "pair_offset":  # two values past a 16-byte boundary
+        q = k = v = torch.zeros(b * s * h * d + 2, dtype=dtype)[2:].view(
+            b, s, h, d)
+    elif layout == "head_stride_68":  # even strides, not 16-byte ones
+        q = k = v = torch.zeros(b, s, h, d + 4, dtype=dtype)[..., :d]
+    elif layout == "single_batch_odd_stride":  # a dim of extent 1
+        q = k = v = torch.zeros(1, s, h, d, dtype=dtype).as_strided(
+            (1, s, h, d), (7, h * d, d, 1))
+    else:
+        q = k = v = torch.zeros(b, s, h, d, dtype=dtype)
+    do = torch.zeros(q.shape, dtype=dtype)
+    return q, k, v, do, torch.zeros(q.shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype,d,layout,body", [
+    ("bfloat16", 64, "contiguous", "wgmma"),
+    ("bfloat16", 64, "qkv_views", "wgmma"),
+    ("bfloat16", 64, "single_batch_odd_stride", "wgmma"),
+    ("bfloat16", 64, "pair_offset", "mma"),
+    ("bfloat16", 64, "head_stride_68", "mma"),
+    ("bfloat16", 64, "odd_head_stride", "fma"),
+    ("bfloat16", 32, "contiguous", "mma"),
+    ("bfloat16", 16, "contiguous", "mma"),
+    ("bfloat16", 128, "contiguous", "fma"),
+    ("float32", 64, "contiguous", "fma"),
+    ("float32", 16, "contiguous", "fma"),
+])
+def test_bwd_body_routes_by_dtype_head_dim_and_layout(dtype, d, layout, body):
+    """The backward body a shape takes is decided from the operands
+    alone: wgmma for bf16 at D = 64 that TMA can describe, mma for other
+    bf16 with D <= 64 and 4-byte bf16 pairs, fma for the rest; the dQ
+    and dK/dV passes agree when O is laid out like q."""
+    q, k, v, do, out = _routing_operands(DTYPES[dtype][1], d, layout)
+    assert _bwd_body(q, k, v, do) == body
+    assert _bwd_body(q, k, v, do, out) == body
+
+
+def test_bwd_body_reads_the_layout_of_o_for_the_dq_pass():
+    """O only reaches the dQ pass's tensor maps: an O whose strides TMA
+    cannot describe moves the dQ pass off wgmma, not the dK/dV pass."""
+    q, k, v, do, _ = _routing_operands()
+    out = torch.zeros(2, 96, 4, 68, dtype=torch.bfloat16)[..., :64]
+    assert _bwd_body(q, k, v, do) == "wgmma"
+    assert _bwd_body(q, k, v, do, out) == "mma"
 
 
 def test_flash_bf16_gradients_match_jax():
