@@ -457,6 +457,8 @@ def main() -> int:
     from faabric_tpu_torch.ops import _build
     from faabric_tpu_torch.ops.flash_attention import (
         _bwd_body,
+        _fwd_body,
+        _kernel_flash,
         _kernel_flash_bwd_dkv,
         _kernel_flash_bwd_dq,
         _reference_attention,
@@ -507,19 +509,27 @@ def main() -> int:
             (8, 512, 512, True, torch.bfloat16),
             (8, 128, 512, True, torch.bfloat16),
             (8, 512, 512, False, torch.bfloat16),
+            (8, 448, 512, True, torch.bfloat16),
+            (8, 500, 530, False, torch.bfloat16),
             (8, 512, 512, True, torch.float32),
             (1, 2048, 2048, True, torch.bfloat16)]:
         q, k, v = (torch.randn(b, s, 8, 64, device=dev, generator=gen
                                ).to(dtype) for s in (s_q, s_k, s_k))
+        body = _fwd_body(q, k, v)
+        before = _build.LAUNCHES[f"flash_attention.{body}"]
         out, lse = flash_attention_with_lse(q, k, v, causal)
         torch.cuda.synchronize()
         err_o = max_err(out, _reference_attention(q, k, v, causal))
         err_l = max_err(lse, _reference_lse(q, k, causal))
         if (b, s_q, s_k, causal, dtype) == (8, 512, 512, True, torch.bfloat16):
             errs["flash_attention"] = max(err_o, err_l)
+        label = f"flash ({b}, {s_q}/{s_k}, 8, 64) causal={causal} {dtype}"
+        if dtype == torch.bfloat16:
+            check(body == "wgmma" and _build.LAUNCHES[
+                "flash_attention.wgmma"] == before + 1,
+                  f"{label}: took the wgmma body")
         check(err_o <= FLASH_ATOL[dtype] and err_l <= FLASH_ATOL[dtype],
-              f"flash ({b}, {s_q}/{s_k}, 8, 64) causal={causal} {dtype}: "
-              f"max |err| O {err_o:.3g} lse {err_l:.3g}")
+              f"{label} [{body}]: max |err| O {err_o:.3g} lse {err_l:.3g}")
 
     # -- 5/6. the serving path at full width ---------------------------------
     cfg = ModelConfig()
@@ -549,6 +559,11 @@ def main() -> int:
     for name in ("rms_norm", "flash_attention"):
         check(launches.get(name, 0) > 0, f"main path launched {name} "
               f"{launches.get(name, 0)} times")
+    check(launches.get("flash_attention.wgmma", 0)
+          == launches["flash_attention"],
+          f"every flash forward launch on the serving path took the wgmma "
+          f"body ({launches.get('flash_attention.wgmma', 0)} of "
+          f"{launches['flash_attention']})")
     check(tuple(logits.shape) == (8, 512, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), "8x512 logits finite, shape")
     check(tuple(long_logits.shape) == (1, 2048, cfg.vocab_size)
@@ -615,20 +630,27 @@ def main() -> int:
     rms_bounds = {"bytes": rms_bytes / HBM_BYTES_PER_S * 1e3,
                   "operations": rms_ops / FP32_FLOP_PER_S * 1e3}
 
-    q, k, v = (torch.randn(8, 512, 8, 64, device=dev, generator=gen
-                           ).to(torch.bfloat16) for _ in range(3))
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    fl = {
-        "ms": time_ms(lambda: flash_attention_with_lse(q, k, v, True)),
-        "plain_ms": time_ms(lambda: _reference_attention(q, k, v, True)),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)),
-    }
-    pairs = 8 * 8 * 512 * 513 // 2          # visible (query, key) pairs
-    fl_flops = 4 * 64 * pairs                # Q.K^T and P.V
-    fl_bytes = 4 * q.numel() * 2 + 8 * 8 * 512 * 4
-    fl_bounds = {"bytes": fl_bytes / HBM_BYTES_PER_S * 1e3,
-                 "operations": fl_flops / BF16_FLOP_PER_S * 1e3}
+    # The forward at the serving shape and at 1 x 2048: the wgmma body
+    # the path takes, the mma body on the same tensors, the plain
+    # version, SDPA and the bound
+    fl_times = {}
+    for b, s in ((8, 512), (1, 2048)):
+        q, k, v = (torch.randn(b, s, 8, 64, device=dev, generator=gen
+                               ).to(torch.bfloat16) for _ in range(3))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        t = {"ms": time_ms(lambda: _kernel_flash(q, k, v, True, "wgmma")),
+             "mma_ms": time_ms(lambda: _kernel_flash(q, k, v, True, "mma")),
+             "plain_ms": time_ms(lambda: _reference_attention(q, k, v, True)),
+             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True))}
+        pairs = b * 8 * s * (s + 1) // 2     # visible (query, key) pairs
+        # q, k, v read and O written in bf16, lse written in fp32; Q.K^T
+        # and P.V
+        fl_times[(b, s)] = t, {
+            "bytes": (4 * q.numel() * 2 + b * 8 * s * 4)
+            / HBM_BYTES_PER_S * 1e3,
+            "operations": 4 * 64 * pairs / BF16_FLOP_PER_S * 1e3}
+    fl, fl_bounds = fl_times[(8, 512)]
 
     with torch.inference_mode():
         fwd_ms = host_ms(lambda: forward(model, tokens))
@@ -643,10 +665,13 @@ def main() -> int:
     log(f"rms_norm (4096, 512) bf16: kernel {rms['ms']:.4f} ms, plain "
         f"{rms['plain_ms']:.4f} ms, F.rms_norm {rms['library_ms']:.4f} ms, "
         f"bound {max(rms_bounds.values()):.4f} ms (bytes)")
-    log(f"flash (8, 512, 8, 64) bf16 causal: kernel {fl['ms']:.4f} ms, plain "
-        f"{fl['plain_ms']:.4f} ms, sdpa {fl['library_ms']:.4f} ms, bound "
-        f"{max(fl_bounds.values()):.4f} ms "
-        f"({max(fl_bounds, key=fl_bounds.get)})")
+    for (b, s), (t, bounds) in fl_times.items():
+        log(f"flash ({b}, {s}, 8, 64) bf16 causal: wgmma body {t['ms']:.5f} "
+            f"ms, mma body {t['mma_ms']:.5f} ms ({t['mma_ms'] / t['ms']:.2f}x),"
+            f" plain {t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.5f} ms "
+            f"(wgmma / sdpa {t['ms'] / t['library_ms']:.3f}), bound "
+            f"{max(bounds.values()):.5f} ms ({max(bounds, key=bounds.get)}; "
+            f"bytes {bounds['bytes']:.5f}, products {bounds['operations']:.5f})")
     log(f"forward 8x512: {fwd_ms:.3f} ms host, {fwd_dev_ms:.3f} ms as a graph, "
         f"{8 * 512 / fwd_ms * 1e3:.0f} tokens/s")
     log(f"forward 1x2048: {long_ms:.3f} ms host")
@@ -800,9 +825,10 @@ def main() -> int:
           f"{n_steps} steps, losses finite")
     per_step = {"flash_attention": 8, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}
     for name, n in per_step.items():
-        check(train_launches.get(name, 0) == n * n_steps,
+        check(train_launches.get(name, 0) == n * n_steps
+              and train_launches.get(f"{name}.wgmma", 0) == n * n_steps,
               f"training path launched {name} {train_launches.get(name, 0)} "
-              f"times ({n} per step)")
+              f"times ({n} per step), all on the wgmma body")
     check(train_launches.get("rms_norm", 0) > 0,
           f"training path launched rms_norm {train_launches.get('rms_norm', 0)}"
           " times")
@@ -872,11 +898,12 @@ def main() -> int:
     step_ms = host_ms(lambda: step(train_model, opt, tok, tgt))
     step_busy, step_kernels = profile_top(
         lambda: step(train_model, opt, tok, tgt), "train step 8x512", top=10)
-    bwd_us = {n: us for n, us in step_kernels.items() if "flash_bwd" in n}
-    log(f"  flash backward kernels in the step: {sum(bwd_us.values()):.1f} "
-        f"of {step_busy:.1f} us busy "
-        f"({100 * sum(bwd_us.values()) / step_busy:.2f}%): "
-        + "; ".join(f"{n[:60]} {us:.1f} us" for n, us in bwd_us.items()))
+    for label, key in (("forward", "flash_fwd"), ("backward", "flash_bwd")):
+        us = {n: t for n, t in step_kernels.items() if key in n}
+        log(f"  flash {label} kernels in the step: {sum(us.values()):.1f} "
+            f"of {step_busy:.1f} us busy "
+            f"({100 * sum(us.values()) / step_busy:.2f}%): "
+            + "; ".join(f"{n[:60]} {t:.1f} us" for n, t in us.items()))
     q, k, v, do, out, lse, _ = bwd_inputs(8, 512, 512, 64, True,
                                           torch.bfloat16)
     check(_bwd_body(q, k, v, do, out) == "wgmma",
@@ -948,13 +975,15 @@ def main() -> int:
           f"MPI phase launched ring_permute "
           f"{mpi_launches.get('ring_permute', 0)} times")
 
-    def row(name, source, replaces, t, bounds, err, path_launches):
+    def row(name, source, replaces, t, bounds, err, path_launches,
+            body=None):
         bound_by = max(bounds, key=bounds.get)
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": path_launches.get(name, 0),
-                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": bounds[bound_by], "bound_by": bound_by,
-                "library_ms": t["library_ms"]}
+        r = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": path_launches.get(name, 0),
+             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+             "bound_ms": bounds[bound_by], "bound_by": bound_by,
+             "library_ms": t["library_ms"]}
+        return r if body is None else {**r, "body": body}
 
     kernels = [
         row("rms_norm", "faabric_tpu_torch/ops/csrc/rms_norm.cu",
@@ -962,14 +991,14 @@ def main() -> int:
             errs["rms_norm"], launches),
         row("flash_attention", "faabric_tpu_torch/ops/csrc/flash_attention.cu",
             "faabric_tpu/ops/flash_attention.py:61", fl, fl_bounds,
-            errs["flash_attention"], launches),
+            errs["flash_attention"], launches, "wgmma"),
         row("flash_bwd_dq", "faabric_tpu_torch/ops/csrc/flash_attention_bwd.cu",
             "faabric_tpu/ops/flash_attention.py:125", dq_t, dq_bounds,
-            errs["flash_bwd_dq"], train_launches),
+            errs["flash_bwd_dq"], train_launches, "wgmma"),
         row("flash_bwd_dkv",
             "faabric_tpu_torch/ops/csrc/flash_attention_bwd.cu",
             "faabric_tpu/ops/flash_attention.py:176", dkv_t, dkv_bounds,
-            errs["flash_bwd_dkv"], train_launches),
+            errs["flash_bwd_dkv"], train_launches, "wgmma"),
         row("ring_permute", "faabric_tpu_torch/ops/csrc/ring_permute.cu",
             "faabric_tpu/device_plane/pallas_ring.py:77", ring_t,
             ring_bounds, ring_err, mpi_launches),

@@ -9,7 +9,7 @@ files are built with ``nvcc -shared`` into a plain library loaded through
 ``ctypes`` instead, behind the same five functions:
 
     rms_norm_fwd(x, scale, out, eps)
-    flash_fwd(q, k, v, o, lse, scale, causal)
+    flash_fwd(q, k, v, o, lse, scale, causal, body)
     flash_bwd_dq(q, k, v, do, out, lse, g_lse, delta, dq, scale, causal,
                  body)
     flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, scale, causal, body)
@@ -80,7 +80,7 @@ def _load_with_nvcc():
     lib.faabric_rms_norm_fwd.argtypes = [p, p, p, i64, i, f, i, p]
     lib.faabric_rms_norm_fwd.restype = i
     lib.faabric_flash_fwd.argtypes = ([p] * 5 + [i] * 5 + [i64] * 9
-                                      + [f, i, i, p])
+                                      + [f, i, i, i, p])
     lib.faabric_flash_fwd.restype = i
     lib.faabric_flash_bwd_dq.argtypes = ([p] * 9 + [i] * 5 + [i64] * 15
                                          + [f, i, i, i, p])
@@ -102,13 +102,13 @@ def _load_with_nvcc():
             x.data_ptr(), scale.data_ptr(), out.data_ptr(), x.shape[0],
             x.shape[1], eps, dtype_code(x), stream(x)))
 
-    def flash_fwd(q, k, v, o, lse, scale, causal):
+    def flash_fwd(q, k, v, o, lse, scale, causal, body):
         b, s_q, h, d = q.shape
         _check_rc("flash_fwd", lib.faabric_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, h, s_q, k.shape[1], d, *q.stride()[:3],
             *k.stride()[:3], *v.stride()[:3], scale, int(causal),
-            dtype_code(q), stream(q)))
+            dtype_code(q), body, stream(q)))
 
     def bwd_shape(q, k):
         b, s_q, h, d = q.shape

@@ -24,7 +24,7 @@ extern "C" int faabric_flash_fwd(
     int batch, int n_heads, int s_q, int s_k, int d, int64_t q_sb,
     int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale, int causal,
-    int dtype, void* stream);
+    int dtype, int body, void* stream);
 extern "C" int faabric_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* out, const void* lse, const void* g_lse, void* delta,
@@ -118,10 +118,11 @@ void check_stat(const char* name, const at::Tensor& st, const at::Tensor& q) {
               "(B*H, S_q)");
 }
 
-// o contiguous like q; lse (B*H, S_q) float32 contiguous
+// o contiguous like q; lse (B*H, S_q) float32 contiguous; body: 0 = fma,
+// 1 = mma, 2 = wgmma (ops/flash_attention.py::_fwd_body)
 void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
                const at::Tensor& o, const at::Tensor& lse, double scale,
-               bool causal) {
+               bool causal, int64_t body) {
   check_qkv("flash_fwd", q, k, v);
   check_out("flash_fwd", o, q.sizes(), q.scalar_type());
   check_stat("flash_fwd", lse, q);
@@ -133,7 +134,7 @@ void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
       static_cast<int>(q.size(3)), q.stride(0), q.stride(1), q.stride(2),
       k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1),
       v.stride(2), static_cast<float>(scale), causal ? 1 : 0, dtype_code(q),
-      current_stream(q)));
+      static_cast<int>(body), current_stream(q)));
 }
 
 // dout like q with unit last stride; lse (B*H, S_q) float32

@@ -79,8 +79,6 @@ constexpr int kRows = 64;     // rows a CTA owns: queries (dQ), keys (dK/dV)
 constexpr int kFmaTile = 32;  // fma bodies: streamed rows per step
 constexpr int kMmaTile = 64;  // mma and wgmma bodies: streamed rows per step
 
-enum Body : int { kFmaBody = 0, kMmaBody = 1, kWgmmaBody = 2 };
-
 struct BwdArgs {
   const void* q;
   const void* k;
@@ -376,20 +374,6 @@ __device__ __forceinline__ uint32_t b_down_col(const __nv_bfloat16* p) {
   return pack_bf16(p[0], p[kLd]);
 }
 
-// The 16 x 16 A operand of key (or query) step j, from the C fragments of
-// a 16 x 64 product whose columns are the k dimension: s[2j] and
-// s[2j + 1] hold columns 16j .. 16j + 15. Each value is rounded to bf16.
-// The wgmma bodies use it too: a warp's rows of a wgmma accumulator and of
-// a register A operand have the mma.sync layouts.
-__device__ __forceinline__ void a_from_c(uint32_t (&a)[4],
-                                         const float (&lo)[4],
-                                         const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
 // The A fragments of this warp's 16 rows (r0 = first row + g, r1 = r0 + 8)
 // of a (B, S, H, D) operand, zero past `s`
 template <int D>
@@ -459,26 +443,6 @@ __device__ __forceinline__ void product_nn(float (&acc)[D / 8][4],
     for (int n = 0; n < D / 8; ++n)
       mma_bf16(acc[n], a, b_down_col<kLd>(y + n * 8),
                b_down_col<kLd>(y + n * 8 + 8 * kLd));
-  }
-}
-
-// Rows r0 and r0 + 8 of this warp's C fragments into a contiguous
-// (B, S, H, D) output
-template <int D>
-__device__ __forceinline__ void store_c(bf16* out, float (&acc)[D / 8][4],
-                                        int b, int r0, int s, int n_heads,
-                                        int h, int t) {
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (r0 < s)
-      *reinterpret_cast<uint32_t*>(
-          out + ((int64_t(b) * s + r0) * n_heads + h) * D + col) =
-          pack_bf16(acc[n][0], acc[n][1]);
-    if (r0 + 8 < s)
-      *reinterpret_cast<uint32_t*>(
-          out + ((int64_t(b) * s + r0 + 8) * n_heads + h) * D + col) =
-          pack_bf16(acc[n][2], acc[n][3]);
   }
 }
 
@@ -654,7 +618,6 @@ flash_bwd_dkv_mma_kernel(BwdArgs a) {
 // ---------------------------------------------------------------------------
 
 constexpr int kStages = 2;  // streamed tiles in flight
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kWgmmaThreads = kWarpgroupThreads + 32;  // + the producer warp
 
 // Tensor maps of the operands a pass loads by TMA
@@ -1020,21 +983,6 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ TmaMaps maps, BwdArgs a) {
 // ---------------------------------------------------------------------------
 
 enum class Pass { kDq, kDkv };
-
-// Lift a kernel's dynamic shared memory limit, once per device (`done`
-// holds a bit per device)
-cudaError_t allow_smem(const void* kernel, int bytes, uint64_t& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = uint64_t(1) << (dev & 63);
-  if (done & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess) done |= bit;
-  return err;
-}
 
 cudaError_t launch_wgmma(Pass pass, const BwdArgs& a, cudaStream_t stream) {
   TmaMaps maps{};

@@ -1,6 +1,7 @@
 // Helpers shared by the flash-attention forward (flash_attention.cu) and
 // backward (flash_attention_bwd.cu) kernels: dtype conversions, the
-// (batch, seq, head) strides, and the bf16 tensor-core product.
+// (batch, seq, head) strides, the bf16 tensor-core product, the re-packing
+// of its accumulators and their store, and the body codes.
 
 #pragma once
 
@@ -62,6 +63,44 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
   const __nv_bfloat162 v = __halves2bfloat162(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
+
+// The 16 x 16 A operand of key (or query) step j, from the C fragments of
+// a 16 x 64 product whose columns are the k dimension: s[2j] and
+// s[2j + 1] hold columns 16j .. 16j + 15. Each value is rounded to bf16.
+// The wgmma bodies use it too: a warp's rows of a wgmma accumulator and of
+// a register A operand have the mma.sync layouts.
+__device__ __forceinline__ void a_from_c(uint32_t (&a)[4],
+                                         const float (&lo)[4],
+                                         const float (&hi)[4]) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// Rows r0 and r0 + 8 of this warp's C fragments into a contiguous
+// (B, S, H, D) output
+template <int D>
+__device__ __forceinline__ void store_c(__nv_bfloat16* out,
+                                        const float (&acc)[D / 8][4], int b,
+                                        int r0, int s, int n_heads, int h,
+                                        int t) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (r0 < s)
+      *reinterpret_cast<uint32_t*>(
+          out + ((int64_t(b) * s + r0) * n_heads + h) * D + col) =
+          pack_bf16(acc[n][0], acc[n][1]);
+    if (r0 + 8 < s)
+      *reinterpret_cast<uint32_t*>(
+          out + ((int64_t(b) * s + r0 + 8) * n_heads + h) * D + col) =
+          pack_bf16(acc[n][2], acc[n][3]);
+  }
+}
+
+// The bodies a launcher takes (ops/flash_attention.py picks one per call)
+enum Body : int { kFmaBody = 0, kMmaBody = 1, kWgmmaBody = 2 };
 
 // The 4-byte pair reads of the tensor-core bodies need every base pointer
 // and stride to keep bf16 pairs 4-byte aligned.

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for kernels that feed wgmma from TMA:
-// tensor maps over (B, S, H, 64) bf16 operands, mbarriers, the bulk
-// tensor copy, wgmma shared-memory descriptors for the 128-byte swizzle,
-// and the m64n64k16 bf16 products with fp32 accumulators.
+// tensor maps over (B, S, H, 64) bf16 operands, the dynamic shared memory
+// limit, mbarriers, the bulk tensor copy, wgmma shared-memory descriptors
+// for the 128-byte swizzle, and the m64n64k16 bf16 products with fp32
+// accumulators.
 //
 // Layouts. A tensor map's box is 64 rows of one (b, h), each row the 64
 // head-dim values (128 bytes). TMA writes it to shared memory with the
@@ -36,6 +37,7 @@ constexpr int kTileRows = 64;                      // rows of a TMA box
 constexpr int kTileElems = kTileRows * 64;         // bf16 values of a tile
 constexpr uint32_t kTileBytes = kTileElems * 2;    // 8 KB
 constexpr int kWarpgroupThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
 // Host: tensor maps
@@ -89,6 +91,21 @@ inline bool bshd_tensor_map(CUtensorMap* map, const void* base, int batch,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Lift a kernel's dynamic shared memory limit, once per device (`done`
+// holds a bit per device)
+inline cudaError_t allow_smem(const void* kernel, int bytes, uint64_t& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = uint64_t(1) << (dev & 63);
+  if (done & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done |= bit;
+  return err;
 }
 
 // ---------------------------------------------------------------------------
@@ -196,6 +213,10 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Wait until at most the newest commit group is still in flight
+__device__ __forceinline__ void wgmma_wait_all_but_newest() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
 }
 
 // Keeps the compiler from moving reads or writes of the accumulators

@@ -13,11 +13,14 @@ kernel over q tiles and a dK/dV kernel over key tiles, both recomputing
 P from the forward's lse. The row correction Δ = rowsum(dO·O) − g_lse,
 which the JAX package computes outside its kernels, is computed by the
 dQ kernel for its rows and handed to the dK/dV kernel; on the CPU it is
-``_row_correction``, ahead of the plain versions. Each backward pass
-runs one of three kernel bodies, which ``_bwd_body`` picks from the
-operands' dtype, head dim and layout: ``wgmma`` (TMA and Hopper's
-warpgroup products), ``mma`` (warp-level tensor-core products) or
-``fma`` (fp32 FMAs). ``flash_attention`` and
+``_row_correction``, ahead of the plain versions. The forward and each
+backward pass run one of three kernel bodies, which ``_fwd_body`` and
+``_bwd_body`` pick from the operands' dtype, head dim and layout:
+``wgmma`` (TMA-fed stages and Hopper's warpgroup products; bf16 at head
+dim 64), ``mma`` (warp-level tensor-core products; other bf16) or
+``fma`` (fp32 FMAs). Launches are counted per kernel and per body
+(``flash_attention.wgmma``, ...); a body that cannot take its operands
+raises, and nothing falls back to another body. ``flash_attention`` and
 ``flash_attention_with_lse`` go through one ``torch.autograd.Function``,
 differentiable in both out and lse; ``flash_attention`` drops the lse,
 whose missing cotangent costs nothing.
@@ -97,46 +100,73 @@ def _check_qkv(q, k, v) -> None:
         raise ValueError("flash kernel: the head dim must be contiguous")
 
 
-def _kernel_flash(q, k, v, causal: bool):
-    """Launch the forward kernel: (out (B, S_q, H, D), lse (B*H, S_q))."""
+def _tma_ok(t) -> bool:
+    """TMA can describe ``t``: a 16-byte aligned base and strides of whole
+    16-byte units (a dim of extent 1 is never stepped, so its stride is
+    free)."""
+    return t.data_ptr() % 16 == 0 and all(
+        t.stride(i) > 0 and t.stride(i) % 8 == 0
+        for i in range(3) if t.shape[i] > 1)
+
+
+def _pairs_ok(t) -> bool:
+    """``t``'s bf16 pairs are 4-byte aligned, as the mma bodies' C
+    launchers check."""
+    return t.data_ptr() % 4 == 0 and all(s % 2 == 0 for s in t.stride()[:3])
+
+
+# Body codes of the C launchers
+BODIES = {"fma": 0, "mma": 1, "wgmma": 2}
+
+
+def _fwd_body(q, k, v) -> str:
+    """The forward kernel body for these operands: "wgmma" for bfloat16
+    at head dim 64 whose base pointers and strides TMA can describe; "mma"
+    for other bfloat16 whose bf16 pairs are 4-byte aligned; "fma" for
+    float32 and the rest."""
+    if q.dtype != torch.bfloat16:
+        return "fma"
+    if q.shape[-1] == 64 and all(map(_tma_ok, (q, k, v))):
+        return "wgmma"
+    if all(map(_pairs_ok, (q, k, v))):
+        return "mma"
+    return "fma"
+
+
+def _count_launch(name: str, body: str) -> None:
+    _build.LAUNCHES[name] += 1
+    _build.LAUNCHES[f"{name}.{body}"] += 1
+
+
+def _kernel_flash(q, k, v, causal: bool, body: str | None = None):
+    """Launch the forward kernel: (out (B, S_q, H, D), lse (B*H, S_q)).
+    ``body`` defaults to ``_fwd_body``'s pick; a body that does not take
+    the operands raises."""
     _check_qkv(q, k, v)
+    body = body or _fwd_body(q, k, v)
     b, s_q, h, d = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, s_q), dtype=torch.float32, device=q.device)
     _build.kernels().flash_fwd(q, k, v, out, lse, 1.0 / math.sqrt(d),
-                               bool(causal))
-    _build.LAUNCHES["flash_attention"] += 1
+                               bool(causal), BODIES[body])
+    _count_launch("flash_attention", body)
     return out, lse
 
 
 def _bwd_body(q, k, v, do, out=None) -> str:
     """The backward kernel body for these operands (``out``, O, only for
     the dQ pass): "wgmma" for bfloat16 at head dim 64 whose base pointers
-    and strides TMA can describe (16-byte aligned; a dim of extent 1 is
-    never stepped, so its stride is free); "mma" for other bfloat16 at
-    head dims up to 64 whose bf16 pairs are 4-byte aligned; "fma" for
-    float32, head dim 128 and the rest."""
+    and strides TMA can describe; "mma" for other bfloat16 at head dims up
+    to 64 whose bf16 pairs are 4-byte aligned; "fma" for float32, head dim
+    128 and the rest."""
     if q.dtype != torch.bfloat16 or q.shape[-1] > 64:
         return "fma"
-
-    def tma_ok(t) -> bool:
-        return t.data_ptr() % 16 == 0 and all(
-            t.stride(i) > 0 and t.stride(i) % 8 == 0
-            for i in range(3) if t.shape[i] > 1)
-
-    def pairs_ok(t) -> bool:  # as the mma body's C launcher checks
-        return t.data_ptr() % 4 == 0 and all(s % 2 == 0
-                                             for s in t.stride()[:3])
-
     operands = [t for t in (q, k, v, do, out) if t is not None]
-    if q.shape[-1] == 64 and all(map(tma_ok, operands)):
+    if q.shape[-1] == 64 and all(map(_tma_ok, operands)):
         return "wgmma"
-    if all(map(pairs_ok, (q, k, v, do))):
+    if all(map(_pairs_ok, (q, k, v, do))):
         return "mma"
     return "fma"
-
-
-BWD_BODIES = {"fma": 0, "mma": 1, "wgmma": 2}
 
 
 def _check_stat(name: str, t, q) -> None:
@@ -156,11 +186,6 @@ def _check_bwd_inputs(q, k, v, do, lse) -> None:
     _check_stat("lse", lse, q)
 
 
-def _count_bwd_launch(name: str, body: str) -> None:
-    _build.LAUNCHES[name] += 1
-    _build.LAUNCHES[f"{name}.{body}"] += 1
-
-
 def _kernel_flash_bwd_dq(q, k, v, do, out, lse, g_lse, causal: bool):
     """Launch the dQ kernel, which also computes the row correction:
     (dq (B, S_q, H, D) like q, delta (B*H, S_q) fp32). ``g_lse``, the
@@ -178,8 +203,8 @@ def _kernel_flash_bwd_dq(q, k, v, do, out, lse, g_lse, causal: bool):
     delta = torch.empty((b * h, s_q), dtype=torch.float32, device=q.device)
     _build.kernels().flash_bwd_dq(q, k, v, do, out, lse, g_lse, delta, dq,
                                   1.0 / math.sqrt(q.shape[-1]), bool(causal),
-                                  BWD_BODIES[body])
-    _count_bwd_launch("flash_bwd_dq", body)
+                                  BODIES[body])
+    _count_launch("flash_bwd_dq", body)
     return dq, delta
 
 
@@ -193,8 +218,8 @@ def _kernel_flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _build.kernels().flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv,
                                    1.0 / math.sqrt(q.shape[-1]), bool(causal),
-                                   BWD_BODIES[body])
-    _count_bwd_launch("flash_bwd_dkv", body)
+                                   BODIES[body])
+    _count_launch("flash_bwd_dkv", body)
     return dk, dv
 
 

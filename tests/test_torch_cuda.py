@@ -15,6 +15,8 @@ import torch
 from faabric_tpu_torch.ops import _build
 from faabric_tpu_torch.ops.flash_attention import (
     _bwd_body,
+    _fwd_body,
+    _kernel_flash,
     _kernel_flash_bwd_dkv,
     _kernel_flash_bwd_dq,
     _reference_attention,
@@ -120,6 +122,154 @@ def test_flash_kernel_bf16_with_odd_strides(cuda_device):
     torch.testing.assert_close(out.float(),
                                _reference_attention(q, q, q).float(),
                                atol=3e-2, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# Forward kernel bodies
+# ---------------------------------------------------------------------------
+
+def fwd_inputs(device, b, s_q, s_k, h, layout="separate", seed=0):
+    """bf16 q, k, v at D = 64: separate tensors, or views of one
+    (B, S, 3, H, 64) product as the model passes them."""
+    gen = torch.Generator(device=device).manual_seed(seed + s_q * 7 + s_k)
+    if layout == "qkv_views":
+        qkv = torch.randn(b, s_q, 3, h, 64, device=device, generator=gen
+                          ).to(torch.bfloat16)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    return tuple(torch.randn(b, s, h, 64, device=device, generator=gen
+                             ).to(torch.bfloat16) for s in (s_q, s_k, s_k))
+
+
+def run_fwd(q, k, v, causal, body=None):
+    """(out, lse) from the forward kernel, with the launches it counted."""
+    before = dict(_build.LAUNCHES)
+    out, lse = _kernel_flash(q, k, v, causal, body)
+    torch.cuda.synchronize()
+    grew = {n: c - before.get(n, 0) for n, c in _build.LAUNCHES.items()
+            if n.startswith("flash_attention") and c != before.get(n, 0)}
+    return out, lse, grew
+
+
+def fwd_key_step(b, s_q, h):
+    """Keys a softmax step of the wgmma body covers, as its launcher picks
+    them: 128 where the grid has at most two CTAs a SM, else 64."""
+    ctas = b * h * -(-s_q // 64)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 128 if ctas <= 2 * sms else 64
+
+
+# (b, s_q, s_k, h, causal, layout, keys): the serving shape, the
+# end-aligned offset (S_q < S_k), non-causal, ragged lengths both ways,
+# long, and the model's QKV views, each on the key step its grid takes on
+# the H100 (132 SMs). O and lse are each held at the bf16 flash tolerance.
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s_q,s_k,h,causal,layout,keys", [
+    (8, 512, 512, 8, True, "separate", 64),
+    (8, 128, 512, 8, True, "separate", 128),
+    (8, 448, 512, 8, True, "separate", 64),
+    (8, 512, 512, 8, False, "separate", 64),
+    (2, 100, 157, 2, False, "separate", 128),
+    (2, 157, 100, 2, False, "separate", 128),
+    (8, 500, 530, 8, False, "separate", 64),
+    (8, 530, 500, 8, False, "separate", 64),
+    (1, 2048, 2048, 8, True, "separate", 128),
+    (2, 192, 192, 4, True, "qkv_views", 128),
+    (8, 520, 520, 8, True, "qkv_views", 64),
+])
+def test_flash_fwd_wgmma_body_matches_plain(cuda_device, b, s_q, s_k, h,
+                                            causal, layout, keys):
+    q, k, v = fwd_inputs(cuda_device, b, s_q, s_k, h, layout)
+    assert _fwd_body(q, k, v) == "wgmma"
+    assert fwd_key_step(b, s_q, h) == keys
+    out, lse, grew = run_fwd(q, k, v, causal)
+    assert grew == {"flash_attention": 1, "flash_attention.wgmma": 1}
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(),
+                               _reference_attention(q, k, v, causal).float(),
+                               atol=3e-2, rtol=0)
+    torch.testing.assert_close(lse, _reference_lse(q, k, causal),
+                               atol=3e-2, rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_fwd_wgmma_lse_is_the_fp32_log_sum_exp(cuda_device):
+    """The plain lse rounds its bf16 scores; against the fp32 scores of
+    the same bf16 inputs the kernel's natural-log lse (taken as
+    (m2 + log2 l) ln 2) is exact to fp32 summation order."""
+    q, k, v = fwd_inputs(cuda_device, 2, 300, 300, 4)
+    _, lse, _ = run_fwd(q, k, v, True)
+    torch.testing.assert_close(lse, _reference_lse(q.float(), k.float(), True),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_wgmma_body_repeats_bitwise(cuda_device, causal):
+    q, k, v = fwd_inputs(cuda_device, 2, 157, 300, 4)
+    first = run_fwd(q, k, v, causal)
+    second = run_fwd(q, k, v, causal)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,causal", [(8, 512, True), (2, 157, False)])
+def test_flash_fwd_wgmma_and_mma_bodies_agree(cuda_device, b, s, causal):
+    """Both bodies round p to bf16 at the same point; they differ in exp2
+    against exp and in the order of sums. Each is held to the plain bf16
+    path's distance from fp32 (max within 2x, mean within 1.25x), and so
+    is their distance from each other."""
+    q, k, v = fwd_inputs(cuda_device, b, s, s, 8)
+    got = {body: run_fwd(q, k, v, causal, body) for body in ("wgmma", "mma")}
+    for body, (_, _, grew) in got.items():
+        assert grew == {"flash_attention": 1, f"flash_attention.{body}": 1}
+    f32 = _reference_attention(q.float(), k.float(), v.float(), causal)
+    noise = (_reference_attention(q, k, v, causal).float() - f32).abs()
+    pairs = [(got["wgmma"][0].float(), f32), (got["mma"][0].float(), f32),
+             (got["wgmma"][0].float(), got["mma"][0].float())]
+    for x, y in pairs:
+        err = (x - y).abs()
+        assert float(err.max()) <= 2 * float(noise.max())
+        assert float(err.mean()) <= 1.25 * float(noise.mean())
+
+
+@pytest.mark.cuda
+def test_flash_fwd_bodies_refuse_operands_they_do_not_take(cuda_device):
+    """A body asked for operands it cannot take raises, whether the
+    caller or the launcher refuses: no other body stands in."""
+    q32 = torch.randn(1, 64, 2, 64, device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _kernel_flash(q32, q32, q32, True, "wgmma")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _kernel_flash(q32, q32, q32, True, "mma")
+    q16 = torch.randn(1, 64, 2, 32, device=cuda_device).to(torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _kernel_flash(q16, q16, q16, True, "wgmma")
+    # Two values past a 16-byte boundary: no tensor map can describe it
+    flat = torch.randn(64 * 2 * 64 + 2, device=cuda_device).to(torch.bfloat16)
+    qx = flat[2:].view(1, 64, 2, 64)
+    assert _fwd_body(qx, qx, qx) == "mma"
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _kernel_flash(qx, qx, qx, True, "wgmma")
+    o = torch.empty_like(qx)
+    lse = torch.empty(2, 64, device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.kernels().flash_fwd(qx, qx, qx, o, lse, 0.125, True, 7)
+
+
+@pytest.mark.cuda
+def test_flash_fwd_raises_when_its_kernel_fails(cuda_device, monkeypatch):
+    """A kernel that does not build fails the forward on the caller; the
+    plain version never stands in on the card."""
+    q, k, v = fwd_inputs(cuda_device, 1, 64, 64, 2)
+
+    def no_build():
+        raise RuntimeError("injected: kernel build failed")
+
+    monkeypatch.setattr(_build, "kernels", no_build)
+    before = _build.LAUNCHES["flash_attention"]
+    with pytest.raises(RuntimeError, match="injected"):
+        flash_attention(q, k, v)
+    assert _build.LAUNCHES["flash_attention"] == before
 
 
 # ---------------------------------------------------------------------------

@@ -30,8 +30,12 @@ from faabric_tpu.ops.rms_norm import (  # noqa: E402
     _reference_rms_norm as jax_reference_rms_norm,
     rms_norm as jax_rms_norm,
 )
+from faabric_tpu_torch.ops import _build  # noqa: E402
 from faabric_tpu_torch.ops.flash_attention import (  # noqa: E402
+    BODIES,
     _bwd_body,
+    _fwd_body,
+    _kernel_flash,
     _reference_attention,
     _reference_bwd_dq_with_delta,
     _reference_flash_bwd,
@@ -393,6 +397,85 @@ def test_bwd_body_routes_by_dtype_head_dim_and_layout(dtype, d, layout, body):
     q, k, v, do, out = _routing_operands(DTYPES[dtype][1], d, layout)
     assert _bwd_body(q, k, v, do) == body
     assert _bwd_body(q, k, v, do, out) == body
+
+
+@pytest.mark.parametrize("dtype,d,layout,body", [
+    ("bfloat16", 64, "contiguous", "wgmma"),
+    ("bfloat16", 64, "qkv_views", "wgmma"),
+    ("bfloat16", 64, "single_batch_odd_stride", "wgmma"),
+    ("bfloat16", 64, "pair_offset", "mma"),
+    ("bfloat16", 64, "head_stride_68", "mma"),
+    ("bfloat16", 64, "odd_head_stride", "fma"),
+    ("bfloat16", 32, "contiguous", "mma"),
+    ("bfloat16", 16, "qkv_views", "mma"),
+    ("bfloat16", 128, "contiguous", "mma"),
+    ("float32", 64, "contiguous", "fma"),
+    ("float32", 64, "qkv_views", "fma"),
+])
+def test_fwd_body_routes_by_dtype_head_dim_and_layout(dtype, d, layout, body):
+    """The forward body a shape takes is decided from q, k and v alone:
+    wgmma for bf16 at D = 64 that TMA can describe, mma for other bf16
+    whose pairs are 4-byte aligned (any head dim), fma for the rest."""
+    q, k, v, _, _ = _routing_operands(DTYPES[dtype][1], d, layout)
+    assert _fwd_body(q, k, v) == body
+
+
+def test_fwd_body_reads_every_operand():
+    """One operand that TMA cannot describe moves the forward off wgmma."""
+    q, k, _, _, _ = _routing_operands()
+    v = torch.zeros(2, 96, 4, 68, dtype=torch.bfloat16)[..., :64]
+    assert _fwd_body(q, k, k) == "wgmma"
+    assert _fwd_body(q, k, v) == "mma"
+    assert _fwd_body(v, k, k) == "mma"
+
+
+class _RecordingKernels:
+    """Stands in for the built kernels: records the forward's body code
+    and fails with CUDA error ``rc`` when it is not 0, as the bindings
+    do."""
+
+    def __init__(self, rc=0):
+        self.rc, self.bodies = rc, []
+
+    def flash_fwd(self, q, k, v, out, lse, scale, causal, body):
+        self.bodies.append(body)
+        if self.rc:
+            raise RuntimeError(f"flash_fwd: CUDA error {self.rc} at launch")
+
+
+@pytest.mark.parametrize("dtype,d,layout,asked,body", [
+    ("bfloat16", 64, "qkv_views", None, "wgmma"),
+    ("bfloat16", 64, "contiguous", "mma", "mma"),
+    ("bfloat16", 32, "contiguous", None, "mma"),
+    ("float32", 64, "contiguous", None, "fma"),
+])
+def test_kernel_flash_passes_its_body_and_counts_it(monkeypatch, dtype, d,
+                                                    layout, asked, body):
+    """The forward's launch passes the body's code to the kernels and
+    counts one launch under the kernel's name and one under its body's."""
+    q, k, v, _, _ = _routing_operands(DTYPES[dtype][1], d, layout)
+    fake = _RecordingKernels()
+    monkeypatch.setattr(_build, "kernels", lambda: fake)
+    monkeypatch.setattr(_build, "LAUNCHES", type(_build.LAUNCHES)())
+    out, lse = _kernel_flash(q, k, v, True, asked)
+    assert fake.bodies == [BODIES[body]]
+    assert dict(_build.LAUNCHES) == {"flash_attention": 1,
+                                     f"flash_attention.{body}": 1}
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert lse.shape == (2 * 4, 96) and lse.dtype == torch.float32
+
+
+def test_kernel_flash_raises_when_its_body_fails(monkeypatch):
+    """A wgmma body that fails to encode, build or launch raises to the
+    caller: no launch is counted and no other body is tried."""
+    q, k, v, _, _ = _routing_operands()
+    fake = _RecordingKernels(rc=1)
+    monkeypatch.setattr(_build, "kernels", lambda: fake)
+    monkeypatch.setattr(_build, "LAUNCHES", type(_build.LAUNCHES)())
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        _kernel_flash(q, k, v, True)
+    assert fake.bodies == [BODIES["wgmma"]]
+    assert not _build.LAUNCHES
 
 
 def test_bwd_body_reads_the_layout_of_o_for_the_dq_pass():
