@@ -18,10 +18,16 @@ process, all on the one card, activates its device plane and runs
 allreduce of a 45,355,520-element fp32 gradient (the flagship's
 parameter count), allgather and reduce_scatter, ``ring_permute`` and the
 ``allgather.ring`` schedule, whose ring phase is the ring-permute
-kernel. For each path it checks the outputs and shows from the kernels'
-launch counts that the path ran through them; it times the kernels, their
-plain versions and the nearest PyTorch library calls, and prints one
-JSON line of kernel numbers and, last, the device line.
+kernel. faabric's own path: a planner and a worker runtime in this
+process gang-schedule 4 ranks (barrier, ring handoff), then serve 8
+requests of 512-token prompts through torch guest functions on executor
+threads, each scoring its prompt and generating 32 greedy tokens with
+the full-width model on the card. For each path it checks the outputs
+and shows from the kernels' launch counts that the path ran through
+them; it times the kernels, their plain versions and the nearest
+PyTorch library calls, and prints one JSON line of kernel numbers (the
+serving kernels' launches summed over the direct serving path and the
+executors) and, last, the device line.
 
 It needs a CUDA card and exits non-zero without one. It imports nothing
 of JAX or of the JAX package. Any failed check raises and the script
@@ -426,6 +432,247 @@ def mpi_world_phase(dev, build) -> dict:
     return launches
 
 
+def faabric_phase(dev, model, build) -> dict:
+    """Phase 13: faabric's own main path on the card. A port planner and
+    one port WorkerRuntime (8 slots, one device id per CUDA device) in
+    this process on localhost host aliases: stage 1 of
+    ``__graft_entry__.py::dryrun_multichip`` (a gang of 4 through
+    ``call_functions``: mappings, group barrier, ring handoff, barrier),
+    then one batch of 8 ``serve``
+    requests, each a 512-token prompt that a TorchExecutor guest scores
+    with ``forward`` and continues with 32 greedy ``generate`` tokens on
+    ``ctx.device``. The tokens must equal direct calls on the same
+    prompts, and the batch's kernel launches must be exactly those of 8
+    forwards and 8 generate calls. Returns the batch's launches."""
+    import random
+
+    from faabric_tpu_torch.executor import (
+        GuestContext,
+        TorchExecutor,
+        TorchExecutorFactory,
+        clear_registered_functions,
+        register_function,
+        set_executor_factory,
+    )
+    from faabric_tpu_torch.models import forward, generate
+    from faabric_tpu_torch.planner import PlannerServer, get_planner
+    from faabric_tpu_torch.proto import ReturnValue, batch_exec_factory
+    from faabric_tpu_torch.runner import WorkerRuntime
+    from faabric_tpu_torch.transport import (
+        PointToPointBroker,
+        clear_host_aliases,
+        register_host_alias,
+    )
+
+    log("phase 13: faabric's main path: planner, worker, executors, "
+        "torch guests on the card")
+    n_req, prompt_len, n_new = 8, 512, 32
+    cfg = model.cfg
+    timeout = 300.0
+
+    @register_function("dryrun", "gang")
+    def gang(ctx):
+        msg, broker = ctx.message, ctx.broker
+        broker.wait_for_mappings(msg.group_id, timeout=timeout)
+        group = broker.get_group(msg.group_id)
+        group.barrier(msg.group_idx, timeout=timeout)
+        n = group.group_size
+        nxt, prv = (msg.group_idx + 1) % n, (msg.group_idx - 1) % n
+        broker.send_message(msg.group_id, msg.group_idx, nxt,
+                            bytes([msg.group_idx]))
+        got = broker.recv_message(msg.group_id, prv, msg.group_idx,
+                                  timeout=timeout)
+        if got != bytes([prv]):
+            raise RuntimeError(f"rank {msg.group_idx} got {got!r} from {prv}")
+        group.barrier(msg.group_idx, timeout=timeout)
+        return str(ctx.device).encode()
+
+    @register_function("smoke", "serve")
+    def serve(ctx):
+        if ctx.device != model.device:
+            raise RuntimeError(f"pinned to {ctx.device}, the model is on "
+                               f"{model.device}")
+        t0 = time.perf_counter()
+        prompt = torch.frombuffer(bytearray(ctx.message.input_data),
+                                  dtype=torch.int32).to(ctx.device)[None]
+        with torch.inference_mode():
+            scores = forward(model, prompt)[0].argmax(-1).to(torch.int32)
+            tokens = generate(model, prompt, n_new)[0]
+        out = torch.cat([scores, tokens]).cpu().numpy().tobytes()
+        ctx.message.int_exec_graph_details["run_us"] = int(
+            (time.perf_counter() - t0) * 1e6)
+        return out
+
+    @register_function("smoke", "fail")
+    def fail(ctx):
+        raise RuntimeError("injected guest failure")
+
+    # Listener ports stay below the client source ports (30500 up)
+    base = random.randint(100, 200) * 100
+    register_host_alias("smoke-planner", "127.0.0.1", base)
+    register_host_alias("smoke-host", "127.0.0.1", base + 1000)
+    get_planner().reset()
+    planner_server = PlannerServer(port_offset=base)
+    worker = WorkerRuntime(host="smoke-host", slots=n_req,
+                           factory=TorchExecutorFactory(),
+                           planner_host="smoke-planner")
+    check(worker.n_devices == torch.cuda.device_count(),
+          f"worker registers {worker.n_devices} CUDA device(s)")
+    client = worker.planner_client
+
+    def run_batch(user, function, inputs):
+        req = batch_exec_factory(user, function, len(inputs))
+        for m, data in zip(req.messages, inputs):
+            m.input_data = data
+        t0 = time.perf_counter()
+        decision = client.call_functions(req)
+        results = [client.get_message_result(req.app_id, m.id,
+                                             timeout=timeout)
+                   for m in req.messages]
+        return decision, results, (time.perf_counter() - t0) * 1e3
+
+    try:
+        planner_server.start()
+        worker.start()
+
+        # -- 13a. stage 1 of dryrun_multichip ------------------------------
+        decision, results, gang_ms = run_batch("dryrun", "gang", [b""] * 4)
+        check(decision.n_messages == 4 and len(set(decision.group_idxs)) == 4
+              and all(0 <= d < torch.cuda.device_count()
+                      for d in decision.device_ids),
+              f"gang of 4 scheduled, device ids {decision.device_ids}")
+        check(all(r.return_value == int(ReturnValue.SUCCESS)
+                  for r in results)
+              and {r.output_data for r in results} == {str(dev).encode()},
+              f"gang of 4: barrier, ring handoff and barrier on {dev} "
+              f"({gang_ms:.1f} ms through the planner)")
+
+        # -- 13b. serving through faabric ----------------------------------
+        rng = np.random.RandomState(0)
+        prompts = rng.randint(0, cfg.vocab_size,
+                              (n_req, prompt_len)).astype(np.int32)
+        inputs = [p.tobytes() for p in prompts]
+        run_batch("smoke", "serve", inputs)  # warm: executors, threads
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        decision, results, round_trip_ms = run_batch("smoke", "serve",
+                                                     inputs)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        log(f"faabric phase launches: {launches}")
+        check(all(r.return_value == int(ReturnValue.SUCCESS)
+                  for r in results),
+              f"{n_req} serve requests SUCCESS ("
+              + "; ".join(r.output_data.decode(errors="replace")[:80]
+                          for r in results
+                          if r.return_value != int(ReturnValue.SUCCESS))
+              + ")")
+        check(set(decision.hosts) == {"smoke-host"}
+              and set(decision.device_ids) == {dev.index},
+              f"all requests pinned to device {dev.index}")
+
+        # Each prompt directly on this thread and alone through the
+        # planner, in turns (direct first on even prompts, second on
+        # odd), so both sides see the same stretch of the shared host
+        def direct_call(p):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prompt = torch.as_tensor(p, device=dev)[None]
+            with torch.inference_mode():
+                scores = forward(model, prompt)[0].argmax(-1).to(torch.int32)
+                tokens = generate(model, prompt, n_new)[0]
+            out = torch.cat([scores, tokens]).cpu().numpy()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        direct, direct_ms, alone, alone_ms = [], [], [], []
+        for i, (p, data) in enumerate(zip(prompts, inputs)):
+            if i % 2:
+                _, (r,), ms = run_batch("smoke", "serve", [data])
+                out, d_ms = direct_call(p)
+            else:
+                out, d_ms = direct_call(p)
+                _, (r,), ms = run_batch("smoke", "serve", [data])
+            direct.append(out)
+            direct_ms.append(d_ms)
+            alone.append(r)
+            alone_ms.append(ms)
+        check(all(r.return_value == int(ReturnValue.SUCCESS)
+                  and np.array_equal(np.frombuffer(r.output_data, np.int32), d)
+                  for r, d in zip(alone, direct)),
+              f"{n_req} requests alone through the planner: same tokens as "
+              f"direct")
+        served = [np.frombuffer(r.output_data, np.int32) for r in results]
+        check(all(s.shape == (prompt_len + n_new,) for s in served)
+              and all(0 <= int(s.min()) and int(s.max()) < cfg.vocab_size
+                      for s in served),
+              "served argmax and tokens in range")
+        check(all(np.array_equal(s, d) for s, d in zip(served, direct)),
+              "served scoring argmax and 32 greedy tokens equal direct "
+              "forward and generate on the card, token for token")
+        rms_want = n_req * (9 + 9 * n_new)
+        check(launches.get("flash_attention.wgmma", 0) == n_req * cfg.n_layers
+              and launches.get("flash_attention", 0) == n_req * cfg.n_layers,
+              f"flash forward: {launches.get('flash_attention.wgmma', 0)} "
+              f"wgmma launches = {n_req} scoring forwards x {cfg.n_layers} "
+              f"layers")
+        check(launches.get("rms_norm", 0) == rms_want,
+              f"rms_norm: {launches.get('rms_norm', 0)} launches = {n_req} "
+              f"x (9 a forward + 9 x {n_new} in generate)")
+
+        run_ms = [r.int_exec_graph_details["run_us"] / 1e3 for r in results]
+        log(f"serving through the planner, {n_req} requests of 1 x "
+            f"{prompt_len} + {n_new} tokens, {n_req} executor threads on "
+            f"{dev}: round trip (submit to last result) {round_trip_ms:.1f} "
+            f"ms, {round_trip_ms / n_req:.2f} ms wall per request; guest run "
+            f"time mean {np.mean(run_ms):.1f} ms, max {np.max(run_ms):.1f} "
+            f"ms")
+        alone_run_ms = [r.int_exec_graph_details["run_us"] / 1e3
+                        for r in alone]
+        log(f"one request at a time through the planner, in turns with the "
+            f"direct calls: round trip median {np.median(alone_ms):.2f} ms "
+            f"(guest run time median {np.median(alone_run_ms):.2f} ms) "
+            f"against direct {np.median(direct_ms):.2f} ms; the control "
+            f"plane adds {np.median(alone_ms) - np.median(alone_run_ms):.2f} "
+            f"ms a request; pairs (direct, guest alone) ms: "
+            + ", ".join(f"({d:.1f}, {a:.1f})"
+                        for d, a in zip(direct_ms, alone_run_ms)))
+        profile_top(lambda: run_batch("smoke", "serve", inputs),
+                    f"batch of {n_req} serve requests through the planner",
+                    top=4)
+
+        # -- 13c. nothing falls back -----------------------------------------
+        _, results, _ = run_batch("smoke", "fail", [b""])
+        check(results[0].return_value == int(ReturnValue.FAILED)
+              and b"injected guest failure" in results[0].output_data,
+              "a failing guest reaches the caller as FAILED")
+        broker = PointToPointBroker("solo")
+        from faabric_tpu_torch.batch_scheduler import SchedulingDecision
+
+        missing = torch.cuda.device_count()
+        pinned = SchedulingDecision(app_id=13, group_id=13)
+        pinned.add_message("solo", 1, 0, 0, device_id=missing)
+        broker.set_up_local_mappings_from_decision(pinned)
+        req = batch_exec_factory("smoke", "serve", 1)
+        req.messages[0].group_id = 13
+        executor = TorchExecutor(req.messages[0], "cuda")
+        executor.scheduler = type("Sched", (), {"ptp_broker": broker})()
+        try:
+            GuestContext(executor, req.messages[0], req).device
+            raised = False
+        except RuntimeError:
+            raised = True
+        check(raised, f"a guest pinned to device {missing}, which this host "
+              f"lacks, raises")
+    finally:
+        worker.shutdown()
+        planner_server.stop()
+        get_planner().reset()
+        clear_registered_functions()
+        set_executor_factory(None)
+        clear_host_aliases()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -491,7 +738,9 @@ def main() -> int:
 
     # -- 3. RMS kernel against its plain version -----------------------------
     log("phase 3: rms_norm kernel vs plain")
-    for rows, d in [(4096, 512), (8, 512), (333, 512)]:
+    # (512, 512) and (1, 512): the faabric phase's scoring forward and
+    # each of its decode steps
+    for rows, d in [(4096, 512), (8, 512), (333, 512), (512, 512), (1, 512)]:
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(rows, d, device=dev, generator=gen).to(dtype)
             scale = torch.rand(d, device=dev, generator=gen) + 0.5
@@ -505,16 +754,29 @@ def main() -> int:
 
     # -- 4. flash kernel against its plain version ---------------------------
     log("phase 4: flash attention kernel vs plain")
-    for b, s_q, s_k, causal, dtype in [
-            (8, 512, 512, True, torch.bfloat16),
-            (8, 128, 512, True, torch.bfloat16),
-            (8, 512, 512, False, torch.bfloat16),
-            (8, 448, 512, True, torch.bfloat16),
-            (8, 500, 530, False, torch.bfloat16),
-            (8, 512, 512, True, torch.float32),
-            (1, 2048, 2048, True, torch.bfloat16)]:
-        q, k, v = (torch.randn(b, s, 8, 64, device=dev, generator=gen
-                               ).to(dtype) for s in (s_q, s_k, s_k))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # views: q, k, v as views of one (B, S, 3, H, 64) product, as the
+    # model passes them; the last case is the faabric phase's scoring
+    # forward
+    for b, s_q, s_k, causal, dtype, views in [
+            (8, 512, 512, True, torch.bfloat16, False),
+            (8, 128, 512, True, torch.bfloat16, False),
+            (8, 512, 512, False, torch.bfloat16, False),
+            (8, 448, 512, True, torch.bfloat16, False),
+            (8, 500, 530, False, torch.bfloat16, False),
+            (8, 512, 512, True, torch.float32, False),
+            (1, 2048, 2048, True, torch.bfloat16, False),
+            (1, 512, 512, True, torch.bfloat16, False),
+            (1, 512, 512, True, torch.bfloat16, True)]:
+        if views:
+            q, k, v = torch.randn(b, s_q, 3, 8, 64, device=dev,
+                                  generator=gen).to(dtype).unbind(2)
+        else:
+            q, k, v = (torch.randn(b, s, 8, 64, device=dev, generator=gen
+                                   ).to(dtype) for s in (s_q, s_k, s_k))
+        # Keys a softmax step of the wgmma body covers, as its launcher
+        # picks them: 128 where the grid has at most two CTAs a SM
+        keys = 128 if b * 8 * -(-s_q // 64) <= 2 * sms else 64
         body = _fwd_body(q, k, v)
         before = _build.LAUNCHES[f"flash_attention.{body}"]
         out, lse = flash_attention_with_lse(q, k, v, causal)
@@ -523,7 +785,8 @@ def main() -> int:
         err_l = max_err(lse, _reference_lse(q, k, causal))
         if (b, s_q, s_k, causal, dtype) == (8, 512, 512, True, torch.bfloat16):
             errs["flash_attention"] = max(err_o, err_l)
-        label = f"flash ({b}, {s_q}/{s_k}, 8, 64) causal={causal} {dtype}"
+        label = (f"flash ({b}, {s_q}/{s_k}, 8, 64) causal={causal} {dtype}"
+                 f"{' qkv views' if views else ''} keys/step {keys}")
         if dtype == torch.bfloat16:
             check(body == "wgmma" and _build.LAUNCHES[
                 "flash_attention.wgmma"] == before + 1,
@@ -975,6 +1238,14 @@ def main() -> int:
           f"MPI phase launched ring_permute "
           f"{mpi_launches.get('ring_permute', 0)} times")
 
+    # -- 13. faabric's own path: planner, worker, executors ---------------
+    faabric_launches = faabric_phase(dev, model, _build)
+    # The serving kernels' launches: the direct serving path's (phase 5)
+    # and the executors' (phase 13)
+    serve_launches = {name: launches.get(name, 0)
+                      + faabric_launches.get(name, 0)
+                      for name in ("rms_norm", "flash_attention")}
+
     def row(name, source, replaces, t, bounds, err, path_launches,
             body=None):
         bound_by = max(bounds, key=bounds.get)
@@ -988,10 +1259,10 @@ def main() -> int:
     kernels = [
         row("rms_norm", "faabric_tpu_torch/ops/csrc/rms_norm.cu",
             "faabric_tpu/ops/rms_norm.py:26", rms, rms_bounds,
-            errs["rms_norm"], launches),
+            errs["rms_norm"], serve_launches),
         row("flash_attention", "faabric_tpu_torch/ops/csrc/flash_attention.cu",
             "faabric_tpu/ops/flash_attention.py:61", fl, fl_bounds,
-            errs["flash_attention"], launches, "wgmma"),
+            errs["flash_attention"], serve_launches, "wgmma"),
         row("flash_bwd_dq", "faabric_tpu_torch/ops/csrc/flash_attention_bwd.cu",
             "faabric_tpu/ops/flash_attention.py:125", dq_t, dq_bounds,
             errs["flash_bwd_dq"], train_launches, "wgmma"),

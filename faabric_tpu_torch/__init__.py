@@ -1,9 +1,12 @@
 """faabric_tpu_torch: the PyTorch/CUDA port of faabric_tpu.
 
 So far it holds the flagship transformer's serving and training paths
-(``models/``, ``data/``) and the single-host MPI world with its device
-plane (``mpi/``, ``device_plane/``, and the host modules they run on:
-``transport/``, ``batch_scheduler/``, ``telemetry/``). It imports ``torch`` and nothing of JAX or of ``faabric_tpu``. Entry
+(``models/``, ``data/``), the single-host MPI world with its device
+plane (``mpi/``, ``device_plane/``), and faabric's control plane that
+gang-schedules guest functions onto worker hosts (``planner/``,
+``batch_scheduler/``, ``scheduler/``, ``executor/``, ``runner/``, over
+``transport/`` and ``proto.py``). It imports ``torch`` and nothing of
+JAX or of ``faabric_tpu``. Entry
 points run on the CUDA card unless the caller passes ``device="cpu"``;
 without a card and without that request they raise. Hand-written CUDA
 kernels for Hopper live in ``ops/csrc/`` and are built at first use.

@@ -371,9 +371,17 @@ class DevicePlane:
         if kind == "allgather":
             out = torch.cat(ins)
             return [out] + [out.clone() for _ in range(n - 1)]
-        fold = _FOLDS[MpiOp(op_code)]
+        op = MpiOp(op_code)
+        fold = _FOLDS[op]
 
         def reduce(parts):
+            if op == MpiOp.PROD and parts[0].dtype == torch.float16:
+                # As the JAX plane's jnp.prod: float16 multiplies in
+                # float32 and rounds once
+                acc = parts[0].float()
+                for t in parts[1:]:
+                    acc.mul_(t)
+                return acc.to(torch.float16)
             if len(parts) == 1:
                 return parts[0].clone()
             acc = fold(parts[0], parts[1])

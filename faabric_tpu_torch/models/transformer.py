@@ -134,9 +134,11 @@ class Transformer(nn.Module):
 # ---------------------------------------------------------------------------
 
 def _rms_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """The model's plain norm: fp32 statistics, products in x.dtype."""
-    var = x.float().square().mean(dim=-1, keepdim=True)
-    return (x * torch.rsqrt(var + 1e-6).to(x.dtype)) * scale.to(x.dtype)
+    """The model's plain norm: fp32 statistics, products in x.dtype (the
+    formula the fused kernel's backward differentiates)."""
+    from faabric_tpu_torch.ops.rms_norm import _rms_formula
+
+    return _rms_formula(x, scale, 1e-6)
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

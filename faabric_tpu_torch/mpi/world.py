@@ -218,6 +218,12 @@ class MpiWorld:
              _copy: bool = True) -> None:
         """``_copy=False`` is for callers that hand over a private buffer
         nobody writes again (ring steps, the broadcast's shared copy)."""
+        host = self.topology().host_of(recv_rank)
+        if host != self.broker.host:
+            raise NotImplementedError(
+                f"rank {recv_rank} of world {self.id} is on {host}, "
+                f"not {self.broker.host}: the MPI world's remote legs are "
+                f"not ported")
         arr = np.asarray(self._stage_host(data))
         if _copy:
             arr = arr.copy()

@@ -18,17 +18,19 @@ files are built with ``nvcc -shared`` into a plain library loaded through
 A build failure raises; nothing swaps in the plain PyTorch versions.
 
 ``LAUNCHES`` counts the launches of each kernel. Each wrapper adds one
-right after it launches its kernel, so a run can show that its path
-went through the kernels.
+through ``count_launch`` right after it launches its kernel, so a run
+can show that its path went through the kernels. Executor threads
+launch kernels at once, so the first build and the counts are both
+taken under locks.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
-import functools
 import os
 import subprocess
+import threading
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -39,10 +41,20 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 LAUNCHES: collections.Counter = collections.Counter()
+_launch_lock = threading.Lock()
+
+
+def count_launch(*names: str) -> None:
+    """Add one launch to each of ``names`` (a read-modify-write of the
+    shared counter, hence the lock)."""
+    with _launch_lock:
+        for name in names:
+            LAUNCHES[name] += 1
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES.clear()
+    with _launch_lock:
+        LAUNCHES.clear()
 
 
 def _cuda_sources() -> list[str]:
@@ -146,9 +158,22 @@ def _load_with_nvcc():
                            ring_permute=ring_permute, lib=lib)
 
 
-@functools.cache
-def kernels():
-    """The built kernels (built on the first call in a process)."""
+def _load():
     from torch.utils.cpp_extension import is_ninja_available
 
     return _load_extension() if is_ninja_available() else _load_with_nvcc()
+
+
+_kernels = None
+_kernels_lock = threading.Lock()
+
+
+def kernels():
+    """The built kernels, built by the first call in a process: threads
+    that call at once wait for that one build."""
+    global _kernels
+    if _kernels is None:
+        with _kernels_lock:
+            if _kernels is None:
+                _kernels = _load()
+    return _kernels

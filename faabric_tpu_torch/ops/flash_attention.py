@@ -134,8 +134,7 @@ def _fwd_body(q, k, v) -> str:
 
 
 def _count_launch(name: str, body: str) -> None:
-    _build.LAUNCHES[name] += 1
-    _build.LAUNCHES[f"{name}.{body}"] += 1
+    _build.count_launch(name, f"{name}.{body}")
 
 
 def _kernel_flash(q, k, v, causal: bool, body: str | None = None):

@@ -61,5 +61,5 @@ def ring_permute(ins, shift: int, outs=None) -> list[torch.Tensor]:
         raise ValueError(f"ring_permute kernel takes at most {MAX_RANKS} "
                          f"ranks, got {n}")
     _build.kernels().ring_permute(ins, outs, shift)
-    _build.LAUNCHES["ring_permute"] += 1
+    _build.count_launch("ring_permute")
     return outs

@@ -4,8 +4,9 @@ Counterpart of ``faabric_tpu/ops/rms_norm.py``. The kernel
 (``csrc/rms_norm.cu``) reads each row once, reduces the sum of squares
 in fp32 and writes ``x * rsqrt(mean(x^2) + eps) * scale`` computed in
 fp32 and rounded once to ``x.dtype``. The backward recomputes through
-the plain version, as ``_rms_bwd`` does in the JAX package, which has no
-backward kernel either.
+``_rms_formula``, the formula ``_rms_bwd`` differentiates in the JAX
+package (its ``_reference_rms_norm``: fp32 statistics, products in
+``x.dtype``), which has no backward kernel either.
 """
 
 from __future__ import annotations
@@ -28,6 +29,16 @@ def _reference_rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+def _rms_formula(x: torch.Tensor, scale: torch.Tensor,
+                 eps: float) -> torch.Tensor:
+    """The function the backward differentiates: the JAX package's
+    ``_reference_rms_norm``, which is also the model's plain norm
+    (``models/transformer.py::_rms_norm``): fp32 statistics, products in
+    ``x.dtype``."""
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps).to(x.dtype)) * scale.to(x.dtype)
+
+
 def _kernel_rms_norm(x: torch.Tensor, scale: torch.Tensor,
                      eps: float) -> torch.Tensor:
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -43,7 +54,7 @@ def _kernel_rms_norm(x: torch.Tensor, scale: torch.Tensor,
     flat = x.view(rows, d)
     out = torch.empty_like(flat)
     _build.kernels().rms_norm_fwd(flat, scale.float().contiguous(), out, eps)
-    _build.LAUNCHES["rms_norm"] += 1
+    _build.count_launch("rms_norm")
     return out.view(x.shape)
 
 
@@ -64,7 +75,7 @@ class _RmsNorm(torch.autograd.Function):
         with torch.enable_grad():
             x_ = x.detach().requires_grad_()
             s_ = scale.detach().requires_grad_()
-            out = _reference_rms_norm(x_, s_, ctx.eps)
+            out = _rms_formula(x_, s_, ctx.eps)
             gx, gs = torch.autograd.grad(out, (x_, s_), g)
         return gx, gs, None
 

@@ -1,29 +1,39 @@
-"""Point-to-point group messaging: the broker's local half.
+"""Point-to-point group messaging: the broker and its groups.
 
 Counterpart of ``faabric_tpu/transport/point_to_point.py``
-(``PointToPointBroker`` :95): the broker maps (group_id, group_idx) →
-(host, MPI port, device id) from a ``SchedulingDecision``, and a message
-between two ranks of this host lands in an in-process FIFO queue per
-(group, sender, receiver). One FIFO per pair keeps MPI's
-non-overtaking order without the reference's sequence numbers, which
-exist for messages that cross hosts.
+(``PointToPointBroker`` :95, ``PointToPointGroup`` :801). The broker
+maps (group_id, group_idx) → (host, MPI port, device id) from a
+``SchedulingDecision``. A message lands in an in-process FIFO queue per
+(group, sender, receiver, channel): directly when both ranks live on
+this host, through the receiving host's ``PointToPointServer`` (the RPC
+plane, ``ptp_remote.py``) when they do not. Remote messages carry a
+sequence number per queue, and the receiving broker puts them back in
+send order before they enter the FIFO (the server's worker threads may
+hand them over in another order), so every queue keeps MPI's
+non-overtaking order.
 
-Ported here: the mappings (``set_up_local_mappings_from_decision``,
-``wait_for_mappings``, ``get_host_for_receiver``,
-``get_device_for_idx``), the in-process queues of ``send_message`` and
-``recv_message``, group abort and ``clear``. The TCP, bulk and shm legs
-and the ``PointToPointGroup`` locks wait (``ROADMAP.md`` Queue 1 #2):
-a send to a rank on another host raises.
+Coordination traffic (lock grants, barrier releases, notify) uses its
+own channel, so that it never shares a queue with application data.
+
+Not ported (``ROADMAP.md`` Queue 1 #7): the bulk and shm data planes,
+the wire codecs, peer-liveness probes of watched groups and the abort
+relay through the planner.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import queue
 import threading
 
-# The reference's default GLOBAL_MESSAGE_TIMEOUT (util/config.py)
-MESSAGE_TIMEOUT_S = 60.0
+from faabric_tpu_torch.proto import PointToPointMapping, PointToPointMappings
+from faabric_tpu_torch.util.config import get_system_config
+
+POINT_TO_POINT_MAIN_IDX = 0
+NO_LOCK_OWNER_IDX = -1
+NO_SEQUENCE_NUM = -1
+
+DATA_CHANNEL = 0
+COORD_CHANNEL = 1
 
 
 class GroupAbortedError(RuntimeError):
@@ -42,18 +52,30 @@ class GroupAbortedError(RuntimeError):
 _ABORT = object()
 
 
-@dataclasses.dataclass
-class PointToPointMapping:
-    host: str
-    message_id: int
-    app_idx: int
-    group_idx: int
-    mpi_port: int
-    device_id: int
+def _timeout(timeout: float | None) -> float:
+    return (get_system_config().global_message_timeout if timeout is None
+            else timeout)
+
+
+def mappings_from_decision(decision) -> PointToPointMappings:
+    out = PointToPointMappings(app_id=decision.app_id,
+                               group_id=decision.group_id)
+    for i in range(decision.n_messages):
+        out.mappings.append(PointToPointMapping(
+            host=decision.hosts[i],
+            message_id=decision.message_ids[i],
+            app_idx=decision.app_idxs[i],
+            group_idx=decision.group_idxs[i],
+            mpi_port=decision.mpi_ports[i],
+            device_ids=[decision.device_ids[i]]
+            if decision.device_ids[i] >= 0 else [],
+        ))
+    return out
 
 
 class PointToPointBroker:
-    """One host's view of its groups. Instantiable per host identity."""
+    """One host's view of its groups. Instantiable per host identity, so
+    several hosts can run side by side in one process."""
 
     def __init__(self, host: str) -> None:
         self.host = host
@@ -62,8 +84,16 @@ class PointToPointBroker:
         self._mappings: dict[int, dict[int, PointToPointMapping]] = {}
         # group_id → set once the group's mappings are installed
         self._flags: dict[int, threading.Event] = {}
-        # (group, send, recv) → FIFO of payloads
-        self._queues: dict[tuple[int, int, int], queue.SimpleQueue] = {}
+        # (group, send, recv, channel) → FIFO of payloads
+        self._queues: dict[tuple[int, int, int, int], queue.SimpleQueue] = {}
+        # Sequence numbers of remote messages per queue: the next one
+        # this host sends, the next one it delivers, and those that
+        # arrived early
+        self._sent_seq: dict[tuple[int, int, int, int], int] = {}
+        self._recv_seq: dict[tuple[int, int, int, int], int] = {}
+        self._early: dict[tuple[int, int, int, int], dict[int, object]] = {}
+        self._groups: dict[int, PointToPointGroup] = {}
+        self._clients: dict[str, object] = {}
         self._aborted: dict[int, str] = {}
 
     # ------------------------------------------------------------------
@@ -72,18 +102,28 @@ class PointToPointBroker:
     def set_up_local_mappings_from_decision(self, decision) -> list[str]:
         """Install this host's view of a group; returns the hosts
         involved (reference setUpLocalMappingsFromSchedulingDecision)."""
+        group_id = decision.group_id
         with self._lock:
-            group = self._mappings.setdefault(decision.group_id, {})
-            for i in range(decision.n_messages):
-                group[decision.group_idxs[i]] = PointToPointMapping(
-                    host=decision.hosts[i],
-                    message_id=decision.message_ids[i],
-                    app_idx=decision.app_idxs[i],
-                    group_idx=decision.group_idxs[i],
-                    mpi_port=decision.mpi_ports[i],
-                    device_id=decision.device_ids[i])
-            self._flag(decision.group_id).set()
+            group = self._mappings.setdefault(group_id, {})
+            for m in mappings_from_decision(decision).mappings:
+                group[m.group_idx] = m
+            group_obj = self._groups.get(group_id)
+            if group_obj is None:
+                self._groups[group_id] = PointToPointGroup(
+                    self, decision.app_id, group_id, len(group))
+            else:
+                group_obj.group_size = len(group)
+            self._flag(group_id).set()
         return decision.unique_hosts()
+
+    def set_up_local_mappings_from_mappings(
+            self, mappings: PointToPointMappings) -> None:
+        from faabric_tpu_torch.batch_scheduler.decision import (
+            SchedulingDecision,
+        )
+
+        self.set_up_local_mappings_from_decision(
+            SchedulingDecision.from_point_to_point_mappings(mappings))
 
     def _flag(self, group_id: int) -> threading.Event:
         with self._lock:
@@ -94,7 +134,7 @@ class PointToPointBroker:
 
     def wait_for_mappings(self, group_id: int,
                           timeout: float | None = None) -> None:
-        timeout = MESSAGE_TIMEOUT_S if timeout is None else timeout
+        timeout = _timeout(timeout)
         if not self._flag(group_id).wait(timeout):
             raise TimeoutError(
                 f"no mappings for group {group_id} on {self.host} after "
@@ -107,13 +147,27 @@ class PointToPointBroker:
     def get_host_for_receiver(self, group_id: int, recv_idx: int) -> str:
         return self._mapping(group_id, recv_idx).host
 
+    def get_mpi_port_for_receiver(self, group_id: int, recv_idx: int) -> int:
+        return self._mapping(group_id, recv_idx).mpi_port
+
     def get_device_for_idx(self, group_id: int, idx: int) -> int:
-        return self._mapping(group_id, idx).device_id
+        devs = self._mapping(group_id, idx).device_ids
+        return devs[0] if devs else -1
+
+    def get_idxs_registered_for_host(self, group_id: int,
+                                     host: str) -> set[int]:
+        with self._lock:
+            return {idx for idx, m in self._mappings.get(group_id, {}).items()
+                    if m.host == host}
+
+    def group_size(self, group_id: int) -> int:
+        with self._lock:
+            return len(self._mappings.get(group_id, {}))
 
     # ------------------------------------------------------------------
     # Messaging
     # ------------------------------------------------------------------
-    def _queue(self, key: tuple[int, int, int]) -> queue.SimpleQueue:
+    def _queue(self, key: tuple[int, int, int, int]) -> queue.SimpleQueue:
         with self._lock:
             q = self._queues.get(key)
             if q is None:
@@ -121,34 +175,74 @@ class PointToPointBroker:
             return q
 
     def send_message(self, group_id: int, send_idx: int, recv_idx: int,
-                     data) -> None:
-        """Deliver ``data`` (any object) to ``recv_idx``'s queue."""
+                     data, channel: int = DATA_CHANNEL) -> None:
+        """Deliver ``data`` to ``recv_idx``'s queue: any object when the
+        receiver is on this host, bytes when it is on another."""
         self.wait_for_mappings(group_id)
         dst_host = self.get_host_for_receiver(group_id, recv_idx)
-        if dst_host != self.host:
-            raise NotImplementedError(
-                f"rank {recv_idx} of group {group_id} is on {dst_host}, not "
-                f"{self.host}: the remote legs are not ported")
-        self._queue((group_id, send_idx, recv_idx)).put(data)
+        key = (group_id, send_idx, recv_idx, channel)
+        if dst_host == self.host:
+            self._queue(key).put(data)
+            return
+        if not isinstance(data, (bytes, bytearray, memoryview)):
+            raise TypeError(
+                f"rank {recv_idx} of group {group_id} is on {dst_host}: a "
+                f"message to another host must be bytes, not "
+                f"{type(data).__name__}")
+        with self._lock:
+            seq = self._sent_seq.get(key, 0)
+            self._sent_seq[key] = seq + 1
+        self._get_client(dst_host).send_message(
+            group_id, send_idx, recv_idx, bytes(data), seq, channel)
+
+    def deliver(self, group_id: int, send_idx: int, recv_idx: int, data,
+                seq: int = NO_SEQUENCE_NUM,
+                channel: int = DATA_CHANNEL) -> None:
+        """Enqueue a message that arrived from another host, in the
+        order of its sequence number; one without a number goes in at
+        once."""
+        key = (group_id, send_idx, recv_idx, channel)
+        if seq == NO_SEQUENCE_NUM:
+            self._queue(key).put(data)
+            return
+        with self._lock:
+            expected = self._recv_seq.get(key, 0)
+            if seq < expected:
+                return  # a duplicate of a delivered message
+            early = self._early.setdefault(key, {})
+            early[seq] = data
+            q = self._queue(key)
+            while expected in early:
+                q.put(early.pop(expected))
+                expected += 1
+            self._recv_seq[key] = expected
 
     def recv_message(self, group_id: int, send_idx: int, recv_idx: int,
-                     timeout: float | None = None):
+                     timeout: float | None = None,
+                     channel: int = DATA_CHANNEL):
         """The next payload from ``send_idx`` to ``recv_idx``, in send
         order. Raises GroupAbortedError after an abort and TimeoutError
-        after ``timeout`` seconds."""
+        after ``timeout`` seconds (the global message timeout when
+        None)."""
         self._raise_if_aborted(group_id)
-        timeout = MESSAGE_TIMEOUT_S if timeout is None else timeout
+        key = (group_id, send_idx, recv_idx, channel)
         try:
-            data = self._queue((group_id, send_idx, recv_idx)).get(
-                timeout=timeout)
+            data = self._queue(key).get(timeout=_timeout(timeout))
         except queue.Empty as e:
-            raise TimeoutError(
-                f"PTP recv timed out on {(group_id, send_idx, recv_idx)}"
-            ) from e
+            raise TimeoutError(f"PTP recv timed out on {key}") from e
         if data is _ABORT:
             raise GroupAbortedError(group_id,
                                     self.group_aborted(group_id) or "")
         return data
+
+    def _get_client(self, host: str):
+        from faabric_tpu_torch.transport.ptp_remote import PointToPointClient
+
+        with self._lock:
+            client = self._clients.get(host)
+            if client is None:
+                client = self._clients[host] = PointToPointClient(host)
+            return client
 
     # ------------------------------------------------------------------
     # Abort
@@ -173,9 +267,181 @@ class PointToPointBroker:
         if reason is not None:
             raise GroupAbortedError(group_id, reason)
 
+    # ------------------------------------------------------------------
+    # Groups
+    # ------------------------------------------------------------------
+    def get_group(self, group_id: int) -> "PointToPointGroup":
+        with self._lock:
+            group = self._groups.get(group_id)
+            if group is None:
+                raise KeyError(
+                    f"Group {group_id} not registered on {self.host}")
+            return group
+
+    def group_exists(self, group_id: int) -> bool:
+        with self._lock:
+            return group_id in self._groups
+
+    def clear_group(self, group_id: int) -> None:
+        """Drop a finished group's state (the planner sends this once the
+        group's app completes)."""
+        with self._lock:
+            self._groups.pop(group_id, None)
+            self._mappings.pop(group_id, None)
+            self._flags.pop(group_id, None)
+            self._aborted.pop(group_id, None)
+            for d in (self._queues, self._sent_seq, self._recv_seq,
+                      self._early):
+                for key in [k for k in d if k[0] == group_id]:
+                    del d[key]
+
     def clear(self) -> None:
         with self._lock:
-            self._mappings.clear()
-            self._flags.clear()
-            self._queues.clear()
-            self._aborted.clear()
+            for d in (self._groups, self._mappings, self._flags,
+                      self._queues, self._sent_seq, self._recv_seq,
+                      self._early, self._aborted):
+                d.clear()
+            clients = list(self._clients.values())
+            self._clients.clear()
+        for c in clients:
+            c.close()
+
+
+class PointToPointGroup:
+    """Coordination for one group: the main idx (0) holds the lock
+    state; lock, barrier and notify ride point-to-point messages on the
+    coordination channel (reference PointToPointBroker.h:26-97)."""
+
+    def __init__(self, broker: PointToPointBroker, app_id: int,
+                 group_id: int, group_size: int) -> None:
+        self.broker = broker
+        self.app_id = app_id
+        self.group_id = group_id
+        self.group_size = group_size
+
+        self._mx = threading.RLock()
+        self._lock_owner_idx = NO_LOCK_OWNER_IDX
+        self._recursive_owners: list[int] = []
+        # Waiters remember whether they asked for a recursive lock, so a
+        # grant restores the right kind of ownership
+        self._lock_waiters: list[tuple[int, bool]] = []
+        self._local_barrier: threading.Barrier | None = None
+
+    def _main_host(self) -> str:
+        return self.broker.get_host_for_receiver(self.group_id,
+                                                 POINT_TO_POINT_MAIN_IDX)
+
+    def _signal(self, send_idx: int, recv_idx: int) -> None:
+        self.broker.send_message(self.group_id, send_idx, recv_idx, b"\x00",
+                                 channel=COORD_CHANNEL)
+
+    def _await(self, send_idx: int, recv_idx: int,
+               timeout: float | None = None) -> None:
+        self.broker.recv_message(self.group_id, send_idx, recv_idx,
+                                 timeout=timeout, channel=COORD_CHANNEL)
+
+    # ------------------------------------------------------------------
+    # Distributed lock
+    # ------------------------------------------------------------------
+    def lock(self, group_idx: int, recursive: bool = False) -> None:
+        if self._main_host() != self.broker.host:
+            # Ask the main host, then wait for the grant
+            self.broker._get_client(self._main_host()).group_lock(
+                self.app_id, self.group_id, group_idx, recursive)
+            self._await(POINT_TO_POINT_MAIN_IDX, group_idx)
+            return
+        with self._mx:
+            # Recursive and plain ownership exclude each other
+            free_of_plain = self._lock_owner_idx == NO_LOCK_OWNER_IDX
+            acquired = False
+            if recursive and free_of_plain and (
+                    not self._recursive_owners
+                    or self._recursive_owners[-1] == group_idx):
+                self._recursive_owners.append(group_idx)
+                acquired = True
+            elif (not recursive and free_of_plain
+                    and not self._recursive_owners):
+                self._lock_owner_idx = group_idx
+                acquired = True
+            if not acquired:
+                self._lock_waiters.append((group_idx, recursive))
+        locker_is_local = self.broker.get_host_for_receiver(
+            self.group_id, group_idx) == self.broker.host
+        if acquired:
+            if not locker_is_local:
+                self._signal(POINT_TO_POINT_MAIN_IDX, group_idx)
+        elif locker_is_local:
+            self._await(POINT_TO_POINT_MAIN_IDX, group_idx)
+        # A queued remote locker is granted by unlock() later
+
+    def unlock(self, group_idx: int, recursive: bool = False) -> None:
+        if self._main_host() != self.broker.host:
+            self.broker._get_client(self._main_host()).group_unlock(
+                self.app_id, self.group_id, group_idx, recursive)
+            return
+        with self._mx:
+            if recursive:
+                if self._recursive_owners:
+                    self._recursive_owners.pop()
+                if self._recursive_owners:
+                    return
+            else:
+                self._lock_owner_idx = NO_LOCK_OWNER_IDX
+            if not self._lock_waiters:
+                return
+            nxt, nxt_recursive = self._lock_waiters.pop(0)
+            if nxt_recursive:
+                self._recursive_owners.append(nxt)
+            else:
+                self._lock_owner_idx = nxt
+        self._signal(POINT_TO_POINT_MAIN_IDX, nxt)
+
+    def get_lock_owner(self, recursive: bool = False) -> int:
+        with self._mx:
+            if recursive:
+                return (self._recursive_owners[-1]
+                        if self._recursive_owners else NO_LOCK_OWNER_IDX)
+            return self._lock_owner_idx
+
+    # ------------------------------------------------------------------
+    # Barrier / notify
+    # ------------------------------------------------------------------
+    def is_single_host(self) -> bool:
+        return len(self.broker.get_idxs_registered_for_host(
+            self.group_id, self.broker.host)) == self.group_size
+
+    def barrier(self, group_idx: int, timeout: float | None = None) -> None:
+        """Every member waits until all have arrived; raises TimeoutError
+        after ``timeout`` seconds (the global message timeout when
+        None)."""
+        timeout = _timeout(timeout)
+        if self.is_single_host():
+            with self._mx:
+                if (self._local_barrier is None
+                        or self._local_barrier.parties != self.group_size):
+                    self._local_barrier = threading.Barrier(self.group_size)
+                barrier = self._local_barrier
+            try:
+                barrier.wait(timeout)
+            except threading.BrokenBarrierError as e:
+                raise TimeoutError(
+                    f"barrier of group {self.group_id} broken or timed out "
+                    f"after {timeout} s") from e
+            return
+        if group_idx == POINT_TO_POINT_MAIN_IDX:
+            for i in range(1, self.group_size):
+                self._await(i, POINT_TO_POINT_MAIN_IDX, timeout)
+            for i in range(1, self.group_size):
+                self._signal(POINT_TO_POINT_MAIN_IDX, i)
+        else:
+            self._signal(group_idx, POINT_TO_POINT_MAIN_IDX)
+            self._await(POINT_TO_POINT_MAIN_IDX, group_idx, timeout)
+
+    def notify(self, group_idx: int, timeout: float | None = None) -> None:
+        """Non-main idxs signal the main, which waits for all of them
+        (reference PointToPointBroker.cpp:348-365)."""
+        if group_idx == POINT_TO_POINT_MAIN_IDX:
+            for i in range(1, self.group_size):
+                self._await(i, POINT_TO_POINT_MAIN_IDX, timeout)
+        else:
+            self._signal(group_idx, POINT_TO_POINT_MAIN_IDX)

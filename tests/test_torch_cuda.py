@@ -42,7 +42,7 @@ def cuda_device():
 # so a different summation order moves at most one ulp of |out| < 8.
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,d", [(4096, 512), (8, 512), (333, 1000),
-                                    (5, 8192)])
+                                    (5, 8192), (512, 512), (1, 512)])
 @pytest.mark.parametrize("dtype,atol", [("float32", 1e-5), ("bfloat16", 3.2e-2)])
 def test_rms_norm_kernel_matches_plain(cuda_device, rows, d, dtype, atol):
     gen = torch.Generator(device=cuda_device).manual_seed(rows + d)
@@ -56,6 +56,40 @@ def test_rms_norm_kernel_matches_plain(cuda_device, rows, d, dtype, atol):
     torch.testing.assert_close(out.float(),
                                _reference_rms_norm(x, scale).float(),
                                atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_kernel_launches_from_threads_are_counted_exactly(cuda_device):
+    """Executor threads launch kernels at once on one card: every launch
+    is counted and every result matches the plain version."""
+    import threading
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    xs = [torch.randn(512, 512, device=cuda_device, generator=gen).to(
+        torch.bfloat16) for _ in range(8)]
+    scale = torch.rand(512, device=cuda_device, generator=gen) + 0.5
+    want = [_reference_rms_norm(x, scale) for x in xs]
+    before = _build.LAUNCHES["rms_norm"]
+    errors = []
+
+    def run(i):
+        try:
+            for _ in range(50):
+                out = rms_norm(xs[i], scale)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out.float(), want[i].float(),
+                                       atol=3.2e-2, rtol=0)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    ts = [threading.Thread(target=run, args=(i,)) for i in range(8)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in ts)
+    assert not errors, errors
+    assert _build.LAUNCHES["rms_norm"] == before + 8 * 50
 
 
 # bf16 at the JAX package's bf16 flash tolerance (3e-2): the kernel rounds
@@ -160,8 +194,9 @@ def fwd_key_step(b, s_q, h):
 
 # (b, s_q, s_k, h, causal, layout, keys): the serving shape, the
 # end-aligned offset (S_q < S_k), non-causal, ragged lengths both ways,
-# long, and the model's QKV views, each on the key step its grid takes on
-# the H100 (132 SMs). O and lse are each held at the bf16 flash tolerance.
+# long, and the model's QKV views (1 x 512: a request served through the
+# planner), each on the key step its grid takes on the H100 (132 SMs).
+# O and lse are each held at the bf16 flash tolerance.
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s_q,s_k,h,causal,layout,keys", [
     (8, 512, 512, 8, True, "separate", 64),
@@ -175,6 +210,7 @@ def fwd_key_step(b, s_q, h):
     (1, 2048, 2048, 8, True, "separate", 128),
     (2, 192, 192, 4, True, "qkv_views", 128),
     (8, 520, 520, 8, True, "qkv_views", 64),
+    (1, 512, 512, 8, True, "qkv_views", 128),
 ])
 def test_flash_fwd_wgmma_body_matches_plain(cuda_device, b, s_q, s_k, h,
                                             causal, layout, keys):

@@ -116,6 +116,91 @@ def test_rms_norm_gradients_match_jax_vjp():
     np.testing.assert_allclose(as_np(ts.grad), as_np(jgs), atol=1e-4)
 
 
+def test_rms_norm_bf16_gradients_match_jax_vjp():
+    """bf16: the backward differentiates the JAX package's
+    ``_reference_rms_norm`` (products in x's dtype). gx agrees with
+    jax.vjp within one bf16 ulp at |gx| < 8 (the file's bf16 tolerance,
+    3.2e-2). g_scale sums 256 rows of bf16 products: the port equals the
+    fp32-accumulated sum of JAX's own products (jnp.sum) bit for bit,
+    where XLA's vjp on the CPU accumulates the same products in bf16."""
+    rng = np.random.RandomState(1)
+    x = rng.randn(2, 128, 512).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, 512).astype(np.float32)
+    g = rng.randn(2, 128, 512).astype(np.float32)
+    (jx, tx), (jg, tg) = both(x, "bfloat16"), both(g, "bfloat16")
+    js, ts = both(scale)
+    _, vjp = jax.vjp(jax_rms_norm, jx, js)
+    jgx, _ = vjp(jg)
+    tx.requires_grad_()
+    ts.requires_grad_()
+    rms_norm(tx, ts).backward(tg)
+    assert tx.grad.dtype == torch.bfloat16 and ts.grad.dtype == torch.float32
+    assert np.abs(as_np(jgx)).max() < 8
+    np.testing.assert_allclose(as_np(tx.grad), as_np(jgx), atol=3.2e-2)
+    var = jnp.mean(jnp.square(jx.astype(jnp.float32)), -1, keepdims=True)
+    normed = jx * jax.lax.rsqrt(var + 1e-6).astype(jnp.bfloat16)
+    want_gs = jnp.sum((jg * normed).reshape(-1, 512), axis=0)
+    np.testing.assert_array_equal(as_np(ts.grad), as_np(want_gs))
+
+
+def test_kernel_build_runs_once_for_concurrent_first_callers(monkeypatch):
+    """Executor threads may call ``kernels()`` first at the same time:
+    one build runs, and every caller gets its result."""
+    import threading
+
+    calls = []
+    started = threading.Event()
+
+    def slow_load():
+        calls.append(1)
+        started.set()
+        threading.Event().wait(0.2)
+        return object()
+
+    monkeypatch.setattr(_build, "_load", slow_load)
+    monkeypatch.setattr(_build, "_kernels", None)
+    got = [None] * 8
+    barrier = threading.Barrier(8)
+
+    def call(i):
+        barrier.wait(10)
+        got[i] = _build.kernels()
+
+    ts = [threading.Thread(target=call, args=(i,)) for i in range(8)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in ts)
+    assert len(calls) == 1 and started.is_set()
+    assert all(k is got[0] for k in got) and got[0] is not None
+
+
+def test_launch_counts_are_exact_under_threads(monkeypatch):
+    """count_launch is a locked read-modify-write: no count is lost when
+    threads count at once (switch interval shortened to interleave)."""
+    import sys
+    import threading
+
+    monkeypatch.setattr(_build, "LAUNCHES", type(_build.LAUNCHES)())
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def count():
+            for _ in range(2000):
+                _build.count_launch("k", "k.body")
+
+        ts = [threading.Thread(target=count) for _ in range(8)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in ts)
+    assert dict(_build.LAUNCHES) == {"k": 16000, "k.body": 16000}
+
+
 def test_rms_norm_rejects_other_devices():
     x = torch.empty(4, 8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):

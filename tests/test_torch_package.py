@@ -20,6 +20,15 @@ def test_importing_every_module_pulls_in_no_jax_and_no_faabric_tpu():
     assert "faabric_tpu_torch.ops.flash_attention" in modules
     assert {"faabric_tpu_torch.mpi.world", "faabric_tpu_torch.device_plane",
             "faabric_tpu_torch.ops.ring_permute"} <= set(modules)
+    # The control plane: proto, transport, scheduling, planner, executors
+    assert {"faabric_tpu_torch.proto", "faabric_tpu_torch.util.network",
+            "faabric_tpu_torch.transport.ptp_remote",
+            "faabric_tpu_torch.batch_scheduler.bin_pack",
+            "faabric_tpu_torch.planner.planner",
+            "faabric_tpu_torch.planner.server",
+            "faabric_tpu_torch.scheduler.scheduler",
+            "faabric_tpu_torch.executor.torch_executor",
+            "faabric_tpu_torch.runner.runtime"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
@@ -97,3 +106,17 @@ def test_device_plane_activation_raises_without_cuda_unless_cpu_is_asked(
     assert world.device_plane() is None
     assert world.activate_device_plane(0, device="cpu")
     assert world.device_plane().device == torch.device("cpu")
+
+
+def test_torch_executor_factory_raises_without_cuda_unless_cpu_is_asked(
+        no_cuda):
+    from faabric_tpu_torch.executor import TorchExecutorFactory
+    from faabric_tpu_torch.proto import message_factory
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchExecutorFactory()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchExecutorFactory("cuda")
+    executor = TorchExecutorFactory("cpu").create_executor(
+        message_factory("demo", "fn"))
+    assert executor.device_type == "cpu"
