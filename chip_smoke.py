@@ -22,9 +22,14 @@ kernel. faabric's own path: a planner and a worker runtime in this
 process gang-schedule 4 ranks (barrier, ring handoff), then serve 8
 requests of 512-token prompts through torch guest functions on executor
 threads, each scoring its prompt and generating 32 greedy tokens with
-the full-width model on the card. For each path it checks the outputs
-and shows from the kernels' launch counts that the path ran through
-them; it times the kernels, their plain versions and the nearest
+the full-width model on the card. The mesh path: the port's
+``dryrun_multichip`` (gang scheduling, a device allreduce, one sharded
+train step) with 8 ranks (dp 2, tp 2, sp 2) and with 4 (dp 2, tp 2), all
+on the one card, at full width; ring attention over 8 ranks against the
+same schedule with plain blocks; the sharded step against the unsharded
+one on the same weights; three full-width sharded steps. For each path
+it checks the outputs and shows from the kernels' launch counts that
+the path ran through them; it times the kernels, their plain versions and the nearest
 PyTorch library calls, and prints one JSON line of kernel numbers (the
 serving kernels' launches summed over the direct serving path and the
 executors) and, last, the device line.
@@ -149,7 +154,7 @@ def host_ms(fn, iters: int = 5) -> float:
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
 
 
 def check(ok: bool, what: str) -> None:
@@ -670,6 +675,322 @@ def faabric_phase(dev, model, build) -> dict:
         clear_registered_functions()
         set_executor_factory(None)
         clear_host_aliases()
+    return launches
+
+
+def mesh_phase(dev, build, unsharded_step: tuple[float, float]) -> dict:
+    """Phase 14: the port's ``dryrun_multichip`` on the card. Stages 1-3
+    with 8 ranks (tp 2, sp 2, dp 2) and with 4 (tp 2, dp 2), every rank
+    on ``dev``, at full width (``ModelConfig()``, head dim 64, bf16
+    compute). Then, on the 8-rank mesh: ring attention with the kernels
+    against the same schedule with plain blocks at the ring's block shape;
+    the sharded step against the unsharded one on the same weights and
+    8 x 512 batch (fp32 compute at one layer: loss, gradients and updated
+    parameters; bf16 at full width: the loss); three full-width bf16
+    steps whose launches must be the schedule's (the main path of the
+    phase, counts reset before and read after); one step of the 4-rank
+    mesh likewise; timings, and the kernels' times at the ring blocks'
+    shape. ``unsharded_step`` is phase 10's (host ms, device busy µs) of
+    the unsharded step. Returns the main path's launches."""
+    from faabric_tpu_torch.entry import dryrun_multichip
+    from faabric_tpu_torch.models import (
+        ModelConfig,
+        Transformer,
+        data_sharding,
+        loss_fn,
+        make_optimizer,
+        make_train_step,
+        params_to_numpy,
+        shard_params,
+    )
+    from faabric_tpu_torch.ops.flash_attention import (
+        _kernel_flash,
+        _kernel_flash_bwd_dkv,
+        _kernel_flash_bwd_dq,
+        _reference_attention,
+    )
+    from faabric_tpu_torch.models.transformer import _leaves
+    from faabric_tpu_torch.ops.ring_permute import ring_permute
+    from faabric_tpu_torch.parallel import (
+        DeviceCollectives,
+        MeshConfig,
+        ShardSpec,
+        build_mesh,
+        ring_attention,
+    )
+    from faabric_tpu_torch.parallel.ring_attention import (
+        _flash_block,
+        _plain_block,
+        _ring,
+        schedule_counts,
+    )
+
+    log("phase 14: dryrun_multichip stages 1-3 on the card, full width")
+    cfg = ModelConfig()
+    for n in (8, 4):
+        t0 = time.perf_counter()
+        loss = dryrun_multichip(n, cfg=cfg)
+        check(np.isfinite(loss), f"dryrun_multichip({n}): gang, allreduce "
+              f"vs numpy, one step over the mesh at full width; loss "
+              f"{loss:.4f} ({(time.perf_counter() - t0) * 1e3:.0f} ms)")
+
+    mesh = build_mesh([dev] * 8, MeshConfig(tp=2, sp=2))
+    shard = data_sharding(mesh).shard
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    # -- 14b. ring attention: kernels against plain blocks ------------------
+    spec = ShardSpec(mesh, ("dp", "sp", "tp", None))
+    # Each rank's q, k, v as views of its own (4, 256, 3, 4, 64) product,
+    # as the model passes them
+    pieces = spec.shard(torch.randn(8, 512, 8, 3, 64, device=dev,
+                                    generator=gen))
+    per_rank = [t.transpose(2, 3).contiguous() for t in pieces]
+    cot = spec.shard(torch.randn(8, 512, 8, 64, device=dev, generator=gen))
+
+    class PlainRing:
+        """The K/V rotation in plain PyTorch (list indexing, which
+        autograd differentiates), so that the plain schedule runs neither
+        the flash kernels nor the ring kernel."""
+
+        def __init__(self, n):
+            self.n = n
+
+        def shift(self, xs, disp=1):
+            return [xs[(r - disp) % self.n].clone() for r in range(self.n)]
+
+    def plain_ring_attention(q, k, v):
+        out = [None] * mesh.size
+        for ranks in mesh.groups("sp"):
+            ys = _ring(PlainRing(len(ranks)), [q[r] for r in ranks],
+                       [k[r] for r in ranks], [v[r] for r in ranks], True,
+                       _plain_block)
+            for r, y in zip(ranks, ys):
+                out[r] = y
+        return out
+
+    def ring_run(kernels, dtype):
+        qkv = [t.to(dtype) for t in per_rank]
+        ts = [[t[:, :, i].detach().requires_grad_() for t in qkv]
+              for i in range(3)]
+        out = (ring_attention(*ts, mesh, block=_flash_block) if kernels
+               else plain_ring_attention(*ts))
+        torch.autograd.backward(out, [c.to(dtype) for c in cot])
+        return out, [[t.grad for t in x] for x in ts]
+
+    build.reset_launch_counts()
+    out_k, grads_k = ring_run(True, torch.bfloat16)
+    torch.cuda.synchronize()
+    ring_counts = dict(build.LAUNCHES)
+    once = schedule_counts(8, 2)
+    check(all(ring_counts.get(f"{n}.wgmma", 0) == once["flash_attention"]
+              for n in ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv"))
+          and ring_counts.get("ring_permute", 0) == 2 * once["ring_permute"],
+          f"ring attention over 8 ranks: {once['flash_attention']} flash "
+          f"forwards, dQ and dK/dV passes, all wgmma, and "
+          f"{2 * once['ring_permute']} ring launches ({ring_counts})")
+    build.reset_launch_counts()
+    out_p, grads_p = ring_run(False, torch.bfloat16)
+    out_32, grads_32 = ring_run(False, torch.float32)
+    torch.cuda.synchronize()
+    check(sum(build.LAUNCHES.values()) == 0,
+          f"the plain ring schedule launched no kernel ({build.LAUNCHES})")
+    ring_err = max(max_err(a, b) for a, b in zip(out_k, out_p))
+    check(ring_err <= FLASH_ATOL[torch.bfloat16],
+          f"ring attention bf16 out vs plain blocks: max |err| {ring_err:.3g}")
+    for name, gk, gp, g32 in zip("qkv", grads_k, grads_p, grads_32):
+        close_or_as_close(torch.cat(gk), torch.cat(gp), torch.cat(g32),
+                          f"ring attention d{name} (8 ranks of (4, 256, 4, "
+                          f"64)) bf16")
+    del out_k, grads_k, out_p, grads_p, out_32, grads_32, per_rank, pieces
+
+    # -- 14c. sharded against unsharded, same weights and batch -------------
+    rng = np.random.RandomState(0)
+    batches = [[rng.randint(0, cfg.vocab_size, (8, 512)).astype(np.int32)
+                for _ in range(2)] for _ in range(3)]
+    tok_np, tgt_np = batches[0]
+    tok_t, tgt_t = (torch.as_tensor(a, device=dev) for a in batches[0])
+    spec_opt = make_optimizer()
+
+    cfg32 = dataclasses.replace(cfg, n_layers=1, compute_dtype=torch.float32)
+    plain = Transformer(cfg32, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    sharded = shard_params(plain, mesh, cfg32)
+    loss_p = float(make_train_step(cfg32, spec_opt)(
+        plain, spec_opt.init(plain), tok_t, tgt_t))
+    grads_p = {n: p.grad.clone() for n, p in plain.named_parameters()}
+    loss_s = float(make_train_step(cfg32, spec_opt)(
+        sharded, spec_opt.init(sharded), shard(tok_np), shard(tgt_np))[0])
+    check(abs(loss_s - loss_p) <= 1e-4,
+          f"fp32, 1 layer: sharded loss {loss_s:.6f} vs unsharded "
+          f"{loss_p:.6f} (|diff| {abs(loss_s - loss_p):.2e}, limit 1e-4)")
+    worst = 0.0
+    for name, pspec in sharded.specs.items():
+        g = pspec.gather([p.grad for p in sharded.copies(name)])
+        worst = max(worst, float((g - grads_p[name]).norm()
+                                 / grads_p[name].norm()))
+    check(worst <= 1e-4, f"fp32 gradients, gathered from the shards: worst "
+          f"relative L2 error {worst:.2e} (limit 1e-4)")
+    flat = [(a, b) for (_, a), (_, b) in zip(
+        _leaves(params_to_numpy(sharded)), _leaves(params_to_numpy(plain)))]
+    # AdamW's first step moves an element by about lr·sign(g): where |g|
+    # is within summation noise of 0 it may go either way (up to lr)
+    err_max = max(float(np.abs(a - b).max()) for a, b in flat)
+    loose = sum(int((np.abs(a - b) > 2e-6).sum()) for a, b in flat)
+    total = sum(a.size for a, _ in flat)
+    check(err_max <= spec_opt.lr and loose <= 1e-3 * total,
+          f"fp32 updated parameters: max |diff| {err_max:.2e} (limit lr "
+          f"{spec_opt.lr}), {loose} of {total} beyond 2e-6")
+    del plain, sharded, grads_p, flat
+
+    model_p = Transformer(cfg, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(0))
+    model = shard_params(model_p, mesh, cfg)
+    with torch.no_grad():
+        bf_p = float(loss_fn(model_p, tok_t, tgt_t))
+        bf_s = float(loss_fn(model, shard(tok_np), shard(tgt_np))[0])
+    check(abs(bf_s - bf_p) <= 2e-2,
+          f"bf16, full width: sharded loss {bf_s:.5f} vs unsharded "
+          f"{bf_p:.5f} (|diff| {abs(bf_s - bf_p):.2e}, limit 2e-2, 0.2% of "
+          f"the loss)")
+    del model_p
+
+    # -- 14d. the main path: three full-width steps over 8 ranks -----------
+    opt = spec_opt.init(model)
+    step = make_train_step(cfg, spec_opt)
+    shards = [(shard(t), shard(y)) for t, y in batches]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    losses = [step(model, opt, *b)[0] for b in shards]
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in losses]
+    log(f"mesh path launches (3 steps): {launches}")
+    check(all(np.isfinite(losses)), "three full-width steps over 8 ranks, "
+          f"losses {', '.join(f'{x:.4f}' for x in losses)}")
+
+    def expect(n, sp, steps):
+        per = (schedule_counts(n, sp) if sp > 1
+               else {"flash_attention": n, "ring_permute": 0})
+        layers = cfg.n_layers
+        return {"flash_attention": steps * 2 * layers * per["flash_attention"],
+                "flash_bwd_dq": steps * layers * per["flash_attention"],
+                "flash_bwd_dkv": steps * layers * per["flash_attention"],
+                "ring_permute": steps * 3 * layers * per["ring_permute"]}
+
+    def check_counts(got, want, label):
+        for name, n in want.items():
+            bodies = (got.get(name, 0) if name == "ring_permute"
+                      else got.get(f"{name}.wgmma", 0))
+            check(got.get(name, 0) == n and bodies == n,
+                  f"{label}: {name} launched {got.get(name, 0)} times, the "
+                  f"schedule's {n}"
+                  + ("" if name == "ring_permute" else ", all wgmma"))
+        check(got.get("rms_norm", 0) == 0,
+              f"{label}: no RMS-norm kernel (a mesh takes the plain norm)")
+
+    check_counts(launches, expect(8, 2, 3), "8 ranks, 3 steps")
+    mesh4 = build_mesh([dev] * 4, MeshConfig(tp=2))
+    m4 = shard_params(Transformer(cfg, device=dev), mesh4, cfg)
+    step4 = make_train_step(cfg, spec_opt)
+    shard4 = data_sharding(mesh4).shard
+    build.reset_launch_counts()
+    loss4 = float(step4(m4, spec_opt.init(m4), shard4(tok_np),
+                        shard4(tgt_np))[0])
+    torch.cuda.synchronize()
+    check(np.isfinite(loss4), f"one step over 4 ranks (tp 2, dp 2): loss "
+          f"{loss4:.4f}")
+    check_counts(dict(build.LAUNCHES), expect(4, 1, 1), "4 ranks, 1 step")
+    del m4, step4
+
+    # -- 14e. timings ----------------------------------------------------------
+    tok, tgt = shards[0]
+    step_ms = host_ms(lambda: step(model, opt, tok, tgt), iters=3)
+    busy_us, by_kernel = profile_top(lambda: step(model, opt, tok, tgt),
+                                     "sharded train step, 8 ranks on one "
+                                     "card, 8x512", top=8)
+    ring_us = sum(t for n, t in by_kernel.items() if "ring_permute" in n)
+    flash_us = sum(t for n, t in by_kernel.items() if "flash" in n)
+    log(f"sharded step 8x512 over 8 ranks (dp 2, tp 2, sp 2) on {dev}: "
+        f"{step_ms:.1f} ms wall, device busy {busy_us / 1e3:.2f} ms "
+        f"({flash_us:.1f} us in the flash kernels, {ring_us:.1f} us in "
+        f"the ring kernel); the unsharded step (phase 10): "
+        f"{unsharded_step[0]:.1f} ms wall, {unsharded_step[1] / 1e3:.2f} ms "
+        f"busy; peak memory over the 3 steps {peak_gib:.3f} GiB")
+
+    # The kernels at the ring blocks' shape, causal (diagonal) and not
+    # (past), beside SDPA there
+    times = {}
+    b, s, h, d = 4, 256, 4, 64
+    q, k, v, do = (torch.randn(b, s, h, d, device=dev, generator=gen
+                               ).to(torch.bfloat16) for _ in range(4))
+    qt, kt, vt, dot_ = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (qt, kt, vt))
+    for causal in (True, False):
+        out, lse = _kernel_flash(q, k, v, causal)
+        _, delta = _kernel_flash_bwd_dq(q, k, v, do, out, lse, None, causal)
+
+        def sdpa_bwd():
+            o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+            torch.autograd.grad(o, (qg, kg, vg), dot_)
+
+        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal))
+        times[causal] = {
+            "fwd": time_ms(lambda: _kernel_flash(q, k, v, causal)),
+            "dq": time_ms(lambda: _kernel_flash_bwd_dq(q, k, v, do, out, lse,
+                                                       None, causal)),
+            "dkv": time_ms(lambda: _kernel_flash_bwd_dkv(q, k, v, do, lse,
+                                                         delta, causal)),
+            "plain_fwd": time_ms(lambda: _reference_attention(q, k, v,
+                                                              causal)),
+            "sdpa_fwd": sdpa_fwd, "sdpa_bwd": time_ms(sdpa_bwd) - sdpa_fwd}
+        pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+        bound = max((4 * q.numel() * 2 + b * h * s * 4) / HBM_BYTES_PER_S,
+                    4 * d * pairs / BF16_FLOP_PER_S) * 1e3
+        t = times[causal]
+        log(f"({b}, {s}, {h}, {d}) bf16 {'causal' if causal else 'non-causal'}"
+            f" [wgmma]: forward {t['fwd']:.5f} ms (bound {bound:.5f}, plain "
+            f"{t['plain_fwd']:.4f}, sdpa {t['sdpa_fwd']:.5f}); dQ "
+            f"{t['dq']:.5f} + dK/dV {t['dkv']:.5f} = "
+            f"{t['dq'] + t['dkv']:.5f} ms (sdpa backward {t['sdpa_bwd']:.5f})")
+    kv = [torch.randn(b, s, h, d, device=dev, generator=gen).to(torch.bfloat16)
+          for _ in range(2)]
+    # The ring kernel at the main path's blocks, bitwise against its plain
+    # version: rings of 2 (sp), shifted forward (+1) and back (-1, the
+    # backward's inverse shift), and a ring of 4 where the two differ
+    for ring in (kv, kv + [t.flip(0).contiguous() for t in kv]):
+        m = len(ring)
+        for disp in (1, -1):
+            got = ring_permute(ring, disp)
+            want = [ring[(r - disp) % m] for r in range(m)]
+            check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                  f"ring_permute of {m} (4, 256, 4, 64) bf16 blocks by "
+                  f"{disp:+d}: bitwise the plain rotation")
+    # The differentiable shift on K views of a QKV product, as the model
+    # hands them over: the forward and the inverse shift of the
+    # cotangents, bitwise against list indexing
+    qkv2 = [torch.randn(b, s, 3, h, d, device=dev, generator=gen
+                        ).to(torch.bfloat16) for _ in range(2)]
+    ks = [t[:, :, 1].detach().requires_grad_() for t in qkv2]
+    gs = [torch.randn_like(k) for k in ks]
+    build.reset_launch_counts()
+    moved = DeviceCollectives([dev, dev]).shift(ks, 1)
+    torch.autograd.backward(moved, gs)
+    torch.cuda.synchronize()
+    check(build.LAUNCHES["ring_permute"] == 2
+          and all(torch.equal(moved[r], ks[(r - 1) % 2]) for r in range(2))
+          and all(torch.equal(ks[r].grad, gs[(r + 1) % 2])
+                  for r in range(2)),
+          "differentiable shift over a ring of 2 on strided K views: one "
+          "ring launch forward and one backward, both bitwise the plain "
+          "rotation")
+    ring_ms = time_ms(lambda: ring_permute(kv, 1))
+    log(f"ring_permute of a K block over a ring of 2 ((4, 256, 4, 64) bf16):"
+        f" {ring_ms:.5f} ms (bound {4 * kv[0].numel() * 2 / HBM_BYTES_PER_S * 1e3:.5f})")
+    del model, opt, shards
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1240,11 +1561,20 @@ def main() -> int:
 
     # -- 13. faabric's own path: planner, worker, executors ---------------
     faabric_launches = faabric_phase(dev, model, _build)
-    # The serving kernels' launches: the direct serving path's (phase 5)
-    # and the executors' (phase 13)
-    serve_launches = {name: launches.get(name, 0)
-                      + faabric_launches.get(name, 0)
-                      for name in ("rms_norm", "flash_attention")}
+    # -- 14. dryrun_multichip stages 1-3 and the sharded step -------------
+    mesh_launches = mesh_phase(dev, _build, (step_ms, step_busy))
+    # Each row's launches: the serving kernels' on the direct serving
+    # path (phase 5) and under the executors (13), the backward kernels'
+    # on the training path (9), the ring kernel's on the MPI path (12),
+    # and every flash and ring launch of the mesh path (14)
+    path_launches = {
+        name: sum(p.get(name, 0) for p in paths) + mesh_launches.get(name, 0)
+        for name, paths in (
+            ("rms_norm", (launches, faabric_launches)),
+            ("flash_attention", (launches, faabric_launches)),
+            ("flash_bwd_dq", (train_launches,)),
+            ("flash_bwd_dkv", (train_launches,)),
+            ("ring_permute", (mpi_launches,)))}
 
     def row(name, source, replaces, t, bounds, err, path_launches,
             body=None):
@@ -1259,20 +1589,20 @@ def main() -> int:
     kernels = [
         row("rms_norm", "faabric_tpu_torch/ops/csrc/rms_norm.cu",
             "faabric_tpu/ops/rms_norm.py:26", rms, rms_bounds,
-            errs["rms_norm"], serve_launches),
+            errs["rms_norm"], path_launches),
         row("flash_attention", "faabric_tpu_torch/ops/csrc/flash_attention.cu",
             "faabric_tpu/ops/flash_attention.py:61", fl, fl_bounds,
-            errs["flash_attention"], serve_launches, "wgmma"),
+            errs["flash_attention"], path_launches, "wgmma"),
         row("flash_bwd_dq", "faabric_tpu_torch/ops/csrc/flash_attention_bwd.cu",
             "faabric_tpu/ops/flash_attention.py:125", dq_t, dq_bounds,
-            errs["flash_bwd_dq"], train_launches, "wgmma"),
+            errs["flash_bwd_dq"], path_launches, "wgmma"),
         row("flash_bwd_dkv",
             "faabric_tpu_torch/ops/csrc/flash_attention_bwd.cu",
             "faabric_tpu/ops/flash_attention.py:176", dkv_t, dkv_bounds,
-            errs["flash_bwd_dkv"], train_launches, "wgmma"),
+            errs["flash_bwd_dkv"], path_launches, "wgmma"),
         row("ring_permute", "faabric_tpu_torch/ops/csrc/ring_permute.cu",
             "faabric_tpu/device_plane/pallas_ring.py:77", ring_t,
-            ring_bounds, ring_err, mpi_launches),
+            ring_bounds, ring_err, path_launches),
     ]
     log(json.dumps({"kernels": kernels}))
     log(smi)

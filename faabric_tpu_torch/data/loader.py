@@ -1,12 +1,13 @@
 """Input pipeline: token datasets and a prefetching loader.
 
-Counterpart of ``faabric_tpu/data/loader.py`` on one device: a
-memmap-backed token store, deterministic shuffled windows (the same
-permutation as the JAX loader for the same seed and epoch), and a
-background thread that assembles the next batches while the current step
-runs. On CUDA a batch goes through pinned memory with a non-blocking
-copy: the thread does not wait for the copy, which the card runs on the
-default stream, in order with the step's kernels.
+Counterpart of ``faabric_tpu/data/loader.py``: a memmap-backed token
+store, deterministic shuffled windows (the same permutation as the JAX
+loader for the same seed and epoch), and a background thread that
+assembles the next batches while the current step runs. On CUDA a batch
+goes through pinned memory with a non-blocking copy: the thread does
+not wait for the copy, which the card runs on the default stream, in
+order with the step's kernels. With a ``mesh`` a batch is staged as
+per-rank shards, B over dp and S over sp (``models.data_sharding``).
 
 Usage::
 
@@ -62,21 +63,33 @@ class DataLoader:
     """Batches of shuffled windows, staged on the device ahead of use.
 
     Deterministic per (seed, epoch), with the JAX loader's permutation.
-    ``device`` defaults to ``cuda``.
+    ``device`` defaults to ``cuda``; with ``mesh`` the batches are
+    per-rank lists on the mesh's rank devices.
     """
 
     def __init__(self, dataset: TokenDataset, batch_size: int, device=None,
                  seed: int = 0, drop_last: bool = True,
-                 prefetch: int = 2) -> None:
+                 prefetch: int = 2, mesh=None) -> None:
         self.dataset = dataset
         self.batch_size = int(batch_size)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (mesh.rank_devices[0] if mesh is not None
+                       else resolve_device(device))
         self.seed = seed
         self.drop_last = drop_last
         self.prefetch = max(1, int(prefetch))
         if drop_last and len(dataset) < batch_size:
             raise ValueError(
                 f"{len(dataset)} windows < batch_size {batch_size}")
+        if mesh is not None:
+            dp = mesh.shape["dp"]
+            if batch_size % dp:
+                raise ValueError(
+                    f"batch_size {batch_size} not divisible by dp={dp}")
+            if not drop_last:
+                raise ValueError(
+                    "drop_last=False cannot shard a partial final batch "
+                    "over the mesh; use drop_last=True")
         self._epoch = 0
 
     # -- assembly -------------------------------------------------------
@@ -94,6 +107,13 @@ class DataLoader:
         ys = np.empty_like(xs)
         for i, w in enumerate(idxs):
             xs[i], ys[i] = self.dataset.window(int(w))
+        if self.mesh is not None:
+            from faabric_tpu_torch.models.train import data_sharding
+
+            spec = data_sharding(self.mesh)
+            on_cuda = any(d.type == "cuda" for d in self.mesh.rank_devices)
+            return tuple(spec.shard(torch.from_numpy(a).pin_memory()
+                                    if on_cuda else a) for a in (xs, ys))
         if self.device.type == "cpu":
             return torch.from_numpy(xs), torch.from_numpy(ys)
         return tuple(torch.from_numpy(a).pin_memory().to(self.device,

@@ -25,7 +25,7 @@ Divergence from the reference: several ranks may register ONE device.
 aliasing; PyTorch has no mesh, faabric's ranks are threads of one host,
 and a host with one card has to carry all of them. A world whose local
 ranks span several cards is refused instead: multi-card planes (peer
-pointers for the ring kernel) wait for ``ROADMAP.md`` Queue 1 #3. So do
+pointers for the ring kernel) wait for ``ROADMAP.md`` Queue 1 #8. So do
 planes across processes: the port runs one process per plane, whose
 process index is 0, as ``jax.process_index()`` is in a program of one
 controller.
@@ -119,9 +119,9 @@ def resolve_mesh(rows, size: int, local_ranks,
     if remote:
         raise MeshMismatch(
             f"ranks {remote[:8]} are in another process: planes across "
-            f"processes wait for ROADMAP.md Queue 1 #3")
+            f"processes wait for ROADMAP.md Queue 1 #8")
     if len(set(devices)) > 1:
         raise MeshMismatch(
             f"local ranks span devices {sorted(set(map(str, devices)))}: "
-            f"multi-card planes wait for ROADMAP.md Queue 1 #3")
+            f"multi-card planes wait for ROADMAP.md Queue 1 #8")
     return devices

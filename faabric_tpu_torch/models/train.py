@@ -1,12 +1,18 @@
 """Training step for the flagship transformer, in PyTorch.
 
-Counterpart of ``faabric_tpu/models/train.py`` on one device (the sharded
-step comes with the port's collectives). The step updates the model and
-its ``torch.optim.AdamW`` in place and returns the loss as a device
-tensor: nothing in it waits for the card. The optimizer follows optax's
-``adamw`` (decoupled decay on every parameter), its learning-rate
-schedules and ``clip_by_global_norm``, so that the same parameters and
-batches give the JAX package's updates.
+Counterpart of ``faabric_tpu/models/train.py``. The step updates the
+model and its ``torch.optim.AdamW`` in place and returns the loss as a
+device tensor: nothing in it waits for the card. The optimizer follows
+optax's ``adamw`` (decoupled decay on every parameter), its
+learning-rate schedules and ``clip_by_global_norm``, so that the same
+parameters and batches give the JAX package's updates.
+
+Over a mesh the model is a ``ShardedTransformer`` and the batch per-rank
+lists (``data_sharding``). One backward through the ranks' programs
+gives each rank's copies their gradients; ``allreduce_grads`` sums each
+shard's over the ranks that hold it (the dp allreduce XLA inserts), and
+the same AdamW then updates every rank's copies alike. The loss comes
+back as a per-rank list of the replicated global loss.
 """
 
 from __future__ import annotations
@@ -16,7 +22,13 @@ import math
 
 import torch
 
-from faabric_tpu_torch.models.transformer import ModelConfig, Transformer, loss_fn
+from faabric_tpu_torch.models.transformer import (
+    ModelConfig,
+    ShardedTransformer,
+    Transformer,
+    loss_fn,
+    shard_params,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,17 +83,24 @@ def make_optimizer(lr: float = 3e-4, weight_decay: float = 0.01,
 
 
 def _update(model: torch.nn.Module, opt: torch.optim.Optimizer,
-            spec: OptimizerSpec) -> None:
+            spec: OptimizerSpec, unique=None) -> None:
     """Clip the gradients as optax.clip_by_global_norm does (g·max/‖g‖
     when ‖g‖ >= max), then one AdamW update at the schedule's rate. The
-    update count lives in the optimizer's param groups, so it is saved
-    and restored with the optimizer's state_dict."""
+    norm is over ``unique`` parameters (a sharded model's one copy of
+    each shard) where given. The update count lives in the optimizer's
+    param groups, so it is saved and restored with the optimizer's
+    state_dict."""
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     if spec.clip_norm is not None:
-        norm = torch.nn.utils.get_total_norm(grads)
+        norm = torch.nn.utils.get_total_norm(
+            grads if unique is None else [p.grad for p in unique])
         scale = torch.where(norm < spec.clip_norm, torch.ones_like(norm),
                             spec.clip_norm / norm)
-        torch._foreach_mul_(grads, scale)
+        by_device: dict[torch.device, list] = {}
+        for g in grads:
+            by_device.setdefault(g.device, []).append(g)
+        for dev, gs in by_device.items():
+            torch._foreach_mul_(gs, scale.to(dev))
     for group in opt.param_groups:
         count = group.setdefault("count", 0)
         group["lr"] = spec.schedule(count)
@@ -89,37 +108,51 @@ def _update(model: torch.nn.Module, opt: torch.optim.Optimizer,
     opt.step()
 
 
+def _microbatches(batch, accum_steps: int) -> list:
+    """``accum_steps`` equal microbatches of a batch: of the tensor, or of
+    every rank's shard (each microbatch then stays split over dp)."""
+    first = batch if isinstance(batch, torch.Tensor) else batch[0]
+    if first.shape[0] % accum_steps:
+        raise ValueError(f"batch {first.shape[0]} "
+                         f"{'' if first is batch else 'per rank '}"
+                         f"not divisible by accum_steps={accum_steps}")
+    if first is batch:
+        return list(batch.chunk(accum_steps))
+    return [list(mb) for mb in zip(*(t.chunk(accum_steps) for t in batch))]
+
+
 def _build_step(cfg: ModelConfig, optimizer: OptimizerSpec,
                 accum_steps: int):
     """The step shared by :func:`make_train_step` and
     :func:`make_multi_step`."""
 
-    def step(model: Transformer, opt: torch.optim.Optimizer,
-             tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    def step(model: Transformer, opt: torch.optim.Optimizer, tokens, targets):
         if model.cfg != cfg:
             raise ValueError(f"step built for {cfg}, model has {model.cfg}")
+        sharded = isinstance(model, ShardedTransformer)
         model.zero_grad(set_to_none=True)
+        total = None
+        for tok, tgt in zip(_microbatches(tokens, accum_steps),
+                            _microbatches(targets, accum_steps)):
+            mb_loss = loss_fn(model, tok, tgt)
+            copies = mb_loss if sharded else [mb_loss]
+            # Over a mesh every rank holds the loss; one copy's backward
+            # reaches every rank's shards
+            copies[0].backward()
+            copies = [x.detach() for x in copies]
+            total = copies if total is None else [
+                a + b for a, b in zip(total, copies)]
         if accum_steps > 1:
-            b = tokens.shape[0]
-            if b % accum_steps:
-                raise ValueError(
-                    f"batch {b} not divisible by accum_steps={accum_steps}")
-            loss = torch.zeros((), device=tokens.device)
-            for tok, tgt in zip(tokens.chunk(accum_steps),
-                                targets.chunk(accum_steps)):
-                mb_loss = loss_fn(model, tok, tgt)
-                mb_loss.backward()
-                loss = loss + mb_loss.detach()
             # Means over equal microbatches equal the full-batch gradient
-            loss = loss / accum_steps
+            total = [x / accum_steps for x in total]
             torch._foreach_div_([p.grad for p in model.parameters()
                                  if p.grad is not None], accum_steps)
-        else:
-            loss = loss_fn(model, tokens, targets)
-            loss.backward()
-            loss = loss.detach()
-        _update(model, opt, optimizer)
-        return loss
+        if not sharded:
+            _update(model, opt, optimizer)
+            return total[0]
+        model.allreduce_grads()
+        _update(model, opt, optimizer, model.unique_parameters())
+        return total
 
     return step
 
@@ -130,7 +163,9 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec | None = None,
     model and its optimizer in place; the loss stays on the device.
     ``accum_steps > 1`` splits the batch into that many equal
     microbatches and accumulates their gradients before the one update
-    (big effective batches without their activation memory)."""
+    (big effective batches without their activation memory). For a
+    ``ShardedTransformer`` the batch is per-rank lists, and the loss a
+    per-rank list."""
     return _build_step(cfg, optimizer or make_optimizer(), accum_steps)
 
 
@@ -138,19 +173,27 @@ def make_multi_step(cfg: ModelConfig, optimizer: OptimizerSpec | None = None,
                     accum_steps: int = 1):
     """``run(model, opt, tokens, targets, n) -> last loss``: ``n`` whole
     train steps with no host sync between them. ``tokens`` and
-    ``targets`` carry a leading step axis of length ``n`` (a fresh batch
-    per step), or the plain batch shape to reuse one batch every step."""
+    ``targets`` (each rank's, for a ``ShardedTransformer``) carry a leading step axis of
+    length ``n`` (a fresh batch per step), or the plain batch shape to
+    reuse one batch every step."""
     step = _build_step(cfg, optimizer or make_optimizer(), accum_steps)
 
-    def run(model: Transformer, opt: torch.optim.Optimizer,
-            tokens: torch.Tensor, targets: torch.Tensor, n: int):
-        per_step = tokens.dim() == 3
-        if per_step and tokens.shape[0] != n:
+    def run(model: Transformer, opt: torch.optim.Optimizer, tokens, targets,
+            n: int):
+        sharded = isinstance(model, ShardedTransformer)
+        first = tokens[0] if sharded else tokens
+        per_step = first.dim() == 3
+        if per_step and first.shape[0] != n:
             raise ValueError(
-                f"tokens carry {tokens.shape[0]} per-step batches, n={n}")
+                f"tokens carry {first.shape[0]} per-step batches, n={n}")
         loss = None
         for i in range(n):
-            tok, tgt = (tokens[i], targets[i]) if per_step else (tokens, targets)
+            if not per_step:
+                tok, tgt = tokens, targets
+            elif sharded:
+                tok, tgt = [t[i] for t in tokens], [t[i] for t in targets]
+            else:
+                tok, tgt = tokens[i], targets[i]
             loss = step(model, opt, tok, tgt)
         return loss
 
@@ -159,9 +202,23 @@ def make_multi_step(cfg: ModelConfig, optimizer: OptimizerSpec | None = None,
 
 def init_train_state(generator: torch.Generator | None = None,
                      cfg: ModelConfig = ModelConfig(), device=None,
-                     optimizer: OptimizerSpec | None = None):
+                     optimizer: OptimizerSpec | None = None, mesh=None):
     """(model, opt): a :class:`Transformer` with weights drawn from
-    ``generator`` on ``device`` (``cuda`` by default) and its AdamW."""
+    ``generator`` on ``device`` (``cuda`` by default) and its AdamW. With
+    ``mesh``, the same weights (drawn on ``device``, by default rank 0's)
+    laid over the mesh as a ``ShardedTransformer``."""
     optimizer = optimizer or make_optimizer()
+    if mesh is not None and device is None:
+        device = mesh.rank_devices[0]
     model = Transformer(cfg, device=device, generator=generator)
+    if mesh is not None:
+        model = shard_params(model, mesh, cfg)
     return model, optimizer.init(model)
+
+
+def data_sharding(mesh):
+    """The per-rank split of a (B, S) batch: B over dp, S over sp
+    (``data_sharding(mesh).shard(tokens)`` places it)."""
+    from faabric_tpu_torch.parallel.mesh import named
+
+    return named(mesh, "dp", "sp")

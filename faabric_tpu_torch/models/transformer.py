@@ -8,13 +8,26 @@ then ``ln_f`` and ``lm_head`` (D, V). Parameters stay float32 and are
 cast to the bfloat16 compute dtype at each use (mixed precision, as in
 the JAX package).
 
-``attention_impl`` picks plain attention ("reference") or the flash
-kernels ("flash"); ``norm_impl`` the model's own RMS norm ("reference")
-or the fused kernel ("fused"). "auto" resolves to the kernels on CUDA
-and to the plain versions on the CPU. ``remat`` wraps each block in
+``attention_impl`` picks plain attention ("reference"), the flash
+kernels ("flash") or, over a sequence-split mesh, ring attention
+("ring"); ``norm_impl`` the model's own RMS norm ("reference") or the
+fused kernel ("fused"). "auto" resolves to the kernels on CUDA and to
+the plain versions on the CPU. ``remat`` wraps each block in
 ``torch.utils.checkpoint`` when gradients are taken, as ``jax.checkpoint``
 does in the JAX package: a block keeps only its input, and its forward
 (flash kernel included) runs again in the backward pass.
+
+Over a mesh (``parallel/mesh.py``) the model is a
+:class:`ShardedTransformer`: per rank, that rank's shards of every
+weight (``param_shardings``, the reference's specs), and ``forward`` /
+``loss_fn`` take per-rank token lists, the batch split over dp and the
+sequence over sp. Each rank runs the block on its own shards, and
+every exchange between ranks is a collective of
+``parallel/collectives.py``: the vocab-parallel embedding and the
+row-parallel attention output and w2 end in an allreduce over tp, the
+sequence-split attention rotates (ring) or gathers (plain) K and V over
+sp, and the logits are gathered over tp on the vocab dim. This is what
+XLA inserts for the JAX package's sharding annotations.
 """
 
 from __future__ import annotations
@@ -28,6 +41,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from faabric_tpu_torch.util.device import resolve_device
+
+_BLOCK_KEYS = ("ln1", "wqkv", "wo", "ln2", "w1", "w2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,19 +65,29 @@ class ModelConfig:
         return self.d_model // self.n_heads
 
 
-def resolve_impls(cfg: ModelConfig, device: torch.device) -> ModelConfig:
+def resolve_impls(cfg: ModelConfig, device: torch.device,
+                  mesh=None) -> ModelConfig:
     """Resolve "auto" kernel choices for the device: the kernels on CUDA,
-    the plain versions on the CPU."""
+    the plain versions on the CPU. Under a mesh, flash attention over a
+    split sequence (sp > 1) becomes ring attention, and the fused norm
+    the plain one, as in the JAX package. "ring" with no mesh is the
+    plain attention."""
     on_cuda = torch.device(device).type == "cuda"
     att, norm = cfg.attention_impl, cfg.norm_impl
     if att == "auto":
         att = "flash" if on_cuda else "reference"
     if norm == "auto":
         norm = "fused" if on_cuda else "reference"
-    if att not in ("reference", "flash"):
-        raise ValueError(f"attention_impl {att!r}: use auto, reference or flash")
+    if att not in ("reference", "flash", "ring"):
+        raise ValueError(
+            f"attention_impl {att!r}: use auto, reference, flash or ring")
     if norm not in ("reference", "fused"):
         raise ValueError(f"norm_impl {norm!r}: use auto, reference or fused")
+    if mesh is not None:
+        if att == "flash" and mesh.shape["sp"] > 1:
+            att = "ring"
+        if norm == "fused":
+            norm = "reference"
     if (att, norm) != (cfg.attention_impl, cfg.norm_impl):
         cfg = dataclasses.replace(cfg, attention_impl=att, norm_impl=norm)
     return cfg
@@ -154,12 +179,13 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     return out.reshape(x.shape).to(x.dtype)
 
 
-def _attention(q, k, v) -> torch.Tensor:
-    """Causal attention, (B, S, H, D); fp32 softmax."""
+def _attention(q, k, v, q_offset: int = 0) -> torch.Tensor:
+    """Causal attention, (B, S, H, D); fp32 softmax. Query row i sits at
+    position ``q_offset + i`` of the keys' sequence."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
-    s = q.shape[1]
-    mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    mask = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool,
+                      device=q.device).tril(q_offset)
     logits = logits.masked_fill(~mask, -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
@@ -174,10 +200,11 @@ def _norm(x: torch.Tensor, scale: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
 
 
 def _qkv(h: torch.Tensor, blk: Block, cfg: ModelConfig):
-    """h (B, S, D) -> q, k, v (B, S, H, E) views of one product."""
+    """h (B, S, D) -> q, k, v (B, S, H, E) views of one product (H the
+    heads of ``blk``'s wqkv, a shard's under a mesh)."""
     b, s, _ = h.shape
     w = blk.wqkv.to(cfg.compute_dtype).reshape(cfg.d_model, -1)
-    qkv = (h @ w).view(b, s, 3, cfg.n_heads, cfg.head_dim)
+    qkv = (h @ w).view(b, s, 3, -1, cfg.head_dim)
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
@@ -187,10 +214,13 @@ def _out_proj(attn: torch.Tensor, blk: Block, cfg: ModelConfig) -> torch.Tensor:
     return attn.reshape(b, s, -1) @ wo
 
 
-def _mlp(x: torch.Tensor, blk: Block, cfg: ModelConfig) -> torch.Tensor:
-    h = _norm(x, blk.ln2, cfg)
+def _ffn(h: torch.Tensor, blk: Block, cfg: ModelConfig) -> torch.Tensor:
     ff = F.gelu(h @ blk.w1.to(cfg.compute_dtype), approximate="tanh")
-    return x + ff @ blk.w2.to(cfg.compute_dtype)
+    return ff @ blk.w2.to(cfg.compute_dtype)
+
+
+def _mlp(x: torch.Tensor, blk: Block, cfg: ModelConfig) -> torch.Tensor:
+    return x + _ffn(_norm(x, blk.ln2, cfg), blk, cfg)
 
 
 def attention_sublayer(x: torch.Tensor, blk: Block, positions: torch.Tensor,
@@ -223,8 +253,12 @@ def _logits(model: Transformer, x: torch.Tensor, cfg: ModelConfig):
     return (x @ model.lm_head.to(cfg.compute_dtype)).float()
 
 
-def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) int -> logits (B, S, V) float32."""
+def forward(model: Transformer, tokens):
+    """tokens (B, S) int -> logits (B, S, V) float32. A
+    :class:`ShardedTransformer` takes per-rank token lists (B/dp, S/sp)
+    and gives per-rank logits (B/dp, S/sp, V), replicated over tp."""
+    if isinstance(model, ShardedTransformer):
+        return _sharded_forward(model, tokens)
     cfg = resolve_impls(model.cfg, model.device)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
@@ -246,6 +280,247 @@ def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return -torch.gather(logp, -1, targets[..., None].long())[..., 0]
 
 
-def loss_fn(model: Transformer, tokens: torch.Tensor,
-            targets: torch.Tensor) -> torch.Tensor:
+def loss_fn(model: Transformer, tokens, targets):
+    """The mean token NLL. Over a mesh: per rank, the global mean as a
+    differentiable replicated value (a backward from any one rank's
+    copy gives every rank's shards their gradients)."""
+    if isinstance(model, ShardedTransformer):
+        return _sharded_loss(model, tokens, targets)
     return token_nll(forward(model, tokens), targets).mean()
+
+
+# ---------------------------------------------------------------------------
+# Over a mesh
+# ---------------------------------------------------------------------------
+
+def _param_shapes(cfg: ModelConfig) -> dict:
+    """Every weight's whole shape, in the JAX package's pytree layout."""
+    d, h, e, f = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
+    block = {"ln1": (d,), "wqkv": (d, 3, h, e), "wo": (h, e, d),
+             "ln2": (d,), "w1": (d, f), "w2": (f, d)}
+    return {"embed": (cfg.vocab_size, d),
+            "blocks": [dict(block) for _ in range(cfg.n_layers)],
+            "ln_f": (d,), "lm_head": (d, cfg.vocab_size)}
+
+
+def param_shardings(mesh, cfg: ModelConfig) -> dict:
+    """Shard specs per weight, the JAX package's: heads and hidden over
+    tp, the embedding's and lm_head's vocab over tp, norms replicated."""
+    from faabric_tpu_torch.parallel.mesh import named
+
+    block = {"ln1": named(mesh), "wqkv": named(mesh, None, None, "tp", None),
+             "wo": named(mesh, "tp", None, None), "ln2": named(mesh),
+             "w1": named(mesh, None, "tp"), "w2": named(mesh, "tp", None)}
+    return {"embed": named(mesh, "tp", None),
+            "blocks": [dict(block) for _ in range(cfg.n_layers)],
+            "ln_f": named(mesh), "lm_head": named(mesh, None, "tp")}
+
+
+def _leaves(tree: dict) -> list[tuple[str, object]]:
+    """(name, leaf) of a parameter pytree, named as ``named_parameters``
+    names a Transformer's."""
+    out = [("embed", tree["embed"])]
+    for i, blk in enumerate(tree["blocks"]):
+        out += [(f"blocks.{i}.{k}", blk[k]) for k in _BLOCK_KEYS]
+    return out + [("ln_f", tree["ln_f"]), ("lm_head", tree["lm_head"])]
+
+
+def _param_tree(model: Transformer) -> dict:
+    return {"embed": model.embed,
+            "blocks": [{k: getattr(blk, k) for k in _BLOCK_KEYS}
+                       for blk in model.blocks],
+            "ln_f": model.ln_f, "lm_head": model.lm_head}
+
+
+class _RankShards(nn.Module):
+    """One rank's parameter shards, named as a Transformer's."""
+
+    def __init__(self, leaves: dict[str, torch.Tensor], n_layers: int):
+        super().__init__()
+        self.embed = nn.Parameter(leaves["embed"])
+        self.blocks = nn.ModuleList()
+        for i in range(n_layers):
+            blk = nn.Module()
+            for k in _BLOCK_KEYS:
+                setattr(blk, k, nn.Parameter(leaves[f"blocks.{i}.{k}"]))
+            self.blocks.append(blk)
+        self.ln_f = nn.Parameter(leaves["ln_f"])
+        self.lm_head = nn.Parameter(leaves["lm_head"])
+
+
+class ShardedTransformer(nn.Module):
+    """A Transformer's weights laid over a mesh: ``ranks[r]`` holds rank
+    r's shard of every weight (``param_shardings``), a leaf of its own
+    on the rank's device, so that a rank's program differentiates into
+    its own copies. ``params`` is the whole pytree (numpy arrays or
+    tensors) in the JAX package's layout; it is only sliced."""
+
+    def __init__(self, cfg: ModelConfig, mesh, params: dict):
+        super().__init__()
+        if len(params["blocks"]) != cfg.n_layers:
+            raise ValueError(f"{len(params['blocks'])} blocks for "
+                             f"{cfg.n_layers} layers")
+        self.cfg, self.mesh = cfg, mesh
+        self.specs = dict(_leaves(param_shardings(mesh, cfg)))
+        shapes = dict(_leaves(_param_shapes(cfg)))
+        per_rank: list[dict] = [{} for _ in range(mesh.size)]
+        for name, arr in _leaves(params):
+            if tuple(arr.shape) != shapes[name]:
+                raise ValueError(f"{name}: shape {tuple(arr.shape)} does not "
+                                 f"fit {shapes[name]}")
+            if isinstance(arr, torch.Tensor):
+                arr = arr.detach()
+            pieces = self.specs[name].shard(arr, cfg.param_dtype)
+            for leaves, piece in zip(per_rank, pieces):
+                leaves[name] = piece
+        self.ranks = nn.ModuleList(_RankShards(leaves, cfg.n_layers)
+                                   for leaves in per_rank)
+
+    def forward(self, tokens):
+        return forward(self, tokens)
+
+    def copies(self, name: str) -> list[nn.Parameter]:
+        """Every rank's shard of weight ``name`` (``blocks.0.wqkv``)."""
+        return [r.get_parameter(name) for r in self.ranks]
+
+    def unique_parameters(self) -> list[nn.Parameter]:
+        """One copy of each distinct shard: the whole model's weights
+        once each (for norms over the model, as gradient clipping takes)."""
+        return [self.copies(name)[g[0]] for name, spec in self.specs.items()
+                for g in spec.replica_groups()]
+
+    def gathered(self) -> dict:
+        """The whole weights as the JAX package's pytree of tensors on
+        rank 0's device, each assembled from its shards."""
+        whole = {name: spec.gather(self.copies(name))
+                 for name, spec in self.specs.items()}
+        return {"embed": whole["embed"],
+                "blocks": [{k: whole[f"blocks.{i}.{k}"] for k in _BLOCK_KEYS}
+                           for i in range(self.cfg.n_layers)],
+                "ln_f": whole["ln_f"], "lm_head": whole["lm_head"]}
+
+    @torch.no_grad()
+    def allreduce_grads(self) -> None:
+        """Sum each shard's gradient over the ranks holding that shard
+        (the gradient allreduce XLA inserts over dp): one flat allreduce
+        per replica group structure, through the mesh's collectives."""
+        by_axes: dict[tuple, list[str]] = {}
+        for name, spec in self.specs.items():
+            by_axes.setdefault(spec.replica_axes(), []).append(name)
+        for axes, names in by_axes.items():
+            grads = [[r.get_parameter(n).grad for n in names]
+                     for r in self.ranks]
+            flats = [torch.cat([g.reshape(-1) for g in gs]) for gs in grads]
+            summed = self.mesh.over(axes, flats,
+                                    lambda coll, xs: coll.allreduce(xs))
+            for gs, flat in zip(grads, summed):
+                torch._foreach_copy_(gs, [piece.view_as(g) for piece, g in zip(
+                    flat.split([g.numel() for g in gs]), gs)])
+
+
+def shard_params(params, mesh, cfg: ModelConfig) -> ShardedTransformer:
+    """A Transformer (or the JAX package's pytree of arrays) laid over
+    the mesh."""
+    if isinstance(params, Transformer):
+        params = _param_tree(params)
+    return ShardedTransformer(cfg, mesh, params)
+
+
+def _check_sharded(model: ShardedTransformer, tokens):
+    if len(tokens) != model.mesh.size:
+        raise ValueError(f"{len(tokens)} token shards for "
+                         f"{model.mesh.size} ranks")
+    return model.mesh
+
+
+def _sharded_embed(shards, tokens, cfg: ModelConfig, mesh) -> list:
+    """Vocab-parallel lookup: each rank looks its tokens up in its own
+    vocab range (zeros elsewhere), then an allreduce over tp."""
+    xs = []
+    for r, (sh, tok) in enumerate(zip(shards, tokens)):
+        v_l = sh.embed.shape[0]
+        ids = tok.long() - mesh.index(r, "tp") * v_l
+        inside = (ids >= 0) & (ids < v_l)
+        x = F.embedding(ids.clamp(0, v_l - 1), sh.embed) * inside[..., None]
+        xs.append(x.to(cfg.compute_dtype))
+    return mesh.over("tp", xs, lambda coll, t: coll.allreduce(t))
+
+
+def _sharded_attention(qs, ks, vs, cfg: ModelConfig, mesh) -> list:
+    if cfg.attention_impl == "ring":
+        from faabric_tpu_torch.parallel.ring_attention import ring_attention
+
+        return ring_attention(qs, ks, vs, mesh, axis="sp", batch_axis="dp",
+                              head_axis="tp")
+    if cfg.attention_impl == "flash":
+        # Only at sp = 1 (resolve_impls routes a split sequence to the
+        # ring): batch and heads are independent, so each rank attends
+        # its own (B/dp, S, H/tp, D) slab
+        from faabric_tpu_torch.ops.flash_attention import flash_attention
+
+        return [flash_attention(q, k, v, True) for q, k, v in zip(qs, ks, vs)]
+    if mesh.shape["sp"] == 1:
+        return [_attention(q, k, v) for q, k, v in zip(qs, ks, vs)]
+    # A split sequence: each rank's queries see the whole sequence's
+    # keys, gathered over sp, under the mask at their global rows
+    ks = mesh.over("sp", ks, lambda coll, t: coll.allgather(t, dim=1))
+    vs = mesh.over("sp", vs, lambda coll, t: coll.allgather(t, dim=1))
+    return [_attention(q, k, v, mesh.index(r, "sp") * q.shape[1])
+            for r, (q, k, v) in enumerate(zip(qs, ks, vs))]
+
+
+def _sharded_block(xs, blks, positions, cfg: ModelConfig, mesh) -> list:
+    qkvs = [_qkv(_norm(x, b.ln1, cfg), b, cfg) for x, b in zip(xs, blks)]
+    qs = [_rope(q, p, cfg.rope_theta) for (q, _, _), p in zip(qkvs, positions)]
+    ks = [_rope(k, p, cfg.rope_theta) for (_, k, _), p in zip(qkvs, positions)]
+    attn = _sharded_attention(qs, ks, [v for _, _, v in qkvs], cfg, mesh)
+    # Row-parallel wo and w2: partial sums over the rank's heads and
+    # hidden units, completed by an allreduce over tp
+    outs = mesh.over("tp", [_out_proj(a, b, cfg) for a, b in zip(attn, blks)],
+                     lambda coll, t: coll.allreduce(t))
+    xs = [x + o for x, o in zip(xs, outs)]
+    ffs = mesh.over("tp", [_ffn(_norm(x, b.ln2, cfg), b, cfg)
+                           for x, b in zip(xs, blks)],
+                    lambda coll, t: coll.allreduce(t))
+    return [x + f for x, f in zip(xs, ffs)]
+
+
+def _sharded_forward(model: ShardedTransformer, tokens) -> list:
+    mesh = _check_sharded(model, tokens)
+    cfg = resolve_impls(model.cfg, mesh.rank_devices[0], mesh)
+    shards = list(model.ranks)
+    # RoPE at global positions: the rank's sequence block starts at
+    # sp index x S/sp
+    positions = []
+    for r, tok in enumerate(tokens):
+        b, s_l = tok.shape
+        start = mesh.index(r, "sp") * s_l
+        positions.append(torch.arange(start, start + s_l,
+                                      device=tok.device)[None].expand(b, s_l))
+    xs = _sharded_embed(shards, tokens, cfg, mesh)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(cfg.n_layers):
+        blks = [sh.blocks[i] for sh in shards]
+        if remat:
+            xs = checkpoint(_sharded_block, xs, blks, positions, cfg, mesh,
+                            use_reentrant=False, preserve_rng_state=False)
+        else:
+            xs = _sharded_block(xs, blks, positions, cfg, mesh)
+    logits = [(_norm(x, sh.ln_f, cfg) @ sh.lm_head.to(cfg.compute_dtype)).float()
+              for x, sh in zip(xs, shards)]
+    # Gathered over tp on the vocab dim: the JAX package constrains the
+    # logits to ("dp", "sp", None)
+    return mesh.over("tp", logits, lambda coll, t: coll.allgather(t, dim=-1))
+
+
+def _sharded_loss(model: ShardedTransformer, tokens, targets):
+    logits = _sharded_forward(model, tokens)
+    mesh = model.mesh
+    b_l, s_l = tokens[0].shape
+    n_tokens = b_l * mesh.shape["dp"] * s_l * mesh.shape["sp"]
+    # Each token's NLL is computed by every rank of its (dp, sp) cell;
+    # weighting each copy by 1/replicas counts every token once
+    replicas = mesh.size // (mesh.shape["dp"] * mesh.shape["sp"])
+    parts = [token_nll(lg, tgt).sum() / (n_tokens * replicas)
+             for lg, tgt in zip(logits, targets)]
+    return mesh.over(mesh.axis_names, parts, lambda coll, t: coll.allreduce(t))

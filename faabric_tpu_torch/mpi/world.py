@@ -18,13 +18,15 @@ world whose ranks are threads of one host:
   verified schedules, offering annotated phases to their execution
   target first (the ``device-ring`` target of device_plane/ring.py).
   No collective ported so far calls ``_sched_get``: the reference's
-  callers wait (``ROADMAP.md`` Queue 1 #2).
+  callers wait (``ROADMAP.md`` Queue 1 #7);
+- ``device_collectives`` and ``device_send_recv`` run the mesh
+  substrate's ``DeviceCollectives`` over the ranks' devices.
 
 The reference's rings stream each segment as 2 MiB pipeline chunks to
 overlap wire legs; ranks of one process have no wire leg, so a ring step
 here moves its whole segment as one message. Hierarchical, quantised,
 cross-host, one-sided, Cartesian and fault-injection paths are not
-ported (``ROADMAP.md`` Queue 1 #2-3); a send to a rank on another host
+ported (``ROADMAP.md`` Queue 1 #7); a send to a rank on another host
 raises.
 """
 
@@ -93,6 +95,8 @@ class MpiWorld:
         # None until activate_device_plane's handshake resolves the
         # world onto one device; cleared on migration remaps
         self._device_plane = None
+        # device_collectives, by device type
+        self._device_collectives: dict = {}
 
     def abort(self, reason: str = "MPI_Abort") -> None:
         """Every rank's blocked or future recv on this world raises
@@ -141,6 +145,36 @@ class MpiWorld:
     def device_for_rank(self, rank: int) -> int:
         self.broker.wait_for_mappings(self.group_id)
         return self.broker.get_device_for_idx(self.group_id, rank)
+
+    # ------------------------------------------------------------------
+    # Device path
+    # ------------------------------------------------------------------
+    def device_collectives(self, device_type: str = "cuda"):
+        """Device collectives over this world's rank devices (rank i ↔
+        the planner-assigned device of rank i, wrapped onto this host's
+        ``device_type`` devices by ``local_devices_for_ids``; ranks may
+        share one). Made once per device type."""
+        with self._lock:
+            coll = self._device_collectives.get(device_type)
+            if coll is None:
+                from faabric_tpu_torch.parallel.collectives import (
+                    DeviceCollectives,
+                    local_devices_for_ids,
+                )
+
+                ids = [self.device_for_rank(r) for r in range(self.size)]
+                coll = DeviceCollectives(
+                    local_devices_for_ids(ids, device_type))
+                self._device_collectives[device_type] = coll
+            return coll
+
+    def device_send_recv(self, xs, src_rank: int, dst_rank: int,
+                         device_type: str = "cuda"):
+        """Device point-to-point: rank ``src``'s buffer lands on rank
+        ``dst``'s device (the other ranks get zeros), the device twin of
+        the host send/recv below."""
+        return self.device_collectives(device_type).send_recv(
+            xs, src_rank, dst_rank)
 
     # ------------------------------------------------------------------
     # Device collective plane (faabric_tpu_torch/device_plane/)

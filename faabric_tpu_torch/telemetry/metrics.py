@@ -4,7 +4,7 @@ The part of ``faabric_tpu/telemetry/metrics.py`` that the device plane
 and its copy accounting need: monotonic counters keyed by name and
 label set, and a JSON-safe snapshot. Gauges, histograms, the
 Prometheus exposition, spans, the comm matrix and the collective
-profiler are not ported (``ROADMAP.md`` Queue 1 #3).
+profiler are not ported (``ROADMAP.md`` Queue 1 #7).
 """
 
 from __future__ import annotations

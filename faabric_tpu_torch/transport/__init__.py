@@ -13,6 +13,7 @@ from faabric_tpu_torch.transport.common import (
     STATE_SYNC_PORT,
     clear_host_aliases,
     register_host_alias,
+    unregister_host_alias,
     resolve_host,
 )
 from faabric_tpu_torch.transport.message import (
@@ -59,6 +60,7 @@ __all__ = [
     "clear_host_aliases",
     "mappings_from_decision",
     "register_host_alias",
+    "unregister_host_alias",
     "resolve_host",
     "send_mappings_from_decision",
 ]

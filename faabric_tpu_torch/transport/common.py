@@ -42,6 +42,11 @@ def register_host_alias(host: str, ip: str = "127.0.0.1",
         _aliases[host] = (ip, port_offset)
 
 
+def unregister_host_alias(host: str) -> None:
+    with _alias_lock:
+        _aliases.pop(host, None)
+
+
 def _load_env_aliases_locked() -> None:
     """Processes of one machine share an alias table through
     FAABRIC_HOST_ALIASES="w1=127.0.0.1+30000,w2=127.0.0.1+31000"."""

@@ -707,3 +707,196 @@ def test_world_on_one_card_raises_when_the_ring_kernel_fails(
     assert _build.LAUNCHES["ring_permute"] == before
     assert device_copy_totals()["count"] == 0
     assert world.device_plane().disabled_reason is None
+
+
+# ---------------------------------------------------------------------------
+# The mesh path: the differentiable ring shift, ring attention and the
+# sharded train step, all ranks on one card
+# ---------------------------------------------------------------------------
+
+def card_mesh(device, n=8, **kw):
+    from faabric_tpu_torch.parallel import MeshConfig, build_mesh
+
+    return build_mesh([device] * n, MeshConfig(**kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_shift_is_the_ring_kernel_forward_and_backward(cuda_device,
+                                                            dtype):
+    """``DeviceCollectives.shift`` of same-shape buffers on one card: one
+    ring-permute launch forward, one backward (the inverse shift), both
+    bitwise against the plain copies; strided views are made contiguous
+    and launch too, and a ring longer than the kernel takes raises."""
+    from faabric_tpu_torch.ops.ring_permute import MAX_RANKS
+    from faabric_tpu_torch.parallel import DeviceCollectives
+
+    coll = DeviceCollectives([cuda_device] * 4)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    xs = [torch.randn(4, 256, 4, 64, device=cuda_device, generator=gen)
+          .to(DTYPES[dtype]).requires_grad_() for _ in range(4)]
+    cots = [torch.randn(4, 256, 4, 64, device=cuda_device, generator=gen)
+            .to(DTYPES[dtype]) for _ in range(4)]
+    before = _build.LAUNCHES["ring_permute"]
+    ys = coll.shift(xs, 1)
+    torch.autograd.backward(ys, cots)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ring_permute"] == before + 2
+    for r in range(4):
+        assert torch.equal(ys[(r + 1) % 4], xs[r].detach())
+        assert torch.equal(xs[r].grad, cots[(r + 1) % 4])
+    views = [x.detach().transpose(1, 2) for x in xs]
+    out = coll.shift(views, 3)
+    assert _build.LAUNCHES["ring_permute"] == before + 3
+    for r in range(4):
+        assert torch.equal(out[(r + 3) % 4], views[r])
+    long = DeviceCollectives([cuda_device] * (MAX_RANKS + 1))
+    with pytest.raises(ValueError, match="at most"):
+        long.shift([torch.zeros(8, device=cuda_device)] * (MAX_RANKS + 1))
+
+
+def ring_inputs_on_mesh(device, mesh, dtype, layout, seed=0):
+    """Per-rank (4, 256, 4, 64) q, k, v of a (8, 512, 8, 64) whole split
+    over dp, sp and tp, as separate tensors or as views of each rank's
+    QKV product (as the model passes them), and per-rank cotangents."""
+    from faabric_tpu_torch.parallel import ShardSpec
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    spec = ShardSpec(mesh, ("dp", "sp", "tp", None))
+    if layout == "views":
+        # (B, S, H, 3, D) split as q, k, v are, then each rank's piece
+        # laid out as its own (B_l, S_l, 3, H_l, D) product
+        pieces = spec.shard(torch.randn(8, 512, 8, 3, 64, device=device,
+                                        generator=gen))
+        per_rank = [t.transpose(2, 3).contiguous().to(dtype) for t in pieces]
+        q, k, v = ([t[:, :, i] for t in per_rank] for i in range(3))
+    else:
+        q, k, v = (spec.shard(torch.randn(8, 512, 8, 64, device=device,
+                                          generator=gen).to(dtype))
+                   for _ in range(3))
+    g = spec.shard(torch.randn(8, 512, 8, 64, device=device, generator=gen))
+    return q, k, v, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,dtype,layout", [
+    (True, "bfloat16", "separate"), (True, "bfloat16", "views"),
+    (False, "bfloat16", "separate"), (True, "float32", "separate")])
+def test_ring_attention_kernels_match_plain_blocks(cuda_device, causal,
+                                                   dtype, layout):
+    """Ring attention over 8 ranks on one card (4 rings of sp = 2, blocks
+    (4, 256, 4, 64)) against the same schedule with plain blocks, forward
+    and q, k, v gradients: fp32 at the JAX tests' tolerances, bf16 out at
+    the flash tolerance 3e-2 and gradients held to the plain bf16
+    schedule's distance from the fp32 one (max 2x, mean 1.25x). Launch
+    counts are the schedule's, every bf16 flash launch on ``wgmma``."""
+    from faabric_tpu_torch.parallel import ring_attention
+    from faabric_tpu_torch.parallel.ring_attention import (
+        _flash_block,
+        _plain_block,
+        schedule_counts,
+    )
+
+    mesh = card_mesh(cuda_device, tp=2, sp=2)
+    q, k, v, g = ring_inputs_on_mesh(cuda_device, mesh, DTYPES[dtype], layout)
+
+    def run(block, dt=None):
+        ts = [[(t if dt is None else t.to(dt)).detach().requires_grad_()
+               for t in x] for x in (q, k, v)]
+        out = ring_attention(*ts, mesh, causal=causal, block=block)
+        torch.autograd.backward(out, [c.to(o.dtype) for c, o in zip(g, out)])
+        return out, [[t.grad for t in x] for x in ts]
+
+    _build.reset_launch_counts()
+    out_k, grads_k = run(_flash_block)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = schedule_counts(mesh.size, 2, causal)
+    assert launches.get("flash_attention", 0) == want["flash_attention"]
+    assert launches.get("flash_bwd_dq", 0) == want["flash_attention"]
+    assert launches.get("flash_bwd_dkv", 0) == want["flash_attention"]
+    assert launches.get("ring_permute", 0) == 2 * want["ring_permute"]
+    if dtype == "bfloat16":
+        for name in ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert launches.get(f"{name}.wgmma", 0) == launches[name], name
+    out_p, grads_p = run(_plain_block)
+    if dtype == "float32":
+        for a, b in zip(out_k, out_p):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+        for gk, gp in zip(grads_k, grads_p):
+            for a, b in zip(gk, gp):
+                torch.testing.assert_close(a, b, atol=2e-4, rtol=1e-3)
+        return
+    out_32, grads_32 = run(_plain_block, torch.float32)
+    for a, b in zip(out_k, out_p):
+        assert float((a.detach().float() - b.detach().float()).abs().max()) <= 3e-2
+    for gk, gp, g32 in zip(grads_k, grads_p, grads_32):
+        err_k = torch.stack([(a.float() - y).abs().max()
+                             for a, y in zip(gk, g32)])
+        err_r = torch.stack([(b.float() - y).abs().max()
+                             for b, y in zip(gp, g32)])
+        mean_k = sum(float((a.float() - y).abs().mean())
+                     for a, y in zip(gk, g32))
+        mean_r = sum(float((b.float() - y).abs().mean())
+                     for b, y in zip(gp, g32))
+        assert float(err_k.max()) <= 2 * float(err_r.max()) + 1e-6
+        assert mean_k <= 1.25 * mean_r + 1e-7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,tp,sp", [(8, 2, 2), (4, 2, 1)])
+def test_sharded_train_step_on_one_card(cuda_device, n, tp, sp):
+    """One train step of a head-dim-64 model sharded over n ranks on
+    cuda:0: the launches the schedule implies (remat runs each forward
+    twice), every one on ``wgmma``, no RMS-norm kernel (a mesh takes the
+    plain norm); the fp32 loss within 1e-4 of the unsharded model's on
+    the same weights, the bf16 loss within 2e-2."""
+    import dataclasses
+
+    import numpy as np
+
+    from faabric_tpu_torch.models import (
+        ModelConfig,
+        Transformer,
+        data_sharding,
+        loss_fn,
+        make_train_step,
+        shard_params,
+    )
+    from faabric_tpu_torch.parallel.ring_attention import schedule_counts
+
+    cfg = ModelConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=4,
+                      d_ff=512, max_seq=256)
+    mesh = card_mesh(cuda_device, n, tp=tp, sp=sp)
+    rng = np.random.RandomState(0)
+    tok, tgt = (rng.randint(0, 512, (4, 128)).astype(np.int32)
+                for _ in range(2))
+    shard = data_sharding(mesh).shard
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        c = dataclasses.replace(cfg, compute_dtype=dt)
+        plain = Transformer(c, device=cuda_device)
+        model = shard_params(plain, mesh, c)
+        with torch.no_grad():
+            want = float(loss_fn(plain, torch.as_tensor(tok, device=cuda_device),
+                                 torch.as_tensor(tgt, device=cuda_device)))
+            got = float(loss_fn(model, shard(tok), shard(tgt))[0])
+        assert abs(got - want) <= tol, (dt, got, want)
+    opt = torch.optim.AdamW(model.parameters())
+    step = make_train_step(model.cfg)
+    _build.reset_launch_counts()
+    loss = step(model, opt, shard(tok), shard(tgt))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    per_call = (schedule_counts(n, sp) if sp > 1
+                else {"flash_attention": n, "ring_permute": 0})
+    layers = cfg.n_layers
+    want = {"flash_attention": 2 * layers * per_call["flash_attention"],
+            "flash_bwd_dq": layers * per_call["flash_attention"],
+            "flash_bwd_dkv": layers * per_call["flash_attention"],
+            "ring_permute": 3 * layers * per_call["ring_permute"]}
+    for name, count in want.items():
+        assert launches.get(name, 0) == count, (name, launches)
+        if name != "ring_permute":
+            assert launches.get(f"{name}.wgmma", 0) == count, name
+    assert launches.get("rms_norm", 0) == 0
+    assert np.isfinite(float(loss[0]))

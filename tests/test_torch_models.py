@@ -230,5 +230,9 @@ def test_resolve_impls_picks_kernels_on_cuda_only():
     assert (on_cpu.attention_impl, on_cpu.norm_impl) == ("reference",
                                                          "reference")
     assert (on_cuda.attention_impl, on_cuda.norm_impl) == ("flash", "fused")
+    # "ring" is a choice of its own, as in the JAX package (with no mesh
+    # the model attends plainly); an unknown name raises
+    assert resolve_impls(ModelConfig(attention_impl="ring"),
+                         CPU).attention_impl == "ring"
     with pytest.raises(ValueError, match="ring"):
-        resolve_impls(ModelConfig(attention_impl="ring"), CPU)
+        resolve_impls(ModelConfig(attention_impl="rings"), CPU)

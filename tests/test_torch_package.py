@@ -29,6 +29,13 @@ def test_importing_every_module_pulls_in_no_jax_and_no_faabric_tpu():
             "faabric_tpu_torch.scheduler.scheduler",
             "faabric_tpu_torch.executor.torch_executor",
             "faabric_tpu_torch.runner.runtime"} <= set(modules)
+    # The mesh substrate and the sharded model
+    assert {"faabric_tpu_torch.parallel", "faabric_tpu_torch.parallel.mesh",
+            "faabric_tpu_torch.parallel.collectives",
+            "faabric_tpu_torch.parallel.ring_attention",
+            "faabric_tpu_torch.models.transformer",
+            "faabric_tpu_torch.entry"} <= set(modules)
+    modules.append("chip_smoke")
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
@@ -40,6 +47,22 @@ def test_importing_every_module_pulls_in_no_jax_and_no_faabric_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("BAD []"), out.stdout
+
+
+def test_chip_smoke_imports_nothing_of_jax_even_inside_its_phases():
+    """Every import statement of ``chip_smoke.py``, those inside its phase
+    functions too, names torch, numpy, the standard library or the port."""
+    import ast
+
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module.split(".")[0])
+    assert "faabric_tpu_torch" in names
+    assert not names & {"jax", "jaxlib", "faabric_tpu", "optax"}, names
 
 
 @pytest.fixture
@@ -86,6 +109,30 @@ def test_training_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
     model, opt = init_train_state(None, cfg, "cpu")
     assert model.device.type == "cpu"
     assert DataLoader(ds, 2, device="cpu").device.type == "cpu"
+
+
+def test_mesh_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
+    from faabric_tpu_torch.batch_scheduler import SchedulingDecision
+    from faabric_tpu_torch.entry import dryrun_multichip
+    from faabric_tpu_torch.mpi import MpiWorld
+    from faabric_tpu_torch.parallel import build_mesh, local_devices_for_ids
+    from faabric_tpu_torch.transport import PointToPointBroker
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun_multichip(8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        local_devices_for_ids([0, 1])
+    broker = PointToPointBroker("solo")
+    d = SchedulingDecision(app_id=951, group_id=951)
+    d.add_message("solo", 1, 0, 0, device_id=0)
+    broker.set_up_local_mappings_from_decision(d)
+    world = MpiWorld(broker, 951, 1, 951)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        world.device_collectives()
+    assert world.device_collectives("cpu").devices == [torch.device("cpu")]
+    assert local_devices_for_ids([0, 1], "cpu") == [torch.device("cpu")] * 2
 
 
 def test_device_plane_activation_raises_without_cuda_unless_cpu_is_asked(
