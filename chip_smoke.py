@@ -24,10 +24,17 @@ requests of 512-token prompts through torch guest functions on executor
 threads, each scoring its prompt and generating 32 greedy tokens with
 the full-width model on the card. The mesh path: the port's
 ``dryrun_multichip`` (gang scheduling, a device allreduce, one sharded
-train step) with 8 ranks (dp 2, tp 2, sp 2) and with 4 (dp 2, tp 2), all
-on the one card, at full width; ring attention over 8 ranks against the
-same schedule with plain blocks; the sharded step against the unsharded
-one on the same weights; three full-width sharded steps. For each path
+train step, the pipeline, the MoE family, MoE stages in the pipeline)
+with 8 ranks and with 4, all on the one card, at full width in fp32;
+ring attention over 8 ranks against the same schedule with plain blocks;
+the sharded step against the unsharded one on the same weights; three
+full-width sharded steps. The pipeline path: 8 ranks (dp 2, tp 2, pp 2)
+at full width, GPipe and 1F1B against each other and the unsharded
+model, every stage-to-stage hop on the ring-permute kernel, three steps
+of each schedule. The MoE path: ``MoEConfig()`` at the flagship's widths
+with 4 experts, its unsharded forward on the RMS-norm and flash kernels,
+train steps over (dp 4, ep 2) and (dp 2, tp 2, ep 2) against the
+unsharded model, and MoE stages in the pipeline. For each path
 it checks the outputs and shows from the kernels' launch counts that
 the path ran through them; it times the kernels, their plain versions and the nearest
 PyTorch library calls, and prints one JSON line of kernel numbers (the
@@ -679,10 +686,10 @@ def faabric_phase(dev, model, build) -> dict:
 
 
 def mesh_phase(dev, build, unsharded_step: tuple[float, float]) -> dict:
-    """Phase 14: the port's ``dryrun_multichip`` on the card. Stages 1-3
+    """Phase 14: the port's ``dryrun_multichip`` on the card. Stages 1-5
     with 8 ranks (tp 2, sp 2, dp 2) and with 4 (tp 2, dp 2), every rank
-    on ``dev``, at full width (``ModelConfig()``, head dim 64, bf16
-    compute). Then, on the 8-rank mesh: ring attention with the kernels
+    on ``dev``, at full width (``ModelConfig()`` and a ``MoEConfig`` of
+    the same widths, head dim 64, fp32 compute). Then, on the 8-rank mesh: ring attention with the kernels
     against the same schedule with plain blocks at the ring's block shape;
     the sharded step against the unsharded one on the same weights and
     8 x 512 batch (fp32 compute at one layer: loss, gradients and updated
@@ -695,6 +702,7 @@ def mesh_phase(dev, build, unsharded_step: tuple[float, float]) -> dict:
     from faabric_tpu_torch.entry import dryrun_multichip
     from faabric_tpu_torch.models import (
         ModelConfig,
+        MoEConfig,
         Transformer,
         data_sharding,
         loss_fn,
@@ -725,14 +733,25 @@ def mesh_phase(dev, build, unsharded_step: tuple[float, float]) -> dict:
         schedule_counts,
     )
 
-    log("phase 14: dryrun_multichip stages 1-3 on the card, full width")
+    log("phase 14: dryrun_multichip stages 1-5 on the card, full width, fp32")
     cfg = ModelConfig()
+    # Full width with fp32 compute, so the dry run's own 1e-4 checks hold
+    # as the reference's (fp32) do: ModelConfig() and, for stages 4-5,
+    # the MoE family at the same widths (the reference's stage-4 layers
+    # and experts: 1 layer, 2 experts)
+    cfg32w = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    moe32w = MoEConfig(n_layers=1, n_experts=2, compute_dtype=torch.float32)
     for n in (8, 4):
         t0 = time.perf_counter()
-        loss = dryrun_multichip(n, cfg=cfg)
-        check(np.isfinite(loss), f"dryrun_multichip({n}): gang, allreduce "
-              f"vs numpy, one step over the mesh at full width; loss "
-              f"{loss:.4f} ({(time.perf_counter() - t0) * 1e3:.0f} ms)")
+        res = dryrun_multichip(n, cfg=cfg32w, moe_cfg=moe32w)
+        check(all(np.isfinite(x) for x in res if x is not None)
+              and (res.moe_pp_loss is None) == (n % 8 != 0),
+              f"dryrun_multichip({n}): gang, allreduce vs numpy, the "
+              f"sharded step, the pipeline (pp vs dense, GPipe vs 1F1B vs "
+              f"the sharded step, 1e-4), the MoE step, MoE stages in the "
+              f"pipeline; loss {res.loss:.4f} pp_loss {res.pp_loss} "
+              f"moe_loss {res.moe_loss} moe_pp_loss {res.moe_pp_loss} "
+              f"({(time.perf_counter() - t0) * 1e3:.0f} ms)")
 
     mesh = build_mesh([dev] * 8, MeshConfig(tp=2, sp=2))
     shard = data_sharding(mesh).shard
@@ -987,9 +1006,411 @@ def mesh_phase(dev, build, unsharded_step: tuple[float, float]) -> dict:
           "ring launch forward and one backward, both bitwise the plain "
           "rotation")
     ring_ms = time_ms(lambda: ring_permute(kv, 1))
+    kv_out = [torch.empty_like(t) for t in kv]
+    lib_ms = time_ms(lambda: torch._foreach_copy_(kv_out[::-1], kv))
     log(f"ring_permute of a K block over a ring of 2 ((4, 256, 4, 64) bf16):"
-        f" {ring_ms:.5f} ms (bound {4 * kv[0].numel() * 2 / HBM_BYTES_PER_S * 1e3:.5f})")
+        f" {ring_ms:.5f} ms (bound {4 * kv[0].numel() * 2 / HBM_BYTES_PER_S * 1e3:.5f}, "
+        f"torch._foreach_copy_ {lib_ms:.5f})")
     del model, opt, shards
+    torch.cuda.empty_cache()
+    return launches
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def pipeline_phase(dev, build) -> dict:
+    """Phase 15: the pipeline at full width (``ModelConfig()``, bf16
+    compute) over 8 ranks on ``dev`` (dp 2, tp 2, pp 2), 8 x 512 batches
+    in 4 microbatches, so each rank holds (1, 512) tokens a microbatch.
+    The pp loss against the unsharded one (fp32 at 2 layers, 1e-4; bf16
+    at full width, 2e-2); GPipe against 1F1B (fp32 at 2 layers: loss and
+    every gradient, as phase 14 holds the sharded step); a plain-hop
+    baseline (list indexing, no kernel) giving the same loss bit for bit;
+    then the main path, three GPipe and three 1F1B steps, whose ring
+    launches must be ``hop_counts`` per pp group; timings and the ring
+    kernel at the hop's shape. Returns the main path's launches."""
+    from faabric_tpu_torch.models import (
+        ModelConfig,
+        Transformer,
+        loss_fn,
+        make_optimizer,
+    )
+    from faabric_tpu_torch.models.transformer import _leaves, _param_tree, _tree
+    from faabric_tpu_torch.ops.ring_permute import ring_permute
+    from faabric_tpu_torch.parallel import (
+        MeshConfig,
+        PipelinedTransformer,
+        build_mesh,
+        init_pp_train_state,
+        make_pp_1f1b_value_and_grad,
+        make_pp_loss,
+        make_pp_train_step,
+        microbatch,
+        pp_data_sharding,
+        unstack_block_params,
+    )
+    from faabric_tpu_torch.parallel import pipeline
+    from faabric_tpu_torch.parallel.pipeline import hop_counts
+
+    log("phase 15: the pipeline at full width, 8 ranks (dp 2, tp 2, pp 2)")
+    cfg = ModelConfig()
+    mesh = build_mesh([dev] * 8, MeshConfig(tp=2, pp=2))
+    groups = mesh.size // mesh.shape["pp"]
+    n_mb = 4
+    hops = {k: v * groups for k, v in hop_counts(2, n_mb).items()}
+    rng = np.random.RandomState(15)
+    batches = [[rng.randint(0, cfg.vocab_size, (8, 512)).astype(np.int32)
+                for _ in range(2)] for _ in range(3)]
+
+    def shard(a):
+        return pp_data_sharding(mesh).shard(microbatch(a, n_mb))
+
+    tok_np, tgt_np = batches[0]
+    tok_t, tgt_t = (torch.as_tensor(a, device=dev) for a in batches[0])
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def pp_grads(model):
+        whole = _tree({n: spec.gather([p.grad for p in model.copies(n)])
+                       for n, spec in model.specs.items()})
+        return dict(_leaves(unstack_block_params(whole)))
+
+    # -- 15a. fp32 at 2 layers: against the unsharded model, GPipe
+    #    against 1F1B, loss and every gradient
+    cfg32 = dataclasses.replace(cfg, n_layers=2, compute_dtype=torch.float32)
+    plain = Transformer(cfg32, device=dev, generator=gen(0))
+    model = PipelinedTransformer(cfg32, mesh, _param_tree(plain))
+    loss_p = loss_fn(plain, tok_t, tgt_t)
+    loss_p.backward()
+    grads_p = {n: p.grad for n, p in plain.named_parameters()}
+    tok, tgt = shard(tok_np), shard(tgt_np)
+    loss_g = make_pp_loss(cfg32, mesh)(model, tok, tgt)
+    loss_g[0].backward()
+    model.allreduce_grads()
+    grads_g = pp_grads(model)
+    loss_1 = make_pp_1f1b_value_and_grad(cfg32, mesh)(model, tok, tgt)
+    grads_1 = pp_grads(model)
+    loss_p, loss_g, loss_1 = (float(x.detach())
+                              for x in (loss_p, loss_g[0], loss_1[0]))
+    check(abs(loss_g - loss_p) <= 1e-4 and abs(loss_1 - loss_g) <= 1e-4,
+          f"fp32, 2 layers: GPipe loss {loss_g:.6f}, 1F1B {loss_1:.6f}, "
+          f"unsharded {loss_p:.6f} (limit 1e-4)")
+    worst_s = max(rel_l2(grads_1[n], grads_g[n]) for n in grads_p)
+    worst_p = max(rel_l2(grads_g[n], grads_p[n]) for n in grads_p)
+    check(worst_s <= 1e-4 and worst_p <= 1e-4,
+          f"fp32 gradients, every parameter: 1F1B vs GPipe worst relative "
+          f"L2 {worst_s:.2e}, GPipe vs unsharded {worst_p:.2e} (limit 1e-4)")
+    del plain, model, grads_p, grads_g, grads_1
+
+    # -- 15b. bf16 at full width: against the unsharded loss, and the
+    #    kernel's hops against plain list-indexing hops, bit for bit
+    whole = Transformer(cfg, device=dev, generator=gen(0))
+    model = PipelinedTransformer(cfg, mesh, _param_tree(whole))
+    with torch.no_grad():
+        want = float(loss_fn(whole, tok_t, tgt_t))
+        build.reset_launch_counts()
+        got = make_pp_loss(cfg, mesh)(model, tok, tgt)[0]
+        torch.cuda.synchronize()
+        kernel_hops = build.LAUNCHES.get("ring_permute", 0)
+        real_hop = pipeline._hop
+
+        def plain_hop(mesh_, xs, disp):
+            out = [None] * mesh_.size
+            for ranks in mesh_.groups("pp"):
+                for i, r in enumerate(ranks):
+                    out[ranks[(i + disp) % len(ranks)]] = xs[r].clone()
+            return out
+
+        pipeline._hop = plain_hop
+        try:
+            build.reset_launch_counts()
+            got_plain = make_pp_loss(cfg, mesh)(model, tok, tgt)[0]
+            torch.cuda.synchronize()
+            plain_launches = build.LAUNCHES.get("ring_permute", 0)
+        finally:
+            pipeline._hop = real_hop
+    check(abs(float(got) - want) <= 2e-2,
+          f"bf16, full width: pp loss {float(got):.5f} vs unsharded "
+          f"{want:.5f} (limit 2e-2)")
+    check(kernel_hops == hops["loss"] and plain_launches == 0
+          and torch.equal(got, got_plain),
+          f"pp loss: {kernel_hops} ring launches ({hops['loss']} = "
+          f"{hop_counts(2, n_mb)['loss']} hops x {groups} pp groups); plain "
+          f"list-indexing hops launch none and give the same loss bit for "
+          f"bit")
+    del whole, model
+
+    # -- 15c. the main path: three GPipe and three 1F1B steps. One
+    #    schedule's model and AdamW state at a time, so each peak is that
+    #    schedule's own; one launch-count window over both
+    spec = make_optimizer()
+    shards = [(shard(t), shard(y)) for t, y in batches]
+    peaks, losses = {}, {}
+    build.reset_launch_counts()
+    for name in ("gpipe", "1f1b"):
+        m_, o_ = init_pp_train_state(gen(0), cfg, mesh, spec)
+        step = make_pp_train_step(cfg, spec, n_mb, name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses[name] = [step(m_, o_, *b)[0] for b in shards]
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        del m_, o_, step
+        torch.cuda.empty_cache()
+    launches = dict(build.LAUNCHES)
+    log(f"pipeline path launches (3 GPipe + 3 1F1B steps): {launches}")
+    losses = {k: [float(x) for x in v] for k, v in losses.items()}
+    check(all(np.isfinite(losses["gpipe"] + losses["1f1b"]))
+          and abs(losses["gpipe"][0] - losses["1f1b"][0]) <= 2e-2,
+          f"three steps each, same init: GPipe "
+          f"{', '.join(f'{x:.4f}' for x in losses['gpipe'])}; 1F1B "
+          f"{', '.join(f'{x:.4f}' for x in losses['1f1b'])}")
+    want_ring = 3 * (hops["gpipe"] + hops["1f1b"])
+    check(launches.get("ring_permute", 0) == want_ring,
+          f"ring kernel launched {launches.get('ring_permute', 0)} times: "
+          f"3 x ({hops['gpipe']} + {hops['1f1b']}), every hop of both "
+          f"schedules, forward and backward, on the kernel")
+    check(all(launches.get(k, 0) == 0 for k in
+              ("rms_norm", "flash_attention", "flash_bwd_dq",
+               "flash_bwd_dkv")),
+          "no norm or flash kernel: pipeline stages run plain attention and "
+          "norm, as the reference's")
+
+    # -- 15d. timings, one schedule's state at a time ----------------------
+    tok, tgt = shards[0]
+    for name in ("gpipe", "1f1b"):
+        m_, o_ = init_pp_train_state(gen(0), cfg, mesh, spec)
+        step = make_pp_train_step(cfg, spec, n_mb, name)
+        wall = host_ms(lambda: step(m_, o_, tok, tgt), iters=3)
+        busy, by_kernel = profile_top(lambda: step(m_, o_, tok, tgt),
+                                      f"{name} step, 8 ranks, 8x512", top=8)
+        ring_us = sum(t for n, t in by_kernel.items() if "ring_permute" in n)
+        log(f"{name} step 8x512 over (dp 2, tp 2, pp 2), M = {n_mb}, on {dev}:"
+            f" {wall:.1f} ms wall, device busy {busy / 1e3:.2f} ms "
+            f"({ring_us:.1f} us in the ring kernel), peak memory over its "
+            f"3 steps, its own model and AdamW state alone "
+            f"{peaks[name]:.3f} GiB")
+        del m_, o_, step
+        torch.cuda.empty_cache()
+    del shards
+    # The ring kernel at the hop's shape: each rank's (1, 512, 512) bf16
+    # activation, a ring of 2 (one pp group)
+    act = [torch.randn(1, 512, 512, device=dev, generator=gen(7)
+                       ).to(torch.bfloat16) for _ in range(2)]
+    for disp in (1, -1):
+        out = ring_permute(act, disp)
+        check(all(torch.equal(out[r], act[(r - disp) % 2]) for r in range(2)),
+              f"ring_permute of 2 (1, 512, 512) bf16 activations by {disp:+d}:"
+              f" bitwise the plain rotation")
+    outs = [torch.empty_like(t) for t in act]
+    hop = {"ms": time_ms(lambda: ring_permute(act, 1, outs)),
+           "library_ms": time_ms(lambda: torch._foreach_copy_(outs[::-1],
+                                                              act))}
+    bound = 2 * 2 * act[0].numel() * 2 / HBM_BYTES_PER_S * 1e3
+    log(f"ring_permute of a pp hop (2 x (1, 512, 512) bf16): {hop['ms']:.5f} "
+        f"ms (bound {bound:.5f}, torch._foreach_copy_ "
+        f"{hop['library_ms']:.5f})")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_phase(dev, build) -> dict:
+    """Phase 16: the MoE family at full width (``MoEConfig()``: the
+    flagship's widths, 4 experts, top-1, capacity 1.25, aux 0.01). The
+    unsharded forward (8 x 512, bf16) with its exact kernel launches,
+    against the plain path; the sharded loss and gradients on (dp 4, ep
+    2) and (dp 2, tp 2, ep 2) against the plain unsharded model's (fp32
+    at one layer: 1e-4; bf16 at full width: the loss, 2e-2; phases 4 and
+    8 hold the kernels at these meshes' per-rank shapes); the MoE pipeline
+    (pp 2, ep 2, dp 2, aux 0) against ``moe_loss_fn``; then the main
+    path: the unsharded forward, one train step on each mesh and the
+    MoE pipeline's loss, whose launches must be exact; timings. Returns
+    the main path's launches."""
+    from faabric_tpu_torch.models import (
+        MoEConfig,
+        MoETransformer,
+        data_sharding,
+        make_moe_train_step,
+        make_optimizer,
+        moe_forward,
+        moe_loss_fn,
+        shard_moe_params,
+    )
+    from faabric_tpu_torch.models.transformer import _param_tree
+    from faabric_tpu_torch.parallel import (
+        MeshConfig,
+        PipelinedTransformer,
+        build_mesh,
+        make_pp_loss,
+        microbatch,
+        pp_data_sharding,
+    )
+    from faabric_tpu_torch.parallel.pipeline import hop_counts
+
+    log("phase 16: the MoE family at full width")
+    cfg = MoEConfig()
+    layers = cfg.n_layers
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    whole = MoETransformer(cfg, device=dev, generator=gen(16))
+    n_params = sum(p.numel() for p in whole.parameters())
+    check(n_params == 70_529_536, f"MoEConfig(): {n_params} fp32 params, 4 "
+          f"experts, capacity {int(np.ceil(512 * 1.25 / 4))} at S = 512")
+    rng = np.random.RandomState(16)
+    tok_np, tgt_np = (rng.randint(0, cfg.vocab_size, (8, 512)).astype(np.int32)
+                      for _ in range(2))
+    tok_t, tgt_t = (torch.as_tensor(a, device=dev) for a in (tok_np, tgt_np))
+    meshes = {"dp 4, ep 2": build_mesh([dev] * 8, MeshConfig(ep=2)),
+              "dp 2, tp 2, ep 2": build_mesh([dev] * 8, MeshConfig(tp=2, ep=2))}
+
+    # -- 16a. the unsharded forward against the plain path ---------------
+    build.reset_launch_counts()
+    with torch.inference_mode():
+        logits, aux = moe_forward(whole, tok_t)
+    torch.cuda.synchronize()
+    fwd = dict(build.LAUNCHES)
+    check(fwd.get("rms_norm", 0) == layers
+          and fwd.get("flash_attention", 0) == layers
+          and fwd.get("flash_attention.wgmma", 0) == layers,
+          f"unsharded forward 8x512: {layers} RMS-norm launches (ln1) and "
+          f"{layers} flash forwards, all wgmma ({fwd})")
+    check(tuple(logits.shape) == (8, 512, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all())
+          and 0.9 < float(aux) < cfg.n_experts,
+          f"logits finite, shape; aux {float(aux):.4f}")
+
+    def plain_logits(dtype, kernels=False):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        if not kernels:
+            c = dataclasses.replace(c, attention_impl="reference",
+                                    norm_impl="reference")
+        m = MoETransformer(c, device=dev)
+        m.load_state_dict(whole.state_dict())
+        with torch.inference_mode():
+            return moe_forward(m, tok_t)[0]
+
+    f32 = plain_logits(torch.float32)
+    f32_k = plain_logits(torch.float32, kernels=True)
+    err32 = max_err(f32_k, f32)
+    check(err32 <= 1e-3, f"fp32: kernel path (FMA flash, fused norm) vs "
+          f"plain: max |err| {err32:.3g} (limit 1e-3)")
+    ref = plain_logits(torch.bfloat16)
+    err_k, err_r = (logits - f32).abs(), (ref - f32).abs()
+    agree = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
+    # As phase 5 holds the dense forward. A token whose top two router
+    # probabilities lie within bf16 noise of each other may take another
+    # expert on either bf16 path, so the max errors are those tokens'
+    check(float(err_k.mean()) <= 1.25 * float(err_r.mean())
+          and float(err_k.max()) <= 2 * float(err_r.max()),
+          f"bf16 kernel path as close to fp32 as the plain bf16 path: mean "
+          f"{float(err_k.mean()):.4g} vs {float(err_r.mean()):.4g}, max "
+          f"{float(err_k.max()):.4g} vs {float(err_r.max()):.4g}; argmax "
+          f"agree {agree:.4f}")
+    del f32, f32_k, ref, err_k, err_r, logits
+
+    # -- 16b. sharded against unsharded: the sharded models run each
+    #    rank's flash kernels, the fp32 yardstick the plain attention and
+    #    norm
+    cfg1 = dataclasses.replace(cfg, n_layers=1, compute_dtype=torch.float32)
+    plain = MoETransformer(dataclasses.replace(
+        cfg1, attention_impl="reference", norm_impl="reference"),
+        device=dev, generator=gen(1))
+    loss_p = moe_loss_fn(plain, tok_t, tgt_t)
+    loss_p.backward()
+    loss_p = float(loss_p.detach())
+    grads_p = {n: p.grad for n, p in plain.named_parameters()}
+    with torch.no_grad():
+        loss_bf = float(moe_loss_fn(whole, tok_t, tgt_t))
+    for label, mesh in meshes.items():
+        shard = data_sharding(mesh).shard
+        sharded = shard_moe_params(plain, mesh, cfg1)
+        losses = moe_loss_fn(sharded, shard(tok_np), shard(tgt_np))
+        losses[0].backward()
+        sharded.allreduce_grads()
+        worst = max(rel_l2(spec.gather([p.grad for p in sharded.copies(n)]),
+                           grads_p[n]) for n, spec in sharded.specs.items())
+        got = float(losses[0].detach())
+        check(abs(got - loss_p) <= 1e-4 and worst <= 1e-4,
+              f"fp32, 1 layer, {label}: loss {got:.6f} vs unsharded "
+              f"{loss_p:.6f}, gradients worst relative L2 "
+              f"{worst:.2e} (limits 1e-4)")
+        with torch.no_grad():
+            got_bf = float(moe_loss_fn(shard_moe_params(whole, mesh, cfg),
+                                       shard(tok_np), shard(tgt_np))[0])
+        check(abs(got_bf - loss_bf) <= 2e-2,
+              f"bf16, full width, {label}: loss {got_bf:.5f} vs unsharded "
+              f"{loss_bf:.5f} (limit 2e-2)")
+    del plain, grads_p, sharded
+
+    # -- 16c. MoE stages in the pipeline ----------------------------------
+    cfg_pp = dataclasses.replace(cfg, aux_loss_weight=0.0)
+    pp_mesh = build_mesh([dev] * 8, MeshConfig(pp=2, ep=2))
+    pp_model = PipelinedTransformer(cfg_pp, pp_mesh, _param_tree(whole))
+    pp_shard = pp_data_sharding(pp_mesh).shard
+    pp_tok, pp_tgt = (pp_shard(microbatch(a, 4)) for a in (tok_np, tgt_np))
+    with torch.no_grad():
+        whole_pp = MoETransformer(cfg_pp, device=dev)
+        whole_pp.load_state_dict(whole.state_dict())
+        want_pp = float(moe_loss_fn(whole_pp, tok_t, tgt_t))
+        got_pp = float(make_pp_loss(cfg_pp, pp_mesh)(pp_model, pp_tok,
+                                                      pp_tgt)[0])
+    check(abs(got_pp - want_pp) <= 2e-2,
+          f"bf16, full width: MoE pipeline loss {got_pp:.5f} vs moe_loss_fn "
+          f"{want_pp:.5f} (limit 2e-2)")
+    del whole_pp
+
+    # -- 16d. the main path -----------------------------------------------
+    spec = make_optimizer()
+    step = make_moe_train_step(cfg, spec)
+    runs = {}
+    for label, mesh in meshes.items():
+        m_ = shard_moe_params(whole, mesh, cfg)
+        shard = data_sharding(mesh).shard
+        runs[label] = (m_, spec.init(m_), shard(tok_np), shard(tgt_np))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    with torch.inference_mode():
+        moe_forward(whole, tok_t)
+    step_losses = {label: step(m_, o_, t_, y_)[0]
+                   for label, (m_, o_, t_, y_) in runs.items()}
+    with torch.no_grad():
+        make_pp_loss(cfg_pp, pp_mesh)(pp_model, pp_tok, pp_tgt)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"MoE path launches: {launches}")
+    check(all(np.isfinite(float(x)) for x in step_losses.values()),
+          "a train step on each mesh: losses "
+          + ", ".join(f"{k} {float(v):.4f}" for k, v in step_losses.items()))
+    per_step = layers * 8  # each rank's flash forward, dQ, dK/dV a layer
+    want = {"rms_norm": layers, "flash_attention": layers + 2 * per_step,
+            "flash_bwd_dq": 2 * per_step, "flash_bwd_dkv": 2 * per_step,
+            "ring_permute": hop_counts(2, 4)["loss"] * 4}
+    for name, n in want.items():
+        got_n = launches.get(name, 0)
+        body = (got_n if name in ("rms_norm", "ring_permute")
+                else launches.get(f"{name}.wgmma", 0))
+        check(got_n == n and body == n,
+              f"MoE path: {name} launched {got_n} times, expected {n}"
+              + ("" if name in ("rms_norm", "ring_permute") else ", all wgmma"))
+
+    # -- 16e. timings ------------------------------------------------------
+    for label, (m_, o_, t_, y_) in runs.items():
+        wall = host_ms(lambda: step(m_, o_, t_, y_), iters=3)
+        busy, by_kernel = profile_top(lambda: step(m_, o_, t_, y_),
+                                      f"MoE step, {label}, 8x512", top=8)
+        flash_us = sum(t for n, t in by_kernel.items() if "flash" in n)
+        log(f"MoE train step 8x512 over ({label}) on {dev}: {wall:.1f} ms "
+            f"wall, device busy {busy / 1e3:.2f} ms ({flash_us:.1f} us in "
+            f"the flash kernels)")
+    log(f"peak memory on the MoE main path: {peak_gib:.3f} GiB")
+    del runs, whole, pp_model
     torch.cuda.empty_cache()
     return launches
 
@@ -1077,27 +1498,32 @@ def main() -> int:
     log("phase 4: flash attention kernel vs plain")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # views: q, k, v as views of one (B, S, 3, H, 64) product, as the
-    # model passes them; the last case is the faabric phase's scoring
-    # forward
-    for b, s_q, s_k, causal, dtype, views in [
-            (8, 512, 512, True, torch.bfloat16, False),
-            (8, 128, 512, True, torch.bfloat16, False),
-            (8, 512, 512, False, torch.bfloat16, False),
-            (8, 448, 512, True, torch.bfloat16, False),
-            (8, 500, 530, False, torch.bfloat16, False),
-            (8, 512, 512, True, torch.float32, False),
-            (1, 2048, 2048, True, torch.bfloat16, False),
-            (1, 512, 512, True, torch.bfloat16, False),
-            (1, 512, 512, True, torch.bfloat16, True)]:
+    # model passes them; (1, 512) is the faabric phase's scoring forward,
+    # (2, 512, 8 heads) and (4, 512, 4 heads) each rank's attention in the
+    # MoE steps of phase 16 (dp 4 x ep 2; dp 2 x tp 2 x ep 2)
+    for b, s_q, s_k, h, causal, dtype, views in [
+            (8, 512, 512, 8, True, torch.bfloat16, False),
+            (8, 128, 512, 8, True, torch.bfloat16, False),
+            (8, 512, 512, 8, False, torch.bfloat16, False),
+            (8, 448, 512, 8, True, torch.bfloat16, False),
+            (8, 500, 530, 8, False, torch.bfloat16, False),
+            (8, 512, 512, 8, True, torch.float32, False),
+            (1, 2048, 2048, 8, True, torch.bfloat16, False),
+            (1, 512, 512, 8, True, torch.bfloat16, False),
+            (1, 512, 512, 8, True, torch.bfloat16, True),
+            (2, 512, 512, 8, True, torch.bfloat16, False),
+            (2, 512, 512, 8, True, torch.bfloat16, True),
+            (4, 512, 512, 4, True, torch.bfloat16, False),
+            (4, 512, 512, 4, True, torch.bfloat16, True)]:
         if views:
-            q, k, v = torch.randn(b, s_q, 3, 8, 64, device=dev,
+            q, k, v = torch.randn(b, s_q, 3, h, 64, device=dev,
                                   generator=gen).to(dtype).unbind(2)
         else:
-            q, k, v = (torch.randn(b, s, 8, 64, device=dev, generator=gen
+            q, k, v = (torch.randn(b, s, h, 64, device=dev, generator=gen
                                    ).to(dtype) for s in (s_q, s_k, s_k))
         # Keys a softmax step of the wgmma body covers, as its launcher
         # picks them: 128 where the grid has at most two CTAs a SM
-        keys = 128 if b * 8 * -(-s_q // 64) <= 2 * sms else 64
+        keys = 128 if b * h * -(-s_q // 64) <= 2 * sms else 64
         body = _fwd_body(q, k, v)
         before = _build.LAUNCHES[f"flash_attention.{body}"]
         out, lse = flash_attention_with_lse(q, k, v, causal)
@@ -1106,7 +1532,7 @@ def main() -> int:
         err_l = max_err(lse, _reference_lse(q, k, causal))
         if (b, s_q, s_k, causal, dtype) == (8, 512, 512, True, torch.bfloat16):
             errs["flash_attention"] = max(err_o, err_l)
-        label = (f"flash ({b}, {s_q}/{s_k}, 8, 64) causal={causal} {dtype}"
+        label = (f"flash ({b}, {s_q}/{s_k}, {h}, 64) causal={causal} {dtype}"
                  f"{' qkv views' if views else ''} keys/step {keys}")
         if dtype == torch.bfloat16:
             check(body == "wgmma" and _build.LAUNCHES[
@@ -1267,12 +1693,11 @@ def main() -> int:
     # -- 8. backward kernels against their plain version ---------------------
     log("phase 8: flash backward kernels (dQ with delta, dK/dV) vs plain")
 
-    def bwd_inputs(b, s_q, s_k, d, causal, dtype, g_lse=False,
+    def bwd_inputs(b, s_q, s_k, h, d, causal, dtype, g_lse=False,
                    strided=False):
         """q, k, v (views of one QKV product when ``strided``), a
         cotangent, the forward kernel's O and lse, and the lse's cotangent
         (None unless ``g_lse``)."""
-        h = 8 if d == 64 else 2
         if strided:
             qkv = torch.randn(b, s_q, 3, h, d, device=dev,
                               generator=gen).to(dtype)
@@ -1292,19 +1717,25 @@ def main() -> int:
         return (dq, *_kernel_flash_bwd_dkv(q, k, v, do, lse, delta, causal),
                 delta)
 
-    bwd_cases = [(b, s_q, s_k, d, causal, dtype, g_lse, strided)
+    # (2, 512, 8 heads) and (4, 512, 4 heads): each rank's attention in
+    # the MoE train steps of phase 16 (dp 4 x ep 2; dp 2 x tp 2 x ep 2)
+    bwd_cases = [(b, s_q, s_k, h, d, causal, dtype, g_lse, strided)
                  for dtype in (torch.bfloat16, torch.float32)
-                 for b, s_q, s_k, d, causal, g_lse, strided in [
-                     (8, 512, 512, 64, True, False, False),
-                     (8, 512, 512, 64, False, False, False),
-                     (8, 128, 512, 64, True, False, False),
-                     (2, 100, 157, 64, True, False, False),
-                     (2, 100, 157, 32, True, False, False),
-                     (1, 2048, 2048, 64, True, False, False),
-                     (8, 512, 512, 64, True, True, False),
-                     (8, 512, 512, 64, True, False, True)]]
-    for b, s_q, s_k, d, causal, dtype, g_lse, strided in bwd_cases:
-        ins = bwd_inputs(b, s_q, s_k, d, causal, dtype, g_lse, strided)
+                 for b, s_q, s_k, h, d, causal, g_lse, strided in [
+                     (8, 512, 512, 8, 64, True, False, False),
+                     (8, 512, 512, 8, 64, False, False, False),
+                     (8, 128, 512, 8, 64, True, False, False),
+                     (2, 100, 157, 8, 64, True, False, False),
+                     (2, 100, 157, 2, 32, True, False, False),
+                     (1, 2048, 2048, 8, 64, True, False, False),
+                     (8, 512, 512, 8, 64, True, True, False),
+                     (8, 512, 512, 8, 64, True, False, True),
+                     (2, 512, 512, 8, 64, True, False, False),
+                     (2, 512, 512, 8, 64, True, False, True),
+                     (4, 512, 512, 4, 64, True, False, False),
+                     (4, 512, 512, 4, 64, True, False, True)]]
+    for b, s_q, s_k, h, d, causal, dtype, g_lse, strided in bwd_cases:
+        ins = bwd_inputs(b, s_q, s_k, h, d, causal, dtype, g_lse, strided)
         q, k, v, do, out, lse, g = ins
         body = _bwd_body(q, k, v, do, out)
         before = dict(_build.LAUNCHES)
@@ -1488,7 +1919,7 @@ def main() -> int:
             f"of {step_busy:.1f} us busy "
             f"({100 * sum(us.values()) / step_busy:.2f}%): "
             + "; ".join(f"{n[:60]} {t:.1f} us" for n, t in us.items()))
-    q, k, v, do, out, lse, _ = bwd_inputs(8, 512, 512, 64, True,
+    q, k, v, do, out, lse, _ = bwd_inputs(8, 512, 512, 8, 64, True,
                                           torch.bfloat16)
     check(_bwd_body(q, k, v, do, out) == "wgmma",
           "the timed training shape takes the wgmma body")
@@ -1536,7 +1967,7 @@ def main() -> int:
     # At (1, 2048, 8, 64) a pass is 256 CTAs, one wave, so it lasts about
     # as long as its longest CTA: 32 tiles in a row (it shares its SM with
     # one other CTA). ms / 32 is one tile of that chain.
-    q, k, v, do, out, lse, _ = bwd_inputs(1, 2048, 2048, 64, True,
+    q, k, v, do, out, lse, _ = bwd_inputs(1, 2048, 2048, 8, 64, True,
                                           torch.bfloat16)
     _, delta = _kernel_flash_bwd_dq(q, k, v, do, out, lse, None, True)
     long_dq = time_ms(lambda: _kernel_flash_bwd_dq(q, k, v, do, out, lse,
@@ -1563,12 +1994,17 @@ def main() -> int:
     faabric_launches = faabric_phase(dev, model, _build)
     # -- 14. dryrun_multichip stages 1-3 and the sharded step -------------
     mesh_launches = mesh_phase(dev, _build, (step_ms, step_busy))
+    # -- 15. the pipeline, GPipe and 1F1B --------------------------------
+    pp_launches = pipeline_phase(dev, _build)
+    # -- 16. the MoE family ----------------------------------------------
+    moe_launches = moe_phase(dev, _build)
     # Each row's launches: the serving kernels' on the direct serving
     # path (phase 5) and under the executors (13), the backward kernels'
     # on the training path (9), the ring kernel's on the MPI path (12),
-    # and every flash and ring launch of the mesh path (14)
+    # and every launch of the mesh (14), pipeline (15) and MoE (16) paths
     path_launches = {
-        name: sum(p.get(name, 0) for p in paths) + mesh_launches.get(name, 0)
+        name: sum(p.get(name, 0) for p in paths) + sum(
+            p.get(name, 0) for p in (mesh_launches, pp_launches, moe_launches))
         for name, paths in (
             ("rms_norm", (launches, faabric_launches)),
             ("flash_attention", (launches, faabric_launches)),

@@ -122,9 +122,9 @@ def _microbatches(batch, accum_steps: int) -> list:
 
 
 def _build_step(cfg: ModelConfig, optimizer: OptimizerSpec,
-                accum_steps: int):
-    """The step shared by :func:`make_train_step` and
-    :func:`make_multi_step`."""
+                accum_steps: int, loss=loss_fn):
+    """The step shared by :func:`make_train_step`, :func:`make_multi_step`
+    and the MoE family's ``make_moe_train_step`` (its ``loss``)."""
 
     def step(model: Transformer, opt: torch.optim.Optimizer, tokens, targets):
         if model.cfg != cfg:
@@ -134,7 +134,7 @@ def _build_step(cfg: ModelConfig, optimizer: OptimizerSpec,
         total = None
         for tok, tgt in zip(_microbatches(tokens, accum_steps),
                             _microbatches(targets, accum_steps)):
-            mb_loss = loss_fn(model, tok, tgt)
+            mb_loss = loss(model, tok, tgt)
             copies = mb_loss if sharded else [mb_loss]
             # Over a mesh every rank holds the loss; one copy's backward
             # reaches every rank's shards

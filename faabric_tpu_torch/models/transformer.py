@@ -35,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -253,10 +254,20 @@ def _logits(model: Transformer, x: torch.Tensor, cfg: ModelConfig):
     return (x @ model.lm_head.to(cfg.compute_dtype)).float()
 
 
+def _check_family(model) -> None:
+    """The dense entry points refuse another family's model (its config
+    a subclass of ModelConfig): its own module runs it."""
+    if type(model.cfg) is not ModelConfig:
+        raise TypeError(f"a {type(model.cfg).__name__} model runs through "
+                        "its own module's forward and loss, not the dense "
+                        "ones")
+
+
 def forward(model: Transformer, tokens):
     """tokens (B, S) int -> logits (B, S, V) float32. A
     :class:`ShardedTransformer` takes per-rank token lists (B/dp, S/sp)
     and gives per-rank logits (B/dp, S/sp, V), replicated over tp."""
+    _check_family(model)
     if isinstance(model, ShardedTransformer):
         return _sharded_forward(model, tokens)
     cfg = resolve_impls(model.cfg, model.device)
@@ -284,6 +295,7 @@ def loss_fn(model: Transformer, tokens, targets):
     """The mean token NLL. Over a mesh: per rank, the global mean as a
     differentiable replicated value (a backward from any one rank's
     copy gives every rank's shards their gradients)."""
+    _check_family(model)
     if isinstance(model, ShardedTransformer):
         return _sharded_loss(model, tokens, targets)
     return token_nll(forward(model, tokens), targets).mean()
@@ -316,55 +328,91 @@ def param_shardings(mesh, cfg: ModelConfig) -> dict:
             "ln_f": named(mesh), "lm_head": named(mesh, None, "tp")}
 
 
+def _present(blk) -> list[str]:
+    """The block weights ``blk`` (a dict or a module) holds, in the JAX
+    package's pytree order (names sorted), whatever order built it."""
+    if isinstance(blk, dict):
+        return sorted(blk)
+    return sorted(n for n, _ in blk.named_parameters(recurse=False))
+
+
 def _leaves(tree: dict) -> list[tuple[str, object]]:
     """(name, leaf) of a parameter pytree, named as ``named_parameters``
-    names a Transformer's."""
+    names a Transformer's (``blocks.0.wqkv``); a pipeline's stacked tree
+    (``parallel/pipeline.py``) names its slabs ``stacked.wqkv``."""
     out = [("embed", tree["embed"])]
-    for i, blk in enumerate(tree["blocks"]):
-        out += [(f"blocks.{i}.{k}", blk[k]) for k in _BLOCK_KEYS]
+    if "stacked" in tree:
+        out += [(f"stacked.{k}", tree["stacked"][k])
+                for k in _present(tree["stacked"])]
+    else:
+        for i, blk in enumerate(tree["blocks"]):
+            out += [(f"blocks.{i}.{k}", blk[k]) for k in _present(blk)]
     return out + [("ln_f", tree["ln_f"]), ("lm_head", tree["lm_head"])]
 
 
-def _param_tree(model: Transformer) -> dict:
+def _tree(flat: dict) -> dict:
+    """The inverse of :func:`_leaves`: named leaves back as the pytree."""
+    tree = {"embed": flat["embed"], "ln_f": flat["ln_f"],
+            "lm_head": flat["lm_head"]}
+    blocks: dict[int, dict] = {}
+    for name, leaf in flat.items():
+        part = name.split(".")
+        if part[0] == "stacked":
+            tree.setdefault("stacked", {})[part[1]] = leaf
+        elif part[0] == "blocks":
+            blocks.setdefault(int(part[1]), {})[part[2]] = leaf
+    if "stacked" not in tree:
+        tree["blocks"] = [blocks[i] for i in range(len(blocks))]
+    return tree
+
+
+def _param_tree(model: nn.Module) -> dict:
+    """A Transformer's (or a MoETransformer's) parameters as the pytree."""
     return {"embed": model.embed,
-            "blocks": [{k: getattr(blk, k) for k in _BLOCK_KEYS}
+            "blocks": [{k: getattr(blk, k) for k in _present(blk)}
                        for blk in model.blocks],
             "ln_f": model.ln_f, "lm_head": model.lm_head}
 
 
 class _RankShards(nn.Module):
-    """One rank's parameter shards, named as a Transformer's."""
+    """One rank's parameter shards, named as the leaves of the model's
+    pytree (``blocks.0.wqkv``, or a pipeline stage's ``stacked.wqkv``)."""
 
-    def __init__(self, leaves: dict[str, torch.Tensor], n_layers: int):
+    def __init__(self, leaves: dict[str, torch.Tensor]):
         super().__init__()
-        self.embed = nn.Parameter(leaves["embed"])
-        self.blocks = nn.ModuleList()
-        for i in range(n_layers):
-            blk = nn.Module()
-            for k in _BLOCK_KEYS:
-                setattr(blk, k, nn.Parameter(leaves[f"blocks.{i}.{k}"]))
-            self.blocks.append(blk)
-        self.ln_f = nn.Parameter(leaves["ln_f"])
-        self.lm_head = nn.Parameter(leaves["lm_head"])
+        n_layers = len({n.split(".")[1] for n in leaves
+                        if n.startswith("blocks.")})
+        if n_layers:
+            self.blocks = nn.ModuleList(nn.Module() for _ in range(n_layers))
+        if any(n.startswith("stacked.") for n in leaves):
+            self.stacked = nn.Module()
+        for name, leaf in leaves.items():
+            path, _, key = name.rpartition(".")
+            setattr(self.get_submodule(path), key, nn.Parameter(leaf))
 
 
 class ShardedTransformer(nn.Module):
     """A Transformer's weights laid over a mesh: ``ranks[r]`` holds rank
-    r's shard of every weight (``param_shardings``), a leaf of its own
-    on the rank's device, so that a rank's program differentiates into
-    its own copies. ``params`` is the whole pytree (numpy arrays or
-    tensors) in the JAX package's layout; it is only sliced."""
+    r's shard of every weight (``param_shardings``), a leaf of its own on
+    the rank's device, so that a rank's program differentiates into its
+    own copies. ``params`` is the whole pytree (numpy arrays or tensors)
+    in the JAX package's layout; it is only sliced. Subclasses lay the
+    weights out otherwise through :meth:`_layout`, :meth:`_shardings` and
+    :meth:`_shapes` (the MoE family's experts, ``models/moe.py``; the
+    pipeline's stacked slabs, ``parallel/pipeline.py``)."""
 
     def __init__(self, cfg: ModelConfig, mesh, params: dict):
         super().__init__()
-        if len(params["blocks"]) != cfg.n_layers:
-            raise ValueError(f"{len(params['blocks'])} blocks for "
-                             f"{cfg.n_layers} layers")
         self.cfg, self.mesh = cfg, mesh
-        self.specs = dict(_leaves(param_shardings(mesh, cfg)))
-        shapes = dict(_leaves(_param_shapes(cfg)))
+        params = self._layout(params, cfg)
+        self.specs = dict(_leaves(self._shardings(mesh, cfg)))
+        shapes = dict(_leaves(self._shapes(cfg)))
+        given = dict(_leaves(params))
+        if set(given) != set(shapes):
+            raise ValueError(f"weights {sorted(set(given) ^ set(shapes))} do "
+                             f"not fit the config's")
         per_rank: list[dict] = [{} for _ in range(mesh.size)]
-        for name, arr in _leaves(params):
+        for name, arr in given.items():
             if tuple(arr.shape) != shapes[name]:
                 raise ValueError(f"{name}: shape {tuple(arr.shape)} does not "
                                  f"fit {shapes[name]}")
@@ -373,8 +421,22 @@ class ShardedTransformer(nn.Module):
             pieces = self.specs[name].shard(arr, cfg.param_dtype)
             for leaves, piece in zip(per_rank, pieces):
                 leaves[name] = piece
-        self.ranks = nn.ModuleList(_RankShards(leaves, cfg.n_layers)
-                                   for leaves in per_rank)
+        self.ranks = nn.ModuleList(_RankShards(leaves) for leaves in per_rank)
+
+    @staticmethod
+    def _layout(params: dict, cfg: ModelConfig) -> dict:
+        if len(params["blocks"]) != cfg.n_layers:
+            raise ValueError(f"{len(params['blocks'])} blocks for "
+                             f"{cfg.n_layers} layers")
+        return params
+
+    @staticmethod
+    def _shardings(mesh, cfg: ModelConfig) -> dict:
+        return param_shardings(mesh, cfg)
+
+    @staticmethod
+    def _shapes(cfg: ModelConfig) -> dict:
+        return _param_shapes(cfg)
 
     def forward(self, tokens):
         return forward(self, tokens)
@@ -392,21 +454,33 @@ class ShardedTransformer(nn.Module):
     def gathered(self) -> dict:
         """The whole weights as the JAX package's pytree of tensors on
         rank 0's device, each assembled from its shards."""
-        whole = {name: spec.gather(self.copies(name))
-                 for name, spec in self.specs.items()}
-        return {"embed": whole["embed"],
-                "blocks": [{k: whole[f"blocks.{i}.{k}"] for k in _BLOCK_KEYS}
-                           for i in range(self.cfg.n_layers)],
-                "ln_f": whole["ln_f"], "lm_head": whole["lm_head"]}
+        return _tree({name: spec.gather(self.copies(name))
+                      for name, spec in self.specs.items()})
+
+    @torch.no_grad()
+    def load_tree(self, params: dict) -> None:
+        """Copy a whole pytree (this layout's, as :meth:`gathered` gives
+        it) into every rank's shards."""
+        for name, arr in _leaves(self._layout(params, self.cfg)):
+            if not isinstance(arr, torch.Tensor):
+                arr = torch.from_numpy(np.require(arr, requirements=["C"]))
+            for p, piece in zip(self.copies(name),
+                                self.specs[name].shard(arr.detach())):
+                p.copy_(piece)
 
     @torch.no_grad()
     def allreduce_grads(self) -> None:
         """Sum each shard's gradient over the ranks holding that shard
         (the gradient allreduce XLA inserts over dp): one flat allreduce
-        per replica group structure, through the mesh's collectives."""
+        per replica group structure, through the mesh's collectives. A
+        copy its rank's program never used (a pipeline stage's embedding
+        off the first stage) counts as zero and then holds the sum."""
         by_axes: dict[tuple, list[str]] = {}
         for name, spec in self.specs.items():
             by_axes.setdefault(spec.replica_axes(), []).append(name)
+        for p in self.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         for axes, names in by_axes.items():
             grads = [[r.get_parameter(n).grad for n in names]
                      for r in self.ranks]
@@ -421,7 +495,7 @@ class ShardedTransformer(nn.Module):
 def shard_params(params, mesh, cfg: ModelConfig) -> ShardedTransformer:
     """A Transformer (or the JAX package's pytree of arrays) laid over
     the mesh."""
-    if isinstance(params, Transformer):
+    if isinstance(params, nn.Module):
         params = _param_tree(params)
     return ShardedTransformer(cfg, mesh, params)
 
@@ -469,34 +543,56 @@ def _sharded_attention(qs, ks, vs, cfg: ModelConfig, mesh) -> list:
             for r, (q, k, v) in enumerate(zip(qs, ks, vs))]
 
 
-def _sharded_block(xs, blks, positions, cfg: ModelConfig, mesh) -> list:
+def _sharded_attention_sublayer(xs, blks, positions, cfg: ModelConfig,
+                                mesh) -> list:
+    """Pre-norm attention and residual on each rank's shards (shared by
+    the dense and MoE families, sharded or in a pipeline stage): heads
+    over tp, the row-parallel wo's partial sums completed by an
+    allreduce over tp."""
     qkvs = [_qkv(_norm(x, b.ln1, cfg), b, cfg) for x, b in zip(xs, blks)]
     qs = [_rope(q, p, cfg.rope_theta) for (q, _, _), p in zip(qkvs, positions)]
     ks = [_rope(k, p, cfg.rope_theta) for (_, k, _), p in zip(qkvs, positions)]
     attn = _sharded_attention(qs, ks, [v for _, _, v in qkvs], cfg, mesh)
-    # Row-parallel wo and w2: partial sums over the rank's heads and
-    # hidden units, completed by an allreduce over tp
     outs = mesh.over("tp", [_out_proj(a, b, cfg) for a, b in zip(attn, blks)],
                      lambda coll, t: coll.allreduce(t))
-    xs = [x + o for x, o in zip(xs, outs)]
+    return [x + o for x, o in zip(xs, outs)]
+
+
+def _sharded_block(xs, blks, positions, cfg: ModelConfig, mesh) -> list:
+    xs = _sharded_attention_sublayer(xs, blks, positions, cfg, mesh)
+    # Row-parallel w2 likewise: partial sums over the rank's hidden
+    # units, completed by an allreduce over tp
     ffs = mesh.over("tp", [_ffn(_norm(x, b.ln2, cfg), b, cfg)
                            for x, b in zip(xs, blks)],
                     lambda coll, t: coll.allreduce(t))
     return [x + f for x, f in zip(xs, ffs)]
 
 
+def _sharded_positions(tokens, mesh) -> list:
+    """RoPE at global positions: a rank's sequence block starts at its
+    sp index x S/sp."""
+    positions = []
+    for r, tok in enumerate(tokens):
+        b, s_l = tok.shape[-2:]
+        start = mesh.index(r, "sp") * s_l
+        positions.append(torch.arange(start, start + s_l,
+                                      device=tok.device)[None].expand(b, s_l))
+    return positions
+
+
+def _sharded_logits(shards, xs, cfg: ModelConfig, mesh) -> list:
+    logits = [(_norm(x, sh.ln_f, cfg) @ sh.lm_head.to(cfg.compute_dtype)).float()
+              for x, sh in zip(xs, shards)]
+    # Gathered over tp on the vocab dim: the JAX package constrains the
+    # logits to ("dp", "sp", None)
+    return mesh.over("tp", logits, lambda coll, t: coll.allgather(t, dim=-1))
+
+
 def _sharded_forward(model: ShardedTransformer, tokens) -> list:
     mesh = _check_sharded(model, tokens)
     cfg = resolve_impls(model.cfg, mesh.rank_devices[0], mesh)
     shards = list(model.ranks)
-    # RoPE at global positions: the rank's sequence block starts at
-    # sp index x S/sp
-    positions = []
-    for r, tok in enumerate(tokens):
-        b, s_l = tok.shape
-        start = mesh.index(r, "sp") * s_l
-        positions.append(torch.arange(start, start + s_l,
-                                      device=tok.device)[None].expand(b, s_l))
+    positions = _sharded_positions(tokens, mesh)
     xs = _sharded_embed(shards, tokens, cfg, mesh)
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
@@ -506,21 +602,21 @@ def _sharded_forward(model: ShardedTransformer, tokens) -> list:
                             use_reentrant=False, preserve_rng_state=False)
         else:
             xs = _sharded_block(xs, blks, positions, cfg, mesh)
-    logits = [(_norm(x, sh.ln_f, cfg) @ sh.lm_head.to(cfg.compute_dtype)).float()
-              for x, sh in zip(xs, shards)]
-    # Gathered over tp on the vocab dim: the JAX package constrains the
-    # logits to ("dp", "sp", None)
-    return mesh.over("tp", logits, lambda coll, t: coll.allgather(t, dim=-1))
+    return _sharded_logits(shards, xs, cfg, mesh)
+
+
+def _token_parts(logits, targets, mesh) -> list:
+    """Each rank's share of the mean token NLL over the mesh. Each
+    token's NLL is computed by every rank of its (dp, sp) cell;
+    weighting each copy by 1/replicas counts every token once."""
+    b_l, s_l = targets[0].shape
+    n_tokens = b_l * mesh.shape["dp"] * s_l * mesh.shape["sp"]
+    replicas = mesh.size // (mesh.shape["dp"] * mesh.shape["sp"])
+    return [token_nll(lg, tgt).sum() / (n_tokens * replicas)
+            for lg, tgt in zip(logits, targets)]
 
 
 def _sharded_loss(model: ShardedTransformer, tokens, targets):
-    logits = _sharded_forward(model, tokens)
     mesh = model.mesh
-    b_l, s_l = tokens[0].shape
-    n_tokens = b_l * mesh.shape["dp"] * s_l * mesh.shape["sp"]
-    # Each token's NLL is computed by every rank of its (dp, sp) cell;
-    # weighting each copy by 1/replicas counts every token once
-    replicas = mesh.size // (mesh.shape["dp"] * mesh.shape["sp"])
-    parts = [token_nll(lg, tgt).sum() / (n_tokens * replicas)
-             for lg, tgt in zip(logits, targets)]
+    parts = _token_parts(_sharded_forward(model, tokens), targets, mesh)
     return mesh.over(mesh.axis_names, parts, lambda coll, t: coll.allreduce(t))

@@ -13,8 +13,8 @@ so tp is the fastest-varying axis over the rank order.
     dp — data parallel (batch)           → gradient allreduce
     tp — tensor parallel (heads/hidden)  → activation collectives
     sp — sequence parallel (long ctx)    → ring attention / K/V gathers
-    pp — pipeline parallel (stages)      → not ported yet
-    ep — expert parallel (MoE)           → not ported yet
+    pp — pipeline parallel (stages)      → stage-to-stage shifts (pipeline.py)
+    ep — expert parallel (MoE)           → expert outputs summed (models/moe.py)
 
 Every movement of data between ranks goes through
 ``parallel/collectives.py::DeviceCollectives``; ``Mesh.collectives``

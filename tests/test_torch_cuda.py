@@ -900,3 +900,149 @@ def test_sharded_train_step_on_one_card(cuda_device, n, tp, sp):
             assert launches.get(f"{name}.wgmma", 0) == count, name
     assert launches.get("rms_norm", 0) == 0
     assert np.isfinite(float(loss[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h", [(2, 8), (4, 4), (8, 8)])
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4), ("bfloat16", 3e-2)])
+def test_flash_kernels_at_the_moe_paths_shapes(cuda_device, b, h, dtype, atol):
+    """The flash forward, dQ and dK/dV at the MoE family's per-rank
+    shapes ((2, 512, 8, 64) at dp 4 x ep 2, (4, 512, 4, 64) at dp 2 x tp
+    2 x ep 2, and (8, 512, 8, 64) unsharded) against their plain
+    versions; bf16 on ``wgmma``."""
+    q, k, v, do, out, lse, _ = bwd_inputs(cuda_device, b, 512, 512, h, 64,
+                                          True, DTYPES[dtype])
+    want = _reference_attention(q, k, v, True)
+    assert float((out.float() - want.float()).abs().max()) <= atol
+    _build.reset_launch_counts()
+    got = run_bwd_kernels(q, k, v, do, out, lse, None, True)
+    torch.cuda.synchronize()
+    assert_bwd_close(got[:3], q, k, v, do, out, lse, None, True)
+    if dtype == "bfloat16":
+        assert _fwd_body(q, k, v) == "wgmma"
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            assert _build.LAUNCHES.get(f"{name}.wgmma", 0) == 1, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule_name", ["gpipe", "1f1b"])
+def test_pipeline_step_hops_on_the_ring_kernel(cuda_device, schedule_name):
+    """A pipeline step over 8 ranks on one card (dp 2, tp 2, pp 2) at a
+    head-dim-64 config: every stage-to-stage hop is one ring-permute
+    launch per pp group, ``hop_counts`` of them; stages run plain
+    attention and norm (no flash or RMS launch); the fp32 loss within
+    1e-4 of the unsharded model's on the same weights and batch."""
+    import numpy as np
+
+    from faabric_tpu_torch.models import ModelConfig, Transformer, loss_fn
+    from faabric_tpu_torch.parallel import init_pp_train_state, make_pp_train_step
+    from faabric_tpu_torch.models import params_from_jax, params_to_numpy
+    from faabric_tpu_torch.parallel.pipeline import (
+        PipelinedTransformer,
+        hop_counts,
+        unstack_block_params,
+    )
+
+    cfg = ModelConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=4,
+                      d_ff=512, max_seq=256, compute_dtype=torch.float32)
+    mesh = card_mesh(cuda_device, tp=2, pp=2)
+    rng = np.random.RandomState(0)
+    tok, tgt = (rng.randint(0, 512, (8, 128)).astype(np.int32)
+                for _ in range(2))
+    model, opt = init_pp_train_state(
+        torch.Generator(device=cuda_device).manual_seed(0), cfg, mesh)
+    assert isinstance(model, PipelinedTransformer)
+    plain = params_from_jax(unstack_block_params(params_to_numpy(model)), cfg,
+                            device=cuda_device)
+    with torch.no_grad():
+        want = float(loss_fn(plain, torch.as_tensor(tok, device=cuda_device),
+                             torch.as_tensor(tgt, device=cuda_device)))
+    step = make_pp_train_step(cfg, n_microbatches=4,
+                              schedule_name=schedule_name)
+    _build.reset_launch_counts()
+    loss = float(step(model, opt, tok, tgt)[0])
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    assert abs(loss - want) <= 1e-4, (loss, want)
+    assert launches.get("ring_permute", 0) == hop_counts(2, 4)[
+        schedule_name] * 4, launches
+    for name in ("rms_norm", "flash_attention", "flash_bwd_dq",
+                 "flash_bwd_dkv"):
+        assert launches.get(name, 0) == 0, (name, launches)
+
+
+@pytest.mark.cuda
+def test_ring_kernel_at_the_pp_hop_shape(cuda_device):
+    """One pp hop at full width: each rank's (1, 512, 512) bf16
+    activation over a ring of 2, forward (+1) and back (-1), bitwise."""
+    from faabric_tpu_torch.ops.ring_permute import ring_permute
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    act = [torch.randn(1, 512, 512, device=cuda_device, generator=gen)
+           .to(torch.bfloat16) for _ in range(2)]
+    for disp in (1, -1):
+        out = ring_permute(act, disp)
+        torch.cuda.synchronize()
+        for r in range(2):
+            assert torch.equal(out[r], act[(r - disp) % 2])
+
+
+@pytest.mark.cuda
+def test_moe_on_one_card_launches_its_kernels(cuda_device):
+    """The MoE family at a head-dim-64 config on one card: the unsharded
+    forward launches the RMS-norm kernel (ln1) and a ``wgmma`` flash
+    forward once a layer; a sharded step over (dp 4, ep 2) one flash
+    forward, dQ and dK/dV per rank and layer (no remat), no RMS kernel;
+    the fp32 sharded loss within 1e-4 of the plain unsharded one."""
+    import dataclasses
+
+    import numpy as np
+
+    from faabric_tpu_torch.models import (
+        MoEConfig,
+        MoETransformer,
+        data_sharding,
+        make_moe_train_step,
+        moe_forward,
+        moe_loss_fn,
+        shard_moe_params,
+    )
+
+    cfg = MoEConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=4,
+                    d_ff=512, max_seq=256)
+    rng = np.random.RandomState(1)
+    tok, tgt = (rng.randint(0, 512, (8, 128)).astype(np.int32)
+                for _ in range(2))
+    tok_t = torch.as_tensor(tok, device=cuda_device)
+    model = MoETransformer(cfg, device=cuda_device)
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        logits, aux = moe_forward(model, tok_t)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.get("rms_norm", 0) == 2
+    assert _build.LAUNCHES.get("flash_attention.wgmma", 0) == 2
+    assert torch.isfinite(logits).all() and 0.9 < float(aux) < 4
+    mesh = card_mesh(cuda_device, ep=2)
+    shard = data_sharding(mesh).shard
+    c32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    # The unsharded yardstick runs the plain attention and norm; the
+    # sharded model each rank's flash kernel
+    plain = MoETransformer(dataclasses.replace(
+        c32, attention_impl="reference", norm_impl="reference"),
+        device=cuda_device)
+    with torch.no_grad():
+        want = float(moe_loss_fn(plain, tok_t,
+                                 torch.as_tensor(tgt, device=cuda_device)))
+        got = float(moe_loss_fn(shard_moe_params(plain, mesh, c32),
+                                shard(tok), shard(tgt))[0])
+    assert abs(got - want) <= 1e-4, (got, want)
+    sharded = shard_moe_params(model, mesh, cfg)
+    opt = torch.optim.AdamW(sharded.parameters())
+    _build.reset_launch_counts()
+    loss = make_moe_train_step(cfg)(sharded, opt, shard(tok), shard(tgt))
+    torch.cuda.synchronize()
+    for name in ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert _build.LAUNCHES.get(f"{name}.wgmma", 0) == 2 * 8, name
+    assert _build.LAUNCHES.get("rms_norm", 0) == 0
+    assert np.isfinite(float(loss[0]))
+

@@ -167,3 +167,31 @@ def test_torch_executor_factory_raises_without_cuda_unless_cpu_is_asked(
     executor = TorchExecutorFactory("cpu").create_executor(
         message_factory("demo", "fn"))
     assert executor.device_type == "cpu"
+
+
+def test_pipeline_and_moe_entry_points_raise_without_cuda_unless_cpu_is_asked(
+        no_cuda):
+    from faabric_tpu_torch.models import (
+        MoEConfig,
+        MoETransformer,
+        init_moe_train_state,
+    )
+    from faabric_tpu_torch.parallel import (
+        MeshConfig,
+        build_mesh,
+        init_pp_train_state,
+    )
+
+    cfg = MoEConfig(vocab_size=32, d_model=16, n_layers=2, n_heads=2,
+                    d_ff=32, max_seq=16, n_experts=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MoETransformer(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_moe_train_state(None, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_mesh(config=MeshConfig(pp=1))
+    model, _ = init_moe_train_state(None, cfg, "cpu")
+    assert model.device.type == "cpu"
+    mesh = build_mesh(["cpu"] * 2, MeshConfig(pp=2))
+    pp_model, _ = init_pp_train_state(None, cfg, mesh)
+    assert {p.device.type for p in pp_model.parameters()} == {"cpu"}

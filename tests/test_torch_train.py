@@ -42,7 +42,7 @@ from faabric_tpu_torch.models import (  # noqa: E402
     restore_train_state,
     save_train_state,
 )
-from faabric_tpu_torch.models.convert import _BLOCK_KEYS  # noqa: E402
+from faabric_tpu_torch.models.transformer import _BLOCK_KEYS  # noqa: E402
 from faabric_tpu_torch.models.train import _update  # noqa: E402
 from tests.test_torch_models import SMALL, pair, tokens_np  # noqa: E402
 
