@@ -34,7 +34,14 @@ model, every stage-to-stage hop on the ring-permute kernel, three steps
 of each schedule. The MoE path: ``MoEConfig()`` at the flagship's widths
 with 4 experts, its unsharded forward on the RMS-norm and flash kernels,
 train steps over (dp 4, ep 2) and (dp 2, tp 2, ep 2) against the
-unsharded model, and MoE stages in the pipeline. For each path
+unsharded model, and MoE stages in the pipeline. faabric's MPI as
+guests use it: a planner and two worker runtimes gang-schedule 4 torch
+guests (2 + 2 across the hosts) through rank 0's ``ctx.mpi_world()``,
+which run the reference's MPI programs with CUDA-tensor and numpy
+payloads and one data-parallel step of the full-width model whose
+gradient crosses hosts on the host ladder; one worker runtime with 4
+slots trains 3 data-parallel steps whose gradient allreduce runs on the
+device plane. For each path
 it checks the outputs and shows from the kernels' launch counts that
 the path ran through them; it times the kernels, their plain versions and the nearest
 PyTorch library calls, and prints one JSON line of kernel numbers (the
@@ -456,25 +463,15 @@ def faabric_phase(dev, model, build) -> dict:
     ``ctx.device``. The tokens must equal direct calls on the same
     prompts, and the batch's kernel launches must be exactly those of 8
     forwards and 8 generate calls. Returns the batch's launches."""
-    import random
-
     from faabric_tpu_torch.executor import (
         GuestContext,
         TorchExecutor,
         TorchExecutorFactory,
-        clear_registered_functions,
         register_function,
-        set_executor_factory,
     )
     from faabric_tpu_torch.models import forward, generate
-    from faabric_tpu_torch.planner import PlannerServer, get_planner
     from faabric_tpu_torch.proto import ReturnValue, batch_exec_factory
-    from faabric_tpu_torch.runner import WorkerRuntime
-    from faabric_tpu_torch.transport import (
-        PointToPointBroker,
-        clear_host_aliases,
-        register_host_alias,
-    )
+    from faabric_tpu_torch.transport import PointToPointBroker
 
     log("phase 13: faabric's main path: planner, worker, executors, "
         "torch guests on the card")
@@ -519,17 +516,8 @@ def faabric_phase(dev, model, build) -> dict:
     def fail(ctx):
         raise RuntimeError("injected guest failure")
 
-    # Listener ports stay below the client source ports (30500 up)
-    base = random.randint(100, 200) * 100
-    register_host_alias("smoke-planner", "127.0.0.1", base)
-    register_host_alias("smoke-host", "127.0.0.1", base + 1000)
-    get_planner().reset()
-    planner_server = PlannerServer(port_offset=base)
-    worker = WorkerRuntime(host="smoke-host", slots=n_req,
-                           factory=TorchExecutorFactory(),
-                           planner_host="smoke-planner")
-    check(worker.n_devices == torch.cuda.device_count(),
-          f"worker registers {worker.n_devices} CUDA device(s)")
+    planner_server, (worker,) = start_cluster({"smoke-host": n_req},
+                                              TorchExecutorFactory())
     client = worker.planner_client
 
     def run_batch(user, function, inputs):
@@ -544,8 +532,8 @@ def faabric_phase(dev, model, build) -> dict:
         return decision, results, (time.perf_counter() - t0) * 1e3
 
     try:
-        planner_server.start()
-        worker.start()
+        check(worker.n_devices == torch.cuda.device_count(),
+              f"worker registers {worker.n_devices} CUDA device(s)")
 
         # -- 13a. stage 1 of dryrun_multichip ------------------------------
         decision, results, gang_ms = run_batch("dryrun", "gang", [b""] * 4)
@@ -676,12 +664,7 @@ def faabric_phase(dev, model, build) -> dict:
         check(raised, f"a guest pinned to device {missing}, which this host "
               f"lacks, raises")
     finally:
-        worker.shutdown()
-        planner_server.stop()
-        get_planner().reset()
-        clear_registered_functions()
-        set_executor_factory(None)
-        clear_host_aliases()
+        stop_cluster(planner_server, [worker])
     return launches
 
 
@@ -1415,6 +1398,502 @@ def moe_phase(dev, build) -> dict:
     return launches
 
 
+def _as_np(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def mpi_suite(world, rank: int, payload) -> dict:
+    """The reference's dist programs for faabric's MPI, on one rank of
+    ``world`` (``tests/dist/procs.py``: ``fn_mpi_collectives`` :282-353,
+    ``fn_mpi_p2p_suite`` :355-414, ``fn_mpi_isendrecv`` :626-655,
+    ``fn_mpi_cartesian`` :517-547) and the split and group-communicator
+    pass of ``examples/subcomms.py``. ``payload(array)`` is what the
+    guest hands the world: a tensor on its device, or the array. Every
+    result is held against numpy; returns this rank's wall ms per call
+    of each collective."""
+    size = world.size
+    ms: dict[str, float] = {}
+
+    def timed(name, fn, calls: int = 1):
+        t0 = time.perf_counter()
+        out = fn()
+        ms[name] = (time.perf_counter() - t0) * 1e3 / calls
+        return out
+
+    def want(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"rank {rank}: {what}")
+
+    # -- fn_mpi_collectives -------------------------------------------------
+    n_per = 4
+    got = timed("allgather", lambda: world.allgather(rank, payload(
+        np.arange(rank * n_per, (rank + 1) * n_per, dtype=np.int32))))
+    want(np.array_equal(_as_np(got), np.arange(size * n_per, dtype=np.int32)),
+         f"allgather {_as_np(got)[:8]}")
+    expected = np.array([0, 1, 2, 3], np.int32)
+    got = timed("broadcast", lambda: world.broadcast(
+        2, rank, payload(expected) if rank == 2 else np.empty(0)))
+    want(np.array_equal(_as_np(got), expected), f"broadcast {_as_np(got)}")
+    got = timed("gather", lambda: world.gather(rank, 2, payload(
+        np.arange(rank * n_per, (rank + 1) * n_per, dtype=np.int32))))
+    want(rank != 2 or np.array_equal(
+        _as_np(got), np.arange(size * n_per, dtype=np.int32)), "gather")
+    all_data = (payload(np.arange(size * n_per, dtype=np.int32))
+                if rank == 0 else np.empty(0, np.int32))
+    got = timed("scatter", lambda: world.scatter(0, rank, all_data, n_per))
+    want(np.array_equal(_as_np(got), np.arange(
+        rank * n_per, (rank + 1) * n_per, dtype=np.int32)), "scatter")
+    from faabric_tpu_torch.mpi import MpiOp
+
+    got = timed("scan", lambda: world.scan(rank, payload(np.array(
+        [rank * 10 + i for i in range(3)], np.int64)), MpiOp.SUM))
+    want(np.array_equal(_as_np(got), np.array(
+        [sum(r * 10 + i for r in range(rank + 1)) for i in range(3)],
+        np.int64)), f"scan {_as_np(got)}")
+    got = timed("reduce", lambda: world.reduce(
+        rank, 3, payload(np.full(5, rank, np.int64)), MpiOp.SUM))
+    want(rank != 3 or np.array_equal(
+        _as_np(got), np.full(5, sum(range(size)), np.int64)), "reduce")
+    got = timed("allreduce", lambda: world.allreduce(
+        rank, payload(np.arange(6, dtype=np.float32) * (rank + 1)),
+        MpiOp.SUM))
+    want(np.array_equal(_as_np(got), np.arange(6, dtype=np.float32)
+                        * sum(range(1, size + 1))), "allreduce")
+    k = 3
+    got = timed("reduce_scatter", lambda: world.reduce_scatter(
+        rank, payload(np.arange(size * k, dtype=np.int64) + rank),
+        MpiOp.SUM))
+    total = sum(np.arange(size * k, dtype=np.int64) + r for r in range(size))
+    want(np.array_equal(_as_np(got), total[rank * k:(rank + 1) * k]),
+         "reduce_scatter")
+    timed("barrier", lambda: world.barrier(rank))
+
+    # -- fn_mpi_p2p_suite -----------------------------------------------------
+    if rank == 0:
+        timed("send", lambda: world.send(0, 1, payload(
+            np.array([42], np.int32))))
+    elif rank == 1:
+        got, _ = timed("recv", lambda: world.recv(0, 1))
+        want(int(got[0]) == 42, f"send {got}")
+    right, left = (rank + 1) % size, (rank - 1) % size
+    got, status = timed("sendrecv", lambda: world.sendrecv(
+        payload(np.array([rank], np.int32)), rank, right, left, rank))
+    want(int(got[0]) == left and status.count == 1, f"sendrecv {got}")
+
+    def alltoall_rounds():
+        for i in range(10):
+            world.barrier(rank)
+            mixed = world.alltoall(rank, payload(
+                np.full(size, rank * 100 + i, np.int32)))
+            want(np.array_equal(_as_np(mixed), np.array(
+                [r * 100 + i for r in range(size)], np.int32)),
+                f"alltoall {_as_np(mixed)}")
+
+    timed("barrier+alltoall", alltoall_rounds, calls=10)
+    d1 = world.cart_create(world.cart_dims())
+    d2 = world.cart_create(world.cart_dims())
+    want(d1 == d2 and world.cart_rank(world.cart_coords(rank)) == rank,
+         f"cart_create {d1} {d2}")
+
+    # -- fn_mpi_isendrecv ---------------------------------------------------
+    def isendrecv():
+        recv_req = world.irecv(left, rank)
+        send_req = world.isend(rank, right, payload(
+            np.array([rank], np.int32)))
+        return world.waitall(rank, [recv_req, send_req])
+
+    results = timed("isend+irecv+waitall", isendrecv)
+    want(int(results[0][0][0]) == left and results[1] is None, "isendrecv")
+    world.barrier(rank)
+
+    # -- fn_mpi_cartesian -----------------------------------------------------
+    world.cart_create(world.cart_dims())
+    coords = world.cart_coords(rank)
+    src, dst = world.cart_shift(rank, 0, 1)
+    want(world.cart_rank(coords) == rank
+         and dst == world.cart_rank((coords[0] + 1, coords[1]))
+         and src == world.cart_rank((coords[0] - 1, coords[1])),
+         f"cartesian {coords} {src} {dst}")
+
+    # -- examples/subcomms.py: per-host split, then the host leaders ----------
+    host_comm, host_rank = timed("split_type_shared",
+                                 lambda: world.split_type_shared(rank))
+    local = host_comm.allreduce(host_rank, payload(
+        np.array([rank + 1], np.int64)), MpiOp.SUM)
+    host = world.host_for_rank(rank)
+    want(int(_as_np(local)[0]) == sum(
+        r + 1 for r in world.ranks_on_host(host)), "host allreduce")
+    leaders = list(world.topology().leaders)
+    leader_comm, lr = timed("create_group_comm",
+                            lambda: world.create_group_comm(rank, leaders))
+    if leader_comm is not None:
+        total = leader_comm.allreduce(lr, _as_np(local), MpiOp.SUM)
+        want(int(total[0]) == sum(range(1, size + 1)), "leaders' allreduce")
+    else:
+        want(rank not in leaders, "leader without a communicator")
+    world.barrier(rank)
+    return ms
+
+
+def ddp_step(world, rank: int, model, tokens, targets, lr: float):
+    """One data-parallel SGD step (the reference's ``fn_train``,
+    ``tests/dist/procs.py:1004-1064``): this rank's gradient of
+    ``loss_fn`` on its shard, the flat fp32 gradient allreduced with SUM
+    through ``world.allreduce``, divided by the world size, applied.
+    Returns the allreduce's wall ms."""
+    from faabric_tpu_torch.models import loss_fn
+    from faabric_tpu_torch.mpi import MpiOp
+
+    model.zero_grad(set_to_none=True)
+    loss_fn(model, tokens, targets).backward()
+    flat = torch.cat([p.grad.reshape(-1).float()
+                      for p in model.parameters()])
+    t0 = time.perf_counter()
+    summed = world.allreduce(rank, flat, MpiOp.SUM)
+    if flat.is_cuda:
+        torch.cuda.synchronize(flat.device)
+    ar_ms = (time.perf_counter() - t0) * 1e3
+    summed = torch.as_tensor(summed, device=flat.device) / world.size
+    with torch.no_grad():
+        off = 0
+        for p in model.parameters():
+            n = p.numel()
+            p -= lr * summed[off:off + n].view_as(p).to(p.dtype)
+            off += n
+    return ar_ms
+
+
+def flat_params(model) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def register_mpi_guests(job: dict) -> None:
+    """Two torch guests over the gang's MPI world (``ctx.mpi_world()``):
+    ``mpi/suite`` runs :func:`mpi_suite` with tensor payloads on the
+    guest's device when ``job["tensors"]``, numpy ones otherwise;
+    ``mpi/ddp`` activates the device plane on the guest's device, builds
+    ``job["model"](device)`` and takes ``job["steps"]`` steps of
+    :func:`ddp_step` on ``job["batch"](step, rank, device)``, leaving its
+    flat parameters in ``job["params"][rank]``. Each returns JSON: its
+    host, timings, the rung each collective took and the plane
+    verdict."""
+    from faabric_tpu_torch.executor import register_function
+
+    def record(world, rank, **fields):
+        rungs = {kind: algo for (r, kind), algo in world.rungs.items()
+                 if r == rank}
+        return json.dumps({"rank": rank, "host": world.host_for_rank(rank),
+                           "rungs": rungs, **fields}).encode()
+
+    @register_function("mpi", "suite")
+    def suite(ctx):
+        world = ctx.mpi_world()
+        rank = ctx.message.mpi_rank
+        dev = ctx.device
+        payload = ((lambda a: torch.as_tensor(a, device=dev))
+                   if job["tensors"] else (lambda a: a))
+        return record(world, rank, ms=mpi_suite(world, rank, payload))
+
+    @register_function("mpi", "ddp")
+    def ddp(ctx):
+        world = ctx.mpi_world()
+        rank = ctx.message.mpi_rank
+        dev = ctx.device
+        plane = world.activate_device_plane(rank, device=dev)
+        model = job["model"](dev)
+        step_ms, ar_ms = [], []
+        for step in range(job["steps"]):
+            tokens, targets = job["batch"](step, rank, dev)
+            t0 = time.perf_counter()
+            ar_ms.append(ddp_step(world, rank, model, tokens, targets,
+                                  job["lr"]))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        job["params"][rank] = flat_params(model)
+        world.barrier(rank)
+        return record(world, rank, plane=plane, step_ms=step_ms,
+                      allreduce_ms=ar_ms)
+
+
+def run_gang(client, function: str, size: int, timeout: float = 300.0):
+    """Submit rank 0 of an ``mpi/<function>`` world of ``size`` ranks:
+    its ``ctx.mpi_world()`` chains ranks 1..size-1 through the planner.
+    Returns every rank's result (by MPI rank), the decision of rank 0
+    and the wall ms from submission to the last result."""
+    from faabric_tpu_torch.proto import batch_exec_factory
+
+    req = batch_exec_factory("mpi", function, 1)
+    req.messages[0].mpi_world_size = size
+    t0 = time.perf_counter()
+    client.call_functions(req)
+    deadline = time.monotonic() + timeout
+    while True:
+        status = client.get_batch_results(req.app_id)
+        if status.finished and len(status.message_results) == size:
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(
+                f"mpi/{function}: {len(status.message_results)} of {size} "
+                f"results after {timeout} s")
+        time.sleep(0.01)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    results = sorted(status.message_results, key=lambda m: m.mpi_rank)
+    return results, wall_ms
+
+
+def guest_outputs(results, what: str) -> list[dict]:
+    from faabric_tpu_torch.proto import ReturnValue
+
+    bad = [f"rank {m.mpi_rank}: {m.output_data[:300]!r}" for m in results
+           if m.return_value != int(ReturnValue.SUCCESS)]
+    check(not bad, f"{what}: every rank SUCCESS ({'; '.join(bad)})")
+    return [json.loads(m.output_data) for m in results]
+
+
+def start_cluster(hosts: dict, factory, base: int | None = None):
+    """A port planner and one started WorkerRuntime per ``hosts`` entry
+    (name → slots) on localhost aliases from port offset ``base`` (drawn
+    at random by default); returns (planner server, workers)."""
+    import random
+
+    from faabric_tpu_torch.planner import PlannerServer, get_planner
+    from faabric_tpu_torch.runner import WorkerRuntime
+    from faabric_tpu_torch.transport import register_host_alias
+
+    if base is None:
+        # Listener ports stay below the client source ports (30500 up)
+        base = random.randint(100, 190) * 100
+    register_host_alias("smoke-planner", "127.0.0.1", base)
+    get_planner().reset()
+    planner_server = PlannerServer(port_offset=base)
+    planner_server.start()
+    workers = []
+    try:
+        for i, (name, slots) in enumerate(hosts.items()):
+            register_host_alias(name, "127.0.0.1", base + 1000 * (i + 1))
+            w = WorkerRuntime(host=name, slots=slots, factory=factory,
+                              planner_host="smoke-planner")
+            workers.append(w)
+            w.start()
+    except BaseException:
+        stop_cluster(planner_server, workers)
+        raise
+    return planner_server, workers
+
+
+def stop_cluster(planner_server, workers) -> None:
+    from faabric_tpu_torch.executor import (
+        clear_registered_functions,
+        set_executor_factory,
+    )
+    from faabric_tpu_torch.planner import get_planner
+    from faabric_tpu_torch.transport import clear_host_aliases
+
+    try:
+        for w in workers:
+            w.shutdown()
+    finally:
+        planner_server.stop()
+        get_planner().reset()
+        clear_registered_functions()
+        set_executor_factory(None)
+        clear_host_aliases()
+
+
+def mpi_guest_phase(dev, build) -> dict:
+    """Phase 17: faabric's MPI as guests use it, on the card, at the
+    flagship's full width. 17a: a planner and two WorkerRuntimes (2
+    slots each) gang-schedule 4 ranks through rank 0's
+    ``ctx.mpi_world()``, 2 + 2 across the hosts, and each runs
+    :func:`mpi_suite` with CUDA-tensor and then numpy payloads. 17c: the
+    same two-host gang trains one :func:`ddp_step` of the full-width
+    model, its gradient crossing hosts on the host ladder. 17b: one
+    WorkerRuntime (4 slots) trains 3 steps through the device plane;
+    the ranks' parameters must agree bit for bit, the kernels' launches
+    must be one rank's step's times 4 ranks times 3 steps, and the
+    gradient allreduce must put no byte on the host; then an fp32 step
+    against the unsharded step on the whole batch. Returns the launches
+    of 17b's and 17c's steps."""
+    from faabric_tpu_torch.device_plane.copies import (
+        device_copy_totals,
+        reset_device_copy_totals,
+    )
+    from faabric_tpu_torch.executor import TorchExecutorFactory
+    from faabric_tpu_torch.models import ModelConfig, Transformer, loss_fn
+
+    log("phase 17: faabric's MPI through torch guests on the card")
+    t_phase = time.perf_counter()
+    n, per_rank, seq, lr = MPI_RANKS, 2, 512, 0.5
+    cfg = ModelConfig()
+    corpus = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (3, n * per_rank, seq + 1)).astype(np.int64)
+
+    def batch(step, rank, device, rows=slice(None)):
+        if rank is not None:
+            rows = slice(rank * per_rank, (rank + 1) * per_rank)
+        b = torch.as_tensor(corpus[step, rows], device=device)
+        return b[:, :-1], b[:, 1:]
+
+    def model_of(c):
+        return lambda device: Transformer(
+            c, device=device,
+            generator=torch.Generator(device=device).manual_seed(0))
+
+    params: dict = {}
+    job = {"tensors": True, "model": model_of(cfg), "batch": batch,
+           "steps": 1, "lr": lr, "params": params}
+    register_mpi_guests(job)
+    factory = TorchExecutorFactory()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # One rank's step, alone: the kernel launches a step of the path makes
+    model = model_of(cfg)(dev)
+    build.reset_launch_counts()
+    loss_fn(model, *batch(0, 0, dev)).backward()
+    torch.cuda.synchronize()
+    per_step = {k: v for k, v in build.LAUNCHES.items() if "." not in k}
+    log(f"one rank's step (2 x 512, bf16, remat) launches: {per_step} "
+        f"(phase 9's counts per step: 8 flash forwards, 4 dQ, 4 dK/dV)")
+    check(all(per_step.get(k, 0) > 0 for k in (
+        "flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "rms_norm")),
+        "a rank's step launches all four kernels of the path")
+    del model
+
+    launches: dict = {}
+    planner_server, workers = start_cluster(
+        {"mpi-host-a": 2, "mpi-host-b": 2}, factory)
+    try:
+        client = workers[0].planner_client
+        # -- 17a. the MPI suite over two hosts ---------------------------
+        for tensors in (True, False):
+            job["tensors"] = tensors
+            results, wall = run_gang(client, "suite", n)
+            outs = guest_outputs(results, f"17a suite ({'tensor' if tensors else 'numpy'} payloads)")
+            hosts = [o["host"] for o in outs]
+            check(sorted(hosts) == ["mpi-host-a"] * 2 + ["mpi-host-b"] * 2,
+                  f"17a: 4 ranks split 2 + 2 across the hosts {hosts}; "
+                  f"{'CUDA-tensor' if tensors else 'numpy'} payloads, "
+                  f"every result held against numpy ({wall:.1f} ms "
+                  f"through the planner)")
+            log(f"  17a rungs of rank 0: {outs[0]['rungs']}")
+            for name in outs[0]["ms"]:
+                log(f"  17a {'tensor' if tensors else 'numpy '} {name:22s} "
+                    + ", ".join(f"{o['ms'].get(name, float('nan')):.3f}"
+                                for o in outs) + " ms (ranks 0-3)")
+
+        # -- 17c. one full-width step across the two hosts ----------------
+        job.update(tensors=True, steps=1)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        results, wall = run_gang(client, "ddp", n)
+        torch.cuda.synchronize()
+        launches_c = dict(build.LAUNCHES)
+        outs = guest_outputs(results, "17c DDP step over two hosts")
+        check(not any(o["plane"] for o in outs),
+              "17c: the registry refuses the device plane for a world "
+              "whose ranks span two hosts")
+        check(all(o["rungs"].get("allreduce") == "ring" for o in outs),
+              f"17c: the gradient allreduce took the flat ring over "
+              f"loopback ({outs[0]['rungs'].get('allreduce')})")
+        flat = [params[r] for r in range(n)]
+        check(all(torch.equal(flat[0], f) for f in flat[1:]),
+              "17c: the ranks' parameters are bitwise equal after the step")
+        log(f"  17c step wall ms by rank: "
+            + ", ".join(f"{o['step_ms'][0]:.1f}" for o in outs)
+            + "; gradient allreduce (host ring, 45,355,520 fp32) ms: "
+            + ", ".join(f"{o['allreduce_ms'][0]:.1f}" for o in outs)
+            + f"; {wall:.1f} ms through the planner")
+        busy_c, _ = profile_top(lambda: run_gang(client, "ddp", n),
+                                "17c: a DDP step over two hosts", top=4)
+        params.clear()
+    finally:
+        stop_cluster(planner_server, workers)
+
+    planner_server, workers = start_cluster({"mpi-host": 4}, factory)
+    register_mpi_guests(job)
+    try:
+        client = workers[0].planner_client
+        # -- 17b. three steps through the device plane on one host -------
+        job.update(steps=3)
+        torch.cuda.synchronize()
+        reset_device_copy_totals()
+        build.reset_launch_counts()
+        results, wall = run_gang(client, "ddp", n)
+        torch.cuda.synchronize()
+        launches_b = dict(build.LAUNCHES)
+        copies = device_copy_totals()
+        outs = guest_outputs(results, "17b DDP over the device plane")
+        check(all(o["plane"] for o in outs)
+              and all(o["rungs"].get("allreduce") == "device"
+                      for o in outs),
+              "17b: every rank activated the device plane and allreduced "
+              "its gradient on it")
+        flat = [params[r] for r in range(n)]
+        check(all(torch.equal(flat[0], f) for f in flat[1:]),
+              "17b: the ranks' parameters are bitwise equal after 3 steps")
+        check(copies["bytes"] == 0,
+              f"17b: the gradient allreduce put {copies['bytes']} payload "
+              f"bytes on the host ({copies['by_reason']})")
+        for name in ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv",
+                     "rms_norm"):
+            check(launches_b.get(name, 0) == per_step.get(name, 0) * n * 3,
+                  f"17b: {name} launched {launches_b.get(name, 0)} times = "
+                  f"{per_step.get(name, 0)} a step x {n} ranks x 3 steps")
+        check(launches_b.get("flash_attention.wgmma", 0)
+              == launches_b.get("flash_attention", -1),
+              "17b: every flash forward took the wgmma body")
+        log(f"  17b step wall ms by rank and step: "
+            + "; ".join(", ".join(f"{t:.1f}" for t in o["step_ms"])
+                        for o in outs)
+            + "; gradient allreduce (device plane) ms: "
+            + "; ".join(", ".join(f"{t:.2f}" for t in o["allreduce_ms"])
+                        for o in outs)
+            + f"; {wall:.1f} ms through the planner")
+        job.update(steps=1)
+        busy_b, _ = profile_top(lambda: run_gang(client, "ddp", n),
+                                "17b: a DDP step on the device plane", top=4)
+
+        # -- 17b, fp32: one DDP step against the unsharded step ----------
+        cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+        job.update(model=model_of(cfg32))
+        params.clear()
+        guest_outputs(run_gang(client, "ddp", n)[0], "17b fp32 DDP step")
+        ref = model_of(cfg32)(dev)
+        start = flat_params(ref)
+        loss_fn(ref, *batch(0, None, dev)).backward()
+        with torch.no_grad():
+            for p in ref.parameters():
+                p -= lr * p.grad
+        want = flat_params(ref)
+        rel = max(float((params[r] - want).norm() / want.norm())
+                  for r in range(n))
+        check(rel <= 1e-5, f"17b fp32: the ranks' parameters after one step "
+              f"match the unsharded step on the whole 8 x 512 batch "
+              f"(relative L2 {rel:.3g})")
+        # The initial weights dominate the parameters' norm: the update
+        # itself is held too, so that a gradient reduced wrongly (in bf16,
+        # say) shows
+        step = want - start
+        rel_d = max(float((params[r] - start - step).norm() / step.norm())
+                    for r in range(n))
+        check(rel_d <= 1e-4, f"17b fp32: the ranks' updates match the "
+              f"unsharded step's (relative L2 {rel_d:.3g})")
+        del ref, want, start, step
+        params.clear()
+    finally:
+        stop_cluster(planner_server, workers)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  17 device busy: 17b {busy_b:.0f} us, 17c {busy_c:.0f} us of "
+        f"their profiled steps; peak memory {peak:.3f} GiB; phase 17 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for name in set(launches_b) | set(launches_c):
+        launches[name] = launches_b.get(name, 0) + launches_c.get(name, 0)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1481,8 +1960,10 @@ def main() -> int:
     # -- 3. RMS kernel against its plain version -----------------------------
     log("phase 3: rms_norm kernel vs plain")
     # (512, 512) and (1, 512): the faabric phase's scoring forward and
-    # each of its decode steps
-    for rows, d in [(4096, 512), (8, 512), (333, 512), (512, 512), (1, 512)]:
+    # each of its decode steps; (1024, 512): each DDP rank's 2 x 512 rows
+    # in phase 17 (bf16 steps and the fp32 step)
+    for rows, d in [(4096, 512), (8, 512), (333, 512), (512, 512), (1, 512),
+                    (1024, 512)]:
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(rows, d, device=dev, generator=gen).to(dtype)
             scale = torch.rand(d, device=dev, generator=gen) + 0.5
@@ -1998,13 +2479,17 @@ def main() -> int:
     pp_launches = pipeline_phase(dev, _build)
     # -- 16. the MoE family ----------------------------------------------
     moe_launches = moe_phase(dev, _build)
+    # -- 17. faabric's MPI through guests ---------------------------------
+    guest_launches = mpi_guest_phase(dev, _build)
     # Each row's launches: the serving kernels' on the direct serving
     # path (phase 5) and under the executors (13), the backward kernels'
     # on the training path (9), the ring kernel's on the MPI path (12),
-    # and every launch of the mesh (14), pipeline (15) and MoE (16) paths
+    # and every launch of the mesh (14), pipeline (15), MoE (16) and
+    # guest data-parallel (17) paths
     path_launches = {
         name: sum(p.get(name, 0) for p in paths) + sum(
-            p.get(name, 0) for p in (mesh_launches, pp_launches, moe_launches))
+            p.get(name, 0) for p in (mesh_launches, pp_launches, moe_launches,
+                                     guest_launches))
         for name, paths in (
             ("rms_norm", (launches, faabric_launches)),
             ("flash_attention", (launches, faabric_launches)),

@@ -21,8 +21,9 @@ function, reports FAILED with the error text in output_data.
 ``TorchExecutorFactory(device=None)`` runs guests on CUDA; without a
 card it raises. ``device="cpu"`` runs every rank on the CPU (the tests
 do), and ``GuestContext.device_id`` still carries the planner's
-numbering. ``GuestContext.mpi_world()`` and ``.state()`` of the
-reference are not ported yet (``ROADMAP.md`` Queue 1 #7-8).
+numbering. ``GuestContext.mpi_world()`` creates (rank 0) or joins the
+gang's MPI world. ``.state()`` of the reference is not ported yet
+(``ROADMAP.md`` Queue 1 #8).
 """
 
 from __future__ import annotations
@@ -107,6 +108,28 @@ class GuestContext:
                 f"{self.message.group_idx} is pinned to device {did}, but "
                 f"this host has {n} CUDA device(s)")
         return torch.device("cuda", did)
+
+    def mpi_world(self):
+        """Create this gang's MPI world (rank 0 of a world that does not
+        exist yet: it chains the other ranks through the planner) or join
+        it (every other rank): the reference's MPI_Init flow
+        (``faabric_tpu/executor/jax_executor.py:107-124``). The world's
+        rank of this guest is ``message.mpi_rank``."""
+        from faabric_tpu_torch.mpi import get_mpi_context
+
+        ctx = get_mpi_context()
+        msg = self.message
+        if msg.mpi_rank == 0 and not msg.is_mpi:
+            msg.is_mpi = True
+            if not msg.mpi_world_id:
+                msg.mpi_world_id = msg.app_id
+            if not msg.mpi_world_size:
+                msg.mpi_world_size = self.request.n_messages()
+            world = ctx.create_world(msg)
+        else:
+            world = ctx.join_world(msg)
+        world.refresh_rank_hosts()
+        return world
 
 
 class TorchExecutor(Executor):

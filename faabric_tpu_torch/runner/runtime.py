@@ -11,7 +11,9 @@ in one process on aliased port ranges.
 is ``torch.cuda.device_count()`` when the executor factory runs guests
 on CUDA, and 0 otherwise. The planner pins each placement to one of
 them, least loaded first, and a guest reads its device from
-``GuestContext.device``. Not ported: the snapshot and state servers,
+``GuestContext.device``; a guest reaches its MPI world through the
+runtime's ``MpiWorldRegistry`` (``GuestContext.mpi_world``). Not
+ported: the snapshot and state servers,
 the HTTP endpoint, the sampler and profiler, and the multi-process
 device plane (``ROADMAP.md`` Queue 1 #7-9).
 """
@@ -27,6 +29,7 @@ from faabric_tpu_torch.executor.factory import (
     get_executor_factory,
     set_executor_factory,
 )
+from faabric_tpu_torch.mpi.registry import MpiWorldRegistry
 from faabric_tpu_torch.planner.client import PlannerClient
 from faabric_tpu_torch.scheduler.function_call import FunctionCallServer
 from faabric_tpu_torch.scheduler.scheduler import Scheduler
@@ -72,6 +75,11 @@ class WorkerRuntime:
         self.ptp_broker = PointToPointBroker(self.host)
         self.scheduler.ptp_broker = self.ptp_broker
         self.ptp_server = PointToPointServer(self.ptp_broker)
+        # MPI worlds (the reference's MpiWorldRegistry singleton; one per
+        # runtime here, so several hosts can run in one process)
+        self.mpi_registry = MpiWorldRegistry(self.ptp_broker,
+                                             self.planner_client)
+        self.scheduler.mpi_registry = self.mpi_registry
         self._started = False
 
     def start(self) -> None:
@@ -104,6 +112,7 @@ class WorkerRuntime:
         self.scheduler.shutdown()
         self.ptp_server.stop()
         self.function_server.stop()
+        self.mpi_registry.clear()
         self.ptp_broker.clear()
         self.planner_client.close()
         logger.debug("Worker %s down", self.host)

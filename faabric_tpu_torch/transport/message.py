@@ -67,8 +67,13 @@ class TransportMessage:
 
 
 def send_frame(sock: socket.socket, msg: TransportMessage) -> None:
+    """``msg.payload`` is bytes, or a list of byte buffers that go out
+    back to back as one payload (an MPI payload's header and array,
+    never joined into one copy)."""
     header_json = json.dumps(msg.header).encode() if msg.header else b""
-    payload = msg.payload or b""
+    parts = (list(msg.payload) if isinstance(msg.payload, (list, tuple))
+             else [msg.payload or b""])
+    n_payload = sum(memoryview(p).nbytes for p in parts)
     head = struct.pack(
         HEADER_FMT,
         MAGIC,
@@ -76,15 +81,16 @@ def send_frame(sock: socket.socket, msg: TransportMessage) -> None:
         msg.response_code & 0xFF,
         msg.seqnum,
         len(header_json),
-        len(payload),
+        n_payload,
     )
     # One syscall for small messages; for large payloads sendall the tail
     # separately to avoid a copy of the payload bytes.
-    if len(payload) <= 65536:
-        sock.sendall(head + header_json + payload)
+    if n_payload <= 65536:
+        sock.sendall(b"".join([head, header_json, *parts]))
     else:
         sock.sendall(head + header_json)
-        sock.sendall(payload)
+        for p in parts:
+            sock.sendall(p)
 
 
 def _recv_exact(sock: socket.socket, n: int) -> bytes:

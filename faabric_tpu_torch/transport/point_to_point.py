@@ -15,13 +15,21 @@ non-overtaking order.
 Coordination traffic (lock grants, barrier releases, notify) uses its
 own channel, so that it never shares a queue with application data.
 
-Not ported (``ROADMAP.md`` Queue 1 #7): the bulk and shm data planes,
-the wire codecs, peer-liveness probes of watched groups and the abort
-relay through the planner.
+A message to another host is bytes, or an object with ``buffers()``
+(an MPI wire payload): its header and array go out back to back on the
+RPC plane, at any size, without being joined into one copy. A probe
+(``probe_message``, ``try_probe_message``) takes the next message off
+its queue and holds it for the recv that follows.
+
+Not ported (``ROADMAP.md`` Queue 1 #7): the bulk and shm data planes
+(the reference sends large frames over the RPC plane too when a peer
+has no bulk server), the wire codecs, peer-liveness probes of watched
+groups and the abort relay through the planner.
 """
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
 
@@ -92,6 +100,8 @@ class PointToPointBroker:
         self._sent_seq: dict[tuple[int, int, int, int], int] = {}
         self._recv_seq: dict[tuple[int, int, int, int], int] = {}
         self._early: dict[tuple[int, int, int, int], dict[int, object]] = {}
+        # Messages a probe took off their queue, ahead of the queue
+        self._peeked: dict[tuple[int, int, int, int], collections.deque] = {}
         self._groups: dict[int, PointToPointGroup] = {}
         self._clients: dict[str, object] = {}
         self._aborted: dict[int, str] = {}
@@ -177,23 +187,30 @@ class PointToPointBroker:
     def send_message(self, group_id: int, send_idx: int, recv_idx: int,
                      data, channel: int = DATA_CHANNEL) -> None:
         """Deliver ``data`` to ``recv_idx``'s queue: any object when the
-        receiver is on this host, bytes when it is on another."""
+        receiver is on this host; bytes, or an object with ``buffers()``,
+        when it is on another. Every remote message carries its queue's
+        next sequence number, so all of them get the order the
+        reference gives its ``must_order=True`` (MPI) traffic."""
         self.wait_for_mappings(group_id)
         dst_host = self.get_host_for_receiver(group_id, recv_idx)
         key = (group_id, send_idx, recv_idx, channel)
         if dst_host == self.host:
             self._queue(key).put(data)
             return
-        if not isinstance(data, (bytes, bytearray, memoryview)):
+        if hasattr(data, "buffers"):
+            wire = data.buffers()
+        elif isinstance(data, (bytes, bytearray, memoryview)):
+            wire = bytes(data)
+        else:
             raise TypeError(
                 f"rank {recv_idx} of group {group_id} is on {dst_host}: a "
-                f"message to another host must be bytes, not "
-                f"{type(data).__name__}")
+                f"message to another host must be bytes or have buffers(), "
+                f"not {type(data).__name__}")
         with self._lock:
             seq = self._sent_seq.get(key, 0)
             self._sent_seq[key] = seq + 1
         self._get_client(dst_host).send_message(
-            group_id, send_idx, recv_idx, bytes(data), seq, channel)
+            group_id, send_idx, recv_idx, wire, seq, channel)
 
     def deliver(self, group_id: int, send_idx: int, recv_idx: int, data,
                 seq: int = NO_SEQUENCE_NUM,
@@ -221,18 +238,64 @@ class PointToPointBroker:
                      timeout: float | None = None,
                      channel: int = DATA_CHANNEL):
         """The next payload from ``send_idx`` to ``recv_idx``, in send
-        order. Raises GroupAbortedError after an abort and TimeoutError
-        after ``timeout`` seconds (the global message timeout when
-        None)."""
+        order. Raises
+        GroupAbortedError after an abort and TimeoutError after
+        ``timeout`` seconds (the global message timeout when None)."""
         self._raise_if_aborted(group_id)
         key = (group_id, send_idx, recv_idx, channel)
+        with self._lock:
+            peeked = self._peeked.get(key)
+            if peeked:
+                return peeked.popleft()
+        return self._take(key, _timeout(timeout))
+
+    def _take(self, key: tuple[int, int, int, int],
+              timeout: float | None):
+        """The next payload off ``key``'s queue; None when ``timeout``
+        is 0 and the queue is empty."""
         try:
-            data = self._queue(key).get(timeout=_timeout(timeout))
+            if timeout == 0:
+                data = self._queue(key).get_nowait()
+            else:
+                data = self._queue(key).get(timeout=timeout)
         except queue.Empty as e:
+            if timeout == 0:
+                return None
             raise TimeoutError(f"PTP recv timed out on {key}") from e
         if data is _ABORT:
-            raise GroupAbortedError(group_id,
-                                    self.group_aborted(group_id) or "")
+            raise GroupAbortedError(key[0], self.group_aborted(key[0]) or "")
+        return data
+
+    def probe_message(self, group_id: int, send_idx: int, recv_idx: int,
+                      timeout: float | None = None,
+                      channel: int = DATA_CHANNEL):
+        """The next payload, left for the next recv (MPI_Probe). Blocks
+        up to ``timeout``; raises TimeoutError."""
+        self._raise_if_aborted(group_id)
+        key = (group_id, send_idx, recv_idx, channel)
+        with self._lock:
+            peeked = self._peeked.get(key)
+            if peeked:
+                return peeked[0]
+        data = self._take(key, _timeout(timeout))
+        with self._lock:
+            self._peeked.setdefault(key, collections.deque()).append(data)
+        return data
+
+    def try_probe_message(self, group_id: int, send_idx: int, recv_idx: int,
+                          channel: int = DATA_CHANNEL):
+        """Non-blocking probe: the next payload or None."""
+        self._raise_if_aborted(group_id)
+        key = (group_id, send_idx, recv_idx, channel)
+        with self._lock:
+            peeked = self._peeked.get(key)
+            if peeked:
+                return peeked[0]
+        data = self._take(key, 0)
+        if data is None:
+            return None
+        with self._lock:
+            self._peeked.setdefault(key, collections.deque()).append(data)
         return data
 
     def _get_client(self, host: str):
@@ -291,7 +354,7 @@ class PointToPointBroker:
             self._flags.pop(group_id, None)
             self._aborted.pop(group_id, None)
             for d in (self._queues, self._sent_seq, self._recv_seq,
-                      self._early):
+                      self._early, self._peeked):
                 for key in [k for k in d if k[0] == group_id]:
                     del d[key]
 
@@ -299,7 +362,7 @@ class PointToPointBroker:
         with self._lock:
             for d in (self._groups, self._mappings, self._flags,
                       self._queues, self._sent_seq, self._recv_seq,
-                      self._early, self._aborted):
+                      self._early, self._peeked, self._aborted):
                 d.clear()
             clients = list(self._clients.values())
             self._clients.clear()

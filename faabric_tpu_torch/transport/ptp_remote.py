@@ -7,8 +7,10 @@ holds, installs mappings and clears finished groups; the client sends
 them, and records them instead in mock mode. The planner pushes every
 decision's mappings through ``send_mappings_from_decision``.
 
-The bulk data plane that the reference's server starts beside it is
-not ported (``ROADMAP.md`` Queue 1 #7).
+MPI payloads to another host ride the RPC plane at any size (the
+reference's fallback when a peer has no bulk server); the bulk data
+plane that the reference's server starts beside it is not ported
+(``ROADMAP.md`` Queue 1 #7).
 """
 
 from __future__ import annotations
@@ -111,8 +113,12 @@ class PointToPointClient(MessageEndpointClient):
                        {"mappings": mappings.to_dict()}, idempotent=True)
 
     def send_message(self, group_id: int, send_idx: int, recv_idx: int,
-                     data: bytes, seq: int = -1, channel: int = 0) -> None:
+                     data, seq: int = -1, channel: int = 0) -> None:
+        """``data`` is bytes, or a list of byte buffers sent back to back
+        as one payload (an MPI payload's header and array)."""
         if is_mock_mode():
+            if isinstance(data, list):
+                data = b"".join(bytes(b) for b in data)
             with _mock_lock:
                 _sent_messages.append(
                     (self.host, group_id, send_idx, recv_idx, data))

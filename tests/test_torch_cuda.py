@@ -1046,3 +1046,66 @@ def test_moe_on_one_card_launches_its_kernels(cuda_device):
     assert _build.LAUNCHES.get("rms_norm", 0) == 0
     assert np.isfinite(float(loss[0]))
 
+
+
+# ---------------------------------------------------------------------------
+# faabric's MPI as guests use it: a 4-rank guest gang on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hosts", [{"card-a": 2, "card-b": 2},
+                                   {"card-host": 4}],
+                         ids=["two_hosts", "one_host"])
+def test_guest_gang_runs_the_mpi_suite_and_a_ddp_step_on_the_card(
+        cuda_device, hosts):
+    """Four torch guests on cuda:0 through rank 0's ``ctx.mpi_world()``:
+    the MPI suite with CUDA-tensor payloads, then one data-parallel step
+    of a small model on the flash and RMS kernels, whose ranks agree bit
+    for bit. Over two hosts the gradient crosses on the host ladder; on
+    one host it rides the device plane with no host copy."""
+    import chip_smoke
+    from faabric_tpu_torch.device_plane import (
+        device_copy_totals,
+        reset_device_copy_totals,
+    )
+    from faabric_tpu_torch.executor import TorchExecutorFactory
+    from faabric_tpu_torch.models import ModelConfig, Transformer
+
+    cfg = ModelConfig(vocab_size=256, d_model=128, n_layers=2, n_heads=2,
+                      d_ff=256, max_seq=256)
+    corpus = torch.randint(0, 256, (1, 8, 129), generator=torch.Generator()
+                           .manual_seed(0))
+
+    def batch(step, rank, device):
+        b = corpus[step, 2 * rank:2 * rank + 2].to(device)
+        return b[:, :-1], b[:, 1:]
+
+    job = {"tensors": True, "steps": 1, "lr": 0.5, "params": {},
+           "batch": batch,
+           "model": lambda device: Transformer(
+               cfg, device=device,
+               generator=torch.Generator(device=device).manual_seed(0))}
+    chip_smoke.register_mpi_guests(job)
+    server, workers = chip_smoke.start_cluster(hosts, TorchExecutorFactory())
+    try:
+        client = workers[0].planner_client
+        results, _ = chip_smoke.run_gang(client, "suite", 4)
+        outs = chip_smoke.guest_outputs(results, "suite, CUDA tensors")
+        assert sorted(o["host"] for o in outs) == sorted(
+            h for h, n in hosts.items() for _ in range(n))
+        before = _build.LAUNCHES["flash_bwd_dq"]
+        reset_device_copy_totals()
+        results, _ = chip_smoke.run_gang(client, "ddp", 4)
+        torch.cuda.synchronize()
+        outs = chip_smoke.guest_outputs(results, "ddp step")
+    finally:
+        chip_smoke.stop_cluster(server, workers)
+    one_host = len(hosts) == 1
+    assert all(o["plane"] is one_host for o in outs)
+    assert {o["rungs"]["allreduce"] for o in outs} == (
+        {"device"} if one_host else {"tree"})
+    if one_host:
+        assert device_copy_totals()["bytes"] == 0
+    assert _build.LAUNCHES["flash_bwd_dq"] == before + 4 * cfg.n_layers
+    flat = [job["params"][r] for r in range(4)]
+    assert all(f.is_cuda and torch.equal(flat[0], f) for f in flat[1:])

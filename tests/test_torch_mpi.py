@@ -366,14 +366,70 @@ def test_send_recv_barrier_and_abort(worlds):
 
 
 def test_send_to_another_host_raises():
+    """A send to a rank on a host that runs no point-to-point server
+    raises to the sender at once (the connection is refused); it does
+    not hang or vanish."""
+    from tests.conftest import next_port_base
+
+    from faabric_tpu_torch.transport import (
+        clear_host_aliases,
+        register_host_alias,
+    )
+    from faabric_tpu_torch.transport.client import RpcError
+
+    base = next_port_base()
+    register_host_alias("hA", "127.0.0.1", base)
+    register_host_alias("hB", "127.0.0.1", base + 1000)
     broker = PointToPointBroker("hA")
-    d = SchedulingDecision(app_id=931, group_id=931)
-    d.add_message("hA", 1, 0, 0)
-    d.add_message("hB", 2, 1, 1)
-    broker.set_up_local_mappings_from_decision(d)
-    world = MpiWorld(broker, 931, 2, 931)
-    with pytest.raises(NotImplementedError, match="remote legs"):
-        world.send(0, 1, np.zeros(4, np.float32))
+    try:
+        d = SchedulingDecision(app_id=931, group_id=931)
+        d.add_message("hA", 1, 0, 0)
+        d.add_message("hB", 2, 1, 1)
+        broker.set_up_local_mappings_from_decision(d)
+        world = MpiWorld(broker, 931, 2, 931)
+        with pytest.raises(RpcError, match="hB"):
+            world.send(0, 1, np.zeros(4, np.float32))
+    finally:
+        broker.clear()
+        clear_host_aliases()
+
+
+def test_send_to_another_host_arrives():
+    """A send to a rank on another host crosses to that host's broker
+    over the point-to-point server and arrives whole (the two-host suite
+    is ``test_torch_mpi_world.py``)."""
+    from tests.conftest import next_port_base
+
+    from faabric_tpu_torch.transport import (
+        clear_host_aliases,
+        register_host_alias,
+    )
+    from faabric_tpu_torch.transport.ptp_remote import PointToPointServer
+
+    base = next_port_base()
+    register_host_alias("hA", "127.0.0.1", base)
+    register_host_alias("hB", "127.0.0.1", base + 1000)
+    brokers = {h: PointToPointBroker(h) for h in ("hA", "hB")}
+    server = PointToPointServer(brokers["hB"])
+    server.start()
+    try:
+        d = SchedulingDecision(app_id=931, group_id=931)
+        d.add_message("hA", 1, 0, 0)
+        d.add_message("hB", 2, 1, 1)
+        for b in brokers.values():
+            b.set_up_local_mappings_from_decision(d)
+        sender = MpiWorld(brokers["hA"], 931, 2, 931)
+        receiver = MpiWorld(brokers["hB"], 931, 2, 931)
+        data = np.arange(4, dtype=np.float32)
+        sender.send(0, 1, data)
+        arr, status = receiver.recv(0, 1, timeout=10.0)
+        np.testing.assert_array_equal(arr, data)
+        assert arr.flags.writeable and status.count == 4
+    finally:
+        server.stop()
+        for b in brokers.values():
+            b.clear()
+        clear_host_aliases()
 
 
 def _collective(name, datas, op=None):

@@ -35,6 +35,12 @@ def test_importing_every_module_pulls_in_no_jax_and_no_faabric_tpu():
             "faabric_tpu_torch.parallel.ring_attention",
             "faabric_tpu_torch.models.transformer",
             "faabric_tpu_torch.entry"} <= set(modules)
+    # faabric's MPI as guests use it: the wire form, the registry, the
+    # guest API, windows and their shared memory
+    assert {"faabric_tpu_torch.mpi.types", "faabric_tpu_torch.mpi.registry",
+            "faabric_tpu_torch.mpi.api", "faabric_tpu_torch.mpi.window",
+            "faabric_tpu_torch.util.memory",
+            "faabric_tpu_torch.transport.point_to_point"} <= set(modules)
     modules.append("chip_smoke")
     code = (
         "import importlib, sys\n"
