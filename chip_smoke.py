@@ -41,7 +41,13 @@ which run the reference's MPI programs with CUDA-tensor and numpy
 payloads and one data-parallel step of the full-width model whose
 gradient crosses hosts on the host ladder; one worker runtime with 4
 slots trains 3 data-parallel steps whose gradient allreduce runs on the
-device plane. For each path
+device plane. The mesh half of serving: ``generate`` and
+``evaluate_perplexity`` of the full-width model laid over dp 2 x tp 4
+(8 ranks on the card) against the unsharded model. faabric's state KV
+as guests use it: over two hosts, one guest writes the flagship's fp32
+weights into a key, four pull them and score, four count under the
+global lock and append, and a device state handle passes between two
+guests. For each path
 it checks the outputs and shows from the kernels' launch counts that
 the path ran through them; it times the kernels, their plain versions and the nearest
 PyTorch library calls, and prints one JSON line of kernel numbers (the
@@ -61,6 +67,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1894,6 +1901,440 @@ def mpi_guest_phase(dev, build) -> dict:
     return launches
 
 
+def sharded_serving_phase(dev, build) -> dict:
+    """Phase 18: the mesh half of serving at full width (``ModelConfig()``
+    weights from ``params_to_numpy``'s numpy form, as ``params_from_jax``
+    takes them) over dp 2 x tp 4, 8 ranks on the one card. In fp32 the
+    tp-sharded greedy decode of 32 tokens from a (4, 128) prompt must give
+    the unsharded port's tokens, with whole-prompt and chunked (48)
+    prefill, and every rank of a decode must have run the RMS-norm kernel
+    2L + 1 times a forward; ``evaluate_perplexity`` over two 4 x 512
+    batches must agree with the unsharded model's within 1e-5 relative.
+    In bf16 it times the sharded and unsharded decode and one tp
+    allreduce of a decode step. Returns the launches of the fp32 decodes
+    and the sharded perplexity (the phase's main path)."""
+    from faabric_tpu_torch.models import (
+        ModelConfig,
+        Transformer,
+        evaluate_perplexity,
+        generate,
+        params_from_jax,
+        params_to_numpy,
+        shard_params,
+    )
+    from faabric_tpu_torch.parallel import MeshConfig, build_mesh, named
+
+    log("phase 18: tp-sharded decode and perplexity, dp 2 x tp 4, full width")
+    t_phase = time.perf_counter()
+    cfg = ModelConfig()
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    np_params = params_to_numpy(Transformer(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(18)))
+    mesh = build_mesh([dev] * 8, MeshConfig(dp=2, tp=4))
+    rows = named(mesh, "dp", None)
+    batch, s_p, n_new, chunk = 4, 128, 32, 48
+    prompt = torch.randint(0, cfg.vocab_size, (batch, s_p),
+                           generator=torch.Generator().manual_seed(18)
+                           ).to(dev)
+
+    plain32 = params_from_jax(np_params, cfg32, device=dev)
+    sharded32 = shard_params(np_params, mesh, cfg32)
+    want = generate(plain32, prompt, n_new)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    got = rows.gather(generate(sharded32, rows.shard(prompt), n_new))
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    check(torch.equal(got, want),
+          f"18: the tp-sharded fp32 greedy decode of {n_new} tokens from a "
+          f"({batch}, {s_p}) prompt gives the unsharded port's tokens")
+    per_forward = 2 * cfg.n_layers + 1
+    expect = mesh.size * n_new * per_forward
+    check(launches.get("rms_norm", 0) == expect,
+          f"18: one sharded decode launched the RMS kernel "
+          f"{launches.get('rms_norm', 0)} times = {mesh.size} ranks x "
+          f"{n_new} forwards (prefill + {n_new - 1} steps) x {per_forward} "
+          f"norms; {launches.get('flash_attention', 0)} flash launches "
+          f"(cached decode attends in plain PyTorch, as the reference)")
+    check(launches.get("flash_attention", 0) == 0,
+          "18: the cached decode launched no flash kernel")
+
+    build.reset_launch_counts()
+    got = rows.gather(generate(sharded32, rows.shard(prompt), n_new,
+                               prefill_chunk=chunk))
+    torch.cuda.synchronize()
+    chunked = dict(build.LAUNCHES)
+    n_fwd = -(-s_p // chunk) + n_new - 1
+    check(torch.equal(got, want) and chunked.get("rms_norm", 0)
+          == mesh.size * n_fwd * per_forward,
+          f"18: chunked prefill ({chunk}) gives the same tokens, with "
+          f"{chunked.get('rms_norm', 0)} RMS launches = {mesh.size} x "
+          f"{n_fwd} forwards x {per_forward}")
+    for k, v in chunked.items():
+        launches[k] = launches.get(k, 0) + v
+
+    corpus = np.random.RandomState(18).randint(
+        0, cfg.vocab_size, (2, batch, 513)).astype(np.int64)
+    batches = [(torch.as_tensor(c[:, :-1], device=dev),
+                torch.as_tensor(c[:, 1:], device=dev)) for c in corpus]
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    ppl = evaluate_perplexity(sharded32, batches)
+    torch.cuda.synchronize()
+    ppl_ms = (time.perf_counter() - t0) * 1e3
+    scored = dict(build.LAUNCHES)
+    # sp = 1: each rank attends its (2, 512, 2, 64) slab with the flash
+    # kernel; under a mesh the sharded forward takes the plain norm, as
+    # the reference resolves it
+    want_scored = {"flash_attention": mesh.size * len(batches) * cfg.n_layers,
+                   "rms_norm": 0}
+    check(all(scored.get(k, 0) == n for k, n in want_scored.items()),
+          f"18: the sharded perplexity launched {scored}: {mesh.size} ranks "
+          f"x {len(batches)} batches x {cfg.n_layers} flash and no RMS "
+          f"kernel, expected {want_scored}")
+    for k, v in scored.items():
+        launches[k] = launches.get(k, 0) + v
+    ppl_want = evaluate_perplexity(plain32, batches)
+    rel = abs(ppl["perplexity"] - ppl_want["perplexity"]) / ppl_want["perplexity"]
+    check(ppl["tokens"] == ppl_want["tokens"] == 2 * batch * 512
+          and rel <= 1e-5,
+          f"18: sharded perplexity {ppl['perplexity']:.6f} against the "
+          f"unsharded {ppl_want['perplexity']:.6f} over 2 x {batch} x 512 "
+          f"(relative {rel:.3g}, limit 1e-5; {ppl_ms:.0f} ms)")
+    del plain32, sharded32
+
+    # bf16: throughput and the card's busy share
+    plain16 = params_from_jax(np_params, cfg, device=dev)
+    sharded16 = shard_params(np_params, mesh, cfg)
+    shards = rows.shard(prompt)
+
+    def sharded_decode():
+        return generate(sharded16, shards, n_new)
+
+    def plain_decode():
+        return generate(plain16, prompt, n_new)
+
+    ms_sh = host_ms(sharded_decode, iters=3)
+    ms_pl = host_ms(plain_decode, iters=3)
+    same = float((rows.gather(sharded_decode()) == plain_decode()
+                  ).float().mean())
+    busy_sh, _ = profile_top(sharded_decode, "18: sharded bf16 decode", top=4)
+    busy_pl, _ = profile_top(plain_decode, "18: unsharded bf16 decode", top=4)
+    xs = [torch.randn(batch // 2, 1, cfg.d_model, device=dev,
+                      dtype=torch.bfloat16) for _ in range(mesh.size)]
+    ar_ms = host_ms(lambda: mesh.over(
+        "tp", xs, lambda coll, t: coll.allreduce(t)), iters=20)
+    log(f"  18 bf16 decode of {n_new} tokens from ({batch}, {s_p}): sharded "
+        f"{ms_sh:.1f} ms ({batch * n_new / ms_sh * 1e3:.1f} tokens/s, "
+        f"{busy_sh:.0f} us of device time), unsharded {ms_pl:.1f} ms "
+        f"({batch * n_new / ms_pl * 1e3:.1f} tokens/s, {busy_pl:.0f} us; "
+        f"the busy shares are the profiled calls' above); one tp allreduce of a "
+        f"decode step's ({batch // 2}, 1, {cfg.d_model}) bf16 over 4 groups "
+        f"of 4 ranks: {ar_ms:.3f} ms host, {2 * cfg.n_layers + 1} of them a "
+        f"token (embedding, attention and w2 per layer); bf16 tokens equal "
+        f"to the unsharded bf16 decode's: {100 * same:.1f}%; phase 18 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def load_flat(model, flat: torch.Tensor):
+    """Copy a flat parameter vector (``flat_params``' order) into
+    ``model``'s parameters."""
+    with torch.no_grad():
+        offset = 0
+        for p in model.parameters():
+            p.copy_(flat[offset:offset + p.numel()].view_as(p))
+            offset += p.numel()
+    if offset != flat.numel():
+        raise ValueError(f"{flat.numel()} values for {offset} parameters")
+    return model
+
+
+def register_state_guests(job: dict) -> None:
+    """Torch guests over faabric's state KV (``ctx.state()``):
+    ``state/write`` puts ``job["model"](device)``'s flat fp32 parameters
+    into key smoke/weights (``set_from_device``, ``push_full``), creates
+    the counter and the log keys, and keeps its logits on
+    ``job["tokens"]``; ``state/read`` pulls the weights, loads a model of
+    ``job["cfg"]`` from ``get_device_array(torch.float32)`` and keeps its
+    logits; ``state/count`` adds ``job["iters"]`` to the counter under the
+    global lock and appends once; ``handle/push`` registers a tensor
+    under a device state handle and returns it as a dict, which
+    ``handle/pull`` pulls. Each returns JSON with its host and timings;
+    the logits and the pushed tensor go to ``job["out"]``."""
+    from faabric_tpu_torch.executor import register_function
+    from faabric_tpu_torch.models import Transformer, forward
+    from faabric_tpu_torch.state import get_device_handle_registry
+
+    def sync(dev):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def reply(ctx, **fields):
+        return json.dumps({"host": ctx.state().host, **fields}).encode()
+
+    def score(model, dev):
+        with torch.no_grad():
+            logits = forward(model, job["tokens"].to(dev))
+        sync(dev)
+        return logits
+
+    @register_function("smoke", "state_write")
+    def write(ctx):
+        dev, state = ctx.device, ctx.state()
+        model = job["model"](dev)
+        flat = flat_params(model)
+        kv = state.get_kv("smoke", "weights", flat.numel() * 4)
+        sync(dev)
+        t0 = time.perf_counter()
+        kv.set_from_device(flat)
+        t1 = time.perf_counter()
+        kv.push_full()
+        t2 = time.perf_counter()
+        for key in ("counter", "log"):
+            small = state.get_kv("smoke", key, 8)
+            small.set(bytes(8))
+            small.push_full()
+        job["out"]["writer"] = (state.host, score(model, dev))
+        return reply(ctx, set_ms=(t1 - t0) * 1e3, push_ms=(t2 - t1) * 1e3,
+                     master=kv.is_master, backup=kv.backup_host)
+
+    @register_function("smoke", "state_read")
+    def read(ctx):
+        # One reader of a host at a time: the first pulls the value
+        # (nothing to pull on the master's host) and makes the device
+        # view, the second finds both done
+        dev, state = ctx.device, ctx.state()
+        kv = state.get_kv("smoke", "weights")
+        with job["locks"][state.host]:
+            first = state.host not in job["pulled"]
+            t0 = time.perf_counter()
+            if first:
+                kv.pull()
+                job["pulled"].add(state.host)
+            t1 = time.perf_counter()
+            flat = kv.get_device_array(torch.float32)
+            sync(dev)
+            t2 = time.perf_counter()
+            cached = kv.get_device_array(torch.float32) is flat
+        model = load_flat(Transformer(job["cfg"], device=dev), flat)
+        job["out"][ctx.message.id] = (state.host, score(model, dev))
+        return reply(ctx, pull_ms=(t1 - t0) * 1e3, view_ms=(t2 - t1) * 1e3,
+                     first=first, cached=cached, ptr=flat.data_ptr(),
+                     master=kv.is_master, size=kv.size)
+
+    @register_function("smoke", "state_count")
+    def count(ctx):
+        state = ctx.state()
+        kv = state.get_kv("smoke", "counter")
+        t0 = time.perf_counter()
+        for _ in range(job["iters"]):
+            kv.lock_global()
+            try:
+                kv.pull()
+                value = int.from_bytes(kv.get_chunk(0, 8), "little")
+                kv.set_chunk(0, (value + 1).to_bytes(8, "little"))
+                kv.push_partial()
+            finally:
+                kv.unlock_global()
+        ms = (time.perf_counter() - t0) * 1e3
+        state.get_kv("smoke", "log").append(
+            f"{state.host}/{ctx.message.id}".encode())
+        return reply(ctx, ms=ms, master=kv.is_master)
+
+    @register_function("smoke", "handle_push")
+    def push(ctx):
+        tensor = torch.randn(4096, 1024, device=ctx.device, generator=(
+            torch.Generator(device=ctx.device).manual_seed(19)))
+        handle = get_device_handle_registry().push(
+            ctx.message.app_id, 0, "embed", tensor)
+        job["out"]["pushed"] = tensor
+        return reply(ctx, handle=handle.to_dict())
+
+    @register_function("smoke", "handle_pull")
+    def pull(ctx):
+        handle = json.loads(ctx.message.input_data)["handle"]
+        tensor = get_device_handle_registry().pull(handle)
+        return reply(ctx, ptr=tensor.data_ptr(), handle=handle)
+
+
+def run_batch(client, function: str, n: int, input_data: bytes = b"",
+              timeout: float = 300.0):
+    """Submit ``n`` messages of ``smoke/<function>`` (each with
+    ``input_data``) and wait for all of them; returns the results in
+    message order and the wall ms."""
+    from faabric_tpu_torch.proto import batch_exec_factory
+
+    req = batch_exec_factory("smoke", function, n)
+    for m in req.messages:
+        m.input_data = input_data
+    t0 = time.perf_counter()
+    client.call_functions(req)
+    deadline = time.monotonic() + timeout
+    while True:
+        status = client.get_batch_results(req.app_id)
+        if status.finished and len(status.message_results) == n:
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"smoke/{function}: "
+                                 f"{len(status.message_results)} of {n} "
+                                 f"results after {timeout} s")
+        time.sleep(0.01)
+    wall = (time.perf_counter() - t0) * 1e3
+    return sorted(status.message_results, key=lambda m: m.app_idx), wall
+
+
+def state_phase(dev, build, cfg=None, iters: int = 1000,
+                hosts=("state-host-a", "state-host-b"),
+                base: int | None = None) -> dict:
+    """Phase 19: faabric's state KV through torch guests on two hosts (a
+    port planner and two WorkerRuntimes, 2 slots each, ``inmemory`` mode
+    with one backup a key). A guest puts the flagship's whole fp32
+    parameter vector into a key; four guests over both hosts pull it,
+    load a model from ``get_device_array(torch.float32)`` and score a
+    (1, 512) batch whose logits must equal the writer's bit for bit;
+    four guests add ``iters`` each to a counter under ``lock_global``
+    (exact) and append once (every value back); a device state handle
+    passed between two guests of one host is the same storage, with no
+    counted copy, and ``pull_host`` counts one. Returns the launches of
+    the writer's and readers' batches (the phase's main path)."""
+    from faabric_tpu_torch.device_plane.copies import (
+        device_copy_totals,
+        reset_device_copy_totals,
+    )
+    from faabric_tpu_torch.executor import TorchExecutorFactory
+    from faabric_tpu_torch.models import ModelConfig, Transformer
+    from faabric_tpu_torch.state import get_device_handle_registry
+    from faabric_tpu_torch.util.config import get_system_config
+
+    log("phase 19: faabric's state KV through torch guests on two hosts")
+    t_phase = time.perf_counter()
+    cfg = cfg or ModelConfig()
+    conf = get_system_config()
+    check(conf.state_mode == "inmemory" and conf.state_replicas == 1,
+          f"19: STATE_MODE {conf.state_mode}, FAABRIC_STATE_REPLICAS "
+          f"{conf.state_replicas}")
+    out: dict = {}
+    tokens = torch.randint(0, cfg.vocab_size, (1, 512),
+                           generator=torch.Generator().manual_seed(19))
+    job = {"cfg": cfg, "tokens": tokens, "iters": iters, "out": out,
+           "pulled": set(),
+           "locks": {h: threading.Lock() for h in hosts},
+           "model": lambda device: Transformer(
+               cfg, device=device,
+               generator=torch.Generator(device=device).manual_seed(19))}
+    register_state_guests(job)
+    n_params = sum(p.numel() for p in job["model"](dev).parameters())
+    factory = TorchExecutorFactory(device=dev.type)
+    planner_server, workers = start_cluster(dict.fromkeys(hosts, 2), factory,
+                                            base)
+    try:
+        client = workers[0].planner_client
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        reset_device_copy_totals()
+        build.reset_launch_counts()
+        w_res, w_wall = run_batch(client, "state_write", 1)
+        (w,) = guest_outputs(w_res, "19 writer")
+        r_res, r_wall = run_batch(client, "state_read", 4)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        copies = device_copy_totals()
+        readers = guest_outputs(r_res, "19 readers")
+        writer_host, want = out.pop("writer")
+        check(w["master"] and w["backup"] and w["backup"] != writer_host,
+              f"19: the writer on {writer_host} is the key's master, its "
+              f"backup {w['backup']}; {n_params:,} fp32 parameters, "
+              f"{n_params * 4:,} bytes: set_from_device "
+              f"{w['set_ms']:.1f} ms, push_full {w['push_ms']:.1f} ms "
+              f"(with the backup forward); {w_wall:.1f} ms through the "
+              f"planner")
+        got = [out.pop(m.id) for m in r_res]
+        remote = [r for r in readers if r["host"] != writer_host]
+        check(sorted(h for h, _ in got) == sorted(list(hosts) * 2)
+              and len(remote) == 2
+              and all(r["size"] == n_params * 4 for r in readers),
+              f"19: four readers, two on each host; the two on "
+              f"{remote[0]['host'] if remote else '?'} pull from the master "
+              f"on {writer_host}")
+        check(all(torch.equal(lg, want) for _, lg in got),
+              f"19: every reader's (1, 512) logits equal the writer's bit "
+              f"for bit ({tuple(want.shape)})")
+        by_host = {h: [r for r in readers if r["host"] == h] for h in hosts}
+        check(all(r["cached"] for r in readers)
+              and all(sorted(r["first"] for r in rs) == [False, True]
+                      and len({r["ptr"] for r in rs}) == 1
+                      for rs in by_host.values()),
+              "19: on each host the first reader made the device view and "
+              "the second got the same cached tensor")
+        for r in readers:
+            log(f"  19 reader on {r['host']} "
+                f"({'master' if r['master'] else 'remote'}, "
+                f"{'first' if r['first'] else 'second'}): pull "
+                f"{r['pull_ms']:.1f} ms, device view {r['view_ms']:.1f} ms")
+        h2d = copies["by_reason"].get("h2d.state", {})
+        d2h = copies["by_reason"].get("d2h.state", {})
+        check(h2d.get("count") == 2 and h2d.get("bytes") == 2 * n_params * 4
+              and d2h.get("count") == 1 and d2h.get("bytes") == n_params * 4,
+              f"19: copies counted: {copies['by_reason']} (one D2H of the "
+              f"weights by the writer, one H2D a host)")
+        per_forward = {"rms_norm": 2 * cfg.n_layers + 1,
+                       "flash_attention": cfg.n_layers}
+        if dev.type == "cuda":
+            for name, n in per_forward.items():
+                check(launches.get(name, 0) == 5 * n,
+                      f"19: {name} launched {launches.get(name, 0)} times = 5 "
+                      f"forwards (writer and 4 readers) x {n}")
+        log(f"  19 readers: {r_wall:.1f} ms through the planner")
+
+        c_res, c_wall = run_batch(client, "state_count", 4)
+        counters = guest_outputs(c_res, "19 counters")
+        kv = workers[0].state.get_kv("smoke", "counter")
+        kv.pull()
+        value = int.from_bytes(kv.get_chunk(0, 8), "little")
+        check(value == 4 * iters and sorted(c["host"] for c in counters)
+              == sorted(list(hosts) * 2),
+              f"19: four guests (two a host) each added {iters} under "
+              f"lock_global: the counter reads {value}; "
+              + ", ".join(f"{c['host']} {'master' if c['master'] else 'remote'} "
+                          f"{c['ms'] / iters:.3f} ms an increment"
+                          for c in counters))
+        appended = workers[1].state.get_kv("smoke", "log").get_appended(4)
+        want_log = sorted(f"{c['host']}/{m.id}".encode()
+                          for c, m in zip(counters, c_res))
+        check(sorted(appended) == want_log,
+              f"19: get_appended returns every guest's value {appended}")
+
+        reg = get_device_handle_registry()
+        p_res, _ = run_batch(client, "handle_push", 1)
+        (pushed,) = guest_outputs(p_res, "19 handle push")
+        reset_device_copy_totals()
+        q_res, _ = run_batch(client, "handle_pull", 1,
+                             json.dumps({"handle": pushed["handle"]}).encode())
+        (pulled,) = guest_outputs(q_res, "19 handle pull")
+        tensor = out.pop("pushed")
+        copies = device_copy_totals()
+        check(pulled["host"] == pushed["host"]
+              and pulled["ptr"] == tensor.data_ptr()
+              and copies["count"] == 0,
+              f"19: the handle pushed on {pushed['host']} and pulled by the "
+              f"next guest there is the same storage, with "
+              f"{copies['count']} counted copies")
+        nbytes = tensor.numel() * tensor.element_size()
+        host_copy = reg.pull_host(pushed["handle"])
+        copies = device_copy_totals()
+        check(torch.equal(host_copy, tensor.cpu())
+              and copies["by_reason"] == {"d2h.state": {"count": 1,
+                                                        "bytes": nbytes}},
+              f"19: pull_host counts one D2H copy of {nbytes:,} bytes")
+        reg.drop(pushed["handle"])
+    finally:
+        stop_cluster(planner_server, workers)
+    log(f"  phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1961,9 +2402,14 @@ def main() -> int:
     log("phase 3: rms_norm kernel vs plain")
     # (512, 512) and (1, 512): the faabric phase's scoring forward and
     # each of its decode steps; (1024, 512): each DDP rank's 2 x 512 rows
-    # in phase 17 (bf16 steps and the fp32 step)
+    # in phase 17 (bf16 steps and the fp32 step). Phase 18's sharded
+    # decode (dp 2): a
+    # rank's 2 rows a step, its (2, 128) whole prefill, its chunked
+    # prefill's (2, 48) and (2, 32); the unsharded yardstick's (4, 1)
+    # steps and its (4, 512) perplexity batches
     for rows, d in [(4096, 512), (8, 512), (333, 512), (512, 512), (1, 512),
-                    (1024, 512)]:
+                    (1024, 512), (2, 512), (256, 512), (96, 512), (64, 512),
+                    (4, 512), (2048, 512)]:
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(rows, d, device=dev, generator=gen).to(dtype)
             scale = torch.rand(d, device=dev, generator=gen) + 0.5
@@ -1981,7 +2427,10 @@ def main() -> int:
     # views: q, k, v as views of one (B, S, 3, H, 64) product, as the
     # model passes them; (1, 512) is the faabric phase's scoring forward,
     # (2, 512, 8 heads) and (4, 512, 4 heads) each rank's attention in the
-    # MoE steps of phase 16 (dp 4 x ep 2; dp 2 x tp 2 x ep 2)
+    # MoE steps of phase 16 (dp 4 x ep 2; dp 2 x tp 2 x ep 2); in fp32,
+    # (2, 512, 2 heads) each rank's attention in phase 18's sharded
+    # perplexity (dp 2 x tp 4) and (4, 512, 8 heads) its unsharded
+    # yardstick's
     for b, s_q, s_k, h, causal, dtype, views in [
             (8, 512, 512, 8, True, torch.bfloat16, False),
             (8, 128, 512, 8, True, torch.bfloat16, False),
@@ -1995,7 +2444,10 @@ def main() -> int:
             (2, 512, 512, 8, True, torch.bfloat16, False),
             (2, 512, 512, 8, True, torch.bfloat16, True),
             (4, 512, 512, 4, True, torch.bfloat16, False),
-            (4, 512, 512, 4, True, torch.bfloat16, True)]:
+            (4, 512, 512, 4, True, torch.bfloat16, True),
+            (2, 512, 512, 2, True, torch.float32, False),
+            (2, 512, 512, 2, True, torch.float32, True),
+            (4, 512, 512, 8, True, torch.float32, False)]:
         if views:
             q, k, v = torch.randn(b, s_q, 3, h, 64, device=dev,
                                   generator=gen).to(dtype).unbind(2)
@@ -2481,15 +2933,21 @@ def main() -> int:
     moe_launches = moe_phase(dev, _build)
     # -- 17. faabric's MPI through guests ---------------------------------
     guest_launches = mpi_guest_phase(dev, _build)
+    # -- 18. the mesh half of serving -------------------------------------
+    serving_mesh_launches = sharded_serving_phase(dev, _build)
+    # -- 19. the state KV through guests ----------------------------------
+    state_launches = state_phase(dev, _build)
     # Each row's launches: the serving kernels' on the direct serving
     # path (phase 5) and under the executors (13), the backward kernels'
     # on the training path (9), the ring kernel's on the MPI path (12),
-    # and every launch of the mesh (14), pipeline (15), MoE (16) and
-    # guest data-parallel (17) paths
+    # and every launch of the mesh (14), pipeline (15), MoE (16), guest
+    # data-parallel (17), sharded decode and perplexity (18) and state
+    # (19) paths
     path_launches = {
         name: sum(p.get(name, 0) for p in paths) + sum(
             p.get(name, 0) for p in (mesh_launches, pp_launches, moe_launches,
-                                     guest_launches))
+                                     guest_launches, serving_mesh_launches,
+                                     state_launches))
         for name, paths in (
             ("rms_norm", (launches, faabric_launches)),
             ("flash_attention", (launches, faabric_launches)),

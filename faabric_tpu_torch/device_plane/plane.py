@@ -54,6 +54,7 @@ from __future__ import annotations
 import collections
 import functools
 import logging
+import os
 import threading
 
 import numpy as np
@@ -74,7 +75,8 @@ logger = logging.getLogger(__name__)
 
 # A rank thread waiting for its rendezvous peers (sibling threads of
 # one process, which a loaded machine can still park for seconds)
-DEVICE_PLANE_TIMEOUT_S = 120.0
+DEVICE_PLANE_TIMEOUT_S = float(
+    os.environ.get("FAABRIC_DEVICE_PLANE_TIMEOUT", "120"))
 
 _ALLREDUCE_OPS = (MpiOp.SUM, MpiOp.MAX, MpiOp.MIN, MpiOp.PROD)
 _FOLDS = {MpiOp.SUM: torch.add, MpiOp.MAX: torch.maximum,

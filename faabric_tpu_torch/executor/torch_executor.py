@@ -22,8 +22,8 @@ function, reports FAILED with the error text in output_data.
 card it raises. ``device="cpu"`` runs every rank on the CPU (the tests
 do), and ``GuestContext.device_id`` still carries the planner's
 numbering. ``GuestContext.mpi_world()`` creates (rank 0) or joins the
-gang's MPI world. ``.state()`` of the reference is not ported yet
-(``ROADMAP.md`` Queue 1 #8).
+gang's MPI world, and ``GuestContext.state()`` gives the host's state KV
+(``faabric_tpu_torch/state/``).
 """
 
 from __future__ import annotations
@@ -130,6 +130,12 @@ class GuestContext:
             world = ctx.join_world(msg)
         world.refresh_rank_hosts()
         return world
+
+    def state(self):
+        """The host's ``State`` (the key-value store shared across the
+        cluster; ``faabric_tpu/executor/jax_executor.py:126-129``)."""
+        sched = self.executor.scheduler
+        return None if sched is None else sched.state
 
 
 class TorchExecutor(Executor):

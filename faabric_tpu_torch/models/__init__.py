@@ -1,7 +1,12 @@
 from faabric_tpu_torch.models.checkpoint import restore_train_state, save_train_state
 from faabric_tpu_torch.models.convert import load_params, params_from_jax, params_to_numpy
 from faabric_tpu_torch.models.evaluate import evaluate_perplexity
-from faabric_tpu_torch.models.generate import forward_with_cache, generate, init_kv_cache
+from faabric_tpu_torch.models.generate import (
+    forward_with_cache,
+    generate,
+    init_kv_cache,
+    init_sharded_kv_cache,
+)
 from faabric_tpu_torch.models.moe import (
     MoEConfig,
     MoETransformer,
@@ -45,6 +50,7 @@ __all__ = [
     "forward_with_cache",
     "generate",
     "init_kv_cache",
+    "init_sharded_kv_cache",
     "init_moe_train_state",
     "init_train_state",
     "load_params",

@@ -558,14 +558,19 @@ def _sharded_attention_sublayer(xs, blks, positions, cfg: ModelConfig,
     return [x + o for x, o in zip(xs, outs)]
 
 
-def _sharded_block(xs, blks, positions, cfg: ModelConfig, mesh) -> list:
-    xs = _sharded_attention_sublayer(xs, blks, positions, cfg, mesh)
-    # Row-parallel w2 likewise: partial sums over the rank's hidden
-    # units, completed by an allreduce over tp
+def _sharded_ffn_sublayer(xs, blks, cfg: ModelConfig, mesh) -> list:
+    """Pre-norm FFN and residual on each rank's shards: the row-parallel
+    w2's partial sums over the rank's hidden units are completed by an
+    allreduce over tp."""
     ffs = mesh.over("tp", [_ffn(_norm(x, b.ln2, cfg), b, cfg)
                            for x, b in zip(xs, blks)],
                     lambda coll, t: coll.allreduce(t))
     return [x + f for x, f in zip(xs, ffs)]
+
+
+def _sharded_block(xs, blks, positions, cfg: ModelConfig, mesh) -> list:
+    xs = _sharded_attention_sublayer(xs, blks, positions, cfg, mesh)
+    return _sharded_ffn_sublayer(xs, blks, cfg, mesh)
 
 
 def _sharded_positions(tokens, mesh) -> list:

@@ -35,15 +35,23 @@ message. A world's ranks may span hosts:
 collective took ("device", "hier", "ring", "tree", "sched:<family>",
 "direct", "chain"), where the reference tags its trace spans.
 
+The environment knobs are read once, at import, as the reference reads
+them: ``FAABRIC_RING_CHUNK_BYTES`` (``RING_CHUNK_BYTES``),
+``FAABRIC_HIER_COLLECTIVES`` and ``FAABRIC_SCHED_COLLECTIVES`` (the
+defaults of a world's ``hier_enabled`` and ``sched_enabled``: "1", "0"
+or "force") and ``FAABRIC_DEVICE_PLANE`` ("0" makes
+``activate_device_plane`` refuse). They must agree across the processes
+of a world. ``sched_reductions`` is a plain attribute.
+
 Not ported (``ROADMAP.md`` Queue 1 #7): the int8 leader-ring codec
-(``mpi/quant.py``), telemetry spans, the collective profiler and fault
-points, and the environment knobs (``hier_enabled``, ``sched_enabled``
-and ``sched_reductions`` are set per world).
+(``mpi/quant.py``) with its knobs, telemetry spans, the collective
+profiler and fault points.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import struct
 import threading
 import time
@@ -78,8 +86,24 @@ MpiWorldAborted = GroupAbortedError
 
 # Ring collectives stream each per-rank segment as chunk-sized messages,
 # so a rank folds chunk k while chunk k+1 crosses the wire (the
-# reference's value)
-RING_CHUNK_BYTES = 2 * 1024 * 1024
+# reference's default)
+RING_CHUNK_BYTES = int(os.environ.get("FAABRIC_RING_CHUNK_BYTES",
+                                      2 * 1024 * 1024))
+
+
+def _tristate_knob(name: str) -> bool | str:
+    """"force", or whether the knob is on (default on)."""
+    value = os.environ.get(name, "1").lower()
+    return "force" if value == "force" else value not in ("0", "false", "off")
+
+
+# Hierarchical compositions and the schedule compiler: a world's
+# hier_enabled and sched_enabled start from these
+HIER_COLLECTIVES = _tristate_knob("FAABRIC_HIER_COLLECTIVES")
+SCHED_COLLECTIVES = _tristate_knob("FAABRIC_SCHED_COLLECTIVES")
+# "0" makes activate_device_plane refuse on every world
+DEVICE_PLANE_ENABLED = os.environ.get(
+    "FAABRIC_DEVICE_PLANE", "1").lower() not in ("0", "false", "off")
 
 
 def _size_class(nbytes: int) -> str:
@@ -187,13 +211,13 @@ class MpiWorld:
         # Hierarchical composition: True composes only across real
         # machines (_hier_wins), "force" also across hosts of this one,
         # False never. Every host's world must hold the same value.
-        self.hier_enabled: bool | str = True
+        self.hier_enabled: bool | str = HIER_COLLECTIVES
         # The schedule compiler (mpi/schedule.py): True or "force" runs
         # scatter, scatterv, scan and alltoall as verified schedules,
         # False as the direct loops. sched_reductions (with "force")
         # runs the hierarchical reduction lowerings in place of the
         # hand-written paths. Every host's world must agree.
-        self.sched_enabled: bool | str = True
+        self.sched_enabled: bool | str = SCHED_COLLECTIVES
         self.sched_reductions = False
         self._sched_cache = ScheduleCache()
         self._sched_seen: dict[int, set] = {}
@@ -329,7 +353,11 @@ class MpiWorld:
         every rank then derives the SAME verdict from them
         (device_plane/registry.py). Returns True when the plane is
         active: from then on eligible allreduce, allgather and
-        reduce_scatter run on the plane's device."""
+        reduce_scatter run on the plane's device. With
+        ``FAABRIC_DEVICE_PLANE=0`` it returns False on every rank, with
+        no exchange."""
+        if not DEVICE_PLANE_ENABLED:
+            return False
         from faabric_tpu_torch.device_plane import (
             DevicePlane,
             MeshMismatch,
@@ -2065,7 +2093,10 @@ class MpiWorld:
     def prepare_migration(self, rank: int,
                           new_group_id: int | None = None) -> None:
         """Drop the rank → host and rank → device maps: the device rung
-        stays down until every rank re-runs the activation handshake."""
+        stays down until every rank re-runs the activation handshake.
+        The world's device state handles drop too
+        (``state/device_handle.py::invalidate_world``): a migrated rank
+        never pulls a tensor of its old placement."""
         with self._lock:
             if any(self._requests.values()):
                 raise RuntimeError(
@@ -2079,6 +2110,9 @@ class MpiWorld:
             self._topology_gen += 1
             self._device_collectives.clear()
             self._device_plane = None
+        from faabric_tpu_torch.state.device_handle import invalidate_world
+
+        invalidate_world(self.id)
 
     def exec_graph_details(self) -> dict[str, int]:
         with self._lock:

@@ -251,6 +251,21 @@ class PlannerClient(MessageEndpointClient):
             return None
         return SchedulingDecision.from_dict(resp.header["decision"])
 
+    def claim_state_master(self, user: str,
+                           key: str) -> tuple[str, str, int]:
+        """A key's placement, claiming mastership for this host if the
+        key is unowned: ``(master, backup, epoch)``; backup "" and epoch
+        0 with ``FAABRIC_STATE_REPLICAS=0``."""
+        resp = self.sync_send(int(PlannerCalls.CLAIM_STATE_MASTER), {
+            "user": user, "key": key, "host": self.this_host,
+        }, idempotent=True)
+        h = resp.header
+        return (h["master"], h.get("backup", ""), int(h.get("epoch", 0)))
+
+    def drop_state_master(self, user: str, key: str) -> None:
+        self.sync_send(int(PlannerCalls.DROP_STATE_MASTER),
+                       {"user": user, "key": key}, idempotent=True)
+
     def close(self) -> None:
         self._stop_keep_alive()
         super().close()

@@ -15,12 +15,21 @@ batches:
   unreachable worker cannot stall keep-alives or other apps;
 - the point-to-point mappings sent for each group (:1571-1577);
 - results: ``set_message_result(s)``, ``get_message_result`` (with a
-  push to waiting hosts) and ``get_batch_results`` (:1585-1775).
+  push to waiting hosts) and ``get_batch_results`` (:1585-1775);
+- the state-master registry (``claim_state_master``,
+  ``drop_state_master``, ``state_placement``; the reference's
+  ``planner/planner.py:1784-1876``): a key's first claimer is its
+  master, a consistent-hash backup among the other live hosts holds its
+  replica, and an epoch fences ops across failovers. A removed or
+  expired master fails over to its live backup (the epoch bumps and
+  the backup is told to promote), and a dead backup is replaced
+  (``_drop_state_masters_for_locked``).
 
 Any other request (THREADS and PROCESSES batches, the elastic scale
 hint, a decision that would freeze an app) raises instead of running
 some other way. Not ported (``ROADMAP.md`` Queue 1 #7 and #9): the
-journal, ingress, state masters, snapshots, freeze and migration,
+journal (and its replay of state placement), ingress, snapshots,
+freeze and migration,
 recovery requeues, ``call_batch_group`` and the telemetry.
 """
 
@@ -119,6 +128,11 @@ class Planner:
         # app_id → (every group id it used, every host involved), for
         # the group cleanup once the app completes
         self._group_hosts: dict[int, tuple[set[int], set[str]]] = {}
+        # State keys: full key → master host, backup host and fencing
+        # epoch (the epoch outlives a drop)
+        self._state_masters: dict[str, str] = {}
+        self._state_backups: dict[str, str] = {}
+        self._state_epochs: dict[str, int] = {}
 
         from faabric_tpu_torch.scheduler.function_call import (
             FunctionCallClient,
@@ -172,6 +186,8 @@ class Planner:
     def remove_host(self, ip: str) -> None:
         with self._lock:
             self._hosts.pop(ip, None)
+            # A removed host serves no state: fail its masterships over
+            self._drop_state_masters_for_locked({ip})
 
     def expire_hosts(self) -> None:
         """Drop hosts that missed their keep-alives. Their in-flight
@@ -187,6 +203,8 @@ class Planner:
             for ip in stale:
                 logger.warning("Expiring host %s (no keep-alive)", ip)
                 del self._hosts[ip]
+            if stale:
+                self._drop_state_masters_for_locked(stale)
             for req, decision in self._in_flight.values():
                 ids = {mid for mid, h in zip(decision.message_ids,
                                              decision.hosts) if h in stale}
@@ -513,11 +531,172 @@ class Planner:
             in_flight = self._in_flight.get(app_id)
             return in_flight[1].clone() if in_flight else None
 
+    # ------------------------------------------------------------------
+    # State masters (reference planner/planner.py:357-460, 1784-1876)
+    # ------------------------------------------------------------------
+    def claim_state_master(self, user: str, key: str,
+                           claiming_host: str) -> tuple[str, str, int]:
+        """``(master, backup, epoch)`` of a state key, the caller claiming
+        mastership of an unowned key. A fresh claim elects the claimer
+        (the first writer is usually the hottest), a consistent-hash
+        backup among the other live hosts, and the next epoch. A master
+        that fell out of the host registry fails over to its live backup
+        or, with none, the claimer takes the key. With
+        ``FAABRIC_STATE_REPLICAS=0`` the backup stays "" and the epoch
+        0. A planner with no registered host keeps plain first-claimer
+        semantics."""
+        full = f"{user}/{key}"
+        replicas = get_system_config().state_replicas
+        promoted: list[tuple[str, str, str, int]] = []
+        with self._lock:
+            master = self._state_masters.get(full)
+            stale = (master is not None and bool(self._hosts)
+                     and master not in self._hosts)
+            if master is None or stale:
+                backup = self._state_backups.get(full, "")
+                epoch = (self._state_epochs.get(full, 0) + 1
+                         if replicas > 0 else self._state_epochs.get(full, 0))
+                if stale and backup and backup in self._hosts:
+                    # The dead master's replica holds every acked write:
+                    # promote it, not the claimer's empty image
+                    master = backup
+                    logger.warning(
+                        "State master for %s is not registered; promoting "
+                        "backup %s (epoch %d)", full, master, epoch)
+                    self._state_masters[full] = master
+                    self._state_backups[full] = self._elect_backup_locked(
+                        full, {master})
+                    self._state_epochs[full] = epoch
+                    promoted.append((full, master,
+                                     self._state_backups[full], epoch))
+                else:
+                    if stale:
+                        logger.warning(
+                            "State master %s for %s is not registered; "
+                            "re-electing %s", master, full, claiming_host)
+                    master = claiming_host
+                    self._state_masters[full] = master
+                    self._state_backups[full] = self._elect_backup_locked(
+                        full, {master})
+                    if replicas > 0:
+                        self._state_epochs[full] = epoch
+            elif replicas > 0 and self._hosts:
+                # A live master: heal a dead or absent backup (no epoch
+                # bump, ownership did not change)
+                backup = self._state_backups.get(full, "")
+                if not backup or backup not in self._hosts:
+                    self._state_backups[full] = self._elect_backup_locked(
+                        full, {master})
+            placement = (master, self._state_backups.get(full, ""),
+                         self._state_epochs.get(full, 0))
+        if promoted:
+            self._dispatch_state_promotions(promoted)
+        return placement
+
+    def drop_state_master(self, user: str, key: str) -> None:
+        with self._lock:
+            self._state_masters.pop(f"{user}/{key}", None)
+            # The epoch survives the drop: the next claim must fence out
+            # any process still holding the old mastership
+            self._state_backups.pop(f"{user}/{key}", None)
+
+    def state_placement(self) -> dict[str, dict]:
+        """Per-key placement: full key → {master, backup, epoch}."""
+        with self._lock:
+            return {
+                full: {"master": master,
+                       "backup": self._state_backups.get(full, ""),
+                       "epoch": self._state_epochs.get(full, 0)}
+                for full, master in self._state_masters.items()}
+
+    def _drop_state_masters_for_locked(self, ips: set[str]) -> None:
+        """Fail over or drop the state masterships of hosts ``ips`` (host
+        removal or expiry, under the planner lock). A dead master whose
+        backup lives is promoted: the epoch bumps and a new backup is
+        elected. Only when master and backup are both gone does the key
+        drop. A dead backup under a live master is replaced. The
+        promotion RPCs go out on a thread of their own."""
+        promoted: list[tuple[str, str, str, int]] = []
+        dropped: list[str] = []
+        for full, master in list(self._state_masters.items()):
+            backup = self._state_backups.get(full, "")
+            if master in ips:
+                if backup and backup not in ips and backup in self._hosts:
+                    epoch = self._state_epochs.get(full, 0) + 1
+                    new_backup = self._elect_backup_locked(
+                        full, {backup} | set(ips))
+                    self._state_masters[full] = backup
+                    self._state_backups[full] = new_backup
+                    self._state_epochs[full] = epoch
+                    promoted.append((full, backup, new_backup, epoch))
+                else:
+                    del self._state_masters[full]
+                    self._state_backups.pop(full, None)
+                    dropped.append(full)
+            elif backup and backup in ips:
+                self._state_backups[full] = self._elect_backup_locked(
+                    full, {master} | set(ips))
+        if dropped:
+            logger.warning("Dropped %d state mastership(s) of dead host(s) "
+                           "%s (no live backup)", len(dropped), sorted(ips))
+        if promoted:
+            logger.warning(
+                "Failing over %d state mastership(s) from dead host(s) %s",
+                len(promoted), sorted(ips))
+            self._dispatch_state_promotions(promoted)
+
+    def _elect_backup_locked(self, full: str, exclude: set[str]) -> str:
+        """Consistent-hash backup among the live hosts ("" when
+        replication is off or no host is eligible)."""
+        if get_system_config().state_replicas <= 0:
+            return ""
+        from faabric_tpu_torch.state.placement import place_backup
+
+        return place_backup(full, [h for h in self._hosts
+                                   if h not in exclude])
+
+    def _dispatch_state_promotions(
+            self, promoted: list[tuple[str, str, str, int]]) -> None:
+        threading.Thread(
+            target=self._notify_state_promotions, args=(list(promoted),),
+            name="planner/state-promote", daemon=True).start()
+
+    def _notify_state_promotions(
+            self, promoted: list[tuple[str, str, str, int]]) -> None:
+        """Tell each promoted backup to turn its replica into the master
+        copy. Best effort: a lost notice is covered by self-promotion on
+        the first fenced client op."""
+        from faabric_tpu_torch.state.remote import StateClient
+
+        for full, master, backup, epoch in promoted:
+            user, _, key = full.partition("/")
+            try:
+                client = StateClient(master)
+                try:
+                    ok = client.promote(user, key, epoch, backup)
+                finally:
+                    client.close()
+            except Exception as e:  # noqa: BLE001 — best-effort notice
+                logger.warning(
+                    "State promotion notify %s -> %s failed: %s (the new "
+                    "master self-promotes on its first fenced op)",
+                    full, master, e)
+                continue
+            if not ok:
+                logger.warning(
+                    "Host %s holds no replica of %s; dropping the "
+                    "mastership so the next claim re-elects", master, full)
+                with self._lock:
+                    if self._state_epochs.get(full, 0) == epoch:
+                        self._state_masters.pop(full, None)
+                        self._state_backups.pop(full, None)
+
     def reset(self) -> None:
         with self._lock:
             for d in (self._hosts, self._in_flight, self._results,
                       self._expected, self._next_idx, self._waiters,
-                      self._group_hosts):
+                      self._group_hosts, self._state_masters,
+                      self._state_backups, self._state_epochs):
                 d.clear()
             self._completed_order.clear()
         self._clients.close_all()

@@ -52,6 +52,8 @@ class PlannerCalls(enum.IntEnum):
     GET_BATCH_RESULTS = 7
     GET_SCHEDULING_DECISION = 8
     CALL_BATCH = 10
+    CLAIM_STATE_MASTER = 12
+    DROP_STATE_MASTER = 13
 
 
 class PlannerServer(MessageEndpointServer):
@@ -134,6 +136,17 @@ class PlannerServer(MessageEndpointServer):
                 return handler_response(header={"found": False})
             return handler_response(header={"found": True,
                                             "decision": decision.to_dict()})
+
+        if code == int(PlannerCalls.CLAIM_STATE_MASTER):
+            master, backup, epoch = planner.claim_state_master(
+                h["user"], h["key"], h["host"])
+            return handler_response(header={"master": master,
+                                            "backup": backup,
+                                            "epoch": epoch})
+
+        if code == int(PlannerCalls.DROP_STATE_MASTER):
+            planner.drop_state_master(h["user"], h["key"])
+            return handler_response()
 
         if code == int(PlannerCalls.CALL_BATCH):
             decision = planner.call_batch(ber_from_wire(h["ber"],

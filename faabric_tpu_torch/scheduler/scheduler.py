@@ -68,10 +68,12 @@ class Scheduler:
         self._reaper = ReaperThread(self)
         self._started = False
 
-        # Set by the WorkerRuntime: this host's point-to-point broker and
-        # MPI world registry, which guest code reaches through its context
+        # Set by the WorkerRuntime: this host's point-to-point broker,
+        # MPI world registry and state KV, which guest code reaches
+        # through its context
         self.ptp_broker = None
         self.mpi_registry = None
+        self.state = None
 
     # ------------------------------------------------------------------
     # Lifecycle

@@ -28,6 +28,14 @@ def _env_float(name: str, default: float) -> float:
 
 @dataclasses.dataclass
 class SystemConfig:
+    # State: inmemory | file (shm) | redis
+    state_mode: str = "inmemory"
+    state_dir: str = "/dev/shm/faabric_tpu_state"
+    # Synchronous backups per in-memory state key: 1 gives every key a
+    # planner-placed backup host, and a master forwards dirty chunks to
+    # it before acking; 0 runs single masters with no epochs
+    state_replicas: int = 1
+
     # Scheduling: bin-pack | compact | spot
     batch_scheduler_mode: str = "bin-pack"
     # Bin-pack gang-schedules MPI batches: fill one host with a world's
@@ -43,6 +51,7 @@ class SystemConfig:
     # RPC server worker threads per plane
     function_server_threads: int = 2
     point_to_point_server_threads: int = 8
+    state_server_threads: int = 2
 
     # Planner: hosts expire when they miss keep-alives for this long
     # (workers re-register every half-timeout)
@@ -51,6 +60,10 @@ class SystemConfig:
 
     def reset(self) -> None:
         """Read every field from the environment again."""
+        self.state_mode = os.environ.get("STATE_MODE", "inmemory")
+        self.state_dir = os.environ.get("STATE_DIR",
+                                        "/dev/shm/faabric_tpu_state")
+        self.state_replicas = _env_int("FAABRIC_STATE_REPLICAS", 1)
         self.batch_scheduler_mode = os.environ.get("BATCH_SCHEDULER_MODE",
                                                    "bin-pack")
         self.gang_schedule_mpi = os.environ.get(
@@ -63,6 +76,7 @@ class SystemConfig:
         self.function_server_threads = _env_int("FUNCTION_SERVER_THREADS", 2)
         self.point_to_point_server_threads = _env_int(
             "POINT_TO_POINT_SERVER_THREADS", 8)
+        self.state_server_threads = _env_int("STATE_SERVER_THREADS", 2)
         self.planner_host = os.environ.get("PLANNER_HOST", "localhost")
         self.planner_host_timeout = _env_float("PLANNER_HOST_TIMEOUT", 30.0)
 

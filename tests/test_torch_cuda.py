@@ -1109,3 +1109,72 @@ def test_guest_gang_runs_the_mpi_suite_and_a_ddp_step_on_the_card(
     assert _build.LAUNCHES["flash_bwd_dq"] == before + 4 * cfg.n_layers
     flat = [job["params"][r] for r in range(4)]
     assert all(f.is_cuda and torch.equal(flat[0], f) for f in flat[1:])
+
+
+@pytest.mark.cuda
+def test_sharded_decode_on_one_card_runs_the_rms_kernel_on_every_rank(
+        cuda_device):
+    """A tp-sharded fp32 decode over dp 2 x tp 4 on the card: the
+    unsharded tokens, and 2L + 1 RMS-kernel launches a forward a rank."""
+    from faabric_tpu_torch.models import (
+        ModelConfig,
+        Transformer,
+        generate,
+        shard_params,
+    )
+    from faabric_tpu_torch.parallel import MeshConfig, build_mesh, named
+
+    cfg = ModelConfig(vocab_size=256, d_model=128, n_layers=2, n_heads=4,
+                      d_ff=256, max_seq=64, compute_dtype=torch.float32)
+    model = Transformer(cfg, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(3))
+    mesh = build_mesh([cuda_device] * 8, MeshConfig(dp=2, tp=4))
+    sharded = shard_params(model, mesh, cfg)
+    prompt = torch.randint(0, 256, (4, 16), device=cuda_device,
+                           generator=torch.Generator(
+                               device=cuda_device).manual_seed(4))
+    want = generate(model, prompt, 6)
+    rows = named(mesh, "dp", None)
+    before = _build.LAUNCHES["rms_norm"]
+    got = rows.gather(generate(sharded, rows.shard(prompt), 6,
+                               prefill_chunk=5))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert _build.LAUNCHES["rms_norm"] - before == 8 * (4 + 5) * 5
+
+
+@pytest.mark.cuda
+def test_state_device_view_and_handles_on_the_card(cuda_device):
+    """A KV's device view on the card: one counted H2D copy a refresh,
+    the cached tensor until the image changes, set_from_device one
+    counted D2H copy; a device handle pulls the same storage."""
+    from faabric_tpu_torch.device_plane.copies import (
+        device_copy_totals,
+        reset_device_copy_totals,
+    )
+    from faabric_tpu_torch.state import (
+        State,
+        get_device_handle_registry,
+        reset_device_handles,
+    )
+
+    kv = State("card-host").get_kv("demo", "card", 4096 * 3)
+    values = torch.arange(3072, dtype=torch.float32)
+    kv.set(values.numpy().tobytes())
+    reset_device_copy_totals()
+    view = kv.get_device_array(torch.float32)
+    assert view.device.type == "cuda" and torch.equal(view.cpu(), values)
+    assert kv.get_device_array(torch.float32) is view
+    kv.set_from_device(view * 2)
+    again = kv.get_device_array(torch.float32)
+    assert again is not view and torch.equal(again.cpu(), values * 2)
+    assert device_copy_totals()["by_reason"] == {
+        "h2d.state": {"count": 2, "bytes": 2 * 12288},
+        "d2h.state": {"count": 1, "bytes": 12288}}
+    reset_device_handles()
+    reg = get_device_handle_registry()
+    h = reg.push(1, 0, "view", again)
+    assert reg.pull(h.to_dict()).data_ptr() == again.data_ptr()
+    assert h.device_id == cuda_device.index
+    assert torch.equal(reg.pull_host(h), values * 2)
+    reset_device_handles()

@@ -1162,3 +1162,188 @@ def test_device_plane_verdict_over_two_hosts_matches_reference(pair):
     got = pair.both(fn)
     assert all(got[r][0] is False for r in range(6))
     assert all(pair.port.world(r).device_plane() is None for r in range(6))
+
+
+# ---------------------------------------------------------------------------
+# The environment knobs: both packages read them at import, so each case
+# sets one in a subprocess before either package loads and runs the same
+# program on both there. No test sets them in this process.
+# ---------------------------------------------------------------------------
+
+_KNOB_PROGRAM = r'''
+import json, sys, threading, time
+import numpy as np
+from tests.test_torch_mpi_world import Cluster, REF, PORT, TWO_HOSTS, assert_same
+from tests.test_torch_mpi import make_worlds, on_ranks
+import faabric_tpu.mpi.world as ref_world
+import faabric_tpu_torch.mpi.world as port_world
+import faabric_tpu.device_plane.plane as ref_plane
+import faabric_tpu_torch.device_plane.plane as port_plane
+
+base, case = int(sys.argv[1]), sys.argv[2]
+out = {"knobs": [[getattr(m, k) for m in (ref_world, port_world)] for k in (
+    "RING_CHUNK_BYTES", "HIER_COLLECTIVES", "SCHED_COLLECTIVES",
+    "DEVICE_PLANE_ENABLED")] + [[ref_plane.DEVICE_PLANE_TIMEOUT_S,
+                                 port_plane.DEVICE_PLANE_TIMEOUT_S]]}
+
+
+def both_clusters(fn, record=False):
+    """fn on a 3 + 3 world of each package; results must agree bit for
+    bit. Returns the port's cluster after the run."""
+    ref = Cluster(REF, [base, base + 1000], TWO_HOSTS, 4300)
+    port = Cluster(PORT, [base + 2000, base + 2500], TWO_HOSTS, 4300)
+    try:
+        for c in (ref, port):
+            c.set(record_exec_graph=record)
+        want, got = ref.run(fn), port.run(fn)
+        for r in want:
+            assert_same(got[r], want[r], f"rank {r}")
+        w = port.world(0)
+        out["attrs"] = [[c.world(0).hier_enabled, c.world(0).sched_enabled]
+                        for c in (ref, port)]
+        out["rungs"] = sorted({str(v) for v in
+                               (port.world(r).rungs.get((r, case_kind))
+                                for r in range(6))})
+        if record:
+            out["graphs"] = [[c.world(r).exec_graph_details()
+                              for r in range(6)] for c in (ref, port)]
+    finally:
+        ref.close()
+        port.close()
+
+
+def data(rank, n, dtype):
+    return np.random.RandomState(rank).uniform(0.5, 1.5, n).astype(dtype)
+
+
+if case in ("hier", "ring"):
+    case_kind = "allreduce"
+    n, dtype = ((3_000_000, np.float32) if case == "hier"
+                else (1_200_000, np.float64))
+    both_clusters(lambda w, r, pk: w.allreduce(r, data(r, n, dtype),
+                                               pk.MpiOp.SUM),
+                  record=case == "ring")
+elif case == "sched":
+    case_kind = "alltoall"
+    both_clusters(lambda w, r, pk: w.alltoall(
+        r, np.arange(r * 600, r * 600 + 600, dtype=np.int64)))
+elif case == "plane":
+    ref, port = make_worlds(960)
+    out["active"] = [sorted({bool(v) for v in on_ranks(
+        w, lambda w, r, d=d: w.activate_device_plane(r, **d)).values()})
+        for w, d in ((ref, {}), (port, {"device": "cpu"}))]
+    want, got = (on_ranks(w, lambda w, r: w.allreduce(
+        r, np.full(64, r + 1, np.int32), pk.MpiOp.SUM))
+        for w, pk in ((ref, REF), (port, PORT)))
+    for r in want:
+        assert_same(got[r], want[r], f"rank {r}")
+    # One rank arrives after the others' rendezvous window closed: each
+    # plane disables itself and the ranks meet on the host ladder
+    def late(w, r, pk):
+        if r == 3:
+            time.sleep(1.0)
+        return w.allreduce(r, np.full(64, r + 1, np.int32), pk.MpiOp.SUM)
+    if all(out["active"][i] == [True] for i in range(2)):
+        plane_objs = [w.device_plane() for w in (ref, port)]
+        want, got = (on_ranks(w, lambda w, r, pk=pk: late(w, r, pk))
+                     for w, pk in ((ref, REF), (port, PORT)))
+        for r in want:
+            assert_same(got[r], want[r], f"rank {r}")
+        out["disabled"] = [(p.disabled_reason or "").split(":")[0]
+                           for p in plane_objs]
+    ref.broker.clear()
+    port.broker.clear()
+print("RESULT " + json.dumps(out))
+'''
+
+
+def _run_knob_case(env: dict, case: str, timeout: float = 240.0) -> dict:
+    """The knob program in a fresh interpreter, ``env`` over ours."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from tests.conftest import next_port_base
+
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-c", _KNOB_PROGRAM, str(next_port_base()), case],
+        cwd=root, env={**os.environ, **env}, capture_output=True, text=True,
+        timeout=timeout)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
+    assert line, proc.stdout[-2000:]
+    return json.loads(line[-1][len("RESULT "):])
+
+
+def _knob(out: dict, index: int):
+    ref, port = out["knobs"][index]
+    assert ref == port, (index, ref, port)
+    return port
+
+
+def test_hier_collectives_force_is_read_by_both_packages():
+    """``FAABRIC_HIER_COLLECTIVES=force``: over two loopback hosts both
+    worlds compose hierarchically, and an allreduce SUM of 3,000,000
+    float32 a rank (uniform(0.5, 1.5) from RandomState(rank)) agrees bit
+    for bit on every rank; the port's rung is "hier" on all six."""
+    out = _run_knob_case({"FAABRIC_HIER_COLLECTIVES": "force"}, "hier")
+    assert _knob(out, 1) == "force"
+    assert out["attrs"] == [["force", True]] * 2
+    assert out["rungs"] == ["hier"]
+
+
+@pytest.mark.parametrize("value,attr", [("0", False), ("off", False)])
+def test_hier_collectives_off_keeps_both_flat(value, attr):
+    out = _run_knob_case({"FAABRIC_HIER_COLLECTIVES": value}, "hier")
+    assert _knob(out, 1) is attr
+    assert out["attrs"] == [[attr, True]] * 2
+    assert out["rungs"] == ["ring"]
+
+
+@pytest.mark.parametrize("value,attr,rung", [
+    ("0", False, "direct"), ("force", "force", "sched:")])
+def test_sched_collectives_knob_picks_the_same_path(value, attr, rung):
+    """``FAABRIC_SCHED_COLLECTIVES``: off runs alltoall as the direct
+    loop, force as a verified schedule, on both; results agree."""
+    out = _run_knob_case({"FAABRIC_SCHED_COLLECTIVES": value}, "sched")
+    assert _knob(out, 2) == attr
+    assert out["attrs"] == [[True, attr]] * 2
+    assert len(out["rungs"]) == 1 and out["rungs"][0].startswith(rung)
+
+
+def test_ring_chunk_bytes_splits_the_ring_alike():
+    """``FAABRIC_RING_CHUNK_BYTES``: the flat ring of a 9,600,000-byte
+    contribution sends the same messages to each rank in both packages
+    (exec-graph counts), and other counts than at the 2 MiB default."""
+    small = _run_knob_case({"FAABRIC_RING_CHUNK_BYTES": "65536"}, "ring")
+    assert _knob(small, 0) == 65536
+    assert small["rungs"] == ["ring"]
+    ref_graphs, port_graphs = small["graphs"]
+    assert port_graphs == ref_graphs
+    default = _run_knob_case({}, "ring")
+    assert _knob(default, 0) == 2 * 1024 * 1024
+    assert default["graphs"][0] == default["graphs"][1]
+    assert default["graphs"][1] != port_graphs
+
+
+def test_device_plane_knob_refuses_activation_on_both():
+    """``FAABRIC_DEVICE_PLANE=0``: every rank's activation returns False
+    on both packages, and the allreduce runs on the host ladder."""
+    out = _run_knob_case({"FAABRIC_DEVICE_PLANE": "0"}, "plane")
+    assert _knob(out, 3) is False
+    assert out["active"] == [[False], [False]]
+    assert "disabled" not in out
+
+
+def test_device_plane_timeout_knob_gives_the_same_verdict():
+    """``FAABRIC_DEVICE_PLANE_TIMEOUT=0.2``: a rank that comes a second
+    late finds both planes disabled by a rendezvous timeout, and the
+    ranks agree on the host ladder."""
+    out = _run_knob_case({"FAABRIC_DEVICE_PLANE_TIMEOUT": "0.2"}, "plane")
+    assert _knob(out, 4) == 0.2
+    assert _knob(out, 3) is True
+    assert out["active"] == [[True], [True]]
+    assert out["disabled"] == ["rendezvous timeout"] * 2

@@ -41,6 +41,13 @@ def test_importing_every_module_pulls_in_no_jax_and_no_faabric_tpu():
             "faabric_tpu_torch.mpi.api", "faabric_tpu_torch.mpi.window",
             "faabric_tpu_torch.util.memory",
             "faabric_tpu_torch.transport.point_to_point"} <= set(modules)
+    # faabric's state KV: authorities, KV, replicas, placement, the RPC,
+    # the host-wide State and the device state handles
+    assert {"faabric_tpu_torch.state", "faabric_tpu_torch.state.backend",
+            "faabric_tpu_torch.state.kv", "faabric_tpu_torch.state.replica",
+            "faabric_tpu_torch.state.placement",
+            "faabric_tpu_torch.state.remote", "faabric_tpu_torch.state.state",
+            "faabric_tpu_torch.state.device_handle"} <= set(modules)
     modules.append("chip_smoke")
     code = (
         "import importlib, sys\n"
