@@ -47,7 +47,12 @@ device plane. The mesh half of serving: ``generate`` and
 as guests use it: over two hosts, one guest writes the flagship's fp32
 weights into a key, four pull them and score, four count under the
 global lock and append, and a device state handle passes between two
-guests. For each path
+guests. faabric's snapshots as guests use them: over two hosts, one
+guest holds the flagship's fp32 weights as one flat tensor on the card
+behind a device state handle and pushes its ``DeviceSnapshot`` to the
+other host; after a sparse SGD step and a full AdamW step, the on-device
+dirty pages and diffs cross as snapshot updates, and the other host's
+guest scores from its merged snapshot bit for bit as the first. For each path
 it checks the outputs and shows from the kernels' launch counts that
 the path ran through them; it times the kernels, their plain versions and the nearest
 PyTorch library calls, and prints one JSON line of kernel numbers (the
@@ -2335,6 +2340,321 @@ def state_phase(dev, build, cfg=None, iters: int = 1000,
     return launches
 
 
+def bind_flat(model, flat: torch.Tensor):
+    """Make ``model``'s parameters views of one flat tensor
+    (``flat_params``' order, with their values), so that an optimizer
+    step writes into ``flat`` in place."""
+    offset = 0
+    for p in model.parameters():
+        p.data = flat[offset:offset + p.numel()].view_as(p)
+        offset += p.numel()
+    if offset != flat.numel():
+        raise ValueError(f"{flat.numel()} values for {offset} parameters")
+    return model
+
+
+def register_snapshot_guests(job: dict) -> None:
+    """Torch guests over faabric's snapshots. Each batch is one message a
+    host (one slot a host), and a guest acts by its host:
+
+    - ``smoke/snap_step`` on ``job["hosts"][0]`` (hA), with input
+      ``{"stage": ...}``: ``init`` builds ``job["model"](device)``, holds
+      its weights as one flat tensor whose views the parameters are,
+      pushes it as a device state handle, takes the handle's
+      ``DeviceSnapshot`` (``snapshot_of``) and pushes
+      ``to_host_snapshot()`` to hB under ``job["key"]``; ``sparse``
+      takes one SGD step (no weight decay) of the last block and the
+      final norm, ``full`` one AdamW step of the whole model
+      (``make_train_step``); after either, it checks ``dirty_pages``
+      against ``page_flags`` over host copies from before and after,
+      takes ``diff(update_baseline=True)`` and pushes the diffs with
+      ``push_snapshot_update``. The guest on hB does nothing.
+    - ``smoke/snap_score``: on hA, scores ``job["tokens"]`` with the live
+      weights; on hB, takes the snapshot from its host's registry, writes
+      the queued diffs, loads the image onto its device and scores.
+
+    Times, pages and copy counts come back as JSON; logits and host
+    images go to ``job["out"]``."""
+    from faabric_tpu_torch.device_plane.copies import (
+        device_copy_totals,
+        reset_device_copy_totals,
+    )
+    from faabric_tpu_torch.executor import register_function
+    from faabric_tpu_torch.models import (
+        Transformer,
+        forward,
+        loss_fn,
+        make_optimizer,
+        make_train_step,
+    )
+    from faabric_tpu_torch.snapshot import SnapshotClient
+    from faabric_tpu_torch.state import get_device_handle_registry
+    from faabric_tpu_torch.util.dirty import page_flags
+
+    hA, hB = job["hosts"]
+
+    def sync(dev):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def clocked(fn, dev):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def host_image(flat):
+        # The oracle's copies: not the snapshot's, so not counted
+        return flat.detach().cpu().numpy().view(np.uint8).copy()
+
+    def score(model, dev):
+        with torch.no_grad():
+            logits = forward(model, job["tokens"].to(dev))
+        sync(dev)
+        return logits
+
+    def push(fn):
+        client = SnapshotClient(hB)
+        try:
+            return clocked(lambda: fn(client), torch.device("cpu"))[1]
+        finally:
+            client.close()
+
+    def init(dev):
+        model = job["make_model"](dev)
+        flat = flat_params(model)
+        bind_flat(model, flat)
+        handle = get_device_handle_registry().push(0, 0, "weights", flat)
+        snap = get_device_handle_registry().snapshot_of(handle)
+        host = snap.to_host_snapshot()
+        push_ms = push(lambda c: c.push_snapshot(job["key"], host))
+        job.update(model=model, handle=handle, snap=snap)
+        job["out"]["image"] = host.data
+        return {"push_ms": push_ms, "bytes": host.size,
+                "pages": snap.n_pages}
+
+    def train(dev, stage):
+        model = job["model"]
+        flat = get_device_handle_registry().pull(job["handle"])
+        snap = job["snap"]
+        tok, tgt = job["batch"](dev)
+        before = host_image(flat)
+        if stage == "sparse":
+            last = list(model.blocks[-1].parameters()) + [model.ln_f]
+            for p in model.parameters():
+                p.requires_grad_(False)
+            for p in last:
+                p.requires_grad_(True)
+            model.zero_grad(set_to_none=True)
+            loss_fn(model, tok, tgt).backward()
+            with torch.no_grad():
+                for p in last:
+                    p.add_(p.grad, alpha=-job["lr"])
+        else:
+            for p in model.parameters():
+                p.requires_grad_(True)
+            spec = make_optimizer(lr=job["lr"])
+            make_train_step(model.cfg, spec)(model, spec.init(model), tok,
+                                             tgt)
+        model.zero_grad(set_to_none=True)
+        sync(dev)
+        after = host_image(flat)
+        oracle = page_flags(before, after)
+        flags, flags_ms = clocked(lambda: snap.dirty_pages(flat), dev)
+        repeat_ms = [clocked(lambda: snap.dirty_pages(flat), dev)[1]
+                     for _ in range(5)]
+        reset_device_copy_totals()
+        diffs, diff_ms = clocked(lambda: snap.diff(flat, update_baseline=True),
+                                 dev)
+        copies = device_copy_totals()["by_reason"]
+        push_ms = push(lambda c: c.push_snapshot_update(job["key"], diffs))
+        job["out"]["image"] = after
+        return {"dirty": int(flags.sum()), "oracle_dirty": int(oracle.sum()),
+                "flags_equal": bool(np.array_equal(flags, oracle)),
+                "changed_pages": int(oracle.sum()), "pages": snap.n_pages,
+                "dirty_ms": flags_ms,
+                "dirty_ms_median": float(np.median(repeat_ms)),
+                "diff_ms": diff_ms, "push_ms": push_ms, "diffs": len(diffs),
+                "diff_bytes": sum(len(d.data) for d in diffs),
+                "d2h": copies.get("d2h.snapshot", {}),
+                "copies": sorted(copies)}
+
+    @register_function("smoke", "snap_step")
+    def step(ctx):
+        sched = ctx.executor.scheduler
+        out = {"host": sched.host}
+        if sched.host == hA:
+            stage = json.loads(ctx.message.input_data)["stage"]
+            out.update(init(ctx.device) if stage == "init"
+                       else train(ctx.device, stage))
+        return json.dumps(out).encode()
+
+    @register_function("smoke", "snap_score")
+    def score_guest(ctx):
+        sched, dev = ctx.executor.scheduler, ctx.device
+        out = {"host": sched.host}
+        if sched.host == hA:
+            job["out"][hA] = score(job["model"], dev)
+            return json.dumps(out).encode()
+        snap = sched.snapshot_registry.get_snapshot(job["key"])
+        out["queued"] = snap.queued_diff_count()
+        out["written"], out["write_ms"] = clocked(snap.write_queued_diffs,
+                                                  torch.device("cpu"))
+        out["equal"] = bool(np.array_equal(snap.data, job["out"]["image"]))
+        flat, out["load_ms"] = clocked(
+            lambda: torch.from_numpy(snap.data.view(np.float32)).to(dev),
+            dev)
+        model = load_flat(Transformer(job["cfg"], device=dev), flat)
+        job["out"][hB] = score(model, dev)
+        return json.dumps(out).encode()
+
+
+def snapshot_phase(dev, build, cfg=None,
+                   hosts=("snap-host-a", "snap-host-b"),
+                   base: int | None = None) -> dict:
+    """Phase 20: faabric's snapshots through torch guests on two hosts (a
+    port planner and two WorkerRuntimes, one slot each), at full width.
+    A guest on hA holds the flagship's fp32 weights (seed 20) as one
+    flat tensor, pushed as a device state handle; the handle's
+    ``DeviceSnapshot`` goes to hB as a host snapshot
+    (``push_snapshot``). Then (a) one bf16 8 x 512 SGD step of the last
+    block and the final norm and (b) one AdamW step of the whole model
+    (``make_train_step``): after each, the on-device ``dirty_pages``
+    must equal ``page_flags`` over host copies from before and after,
+    page for page, the counted device-to-host bytes of
+    ``diff(update_baseline=True)`` must be the dirty pages x 4096 plus
+    the flag vector, and after ``push_snapshot_update`` hB's snapshot,
+    its queued diffs written, must equal hA's weights, and hB's guest
+    must score a (1, 512) prompt from it bit for bit as hA's guest does
+    from its live weights. Returns the launches of the whole sequence
+    (the phase's main path)."""
+    from faabric_tpu_torch.executor import TorchExecutorFactory
+    from faabric_tpu_torch.models import ModelConfig, Transformer
+    from faabric_tpu_torch.state import get_device_handle_registry
+
+    log("phase 20: faabric's snapshots through torch guests on two hosts")
+    t_phase = time.perf_counter()
+    cfg = cfg or ModelConfig()
+    hA, hB = hosts
+    out: dict = {}
+    tokens = torch.randint(0, cfg.vocab_size, (1, 512),
+                           generator=torch.Generator().manual_seed(20))
+    batch = torch.randint(0, cfg.vocab_size, (8, 513),
+                          generator=torch.Generator().manual_seed(21))
+    job = {"cfg": cfg, "tokens": tokens, "hosts": hosts, "out": out,
+           "key": "smoke/weights", "lr": 1e-2,
+           "batch": lambda device: (batch[:, :-1].to(device),
+                                    batch[:, 1:].to(device)),
+           "make_model": lambda device: Transformer(
+               cfg, device=device,
+               generator=torch.Generator(device=device).manual_seed(20))}
+    register_snapshot_guests(job)
+    factory = TorchExecutorFactory(device=dev.type)
+    planner_server, workers = start_cluster(dict.fromkeys(hosts, 1), factory,
+                                            base)
+    launches: dict = {}
+
+    def stage_launches(before: dict) -> dict:
+        return {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items()
+                if v != before.get(k, 0)}
+
+    def run_both(function: str, stage: str = "") -> dict:
+        """One message a host; returns each host's reply by host."""
+        res, _ = run_batch(client, function, 2,
+                           json.dumps({"stage": stage}).encode())
+        replies = guest_outputs(res, f"20 {function} {stage}")
+        by_host = {r["host"]: r for r in replies}
+        check(sorted(by_host) == sorted(hosts),
+              f"20 {function} {stage}: one guest on each host "
+              f"({sorted(by_host)})")
+        return by_host
+
+    def scores(what: str) -> dict:
+        got = run_both("snap_score")[hB]
+        a, b = out.pop(hA), out.pop(hB)
+        check(got["equal"] and got["written"] == got["queued"],
+              f"20 {what}: hB wrote {got['written']} queued diff(s) in "
+              f"{got['write_ms']:.2f} ms and its snapshot equals hA's "
+              f"weights byte for byte")
+        check(torch.equal(a, b),
+              f"20 {what}: hB's (1, 512) logits from its snapshot equal "
+              f"hA's from its live weights bit for bit ({tuple(b.shape)}; "
+              f"image loaded onto {dev.type} in {got['load_ms']:.1f} ms)")
+        return got
+
+    try:
+        client = workers[0].planner_client
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        build.reset_launch_counts()
+        init = run_both("snap_step", "init")[hA]
+        n_bytes = init["bytes"]
+        check(n_bytes == 4 * sum(p.numel() for p in job["model"].parameters())
+              and init["pages"] == -(-n_bytes // 4096),
+              f"20: hA pushed its {n_bytes:,}-byte snapshot "
+              f"({init['pages']:,} pages) to hB in {init['push_ms']:.1f} ms")
+        scores("initial push")
+        bound_ms = 2 * n_bytes / HBM_BYTES_PER_S * 1e3
+        for stage, what in (("sparse", "(a) SGD step of the last block and "
+                             "the final norm"),
+                            ("full", "(b) AdamW step of the whole model")):
+            before = dict(build.LAUNCHES)
+            got = run_both("snap_step", stage)[hA]
+            step_launches = stage_launches(before)
+            check(got["flags_equal"] and got["dirty"] > 0,
+                  f"20 {what}: dirty_pages equals the host oracle page for "
+                  f"page ({got['dirty']:,} of {got['pages']:,} pages dirty)")
+            if stage == "full":
+                check(got["dirty"] == got["changed_pages"],
+                      f"20 {what}: every changed page is dirty")
+            want_d2h = {"count": 2,
+                        "bytes": got["dirty"] * 4096 + got["pages"]}
+            check(got["d2h"] == want_d2h and got["copies"] == ["d2h.snapshot"],
+                  f"20 {what}: diff copied {got['d2h']} device to host "
+                  f"= {got['dirty']:,} dirty pages x 4096 + the "
+                  f"{got['pages']:,}-byte flag vector, and nothing else")
+            sc = scores(what)
+            log(f"  20 {what}: dirty pages {got['dirty']:,}; dirty_pages "
+                f"{got['dirty_ms']:.3f} ms (median of 5 more "
+                f"{got['dirty_ms_median']:.3f} ms), diff {got['diff_ms']:.3f} "
+                f"ms ({got['diffs']} diff(s), {got['diff_bytes']:,} bytes), "
+                f"compare bound {bound_ms:.3f} ms (2 x {n_bytes:,} B / 3.35 "
+                f"TB/s); push_snapshot {init['push_ms']:.1f} ms, "
+                f"push_snapshot_update {got['push_ms']:.1f} ms; hB wrote "
+                f"the queued diffs in {sc['write_ms']:.2f} ms; launches "
+                f"{step_launches}")
+            job[stage] = step_launches
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        if dev.type == "cuda":
+            want = {"sparse": {"flash_attention": cfg.n_layers + 1,
+                               "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                               "rms_norm": 2 * cfg.n_layers + 3},
+                    "full": {"flash_attention": 2 * cfg.n_layers,
+                             "flash_bwd_dq": cfg.n_layers,
+                             "flash_bwd_dkv": cfg.n_layers,
+                             "rms_norm": 4 * cfg.n_layers + 1}}
+            for stage, counts in want.items():
+                for name, n in counts.items():
+                    check(job[stage].get(name, 0) == n,
+                          f"20 {stage} step: {name} launched "
+                          f"{job[stage].get(name, 0)} times, {n} expected")
+            # Three scorings on each host: (1, 512) forwards
+            check(launches.get("flash_attention", 0)
+                  == 6 * cfg.n_layers + sum(
+                      job[s]["flash_attention"] for s in want),
+                  f"20: {launches.get('flash_attention', 0)} flash launches "
+                  f"= 6 scoring forwards x {cfg.n_layers} + the steps'")
+        get_device_handle_registry().drop(job["handle"])
+    finally:
+        stop_cluster(planner_server, workers)
+    log(f"  phase 20 launches: {launches}")
+    log(f"  phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2406,7 +2726,8 @@ def main() -> int:
     # decode (dp 2): a
     # rank's 2 rows a step, its (2, 128) whole prefill, its chunked
     # prefill's (2, 48) and (2, 32); the unsharded yardstick's (4, 1)
-    # steps and its (4, 512) perplexity batches
+    # steps and its (4, 512) perplexity batches. Phase 20's steps run
+    # (4096, 512) and its scorings (512, 512)
     for rows, d in [(4096, 512), (8, 512), (333, 512), (512, 512), (1, 512),
                     (1024, 512), (2, 512), (256, 512), (96, 512), (64, 512),
                     (4, 512), (2048, 512)]:
@@ -2430,7 +2751,8 @@ def main() -> int:
     # MoE steps of phase 16 (dp 4 x ep 2; dp 2 x tp 2 x ep 2); in fp32,
     # (2, 512, 2 heads) each rank's attention in phase 18's sharded
     # perplexity (dp 2 x tp 4) and (4, 512, 8 heads) its unsharded
-    # yardstick's
+    # yardstick's; phase 20's steps run (8, 512, 8 heads) and its
+    # scorings (1, 512, 8 heads)
     for b, s_q, s_k, h, causal, dtype, views in [
             (8, 512, 512, 8, True, torch.bfloat16, False),
             (8, 128, 512, 8, True, torch.bfloat16, False),
@@ -2651,7 +2973,8 @@ def main() -> int:
                 delta)
 
     # (2, 512, 8 heads) and (4, 512, 4 heads): each rank's attention in
-    # the MoE train steps of phase 16 (dp 4 x ep 2; dp 2 x tp 2 x ep 2)
+    # the MoE train steps of phase 16 (dp 4 x ep 2; dp 2 x tp 2 x ep 2);
+    # (8, 512, 8 heads) also phase 20's steps
     bwd_cases = [(b, s_q, s_k, h, d, causal, dtype, g_lse, strided)
                  for dtype in (torch.bfloat16, torch.float32)
                  for b, s_q, s_k, h, d, causal, g_lse, strided in [
@@ -2937,17 +3260,19 @@ def main() -> int:
     serving_mesh_launches = sharded_serving_phase(dev, _build)
     # -- 19. the state KV through guests ----------------------------------
     state_launches = state_phase(dev, _build)
+    # -- 20. snapshots through guests -------------------------------------
+    snapshot_launches = snapshot_phase(dev, _build)
     # Each row's launches: the serving kernels' on the direct serving
     # path (phase 5) and under the executors (13), the backward kernels'
     # on the training path (9), the ring kernel's on the MPI path (12),
     # and every launch of the mesh (14), pipeline (15), MoE (16), guest
-    # data-parallel (17), sharded decode and perplexity (18) and state
-    # (19) paths
+    # data-parallel (17), sharded decode and perplexity (18), state (19)
+    # and snapshot (20) paths
     path_launches = {
         name: sum(p.get(name, 0) for p in paths) + sum(
             p.get(name, 0) for p in (mesh_launches, pp_launches, moe_launches,
                                      guest_launches, serving_mesh_launches,
-                                     state_launches))
+                                     state_launches, snapshot_launches))
         for name, paths in (
             ("rms_norm", (launches, faabric_launches)),
             ("flash_attention", (launches, faabric_launches)),

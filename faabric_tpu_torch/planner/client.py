@@ -106,6 +106,9 @@ class PlannerClient(MessageEndpointClient):
         self._local_results: dict[int, Message] = {}
         self._local_results_order: list[int] = []
         self._result_events: dict[int, threading.Event] = {}
+        # Set by the WorkerRuntime: this host's snapshot registry, which
+        # the THREADS pushes will read (ROADMAP.md Queue 1 #9 part A)
+        self.snapshot_registry = None
 
     # ------------------------------------------------------------------
     def ping(self) -> bool:

@@ -23,13 +23,15 @@ batches:
   replica, and an epoch fences ops across failovers. A removed or
   expired master fails over to its live backup (the epoch bumps and
   the backup is told to promote), and a dead backup is replaced
-  (``_drop_state_masters_for_locked``).
+  (``_drop_state_masters_for_locked``);
+- the planner's ``SnapshotRegistry`` and its pool of snapshot clients,
+  dropped with a removed or rebooted host.
 
 Any other request (THREADS and PROCESSES batches, the elastic scale
 hint, a decision that would freeze an app) raises instead of running
 some other way. Not ported (``ROADMAP.md`` Queue 1 #7 and #9): the
-journal (and its replay of state placement), ingress, snapshots,
-freeze and migration,
+journal (and its replay of state placement), ingress, the snapshot
+pushes of THREADS batches, freeze and migration,
 recovery requeues, ``call_batch_group`` and the telemetry.
 """
 
@@ -140,6 +142,15 @@ class Planner:
 
         self._clients = ClientPool(FunctionCallClient)
 
+        # Snapshots parked on the planner for THREADS batches and frozen
+        # apps (reference planner-held SnapshotRegistry); the pushes that
+        # use them come with ROADMAP.md Queue 1 #9 part A
+        from faabric_tpu_torch.snapshot.registry import SnapshotRegistry
+        from faabric_tpu_torch.snapshot.remote import SnapshotClient
+
+        self.snapshot_registry = SnapshotRegistry()
+        self._snapshot_clients = ClientPool(SnapshotClient)
+
     # ------------------------------------------------------------------
     # Hosts (reference Planner.cpp:267-392)
     # ------------------------------------------------------------------
@@ -164,6 +175,7 @@ class Planner:
                     existing.state.n_devices = n_devices
         if overwrite:
             self._clients.drop(ip)
+            self._snapshot_clients.drop(ip)
         return get_system_config().planner_host_timeout
 
     def _reclaim_host_rows_locked(self, ip: str) -> None:
@@ -188,6 +200,7 @@ class Planner:
             self._hosts.pop(ip, None)
             # A removed host serves no state: fail its masterships over
             self._drop_state_masters_for_locked({ip})
+        self._snapshot_clients.drop(ip)
 
     def expire_hosts(self) -> None:
         """Drop hosts that missed their keep-alives. Their in-flight
@@ -700,6 +713,7 @@ class Planner:
                 d.clear()
             self._completed_order.clear()
         self._clients.close_all()
+        self._snapshot_clients.close_all()
         from faabric_tpu_torch.transport.ptp_remote import (
             close_mapping_clients,
         )

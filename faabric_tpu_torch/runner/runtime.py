@@ -15,8 +15,10 @@ on CUDA, and 0 otherwise. The planner pins each placement to one of
 them, least loaded first, and a guest reads its device from
 ``GuestContext.device``; a guest reaches its MPI world through the
 runtime's ``MpiWorldRegistry`` (``GuestContext.mpi_world``). The state
-KV's device view defaults to the factory's device type. Not ported: the
-snapshot server, the HTTP endpoint, the sampler and profiler, and the
+KV's device view defaults to the factory's device type. The host's
+``SnapshotRegistry`` is set on the scheduler and the planner client, and
+its ``SnapshotServer`` takes pushed snapshots and their diffs. Not
+ported: the HTTP endpoint, the sampler and profiler, and the
 multi-process device plane (``ROADMAP.md`` Queue 1 #7-9).
 """
 
@@ -35,6 +37,8 @@ from faabric_tpu_torch.mpi.registry import MpiWorldRegistry
 from faabric_tpu_torch.planner.client import PlannerClient
 from faabric_tpu_torch.scheduler.function_call import FunctionCallServer
 from faabric_tpu_torch.scheduler.scheduler import Scheduler
+from faabric_tpu_torch.snapshot.registry import SnapshotRegistry
+from faabric_tpu_torch.snapshot.remote import SnapshotServer
 from faabric_tpu_torch.state.remote import StateServer
 from faabric_tpu_torch.state.state import State
 from faabric_tpu_torch.transport.point_to_point import PointToPointBroker
@@ -89,6 +93,12 @@ class WorkerRuntime:
         self.mpi_registry = MpiWorldRegistry(self.ptp_broker,
                                              self.planner_client)
         self.scheduler.mpi_registry = self.mpi_registry
+        # Snapshots (reference FaabricMain starts a SnapshotServer)
+        self.snapshot_registry = SnapshotRegistry()
+        self.scheduler.snapshot_registry = self.snapshot_registry
+        self.planner_client.snapshot_registry = self.snapshot_registry
+        self.snapshot_server = SnapshotServer(self.snapshot_registry,
+                                              self.host)
         # State KV (reference FaabricMain starts a StateServer)
         self.state = State(self.host, self.planner_client,
                            device=_factory_device_type())
@@ -104,6 +114,7 @@ class WorkerRuntime:
         try:
             self.scheduler.start()
             self.ptp_server.start()
+            self.snapshot_server.start()
             self.state_server.start()
             self.planner_client.register_host(
                 self.slots, self.n_devices, overwrite=True,
@@ -113,6 +124,7 @@ class WorkerRuntime:
             self._started = False
             self.planner_client.close()
             self.state_server.stop()
+            self.snapshot_server.stop()
             self.ptp_server.stop()
             self.scheduler.shutdown()
             self.function_server.stop()
@@ -127,6 +139,7 @@ class WorkerRuntime:
         self.planner_client.remove_host()
         self.scheduler.shutdown()
         self.ptp_server.stop()
+        self.snapshot_server.stop()
         self.state_server.stop()
         self.function_server.stop()
         self.state.close_clients()

@@ -27,6 +27,8 @@ from faabric_tpu_torch.proto import (
     ReturnValue,
     func_to_string,
 )
+from faabric_tpu_torch.snapshot.remote import SnapshotClient
+from faabric_tpu_torch.transport.client_pool import ClientPool
 from faabric_tpu_torch.util.config import get_system_config
 from faabric_tpu_torch.util.logging import get_logger
 from faabric_tpu_torch.util.periodic import PeriodicBackgroundThread
@@ -69,11 +71,13 @@ class Scheduler:
         self._started = False
 
         # Set by the WorkerRuntime: this host's point-to-point broker,
-        # MPI world registry and state KV, which guest code reaches
-        # through its context
+        # MPI world registry, state KV and snapshot registry, which
+        # guest code reaches through its context
         self.ptp_broker = None
         self.mpi_registry = None
         self.state = None
+        self.snapshot_registry = None
+        self._snapshot_clients = ClientPool(SnapshotClient)
 
     # ------------------------------------------------------------------
     # Lifecycle
@@ -93,6 +97,7 @@ class Scheduler:
             self._parkable.clear()
         for e in executors:
             e.shutdown()
+        self._snapshot_clients.close_all()
         self._started = False
 
     # ------------------------------------------------------------------

@@ -27,8 +27,9 @@ again, under the new generation.
 
 The registry pins what it holds, up to ``FAABRIC_DEVICE_HANDLES_MAX``
 (default 256) handles a process; a push past the cap raises (evicting
-would make a valid handle stale). ``snapshot_of`` (on-device snapshot
-diffs) comes with the snapshot slice (``ROADMAP.md`` Queue 1 #8 part A).
+would make a valid handle stale). ``snapshot_of`` gives a
+:class:`~faabric_tpu_torch.snapshot.DeviceSnapshot` of a handle's tensor,
+whose dirty pages and diffs are found on its device.
 """
 
 from __future__ import annotations
@@ -182,11 +183,11 @@ class DeviceHandleRegistry:
         return self.push(world_id, rank, name, tensor)
 
     def snapshot_of(self, handle):
-        """On-device snapshot diffs of a handle's tensor."""
-        raise NotImplementedError(
-            "device snapshots (snapshot/device_snapshot.py) are not ported "
-            "yet: they come with the snapshot slice, ROADMAP.md Queue 1 "
-            "#8 part A")
+        """A DeviceSnapshot of the handle's live tensor: dirty pages and
+        diffs are found on its device."""
+        from faabric_tpu_torch.snapshot.device_snapshot import DeviceSnapshot
+
+        return DeviceSnapshot(self.pull(handle))
 
     # ------------------------------------------------------------------
     def drop(self, handle) -> bool:

@@ -52,6 +52,12 @@ class SystemConfig:
     function_server_threads: int = 2
     point_to_point_server_threads: int = 8
     state_server_threads: int = 2
+    snapshot_server_threads: int = 2
+
+    # Dirty tracking over host images (util/dirty.py): hash | compare |
+    # native | none | segv | uffd | softpte. The dataclass default is
+    # "hash", the environment's "native", as in the reference
+    dirty_tracking_mode: str = "hash"
 
     # Planner: hosts expire when they miss keep-alives for this long
     # (workers re-register every half-timeout)
@@ -77,6 +83,9 @@ class SystemConfig:
         self.point_to_point_server_threads = _env_int(
             "POINT_TO_POINT_SERVER_THREADS", 8)
         self.state_server_threads = _env_int("STATE_SERVER_THREADS", 2)
+        self.snapshot_server_threads = _env_int("SNAPSHOT_SERVER_THREADS", 2)
+        self.dirty_tracking_mode = os.environ.get("DIRTY_TRACKING_MODE",
+                                                  "native")
         self.planner_host = os.environ.get("PLANNER_HOST", "localhost")
         self.planner_host_timeout = _env_float("PLANNER_HOST_TIMEOUT", 30.0)
 

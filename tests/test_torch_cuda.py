@@ -1178,3 +1178,48 @@ def test_state_device_view_and_handles_on_the_card(cuda_device):
     assert h.device_id == cuda_device.index
     assert torch.equal(reg.pull_host(h), values * 2)
     reset_device_handles()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16", "int32",
+                                   "int64", "int16", "uint8", "bool"])
+@pytest.mark.parametrize("n", [4096 * 3, 4096 * 5 + 777])
+def test_device_snapshot_on_the_card_matches_the_cpu(cuda_device, dtype, n):
+    """A DeviceSnapshot of a CUDA tensor compares and gathers on the card:
+    its flags, diffs and counted copies equal those of the same tensor's
+    snapshot on the CPU, and apply_diffs and restore give the tensor
+    back."""
+    from faabric_tpu_torch.device_plane.copies import (
+        device_copy_totals,
+        reset_device_copy_totals,
+    )
+    from faabric_tpu_torch.snapshot import DeviceSnapshot
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(n)
+    base = (torch.rand(n, generator=gen) > 0.5 if dt == torch.bool else
+            (torch.randn(n, generator=gen) * 100).to(dt))
+    cur = base.clone()
+    touched = (0, n // 3, n // 3 + 1, n - 1)
+    for i in touched:
+        cur[i] = ~cur[i] if dt == torch.bool else cur[i] + 1
+    results = []
+    for dev in (torch.device("cpu"), cuda_device):
+        snap = DeviceSnapshot(base.to(dev))
+        reset_device_copy_totals()
+        flags = snap.dirty_pages(cur.to(dev))
+        diffs = snap.diff(cur.to(dev), update_baseline=True)
+        totals = device_copy_totals()["by_reason"]
+        rebuilt = DeviceSnapshot(base.to(dev)).apply_diffs(base.to(dev),
+                                                           diffs)
+        assert rebuilt.device.type == dev.type
+        assert torch.equal(rebuilt.cpu(), cur)
+        assert torch.equal(snap.restore().cpu(), cur)
+        assert snap.diff(cur.to(dev)) == []
+        results.append((flags.tolist(),
+                        [(d.offset, d.data) for d in diffs], totals))
+    assert results[1] == results[0]
+    flags, diffs, totals = results[1]
+    assert sum(flags) == len({i * dt.itemsize // 4096 for i in touched})
+    assert totals["d2h.snapshot"]["bytes"] == 2 * len(flags) + 4096 * sum(
+        flags)

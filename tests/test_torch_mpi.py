@@ -365,6 +365,52 @@ def test_send_recv_barrier_and_abort(worlds):
     assert on_ranks(port, wait_then_abort)[0]
 
 
+def _hold_ports(ports, listen: bool = False) -> list:
+    """Sockets on every port of ``ports``, or [] when one is taken. No
+    other socket can bind a held port: a listening one (bound with
+    SO_REUSEADDR, so that connections of the port's last user still in
+    TIME_WAIT do not stop it) blocks every bind, and one bound without
+    SO_REUSEADDR and not listening blocks them too and refuses every
+    connect (but connections in TIME_WAIT stop it from binding)."""
+    import socket
+
+    held = []
+    for port in ports:
+        s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        try:
+            if listen:
+                s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            s.bind(("0.0.0.0", port))
+            if listen:
+                s.listen(1)
+        except OSError:
+            s.close()
+            for h in held:
+                h.close()
+            return []
+        held.append(s)
+    return held
+
+
+def _refusing_port_pair() -> tuple[int, list]:
+    """Two consecutive ports, bound and not listening: a connect to
+    either is refused, and no other socket can bind them while held. The
+    first is the kernel's choice, from the ephemeral range (above every
+    port slot of ``tests/conftest.py``), so no fixture's recent
+    connections hold it."""
+    import socket
+
+    for _ in range(50):
+        first = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        first.bind(("0.0.0.0", 0))
+        port = first.getsockname()[1]
+        second = _hold_ports([port + 1])
+        if second:
+            return port, [first, *second]
+        first.close()
+    raise AssertionError("no two consecutive free ports")
+
+
 def test_send_to_another_host_raises():
     """A send to a rank on a host that runs no point-to-point server
     raises to the sender at once (the connection is refused); it does
@@ -376,10 +422,18 @@ def test_send_to_another_host_raises():
         register_host_alias,
     )
     from faabric_tpu_torch.transport.client import RpcError
+    from faabric_tpu_torch.transport.common import (
+        POINT_TO_POINT_ASYNC_PORT,
+        POINT_TO_POINT_SYNC_PORT,
+    )
 
-    base = next_port_base()
-    register_host_alias("hA", "127.0.0.1", base)
-    register_host_alias("hB", "127.0.0.1", base + 1000)
+    # "No server at hB" must hold across xdist workers too, where another
+    # worker's fixture may serve any port slot: hB's point-to-point
+    # ports are two held ports outside every slot
+    port, held = _refusing_port_pair()
+    assert POINT_TO_POINT_SYNC_PORT == POINT_TO_POINT_ASYNC_PORT + 1
+    register_host_alias("hA", "127.0.0.1", next_port_base())
+    register_host_alias("hB", "127.0.0.1", port - POINT_TO_POINT_ASYNC_PORT)
     broker = PointToPointBroker("hA")
     try:
         d = SchedulingDecision(app_id=931, group_id=931)
@@ -392,6 +446,8 @@ def test_send_to_another_host_raises():
     finally:
         broker.clear()
         clear_host_aliases()
+        for s in held:
+            s.close()
 
 
 def test_send_to_another_host_arrives():

@@ -1187,9 +1187,19 @@ out = {"knobs": [[getattr(m, k) for m in (ref_world, port_world)] for k in (
                                  port_plane.DEVICE_PLANE_TIMEOUT_S]]}
 
 
+def release_ports():
+    """Close the sockets the parent held on this slot's point-to-point
+    ports while this interpreter started (see ``_run_knob_case``)."""
+    import os
+
+    for fd in filter(None, os.environ.pop("KNOB_HELD_FDS", "").split(",")):
+        os.close(int(fd))
+
+
 def both_clusters(fn, record=False):
     """fn on a 3 + 3 world of each package; results must agree bit for
     bit. Returns the port's cluster after the run."""
+    release_ports()
     ref = Cluster(REF, [base, base + 1000], TWO_HOSTS, 4300)
     port = Cluster(PORT, [base + 2000, base + 2500], TWO_HOSTS, 4300)
     try:
@@ -1258,7 +1268,13 @@ print("RESULT " + json.dumps(out))
 
 
 def _run_knob_case(env: dict, case: str, timeout: float = 240.0) -> dict:
-    """The knob program in a fresh interpreter, ``env`` over ours."""
+    """The knob program in a fresh interpreter, ``env`` over ours.
+
+    The interpreter takes seconds to import both packages before it
+    binds its slot's ports, and another xdist worker could take the slot
+    meanwhile. So the slot's point-to-point ports are held by listening
+    sockets from here on, and the program closes its inherited copies
+    just before its servers bind them."""
     import json
     import os
     import subprocess
@@ -1266,12 +1282,38 @@ def _run_knob_case(env: dict, case: str, timeout: float = 240.0) -> dict:
     from pathlib import Path
 
     from tests.conftest import next_port_base
+    from tests.test_torch_mpi import _hold_ports
 
     root = Path(__file__).resolve().parents[1]
-    proc = subprocess.run(
-        [sys.executable, "-c", _KNOB_PROGRAM, str(next_port_base()), case],
-        cwd=root, env={**os.environ, **env}, capture_output=True, text=True,
-        timeout=timeout)
+    for _ in range(20):
+        base = next_port_base()
+        held = _hold_ports(
+            (base + off + p for off in (0, 1000, 2000, 2500)
+             for p in (port_common.POINT_TO_POINT_ASYNC_PORT,
+                       port_common.POINT_TO_POINT_SYNC_PORT)), listen=True)
+        if held:
+            break
+    assert held, "no port slot with its point-to-point ports free"
+    fds = [s.fileno() for s in held]
+    try:
+        child = subprocess.Popen(
+            [sys.executable, "-c", _KNOB_PROGRAM, str(base), case],
+            cwd=root, env={**os.environ, **env,
+                           "KNOB_HELD_FDS": ",".join(map(str, fds))},
+            pass_fds=fds, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+    finally:
+        # The child holds its own copies now
+        for s in held:
+            s.close()
+    try:
+        stdout, stderr = child.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.communicate()
+        raise
+    proc = subprocess.CompletedProcess(child.args, child.returncode, stdout,
+                                       stderr)
     assert proc.returncode == 0, proc.stderr[-3000:]
     line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
     assert line, proc.stdout[-2000:]

@@ -48,6 +48,14 @@ def test_importing_every_module_pulls_in_no_jax_and_no_faabric_tpu():
             "faabric_tpu_torch.state.placement",
             "faabric_tpu_torch.state.remote", "faabric_tpu_torch.state.state",
             "faabric_tpu_torch.state.device_handle"} <= set(modules)
+    # faabric's snapshots: merge diffs, the registry, the RPC, device
+    # snapshots, and the dirty trackers, delta codec and native loader
+    assert {"faabric_tpu_torch.snapshot", "faabric_tpu_torch.snapshot.snapshot",
+            "faabric_tpu_torch.snapshot.registry",
+            "faabric_tpu_torch.snapshot.remote",
+            "faabric_tpu_torch.snapshot.device_snapshot",
+            "faabric_tpu_torch.util.dirty", "faabric_tpu_torch.util.delta",
+            "faabric_tpu_torch.util.native"} <= set(modules)
     modules.append("chip_smoke")
     code = (
         "import importlib, sys\n"

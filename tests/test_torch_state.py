@@ -952,8 +952,10 @@ def test_device_handle_push_pull_by_reference():
     for bad in (np.ones(4, np.float32), b"\x00" * 16):
         with pytest.raises(port_state.DeviceHandleError):
             reg.push(7, 0, "bad", bad)
-    with pytest.raises(NotImplementedError, match="snapshot"):
-        reg.snapshot_of(h)
+    # snapshot_of tracks the handle's live tensor on its device
+    snap = reg.snapshot_of(h)
+    assert snap.shape == (256,) and snap.dtype == torch.float32
+    assert not snap.dirty_pages(tensor).any()
 
     h2 = reg.push_from_host(7, 2, "placed", values, "cpu")
     assert torch.equal(reg.pull(h2), tensor)
