@@ -52,7 +52,14 @@ guest holds the flagship's fp32 weights as one flat tensor on the card
 behind a device state handle and pushes its ``DeviceSnapshot`` to the
 other host; after a sparse SGD step and a full AdamW step, the on-device
 dirty pages and diffs cross as snapshot updates, and the other host's
-guest scores from its merged snapshot bit for bit as the first. For each path
+guest scores from its merged snapshot bit for bit as the first.
+faabric's fork-join model: a THREADS batch of 4 torch guests over two
+hosts (2 + 2) restores the flagship's fp32 weights from the main
+thread's snapshot, each thread adds its share's SGD update into its
+host's memory image, and the hosts' diffs merge through a float SUM
+region into the main snapshot, against the same shares' gradients taken
+directly; a second batch is placed from the decision cache; a chained
+call tree scores two prompts. For each path
 it checks the outputs and shows from the kernels' launch counts that
 the path ran through them; it times the kernels, their plain versions and the nearest
 PyTorch library calls, and prints one JSON line of kernel numbers (the
@@ -2655,6 +2662,411 @@ def snapshot_phase(dev, build, cfg=None,
     return launches
 
 
+def share_step(model, flat: torch.Tensor, tokens: torch.Tensor,
+               targets: torch.Tensor):
+    """The gradient of the mean loss over ``tokens`` at the weights
+    ``flat`` (``flat_params``' order), with ``model``'s parameters bound
+    as views of ``flat``: (the loss, the flat fp32 gradient). Guests and
+    the oracle both take their steps through this."""
+    from faabric_tpu_torch.models import loss_fn
+
+    bind_flat(model, flat)
+    for p in model.parameters():
+        p.requires_grad_(True)
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(model, tokens, targets)
+    loss.backward()
+    g = torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), g
+
+
+def register_threads_guests(job: dict) -> None:
+    """Torch guests of faabric's fork-join model:
+
+    - ``smoke/threads_sgd``, a THREADS thread: it reads the weights from
+      its executor's memory image (restored from the main thread's
+      snapshot), waits until every thread of its host has read them,
+      takes the gradient ``g_i`` of its (2, seq) share of the batch on
+      its device (``share_step``), and under its executor's lock adds
+      ``-(lr / n) g_i`` into the image and writes its fp32 loss into its
+      128-byte slot of the results page;
+    - ``smoke/chain_parent`` chains two ``smoke/chain_score`` calls,
+      each scoring its own (1, seq) prompt with ``job["score_model"]``
+      and returning the greedy next token; the parent returns their sum.
+
+    A guest raises when the factory runs on CUDA and its device is not a
+    CUDA device. Replies are JSON with each step's times."""
+    from faabric_tpu_torch.executor import register_function
+    from faabric_tpu_torch.models import Transformer, forward
+    from faabric_tpu_torch.scheduler.chain import await_chained, chain_function
+
+    n_bytes, lr, n = job["n_bytes"], job["lr"], job["n_threads"]
+    guard = threading.Lock()
+    locks: dict = {}
+    barriers: dict = {}
+
+    def device_of(ctx):
+        dev = ctx.device
+        if job["device_type"] == "cuda" and dev.type != "cuda":
+            raise RuntimeError(f"guest {ctx.message.function} on {dev}, "
+                               "not on the CUDA device it was built for")
+        return dev
+
+    def sync(dev):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    @register_function("smoke", "threads_sgd")
+    def sgd(ctx):
+        dev = device_of(ctx)
+        ex, i = ctx.executor, ctx.message.app_idx
+        with guard:
+            lock = locks.setdefault(id(ex), threading.Lock())
+            barrier = barriers.setdefault(
+                (id(ex), ctx.request.app_id),
+                threading.Barrier(ctx.request.n_messages()))
+        mem = ex.get_memory_view()
+        t0 = time.perf_counter()
+        flat = torch.from_numpy(mem[:n_bytes].view(np.float32)).to(
+            dev, copy=True)
+        sync(dev)
+        t1 = time.perf_counter()
+        barrier.wait(300)
+        model = Transformer(job["cfg"], device=dev)
+        tok, tgt = job["share"](i, dev)
+        loss, g = share_step(model, flat, tok, tgt)
+        update = (g * (-lr / n)).cpu().numpy()
+        loss_bytes = loss.float().cpu().numpy().tobytes()
+        t2 = time.perf_counter()
+        with lock:
+            mem[:n_bytes].view(np.float32)[:] += update
+        slot = n_bytes + SLOT_BYTES * i
+        mem[slot:slot + 4] = np.frombuffer(loss_bytes, np.uint8)
+        t3 = time.perf_counter()
+        return json.dumps({
+            "host": ctx.executor.scheduler.host, "i": i,
+            "device": str(dev), "load_ms": (t1 - t0) * 1e3,
+            "step_ms": (t2 - t1) * 1e3, "add_ms": (t3 - t2) * 1e3}).encode()
+
+    @register_function("smoke", "chain_score")
+    def score(ctx):
+        dev = device_of(ctx)
+        k = int(ctx.message.input_data)
+        with torch.no_grad():
+            logits = forward(job["score_model"], job["prompts"][k].to(dev))
+        return str(int(logits[0, -1].argmax())).encode()
+
+    @register_function("smoke", "chain_parent")
+    def parent(ctx):
+        device_of(ctx)
+        ids = [chain_function("chain_score", str(k).encode())
+               for k in range(2)]
+        tokens = [int(await_chained(m, timeout=300).output_data)
+                  for m in ids]
+        return json.dumps({"host": ctx.executor.scheduler.host,
+                           "tokens": tokens, "sum": sum(tokens)}).encode()
+
+
+SLOT_BYTES = 128   # one diff chunk: concurrent writers never share one
+
+
+def threads_phase(dev, build, cfg=None, seq: int = 512,
+                  hosts=("thr-host-a", "thr-host-b"),
+                  base: int | None = None) -> dict:
+    """Phase 21: faabric's fork-join model on two hosts (a port planner
+    and two WorkerRuntimes with 2 slots each), at full width. The main
+    thread (this script, on hA) holds the flagship's fp32 weights (seed
+    21) and a 4096-byte results page as one snapshot: a FLOAT SUM merge
+    region over the weights and four 128-byte bytewise loss slots. (a) A
+    THREADS batch of 4 through hA's planner client, bin-packed 2 + 2 (hB
+    restores from the snapshot the planner pushed): each thread takes the
+    bf16 gradient of its (2, seq) share of one 8 x (seq + 1) batch, remat
+    on, and adds ``-(lr / 4) g_i`` into its host's image (lr 1e-2); each
+    host's diffs merge into the main snapshot. The merged weights must
+    equal ``w - (lr / 4) sum g_i`` within 1e-6 (the oracle's ``g_i`` from
+    the same shares run here), the slots the shares' losses bit for bit,
+    and the update one unsharded 8-row step's direction (relative L2 at
+    most 1e-2). (b) The same batch again: served from the decision cache,
+    the merged image pushed again, two steps within 2e-6 of the
+    oracle's. (c) A parent guest chains two children, each scoring a
+    (1, seq) prompt; their greedy tokens' sum must be the direct
+    forwards', and the exec graph has 3 nodes with queue and run times.
+    On the card the THREADS batches launch exactly 4 times a train
+    step's kernels each, and the chain 2 scoring forwards'. Returns the
+    launches of the guests' runs (the phase's main path)."""
+    from faabric_tpu_torch.batch_scheduler import (
+        get_batch_scheduler,
+        get_decision_cache,
+    )
+    from faabric_tpu_torch.executor import TorchExecutorFactory
+    from faabric_tpu_torch.models import ModelConfig, Transformer, forward
+    from faabric_tpu_torch.planner import get_planner
+    from faabric_tpu_torch.proto import (
+        BatchExecuteType,
+        ReturnValue,
+        batch_exec_factory,
+    )
+    from faabric_tpu_torch.snapshot import (
+        SnapshotClient,
+        SnapshotData,
+        SnapshotDataType,
+        SnapshotMergeOperation,
+    )
+    from faabric_tpu_torch.util.exec_graph import build_exec_graph, node_timing
+
+    log("phase 21: THREADS batches of torch guests over two hosts, merged "
+        "through snapshot diffs; chaining")
+    t_phase = time.perf_counter()
+    cfg = cfg or ModelConfig()
+    hA, hB = hosts
+    n_threads, lr, key = 4, 1e-2, "smoke/threads_weights"
+    model = Transformer(cfg, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(21))
+    w = flat_params(model)
+    n_bytes = w.numel() * 4
+    w_host = w.cpu().numpy()
+    image = np.concatenate([w_host.view(np.uint8), np.zeros(4096, np.uint8)])
+    batch = torch.randint(0, cfg.vocab_size, (2 * n_threads, seq + 1),
+                          generator=torch.Generator().manual_seed(21))
+    prompts = [torch.randint(0, cfg.vocab_size, (1, seq),
+                             generator=torch.Generator().manual_seed(210 + k))
+               for k in range(2)]
+
+    def share(i, device):
+        rows = batch[2 * i:2 * i + 2]
+        return rows[:, :-1].to(device), rows[:, 1:].to(device)
+
+    job = {"cfg": cfg, "n_bytes": n_bytes, "lr": lr, "n_threads": n_threads,
+           "device_type": dev.type, "share": share, "prompts": prompts,
+           "score_model": model}
+    register_threads_guests(job)
+
+    snap = SnapshotData(image)
+    snap.add_merge_region(0, n_bytes, SnapshotDataType.FLOAT,
+                          SnapshotMergeOperation.SUM)
+    for i in range(n_threads):
+        snap.add_merge_region(n_bytes + SLOT_BYTES * i, SLOT_BYTES)
+    snap.fill_gaps_with_bytewise_regions()
+    n_pages = -(-snap.size // 4096)
+    log(f"  21: main-thread snapshot {snap.size:,} bytes ({n_pages:,} "
+        f"pages): FLOAT SUM over {n_bytes:,} bytes of weights, "
+        f"{n_threads} bytewise loss slots")
+
+    # Instruments: the snapshot pushes and each host's batch diff, timed
+    pushes, diffs = [], []
+    real_push = SnapshotClient.push_snapshot
+    real_diff = SnapshotData.diff_with_dirty_regions
+
+    def timed_push(client, k, s):
+        t0 = time.perf_counter()
+        real_push(client, k, s)
+        pushes.append((client.host, (time.perf_counter() - t0) * 1e3))
+
+    def timed_diff(s, mem, dirty_pages):
+        t0 = time.perf_counter()
+        out = real_diff(s, mem, dirty_pages)
+        diffs.append((id(s), (time.perf_counter() - t0) * 1e3,
+                      int(np.count_nonzero(dirty_pages)), len(out)))
+        return out
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def counted(fn):
+        sync()
+        before = dict(build.LAUNCHES)
+        out = fn()
+        sync()
+        return out, {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items()
+                     if v != before.get(k, 0)}
+
+    def oracle_step(flat):
+        """Each share's (loss, g) at ``flat``, run here."""
+        skel = Transformer(cfg, device=dev)
+        return [share_step(skel, flat, *share(i, dev))
+                for i in range(n_threads)]
+
+    factory = TorchExecutorFactory(device=dev.type)
+    planner_server, workers = start_cluster({hA: 2, hB: 2}, factory, base)
+    path: dict = {}
+    SnapshotClient.push_snapshot = timed_push
+    SnapshotData.diff_with_dirty_regions = timed_diff
+    policy = get_batch_scheduler()
+    policy_calls = []
+    real_policy = policy.make_scheduling_decision
+
+    def counted_policy(*args, **kwargs):
+        policy_calls.append(1)
+        return real_policy(*args, **kwargs)
+
+    policy.make_scheduling_decision = counted_policy
+    try:
+        client = workers[0].planner_client
+        workers[0].snapshot_registry.register_snapshot(key, snap)
+        w_oracle = w.double()
+        current = w
+        for step, what in ((1, "(a)"), (2, "(b)")):
+            del pushes[:], diffs[:]
+            calls_before = len(policy_calls)
+            req = batch_exec_factory("smoke", "threads_sgd", n_threads)
+            req.type = int(BatchExecuteType.THREADS)
+            req.snapshot_key = key
+            cached = get_decision_cache().get_cached_decision(req)
+
+            def run():
+                t0 = time.perf_counter()
+                decision = client.call_functions(req)
+                results = [client.get_message_result(req.app_id, m.id,
+                                                     timeout=300)
+                           for m in req.messages]
+                return decision, results, (time.perf_counter() - t0) * 1e3
+
+            (decision, results, wall_ms), launches = counted(run)
+            bad = [m.output_data[:300] for m in results
+                   if m.return_value != int(ReturnValue.SUCCESS)]
+            check(not bad, f"21 {what}: every thread SUCCESS {bad}")
+            replies = [json.loads(m.output_data) for m in results]
+            check(sorted(decision.hosts) == [hA, hA, hB, hB]
+                  and sorted(r["host"] for r in replies) == [hA, hA, hB, hB],
+                  f"21 {what}: bin-pack put 2 threads on each host "
+                  f"({decision.hosts})")
+            if step == 2:
+                check(cached is not None and cached.hosts == decision.hosts
+                      and len(policy_calls) == calls_before,
+                      f"21 {what}: the planner served the placement from "
+                      f"the decision cache without asking the policy")
+            check([h for h, _ in pushes] == ["smoke-planner", hB],
+                  f"21 {what}: the main thread's snapshot went to the "
+                  f"planner, then to hB "
+                  f"({', '.join(f'{h} {ms:.1f} ms' for h, ms in pushes)})")
+            hb_snap = workers[1].snapshot_registry.get_snapshot(key)
+            by_host = {id(snap): hA, id(hb_snap): hB}
+            check(sorted(by_host.get(s, "?") for s, *_ in diffs) == [hA, hB],
+                  f"21 {what}: one batch diff a host")
+            t0 = time.perf_counter()
+            applied = snap.write_queued_diffs()
+            write_ms = (time.perf_counter() - t0) * 1e3
+            check(applied >= 2, f"21 {what}: {applied} diffs merged")
+
+            merged = torch.from_numpy(
+                snap.data[:n_bytes].view(np.float32).copy()).to(dev)
+            (shares), oracle_launches = counted(lambda: oracle_step(current))
+            g_sum = torch.stack([g.double() for _, g in shares]).sum(0)
+            w_oracle = w_oracle - lr / n_threads * g_sum
+            err = float((merged.double() - w_oracle).abs().max())
+            limit = 1e-6 * step
+            check(err <= limit,
+                  f"21 {what}: merged weights equal the oracle's {step} "
+                  f"step(s) within {limit:g} (max |err| {err:.3g})")
+            slots = snap.data[n_bytes:n_bytes + SLOT_BYTES * n_threads]
+            got_losses = [bytes(slots[SLOT_BYTES * i:SLOT_BYTES * i + 4])
+                          for i in range(n_threads)]
+            want_losses = [loss.float().cpu().numpy().tobytes()
+                           for loss, _ in shares]
+            check(got_losses == want_losses,
+                  f"21 {what}: the loss slots hold the shares' losses bit "
+                  f"for bit ({[float(l) for l, _ in shares]})")
+            if step == 1:
+                full, full_launches = counted(lambda: share_step(
+                    Transformer(cfg, device=dev), current,
+                    batch[:, :-1].to(dev), batch[:, 1:].to(dev)))
+                upd = merged.double() - current.double()
+                upd_full = -lr * full[1].double()
+                rel = float((upd - upd_full).norm() / upd_full.norm())
+                check(rel <= 1e-2,
+                      f"21 {what}: the update's relative L2 to one "
+                      f"unsharded {2 * n_threads} x {seq} step's is "
+                      f"{rel:.4g} (at most 1e-2)")
+                log(f"  21 {what}: unsharded step launches {full_launches}")
+            log(f"  21 {what}: oracle share steps' launches {oracle_launches}")
+            for r in sorted(replies, key=lambda r: r["i"]):
+                log(f"  21 {what}: thread {r['i']} on {r['host']} "
+                    f"({r['device']}): load {r['load_ms']:.1f} ms, step "
+                    f"{r['step_ms']:.1f} ms, add under the lock "
+                    f"{r['add_ms']:.1f} ms")
+            for s, ms, dirty, n_diffs in diffs:
+                log(f"  21 {what}: {by_host[s]} diff_with_dirty_regions "
+                    f"{ms:.1f} ms over {dirty:,} dirty pages ({n_diffs} "
+                    f"diffs)")
+            log(f"  21 {what}: batch wall {wall_ms:.1f} ms through the "
+                f"planner; snapshot pushes "
+                f"{', '.join(f'{h} {ms:.1f} ms' for h, ms in pushes)}; "
+                f"write_queued_diffs {write_ms:.1f} ms ({applied} diffs); "
+                f"launches {launches}")
+            if dev.type == "cuda":
+                want = {"flash_attention": 2 * cfg.n_layers * n_threads,
+                        "flash_bwd_dq": cfg.n_layers * n_threads,
+                        "flash_bwd_dkv": cfg.n_layers * n_threads,
+                        "rms_norm": (4 * cfg.n_layers + 1) * n_threads}
+                for name, count in want.items():
+                    check(launches.get(name, 0) == count,
+                          f"21 {what}: {name} launched "
+                          f"{launches.get(name, 0)} times, {count} expected")
+                check(launches.get("flash_attention.wgmma", 0)
+                      == launches["flash_attention"],
+                      f"21 {what}: every flash forward took the wgmma body")
+            for k, v in launches.items():
+                path[k] = path.get(k, 0) + v
+            current = merged
+
+        # (c) chaining: the children score with the merged weights
+        load_flat(model, current)
+        req = batch_exec_factory("smoke", "chain_parent", 1)
+        req.messages[0].record_exec_graph = True
+
+        def chain():
+            t0 = time.perf_counter()
+            client.call_functions(req)
+            result = client.get_message_result(req.app_id, req.messages[0].id,
+                                               timeout=300)
+            return result, (time.perf_counter() - t0) * 1e3
+
+        (result, chain_ms), launches = counted(chain)
+        check(result.return_value == int(ReturnValue.SUCCESS),
+              f"21 (c): the parent SUCCESS ({result.output_data[:300]!r})")
+        reply = json.loads(result.output_data)
+        with torch.no_grad():
+            direct, direct_launches = counted(lambda: [
+                int(forward(model, p.to(dev))[0, -1].argmax())
+                for p in prompts])
+        check(reply["tokens"] == direct and reply["sum"] == sum(direct),
+              f"21 (c): the children's greedy tokens {reply['tokens']} "
+              f"(sum {reply['sum']}) are the direct forwards' {direct}")
+        planner = get_planner()
+        graph = build_exec_graph(
+            lambda a, m: planner.get_message_result(a, m), result.id,
+            req.app_id)
+        nodes = [graph.root, *graph.root.children]
+        timings = [node_timing(n.msg) for n in nodes]
+        check(graph.count_nodes() == 3 and all(
+            {"queue_ms", "exec_ms"} <= set(t) for t in timings),
+              f"21 (c): the exec graph has {graph.count_nodes()} nodes, each "
+              f"with queue and run times ({timings})")
+        log(f"  21 (c): parent on {reply['host']}, chain wall {chain_ms:.1f} "
+            f"ms; launches {launches}; direct forwards' {direct_launches}")
+        if dev.type == "cuda":
+            for name, count in (("flash_attention", 2 * cfg.n_layers),
+                                ("rms_norm", 2 * (2 * cfg.n_layers + 1))):
+                check(launches.get(name, 0) == count,
+                      f"21 (c): {name} launched {launches.get(name, 0)} "
+                      f"times, {count} expected")
+            check(launches.get("flash_attention.wgmma", 0)
+                  == launches["flash_attention"],
+                  "21 (c): every flash forward took the wgmma body")
+        for k, v in launches.items():
+            path[k] = path.get(k, 0) + v
+    finally:
+        SnapshotClient.push_snapshot = real_push
+        SnapshotData.diff_with_dirty_regions = real_diff
+        del policy.make_scheduling_decision
+        stop_cluster(planner_server, workers)
+    log(f"  phase 21 launches: {path}")
+    log(f"  phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    return path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2727,7 +3139,8 @@ def main() -> int:
     # rank's 2 rows a step, its (2, 128) whole prefill, its chunked
     # prefill's (2, 48) and (2, 32); the unsharded yardstick's (4, 1)
     # steps and its (4, 512) perplexity batches. Phase 20's steps run
-    # (4096, 512) and its scorings (512, 512)
+    # (4096, 512) and its scorings (512, 512); phase 21's threads
+    # (1024, 512), its scorings (512, 512)
     for rows, d in [(4096, 512), (8, 512), (333, 512), (512, 512), (1, 512),
                     (1024, 512), (2, 512), (256, 512), (96, 512), (64, 512),
                     (4, 512), (2048, 512)]:
@@ -2752,7 +3165,8 @@ def main() -> int:
     # (2, 512, 2 heads) each rank's attention in phase 18's sharded
     # perplexity (dp 2 x tp 4) and (4, 512, 8 heads) its unsharded
     # yardstick's; phase 20's steps run (8, 512, 8 heads) and its
-    # scorings (1, 512, 8 heads)
+    # scorings (1, 512, 8 heads); phase 21's threads (2, 512, 8 heads),
+    # its scorings (1, 512, 8 heads)
     for b, s_q, s_k, h, causal, dtype, views in [
             (8, 512, 512, 8, True, torch.bfloat16, False),
             (8, 128, 512, 8, True, torch.bfloat16, False),
@@ -2973,8 +3387,9 @@ def main() -> int:
                 delta)
 
     # (2, 512, 8 heads) and (4, 512, 4 heads): each rank's attention in
-    # the MoE train steps of phase 16 (dp 4 x ep 2; dp 2 x tp 2 x ep 2);
-    # (8, 512, 8 heads) also phase 20's steps
+    # the MoE train steps of phase 16 (dp 4 x ep 2; dp 2 x tp 2 x ep 2)
+    # and each thread's step of phase 21; (8, 512, 8 heads) also phase
+    # 20's steps
     bwd_cases = [(b, s_q, s_k, h, d, causal, dtype, g_lse, strided)
                  for dtype in (torch.bfloat16, torch.float32)
                  for b, s_q, s_k, h, d, causal, g_lse, strided in [
@@ -3262,17 +3677,20 @@ def main() -> int:
     state_launches = state_phase(dev, _build)
     # -- 20. snapshots through guests -------------------------------------
     snapshot_launches = snapshot_phase(dev, _build)
+    # -- 21. THREADS batches, merged through snapshot diffs; chaining -----
+    threads_launches = threads_phase(dev, _build)
     # Each row's launches: the serving kernels' on the direct serving
     # path (phase 5) and under the executors (13), the backward kernels'
     # on the training path (9), the ring kernel's on the MPI path (12),
     # and every launch of the mesh (14), pipeline (15), MoE (16), guest
-    # data-parallel (17), sharded decode and perplexity (18), state (19)
-    # and snapshot (20) paths
+    # data-parallel (17), sharded decode and perplexity (18), state (19),
+    # snapshot (20) and THREADS and chaining (21) paths
     path_launches = {
         name: sum(p.get(name, 0) for p in paths) + sum(
             p.get(name, 0) for p in (mesh_launches, pp_launches, moe_launches,
                                      guest_launches, serving_mesh_launches,
-                                     state_launches, snapshot_launches))
+                                     state_launches, snapshot_launches,
+                                     threads_launches))
         for name, paths in (
             ("rms_norm", (launches, faabric_launches)),
             ("flash_attention", (launches, faabric_launches)),

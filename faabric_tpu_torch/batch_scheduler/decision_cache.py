@@ -4,8 +4,9 @@ Counterpart of ``faabric_tpu/batch_scheduler/decision_cache.py``
 (reference include/faabric/batch-scheduler/DecisionCache.h:14-33): keyed
 by (user, function, batch type, tenant, message count), so a runtime
 that forks the same N-wide batch again reuses its host placement. The
-reference's planner consults it for THREADS batches, which the port's
-planner does not serve yet; a policy reset clears it.
+planner consults it for NEW THREADS decisions and fills it from the
+policy's (``planner/planner.py::_decision_from_cache_locked``); a
+policy reset clears it.
 """
 
 from __future__ import annotations

@@ -21,6 +21,9 @@ class ExecutorFactory:
     def create_executor(self, msg: Message) -> "Executor":
         raise NotImplementedError
 
+    def flush_host(self) -> None:
+        """Hook run when the host is flushed (reference flushHost)."""
+
 
 _factory: Optional[ExecutorFactory] = None
 _factory_lock = threading.Lock()

@@ -24,6 +24,12 @@ do), and ``GuestContext.device_id`` still carries the planner's
 numbering. ``GuestContext.mpi_world()`` creates (rank 0) or joins the
 gang's MPI world, and ``GuestContext.state()`` gives the host's state KV
 (``faabric_tpu_torch/state/``).
+
+Each executor holds a memory image, a numpy ``uint8`` buffer of
+``DEFAULT_MEM`` bytes that ``set_memory_size`` grows, as the reference's
+``JaxExecutor`` does: a THREADS batch restores it from the main
+thread's snapshot, and its threads' writes merge back as snapshot
+diffs. Guests reach it through ``ctx.executor.get_memory_view()``.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from __future__ import annotations
 import threading
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from faabric_tpu_torch.executor.executor import Executor
@@ -139,11 +146,25 @@ class GuestContext:
 
 
 class TorchExecutor(Executor):
-    """Runs registered guest callables."""
+    """Runs registered guest callables; its memory is a plain numpy
+    image, so that snapshots and dirty tracking work on it unchanged."""
+
+    DEFAULT_MEM = 64 * 1024
 
     def __init__(self, msg, device_type: str) -> None:
         super().__init__(msg)
         self.device_type = device_type
+        self.memory = np.zeros(self.DEFAULT_MEM, dtype=np.uint8)
+
+    def get_memory_view(self):
+        return self.memory
+
+    def set_memory_size(self, size: int) -> None:
+        """Grow the image (never shrink); the buffer is replaced, so a
+        view taken before is stale."""
+        if size > self.memory.size:
+            self.memory = np.concatenate(
+                [self.memory, np.zeros(size - self.memory.size, np.uint8)])
 
     def execute_task(self, thread_pool_idx: int, msg_idx: int, req) -> int:
         msg = req.messages[msg_idx]

@@ -7,12 +7,16 @@ host-timeout (and rejoins as a boot when the planner no longer knows
 the host), ``call_functions``, result pushes, and the blocking
 ``get_message_result``: it registers this host's interest, and the
 planner pushes the result to the host's FunctionCallServer, which
-resolves the local promise (:202-270). Mock mode records batch calls
-and results instead of sending them.
+resolves the local promise (:202-270). ``call_functions`` of a THREADS
+batch makes this host the main host of its messages, defaults the
+snapshot key to the main thread's, and pushes that snapshot whole to
+the planner's SnapshotServer, from which the planner serves the other
+hosts (:343-365). Mock mode records batch calls and results instead of
+sending them.
 
-Not ported (``ROADMAP.md`` Queue 1 #9): buffering results while the
-planner is down, coalesced result pushes, snapshot pushes for THREADS
-batches and the high-rate submission path.
+Not ported (``ROADMAP.md`` Queue 1 #9 parts C and D): buffering results
+while the planner is down, coalesced result pushes and the high-rate
+submission path.
 """
 
 from __future__ import annotations
@@ -26,11 +30,14 @@ from faabric_tpu_torch.planner.server import PlannerCalls
 from faabric_tpu_torch.proto import (
     BatchExecuteRequest,
     BatchExecuteRequestStatus,
+    BatchExecuteType,
     Message,
     ber_to_wire,
+    get_main_thread_snapshot_key,
     messages_from_wire,
     messages_to_wire,
 )
+from faabric_tpu_torch.snapshot.remote import SnapshotClient
 from faabric_tpu_torch.transport.client import MessageEndpointClient, RpcError
 from faabric_tpu_torch.transport.common import (
     PLANNER_ASYNC_PORT,
@@ -106,9 +113,10 @@ class PlannerClient(MessageEndpointClient):
         self._local_results: dict[int, Message] = {}
         self._local_results_order: list[int] = []
         self._result_events: dict[int, threading.Event] = {}
-        # Set by the WorkerRuntime: this host's snapshot registry, which
-        # the THREADS pushes will read (ROADMAP.md Queue 1 #9 part A)
+        # Set by the WorkerRuntime: this host's snapshot registry, from
+        # which THREADS batches push the main thread's snapshot
         self.snapshot_registry = None
+        self._planner_snapshot_client = None
 
     # ------------------------------------------------------------------
     def ping(self) -> bool:
@@ -163,10 +171,30 @@ class PlannerClient(MessageEndpointClient):
             with _mock_lock:
                 _mock_batch_calls.append(req)
             return SchedulingDecision(req.app_id, req.group_id)
+        if req.type == int(BatchExecuteType.THREADS) and req.messages:
+            self._push_main_thread_snapshot(req)
         header, tail = ber_to_wire(req)
         resp = self.sync_send(int(PlannerCalls.CALL_BATCH),
                               {"ber": header, "host": self.this_host}, tail)
         return SchedulingDecision.from_dict(resp.header["decision"])
+
+    def _push_main_thread_snapshot(self, req: BatchExecuteRequest) -> None:
+        """This host is the THREADS batch's main host; its main-thread
+        snapshot goes to the planner whole, every batch, so that a
+        repeated batch on one key never leaves the planner a pre-merge
+        copy (the reference's diff-only repeat push is not taken)."""
+        for m in req.messages:
+            m.main_host = self.this_host
+        if not req.snapshot_key:
+            req.snapshot_key = get_main_thread_snapshot_key(req.messages[0])
+        if self.snapshot_registry is None:
+            return
+        snap = self.snapshot_registry.try_get_snapshot(req.snapshot_key)
+        if snap is None:
+            return
+        if self._planner_snapshot_client is None:
+            self._planner_snapshot_client = SnapshotClient(self.host)
+        self._planner_snapshot_client.push_snapshot(req.snapshot_key, snap)
 
     def set_message_result(self, msg: Message) -> None:
         if is_mock_mode():
@@ -271,4 +299,7 @@ class PlannerClient(MessageEndpointClient):
 
     def close(self) -> None:
         self._stop_keep_alive()
+        if self._planner_snapshot_client is not None:
+            self._planner_snapshot_client.close()
+            self._planner_snapshot_client = None
         super().close()

@@ -1,18 +1,26 @@
 """The cluster's control plane.
 
 Counterpart of ``faabric_tpu/planner/planner.py`` (reference
-src/planner/Planner.cpp), for the part that gang-schedules FUNCTIONS
-batches:
+src/planner/Planner.cpp), for the part that gang-schedules FUNCTIONS,
+PROCESSES and THREADS batches:
 
 - host registration, removal, keep-alive and expiry (:300-516); the
   in-flight messages of an expired host report FAILED;
 - per-host device claiming (:140-150): every placement pins a device
   id, the least-loaded device of the chosen host;
-- ``call_batch`` for NEW, SCALE_CHANGE and DIST_CHANGE decisions of
-  FUNCTIONS batches (:573-726): slots, MPI ports and devices are
-  accounted under the planner lock, and the group's mappings and the
-  per-host dispatches go out after it is released, so that one
-  unreachable worker cannot stall keep-alives or other apps;
+- ``call_batch`` for NEW, SCALE_CHANGE and DIST_CHANGE decisions
+  (:573-726): slots, MPI ports and devices are accounted under the
+  planner lock, and the group's mappings and the per-host dispatches go
+  out after it is released, so that one unreachable worker cannot stall
+  keep-alives or other apps. A NEW THREADS decision reuses the decision
+  cache's placement of the same fork shape (:636-656); each sub-batch
+  says whether the batch is on one host (:1489-1508), and a THREADS
+  sub-batch on one host restores nothing;
+- before a THREADS sub-batch goes to a host other than its main host,
+  the main thread's snapshot, which the main host's planner client
+  pushed to the planner's registry, is pushed there
+  (``_push_snapshot_for_threads``, :1548-1570); a failed push fails
+  that host's messages ("Snapshot push failed");
 - the point-to-point mappings sent for each group (:1571-1577);
 - results: ``set_message_result(s)``, ``get_message_result`` (with a
   push to waiting hosts) and ``get_batch_results`` (:1585-1775);
@@ -27,12 +35,12 @@ batches:
 - the planner's ``SnapshotRegistry`` and its pool of snapshot clients,
   dropped with a removed or rebooted host.
 
-Any other request (THREADS and PROCESSES batches, the elastic scale
-hint, a decision that would freeze an app) raises instead of running
-some other way. Not ported (``ROADMAP.md`` Queue 1 #7 and #9): the
-journal (and its replay of state placement), ingress, the snapshot
-pushes of THREADS batches, freeze and migration,
-recovery requeues, ``call_batch_group`` and the telemetry.
+The elastic scale hint and a decision that would freeze an app raise
+instead of running some other way. Not ported (``ROADMAP.md`` Queue 1
+#7 and #9): the journal (and its replay of state placement), freeze and
+migration, recovery requeues (a failed dispatch or push fails its
+messages instead), preloaded decisions, ingress, ``call_batch_group``
+and the telemetry.
 """
 
 from __future__ import annotations
@@ -142,9 +150,9 @@ class Planner:
 
         self._clients = ClientPool(FunctionCallClient)
 
-        # Snapshots parked on the planner for THREADS batches and frozen
-        # apps (reference planner-held SnapshotRegistry); the pushes that
-        # use them come with ROADMAP.md Queue 1 #9 part A
+        # The main-thread snapshots of THREADS batches, pushed by their
+        # main hosts and pushed on to the other hosts of a batch
+        # (reference planner-held SnapshotRegistry)
         from faabric_tpu_torch.snapshot.registry import SnapshotRegistry
         from faabric_tpu_torch.snapshot.remote import SnapshotClient
 
@@ -249,11 +257,6 @@ class Planner:
     def call_batch(self, req: BatchExecuteRequest) -> SchedulingDecision:
         """Schedule a batch: account under the lock, then send the
         group's mappings and dispatch after it."""
-        if req.type not in (int(BatchExecuteType.FUNCTIONS),
-                            int(BatchExecuteType.MIGRATION)):
-            raise ValueError(
-                f"batch type {BatchExecuteType(req.type).name} is not "
-                f"served by this planner: only FUNCTIONS batches are")
         if req.elastic_scale_hint:
             raise ValueError("the elastic scale hint is not served by this "
                              "planner")
@@ -269,8 +272,21 @@ class Planner:
                     and decision_type != DecisionType.DIST_CHANGE):
                 return do_not_migrate_decision()
 
-            decision = scheduler.make_scheduling_decision(
-                self._policy_host_map_locked(), self._in_flight, req)
+            host_map = self._policy_host_map_locked()
+            # Repeated fork-join shapes reuse their placement (reference
+            # DecisionCache). NEW decisions only: a scale change extends
+            # an app's placement and must not take or poison entries
+            # keyed by (user, function, type, count)
+            cacheable = (req.type == int(BatchExecuteType.THREADS)
+                         and decision_type == DecisionType.NEW)
+            decision = (self._decision_from_cache_locked(req, host_map)
+                        if cacheable else None)
+            if decision is None:
+                decision = scheduler.make_scheduling_decision(
+                    host_map, self._in_flight, req)
+                if cacheable and not is_sentinel_decision(decision):
+                    get_decision_cache().add_cached_decision(
+                        req, list(decision.hosts), 0)
             if decision.app_id == NOT_ENOUGH_SLOTS:
                 logger.warning("Not enough slots for app %d (%d msgs)",
                                req.app_id, req.n_messages())
@@ -371,6 +387,35 @@ class Planner:
         self._in_flight[req.app_id] = (old_req, decision)
         return []
 
+    def _decision_from_cache_locked(self, req: BatchExecuteRequest,
+                                    host_map) -> Optional[SchedulingDecision]:
+        """The cached placement of the same fork shape, if its hosts
+        still have the slots and still pass the policy's host filter;
+        None falls back to the policy."""
+        cached = get_decision_cache().get_cached_decision(req)
+        if cached is None:
+            return None
+        hosts = cached.hosts
+        need: dict[str, int] = {}
+        for ip in hosts:
+            need[ip] = need.get(ip, 0) + 1
+        for ip, n in need.items():
+            h = host_map.get(ip)
+            if h is None or h.available < n or h.for_eviction:
+                return None
+        # The filter is part of placement correctness (compact's tenant
+        # isolation, spot's eviction), not a preference
+        probe = {ip: host_map[ip] for ip in need}
+        if get_batch_scheduler().filter_hosts(probe, self._in_flight, req):
+            return None
+        decision = SchedulingDecision(req.app_id, 0)
+        for i, msg in enumerate(req.messages):
+            decision.add_message(hosts[i], msg.id, msg.app_idx,
+                                 msg.group_idx)
+        logger.debug("Reused the cached placement of %s/%s x%d", req.user,
+                     req.function, req.n_messages())
+        return decision
+
     # -- resource accounting ---------------------------------------------
     def _policy_host_map_locked(self) -> dict[str, HostState]:
         self.expire_hosts()
@@ -440,6 +485,13 @@ class Planner:
     def _do_dispatch(self,
                      dispatches: list[tuple[str, BatchExecuteRequest]]) -> None:
         for ip, sub in dispatches:
+            if (sub.type == int(BatchExecuteType.THREADS)
+                    and not sub.single_host
+                    and not self._push_snapshot_for_threads(sub, ip)):
+                # Without its snapshot the host could not restore; the
+                # reference requeues onto another host (not ported)
+                self._fail_messages(sub.messages, b"Snapshot push failed")
+                continue
             try:
                 self._clients.get(ip).execute_functions(sub)
             except Exception:  # noqa: BLE001 — a dead host must not stall
@@ -447,6 +499,27 @@ class Planner:
                 logger.exception("Dispatch of app %d to %s failed",
                                  sub.app_id, ip)
                 self._fail_messages(sub.messages, b"Dispatch failed")
+
+    def _push_snapshot_for_threads(self, req: BatchExecuteRequest,
+                                   host: str) -> bool:
+        """Push the main thread's snapshot ahead of a THREADS dispatch to
+        ``host`` (reference Planner.cpp:1334-1360). False when the host
+        cannot be given the snapshot it must restore from."""
+        key = req.snapshot_key
+        main_host = req.messages[0].main_host if req.messages else ""
+        if not key or host == main_host:
+            return True  # nothing to restore, or the main host has it
+        snap = self.snapshot_registry.try_get_snapshot(key)
+        if snap is None:
+            logger.warning("No snapshot %s on the planner for a THREADS "
+                           "dispatch to %s", key, host)
+            return False
+        try:
+            self._snapshot_clients.get(host).push_snapshot(key, snap)
+        except Exception:  # noqa: BLE001 — the caller fails the messages
+            logger.exception("Failed pushing snapshot %s to %s", key, host)
+            return False
+        return True
 
     # ------------------------------------------------------------------
     # Results (reference Planner::setMessageResult / getMessageResult)

@@ -2,9 +2,12 @@
 
 Counterpart of ``faabric_tpu/planner/server.py`` (reference
 src/planner/PlannerServer.cpp) for the calls that the gang path makes,
-under the reference's call numbers. An expiry reaper drives host expiry
-on a clock, so a dead worker's messages report FAILED even when nobody
-schedules.
+under the reference's call numbers, and the planner's own
+``SnapshotServer`` over ``planner.snapshot_registry`` at host
+``"planner"``, which takes THREADS batches' main-thread snapshots (the
+reference's planner_server runs both, src/planner/planner_server.cpp:
+9-43). An expiry reaper drives host expiry on a clock, so a dead
+worker's messages report FAILED even when nobody schedules.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from faabric_tpu_torch.proto import (
     messages_from_wire,
     messages_to_wire,
 )
+from faabric_tpu_torch.snapshot.remote import SnapshotServer
 from faabric_tpu_torch.transport.common import (
     PLANNER_ASYNC_PORT,
     PLANNER_SYNC_PORT,
@@ -62,10 +66,14 @@ class PlannerServer(MessageEndpointServer):
                          PLANNER_SYNC_PORT + port_offset,
                          label="planner-server", n_threads=n_threads)
         self.planner = get_planner()
+        self.snapshot_server = SnapshotServer(
+            self.planner.snapshot_registry, host="planner",
+            port_offset=port_offset)
         self.expiry_reaper = _ExpiryReaper(self.planner)
 
     def start(self) -> None:
         super().start()
+        self.snapshot_server.start()
         # Quarter of the host timeout: an expiry is seen well inside one
         # more keep-alive period
         timeout = get_system_config().planner_host_timeout
@@ -73,6 +81,7 @@ class PlannerServer(MessageEndpointServer):
 
     def stop(self) -> None:
         self.expiry_reaper.stop()
+        self.snapshot_server.stop()
         super().stop()
 
     def do_async_recv(self, msg: TransportMessage) -> None:

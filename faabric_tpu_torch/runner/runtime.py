@@ -17,7 +17,8 @@ them, least loaded first, and a guest reads its device from
 runtime's ``MpiWorldRegistry`` (``GuestContext.mpi_world``). The state
 KV's device view defaults to the factory's device type. The host's
 ``SnapshotRegistry`` is set on the scheduler and the planner client, and
-its ``SnapshotServer`` takes pushed snapshots and their diffs. Not
+its ``SnapshotServer`` takes pushed snapshots, their diffs and remote
+threads' results (into the scheduler's thread results). Not
 ported: the HTTP endpoint, the sampler and profiler, and the
 multi-process device plane (``ROADMAP.md`` Queue 1 #7-9).
 """
@@ -98,7 +99,8 @@ class WorkerRuntime:
         self.scheduler.snapshot_registry = self.snapshot_registry
         self.planner_client.snapshot_registry = self.snapshot_registry
         self.snapshot_server = SnapshotServer(self.snapshot_registry,
-                                              self.host)
+                                              self.host,
+                                              scheduler=self.scheduler)
         # State KV (reference FaabricMain starts a StateServer)
         self.state = State(self.host, self.planner_client,
                            device=_factory_device_type())

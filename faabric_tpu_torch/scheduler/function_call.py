@@ -2,11 +2,14 @@
 
 Counterpart of ``faabric_tpu/scheduler/function_call.py`` (reference
 src/scheduler/FunctionCallServer.cpp, ports 8005/8006, and
-FunctionCallClient.cpp), on its async plane: EXECUTE_FUNCTIONS (the
+FunctionCallClient.cpp). Async plane: EXECUTE_FUNCTIONS (the
 planner's dispatch to a host's scheduler) and SET_MESSAGE_RESULT (the
-planner pushing a result to a host that waits for it). In mock mode the
-client records its calls instead of sending them. The reference's
-FLUSH and telemetry calls are not ported.
+planner pushing a result to a host that waits for it). Sync plane:
+FLUSH (the host drops its executors and runs the factory's
+``flush_host``). In mock mode the client records its calls instead of
+sending them. The reference's telemetry call and pipelined dispatch
+(EXECUTE_BATCHES) are not ported (``ROADMAP.md`` Queue 1 #9 parts B
+and D).
 """
 
 from __future__ import annotations
@@ -30,7 +33,10 @@ from faabric_tpu_torch.transport.common import (
     get_host_alias_offset,
 )
 from faabric_tpu_torch.transport.message import TransportMessage
-from faabric_tpu_torch.transport.server import MessageEndpointServer
+from faabric_tpu_torch.transport.server import (
+    MessageEndpointServer,
+    handler_response,
+)
 from faabric_tpu_torch.util.config import get_system_config
 from faabric_tpu_torch.util.testing import is_mock_mode
 
@@ -51,6 +57,7 @@ class FunctionCalls(enum.IntEnum):
 _mock_lock = threading.Lock()
 _batch_messages: list[tuple[str, BatchExecuteRequest]] = []
 _message_results: list[tuple[str, Message]] = []
+_flush_calls: list[str] = []
 
 
 def get_batch_requests() -> list[tuple[str, BatchExecuteRequest]]:
@@ -63,10 +70,16 @@ def get_message_results() -> list[tuple[str, Message]]:
         return list(_message_results)
 
 
+def get_flush_calls() -> list[str]:
+    with _mock_lock:
+        return list(_flush_calls)
+
+
 def clear_mock_requests() -> None:
     with _mock_lock:
         _batch_messages.clear()
         _message_results.clear()
+        _flush_calls.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +106,13 @@ class FunctionCallClient(MessageEndpointClient):
         self.async_send(int(FunctionCalls.SET_MESSAGE_RESULT),
                         {"msg": dicts[0]}, tail)
 
+    def send_flush(self) -> None:
+        if is_mock_mode():
+            with _mock_lock:
+                _flush_calls.append(self.host)
+            return
+        self.sync_send(int(FunctionCalls.FLUSH))
+
 
 class FunctionCallServer(MessageEndpointServer):
     def __init__(self, scheduler: "Scheduler") -> None:
@@ -116,4 +136,7 @@ class FunctionCallServer(MessageEndpointServer):
             raise ValueError(f"Unknown async function call {msg.code}")
 
     def do_sync_recv(self, msg: TransportMessage) -> TransportMessage:
+        if msg.code == int(FunctionCalls.FLUSH):
+            self.scheduler.flush()
+            return handler_response()
         raise ValueError(f"Unknown sync function call {msg.code}")

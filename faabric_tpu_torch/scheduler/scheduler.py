@@ -3,14 +3,16 @@
 Counterpart of ``faabric_tpu/scheduler/scheduler.py`` (reference
 src/scheduler/Scheduler.cpp:250-386 executeBatch/claimExecutor and
 :160-237 the reaper). Each worker host runs one. It takes the batches
-the planner dispatches, claims a warm executor per message (creating
-one through the factory when none is idle), and reports each result to
-the planner. Executors idle longer than ``bound_timeout`` are reaped
-periodically.
-
-FUNCTIONS batches only: a batch of another type reports FAILED for each
-of its messages, with the reason, and runs nothing. Instantiable per
-host identity, so several hosts can run in one process.
+the planner dispatches and claims a warm executor (creating one
+through the factory when none is idle): one per message of a FUNCTIONS
+or PROCESSES batch, one for every message of a THREADS batch, whose
+threads share that executor's memory. Results go to the planner; a
+THREADS result first queues its host's snapshot diffs on the main
+host's snapshot (locally, or pushed over the snapshot RPC) and wakes
+``await_thread_result`` there (:261-306). ``flush`` drops the warm
+executors and runs the factory's ``flush_host``. Executors idle longer
+than ``bound_timeout`` are reaped periodically. Instantiable per host
+identity, so several hosts can run in one process.
 """
 
 from __future__ import annotations
@@ -79,6 +81,10 @@ class Scheduler:
         self.snapshot_registry = None
         self._snapshot_clients = ClientPool(SnapshotClient)
 
+        # THREADS results on this host: msg id → (return value, message)
+        self._thread_results: dict[int, tuple[int, Message]] = {}
+        self._thread_result_cv = threading.Condition()
+
     # ------------------------------------------------------------------
     # Lifecycle
     # ------------------------------------------------------------------
@@ -88,8 +94,7 @@ class Scheduler:
         self._started = True
         self._reaper.start(get_system_config().reaper_interval_secs)
 
-    def shutdown(self) -> None:
-        self._reaper.stop()
+    def _drop_executors(self) -> None:
         with self._lock:
             executors = [e for lst in self._executors.values() for e in lst]
             self._executors.clear()
@@ -97,19 +102,45 @@ class Scheduler:
             self._parkable.clear()
         for e in executors:
             e.shutdown()
+
+    def shutdown(self) -> None:
+        self._reaper.stop()
+        self._drop_executors()
         self._snapshot_clients.close_all()
         self._started = False
+
+    def reset(self) -> None:
+        """Test reset: drop executors and thread results, keep identity."""
+        self.shutdown()
+        with self._thread_result_cv:
+            self._thread_results.clear()
+
+    def flush(self) -> None:
+        """Host flush (reference FunctionCallServer::recvFlush): drop the
+        executors and run the factory's flush hook."""
+        logger.debug("Flushing host %s", self.host)
+        self._drop_executors()
+        try:
+            factory = get_executor_factory()
+        except RuntimeError:
+            return
+        factory.flush_host()
 
     # ------------------------------------------------------------------
     # Batch execution (reference Scheduler.cpp:250-325)
     # ------------------------------------------------------------------
     def execute_batch(self, req: BatchExecuteRequest) -> None:
-        if req.type != int(BatchExecuteType.FUNCTIONS):
-            self._fail(req.messages, (
-                f"batch type {BatchExecuteType(req.type).name} is not "
-                f"served by this host").encode())
+        if req.n_messages() == 0:
             return
-        # One executor per message
+        if req.type == int(BatchExecuteType.THREADS):
+            # One executor runs every thread of the batch (shared memory)
+            executor = self.claim_executor(req.messages[0])
+            if executor is None:
+                self._fail(req.messages, b"No executor available")
+                return
+            executor.execute_tasks(list(range(req.n_messages())), req)
+            return
+        # FUNCTIONS, PROCESSES: one executor per message
         for idx, msg in enumerate(req.messages):
             executor = self.claim_executor(msg)
             if executor is None:
@@ -183,5 +214,62 @@ class Scheduler:
             logger.debug("Reaping executor %s", e.id)
             e.shutdown()
 
+    def get_executor_count(self, msg: Message | None = None) -> int:
+        with self._lock:
+            if msg is not None:
+                return len(self._executors.get(func_to_string(msg), []))
+            return sum(len(v) for v in self._executors.values())
+
+    # ------------------------------------------------------------------
+    # Results
+    # ------------------------------------------------------------------
     def report_message_result(self, msg: Message) -> None:
         self.planner_client.set_message_result(msg)
+
+    def set_thread_result_locally(self, msg: Message,
+                                  return_value: int) -> None:
+        """Keep a thread's result on this host and wake its waiters
+        (reference setThreadResultLocally; the SnapshotServer calls it
+        when a remote thread's result arrives)."""
+        with self._thread_result_cv:
+            self._thread_results[msg.id] = (return_value, msg)
+            self._thread_result_cv.notify_all()
+
+    def report_thread_result(self, msg: Message, return_value: int,
+                             snapshot_key: str = "", diffs=None) -> None:
+        """A THREADS result. Its diffs queue on the main host's snapshot,
+        locally when this is the main host and through its
+        SnapshotServer otherwise, before the planner learns the result:
+        a caller that awaits the results may then write the queued
+        diffs (reference Executor::setThreadResult :271-305)."""
+        main_host = msg.main_host or self.host
+        if main_host == self.host:
+            if diffs and snapshot_key and self.snapshot_registry is not None:
+                snap = self.snapshot_registry.try_get_snapshot(snapshot_key)
+                if snap is not None:
+                    snap.queue_diffs(diffs)
+            self.set_thread_result_locally(msg, return_value)
+        else:
+            try:
+                self._snapshot_clients.get(main_host).push_thread_result(
+                    msg.app_id, msg.id, return_value, snapshot_key,
+                    diffs or [])
+            except Exception:  # noqa: BLE001 — the planner must learn the
+                # result even when the main host is unreachable
+                logger.exception("Failed pushing thread result %d to %s",
+                                 msg.id, main_host)
+        self.planner_client.set_message_result(msg)
+
+    def await_thread_result(self, msg_id: int,
+                            timeout: float | None = None) -> int:
+        """A thread's return value once its result is on this host;
+        ``TimeoutError`` after ``timeout`` seconds (the global message
+        timeout when None)."""
+        if timeout is None:
+            timeout = get_system_config().global_message_timeout
+        with self._thread_result_cv:
+            if not self._thread_result_cv.wait_for(
+                    lambda: msg_id in self._thread_results, timeout=timeout):
+                raise TimeoutError(
+                    f"Timed out waiting for thread result {msg_id}")
+            return self._thread_results[msg_id][0]

@@ -8,11 +8,12 @@ talks to a reference server and the reverse. Snapshot contents and diff
 bytes ride the frame's binary tail; merge regions and diff metadata
 travel in the JSON header.
 
-``THREAD_RESULT`` is sent and recorded as the reference does, but a port
-server refuses it: delivering a thread's result needs the scheduler's
-thread results, which come with THREADS batches (``ROADMAP.md`` Queue 1
-#9 part A). The reference's spans and statestats events are not ported
-(Queue 1 #9 part B).
+``THREAD_RESULT`` carries a remote thread's return value and its host's
+diffs to the main host: the server queues the diffs on the snapshot when
+it has it (a missing key drops them) and always hands the result to its
+scheduler's ``set_thread_result_locally``, which wakes
+``await_thread_result``. The reference's spans and statestats events are
+not ported (``ROADMAP.md`` Queue 1 #9 part B).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import enum
 import threading
 from typing import TYPE_CHECKING
 
+from faabric_tpu_torch.proto import Message
 from faabric_tpu_torch.snapshot.snapshot import (
     MergeRegion,
     SnapshotData,
@@ -166,7 +168,7 @@ class SnapshotClient(MessageEndpointClient):
 
 class SnapshotServer(MessageEndpointServer):
     def __init__(self, registry: "SnapshotRegistry", host: str = "",
-                 port_offset: int | None = None) -> None:
+                 scheduler=None, port_offset: int | None = None) -> None:
         conf = get_system_config()
         offset = port_offset if port_offset is not None \
             else get_host_alias_offset(host)
@@ -177,6 +179,7 @@ class SnapshotServer(MessageEndpointServer):
             n_threads=conf.snapshot_server_threads,
         )
         self.registry = registry
+        self.scheduler = scheduler  # takes the thread results
 
     def do_async_recv(self, msg: TransportMessage) -> None:
         if msg.code == int(SnapshotCalls.DELETE_SNAPSHOT):
@@ -204,10 +207,22 @@ class SnapshotServer(MessageEndpointServer):
             return handler_response(header={"queued": len(diffs)})
 
         if code == int(SnapshotCalls.THREAD_RESULT):
-            raise NotImplementedError(
-                "THREAD_RESULT needs the scheduler's thread results, which "
-                "come with THREADS batches (ROADMAP.md Queue 1 #9 part A); "
-                f"refused for message {h.get('msg_id')} of app "
-                f"{h.get('app_id')}")
+            # The result is delivered whatever the snapshot lookup finds:
+            # a missing or empty key drops the diffs, never the result
+            key = h.get("key", "")
+            snap = self.registry.try_get_snapshot(key) if key else None
+            diffs = diffs_from_wire(h.get("diffs", []), msg.payload)
+            if snap is not None:
+                snap.queue_diffs(diffs)
+            elif diffs:
+                logger.warning(
+                    "Dropping %d thread diffs for unknown snapshot %r",
+                    len(diffs), key)
+            if self.scheduler is not None:
+                result = Message(id=h["msg_id"], app_id=h["app_id"],
+                                 return_value=h["return_value"])
+                self.scheduler.set_thread_result_locally(
+                    result, h["return_value"])
+            return handler_response()
 
         raise ValueError(f"Unknown sync snapshot call {code}")

@@ -217,6 +217,10 @@ class SnapshotData:
                 if lo < end:
                     diffs.append(SnapshotDiff(lo, cur[lo:end].tobytes()))
 
+        # An arithmetic region's delta covers the whole region: it is
+        # computed once, where the first dirty range meets the region,
+        # not once for each of the (possibly thousands of) ranges
+        arith_done: set[tuple[int, int]] = set()
         for start, end in dirty_ranges:
             end = min(end, self.size)
             for region in regions:
@@ -236,13 +240,12 @@ class SnapshotData:
                         diffs.append(SnapshotDiff(
                             lo, np.bitwise_xor(old, new).tobytes(),
                             region.data_type, op))
-                else:
+                elif (region.offset, int(op)) not in arith_done:
                     # Arithmetic region: align to the region's value grid
                     # and emit an elementwise delta for the whole region
+                    arith_done.add((region.offset, int(op)))
                     d = self._arith_diff(cur, region)
-                    if d is not None and not any(
-                            x.offset == region.offset and x.operation == op
-                            for x in diffs):
+                    if d is not None:
                         diffs.append(d)
         return diffs
 
@@ -373,15 +376,8 @@ class SnapshotData:
 
 
 def _pages_to_ranges(flags: np.ndarray, limit: int) -> list[tuple[int, int]]:
-    """Collapse page flags into contiguous byte ranges."""
-    out: list[tuple[int, int]] = []
-    run = None
-    for i, dirty in enumerate(flags):
-        if dirty and run is None:
-            run = i
-        elif not dirty and run is not None:
-            out.append((run * PAGE_SIZE, min(i * PAGE_SIZE, limit)))
-            run = None
-    if run is not None:
-        out.append((run * PAGE_SIZE, min(flags.size * PAGE_SIZE, limit)))
-    return out
+    """Collapse page flags into contiguous byte ranges (one numpy pass)."""
+    edges = np.flatnonzero(np.diff(np.concatenate(
+        ([False], np.asarray(flags, dtype=bool), [False]))))
+    return [(int(a) * PAGE_SIZE, min(int(b) * PAGE_SIZE, limit))
+            for a, b in zip(edges[::2], edges[1::2])]

@@ -58,6 +58,10 @@ class SystemConfig:
     # native | none | segv | uffd | softpte. The dataclass default is
     # "hash", the environment's "native", as in the reference
     dirty_tracking_mode: str = "hash"
+    # THREADS batches whose snapshots declare merge regions promise their
+    # writes stay inside them: trackers then baseline and compare only
+    # those pages (writes outside the hints go undetected; opt-in)
+    dirty_region_hints: bool = False
 
     # Planner: hosts expire when they miss keep-alives for this long
     # (workers re-register every half-timeout)
@@ -86,6 +90,8 @@ class SystemConfig:
         self.snapshot_server_threads = _env_int("SNAPSHOT_SERVER_THREADS", 2)
         self.dirty_tracking_mode = os.environ.get("DIRTY_TRACKING_MODE",
                                                   "native")
+        self.dirty_region_hints = os.environ.get(
+            "DIRTY_REGION_HINTS", "0") in ("1", "true", "on")
         self.planner_host = os.environ.get("PLANNER_HOST", "localhost")
         self.planner_host_timeout = _env_float("PLANNER_HOST_TIMEOUT", 30.0)
 

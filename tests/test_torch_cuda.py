@@ -1223,3 +1223,28 @@ def test_device_snapshot_on_the_card_matches_the_cpu(cuda_device, dtype, n):
     assert sum(flags) == len({i * dt.itemsize // 4096 for i in touched})
     assert totals["d2h.snapshot"]["bytes"] == 2 * len(flags) + 4096 * sum(
         flags)
+
+
+@pytest.mark.cuda
+def test_threads_step_and_chained_scoring_on_the_card(cuda_device):
+    """``chip_smoke.py``'s phase 21 at a small width on the card: a
+    THREADS batch of 4 torch guests over two hosts takes a bf16 SGD step
+    on the flash and RMS kernels, merged through a float SUM region
+    within 1e-6 of the oracle and with bitwise loss slots; a second batch
+    comes from the decision cache; a parent chains two scorings. The
+    phase checks the launches: 4 train steps' kernels a batch, all flash
+    forwards on ``wgmma``, and 2 scoring forwards' for the chain."""
+    import chip_smoke
+    from faabric_tpu_torch.models import ModelConfig
+
+    cfg = ModelConfig(vocab_size=256, d_model=128, n_layers=2, n_heads=2,
+                      d_ff=256, max_seq=256)
+    launches = chip_smoke.threads_phase(cuda_device, _build, cfg=cfg,
+                                        seq=128)
+    steps = 2 * 4  # two batches of four threads
+    assert launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] \
+        == steps * cfg.n_layers
+    assert launches["flash_attention"] == launches["flash_attention.wgmma"] \
+        == steps * 2 * cfg.n_layers + 2 * cfg.n_layers
+    assert launches["rms_norm"] == steps * (4 * cfg.n_layers + 1) \
+        + 2 * (2 * cfg.n_layers + 1)

@@ -255,18 +255,24 @@ def test_warm_executor_reuse(cluster):
 
 
 def test_scale_change_adds_messages(cluster):
+    # The first messages hold until the scale change is in: an app whose
+    # messages all finished is no longer in flight to scale
+    HOLD.clear()
     w = cluster["workers"]["hostA"]
-    req = batch_exec_factory("demo", "echo", 2)
-    w.planner_client.call_functions(req)
-    decision1 = w.planner_client.get_scheduling_decision(req.app_id)
-    assert decision1 is not None and decision1.n_messages == 2
-    # Chain two more messages into the running app
-    scale = batch_exec_factory("demo", "echo", 2)
-    scale.app_id = req.app_id
-    for i, m in enumerate(scale.messages):
-        m.app_id = req.app_id
-        m.app_idx = 2 + i
-    d2 = w.planner_client.call_functions(scale)
+    req = batch_exec_factory("demo", "hold", 2)
+    try:
+        w.planner_client.call_functions(req)
+        decision1 = w.planner_client.get_scheduling_decision(req.app_id)
+        assert decision1 is not None and decision1.n_messages == 2
+        # Chain two more messages into the running app
+        scale = batch_exec_factory("demo", "echo", 2)
+        scale.app_id = req.app_id
+        for i, m in enumerate(scale.messages):
+            m.app_id = req.app_id
+            m.app_idx = 2 + i
+        d2 = w.planner_client.call_functions(scale)
+    finally:
+        HOLD.set()
     assert d2.n_messages == 2
     assert d2.group_id == decision1.group_id
     for result in results_of(w, req) + results_of(w, scale):
@@ -363,15 +369,33 @@ def test_group_mappings_distributed_with_dispatch(cluster):
 
 
 def test_batch_types_the_planner_does_not_serve_raise(cluster):
+    """The elastic scale hint raises; a THREADS batch is served (on one
+    host here, so it restores nothing) and its threads report through
+    the thread-result path."""
     w = cluster["workers"]["hostA"]
     req = batch_exec_factory("demo", "echo", 2)
     req.type = int(BatchExecuteType.THREADS)
-    with pytest.raises(RpcError, match="THREADS"):
-        w.planner_client.call_functions(req)
+    for i, m in enumerate(req.messages):
+        m.input_data = f"t{i}".encode()
+    decision = w.planner_client.call_functions(req)
+    assert decision.n_messages == 2 and len(set(decision.hosts)) == 1
+    assert req.snapshot_key == f"demo/echo_{req.app_id}"
+    for m, r in zip(req.messages, results_of(w, req)):
+        assert r.return_value == int(ReturnValue.SUCCESS), r.output_data
+        assert r.output_data == m.input_data[::-1]
+        assert r.main_host == "hostA"
+    # Thread results land on the main host, wherever the threads ran
+    assert all(w.scheduler.await_thread_result(m.id,
+                                               timeout=RESULT_TIMEOUT) == 0
+               for m in req.messages)
     req = batch_exec_factory("demo", "echo", 2)
     req.elastic_scale_hint = True
     with pytest.raises(RpcError, match="elastic"):
         w.planner_client.call_functions(req)
+    deadline = time.monotonic() + RESULT_TIMEOUT
+    while (any(h["used_slots"] for h in w.planner_client.get_available_hosts())
+           and time.monotonic() < deadline):
+        time.sleep(0.01)
     assert all(h["used_slots"] == 0
                for h in w.planner_client.get_available_hosts())
 
@@ -500,15 +524,28 @@ def test_worker_registers_its_cuda_devices_by_default(monkeypatch):
     assert WorkerRuntime(host="h", slots=4).n_devices == 0
 
 
-def test_executor_runs_its_tasks_on_one_worker_thread():
-    """A warm executor that is handed tasks at different message indices
-    keeps one worker thread."""
+def test_executor_runs_its_tasks_on_one_worker_thread(monkeypatch):
+    """A task runs on pool thread ``msg_idx % pool_size``: tasks handed
+    at one message index share one worker thread, tasks at indices 1, 5
+    and 3 of a pool of 4 run on pool threads 1, 1 and 3, and shutdown
+    ends them all."""
+    monkeypatch.setattr(get_system_config(), "override_cpu_count", 4)
     req = batch_exec_factory("demo", "echo", 6)
     for m in req.messages:
         m.input_data = b"ab"
-    ex = EchoExecutor(req.messages[0])
+    seen = {}
+
+    class NamedExecutor(EchoExecutor):
+        def execute_task(self, thread_pool_idx, msg_idx, req):
+            seen.setdefault(msg_idx, set()).add(
+                (thread_pool_idx, threading.current_thread().name))
+            return super().execute_task(thread_pool_idx, msg_idx, req)
+
+    ex = NamedExecutor(req.messages[0])
+    assert ex.pool_size == 4
+    prefix = f"executor/pool@{ex.id}-"
     try:
-        for idx in (1, 5, 3):
+        for idx in (1, 1, 5, 3):
             ex.execute_tasks([idx], req)
         deadline = time.monotonic() + RESULT_TIMEOUT
         while (any(req.messages[i].output_data != b"ba" for i in (1, 3, 5))
@@ -516,12 +553,14 @@ def test_executor_runs_its_tasks_on_one_worker_thread():
             time.sleep(0.01)
         assert all(req.messages[i].return_value == int(ReturnValue.SUCCESS)
                    for i in (1, 3, 5))
-        assert sum(t.name == f"executor/{ex.id}"
-                   for t in threading.enumerate()) == 1
+        assert seen == {1: {(1, prefix + "1")}, 5: {(1, prefix + "1")},
+                        3: {(3, prefix + "3")}}
+        assert sorted(t.name for t in threading.enumerate()
+                      if t.name.startswith(prefix)) == [prefix + "1",
+                                                        prefix + "3"]
     finally:
         ex.shutdown()
-    assert not any(t.name == f"executor/{ex.id}"
-                   for t in threading.enumerate())
+    assert not any(t.name.startswith(prefix) for t in threading.enumerate())
 
 
 @pytest.fixture

@@ -494,6 +494,39 @@ def test_bytewise_diffs_without_the_native_scanner(monkeypatch):
     assert [o for o, *_ in got] == [0, 640, PAGE * 3]
 
 
+def _scattered_sum(pk):
+    """A FLOAT SUM region over 64 pages, every third page dirty, and
+    bytewise gaps around it: the region's delta is one diff."""
+    rng = np.random.RandomState(9)
+    base = rng.rand(PAGE * 64 // 4 + 300).astype(np.float32).view(np.uint8)
+    snap = pk.snapshot.SnapshotData(base)
+    snap.add_merge_region(PAGE, PAGE * 60,
+                          pk.snapshot.SnapshotDataType.FLOAT,
+                          pk.snapshot.SnapshotMergeOperation.SUM)
+    snap.fill_gaps_with_bytewise_regions()
+    mem = base.copy()
+    flags = np.zeros(-(-mem.size // PAGE), bool)
+    flags[::3] = True
+    for p in np.flatnonzero(flags):
+        mem[p * PAGE:p * PAGE + 4].view(np.float32)[0] += 1.5
+    return diff_obs(snap.diff_with_dirty_regions(mem, flags))
+
+
+def test_sum_region_diffs_once_over_scattered_pages(monkeypatch):
+    """Dirty pages scattered over a SUM region give the reference's diffs,
+    with the region's delta computed once, not once a dirty range."""
+    calls = []
+    real = port_snapshot.SnapshotData._arith_diff
+    monkeypatch.setattr(port_snapshot.SnapshotData, "_arith_diff",
+                        lambda self, cur, region: calls.append(1)
+                        or real(self, cur, region))
+    got = both(_scattered_sum)
+    assert calls == [1]
+    assert sum(op == int(REF.snapshot.SnapshotMergeOperation.SUM)
+               for *_, op in got) == 1
+    assert len(got) > 2
+
+
 ARITH_CASES = [
     ("INT", np.int32, "SUM", 10, 25, 25),
     ("INT", np.int32, "SUBTRACT", 100, 70, 70),
@@ -1042,8 +1075,9 @@ def test_device_handle_snapshot_bridge():
 # The snapshot RPC across the wire, both ways
 # ---------------------------------------------------------------------------
 
-def _new_server(pk, registry, base):
-    server = pk.remote.SnapshotServer(registry, port_offset=base)
+def _new_server(pk, registry, base, scheduler=None):
+    server = pk.remote.SnapshotServer(registry, scheduler=scheduler,
+                                      port_offset=base)
     server.start()
     return server
 
@@ -1078,13 +1112,19 @@ def _wait_for(cond, what, timeout=10.0):
                               "ref_client-port_server"])
 def test_snapshot_rpc_across_packages(client_pk, server_pk):
     """Push (image and merge regions), update (queued diffs, then
-    written), thread result (queued by a reference server, refused by a
-    port one, which has no thread results yet) and delete."""
+    written), thread result (its diffs queued on the snapshot, its return
+    value delivered to the server's scheduler, which wakes
+    ``await_thread_result``; a result for an unknown key drops its diffs
+    and still wakes the waiter) and delete."""
+    import importlib
+
     from tests.conftest import next_port_base
 
     base = next_port_base()
     registry = server_pk.snapshot.SnapshotRegistry()
-    server = _new_server(server_pk, registry, base)
+    scheduler = importlib.import_module(
+        f"{server_pk.name}.scheduler.scheduler").Scheduler("snaphost", None)
+    server = _new_server(server_pk, registry, base, scheduler)
     client_pk.common.register_host_alias("snaphost", "127.0.0.1", base)
     client = client_pk.remote.SnapshotClient("snaphost")
     try:
@@ -1105,17 +1145,22 @@ def test_snapshot_rpc_across_packages(client_pk, server_pk):
         assert got.write_queued_diffs() == 3
         assert got.to_bytes() == want.to_bytes()
 
-        if server_pk is REF:
-            client.push_thread_result(9, 10, 0, "app/key",
-                                      _diffs_for(client_pk)[:1])
-            assert got.queued_diff_count() == 1
-        else:
-            from faabric_tpu.transport.client import RpcError
-
-            with pytest.raises(RpcError, match=r"Queue 1 #9 part A"):
-                client.push_thread_result(9, 10, 0, "app/key",
-                                          _diffs_for(client_pk)[:1])
-            assert got.queued_diff_count() == 0
+        with pytest.raises(TimeoutError):
+            scheduler.await_thread_result(10, timeout=0.05)
+        woke = []
+        waiter = threading.Thread(target=lambda: woke.append(
+            scheduler.await_thread_result(10, timeout=10.0)))
+        waiter.start()
+        client.push_thread_result(9, 10, 7, "app/key",
+                                  _diffs_for(client_pk)[:1])
+        waiter.join(timeout=10.0)
+        assert woke == [7]
+        assert got.queued_diff_count() == 1
+        client.push_thread_result(9, 11, 0, "app/other",
+                                  _diffs_for(client_pk)[:1])
+        assert scheduler.await_thread_result(11, timeout=10.0) == 0
+        assert got.queued_diff_count() == 1
+        assert got.write_queued_diffs() == 1
 
         client.delete_snapshot("app/key")
         _wait_for(lambda: not registry.snapshot_exists("app/key"),
