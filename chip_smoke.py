@@ -59,7 +59,11 @@ thread's snapshot, each thread adds its share's SGD update into its
 host's memory image, and the hosts' diffs merge through a float SUM
 region into the main snapshot, against the same shares' gradients taken
 directly; a second batch is placed from the decision cache; a chained
-call tree scores two prompts. For each path
+call tree scores two prompts. faabric's data planes: the same two-host
+gang takes the flagship's data-parallel step with its gradient on the
+shm rings, on bulk TCP, with parameter broadcasts on the delta wire
+codec, and on the int8 leader ring of the hierarchical allreduce,
+against the raw and exact paths. For each path
 it checks the outputs and shows from the kernels' launch counts that
 the path ran through them; it times the kernels, their plain versions and the nearest
 PyTorch library calls, and prints one JSON line of kernel numbers (the
@@ -1555,12 +1559,13 @@ def mpi_suite(world, rank: int, payload) -> dict:
     return ms
 
 
-def ddp_step(world, rank: int, model, tokens, targets, lr: float):
+def ddp_step(world, rank: int, model, tokens, targets, lr: float,
+             reduce=None):
     """One data-parallel SGD step (the reference's ``fn_train``,
     ``tests/dist/procs.py:1004-1064``): this rank's gradient of
     ``loss_fn`` on its shard, the flat fp32 gradient allreduced with SUM
-    through ``world.allreduce``, divided by the world size, applied.
-    Returns the allreduce's wall ms."""
+    through ``world.allreduce`` (or ``reduce(flat)``), divided by the
+    world size, applied. Returns the allreduce's wall ms."""
     from faabric_tpu_torch.models import loss_fn
     from faabric_tpu_torch.mpi import MpiOp
 
@@ -1569,7 +1574,8 @@ def ddp_step(world, rank: int, model, tokens, targets, lr: float):
     flat = torch.cat([p.grad.reshape(-1).float()
                       for p in model.parameters()])
     t0 = time.perf_counter()
-    summed = world.allreduce(rank, flat, MpiOp.SUM)
+    summed = (world.allreduce(rank, flat, MpiOp.SUM) if reduce is None
+              else reduce(flat))
     if flat.is_cuda:
         torch.cuda.synchronize(flat.device)
     ar_ms = (time.perf_counter() - t0) * 1e3
@@ -3067,6 +3073,381 @@ def threads_phase(dev, build, cfg=None, seq: int = 512,
     return path
 
 
+def register_planes_guests(job: dict) -> None:
+    """Phase 22's guest, ``mpi/planes_step``: ``job["steps"]`` steps of
+    :func:`ddp_step` of ``job["model"](device)`` over the gang's world,
+    after setting ``job["world"]``'s attributes on it (every rank sets
+    the same). With ``job["broadcast"]`` each step starts with a
+    broadcast of rank 0's flat parameters, which the other ranks load.
+    With ``job["exact"]`` the gradient also goes through an exact fp32
+    allreduce (``allreduce_quant`` off) after the step's: each rank's
+    gradient lands in ``job["grads"]``, rank 0's two sums in
+    ``job["sums"]``. Each rank leaves its flat parameters in
+    ``job["params"]`` and returns JSON: its host, the world's leaders, the
+    rungs, step, broadcast and allreduce ms, and the bytes its host's bulk
+    client to the other host put on the wire during each allreduce."""
+    from faabric_tpu_torch.executor import register_function
+    from faabric_tpu_torch.mpi import MpiOp
+
+    @register_function("mpi", "planes_step")
+    def planes_step(ctx):
+        world = ctx.mpi_world()
+        rank = ctx.message.mpi_rank
+        dev = ctx.device
+        for k, v in job["world"].items():
+            setattr(world, k, v)
+        host = world.host_for_rank(rank)
+        peer = next(h for h in world.hosts() if h != host)
+        bulk = world.broker._get_bulk_client(peer)
+        model = job["model"](dev)
+        out = {"step_ms": [], "bcast_ms": [], "allreduce_ms": [],
+               "wire_bytes": [], "exact_ms": [], "exact_wire_bytes": []}
+
+        def reduce(flat):
+            w0 = bulk.wire_bytes
+            t0 = time.perf_counter()
+            summed = world.allreduce(rank, flat, MpiOp.SUM)
+            out["allreduce_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["wire_bytes"].append(bulk.wire_bytes - w0)
+            if job["exact"]:
+                world.barrier(rank)
+                world.allreduce_quant = ""
+                w0 = bulk.wire_bytes
+                t0 = time.perf_counter()
+                exact = world.allreduce(rank, flat, MpiOp.SUM)
+                out["exact_ms"].append((time.perf_counter() - t0) * 1e3)
+                out["exact_wire_bytes"].append(bulk.wire_bytes - w0)
+                world.allreduce_quant = job["world"].get(
+                    "allreduce_quant", "")
+                job["grads"][rank] = _as_np(flat).copy()
+                if rank == 0:
+                    job["sums"]["quant"] = np.array(summed, copy=True)
+                    job["sums"]["exact"] = np.array(exact, copy=True)
+            return summed
+
+        for s in range(job["steps"]):
+            t0 = time.perf_counter()
+            if job["broadcast"]:
+                got = world.broadcast(0, rank, flat_params(model) if rank == 0
+                                      else np.empty(0, np.float32))
+                if rank != 0:
+                    # A receive may share the codec cache's read-only
+                    # base: copy before the tensor takes it
+                    load_flat(model, torch.from_numpy(
+                        np.array(got, np.float32, copy=True)).to(dev))
+                out["bcast_ms"].append((time.perf_counter() - t0) * 1e3)
+            tokens, targets = job["batch"](s, rank, dev)
+            ddp_step(world, rank, model, tokens, targets, job["lr"],
+                     reduce=reduce)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        job["params"][rank] = flat_params(model)
+        world.barrier(rank)
+        rungs = {kind: algo for (r, kind), algo in world.rungs.items()
+                 if r == rank}
+        return json.dumps({"rank": rank, "host": host, "rungs": rungs,
+                           "leaders": list(world.topology().leaders),
+                           **out}).encode()
+
+
+def _metric(snap: dict, name: str, **labels) -> float:
+    return sum(row["value"] for row in snap.get(name, {}).get("series", [])
+               if all(row["labels"].get(k) == v for k, v in labels.items()))
+
+
+def plane_bytes() -> dict:
+    """Process-wide bytes (and frames) sent on each plane so far: shm
+    rings, bulk TCP, the RPC plane's data channel; coded delta frames
+    and full-frame escapes."""
+    from faabric_tpu_torch.telemetry import get_metrics
+
+    snap = get_metrics().snapshot()
+    return {"shm": _metric(snap, "faabric_bulk_tx_bytes_total", path="shm"),
+            "tcp": _metric(snap, "faabric_bulk_tx_bytes_total", path="tcp"),
+            "rpc": _metric(snap, "faabric_ptp_rpc_bytes_total",
+                           channel="data"),
+            "rpc_frames": _metric(snap, "faabric_ptp_rpc_frames_total",
+                                  channel="data"),
+            "delta_frames": _metric(snap, "faabric_codec_frames_total",
+                                    codec="delta"),
+            "escapes": _metric(snap, "faabric_codec_escapes_total")}
+
+
+def planes_phase(dev, build, cfg=None, per_rank: int = 2, seq: int = 512,
+                 base: int | None = None) -> dict:
+    """Phase 22: the flagship's data-parallel step across two hosts on
+    each of faabric's data planes. A planner and two WorkerRuntimes
+    (``mpi-host-a``, ``mpi-host-b``, 2 slots each) gang-schedule 4 ranks,
+    2 + 2, of :func:`register_planes_guests`' step at full width (bf16
+    compute); each rank takes (per_rank, seq) tokens, and the fp32
+    gradient crosses the hosts on the host ladder. Both hosts are
+    aliases of this machine.
+
+    22a, shm rings: one step on the flat ring; the bulk clients' ring
+    frames grow and their rings are live, the RPC plane carries no
+    data-channel message, the ranks' parameters are bitwise equal. 22c,
+    the int8 leader ring (same cluster): every rank's world with
+    ``hier_enabled="force"`` and ``allreduce_quant="int8"``, one step on
+    the hier rung; the parameters agree bitwise; the same gradients'
+    exact hier sum is within max|chunk| / 254 (plus fp32 rounding) of
+    the quantised one chunk by chunk, the chunk being the sending
+    leader's host-reduced one; the leaders' wire bytes are about 5/8 of
+    the exact ring's. 22b, bulk TCP (a fresh cluster with
+    ``SHM_BULK=0``): the same step from the same start, bitwise equal to
+    22a's, its frames on the data stripes (more than one when
+    ``BULK_STRIPES`` > 1) and on no ring; then 2 steps that each start
+    with a broadcast of rank 0's parameters on the raw wire, and the same
+    2 steps with the codec forced to delta (``FAABRIC_DELTA_CACHE_MB``
+    raised to 1024, so one step's stream fits the caches): coded frames
+    sent, deltas found their bases, parameters bitwise equal to the raw
+    wire's. Every part's kernel launches are one rank's step's times 4
+    times its steps, every flash forward on the ``wgmma`` body (on the
+    card). Logs per plane the step and allreduce ms by rank, the bytes on
+    rings, TCP and RPC, the device busy share and peak memory. Returns
+    the parts' launches."""
+    from faabric_tpu_torch.executor import TorchExecutorFactory
+    from faabric_tpu_torch.models import ModelConfig, Transformer
+    from faabric_tpu_torch.mpi import world as world_mod
+    from faabric_tpu_torch.transport import bulk as bulk_mod
+    from faabric_tpu_torch.transport.codec import (
+        reset_wire_governor,
+        set_wire_codec,
+    )
+
+    log("phase 22: the data-parallel step across two hosts on the shm, "
+        "bulk TCP and wire-codec planes and the int8 leader ring")
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    if on_card:
+        log("  22 card: " + subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = cfg or ModelConfig()
+    n, lr = MPI_RANKS, 0.5
+    hosts = {"mpi-host-a": 2, "mpi-host-b": 2}
+    corpus = np.random.RandomState(22).randint(
+        0, cfg.vocab_size, (2, n * per_rank, seq + 1)).astype(np.int64)
+
+    def batch(step, rank, device):
+        b = torch.as_tensor(corpus[step % 2, rank * per_rank:
+                                   (rank + 1) * per_rank], device=device)
+        return b[:, :-1], b[:, 1:]
+
+    params, grads, sums = {}, {}, {}
+    job = {"model": lambda device: Transformer(
+               cfg, device=device,
+               generator=torch.Generator(device=device).manual_seed(22)),
+           "batch": batch, "lr": lr, "params": params, "grads": grads,
+           "sums": sums}
+    per_step = {"flash_attention": 2 * cfg.n_layers,
+                "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
+                "rms_norm": 4 * cfg.n_layers + 1}
+    log(f"  22: BULK_STRIPES {bulk_mod.BULK_STRIPES}, a ring budget of "
+        f"{int(os.environ.get('SHM_RING_BYTES', 32 << 20)):,} bytes a peer, "
+        f"ring chunks of {world_mod.RING_CHUNK_BYTES:,} bytes")
+    path: dict = {}
+    factory = TorchExecutorFactory(device=dev.type)
+    saved_env = {k: os.environ.get(k)
+                 for k in ("SHM_BULK", "FAABRIC_DELTA_CACHE_MB")}
+
+    def clients(workers):
+        return [c for w in workers
+                for c in w.ptp_broker._bulk_clients.values()]
+
+    def run_part(label, client, steps, **updates):
+        """One gang run of ``steps`` steps; checks its launches and logs
+        its times and bytes. Returns (guest outputs, bytes moved)."""
+        job.update(steps=steps, broadcast=False, exact=False, world={})
+        job.update(updates)
+        params.clear()
+        if on_card:
+            torch.cuda.synchronize()
+        before, launches0 = plane_bytes(), dict(build.LAUNCHES)
+        results, wall = run_gang(client, "planes_step", n)
+        if on_card:
+            torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in plane_bytes().items()}
+        launches = {k: v - launches0.get(k, 0)
+                    for k, v in build.LAUNCHES.items()
+                    if v != launches0.get(k, 0)}
+        outs = guest_outputs(results, f"22{label}")
+        check(sorted(o["host"] for o in outs)
+              == sorted(h for h, k in hosts.items() for _ in range(k)),
+              f"22{label}: 4 ranks split 2 + 2 across the hosts")
+        flat = [params[r] for r in range(n)]
+        check(all(torch.equal(flat[0], f) for f in flat[1:]),
+              f"22{label}: the ranks' parameters are bitwise equal after "
+              f"{steps} step(s)")
+        if on_card:
+            for name, count in per_step.items():
+                check(launches.get(name, 0) == count * n * steps,
+                      f"22{label}: {name} launched {launches.get(name, 0)} "
+                      f"times = {count} a step x {n} ranks x {steps} steps")
+            check(launches.get("flash_attention.wgmma", 0)
+                  == launches.get("flash_attention", -1),
+                  f"22{label}: every flash forward took the wgmma body")
+        for k, v in launches.items():
+            path[k] = path.get(k, 0) + v
+        log(f"  22{label} step wall ms by rank: "
+            + "; ".join(", ".join(f"{t:.1f}" for t in o["step_ms"])
+                        for o in outs)
+            + "; allreduce ms: "
+            + "; ".join(", ".join(f"{t:.1f}" for t in o["allreduce_ms"])
+                        for o in outs)
+            + (("; broadcast ms: " + "; ".join(
+                ", ".join(f"{t:.1f}" for t in o["bcast_ms"]) for o in outs))
+               if job["broadcast"] else "")
+            + f"; {wall:.1f} ms through the planner")
+        log(f"  22{label} bytes sent: rings {moved['shm']:,.0f}, bulk TCP "
+            f"{moved['tcp']:,.0f}, RPC data {moved['rpc']:,.0f} in "
+            f"{moved['rpc_frames']:.0f} messages; launches {launches}")
+        return outs, moved
+
+    def profile(label, client, **updates):
+        if not on_card:
+            return
+        job.update(steps=1, broadcast=False, exact=False, world={})
+        job.update(updates)
+        busy, _ = profile_top(lambda: run_gang(client, "planes_step", n),
+                              f"22{label}: a step over two hosts", top=4)
+        params.clear()
+        log(f"  22{label} device busy {busy:.0f} us of the profiled step; "
+            f"peak memory so far {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    register_planes_guests(job)
+    os.environ["SHM_BULK"] = "1"
+    planner_server, workers = start_cluster(hosts, factory, base)
+    try:
+        client = workers[0].planner_client
+        # -- 22a. shm rings ------------------------------------------------
+        outs, moved = run_part("a (shm rings)", client, 1)
+        check(all(o["rungs"].get("allreduce") == "ring" for o in outs),
+              "22a: the gradient allreduce took the flat ring")
+        bulk = clients(workers)
+        check(len(bulk) == 2 and all(c.shm_frames > 0 and c.rings()
+                                     for c in bulk),
+              f"22a: both hosts' bulk clients pushed frames into live rings "
+              f"({[c.shm_frames for c in bulk]} ring frames, "
+              f"{[len(c.rings()) for c in bulk]} rings)")
+        check(moved["rpc_frames"] == 0 and moved["tcp"] == 0,
+              f"22a: the RPC plane carried {moved['rpc_frames']:.0f} "
+              f"data-channel messages and bulk TCP {moved['tcp']:.0f} bytes")
+        params_a = params[0].clone()
+        log(f"  22a: a gradient of {params_a.numel():,} fp32 values a rank")
+        profile("a (shm rings)", client)
+
+        # -- 22c. the int8 leader ring -------------------------------------
+        knobs = {"hier_enabled": "force", "allreduce_quant": "int8"}
+        outs, moved = run_part("c (int8 leader ring)", client, 1,
+                               world=knobs, exact=True)
+        check(all(o["rungs"].get("allreduce") == "hier" for o in outs),
+              "22c: every rank's allreduce took the hier rung")
+        leaders = outs[0]["leaders"]
+        on_host = {}
+        for o in outs:
+            on_host.setdefault(o["host"], []).append(o["rank"])
+        host_of = {o["rank"]: o["host"] for o in outs}
+        host_acc = [sum(grads[r] for r in on_host[host_of[ld]])
+                    for ld in leaders]
+        quant, exact = sums["quant"], sums["exact"]
+        eps = float(np.finfo(np.float32).eps)
+        ratios, over = [], []
+        for s, ld in enumerate(leaders):
+            lo = (s * quant.size) // len(leaders)
+            hi = ((s + 1) * quant.size) // len(leaders)
+            for clo, chi in world_mod.MpiWorld._ring_chunks(lo, hi, 4):
+                peak = float(np.abs(host_acc[s][clo:chi]).max())
+                err = float(np.abs(quant[clo:chi] - exact[clo:chi]).max())
+                # The scale's half step, and fp32 rounding of the
+                # quantise, decode and fold
+                bound = peak / 254 + 4 * eps * (peak + float(
+                    np.abs(exact[clo:chi]).max()))
+                ratios.append(err / bound if bound else 0.0)
+                if err > bound:
+                    over.append((ld, clo, err, bound))
+        check(not over, f"22c: the int8 sum is within max|chunk| / 254 of "
+              f"the exact hier sum in all {len(ratios)} chunks (the worst "
+              f"at {max(ratios):.6f} of its bound; max |err| "
+              f"{float(np.abs(quant - exact).max()):.4g}; over: {over[:4]})")
+        lead = [o for o in outs if o["rank"] in leaders]
+        q_bytes = sum(o["wire_bytes"][0] for o in lead)
+        x_bytes = sum(o["exact_wire_bytes"][0] for o in lead)
+        ratio = q_bytes / x_bytes if x_bytes else float("nan")
+        check(0.60 <= ratio <= 0.65,
+              f"22c: the leaders put {q_bytes:,} bytes on the wire against "
+              f"{x_bytes:,} for the exact ring ({ratio:.4f}, about 5/8)")
+        log(f"  22c: exact hier allreduce ms "
+            + ", ".join(f"{o['exact_ms'][0]:.1f}" for o in outs))
+        grads.clear()
+        sums.clear()
+        profile("c (int8 leader ring)", client, world=knobs)
+    finally:
+        stop_cluster(planner_server, workers)
+
+    # -- 22b. bulk TCP, then the delta codec --------------------------------
+    os.environ["SHM_BULK"] = "0"
+    register_planes_guests(job)
+    planner_server, workers = start_cluster(hosts, factory, base)
+    try:
+        client = workers[0].planner_client
+        outs, moved = run_part("b (bulk TCP)", client, 1)
+        check(torch.equal(params[0], params_a),
+              "22b: the parameters are bitwise equal to 22a's")
+        bulk = clients(workers)
+        stripes = [c.stripe_frames() for c in bulk]
+        data_used = [sum(1 for i, (tcp, _) in sf.items() if i and tcp)
+                     for sf in stripes]
+        check(all(u >= (2 if bulk_mod.BULK_STRIPES > 1 else 1)
+                  for u in data_used),
+              f"22b: the gradient's frames went out on {data_used} data "
+              f"stripes a host (BULK_STRIPES {bulk_mod.BULK_STRIPES}; frames "
+              f"by stripe {stripes})")
+        check(moved["shm"] == 0 and not any(c.rings() or c.shm_frames
+                                             for c in bulk),
+              "22b: no ring was used")
+        profile("b (bulk TCP)", client)
+        run_part("b (raw, broadcast)", client, 2, broadcast=True)
+        params_raw = params[0].clone()
+        os.environ["FAABRIC_DELTA_CACHE_MB"] = "1024"
+        set_wire_codec("delta")
+        coded0 = sum(c.coded_frames for c in bulk)
+        _, moved = run_part("b (delta codec)", client, 2, broadcast=True)
+        bulk = clients(workers)
+        coded = sum(c.coded_frames for c in bulk) - coded0
+        check(coded > 0 and moved["delta_frames"] > 0,
+              f"22b: {coded} coded frames sent, {moved['delta_frames']:.0f} "
+              f"of them deltas against a cached base")
+        check(torch.equal(params[0], params_raw),
+              "22b: the parameters after 2 steps on the delta codec are "
+              "bitwise equal to the same 2 steps on the raw wire")
+        wire = sum(s.wire_bytes for c in bulk for s in c.stripes()
+                   if s.coded_frames)
+        raw = sum(s.raw_bytes for c in bulk for s in c.stripes()
+                  if s.coded_frames)
+        log(f"  22b delta codec: wire {wire:,} bytes for {raw:,} raw bytes "
+            f"on the coded stripes ({wire / max(raw, 1):.4f}); "
+            f"{sum(c.escape_frames for c in bulk)} full-frame escapes, "
+            f"{moved['escapes']:.0f} escapes counted")
+    finally:
+        reset_wire_governor()
+        stop_cluster(planner_server, workers)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if on_card:
+        log(f"  22 peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+            f"GiB")
+    log(f"  phase 22 launches: {path}")
+    log(f"  phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    return path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3679,18 +4060,20 @@ def main() -> int:
     snapshot_launches = snapshot_phase(dev, _build)
     # -- 21. THREADS batches, merged through snapshot diffs; chaining -----
     threads_launches = threads_phase(dev, _build)
+    # -- 22. the gradient across two hosts on each data plane -------------
+    planes_launches = planes_phase(dev, _build)
     # Each row's launches: the serving kernels' on the direct serving
     # path (phase 5) and under the executors (13), the backward kernels'
     # on the training path (9), the ring kernel's on the MPI path (12),
     # and every launch of the mesh (14), pipeline (15), MoE (16), guest
     # data-parallel (17), sharded decode and perplexity (18), state (19),
-    # snapshot (20) and THREADS and chaining (21) paths
+    # snapshot (20), THREADS and chaining (21) and data-plane (22) paths
     path_launches = {
         name: sum(p.get(name, 0) for p in paths) + sum(
             p.get(name, 0) for p in (mesh_launches, pp_launches, moe_launches,
                                      guest_launches, serving_mesh_launches,
                                      state_launches, snapshot_launches,
-                                     threads_launches))
+                                     threads_launches, planes_launches))
         for name, paths in (
             ("rms_norm", (launches, faabric_launches)),
             ("flash_attention", (launches, faabric_launches)),

@@ -1,7 +1,8 @@
 """MPI semantics over the point-to-point broker (reference src/mpi).
 
-Exports what ``faabric_tpu/mpi/__init__.py`` exports, without the
-quantised link (``mpi/quant.py`` is not ported)."""
+Exports what ``faabric_tpu/mpi/__init__.py`` exports. The int8 link of
+the leader ring is ``mpi/quant.py``, which ``MpiWorld.allreduce_quant``
+selects."""
 
 from faabric_tpu_torch.mpi.types import (
     MpiDataType,

@@ -9,10 +9,14 @@ message. A world's ranks may span hosts:
   (``refresh_rank_hosts``, ``topology``, ``device_for_rank``);
 - point to point: a message to a rank of this host rides the broker's
   in-process queue as the array itself (``_LocalMpiPayload``); one to a
-  rank of another host goes out as an ``MpiWirePayload`` over the RPC
-  plane (transport/ptp_remote.py), in send order. ``isend`` to another
-  host runs on the rank's send worker, and a blocking send never
-  overtakes the rank's queued isends to the same destination;
+  rank of another host goes out as an ``MpiWirePayload``, in send order,
+  on the plane the broker picks (bulk TCP stripes, shm rings to a host
+  of this machine, the RPC plane: transport/point_to_point.py). A
+  received wire array may be read-only, shared with the bulk plane's
+  codec cache: ``recv`` and every collective copy it before writing.
+  ``isend`` to another host runs on the rank's send worker, and a
+  blocking send never overtakes the rank's queued isends to the same
+  destination;
 - the collectives keep the reference's algorithms and fold orders, so
   host results match the reference's bit for bit: locality-aware leader
   trees (broadcast, reduce, gather: one message per remote host), the
@@ -43,9 +47,13 @@ or "force") and ``FAABRIC_DEVICE_PLANE`` ("0" makes
 ``activate_device_plane`` refuse). They must agree across the processes
 of a world. ``sched_reductions`` is a plain attribute.
 
-Not ported (``ROADMAP.md`` Queue 1 #7): the int8 leader-ring codec
-(``mpi/quant.py``) with its knobs, telemetry spans, the collective
-profiler and fault points.
+``allreduce_quant`` ("" or "int8", default ``FAABRIC_ALLREDUCE_QUANT``)
+quantises the hierarchical allreduce's leader ring on its fold leg
+(``mpi/quant.py``), each hop as the wire-codec governor says
+(``_quant_link_ok``); every host's world must agree on it.
+
+Not ported (``ROADMAP.md`` Queue 1 #7 part B): telemetry spans, the
+collective profiler and fault points.
 """
 
 from __future__ import annotations
@@ -59,6 +67,11 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from faabric_tpu_torch.mpi.quant import (
+    ALLREDUCE_QUANT,
+    leader_ring_codec,
+    resolve_quant_mode,
+)
 from faabric_tpu_torch.mpi.schedule import ScheduleCache
 from faabric_tpu_torch.mpi.types import (
     MPI_HEADER_FMT,
@@ -212,6 +225,9 @@ class MpiWorld:
         # machines (_hier_wins), "force" also across hosts of this one,
         # False never. Every host's world must hold the same value.
         self.hier_enabled: bool | str = HIER_COLLECTIVES
+        # The leader ring's wire quantisation (mpi/quant.py): "" or
+        # "int8". Every host's world must hold the same value
+        self.allreduce_quant = ALLREDUCE_QUANT
         # The schedule compiler (mpi/schedule.py): True or "force" runs
         # scatter, scatterv, scan and alltoall as verified schedules,
         # False as the direct loops. sched_reductions (with "force")
@@ -1290,8 +1306,12 @@ class MpiWorld:
             out = self._private_result(arr, data)
             restore()
             return out
-        result = self._allreduce_ring(rank, host_acc, op,
-                                      ring=list(topo.leaders))
+        # The leader ring, the leg that crosses machines, may quantise
+        # its fold (mpi/quant.py); intra-host phases stay exact
+        result = self._allreduce_ring(
+            rank, host_acc, op, ring=list(topo.leaders),
+            codec=leader_ring_codec(resolve_quant_mode(self.allreduce_quant),
+                                    host_acc.dtype, op))
         if len(locals_) > 1:
             shared = result.reshape(-1)
             shared.flags.writeable = False
@@ -1304,11 +1324,13 @@ class MpiWorld:
         return self._private_result(result, data, private=True)
 
     def _allreduce_ring(self, rank: int, data: np.ndarray, op,
-                        ring: list[int] | None = None) -> np.ndarray:
+                        ring: list[int] | None = None,
+                        codec=None) -> np.ndarray:
         """Chunk-pipelined ring allreduce: n-1 reduce-scatter steps, then
         n-1 allgather steps passing chunk references on, each received
         chunk written straight into the result. ``ring`` restricts it to
-        an ordered rank subset (the hierarchical leader ring)."""
+        an ordered rank subset (the hierarchical leader ring); ``codec``
+        encodes the reduce-scatter's wire (``_ring_reduce_scatter``)."""
         flat = data.reshape(-1)
         if ring is None:
             ring = list(range(self.size))
@@ -1316,7 +1338,8 @@ class MpiWorld:
         pos = ring.index(rank)
         seg = self._ring_segments(flat.size, n)
         nxt, prv = ring[(pos + 1) % n], ring[(pos - 1) % n]
-        held, restore = self._ring_reduce_scatter(rank, data, op, ring=ring)
+        held, restore = self._ring_reduce_scatter(rank, data, op, ring=ring,
+                                                  codec=codec)
         out = np.empty(flat.size,
                        dtype=held[0].dtype if held else flat.dtype)
         # Our fully reduced segment, while its chunks are in hand
@@ -1361,16 +1384,36 @@ class MpiWorld:
         elems = max(1, RING_CHUNK_BYTES // max(1, itemsize))
         return [(c, min(c + elems, hi)) for c in range(lo, hi, elems)]
 
+    def _quant_link_ok(self, peer: int) -> bool:
+        """Whether the leader-ring hop to ``peer`` quantises (the
+        wire-codec governor's verdict). Each chunk carries the answer
+        (the NaN-scale raw form), so peers need agree only on the
+        codec's framing, which the world's knob fixes."""
+        from faabric_tpu_torch.transport.codec import get_wire_governor
+        from faabric_tpu_torch.transport.common import host_is_local
+
+        host = self.host_for_rank(peer)
+        local = host == self.broker.host or host_is_local(host)
+        return get_wire_governor().quant_for_link(self.allreduce_quant,
+                                                  host, local)
+
     def _ring_reduce_scatter(self, rank: int, data: np.ndarray, op,
                              ring: list[int] | None = None,
-                             seg: list[tuple[int, int]] | None = None):
+                             seg: list[tuple[int, int]] | None = None,
+                             codec=None):
         """The ring's fold phase: n-1 steps, each participant folding its
         part into the partial chunks it receives, (received, mine).
         Returns (chunks of the fully reduced segment (pos+1) % n in
         offset order, restore_fn); the caller runs restore_fn only after
         its trailing phase proves every neighbour consumed the step-0
         views of its buffer. ``seg`` overrides the segment partition
-        (the hierarchical reduce_scatter's per-host spans)."""
+        (the hierarchical reduce_scatter's per-host spans).
+
+        ``codec`` (mpi/quant.py) encodes every chunk on the wire and
+        decodes it into a private buffer before the fold. Encoding
+        copies, so the caller's buffer is never shared with a peer and
+        restore_fn does nothing. Every participant must use the same
+        codec."""
         flat = data.reshape(-1)
         if ring is None:
             ring = list(range(self.size))
@@ -1383,30 +1426,46 @@ class MpiWorld:
         lo, hi = seg[pos]
         first = flat[lo:hi]
         was_writeable = first.flags.writeable
-        first.flags.writeable = False
+        if codec is None:
+            first.flags.writeable = False
+        else:
+            # Whether this rank's next hop quantises is its own link's
+            # verdict; a raw hop ships the NaN-scale fp32 form
+            quant_link = self._quant_link_ok(nxt)
         for clo, chi in self._ring_chunks(lo, hi, flat.itemsize):
-            self.send(rank, nxt, first[clo - lo:chi - lo],
-                      MpiMessageType.REDUCE, _copy=False)
+            chunk = first[clo - lo:chi - lo]
+            if codec is not None:
+                chunk = codec.encode(chunk, quantize=quant_link)
+            self.send(rank, nxt, chunk, MpiMessageType.REDUCE, _copy=False)
         held: list[np.ndarray] = []
         for step in range(n - 1):
             slo, shi = seg[(pos - step - 1) % n]
             for clo, chi in self._ring_chunks(slo, shi, flat.itemsize):
                 arr, _, owned = self._recv_raw_owned(prv, rank)
                 mine = flat[clo:chi]
-                if owned and arr.flags.writeable and arr.dtype == mine.dtype:
+                if codec is not None:
+                    # decode allocates a private fp32 chunk to fold into
+                    folded = apply_op_inplace(op, codec.decode(arr), mine)
+                elif owned and arr.flags.writeable \
+                        and arr.dtype == mine.dtype:
                     folded = apply_op_inplace(op, arr, mine)
-                else:  # a shared step-0 view: fold into a new buffer
+                else:  # a shared or read-only chunk: fold into a new one
                     folded = np.asarray(apply_op(op, arr, mine))
                 if step < n - 2:
-                    # Ownership moves on: the receiver folds into it
-                    self.send(rank, nxt, folded, MpiMessageType.REDUCE,
-                              _transfer=True)
+                    if codec is not None:
+                        self.send(rank, nxt,
+                                  codec.encode(folded, quantize=quant_link),
+                                  MpiMessageType.REDUCE, _copy=False)
+                    else:
+                        # Ownership moves on: the receiver folds into it
+                        self.send(rank, nxt, folded, MpiMessageType.REDUCE,
+                                  _transfer=True)
                     del folded
                 else:
                     held.append(folded)
 
         def restore():
-            if was_writeable:
+            if codec is None and was_writeable:
                 first.flags.writeable = True
 
         return held, restore

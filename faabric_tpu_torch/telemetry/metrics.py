@@ -1,10 +1,11 @@
 """Process-wide registry of labelled counters.
 
-The part of ``faabric_tpu/telemetry/metrics.py`` that the device plane
-and its copy accounting need: monotonic counters keyed by name and
-label set, and a JSON-safe snapshot. Gauges, histograms, the
+The part of ``faabric_tpu/telemetry/metrics.py`` that the device plane,
+its copy accounting and the data planes (``transport/{bulk,shm,codec}.py``,
+the RPC plane's point-to-point messages) need: monotonic counters keyed
+by name and label set, and a JSON-safe snapshot. Gauges, histograms, the
 Prometheus exposition, spans, the comm matrix and the collective
-profiler are not ported (``ROADMAP.md`` Queue 1 #7).
+profiler are not ported (``ROADMAP.md`` Queue 1 #7 part B).
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 
 The port plan of ``faabric_tpu/transport/common.py``: state 8003/8004,
 function calls 8005/8006, snapshots 8007/8008, point-to-point 8009/8010,
-planner 8011/8012, MPI data-plane base 8020. Both packages bind the same
+planner 8011/8012, the bulk data plane 8014 (``transport/bulk.py``),
+MPI data-plane base 8020. Both packages bind the same
 ports, so a host of one can talk to a host of the other.
 
 Host aliases run several logical hosts in one process or on one
@@ -72,6 +73,16 @@ def resolve_host(host: str, port: int) -> tuple[str, int]:
             ip, offset = _aliases[host]
             return ip, port + offset
     return host, port
+
+
+def host_is_local(host: str) -> bool:
+    """Whether a logical host resolves to this machine (loopback or the
+    primary interface's address): the link class on which the shm rings
+    run and the wire-codec governor keeps frames raw."""
+    from faabric_tpu_torch.util.network import is_local_ip
+
+    ip, _ = resolve_host(host, 0)
+    return is_local_ip(ip)
 
 
 def get_host_alias_offset(host: str) -> int:

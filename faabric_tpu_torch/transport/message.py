@@ -134,3 +134,14 @@ def recv_frame(sock: socket.socket) -> TransportMessage:
         code=code, header=header, payload=payload, seqnum=seqnum, response_code=resp
     )
 
+
+
+def tune_socket(sock: socket.socket) -> None:
+    """Data-plane socket tuning, the reference's OpenMPI-style options:
+    TCP_NODELAY and 16 MiB send and receive buffers."""
+    sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    try:
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, 16 * 1024 * 1024)
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 16 * 1024 * 1024)
+    except OSError:
+        pass

@@ -5,36 +5,55 @@ Counterpart of ``faabric_tpu/transport/point_to_point.py``
 maps (group_id, group_idx) → (host, MPI port, device id) from a
 ``SchedulingDecision``. A message lands in an in-process FIFO queue per
 (group, sender, receiver, channel): directly when both ranks live on
-this host, through the receiving host's ``PointToPointServer`` (the RPC
-plane, ``ptp_remote.py``) when they do not. Remote messages carry a
-sequence number per queue, and the receiving broker puts them back in
-send order before they enter the FIFO (the server's worker threads may
-hand them over in another order), so every queue keeps MPI's
-non-overtaking order.
+this host, through the receiving host's servers when they do not.
+``send_message`` picks the plane as the reference's ``_send_remote``
+does:
+
+- frames of ``BULK_THRESHOLD`` to ``MAX_FRAME_BYTES`` go to the bulk
+  plane (``bulk.py``: striped tuned sockets, or shm rings to a peer on
+  this machine);
+- smaller data-channel frames go to a peer on this machine when its
+  control stripe has a live shm ring (``small_frames_ok``);
+- everything else, coordination frames and mock mode included, goes on
+  the RPC plane (``ptp_remote.py``). A bulk outage is remembered for
+  ``BULK_RETRY_SECONDS``, and its frames take the RPC plane meanwhile.
+
+Remote messages carry a sequence number per queue on every plane, and
+the receiving broker puts them back in send order before they enter the
+FIFO: the planes, the stripes and the server's worker threads hand them
+over in any order, and a reconnect may deliver one twice (the duplicate
+is dropped). So every queue keeps MPI's non-overtaking order.
 
 Coordination traffic (lock grants, barrier releases, notify) uses its
 own channel, so that it never shares a queue with application data.
 
 A message to another host is bytes, or an object with ``buffers()``
-(an MPI wire payload): its header and array go out back to back on the
-RPC plane, at any size, without being joined into one copy. A probe
-(``probe_message``, ``try_probe_message``) takes the next message off
-its queue and holds it for the recv that follows.
+(an MPI wire payload): its header and array go out back to back,
+without being joined into one copy. A large one arrives as a uint8
+array the receiver owns, or a read-only one shared with the bulk
+plane's codec cache. A probe (``probe_message``, ``try_probe_message``)
+takes the next message off its queue and holds it for the recv that
+follows.
 
-Not ported (``ROADMAP.md`` Queue 1 #7): the bulk and shm data planes
-(the reference sends large frames over the RPC plane too when a peer
-has no bulk server), the wire codecs, peer-liveness probes of watched
-groups and the abort relay through the planner.
+Not ported: peer-liveness probes of watched groups and the abort relay
+through the planner (``ROADMAP.md`` Queue 1 #7 part C), and the send
+spans, comm-matrix and flight records (part B).
 """
 
 from __future__ import annotations
 
 import collections
 import queue
+import struct
 import threading
+import time
 
 from faabric_tpu_torch.proto import PointToPointMapping, PointToPointMappings
 from faabric_tpu_torch.util.config import get_system_config
+from faabric_tpu_torch.util.logging import get_logger
+from faabric_tpu_torch.util.testing import is_mock_mode
+
+logger = get_logger(__name__)
 
 POINT_TO_POINT_MAIN_IDX = 0
 NO_LOCK_OWNER_IDX = -1
@@ -104,6 +123,10 @@ class PointToPointBroker:
         self._peeked: dict[tuple[int, int, int, int], collections.deque] = {}
         self._groups: dict[int, PointToPointGroup] = {}
         self._clients: dict[str, object] = {}
+        self._bulk_clients: dict[str, object] = {}
+        self._bulk_down_until: dict[str, float] = {}
+        # host → whether it is this machine with shm rings usable
+        self._shm_peers: dict[str, bool] = {}
         self._aborted: dict[int, str] = {}
 
     # ------------------------------------------------------------------
@@ -209,6 +232,39 @@ class PointToPointBroker:
         with self._lock:
             seq = self._sent_seq.get(key, 0)
             self._sent_seq[key] = seq + 1
+        self._send_remote(key, dst_host, wire, seq)
+
+    def _send_remote(self, key: tuple[int, int, int, int], dst_host: str,
+                     wire, seq: int) -> None:
+        """``wire`` is bytes or a list of buffers (header, array)."""
+        from faabric_tpu_torch.transport.bulk import (
+            BULK_THRESHOLD,
+            MAX_FRAME_BYTES,
+        )
+
+        group_id, send_idx, recv_idx, channel = key
+        bufs = wire if isinstance(wire, list) else [wire]
+        nbytes = sum(memoryview(b).nbytes for b in bufs)
+        use_bulk = BULK_THRESHOLD <= nbytes <= MAX_FRAME_BYTES
+        small_shm = (not use_bulk and channel == DATA_CHANNEL
+                     and self._shm_peer(dst_host))
+        if ((use_bulk or small_shm) and not is_mock_mode()
+                and not self._bulk_down(dst_host)):
+            try:
+                client = self._get_bulk_client(dst_host)
+                # Sub-threshold frames switch plane only onto a live
+                # control ring: over TCP the RPC plane is as fast
+                if use_bulk or client.small_frames_ok():
+                    client.send(group_id, send_idx, recv_idx, bufs, seq,
+                                channel)
+                    return
+            except (OSError, ValueError, struct.error) as e:
+                # Remembered, so a chunk stream does not pay a dial a
+                # chunk; the receiver drops a frame that arrives twice
+                self._mark_bulk_down(dst_host)
+                logger.debug("Bulk send to %s unavailable (%s); using "
+                             "RPC plane for %.0fs", dst_host, e,
+                             self.BULK_RETRY_SECONDS)
         self._get_client(dst_host).send_message(
             group_id, send_idx, recv_idx, wire, seq, channel)
 
@@ -233,6 +289,15 @@ class PointToPointBroker:
                 q.put(early.pop(expected))
                 expected += 1
             self._recv_seq[key] = expected
+
+    def deliver_many(self, group_id: int, send_idx: int, recv_idx: int,
+                     items: list, channel: int = DATA_CHANNEL) -> None:
+        """Deliver a burst of ``(seq, data)`` of one queue (a shm ring
+        drain's batch)."""
+        with self._lock:
+            for seq, data in items:
+                self.deliver(group_id, send_idx, recv_idx, data, seq,
+                             channel)
 
     def recv_message(self, group_id: int, send_idx: int, recv_idx: int,
                      timeout: float | None = None,
@@ -307,6 +372,48 @@ class PointToPointBroker:
                 client = self._clients[host] = PointToPointClient(host)
             return client
 
+    def _get_bulk_client(self, host: str):
+        client = self._bulk_clients.get(host)  # unlocked per-message read
+        if client is not None:
+            return client
+        from faabric_tpu_torch.transport.bulk import BulkClient
+
+        with self._lock:
+            client = self._bulk_clients.get(host)
+            if client is None:
+                client = self._bulk_clients[host] = BulkClient(host)
+            return client
+
+    # After a failed bulk send, the RPC plane carries the host's frames
+    # for this long instead of a dial a frame
+    BULK_RETRY_SECONDS = 30.0
+
+    def _shm_peer(self, host: str) -> bool:
+        """Whether ``host`` is this machine and shm rings are usable:
+        the rule for the small-frame fast path. Cached a host."""
+        cached = self._shm_peers.get(host)  # unlocked per-message read
+        if cached is not None:
+            return cached
+        from faabric_tpu_torch.transport import shm
+        from faabric_tpu_torch.transport.common import host_is_local
+
+        try:
+            result = shm.shm_available() and host_is_local(host)
+        except Exception:  # noqa: BLE001 — an unresolvable host is remote
+            result = False
+        with self._lock:
+            self._shm_peers[host] = result
+        return result
+
+    def _bulk_down(self, host: str) -> bool:
+        until = self._bulk_down_until.get(host, 0.0)
+        return until > 0.0 and time.monotonic() < until
+
+    def _mark_bulk_down(self, host: str) -> None:
+        with self._lock:
+            self._bulk_down_until[host] = (time.monotonic()
+                                           + self.BULK_RETRY_SECONDS)
+
     # ------------------------------------------------------------------
     # Abort
     # ------------------------------------------------------------------
@@ -364,8 +471,12 @@ class PointToPointBroker:
                       self._queues, self._sent_seq, self._recv_seq,
                       self._early, self._peeked, self._aborted):
                 d.clear()
-            clients = list(self._clients.values())
+            clients = (list(self._clients.values())
+                       + list(self._bulk_clients.values()))
             self._clients.clear()
+            self._bulk_clients.clear()
+            self._bulk_down_until.clear()
+            self._shm_peers.clear()
         for c in clients:
             c.close()
 

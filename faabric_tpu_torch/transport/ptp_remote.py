@@ -7,10 +7,12 @@ holds, installs mappings and clears finished groups; the client sends
 them, and records them instead in mock mode. The planner pushes every
 decision's mappings through ``send_mappings_from_decision``.
 
-MPI payloads to another host ride the RPC plane at any size (the
-reference's fallback when a peer has no bulk server); the bulk data
-plane that the reference's server starts beside it is not ported
-(``ROADMAP.md`` Queue 1 #7).
+The server owns its host's ``BulkServer`` (``transport/bulk.py``) on
+the host's alias offset: it starts it after itself and stops it first.
+The broker sends large payloads, and every data-channel payload to a
+peer on this machine, on that plane; this server keeps the coordination
+channel and is every plane's fallback. Its clients count the messages
+and bytes they send, by channel (``faabric_ptp_rpc_{frames,bytes}_total``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import enum
 import threading
 
 from faabric_tpu_torch.proto import PointToPointMappings
+from faabric_tpu_torch.telemetry import get_metrics
+from faabric_tpu_torch.transport.bulk import BulkServer
 from faabric_tpu_torch.transport.client import MessageEndpointClient
 from faabric_tpu_torch.transport.common import (
     POINT_TO_POINT_ASYNC_PORT,
@@ -57,6 +61,21 @@ _LOCK_CALLS = {
     PointToPointCall.UNLOCK_GROUP: (False, False),
     PointToPointCall.UNLOCK_GROUP_RECURSIVE: (False, True),
 }
+
+_CHANNELS = ((0, "data"), (1, "coord"))
+_RPC_FRAMES = {
+    channel: get_metrics().counter(
+        "faabric_ptp_rpc_frames_total",
+        "Point-to-point messages sent on the RPC plane", channel=name)
+    for channel, name in _CHANNELS
+}
+_RPC_BYTES = {
+    channel: get_metrics().counter(
+        "faabric_ptp_rpc_bytes_total",
+        "Point-to-point payload bytes sent on the RPC plane", channel=name)
+    for channel, name in _CHANNELS
+}
+
 
 # Lock handlers run on the server's worker pool: a lock for a group
 # whose mappings never come must not hold a worker for long
@@ -123,6 +142,11 @@ class PointToPointClient(MessageEndpointClient):
                 _sent_messages.append(
                     (self.host, group_id, send_idx, recv_idx, data))
             return
+        if channel in _RPC_FRAMES:
+            _RPC_FRAMES[channel].inc()
+            _RPC_BYTES[channel].inc(
+                sum(memoryview(b).nbytes for b in data)
+                if isinstance(data, list) else len(data))
         self.async_send(int(PointToPointCall.MESSAGE), {
             "group_id": group_id, "send_idx": send_idx, "recv_idx": recv_idx,
             "channel": channel,
@@ -166,6 +190,15 @@ class PointToPointServer(MessageEndpointServer):
             n_threads=get_system_config().point_to_point_server_threads,
         )
         self.broker = broker
+        self._bulk_server = BulkServer(broker, port_offset=offset)
+
+    def start(self) -> None:
+        super().start()
+        self._bulk_server.start()
+
+    def stop(self) -> None:
+        self._bulk_server.stop()
+        super().stop()
 
     def do_async_recv(self, msg: TransportMessage) -> None:
         h = msg.header

@@ -1,9 +1,11 @@
 """Loader for the native C++ helpers of the snapshot stack.
 
-Counterpart of ``faabric_tpu/util/native.py`` for three of its
-libraries, whose sources the port keeps under ``util/csrc/``:
+Counterpart of ``faabric_tpu/util/native.py`` for its four libraries,
+whose sources the port keeps under ``util/csrc/``:
 
 - ``pagediff.cpp``: page and chunk compares and XOR over host buffers;
+- ``shm_ring.cpp``: the lock-free SPSC byte ring over a /dev/shm
+  mapping, the same-machine bulk data plane (``transport/shm.py``);
 - ``segv_tracker.cpp``: the SIGSEGV write-fault dirty tracker;
 - ``uffd_tracker.cpp``: the userfaultfd write-protect dirty tracker.
 
@@ -24,9 +26,8 @@ handler, or a userfaultfd with its event thread. Load them only in a
 process that owns its signal handling (a test runs them in a subprocess
 of its own).
 
-Not ported: the shared-memory ring (``shm_ring.cpp``, with the transport
-planes of ``ROADMAP.md`` Queue 1 #7 part A) and the sanitizer builds
-that ``FAABRIC_NATIVE_SAN`` selects (``ROADMAP.md`` Queue 1 #8).
+Not ported: the sanitizer builds that ``FAABRIC_NATIVE_SAN`` selects
+(``ROADMAP.md`` Queue 1 #8).
 """
 
 from __future__ import annotations
@@ -164,6 +165,44 @@ def _declare_pagediff(lib: ctypes.CDLL) -> None:
 def get_pagediff_lib() -> Optional[ctypes.CDLL]:
     return _load_native("pagediff", "pagediff.cpp", "libpagediff.so",
                         _declare_pagediff, fail_note="using numpy path")
+
+
+def _declare_shmring(lib: ctypes.CDLL) -> None:
+    lib.ring_init.restype = ctypes.c_int
+    lib.ring_init.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
+    lib.ring_check.restype = ctypes.c_int64
+    lib.ring_check.argtypes = [ctypes.c_void_p]
+    lib.ring_free_space.restype = ctypes.c_int64
+    lib.ring_free_space.argtypes = [ctypes.c_void_p]
+    lib.ring_try_pushv.restype = ctypes.c_int
+    lib.ring_try_pushv.argtypes = [ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_void_p),
+                                   ctypes.POINTER(ctypes.c_uint64),
+                                   ctypes.c_uint64]
+    lib.ring_peek.restype = ctypes.c_int64
+    lib.ring_peek.argtypes = [ctypes.c_void_p]
+    lib.ring_pop.restype = ctypes.c_int64
+    lib.ring_pop.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                             ctypes.c_uint64]
+    lib.ring_pop_batch.restype = ctypes.c_int64
+    lib.ring_pop_batch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_uint64,
+                                   ctypes.POINTER(ctypes.c_uint64),
+                                   ctypes.c_uint64]
+    lib.ring_wait_data.restype = ctypes.c_int
+    lib.ring_wait_data.argtypes = [ctypes.c_void_p, ctypes.c_uint32]
+    lib.ring_wait_space.restype = ctypes.c_int
+    lib.ring_wait_space.argtypes = [ctypes.c_void_p, ctypes.c_uint64,
+                                    ctypes.c_uint32]
+
+
+def get_shmring_lib() -> Optional[ctypes.CDLL]:
+    """The SPSC shared-memory ring, the same-machine bulk plane's hot
+    path. It installs nothing process-wide. None when g++ or the source
+    is missing; callers then stay on TCP."""
+    return _load_native("shm_ring", "shm_ring.cpp", "libshmring.so",
+                        _declare_shmring,
+                        fail_note="same-machine bulk stays on TCP")
 
 
 def _declare_tracker(prefix: str) -> Callable[[ctypes.CDLL], None]:

@@ -1248,3 +1248,28 @@ def test_threads_step_and_chained_scoring_on_the_card(cuda_device):
         == steps * 2 * cfg.n_layers + 2 * cfg.n_layers
     assert launches["rms_norm"] == steps * (4 * cfg.n_layers + 1) \
         + 2 * (2 * cfg.n_layers + 1)
+
+
+@pytest.mark.cuda
+def test_planes_step_on_the_card(cuda_device, monkeypatch):
+    """``chip_smoke.py``'s phase 22 at a small width on the card: the
+    data-parallel step of 4 torch guests over two hosts with its
+    gradient on the shm rings, on the int8 leader ring, on bulk TCP and
+    with broadcast steps on the delta codec, each bitwise against its
+    raw or exact counterpart; every part's launches are 4 train steps'
+    kernels a step, all flash forwards on ``wgmma``."""
+    import chip_smoke
+    from faabric_tpu_torch.models import ModelConfig
+    from faabric_tpu_torch.mpi import MpiWorld
+
+    monkeypatch.setattr(MpiWorld, "CHUNK_BYTES", 1 << 20)
+    cfg = ModelConfig(vocab_size=8192, d_model=256, n_layers=2, n_heads=4,
+                      d_ff=512, max_seq=256)
+    launches = chip_smoke.planes_phase(cuda_device, _build, cfg=cfg,
+                                       seq=128)
+    steps = 4 * (1 + 1 + 1 + 2 + 2)  # 22a, 22c, 22b raw, broadcast, delta
+    assert launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] \
+        == steps * cfg.n_layers
+    assert launches["flash_attention"] == launches["flash_attention.wgmma"] \
+        == steps * 2 * cfg.n_layers
+    assert launches["rms_norm"] == steps * (4 * cfg.n_layers + 1)

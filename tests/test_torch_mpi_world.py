@@ -9,8 +9,9 @@ algorithms and fold orders are the same, so integers and host-path
 floats agree bit for bit. Each case also holds the result against numpy,
 as its reference counterpart does. Where the reference reads the
 algorithm a collective took from its trace spans, the port's
-``MpiWorld.rungs`` says it. The quantised link is not ported and has no
-case here.
+``MpiWorld.rungs`` says it. Both packages' worlds cross hosts on their
+data planes (shm rings between these aliases of one machine); the
+quantised link has its cases in ``test_torch_quant.py``.
 """
 
 import dataclasses
@@ -138,19 +139,26 @@ class Cluster:
         self.pk.common.clear_host_aliases()
 
 
+def reset_reference_links() -> None:
+    """Forget the links the reference measured in this process (its comm
+    matrix and perf store). It picks schedule families and wire codecs
+    from them; the port measures none and takes every link as slow, as
+    the reference does for an unmeasured one. A test that moves bytes
+    through the reference resets them before and after, so that no later
+    test in its worker reads its links."""
+    from faabric_tpu.telemetry import get_comm_matrix
+    from faabric_tpu.telemetry.perfprofile import reset_perf_profile
+
+    get_comm_matrix().reset()
+    reset_perf_profile()
+
+
 class Pair:
     def __init__(self, hosts: list[str], group: int = GROUP,
                  servers: bool = True, ips: dict | None = None) -> None:
-        from faabric_tpu.telemetry import get_comm_matrix
-        from faabric_tpu.telemetry.perfprofile import reset_perf_profile
         from tests.conftest import next_port_base
 
-        # The reference picks a schedule family from the link rates this
-        # process measured before (perf store, comm matrix); the port
-        # measures none and takes every link as slow, as the reference
-        # does for an unmeasured one. Start the reference unmeasured.
-        get_comm_matrix().reset()
-        reset_perf_profile()
+        reset_reference_links()
         # One port slot for both: the reference's hosts at its first two
         # offsets, the port's at the third and halfway past it
         base = next_port_base()
@@ -180,6 +188,7 @@ class Pair:
     def close(self) -> None:
         self.ref.close()
         self.port.close()
+        reset_reference_links()
 
 
 def assert_same(got, want, where: str) -> None:
