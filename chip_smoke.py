@@ -63,7 +63,13 @@ call tree scores two prompts. faabric's data planes: the same two-host
 gang takes the flagship's data-parallel step with its gradient on the
 shm rings, on bulk TCP, with parameter broadcasts on the delta wire
 codec, and on the int8 leader ring of the hierarchical allreduce,
-against the raw and exact paths. For each path
+against the raw and exact paths. faabric's telemetry and fault points:
+the data-parallel step traced on one host's device plane and across
+two hosts on bulk TCP (spans, the comm matrix, the collective profiler,
+the perf store and a planted straggler checked against counters and
+each other), with fault rules failing or healing exactly what they
+name, then the same steps with telemetry off and on in child
+processes. For each path
 it checks the outputs and shows from the kernels' launch counts that
 the path ran through them; it times the kernels, their plain versions and the nearest
 PyTorch library calls, and prints one JSON line of kernel numbers (the
@@ -270,7 +276,8 @@ def world_ms(n: int, fn, iters: int = 10) -> float:
 def ring_kernel_phase(dev) -> tuple[dict, dict, float]:
     """Phase 11: the ring-permute kernel against its plain version,
     bitwise, then its times at the main path's shape (4 ranks of
-    11,338,880 fp32, the flagship's 45,355,520 parameters over 4)."""
+    11,338,880 fp32, the flagship's 45,355,520 parameters over 4: phase
+    23a's round, too)."""
     from faabric_tpu_torch.ops.ring_permute import (
         _reference_ring_permute,
         ring_permute,
@@ -3152,14 +3159,19 @@ def register_planes_guests(job: dict) -> None:
 
 
 def _metric(snap: dict, name: str, **labels) -> float:
-    return sum(row["value"] for row in snap.get(name, {}).get("series", [])
+    """The sum of a family's series matching ``labels`` in a metrics
+    snapshot: counters' and gauges' values, histograms' sums."""
+    fam = snap.get(name, {})
+    key = "sum" if fam.get("type") == "histogram" else "value"
+    return sum(row[key] for row in fam.get("series", [])
                if all(row["labels"].get(k) == v for k, v in labels.items()))
 
 
 def plane_bytes() -> dict:
     """Process-wide bytes (and frames) sent on each plane so far: shm
-    rings, bulk TCP, the RPC plane's data channel; coded delta frames
-    and full-frame escapes."""
+    rings, bulk TCP, the RPC plane's data channel (and with the
+    coordination channel, ``rpc_all``); coded delta frames and
+    full-frame escapes."""
     from faabric_tpu_torch.telemetry import get_metrics
 
     snap = get_metrics().snapshot()
@@ -3167,6 +3179,7 @@ def plane_bytes() -> dict:
             "tcp": _metric(snap, "faabric_bulk_tx_bytes_total", path="tcp"),
             "rpc": _metric(snap, "faabric_ptp_rpc_bytes_total",
                            channel="data"),
+            "rpc_all": _metric(snap, "faabric_ptp_rpc_bytes_total"),
             "rpc_frames": _metric(snap, "faabric_ptp_rpc_frames_total",
                                   channel="data"),
             "delta_frames": _metric(snap, "faabric_codec_frames_total",
@@ -3448,6 +3461,568 @@ def planes_phase(dev, build, cfg=None, per_rank: int = 2, seq: int = 512,
     return path
 
 
+def register_telemetry_guests(job: dict) -> None:
+    """Phase 23's guests. ``mpi/traced_step``: when ``job["plane"]``,
+    activates the device plane on the guest's device; takes
+    ``job["steps"]`` steps of :func:`ddp_step` of ``job["model"](device)``
+    (each starting with a broadcast of rank 0's flat parameters when
+    ``job["broadcast"]``); rank ``job["straggler"]`` sleeps
+    ``job["straggle_s"]`` before the allreduce of step
+    ``job["straggle_step"]``; after the first step each rank reads the
+    perf store's ``bulk-tcp`` rate toward ``job["peer_of"][host]``, and
+    with ``job["arm_after_first"]`` rank 0 installs that fault spec
+    between two barriers (no frame is in flight while it arms); with
+    ``job["keep_sums"]`` (a dict) ranks 0 and 3 keep each step's summed
+    gradient there. With
+    ``job["ring"]`` (a dict) each rank then passes its shard of the flat
+    parameters one hop round the device plane's ring
+    (``ring_permute``), leaving (shard, received) there. Each rank leaves
+    its flat parameters in ``job["params"]`` and returns JSON: rank,
+    host, world id, rungs, plane verdict, step ms, the link rate read.
+    ``mpi/faulty``: a barrier, then an allreduce of 1,024 ones.
+    ``smoke/echo``: returns its input."""
+    from faabric_tpu_torch.executor import register_function
+    from faabric_tpu_torch.faults import install_faults
+    from faabric_tpu_torch.mpi import MpiOp
+    from faabric_tpu_torch.telemetry import get_perf_store
+
+    @register_function("mpi", "traced_step")
+    def traced_step(ctx):
+        world = ctx.mpi_world()
+        rank = ctx.message.mpi_rank
+        dev = ctx.device
+        plane = (world.activate_device_plane(rank, device=dev)
+                 if job["plane"] else False)
+        host = world.host_for_rank(rank)
+        model = job["model"](dev)
+        step_ms, link = [], None
+        for s in range(job["steps"]):
+            t0 = time.perf_counter()
+            if job["broadcast"]:
+                got = world.broadcast(0, rank, flat_params(model) if rank == 0
+                                      else np.empty(0, np.float32))
+                if rank != 0:
+                    load_flat(model, torch.from_numpy(
+                        np.array(got, np.float32, copy=True)).to(dev))
+
+            def reduce(flat, s=s):
+                if (s == job.get("straggle_step")
+                        and rank == job.get("straggler")):
+                    time.sleep(job["straggle_s"])
+                out = world.allreduce(rank, flat, MpiOp.SUM)
+                if job.get("keep_sums") is not None and rank in (0, 3):
+                    job["keep_sums"][rank, s] = np.array(_as_np(out),
+                                                         copy=True)
+                return out
+
+            tokens, targets = job["batch"](s, rank, dev)
+            ddp_step(world, rank, model, tokens, targets, job["lr"],
+                     reduce=reduce)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if s == 0 and job.get("peer_of"):
+                link = get_perf_store().link_gibs(job["peer_of"][host],
+                                                  plane="bulk-tcp")
+            if s == 0 and job.get("arm_after_first"):
+                world.barrier(rank)
+                if rank == 0:
+                    install_faults(job["arm_after_first"])
+                world.barrier(rank)
+        flat = flat_params(model)
+        if job.get("ring") is not None:
+            k = flat.numel() // world.size
+            shard = flat[rank * k:(rank + 1) * k].contiguous()
+            job["ring"][rank] = (shard, world.device_plane().ring_permute(
+                rank, shard, 1))
+        job["params"][rank] = flat
+        world.barrier(rank)
+        rungs = {kind: algo for (r, kind), algo in world.rungs.items()
+                 if r == rank}
+        return json.dumps({"rank": rank, "host": host, "world": world.id,
+                           "rungs": rungs, "plane": plane,
+                           "step_ms": step_ms, "link_gibs": link}).encode()
+
+    @register_function("mpi", "faulty")
+    def faulty(ctx):
+        world = ctx.mpi_world()
+        rank = ctx.message.mpi_rank
+        world.barrier(rank)
+        out = world.allreduce(rank, torch.ones(1024, device=ctx.device),
+                              MpiOp.SUM)
+        return json.dumps({"rank": rank,
+                           "sum": float(_as_np(out).sum())}).encode()
+
+    @register_function("smoke", "echo")
+    def echo(ctx):
+        return ctx.message.input_data
+
+
+def _telemetry_job(cfg, per_rank: int = 2, seq: int = 512) -> dict:
+    """Phase 23's model and batches: ``cfg`` from seed 23, each rank
+    (per_rank, seq) tokens of a seeded corpus, SGD at lr 0.5."""
+    from faabric_tpu_torch.models import Transformer
+
+    corpus = np.random.RandomState(23).randint(
+        0, cfg.vocab_size, (3, MPI_RANKS * per_rank, seq + 1)
+    ).astype(np.int64)
+
+    def batch(step, rank, device):
+        b = torch.as_tensor(corpus[step % 3, rank * per_rank:
+                                   (rank + 1) * per_rank], device=device)
+        return b[:, :-1], b[:, 1:]
+
+    return {"model": lambda device: Transformer(
+                cfg, device=device,
+                generator=torch.Generator(device=device).manual_seed(23)),
+            "batch": batch, "lr": 0.5, "params": {}, "plane": False,
+            "steps": 1, "broadcast": False, "ring": None, "peer_of": None,
+            "arm_after_first": None, "keep_sums": None}
+
+
+TELEMETRY_HOSTS = {"tel-host-a": 2, "tel-host-b": 2}
+
+
+def telemetry_steps() -> dict:
+    """23b's three steps again, without the straggler, in a process whose
+    telemetry the environment set (run as ``chip_smoke.py
+    --telemetry-steps`` by phase 23): returns which planes were on and
+    each rank's step ms."""
+    from faabric_tpu_torch.executor import TorchExecutorFactory
+    from faabric_tpu_torch.models import ModelConfig
+    from faabric_tpu_torch.ops import _build
+    from faabric_tpu_torch.telemetry import metrics_enabled, tracing_enabled
+    from faabric_tpu_torch.telemetry.profiler import profile_enabled
+
+    _build.kernels()
+    job = _telemetry_job(ModelConfig())
+    job.update(steps=3)
+    register_telemetry_guests(job)
+    planner_server, workers = start_cluster(TELEMETRY_HOSTS,
+                                            TorchExecutorFactory())
+    try:
+        outs = guest_outputs(run_gang(workers[0].planner_client,
+                                      "traced_step", MPI_RANKS)[0],
+                             "23d: three steps")
+    finally:
+        stop_cluster(planner_server, workers)
+    return {"metrics": metrics_enabled(), "tracing": tracing_enabled(),
+            "profiler": profile_enabled(),
+            "steps": {str(o["rank"]): o["step_ms"] for o in outs}}
+
+
+def telemetry_phase(dev, build, cfg=None, seq: int = 512,
+                    base: int | None = None, straggle_s: float = 0.3,
+                    child: bool = True) -> dict:
+    """Phase 23: faabric's telemetry and fault points on the flagship's
+    data-parallel step, tracing on (``FAABRIC_TRACING=1`` in the
+    environment and ``set_tracing``). 23a: one host, 4 ranks on the
+    device plane, one step and one ``ring_permute`` round of each rank's
+    parameter shard: one ``compile`` span per new key and one
+    ``execute`` span per round, the comm matrix's ``device`` cells equal
+    to the deposited bytes, one ``execute`` record per round in the
+    collective profiler, and the perf store's ``("mesh", "device")``
+    rate at most 105% of the card's HBM peak (the execute phase is timed
+    by CUDA events and ends when the card has). 23b: two loopback hosts,
+    2 + 2, bulk TCP (``SHM_BULK=0``), 3 steps: the comm matrix's bytes a
+    plane equal the counters' (``plane_bytes``), the cross-host link is
+    measured after step 1, the Chrome trace (``build/telemetry_23b.json``,
+    parsed back) holds 3 ``mpi``/``allreduce`` spans a rank with their
+    ``mpi.phase`` children inside, and a planted straggler (rank 3 sleeps
+    300 ms before step 3's allreduce) is the one rank ``find_stragglers``
+    flags; ``critical_path`` of that round names the rank bound by the
+    wait, not the straggler, whose own total is the round's shortest.
+    23c, faults armed through ``install_faults`` on 23b's cluster:
+    ``mpi.collective=raise@after=2`` fails a 2-rank gang's guests with
+    the fault's text and the next gang after ``clear_faults`` succeeds;
+    ``executor.run=raise@times=1`` fails exactly one of 4 messages;
+    ``transport.bulk=drop@codec=delta@times=1``, armed between two
+    broadcast steps on the forced delta codec, corrupts the second
+    step's first delta frame, which heals through the NACK: the ranks'
+    parameters and summed gradients are bitwise equal to the same steps
+    on the raw wire. 23d: 23b's three steps again (no straggler), each
+    in a child process: telemetry off (``FAABRIC_METRICS=0``), metrics
+    without the stack profiler (``FAABRIC_PROFILE=0``), metrics with it,
+    and all of it with tracing; their step times are printed side by
+    side, a plain measurement (``child=False`` leaves 23d out: the
+    children need the card). ``straggle_s`` is the
+    planted sleep; ranks whose idle gap exceeds the round's median by
+    less than half of it are not stragglers. Returns the phase's kernel
+    launches."""
+    from faabric_tpu_torch.executor import TorchExecutorFactory
+    from faabric_tpu_torch.faults import clear_faults, install_faults
+    from faabric_tpu_torch.models import ModelConfig
+    from faabric_tpu_torch.telemetry import (
+        chrome_trace_json,
+        get_collective_profiler,
+        get_comm_matrix,
+        get_metrics,
+        get_perf_store,
+        reset_tracing,
+        set_tracing,
+    )
+    from faabric_tpu_torch.telemetry.perfprofile import (
+        critical_path,
+        find_stragglers,
+    )
+    from faabric_tpu_torch.transport.codec import (
+        reset_wire_governor,
+        set_wire_codec,
+    )
+
+    log("phase 23: telemetry and fault points on the data-parallel step")
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    cfg = cfg or ModelConfig()
+    n = MPI_RANKS
+    job = _telemetry_job(cfg, seq=seq)
+    params = job["params"]
+    factory = TorchExecutorFactory(device=dev.type)
+    per_step = {"flash_attention": 2 * cfg.n_layers,
+                "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
+                "rms_norm": 4 * cfg.n_layers + 1}
+    matrix, store, prof = (get_comm_matrix(), get_perf_store(),
+                           get_collective_profiler())
+    saved_env = {k: os.environ.get(k) for k in (
+        "FAABRIC_TRACING", "SHM_BULK", "FAABRIC_DELTA_CACHE_MB")}
+    os.environ["FAABRIC_TRACING"] = "1"
+    set_tracing(True)
+    path: dict = {}
+
+    def gang(client, label, function="traced_step", size=n, **updates):
+        """One gang run; returns (outputs, launches, wall ms)."""
+        job.update(updates)
+        params.clear()
+        if on_card:
+            torch.cuda.synchronize()
+        launches0 = dict(build.LAUNCHES)
+        results, wall = run_gang(client, function, size)
+        if on_card:
+            torch.cuda.synchronize()
+        launches = {k: v - launches0.get(k, 0)
+                    for k, v in build.LAUNCHES.items()
+                    if v != launches0.get(k, 0)}
+        return guest_outputs(results, label), launches, wall
+
+    def count_launches(label, launches, steps, extra=None):
+        want = {k: c * n * steps for k, c in per_step.items()}
+        want.update(extra or {})
+        if on_card:
+            for name, count in want.items():
+                check(launches.get(name, 0) == count,
+                      f"{label}: {name} launched {launches.get(name, 0)} "
+                      f"times = {count}")
+            check(launches.get("flash_attention.wgmma", 0)
+                  == launches.get("flash_attention", -1),
+                  f"{label}: every flash forward took the wgmma body")
+        for k, v in launches.items():
+            path[k] = path.get(k, 0) + v
+
+    try:
+        # -- 23a. one host, the device plane -------------------------------
+        register_telemetry_guests(job)
+        planner_server, workers = start_cluster({"tel-host": n}, factory,
+                                                base)
+        try:
+            matrix.reset()
+            store.reset()
+            reset_tracing()
+            ring: dict = {}
+            outs, launches, wall = gang(
+                workers[0].planner_client, "23a step on the device plane",
+                plane=True, steps=1, ring=ring)
+            check(all(o["plane"] and o["rungs"].get("allreduce") == "device"
+                      for o in outs),
+                  "23a: every rank activated the device plane and allreduced "
+                  "its gradient on it")
+            flat = [params[r] for r in range(n)]
+            check(all(torch.equal(flat[0], f) for f in flat[1:]),
+                  "23a: the ranks' parameters are bitwise equal")
+            check(all(torch.equal(ring[r][1], ring[(r - 1) % n][0])
+                      for r in range(n)),
+                  "23a: ring_permute handed each rank its predecessor's "
+                  "shard, bitwise")
+            count_launches("23a", launches, 1, {"ring_permute": 1})
+            world_id = outs[0]["world"]
+            spans = [e for e in json.loads(chrome_trace_json())["traceEvents"]
+                     if e.get("ph") == "X" and e.get("cat") == "mpi.phase"
+                     and e["args"].get("world") == world_id]
+            by = {}
+            for e in spans:
+                key = (e["name"], e["args"]["kind"])
+                by[key] = by.get(key, 0) + 1
+            check(by == {("compile", "allreduce"): 1,
+                         ("execute", "allreduce"): 1,
+                         ("compile", "ring_permute"): 1,
+                         ("execute", "ring_permute"): 1},
+                  f"23a: one compile span a new key and one execute span "
+                  f"a round ({by})")
+            grad_bytes = flat[0].numel() * 4
+            deposited = n * grad_bytes + n * (grad_bytes // n)
+            cells = (matrix.snapshot() or {}).get("cells", [])
+            device_bytes = sum(c["bytes"] for c in cells
+                               if c["plane"] == "device")
+            check(device_bytes == deposited and all(
+                c["plane"] == "device" for c in cells),
+                  f"23a: the comm matrix's device cells hold "
+                  f"{device_bytes:,} bytes = the {deposited:,} deposited, "
+                  f"and no other plane has a cell")
+            series = {s["collective"]: s for s in prof.snapshot()
+                      if s["world"] == world_id}
+            executes = {k: sum("execute" in p for rd in s["rounds"].values()
+                               for p in rd.values())
+                        for k, s in series.items()}
+            check(executes == {"allreduce": 1, "ring_permute": 1},
+                  f"23a: the profiler holds one execute record a round "
+                  f"({executes})")
+            gibs = store.link_gibs("mesh", plane="device")
+            rate = (gibs or 0.0) * (1 << 30)
+            check(gibs is not None and rate <= 1.05 * HBM_BYTES_PER_S,
+                  f"23a: the device plane's measured rate "
+                  f"{rate / 1e12:.4f} TB/s is within 105% of the card's "
+                  f"HBM peak ({HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+            log(f"  23a step wall ms by rank: "
+                + ", ".join(f"{o['step_ms'][0]:.1f}" for o in outs)
+                + f"; {wall:.1f} ms through the planner; execute phases "
+                + ", ".join(f"{k} {p['execute'] * 1e3:.3f} ms"
+                            for k, s in series.items()
+                            for rd in s["rounds"].values()
+                            for p in rd.values() if "execute" in p))
+        finally:
+            stop_cluster(planner_server, workers)
+
+        # -- 23b. two hosts on bulk TCP, 3 steps ---------------------------
+        os.environ["SHM_BULK"] = "0"
+        register_telemetry_guests(job)
+        planner_server, workers = start_cluster(TELEMETRY_HOSTS, factory,
+                                                base)
+        try:
+            client = workers[0].planner_client
+            matrix.reset()
+            store.reset()
+            prof.reset()
+            reset_tracing()
+            before = plane_bytes()
+            outs, launches, wall = gang(
+                client, "23b three steps over two hosts", plane=False,
+                steps=3, ring=None, straggler=3, straggle_step=2,
+                straggle_s=straggle_s,
+                peer_of={"tel-host-a": "tel-host-b",
+                         "tel-host-b": "tel-host-a"})
+            moved = {k: v - before[k] for k, v in plane_bytes().items()}
+            count_launches("23b", launches, 3)
+            check(sorted(o["host"] for o in outs)
+                  == ["tel-host-a"] * 2 + ["tel-host-b"] * 2,
+                  "23b: 4 ranks split 2 + 2 across the hosts")
+            flat = [params[r] for r in range(n)]
+            check(all(torch.equal(flat[0], f) for f in flat[1:]),
+                  "23b: the ranks' parameters are bitwise equal")
+            on_steps = {o["rank"]: o["step_ms"] for o in outs}
+            cells = (matrix.snapshot() or {}).get("cells", [])
+            by_plane = {}
+            for c in cells:
+                by_plane[c["plane"]] = by_plane.get(c["plane"], 0) + c["bytes"]
+            want = {"bulk-tcp": moved["tcp"], "shm": moved["shm"],
+                    "ptp": moved["rpc_all"]}
+            check(all(by_plane.get(k, 0) == v for k, v in want.items())
+                  and set(by_plane) <= set(want) and moved["tcp"] > 0,
+                  f"23b: the comm matrix's bytes a plane {by_plane} equal "
+                  f"the counters' {want}")
+            links = [o["link_gibs"] for o in outs]
+            check(all(g is not None and g > 0 for g in links),
+                  f"23b: the cross-host bulk-tcp link is measured after step "
+                  f"1 (GiB/s read by each rank: {links})")
+            trace_path = os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), "build", "telemetry_23b.json")
+            os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+            with open(trace_path, "w") as f:
+                f.write(chrome_trace_json())
+            with open(trace_path) as f:
+                events = [e for e in json.load(f)["traceEvents"]
+                          if e.get("ph") == "X"]
+            world_ids = {o["world"] for o in outs}
+            ars = [e for e in events if e["cat"] == "mpi"
+                   and e["name"] == "allreduce"]
+            kids: dict = {}
+            for e in events:
+                parent = e.get("args", {}).get("parent_span_id")
+                if e["cat"] == "mpi.phase" and parent is not None:
+                    kids.setdefault(parent, []).append(e)
+            per_rank = {}
+            nested = True
+            for e in ars:
+                r = e["args"]["rank"]
+                per_rank[r] = per_rank.get(r, 0) + 1
+                children = kids.get(e["args"]["span_id"], [])
+                nested &= bool(children) and all(
+                    c["ts"] >= e["ts"] - 1
+                    and c["ts"] + c["dur"] <= e["ts"] + e["dur"] + 1
+                    for c in children)
+            check(per_rank == {r: 3 for r in range(n)} and nested,
+                  f"23b: the Chrome trace ({len(events):,} spans, "
+                  f"{os.path.getsize(trace_path):,} bytes, parsed back) "
+                  f"holds {per_rank} mpi/allreduce spans by rank, each with "
+                  f"its mpi.phase children inside it")
+            series = [s for s in prof.snapshot()
+                      if s["world"] in world_ids
+                      and s["collective"] == "allreduce"]
+            check(len(series) == 1, "23b: one allreduce series")
+            rounds = series[0]["rounds"]
+            flagged = find_stragglers(rounds, factor=0.15, min_rounds=1,
+                                      min_skew_s=straggle_s / 2)
+            check(sorted(flagged) == [3],
+                  f"23b: find_stragglers flags rank 3 alone ({flagged})")
+            late = rounds["2"]
+            cp = critical_path({2: late})
+            totals = {int(r): p["total"] for r, p in late.items()}
+            totals_ms = {r: round(t * 1e3, 1) for r, t in totals.items()}
+            check(cp["dominant_rank"] != 3
+                  and min(totals, key=totals.get) == 3
+                  and totals[cp["dominant_rank"]] - totals[3]
+                  >= 2 * straggle_s / 3,
+                  f"23b: critical_path of the straggler's round names rank "
+                  f"{cp['dominant_rank']}, bound by the wait "
+                  f"(totals ms {totals_ms}); "
+                  f"rank 3's own total is the shortest")
+            log(f"  23b step wall ms by rank (telemetry on, tracing on; "
+                f"step 3 holds the planted {straggle_s * 1e3:.0f} ms): "
+                + "; ".join(f"{r}: " + ", ".join(f"{t:.1f}" for t in ms)
+                            for r, ms in sorted(on_steps.items()))
+                + f"; {wall:.1f} ms through the planner; bytes: bulk TCP "
+                f"{moved['tcp']:,.0f}, RPC {moved['rpc_all']:,.0f}")
+
+            # -- 23c. faults armed through install_faults -----------------
+            install_faults("mpi.collective=raise@after=2")
+            try:
+                results, _ = run_gang(client, "faulty", 2)
+            finally:
+                clear_faults()
+            texts = [bytes(m.output_data).decode(errors="replace")
+                     for m in results]
+            check(len(results) == 2 and all(
+                m.return_value != 0 and "mpi.collective: injected fault" in t
+                for m, t in zip(results, texts)),
+                f"23c: mpi.collective=raise@after=2 failed both guests of the "
+                f"gang with the fault's text ({texts})")
+            outs = guest_outputs(run_gang(client, "faulty", 2)[0],
+                                 "23c after clear_faults")
+            check(all(o["sum"] == 2048.0 for o in outs),
+                  "23c: after clear_faults the same gang succeeds")
+            install_faults("executor.run=raise@times=1")
+            try:
+                results, _ = run_batch(client, "echo", 4, b"x")
+            finally:
+                clear_faults()
+            failed = [m for m in results if m.return_value != 0]
+            check(len(failed) == 1 and b"executor.run: injected fault"
+                  in bytes(failed[0].output_data)
+                  and all(bytes(m.output_data) == b"x" for m in results
+                          if m.return_value == 0),
+                  f"23c: executor.run=raise@times=1 failed exactly one of 4 "
+                  f"messages ({len(failed)} failed)")
+            # A dropped delta frame on the forced delta codec. The rule is
+            # armed after step 1, between barriers, and step 2 repeats step
+            # 1 (lr 0, the same batch): its broadcast's first chunk, the
+            # first coded frame after arming, is a delta against step 1's
+            # (a ``codec=delta`` matcher also matches ``delta-full``, and
+            # a dropped full frame corrupts nothing). The stream's bases
+            # must fit the caches (as in 22b)
+            os.environ["FAABRIC_DELTA_CACHE_MB"] = "1024"
+            first = job["batch"]
+
+            def same_batch(step, rank, device):
+                return first(0, rank, device)
+
+            snap0 = get_metrics().snapshot()
+            set_wire_codec("delta")
+            coded_sums: dict = {}
+            try:
+                _, launches_coded, _ = gang(
+                    client, "23c delta steps with a dropped frame", steps=2,
+                    broadcast=True, lr=0.0, batch=same_batch,
+                    straggler=None, peer_of=None, keep_sums=coded_sums,
+                    arm_after_first="transport.bulk=drop@codec=delta"
+                                    "@times=1")
+            finally:
+                clear_faults()
+            count_launches("23c delta", launches_coded, 2)
+            flat = [params[r] for r in range(n)]
+            check(all(torch.equal(flat[0], f) for f in flat[1:]),
+                  "23c: every rank loaded rank 0's parameters bitwise "
+                  "through the healed broadcast")
+            snap = get_metrics().snapshot()
+
+            def grew(name, **labels):
+                return (_metric(snap, name, **labels)
+                        - _metric(snap0, name, **labels))
+
+            drops = grew("faabric_faults_fired_total",
+                         point="transport.bulk", action="drop")
+            nacks = grew("faabric_codec_escapes_total", reason="nack")
+            set_wire_codec("raw")
+            raw_sums: dict = {}
+            _, launches_raw, _ = gang(
+                client, "23c the same steps raw", steps=2, broadcast=True,
+                lr=0.0, batch=same_batch, keep_sums=raw_sums,
+                arm_after_first=None)
+            count_launches("23c raw", launches_raw, 2)
+            check(drops == 1 and nacks >= 1
+                  and sorted(coded_sums) == sorted(raw_sums)
+                  and all(np.array_equal(coded_sums[k], raw_sums[k])
+                          for k in raw_sums),
+                  f"23c: transport.bulk=drop fired {drops:.0f} time(s) on a "
+                  f"delta frame, {nacks:.0f} NACK heal(s); the coded steps' "
+                  f"summed gradients are bitwise equal to the raw wire's "
+                  f"({len(raw_sums)} sums)")
+        finally:
+            reset_wire_governor()
+            stop_cluster(planner_server, workers)
+    finally:
+        set_tracing(False)
+        reset_tracing()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # -- 23d. the same three steps with telemetry on and off, each in a
+    # child process (the knobs are read at import) ------------------------
+    if not child:
+        log(f"  phase 23 launches: {path}")
+        return path
+    base_env = {k: v for k, v in os.environ.items()
+                if not k.startswith("FAABRIC_")}
+    base_env["SHM_BULK"] = "0"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    for label, knobs, want in (
+            ("off", {"FAABRIC_METRICS": "0"}, (False, False, False)),
+            ("metrics", {"FAABRIC_PROFILE": "0"}, (True, False, False)),
+            ("metrics, profiler", {}, (True, False, True)),
+            ("metrics, profiler, tracing", {"FAABRIC_TRACING": "1"},
+             (True, True, True))):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--telemetry-steps"],
+            env={**base_env, **knobs}, capture_output=True, text=True,
+            timeout=600)
+        check(out.returncode == 0, f"23d {label}: the child exited "
+              f"{out.returncode} ({out.stderr[-2000:]})")
+        got = json.loads(out.stdout.strip().splitlines()[-1])
+        check((got["metrics"], got["tracing"], got["profiler"]) == want,
+              f"23d {label}: metrics, tracing, profiler "
+              f"{got['metrics'], got['tracing'], got['profiler']}")
+        log(f"  23d step wall ms by rank, {label} ({knobs or 'defaults'}; "
+            f"a child process): "
+            + "; ".join(f"{r}: " + ", ".join(f"{t:.1f}" for t in ms)
+                        for r, ms in sorted(got["steps"].items()))
+            + f" [{smi}]")
+    log(f"  phase 23 launches: {path}")
+    log(f"  phase 23 took {time.perf_counter() - t_phase:.1f} s")
+    return path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3459,6 +4034,14 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, here)
+    if sys.argv[1:] == ["--telemetry-steps"]:
+        # Phase 23d's child: 23b's steps under the knobs it was given
+        print(json.dumps(telemetry_steps()), flush=True)
+        return 0
+    # Arm the fault registry before the port loads (an inert rule on a
+    # point nothing fires): its call sites keep live handles, and phase
+    # 23's install_faults arms them
+    os.environ.setdefault("FAABRIC_FAULTS", "chip_smoke.armed=delay:0")
 
     from faabric_tpu_torch.data import DataLoader, TokenDataset
     from faabric_tpu_torch.models import (
@@ -3521,7 +4104,8 @@ def main() -> int:
     # prefill's (2, 48) and (2, 32); the unsharded yardstick's (4, 1)
     # steps and its (4, 512) perplexity batches. Phase 20's steps run
     # (4096, 512) and its scorings (512, 512); phase 21's threads
-    # (1024, 512), its scorings (512, 512)
+    # (1024, 512), its scorings (512, 512); phases 22-23's ranks
+    # (1024, 512)
     for rows, d in [(4096, 512), (8, 512), (333, 512), (512, 512), (1, 512),
                     (1024, 512), (2, 512), (256, 512), (96, 512), (64, 512),
                     (4, 512), (2048, 512)]:
@@ -3547,7 +4131,8 @@ def main() -> int:
     # perplexity (dp 2 x tp 4) and (4, 512, 8 heads) its unsharded
     # yardstick's; phase 20's steps run (8, 512, 8 heads) and its
     # scorings (1, 512, 8 heads); phase 21's threads (2, 512, 8 heads),
-    # its scorings (1, 512, 8 heads)
+    # its scorings (1, 512, 8 heads); phases 22-23's ranks (2, 512, 8
+    # heads)
     for b, s_q, s_k, h, causal, dtype, views in [
             (8, 512, 512, 8, True, torch.bfloat16, False),
             (8, 128, 512, 8, True, torch.bfloat16, False),
@@ -3769,8 +4354,8 @@ def main() -> int:
 
     # (2, 512, 8 heads) and (4, 512, 4 heads): each rank's attention in
     # the MoE train steps of phase 16 (dp 4 x ep 2; dp 2 x tp 2 x ep 2)
-    # and each thread's step of phase 21; (8, 512, 8 heads) also phase
-    # 20's steps
+    # and each thread's step of phase 21, each rank's step of phases
+    # 22-23; (8, 512, 8 heads) also phase 20's steps
     bwd_cases = [(b, s_q, s_k, h, d, causal, dtype, g_lse, strided)
                  for dtype in (torch.bfloat16, torch.float32)
                  for b, s_q, s_k, h, d, causal, g_lse, strided in [
@@ -4062,18 +4647,22 @@ def main() -> int:
     threads_launches = threads_phase(dev, _build)
     # -- 22. the gradient across two hosts on each data plane -------------
     planes_launches = planes_phase(dev, _build)
+    # -- 23. telemetry and fault points on the data-parallel step ---------
+    telemetry_launches = telemetry_phase(dev, _build)
     # Each row's launches: the serving kernels' on the direct serving
     # path (phase 5) and under the executors (13), the backward kernels'
     # on the training path (9), the ring kernel's on the MPI path (12),
     # and every launch of the mesh (14), pipeline (15), MoE (16), guest
     # data-parallel (17), sharded decode and perplexity (18), state (19),
-    # snapshot (20), THREADS and chaining (21) and data-plane (22) paths
+    # snapshot (20), THREADS and chaining (21), data-plane (22) and
+    # telemetry (23) paths
     path_launches = {
         name: sum(p.get(name, 0) for p in paths) + sum(
             p.get(name, 0) for p in (mesh_launches, pp_launches, moe_launches,
                                      guest_launches, serving_mesh_launches,
                                      state_launches, snapshot_launches,
-                                     threads_launches, planes_launches))
+                                     threads_launches, planes_launches,
+                                     telemetry_launches))
         for name, paths in (
             ("rms_norm", (launches, faabric_launches)),
             ("flash_attention", (launches, faabric_launches)),

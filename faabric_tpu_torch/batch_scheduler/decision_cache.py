@@ -6,7 +6,8 @@ by (user, function, batch type, tenant, message count), so a runtime
 that forks the same N-wide batch again reuses its host placement. The
 planner consults it for NEW THREADS decisions and fills it from the
 policy's (``planner/planner.py::_decision_from_cache_locked``); a
-policy reset clears it.
+policy reset clears it. Every lookup the planner makes is counted as a
+hit or a miss (``faabric_decision_cache_{hits,misses}_total``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,17 @@ import threading
 from typing import Optional
 
 from faabric_tpu_torch.proto import BatchExecuteRequest
+from faabric_tpu_torch.telemetry import get_metrics
+
+_metrics = get_metrics()
+_HITS = _metrics.counter(
+    "faabric_decision_cache_hits_total",
+    "Scheduling decisions served from the decision cache (policy run "
+    "skipped)")
+_MISSES = _metrics.counter(
+    "faabric_decision_cache_misses_total",
+    "Decision-cache lookups that fell through to the policy (absent "
+    "signature or stale capacity)")
 
 
 class CachedDecision:
@@ -61,6 +73,12 @@ class DecisionCache:
                 f"({req.n_messages()})")
         with self._lock:
             self._cache[self._key(req)] = CachedDecision(hosts, group_id)
+
+    @staticmethod
+    def record_outcome(hit: bool) -> None:
+        """Count one lookup's outcome (an entry whose hosts lost their
+        slots counts as a miss: the policy ran)."""
+        (_HITS if hit else _MISSES).inc()
 
     def clear(self) -> None:
         with self._lock:

@@ -37,6 +37,20 @@ executor records an event after the round, which each rank's current
 stream waits on before the rank returns, and each result is marked as
 used on that stream for the caching allocator.
 
+Telemetry, as the reference's: the first round of a key (kind, op,
+size, dtype, residency) is its ``compile``: an ``mpi.phase``/``compile``
+span over the load of the round's kernels (the nvcc build, on the card,
+the first time in the process), counted in
+``faabric_device_plane_compiles_total``. Every round is one
+``mpi.phase``/``execute`` span. On the card its time is a CUDA event
+pair around the round on the executor's stream, and the span ends only
+after the end event has completed (a host wait inside the span), so the
+``execute`` phase in the collective profiler and the ``("mesh",
+"device")`` rate in the perf store are the card's time, not the
+launch's; with metrics off there is no wait. Each rank's contribution
+is recorded in the comm matrix as a ``device`` cell toward its ring
+neighbour.
+
 Failure contract: eligibility is a pure function of (activation
 verdict, shape, dtype, op) — residency does not enter it — so every
 rank picks the same rung. A backend error in a host or mixed-residency
@@ -56,6 +70,7 @@ import functools
 import logging
 import os
 import threading
+import time
 
 import numpy as np
 import torch
@@ -69,7 +84,14 @@ from faabric_tpu_torch.device_plane.copies import (
 from faabric_tpu_torch.device_plane.registry import DevicePlaneFallback
 from faabric_tpu_torch.device_plane.ring import permute_body
 from faabric_tpu_torch.mpi.types import MpiOp, UserOp
-from faabric_tpu_torch.telemetry import get_metrics
+from faabric_tpu_torch.telemetry import (
+    get_collective_profiler,
+    get_comm_matrix,
+    get_metrics,
+    get_perf_store,
+    metrics_enabled,
+    span,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -89,9 +111,16 @@ _COLLECTIVES = {
         "faabric_device_plane_collectives_total",
         "Collectives executed on the device plane (per rank)", op=kind)
     for kind in KINDS}
+_COMPILES = _metrics.counter(
+    "faabric_device_plane_compiles_total",
+    "Device-plane executable cache misses (compilations)")
 _FALLBACKS = _metrics.counter(
     "faabric_device_plane_fallbacks_total",
     "Device plane disables (collectives re-routed to the host ladder)")
+# Compile and execute phases go to the collective profiler, and each
+# round's payload to the perf store's device-plane profile
+_PROFILER = get_collective_profiler()
+_PERF = get_perf_store()
 
 
 def is_device_payload(data) -> bool:
@@ -166,6 +195,9 @@ class DevicePlane:
         self._rank_seq: dict[int, int] = {}
         self._disabled: str | None = None
         self._executed: collections.Counter = collections.Counter()
+        # Keys (kind, op, size, dtype, all-resident) whose first round
+        # ran: a new one is a compile
+        self._compiled: set[tuple] = set()
 
     # ------------------------------------------------------------------
     # Eligibility / residency / fallback ladder
@@ -311,6 +343,10 @@ class DevicePlane:
         if rnd.error is not None:
             raise rnd.error
         _COLLECTIVES[kind].inc()
+        # This rank's contribution entered the device plane (attributed
+        # to its ring neighbour; the host planes saw none of it)
+        get_comm_matrix().record(rank, (rank + 1) % self.n, "device",
+                                 int(flat.nbytes))
         out = rnd.results[rank]
         if rnd.done is not None:
             stream = torch.cuda.current_stream(out.device)
@@ -328,11 +364,32 @@ class DevicePlane:
                 raise RuntimeError(  # protocol desync — NOT a fallback
                     f"device-plane rendezvous mismatch: rank {r} "
                     f"deposited {k}, executor saw {key}")
-        _kind, op_code, _m, _dtype = key
+        _kind, op_code, m, dtype = key
         all_resident = all(res for (_k, _b, res, _e) in deposits.values())
         ranks = sorted(deposits)
+        executor_rank = ranks[0]
         on_card = self.device.type == "cuda"
         stream = torch.cuda.current_stream(self.device) if on_card else None
+        attrs = dict(world=self.world_id, kind=kind, elems=m, dtype=dtype,
+                     resident=all_resident)
+
+        exe_key = key + (all_resident,)
+        with self._lock:
+            first = exe_key not in self._compiled
+            self._compiled.add(exe_key)
+        if first:
+            # Rounds are sequential per plane, so one executor compiles
+            # at a time
+            _COMPILES.inc()
+            t0 = time.monotonic()
+            with span("mpi.phase", "compile", phase="compile", **attrs):
+                if on_card:
+                    from faabric_tpu_torch.ops import _build
+
+                    _build.kernels()
+            elapsed = time.monotonic() - t0
+            _PROFILER.record_phase(self.world_id, kind, executor_rank,
+                                   "compile", elapsed)
 
         ins = []
         for r in ranks:
@@ -349,7 +406,28 @@ class DevicePlane:
                     np.require(buf, requirements="W")).to(self.device)
             ins.append(buf)
 
-        outs = self._compute(kind, op_code, ins)
+        timed = metrics_enabled()
+        t0 = time.monotonic()
+        with span("mpi.phase", "execute", phase="execute", **attrs):
+            if on_card and timed:
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record(stream)
+                outs = self._compute(kind, op_code, ins)
+                end.record(stream)
+                # The span and the rate end when the card has finished
+                end.synchronize()
+                elapsed = start.elapsed_time(end) / 1e3
+            else:
+                outs = self._compute(kind, op_code, ins)
+                elapsed = time.monotonic() - t0
+        _PROFILER.record_phase(self.world_id, kind, executor_rank,
+                               "execute", elapsed)
+        # The whole round's payload moved in this one execute: a rate of
+        # the device, not of a link
+        _PERF.observe("mesh", "device",
+                      sum(int(d[1].nbytes) for d in deposits.values()),
+                      elapsed)
         with self._lock:
             self._executed[kind] += 1
         done = None
@@ -412,6 +490,7 @@ class DevicePlane:
             "topology_gen": self.topology_gen,
             "disabled": self.disabled_reason,
             "rounds": rounds,
+            "compiles": len(self._compiled),
             # ring rounds on the card are kernel launches; on the CPU
             # they run the plain version
             "ring_launches": (rounds.get("ring_permute", 0)

@@ -39,6 +39,10 @@ class ExecutorContext:
         _tls.context = None
 
     @staticmethod
+    def is_set() -> bool:
+        return getattr(_tls, "context", None) is not None
+
+    @staticmethod
     def get() -> "ExecutorContext":
         ctx = getattr(_tls, "context", None)
         if ctx is None:

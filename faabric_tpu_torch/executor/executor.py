@@ -24,10 +24,15 @@ executor to its scheduler's warm pool; a THREADS batch keeps its
 memory (no ``reset``). Chained calls are recorded per executor
 (``add_chained_message``).
 
-Not ported: the reference's spans, lifecycle stamps, metrics, flight
-dump and the ``executor.run`` fault point (``ROADMAP.md`` Queue 1 #9
-part B), and the migrated and frozen return paths with their
-exceptions (part C).
+Telemetry, as the reference's: each task passes the ``executor.run``
+fault point (a ``raise`` rule fails it like a guest error), runs in an
+``executor``/``execute_task`` span while tracing, is stamped into its
+message's lifecycle ledger (queue exit, run start and end), and goes
+into the queue-wait and run histograms; a guest exception is
+flight-recorded and dumps the ring.
+
+Not ported: the migrated and frozen return paths with their exceptions
+(``ROADMAP.md`` Queue 1 #7 part C).
 """
 
 from __future__ import annotations
@@ -39,11 +44,24 @@ from typing import TYPE_CHECKING, Optional
 import numpy as np
 
 from faabric_tpu_torch.executor.context import ExecutorContext
+from faabric_tpu_torch.faults import fault_point, faults_enabled
 from faabric_tpu_torch.proto import (
     BatchExecuteRequest,
     BatchExecuteType,
     Message,
     ReturnValue,
+)
+from faabric_tpu_torch.telemetry import (
+    NULL_SPAN,
+    get_lifecycle,
+    get_metrics,
+    span,
+    tracing_enabled,
+)
+from faabric_tpu_torch.telemetry.lifecycle import (
+    PHASE_EXEC_QUEUE_EXIT,
+    PHASE_RUN_END,
+    PHASE_RUN_START,
 )
 from faabric_tpu_torch.util.config import get_system_config
 from faabric_tpu_torch.util.logging import get_logger
@@ -56,6 +74,21 @@ logger = get_logger(__name__)
 
 # Put on a pool thread's queue to end it; compared by identity
 _SHUTDOWN = object()
+
+_FAULTS = faults_enabled()
+_FP_RUN = fault_point("executor.run")
+
+_LC = get_lifecycle()
+
+_metrics = get_metrics()
+_QUEUE_WAIT_SECONDS = _metrics.histogram(
+    "faabric_executor_queue_wait_seconds",
+    "Task time spent queued before a pool thread picked it up")
+_RUN_SECONDS = _metrics.histogram(
+    "faabric_executor_run_seconds",
+    "Guest execute_task run time")
+_TASKS_TOTAL = _metrics.counter(
+    "faabric_executor_tasks_total", "Tasks executed")
 
 
 class ExecutorTask:
@@ -245,7 +278,10 @@ class Executor:
         msg = req.messages[task.msg_idx]
         is_threads = req.type == int(BatchExecuteType.THREADS)
         msg.executed_host = self.scheduler.host if self.scheduler else ""
+        # The pool thread has the task
+        _LC.stamp(msg, PHASE_EXEC_QUEUE_EXIT)
         queue_wait = time.monotonic() - task.enqueue_ts
+        _QUEUE_WAIT_SECONDS.observe(queue_wait)
 
         # Thread-local tracking brackets the task, so that each thread
         # reports only its own writes (reference Executor.cpp:464-476)
@@ -256,16 +292,43 @@ class Executor:
                 mem, region_hints=self._batch_hints)
 
         ExecutorContext.set(self, req, task.msg_idx)
+        _LC.stamp(msg, PHASE_RUN_START)
         run_t0 = time.monotonic()
         try:
-            ret = self.execute_task(pool_idx, task.msg_idx, req)
+            if _FAULTS:
+                # delay rules make stragglers; raise rules fail the task
+                # (folded into its result below)
+                _FP_RUN.fire(function=f"{msg.user}/{msg.function}",
+                             msg_id=msg.id)
+            with span("executor", "execute_task", msg_id=msg.id,
+                      function=f"{msg.user}/{msg.function}") \
+                    if tracing_enabled() else NULL_SPAN:
+                ret = self.execute_task(pool_idx, task.msg_idx, req)
         except Exception as e:  # noqa: BLE001 — guest errors become results
             logger.exception("%s task %d failed", self.id, msg.id)
             ret = int(ReturnValue.FAILED)
             msg.output_data = str(e).encode()
+            # The guest exception triggers a flight dump: the ring's
+            # recent sends and faults are the context a stack trace
+            # lacks. Recording must never replace the FAILED result
+            try:
+                from faabric_tpu_torch.telemetry import (
+                    flight_dump,
+                    flight_record,
+                )
+
+                flight_record("executor_exception", msg_id=msg.id,
+                              function=f"{msg.user}/{msg.function}",
+                              error=str(e)[:200])
+                flight_dump("executor_exception")
+            except Exception:  # noqa: BLE001
+                logger.exception("Flight dump on task failure failed")
         finally:
             ExecutorContext.unset()
+        _LC.stamp(msg, PHASE_RUN_END)
         run_seconds = time.monotonic() - run_t0
+        _RUN_SECONDS.observe(run_seconds)
+        _TASKS_TOTAL.inc()
         msg.return_value = ret
         msg.finish_timestamp = time.time()
         msg.int_exec_graph_details["queue_us"] = int(queue_wait * 1e6)

@@ -18,16 +18,17 @@ Compiles (collective, Topology) into the verified step programs of
 - ``allgather.ring`` — the flat shift-1 ring whose permute legs the
   ``device-ring`` execution target runs on the device plane.
 
-Selection: the reference picks the composed families for cross-machine
-links that are slow or unmeasured, reading measured per-link bandwidth
-from its perf-profile store (``measured_cross_gibs`` :528). This
-package has no telemetry store yet, so every link is unmeasured and
-takes the reference's "unmeasured means slow" answer: multi-host
-topologies always compose. The verdict is computed on rank 0 only and
+Selection: the composed families for cross-machine links that are slow
+or unmeasured, the flat ones for links measured at or above
+``FAABRIC_SCHED_FAST_GIBS`` (default 2 GiB/s). A link's rate comes from
+the perf store's big-frame evidence, then the comm matrix
+(``measured_cross_gibs``). The verdict is computed on rank 0 only and
 broadcast by the selection-sync round in ``MpiWorld._sched_family``.
 """
 
 from __future__ import annotations
+
+import os
 
 from faabric_tpu_torch.mpi.schedule import (
     COPY,
@@ -51,6 +52,16 @@ def BLK(j) -> tuple:
 def SEG(i) -> tuple:
     return ("seg", i)
 
+
+# Links measured at or above this are fast: flat schedules win there
+# (per-message overhead is negligible next to the composed families'
+# extra local copies). Below it, or unmeasured, the composed families'
+# 1/m² message count wins
+FAST_LINK_GIBS = float(os.environ.get("FAABRIC_SCHED_FAST_GIBS", "2.0"))
+
+# Bandwidth evidence floor, as the wire-codec governor's: small frames
+# measure dispatch overhead, not the link
+EVIDENCE_BYTES = 1 << 20
 
 # Families in a stable order: the selection-sync broadcast ships the
 # INDEX, so this tuple is wire protocol — append only.
@@ -490,28 +501,97 @@ def compile_schedule(family: str, collective: str, topo,
     return verify_schedule(sched)
 
 
-def choose_family(collective: str, topo, nbytes: int, mode) -> str:
+def measured_cross_gibs(topo, my_host: str, store=None,
+                        matrix=None) -> float | None:
+    """Worst measured outbound bandwidth toward the topology's OTHER
+    hosts: perf-profile store first (big-frame evidence), comm-matrix
+    window as fallback, None when every remote link is unmeasured."""
+    if store is None:
+        from faabric_tpu_torch.telemetry.perfprofile import get_perf_store
+
+        store = get_perf_store()
+    worst = None
+    for host in topo.hosts:
+        if host == my_host:
+            continue
+        gibs = store.link_gibs(host, plane="bulk-tcp",
+                               min_bytes=EVIDENCE_BYTES)
+        if gibs is None:
+            gibs = _matrix_gibs(topo, host, matrix)
+        if gibs is None:
+            continue
+        if worst is None or gibs < worst:
+            worst = gibs
+    return worst
+
+
+def _matrix_gibs(topo, dst_host: str, matrix=None) -> float | None:
+    """Comm-matrix window fallback for one destination host: best
+    observed wire rate of any cell whose dst rank lives there."""
+    if matrix is None:
+        from faabric_tpu_torch.telemetry import get_comm_matrix
+
+        matrix = get_comm_matrix()
+    snap = matrix.snapshot() or {}
+    dst_ranks = {str(r) for r in topo.ranks_on_host(dst_host)}
+    best = None
+    for c in snap.get("cells", []):
+        if c.get("plane") not in ("bulk-tcp", "shm"):
+            continue
+        if c.get("dst") not in dst_ranks:
+            continue
+        lat = c.get("lat_sum") or 0.0
+        if lat <= 0:
+            continue
+        gibs = (c.get("bytes_raw", c.get("bytes", 0)) / lat) / (1 << 30)
+        if best is None or gibs > best:
+            best = gibs
+    return best
+
+
+def _links_slow(topo, mode, store, matrix) -> bool:
+    """Assume-slow convention: unmeasured links are slow (a fresh WAN
+    link must not run the copy-heavy flat schedule until a measurement
+    earns it)."""
+    if mode == "force":
+        return True
+    gibs = measured_cross_gibs(topo, topo.host_of(0), store=store,
+                               matrix=matrix)
+    return gibs is None or gibs < FAST_LINK_GIBS
+
+
+def choose_family(collective: str, topo, nbytes: int, mode,
+                  store=None, matrix=None) -> str:
     """Pick the schedule family for one (collective, Topology, payload).
     Deterministic given its inputs; the WORLD-agreed verdict is rank
-    0's, distributed by the selection-sync round. ``mode`` is the
-    world's sched knob value (True / "force"). ``nbytes`` and ``mode``
-    could only tip a choice toward the flat families through a measured
-    fast link, and no link is measured here (see the module docstring):
-    multi-host topologies always compose."""
+    0's, distributed by the selection-sync round (per-process perf
+    stores disagree, and a desynced family choice hangs the world).
+    ``mode`` is the world's sched knob value (True / "force")."""
     multi_host = topo.n_hosts > 1
     if collective == "alltoall":
-        return "alltoall.hier" if multi_host else "alltoall.flat"
+        if not multi_host:
+            return "alltoall.flat"
+        return ("alltoall.hier"
+                if _links_slow(topo, mode, store, matrix)
+                else "alltoall.flat")
     if collective in ("scatter", "scatterv"):
-        return "scatter.tree" if multi_host else "scatter.flat"
+        if not multi_host:
+            return "scatter.flat"
+        return ("scatter.tree"
+                if _links_slow(topo, mode, store, matrix)
+                else "scatter.flat")
     if collective == "scan":
         if (multi_host and topo.max_ranks_per_host > 1
-                and topo.hosts_contiguous()):
+                and topo.hosts_contiguous()
+                and _links_slow(topo, mode, store, matrix)):
             return "scan.hier"
         return "scan.chain"
     if collective in ("allreduce", "reduce_scatter", "allgather"):
-        # Allgather over a one-rank-per-host placement lowers to the
-        # flat ring whose permute legs the device-ring target can
-        # execute on the device plane.
+        # Only reachable under force + world.sched_reductions; the flat
+        # shapes keep the hand-written executors. Allgather over a
+        # one-rank-per-host placement lowers to the flat ring whose
+        # permute legs the device-ring target can execute on the device
+        # plane.
         if collective == "allgather" and topo.n_hosts == topo.size:
             return "allgather.ring"
         return f"{collective}.hier"

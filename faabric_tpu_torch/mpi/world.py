@@ -52,8 +52,14 @@ quantises the hierarchical allreduce's leader ring on its fold leg
 (``mpi/quant.py``), each hop as the wire-codec governor says
 (``_quant_link_ok``); every host's world must agree on it.
 
-Not ported (``ROADMAP.md`` Queue 1 #7 part B): telemetry spans, the
-collective profiler and fault points.
+Telemetry, as the reference's: every collective passes the
+``mpi.collective`` fault point and is counted
+(``faabric_mpi_collectives_total``, ``..._bytes_total``), runs in an
+``mpi``/<collective> span tagged with its algorithm, its phases in
+``mpi.phase`` spans (the hierarchy level under ``phase``), ring folds in
+``mpi.detail`` spans and wire (de)serialisation in ``mpi.wire`` spans;
+allreduce, reduce_scatter and allgather record their entry stamp,
+per-level durations and total in the collective profiler.
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from faabric_tpu_torch.faults import fault_point, faults_enabled
 from faabric_tpu_torch.mpi.quant import (
     ALLREDUCE_QUANT,
     leader_ring_codec,
@@ -88,6 +95,13 @@ from faabric_tpu_torch.mpi.types import (
     np_dtype_for,
     unpack_mpi_payload,
 )
+from faabric_tpu_torch.telemetry import (
+    NULL_SPAN,
+    get_collective_profiler,
+    get_metrics,
+    span,
+    tracing_enabled,
+)
 from faabric_tpu_torch.transport.point_to_point import GroupAbortedError
 
 logger = logging.getLogger(__name__)
@@ -96,6 +110,40 @@ MAIN_RANK = 0
 
 # The MPI-facing name for a group abort
 MpiWorldAborted = GroupAbortedError
+
+_FAULTS = faults_enabled()
+_FP_COLLECTIVE = fault_point("mpi.collective")
+
+_metrics = get_metrics()
+_coll_total: dict = {}
+_coll_bytes: dict = {}
+# Every rank records its round entry stamp, per-phase durations and
+# total here: the store behind the critical-path decomposition and the
+# straggler detector. A shared no-op while metrics are off
+_PROFILER = get_collective_profiler()
+
+
+def _count_collective(op: str, nbytes: int) -> None:
+    if _FAULTS:
+        # One choke point for every collective: delay rules add
+        # straggler latency, raise rules fail the rank
+        _FP_COLLECTIVE.fire(op=op, bytes=nbytes)
+    c = _coll_total.get(op)
+    b = _coll_bytes.get(op)
+    if c is None or b is None:
+        # Both run: ranks are concurrent threads, and one dict holding
+        # the op must not imply the other does (the registry dedupes
+        # handles, so racers agree)
+        c = _coll_total.setdefault(op, _metrics.counter(
+            "faabric_mpi_collectives_total",
+            "Host-path collective invocations (per participating rank)",
+            op=op))
+        b = _coll_bytes.setdefault(op, _metrics.counter(
+            "faabric_mpi_collective_bytes_total",
+            "Per-rank payload bytes entering host-path collectives",
+            op=op))
+    c.inc()
+    b.inc(nbytes)
 
 # Ring collectives stream each per-rank segment as chunk-sized messages,
 # so a rank folds chunk k while chunk k+1 crosses the wire (the
@@ -481,7 +529,11 @@ class MpiWorld:
                                        shared=not _copy and not _transfer,
                                        owned=_transfer)
         else:
-            payload = MpiWirePayload(msg_type, arr, request_id)
+            # With zero-copy framing this span should be ~0; a fat one
+            # (a non-contiguous input forcing a copy) is a suspect
+            with span("mpi.wire", "serialize", rank=send_rank) \
+                    if tracing_enabled() else NULL_SPAN:
+                payload = MpiWirePayload(msg_type, arr, request_id)
         self.broker.send_message(self.group_id, send_rank, recv_rank,
                                  payload)
 
@@ -505,11 +557,20 @@ class MpiWorld:
         if isinstance(raw, _LocalMpiPayload):
             arr, owned = raw.data, raw.owned
         else:
-            _, arr, _req = unpack_mpi_payload(raw)
+            _, arr, _req = self._unpack_wire(raw)
             owned = arr.flags.writeable
         status = MpiStatus(source=send_rank, count=arr.size,
                            dtype=int(mpi_dtype_for(arr.dtype)))
         return arr, status, owned
+
+    @staticmethod
+    def _unpack_wire(raw):
+        """Unpack a wire payload in a ``mpi.wire`` deserialize span (a
+        zero-copy wrap on the bulk plane; a fat span points at the RPC
+        plane's bytes → array copy)."""
+        with span("mpi.wire", "deserialize", bytes=len(raw)) \
+                if tracing_enabled() else NULL_SPAN:
+            return unpack_mpi_payload(raw)
 
     def _recv_typed(self, send_rank: int, recv_rank: int
                     ) -> tuple[MpiMessageType, np.ndarray]:
@@ -518,7 +579,7 @@ class MpiWorld:
         raw = self.broker.recv_message(self.group_id, send_rank, recv_rank)
         if isinstance(raw, _LocalMpiPayload):
             return raw.msg_type, raw.data
-        msg_type, arr, _req = unpack_mpi_payload(raw)
+        msg_type, arr, _req = self._unpack_wire(raw)
         return msg_type, arr
 
     def recv(self, send_rank: int, recv_rank: int,
@@ -537,7 +598,7 @@ class MpiWorld:
                 except ValueError:
                     arr = arr.copy()
         else:
-            _, arr, _req = unpack_mpi_payload(raw)
+            _, arr, _req = self._unpack_wire(raw)
             if not arr.flags.writeable:
                 arr = arr.copy()
         status = MpiStatus(source=send_rank, count=arr.size,
@@ -831,6 +892,7 @@ class MpiWorld:
             raise ScheduleError(
                 f"refusing to execute unverified schedule {sched.name}")
         steps = sched.steps.get(rank, ())
+        traced = tracing_enabled()
         phase_targets = sched.spec.get("targets") or {}
         for phase, group in self._sched_phase_groups(steps):
             done = 0
@@ -840,38 +902,44 @@ class MpiWorld:
                 if target is not None:
                     done = target.try_run(self, rank, sched, phase, group,
                                           env, resolver) or 0
-            for st in group[done:]:
-                if st.op == SEND:
-                    bufs = [np.asarray(self._stage_host(env[k])).reshape(-1)
+            if done >= len(group):
+                continue
+            with span("mpi.phase", phase or "run", rank=rank) \
+                    if traced else NULL_SPAN:
+                for st in group[done:]:
+                    if st.op == SEND:
+                        bufs = [np.asarray(
+                            self._stage_host(env[k])).reshape(-1)
                             for k in st.keys]
-                    payload = (bufs[0] if len(bufs) == 1
-                               else np.concatenate(bufs))
-                    self.send(rank, st.peer, payload, msg_type)
-                elif st.op == RECV:
-                    arr, _ = self._recv_raw(st.peer, rank)
-                    arr = arr.reshape(-1)
-                    if len(st.keys) == 1:
-                        env[st.keys[0]] = arr
-                        continue
-                    pos = 0
-                    for k, sym in zip(st.keys, st.syms):
-                        count = int(resolver(sym, env))
-                        env[k] = arr[pos:pos + count]
-                        pos += count
-                    if pos != arr.size:
-                        raise ScheduleError(
-                            f"{sched.name}: rank {rank} recv from "
-                            f"{st.peer} split {pos} of {arr.size} "
-                            f"elements (framing desync)")
-                elif st.op == FOLD:
-                    a, b = env[st.a], env[st.b]
-                    if type(a) is not type(b):
-                        a, b = self._stage_host(a), self._stage_host(b)
-                    env[st.dst] = apply_op(op, a, b).reshape(-1)
-                elif st.op == COPY:
-                    src = env[st.src]
-                    env[st.dst] = (src.reshape(-1) if hasattr(src, "reshape")
-                                   else np.asarray(src).reshape(-1))
+                        payload = (bufs[0] if len(bufs) == 1
+                                   else np.concatenate(bufs))
+                        self.send(rank, st.peer, payload, msg_type)
+                    elif st.op == RECV:
+                        arr, _ = self._recv_raw(st.peer, rank)
+                        arr = arr.reshape(-1)
+                        if len(st.keys) == 1:
+                            env[st.keys[0]] = arr
+                            continue
+                        pos = 0
+                        for k, sym in zip(st.keys, st.syms):
+                            count = int(resolver(sym, env))
+                            env[k] = arr[pos:pos + count]
+                            pos += count
+                        if pos != arr.size:
+                            raise ScheduleError(
+                                f"{sched.name}: rank {rank} recv from "
+                                f"{st.peer} split {pos} of {arr.size} "
+                                f"elements (framing desync)")
+                    elif st.op == FOLD:
+                        a, b = env[st.a], env[st.b]
+                        if type(a) is not type(b):
+                            a, b = self._stage_host(a), self._stage_host(b)
+                        env[st.dst] = apply_op(op, a, b).reshape(-1)
+                    elif st.op == COPY:
+                        src = env[st.src]
+                        env[st.dst] = (src.reshape(-1)
+                                       if hasattr(src, "reshape")
+                                       else np.asarray(src).reshape(-1))
         return env
 
     # ------------------------------------------------------------------
@@ -880,8 +948,10 @@ class MpiWorld:
     def barrier(self, rank: int) -> None:
         """The group barrier: one host's ranks meet on a thread barrier,
         several hosts' gather to rank 0 and are released by it."""
-        self.broker.wait_for_mappings(self.group_id)
-        self.broker.get_group(self.group_id).barrier(rank)
+        _count_collective("barrier", 0)
+        with span("mpi", "barrier", rank=rank, size=self.size):
+            self.broker.wait_for_mappings(self.group_id)
+            self.broker.get_group(self.group_id).barrier(rank)
 
     def _try_device(self, kind: str, dplane, rank: int, arr, op=None):
         """The device rung: the collective on the activated plane, or
@@ -890,17 +960,20 @@ class MpiWorld:
         A resident round's backend error propagates."""
         from faabric_tpu_torch.device_plane import DevicePlaneFallback
 
-        try:
-            if kind == "allreduce":
-                out = dplane.allreduce(rank, arr, op)
-            elif kind == "allgather":
-                out = dplane.allgather(rank, arr)
-            else:
-                out = dplane.reduce_scatter(rank, arr, op)
-        except DevicePlaneFallback as e:
-            logger.warning("Device %s (world %s) fell back to the host "
-                           "ladder: %s", kind, self.id, e)
-            return None
+        _count_collective(kind, int(arr.nbytes))
+        with span("mpi", kind, rank=rank, size=self.size,
+                  bytes=int(arr.nbytes), algo="device"):
+            try:
+                if kind == "allreduce":
+                    out = dplane.allreduce(rank, arr, op)
+                elif kind == "allgather":
+                    out = dplane.allgather(rank, arr)
+                else:
+                    out = dplane.reduce_scatter(rank, arr, op)
+            except DevicePlaneFallback as e:
+                logger.warning("Device %s (world %s) fell back to the "
+                               "host ladder: %s", kind, self.id, e)
+                return None
         self.rungs[rank, kind] = "device"
         return out
 
@@ -912,8 +985,11 @@ class MpiWorld:
                 for lo in range(0, arr.size, elems)]
 
     def broadcast(self, send_rank: int, recv_rank: int, data) -> np.ndarray:
-        return self._broadcast_impl(send_rank, recv_rank,
-                                    np.asarray(self._stage_host(data)))
+        data = np.asarray(self._stage_host(data))
+        _count_collective("broadcast", int(data.nbytes))
+        with span("mpi", "broadcast", rank=recv_rank, root=send_rank,
+                  bytes=int(data.nbytes)):
+            return self._broadcast_impl(send_rank, recv_rank, data)
 
     def _broadcast_impl(self, send_rank: int, recv_rank: int,
                         data: np.ndarray) -> np.ndarray:
@@ -1020,8 +1096,11 @@ class MpiWorld:
 
     def reduce(self, rank: int, root: int, data,
                op: MpiOp = MpiOp.SUM) -> Optional[np.ndarray]:
-        return self._reduce_impl(rank, root,
-                                 np.asarray(self._stage_host(data)), op)
+        data = np.asarray(self._stage_host(data))
+        _count_collective("reduce", int(data.nbytes))
+        with span("mpi", "reduce", rank=rank, root=root,
+                  bytes=int(data.nbytes)):
+            return self._reduce_impl(rank, root, data, op)
 
     def _reduce_impl(self, rank: int, root: int, data: np.ndarray,
                      op: MpiOp = MpiOp.SUM,
@@ -1129,6 +1208,21 @@ class MpiWorld:
 
     def allreduce(self, rank: int, data, op: MpiOp = MpiOp.SUM):
         arr = self._payload(data)
+        if not _PROFILER.enabled:
+            return self._allreduce_entry(rank, arr, op)
+        # The wall-anchored entry stamp is what straggler analysis
+        # compares across ranks: in a synchronous collective a late
+        # arriver inflates everyone's total alike
+        _PROFILER.record_phase(self.id, "allreduce", rank, "enter_ts",
+                               time.time())
+        t0 = time.monotonic()
+        try:
+            return self._allreduce_entry(rank, arr, op)
+        finally:
+            _PROFILER.record_phase(self.id, "allreduce", rank, "total",
+                                   time.monotonic() - t0, int(arr.nbytes))
+
+    def _allreduce_entry(self, rank: int, arr, op):
         dplane = self.device_plane()
         if dplane is not None and dplane.eligible("allreduce", arr, op):
             out = self._try_device("allreduce", dplane, rank, arr, op)
@@ -1137,20 +1231,27 @@ class MpiWorld:
         arr = self._stage_host(arr)
         if self._sched_reduction_eligible(op):
             return self._reduction_sched(rank, "allreduce", arr, op)
-        if self._hier_eligible(arr, op):
-            self.rungs[rank, "allreduce"] = "hier"
-            return self._allreduce_hier(rank, arr, op)
-        if arr.size >= self.size and self._ring_eligible(arr, op):
-            self.rungs[rank, "allreduce"] = "ring"
-            return self._allreduce_ring(rank, arr, op)
-        # Reduce to 0 and broadcast (reference :1251-1264); the trailing
-        # broadcast is the completion barrier that makes the zero-copy
-        # contribution sends safe (_shared_ok)
-        self.rungs[rank, "allreduce"] = "tree"
-        reduced = self._reduce_impl(rank, MAIN_RANK, arr, op,
-                                    _shared_ok=True)
-        return self._broadcast_impl(MAIN_RANK, rank,
-                                    reduced if rank == MAIN_RANK else arr)
+        algo = ("hier" if self._hier_eligible(arr, op)
+                else "ring" if (arr.size >= self.size
+                                and self._ring_eligible(arr, op))
+                else "tree")
+        self.rungs[rank, "allreduce"] = algo
+        _count_collective("allreduce", int(arr.nbytes))
+        with span("mpi", "allreduce", rank=rank, size=self.size,
+                  bytes=int(arr.nbytes), algo=algo):
+            if algo == "hier":
+                return self._allreduce_hier(rank, arr, op)
+            if algo == "ring":
+                return self._allreduce_ring(rank, arr, op)
+            # Reduce to 0 and broadcast (reference :1251-1264); the
+            # trailing broadcast is the completion barrier that makes
+            # the zero-copy contribution sends safe (_shared_ok)
+            with span("mpi.phase", "reduce", rank=rank):
+                reduced = self._reduce_impl(rank, MAIN_RANK, arr, op,
+                                            _shared_ok=True)
+            with span("mpi.phase", "broadcast", rank=rank):
+                return self._broadcast_impl(
+                    MAIN_RANK, rank, reduced if rank == MAIN_RANK else arr)
 
     def _sched_reduction_eligible(self, op=None) -> bool:
         """Whether the hierarchical reduction lowerings run in place of
@@ -1173,36 +1274,40 @@ class MpiWorld:
             rank, collective, op=op_arg, dtype=flat.dtype,
             nbytes=int(flat.nbytes))
         self.rungs[rank, collective] = "sched:" + family.split(".", 1)[1]
-        env: dict = {}
-        if collective == "allreduce":
-            segs = self._ring_segments(flat.size, sched.spec["segments"])
-            for s, (lo, hi) in enumerate(segs):
-                env[("in", s)] = flat[lo:hi]
+        _count_collective(collective, int(flat.nbytes))
+        with span("mpi", collective, rank=rank, size=self.size,
+                  bytes=int(flat.nbytes),
+                  algo="sched:" + family.split(".", 1)[1]):
+            env: dict = {}
+            if collective == "allreduce":
+                segs = self._ring_segments(flat.size, sched.spec["segments"])
+                for s, (lo, hi) in enumerate(segs):
+                    env[("in", s)] = flat[lo:hi]
 
-            def resolver(sym, e, _segs=segs):
-                return _segs[sym[1]][1] - _segs[sym[1]][0]
+                def resolver(sym, e, _segs=segs):
+                    return _segs[sym[1]][1] - _segs[sym[1]][0]
 
-            self._run_schedule(rank, sched, env, op, resolver,
-                               MpiMessageType.ALLREDUCE)
-            out = np.empty(flat.size, dtype=flat.dtype)
-            for s, (lo, hi) in enumerate(segs):
-                out[lo:hi] = env[("out", s)]
-            return out.reshape(np.asarray(data).shape)
-        if collective == "reduce_scatter":
-            k = flat.size // self.size
-            for j in range(self.size):
-                env[("in", j)] = flat[j * k:(j + 1) * k]
-            self._run_schedule(rank, sched, env, op, lambda sym, e: k,
-                               MpiMessageType.REDUCE)
-            return np.array(env[("out", 0)])
-        k = flat.size
-        env[("in", 0)] = flat
-        self._run_schedule(rank, sched, env, None, lambda sym, e: k,
-                           MpiMessageType.ALLGATHER)
-        out = np.empty(self.size * k, dtype=flat.dtype)
-        for q in range(self.size):
-            out[q * k:(q + 1) * k] = env[("out", q)]
-        return out
+                self._run_schedule(rank, sched, env, op, resolver,
+                                   MpiMessageType.ALLREDUCE)
+                out = np.empty(flat.size, dtype=flat.dtype)
+                for s, (lo, hi) in enumerate(segs):
+                    out[lo:hi] = env[("out", s)]
+                return out.reshape(np.asarray(data).shape)
+            if collective == "reduce_scatter":
+                k = flat.size // self.size
+                for j in range(self.size):
+                    env[("in", j)] = flat[j * k:(j + 1) * k]
+                self._run_schedule(rank, sched, env, op, lambda sym, e: k,
+                                   MpiMessageType.REDUCE)
+                return np.array(env[("out", 0)])
+            k = flat.size
+            env[("in", 0)] = flat
+            self._run_schedule(rank, sched, env, None, lambda sym, e: k,
+                               MpiMessageType.ALLGATHER)
+            out = np.empty(self.size * k, dtype=flat.dtype)
+            for q in range(self.size):
+                out[q * k:(q + 1) * k] = env[("out", q)]
+            return out
 
     def _ring_eligible(self, arr: np.ndarray, op) -> bool:
         """The ring for allreduce and reduce_scatter: large enough to
@@ -1266,30 +1371,33 @@ class MpiWorld:
         leader = locals_[0]
         if m == 1:
             return (flat if rank == leader else None), (lambda: None)
-        held, restore = self._ring_reduce_scatter(rank, data, op,
-                                                  ring=locals_)
-        seg = self._ring_segments(flat.size, m)
-        pos = locals_.index(rank)
-        if rank != leader:
+        with span("mpi.phase", "reduce_scatter", rank=rank,
+                  phase="intra"):
+            held, restore = self._ring_reduce_scatter(rank, data, op,
+                                                      ring=locals_)
+        with span("mpi.phase", "gather", rank=rank, phase="intra"):
+            seg = self._ring_segments(flat.size, m)
+            pos = locals_.index(rank)
+            if rank != leader:
+                for part in held:
+                    self.send(rank, leader, part, MpiMessageType.REDUCE,
+                              _transfer=True)
+                return None, restore
+            host_acc = np.empty(
+                flat.size, dtype=held[0].dtype if held else flat.dtype)
+            # Own chunks cover segment (pos+1) % m ...
+            write = seg[(pos + 1) % m][0]
             for part in held:
-                self.send(rank, leader, part, MpiMessageType.REDUCE,
-                          _transfer=True)
-            return None, restore
-        host_acc = np.empty(
-            flat.size, dtype=held[0].dtype if held else flat.dtype)
-        # Own chunks cover segment (pos+1) % m ...
-        write = seg[(pos + 1) % m][0]
-        for part in held:
-            host_acc[write:write + part.size] = part
-            write += part.size
-        # ... and the local rank at position p holds segment (p+1) % m
-        for p in range(m):
-            if locals_[p] == rank:
-                continue
-            slo, shi = seg[(p + 1) % m]
-            for clo, chi in self._ring_chunks(slo, shi, flat.itemsize):
-                arr, _ = self._recv_raw(locals_[p], rank)
-                host_acc[clo:chi] = arr
+                host_acc[write:write + part.size] = part
+                write += part.size
+            # ... and the local rank at position p holds segment (p+1) % m
+            for p in range(m):
+                if locals_[p] == rank:
+                    continue
+                slo, shi = seg[(p + 1) % m]
+                for clo, chi in self._ring_chunks(slo, shi, flat.itemsize):
+                    arr, _ = self._recv_raw(locals_[p], rank)
+                    host_acc[clo:chi] = arr
         return host_acc, restore
 
     def _allreduce_hier(self, rank: int, data: np.ndarray,
@@ -1300,37 +1408,65 @@ class MpiWorld:
         topo = self.topology()
         locals_ = list(topo.ranks_on_host(topo.host_of(rank)))
         leader = locals_[0]
+        # Per-level durations go to the collective profiler, so the
+        # critical path names the slow level, not just the slow rank
+        prof = _PROFILER.enabled
+        t_ph = time.monotonic() if prof else 0.0
         host_acc, restore = self._host_reduce(rank, data, op, locals_)
+        if prof:
+            now = time.monotonic()
+            _PROFILER.record_phase(self.id, "allreduce", rank, "intra",
+                                   now - t_ph)
+            t_ph = now
         if rank != leader:
-            arr, _ = self._recv_raw(leader, rank)
-            out = self._private_result(arr, data)
+            with span("mpi.phase", "broadcast", rank=rank,
+                      phase="redistribute"):
+                arr, _ = self._recv_raw(leader, rank)
+                out = self._private_result(arr, data)
+            if prof:
+                _PROFILER.record_phase(self.id, "allreduce", rank,
+                                       "redistribute",
+                                       time.monotonic() - t_ph)
             restore()
             return out
         # The leader ring, the leg that crosses machines, may quantise
         # its fold (mpi/quant.py); intra-host phases stay exact
         result = self._allreduce_ring(
-            rank, host_acc, op, ring=list(topo.leaders),
+            rank, host_acc, op, ring=list(topo.leaders), phase="leader",
             codec=leader_ring_codec(resolve_quant_mode(self.allreduce_quant),
                                     host_acc.dtype, op))
-        if len(locals_) > 1:
-            shared = result.reshape(-1)
-            shared.flags.writeable = False
-            for r in locals_[1:]:
-                self.send(rank, r, shared, MpiMessageType.BROADCAST,
-                          _copy=False)
-            # Receivers keep the frozen buffer; the caller gets its own
-            result = shared.copy()
+        if prof:
+            now = time.monotonic()
+            _PROFILER.record_phase(self.id, "allreduce", rank, "leader",
+                                   now - t_ph)
+            t_ph = now
+        with span("mpi.phase", "broadcast", rank=rank,
+                  phase="redistribute"):
+            if len(locals_) > 1:
+                shared = result.reshape(-1)
+                shared.flags.writeable = False
+                for r in locals_[1:]:
+                    self.send(rank, r, shared, MpiMessageType.BROADCAST,
+                              _copy=False)
+                # Receivers keep the frozen buffer; the caller gets its
+                # own
+                result = shared.copy()
+        if prof:
+            _PROFILER.record_phase(self.id, "allreduce", rank,
+                                   "redistribute", time.monotonic() - t_ph)
         restore()
         return self._private_result(result, data, private=True)
 
     def _allreduce_ring(self, rank: int, data: np.ndarray, op,
                         ring: list[int] | None = None,
+                        phase: str | None = None,
                         codec=None) -> np.ndarray:
         """Chunk-pipelined ring allreduce: n-1 reduce-scatter steps, then
         n-1 allgather steps passing chunk references on, each received
         chunk written straight into the result. ``ring`` restricts it to
         an ordered rank subset (the hierarchical leader ring); ``codec``
-        encodes the reduce-scatter's wire (``_ring_reduce_scatter``)."""
+        encodes the reduce-scatter's wire (``_ring_reduce_scatter``);
+        ``phase`` tags the spans with the hierarchy level."""
         flat = data.reshape(-1)
         if ring is None:
             ring = list(range(self.size))
@@ -1338,31 +1474,34 @@ class MpiWorld:
         pos = ring.index(rank)
         seg = self._ring_segments(flat.size, n)
         nxt, prv = ring[(pos + 1) % n], ring[(pos - 1) % n]
-        held, restore = self._ring_reduce_scatter(rank, data, op, ring=ring,
-                                                  codec=codec)
+        lvl = {"phase": phase} if phase else {}
+        with span("mpi.phase", "reduce_scatter", rank=rank, **lvl):
+            held, restore = self._ring_reduce_scatter(rank, data, op,
+                                                      ring=ring, codec=codec)
         out = np.empty(flat.size,
                        dtype=held[0].dtype if held else flat.dtype)
-        # Our fully reduced segment, while its chunks are in hand
-        start = seg[(pos + 1) % n][0]
-        for part in held:
-            out[start:start + part.size] = part
-            start += part.size
-        parts: dict[int, list[np.ndarray]] = {(pos + 1) % n: held}
-        for step in range(n - 1):
-            send_seg = (pos + 1 - step) % n
-            for part in parts.pop(send_seg):
-                if part.flags.writeable:
-                    part.flags.writeable = False
-                self.send(rank, nxt, part, MpiMessageType.REDUCE,
-                          _copy=False)
-            recv_seg = (pos - step) % n
-            rlo, rhi = seg[recv_seg]
-            recv_parts = []
-            for clo, chi in self._ring_chunks(rlo, rhi, flat.itemsize):
-                arr, _ = self._recv_raw(prv, rank)
-                out[clo:chi] = arr
-                recv_parts.append(arr)
-            parts[recv_seg] = recv_parts
+        with span("mpi.phase", "allgather", rank=rank, **lvl):
+            # Our fully reduced segment, while its chunks are in hand
+            start = seg[(pos + 1) % n][0]
+            for part in held:
+                out[start:start + part.size] = part
+                start += part.size
+            parts: dict[int, list[np.ndarray]] = {(pos + 1) % n: held}
+            for step in range(n - 1):
+                send_seg = (pos + 1 - step) % n
+                for part in parts.pop(send_seg):
+                    if part.flags.writeable:
+                        part.flags.writeable = False
+                    self.send(rank, nxt, part, MpiMessageType.REDUCE,
+                              _copy=False)
+                recv_seg = (pos - step) % n
+                rlo, rhi = seg[recv_seg]
+                recv_parts = []
+                for clo, chi in self._ring_chunks(rlo, rhi, flat.itemsize):
+                    arr, _ = self._recv_raw(prv, rank)
+                    out[clo:chi] = arr
+                    recv_parts.append(arr)
+                parts[recv_seg] = recv_parts
         # The last allgather recv implies nxt finished its fold phase,
         # so it consumed our step-0 views: the caller's buffer may go
         # writable again
@@ -1422,6 +1561,7 @@ class MpiWorld:
         if seg is None:
             seg = self._ring_segments(flat.size, n)
         nxt, prv = ring[(pos + 1) % n], ring[(pos - 1) % n]
+        traced = tracing_enabled()
 
         lo, hi = seg[pos]
         first = flat[lo:hi]
@@ -1443,14 +1583,18 @@ class MpiWorld:
             for clo, chi in self._ring_chunks(slo, shi, flat.itemsize):
                 arr, _, owned = self._recv_raw_owned(prv, rank)
                 mine = flat[clo:chi]
-                if codec is not None:
-                    # decode allocates a private fp32 chunk to fold into
-                    folded = apply_op_inplace(op, codec.decode(arr), mine)
-                elif owned and arr.flags.writeable \
-                        and arr.dtype == mine.dtype:
-                    folded = apply_op_inplace(op, arr, mine)
-                else:  # a shared or read-only chunk: fold into a new one
-                    folded = np.asarray(apply_op(op, arr, mine))
+                with span("mpi.detail", "fold", rank=rank, step=step) \
+                        if traced else NULL_SPAN:
+                    if codec is not None:
+                        # decode allocates a private fp32 chunk to fold
+                        # into
+                        folded = apply_op_inplace(op, codec.decode(arr),
+                                                  mine)
+                    elif owned and arr.flags.writeable \
+                            and arr.dtype == mine.dtype:
+                        folded = apply_op_inplace(op, arr, mine)
+                    else:  # a shared or read-only chunk: fold into a new
+                        folded = np.asarray(apply_op(op, arr, mine))
                 if step < n - 2:
                     if codec is not None:
                         self.send(rank, nxt,
@@ -1473,16 +1617,22 @@ class MpiWorld:
     def scatter(self, send_rank: int, recv_rank: int, data,
                 recv_count: int) -> np.ndarray:
         data = np.asarray(self._stage_host(data))
+        _count_collective("scatter", int(data.nbytes))
         if self.sched_enabled and self.size > 1:
             sched, family = self._sched_get(rank=recv_rank,
                                             collective="scatter",
                                             root=send_rank)
-            self.rungs[recv_rank, "scatter"] = (
-                "sched:" + family.split(".", 1)[1])
-            return self._scatter_sched(send_rank, recv_rank, sched, data,
-                                       recv_count=recv_count)
+            algo = "sched:" + family.split(".", 1)[1]
+            self.rungs[recv_rank, "scatter"] = algo
+            with span("mpi", "scatter", rank=recv_rank, root=send_rank,
+                      algo=algo):
+                return self._scatter_sched(send_rank, recv_rank, sched,
+                                           data, recv_count=recv_count)
         self.rungs[recv_rank, "scatter"] = "direct"
-        return self._scatter_impl(send_rank, recv_rank, data, recv_count)
+        with span("mpi", "scatter", rank=recv_rank, root=send_rank,
+                  algo="direct"):
+            return self._scatter_impl(send_rank, recv_rank, data,
+                                      recv_count)
 
     def _scatter_sched(self, root: int, rank: int, sched, data,
                        recv_count: int | None = None,
@@ -1535,8 +1685,11 @@ class MpiWorld:
         return arr
 
     def gather(self, send_rank: int, root: int, data) -> Optional[np.ndarray]:
-        return self._gather_impl(send_rank, root,
-                                 np.asarray(self._stage_host(data)))
+        data = np.asarray(self._stage_host(data))
+        _count_collective("gather", int(data.nbytes))
+        with span("mpi", "gather", rank=send_rank, root=root,
+                  bytes=int(data.nbytes)):
+            return self._gather_impl(send_rank, root, data)
 
     def _gather_impl(self, send_rank: int, root: int, data: np.ndarray
                      ) -> Optional[np.ndarray]:
@@ -1615,16 +1768,26 @@ class MpiWorld:
             if sum(counts) != flat.size:
                 raise ValueError(
                     f"scatterv counts sum {sum(counts)} != data {flat.size}")
+        # Payload bytes enter at the root only; receivers count the
+        # invocation
+        _count_collective(
+            "scatterv",
+            int(np.asarray(data).nbytes) if recv_rank == send_rank else 0)
         if self.sched_enabled and self.size > 1:
             sched, family = self._sched_get(rank=recv_rank,
                                             collective="scatterv",
                                             root=send_rank)
-            self.rungs[recv_rank, "scatterv"] = (
-                "sched:" + family.split(".", 1)[1])
-            return self._scatter_sched(send_rank, recv_rank, sched, data,
-                                       counts=counts)
+            algo = "sched:" + family.split(".", 1)[1]
+            self.rungs[recv_rank, "scatterv"] = algo
+            with span("mpi", "scatterv", rank=recv_rank, root=send_rank,
+                      algo=algo):
+                return self._scatter_sched(send_rank, recv_rank, sched,
+                                           data, counts=counts)
         self.rungs[recv_rank, "scatterv"] = "direct"
-        return self._scatterv_direct(send_rank, recv_rank, data, counts)
+        with span("mpi", "scatterv", rank=recv_rank, root=send_rank,
+                  algo="direct"):
+            return self._scatterv_direct(send_rank, recv_rank, data,
+                                         counts)
 
     def _scatterv_direct(self, send_rank: int, recv_rank: int,
                          data: Optional[np.ndarray],
@@ -1674,6 +1837,19 @@ class MpiWorld:
         """MPI_Reduce_scatter_block: reduce (size·k,) contributions; rank
         r keeps segment r."""
         data = self._payload(data).reshape(-1)
+        if not _PROFILER.enabled:
+            return self._reduce_scatter_entry(rank, data, op)
+        _PROFILER.record_phase(self.id, "reduce_scatter", rank,
+                               "enter_ts", time.time())
+        t0 = time.monotonic()
+        try:
+            return self._reduce_scatter_entry(rank, data, op)
+        finally:
+            _PROFILER.record_phase(self.id, "reduce_scatter", rank,
+                                   "total", time.monotonic() - t0,
+                                   int(data.nbytes))
+
+    def _reduce_scatter_entry(self, rank: int, data, op):
         if data.shape[0] % self.size:
             raise ValueError(
                 f"reduce_scatter needs size divisible by {self.size}")
@@ -1687,46 +1863,54 @@ class MpiWorld:
         data = self._stage_host(data)
         if self._sched_reduction_eligible(op):
             return self._reduction_sched(rank, "reduce_scatter", data, op)
-        if self._hier_eligible(data, op):
-            self.rungs[rank, "reduce_scatter"] = "hier"
-            return self._reduce_scatter_hier(rank, data, op)
-        if self._ring_eligible(data, op):
-            self.rungs[rank, "reduce_scatter"] = "ring"
-            return self._reduce_scatter_ring(rank, data, op)
-        self.rungs[rank, "reduce_scatter"] = "tree"
-        reduced = self._reduce_impl(rank, MAIN_RANK, data, op)
-        return self._scatter_impl(
-            MAIN_RANK, rank,
-            reduced if rank == MAIN_RANK else np.empty(0), k)
+        algo = ("hier" if self._hier_eligible(data, op)
+                else "ring" if self._ring_eligible(data, op) else "tree")
+        self.rungs[rank, "reduce_scatter"] = algo
+        _count_collective("reduce_scatter", int(data.nbytes))
+        with span("mpi", "reduce_scatter", rank=rank, size=self.size,
+                  bytes=int(data.nbytes), algo=algo):
+            if algo == "hier":
+                return self._reduce_scatter_hier(rank, data, op)
+            if algo == "ring":
+                return self._reduce_scatter_ring(rank, data, op)
+            with span("mpi.phase", "reduce", rank=rank):
+                reduced = self._reduce_impl(rank, MAIN_RANK, data, op)
+            with span("mpi.phase", "scatter", rank=rank):
+                return self._scatter_impl(
+                    MAIN_RANK, rank,
+                    reduced if rank == MAIN_RANK else np.empty(0), k)
 
     def _reduce_scatter_ring(self, rank: int, data: np.ndarray,
                              op) -> np.ndarray:
         """The ring's fold phase leaves rank holding segment rank+1,
         which is rank+1's: one hop forward, chunk by chunk, hands every
         rank its own, ownership included."""
-        held, restore = self._ring_reduce_scatter(rank, data, op)
-        for part in held:
-            self.send(rank, (rank + 1) % self.size, np.asarray(part),
-                      MpiMessageType.REDUCE, _transfer=True)
-        del held
-        slo, shi = self._ring_segments(data.size)[rank]
-        chunks = self._ring_chunks(slo, shi, data.itemsize)
-        out = pos = None
-        for clo, chi in chunks:
-            arr, _, owned = self._recv_raw_owned((rank - 1) % self.size,
-                                                 rank)
-            if len(chunks) == 1:
-                out = arr if owned and arr.flags.writeable else arr.copy()
-                break
-            if out is None:
-                out = np.empty(shi - slo, dtype=arr.dtype)
-                pos = 0
-            out[pos:pos + arr.size] = arr
-            pos += arr.size
-        # The rotation recv extends the causal chain to n: nxt consumed
-        # our step-0 views
-        restore()
-        return out
+        with span("mpi.phase", "reduce_scatter", rank=rank):
+            held, restore = self._ring_reduce_scatter(rank, data, op)
+        with span("mpi.phase", "rotate", rank=rank):
+            for part in held:
+                self.send(rank, (rank + 1) % self.size, np.asarray(part),
+                          MpiMessageType.REDUCE, _transfer=True)
+            del held
+            slo, shi = self._ring_segments(data.size)[rank]
+            chunks = self._ring_chunks(slo, shi, data.itemsize)
+            out = pos = None
+            for clo, chi in chunks:
+                arr, _, owned = self._recv_raw_owned(
+                    (rank - 1) % self.size, rank)
+                if len(chunks) == 1:
+                    out = (arr if owned and arr.flags.writeable
+                           else arr.copy())
+                    break
+                if out is None:
+                    out = np.empty(shi - slo, dtype=arr.dtype)
+                    pos = 0
+                out[pos:pos + arr.size] = arr
+                pos += arr.size
+            # The rotation recv extends the causal chain to n: nxt
+            # consumed our step-0 views
+            restore()
+            return out
 
     def _reduce_scatter_hier(self, rank: int, data: np.ndarray,
                              op) -> np.ndarray:
@@ -1744,7 +1928,9 @@ class MpiWorld:
         host_acc, restore = self._host_reduce(rank, data, op, locals_)
 
         if rank != leader:
-            out, _ = self.recv(leader, rank)
+            with span("mpi.phase", "scatter", rank=rank,
+                      phase="redistribute"):
+                out, _ = self.recv(leader, rank)
             restore()
             return out
 
@@ -1769,26 +1955,41 @@ class MpiWorld:
             spans.append((off, off + m_host * k))
             off += m_host * k
         seg = [spans[(q - 1) % n_hosts] for q in range(n_hosts)]
-        held, _noop = self._ring_reduce_scatter(rank, host_acc, op,
-                                                ring=leaders, seg=seg)
-        slo, shi = spans[leaders.index(rank)]
-        hostseg = np.empty(shi - slo,
-                           dtype=held[0].dtype if held else data.dtype)
-        write = 0
-        for part in held:
-            hostseg[write:write + part.size] = part
-            write += part.size
-        del held
-        # hostseg holds this host's outputs in local rank order
-        for i, r in enumerate(locals_[1:], start=1):
-            self.send(rank, r, hostseg[i * k:(i + 1) * k],
-                      MpiMessageType.SCATTER)
-        out = hostseg[:k].copy()  # the leader is local position 0
+        with span("mpi.phase", "reduce_scatter", rank=rank,
+                  phase="leader"):
+            held, _noop = self._ring_reduce_scatter(rank, host_acc, op,
+                                                    ring=leaders, seg=seg)
+        with span("mpi.phase", "scatter", rank=rank, phase="redistribute"):
+            slo, shi = spans[leaders.index(rank)]
+            hostseg = np.empty(shi - slo,
+                               dtype=held[0].dtype if held else data.dtype)
+            write = 0
+            for part in held:
+                hostseg[write:write + part.size] = part
+                write += part.size
+            del held
+            # hostseg holds this host's outputs in local rank order
+            for i, r in enumerate(locals_[1:], start=1):
+                self.send(rank, r, hostseg[i * k:(i + 1) * k],
+                          MpiMessageType.SCATTER)
+            out = hostseg[:k].copy()  # the leader is local position 0
         restore()
         return out
 
     def allgather(self, rank: int, data):
         data = self._payload(data)
+        if not _PROFILER.enabled:
+            return self._allgather_entry(rank, data)
+        _PROFILER.record_phase(self.id, "allgather", rank, "enter_ts",
+                               time.time())
+        t0 = time.monotonic()
+        try:
+            return self._allgather_entry(rank, data)
+        finally:
+            _PROFILER.record_phase(self.id, "allgather", rank, "total",
+                                   time.monotonic() - t0, int(data.nbytes))
+
+    def _allgather_entry(self, rank: int, data):
         dplane = self.device_plane()
         if dplane is not None and dplane.eligible("allgather", data):
             out = self._try_device("allgather", dplane, rank, data)
@@ -1802,22 +2003,29 @@ class MpiWorld:
             return self._reduction_sched(rank, "allgather", data, None)
         # Hierarchy pays once the OUTPUT (size × contribution) is
         # pipeline-sized; the contribution itself may be small
-        if (self.hier_enabled and data.size > 0
-                and data.nbytes * self.size >= self.CHUNK_BYTES * 2
-                and self.topology().hierarchical and self._hier_wins()):
-            self.rungs[rank, "allgather"] = "hier"
-            return self._allgather_hier(rank, data)
-        if (self.size > 1 and data.nbytes >= self.CHUNK_BYTES
-                and self._all_hosts_same_machine()):
-            self.rungs[rank, "allgather"] = "ring"
-            return self._allgather_ring(rank, data)
-        # gather(0) and broadcast; the broadcast stream describes
-        # itself, so non-roots need no sized template
-        self.rungs[rank, "allgather"] = "tree"
-        gathered = self._gather_impl(rank, MAIN_RANK, data)
-        template = (gathered if rank == MAIN_RANK
-                    else np.empty(0, dtype=data.dtype))
-        return self._broadcast_impl(MAIN_RANK, rank, template)
+        use_hier = (self.hier_enabled and data.size > 0
+                    and data.nbytes * self.size >= self.CHUNK_BYTES * 2
+                    and self.topology().hierarchical and self._hier_wins())
+        use_ring = (not use_hier and self.size > 1
+                    and data.nbytes >= self.CHUNK_BYTES
+                    and self._all_hosts_same_machine())
+        algo = "hier" if use_hier else "ring" if use_ring else "tree"
+        self.rungs[rank, "allgather"] = algo
+        _count_collective("allgather", int(data.nbytes))
+        with span("mpi", "allgather", rank=rank, size=self.size,
+                  bytes=int(data.nbytes), algo=algo):
+            if use_hier:
+                return self._allgather_hier(rank, data)
+            if use_ring:
+                return self._allgather_ring(rank, data)
+            # gather(0) and broadcast; the broadcast stream describes
+            # itself, so non-roots need no sized template
+            with span("mpi.phase", "gather", rank=rank):
+                gathered = self._gather_impl(rank, MAIN_RANK, data)
+            template = (gathered if rank == MAIN_RANK
+                        else np.empty(0, dtype=data.dtype))
+            with span("mpi.phase", "broadcast", rank=rank):
+                return self._broadcast_impl(MAIN_RANK, rank, template)
 
     def _allgather_ring(self, rank: int, data: np.ndarray) -> np.ndarray:
         """Chunk-pipelined ring allgather: rank r's contribution is
@@ -1867,9 +2075,13 @@ class MpiWorld:
         n_hosts = len(leaders)
 
         if rank != leader:
-            self.send(rank, leader, flat, MpiMessageType.GATHER)
-            arr, _ = self._recv_raw(leader, rank)
-            return self._private_result(arr, np.empty(0, dtype=flat.dtype))
+            with span("mpi.phase", "gather", rank=rank, phase="intra"):
+                self.send(rank, leader, flat, MpiMessageType.GATHER)
+            with span("mpi.phase", "broadcast", rank=rank,
+                      phase="redistribute"):
+                arr, _ = self._recv_raw(leader, rank)
+                return self._private_result(
+                    arr, np.empty(0, dtype=flat.dtype))
 
         m = len(locals_)
         out = np.empty(self.size * k, dtype=flat.dtype)
@@ -1878,47 +2090,51 @@ class MpiWorld:
             for i, r in enumerate(host_ranks):
                 out[r * k:(r + 1) * k] = block[i * k:(i + 1) * k]
 
-        block = np.empty(m * k, dtype=flat.dtype)
-        block[:k] = flat  # the leader is local position 0
-        for i, r in enumerate(locals_[1:], start=1):
-            arr, _ = self._recv_raw(r, rank)
-            block[i * k:(i + 1) * k] = arr
+        with span("mpi.phase", "gather", rank=rank, phase="intra"):
+            block = np.empty(m * k, dtype=flat.dtype)
+            block[:k] = flat  # the leader is local position 0
+            for i, r in enumerate(locals_[1:], start=1):
+                arr, _ = self._recv_raw(r, rank)
+                block[i * k:(i + 1) * k] = arr
 
-        place(locals_, block)
-        block.flags.writeable = False
-        pos = leaders.index(rank)
-        nxt = leaders[(pos + 1) % n_hosts]
-        prv = leaders[(pos - 1) % n_hosts]
-        blocks: dict[int, list[np.ndarray]] = {
-            pos: [block[clo:chi] for clo, chi in
-                  self._ring_chunks(0, block.size, block.itemsize)]}
-        for step in range(n_hosts - 1):
-            send_pos = (pos - step) % n_hosts
-            for part in blocks.pop(send_pos):
-                if part.flags.writeable:
-                    part.flags.writeable = False
-                self.send(rank, nxt, part, MpiMessageType.ALLGATHER,
-                          _copy=False)
-            recv_pos = (pos - step - 1) % n_hosts
-            rranks = topo.ranks_on_host(topo.host_of(leaders[recv_pos]))
-            rblock = np.empty(len(rranks) * k, dtype=flat.dtype)
-            parts = []
-            write = 0
-            for clo, chi in self._ring_chunks(0, rblock.size,
-                                              flat.itemsize):
-                arr, _ = self._recv_raw(prv, rank)
-                rblock[write:write + arr.size] = arr
-                parts.append(arr)
-                write += arr.size
-            place(rranks, rblock)
-            blocks[recv_pos] = parts
+        with span("mpi.phase", "allgather", rank=rank, phase="leader"):
+            place(locals_, block)
+            block.flags.writeable = False
+            pos = leaders.index(rank)
+            nxt = leaders[(pos + 1) % n_hosts]
+            prv = leaders[(pos - 1) % n_hosts]
+            blocks: dict[int, list[np.ndarray]] = {
+                pos: [block[clo:chi] for clo, chi in
+                      self._ring_chunks(0, block.size, block.itemsize)]}
+            for step in range(n_hosts - 1):
+                send_pos = (pos - step) % n_hosts
+                for part in blocks.pop(send_pos):
+                    if part.flags.writeable:
+                        part.flags.writeable = False
+                    self.send(rank, nxt, part, MpiMessageType.ALLGATHER,
+                              _copy=False)
+                recv_pos = (pos - step - 1) % n_hosts
+                rranks = topo.ranks_on_host(topo.host_of(leaders[recv_pos]))
+                rblock = np.empty(len(rranks) * k, dtype=flat.dtype)
+                parts = []
+                write = 0
+                for clo, chi in self._ring_chunks(0, rblock.size,
+                                                  flat.itemsize):
+                    arr, _ = self._recv_raw(prv, rank)
+                    rblock[write:write + arr.size] = arr
+                    parts.append(arr)
+                    write += arr.size
+                place(rranks, rblock)
+                blocks[recv_pos] = parts
 
-        if m > 1:
-            out.flags.writeable = False
-            for r in locals_[1:]:
-                self.send(rank, r, out, MpiMessageType.BROADCAST,
-                          _copy=False)
-            out = out.copy()  # receivers keep the frozen buffer
+        with span("mpi.phase", "broadcast", rank=rank,
+                  phase="redistribute"):
+            if m > 1:
+                out.flags.writeable = False
+                for r in locals_[1:]:
+                    self.send(rank, r, out, MpiMessageType.BROADCAST,
+                              _copy=False)
+                out = out.copy()  # receivers keep the frozen buffer
         return out
 
     def scan(self, rank: int, data, op: MpiOp = MpiOp.SUM) -> np.ndarray:
@@ -1927,17 +2143,23 @@ class MpiWorld:
         (prefix, mine)); ``scan.hier`` (gang-contiguous placements) runs
         chains within hosts and a carrier chain between them."""
         data = np.asarray(self._stage_host(data))
+        _count_collective("scan", int(data.nbytes))
         if not (self.sched_enabled and self.size > 1):
             self.rungs[rank, "scan"] = "chain"
-            return self._scan_chain(rank, data, op)
+            with span("mpi", "scan", rank=rank, size=self.size,
+                      bytes=int(data.nbytes), algo="chain"):
+                return self._scan_chain(rank, data, op)
         sched, family = self._sched_get(
             rank, "scan", op=op, dtype=data.dtype, nbytes=int(data.nbytes))
-        self.rungs[rank, "scan"] = "sched:" + family.split(".", 1)[1]
-        flat = data.reshape(-1)
-        env: dict = {("in", 0): flat}
-        self._run_schedule(rank, sched, env, op, lambda sym, e: flat.size,
-                           MpiMessageType.SCAN)
-        return np.array(env[("out", 0)]).reshape(data.shape)
+        algo = "sched:" + family.split(".", 1)[1]
+        self.rungs[rank, "scan"] = algo
+        with span("mpi", "scan", rank=rank, size=self.size,
+                  bytes=int(data.nbytes), algo=algo):
+            flat = data.reshape(-1)
+            env: dict = {("in", 0): flat}
+            self._run_schedule(rank, sched, env, op,
+                               lambda sym, e: flat.size, MpiMessageType.SCAN)
+            return np.array(env[("out", 0)]).reshape(data.shape)
 
     def _scan_chain(self, rank: int, data: np.ndarray,
                     op) -> np.ndarray:
@@ -1957,13 +2179,19 @@ class MpiWorld:
         ``alltoall.hier`` packs host blocks through the local leaders
         and ``alltoall.flat`` is the pairwise pattern."""
         data = np.asarray(self._stage_host(data))
+        _count_collective("alltoall", int(data.nbytes))
         if not (self.sched_enabled and self.size > 1):
             self.rungs[rank, "alltoall"] = "direct"
-            return self._alltoall_direct(rank, data)
+            with span("mpi", "alltoall", rank=rank, size=self.size,
+                      bytes=int(data.nbytes), algo="direct"):
+                return self._alltoall_direct(rank, data)
         sched, family = self._sched_get(
             rank, "alltoall", dtype=data.dtype, nbytes=int(data.nbytes))
-        self.rungs[rank, "alltoall"] = "sched:" + family.split(".", 1)[1]
-        return self._alltoall_sched(rank, data, sched, family)
+        algo = "sched:" + family.split(".", 1)[1]
+        self.rungs[rank, "alltoall"] = algo
+        with span("mpi", "alltoall", rank=rank, size=self.size,
+                  bytes=int(data.nbytes), algo=algo):
+            return self._alltoall_sched(rank, data, sched, family)
 
     def _alltoall_direct(self, rank: int, data: np.ndarray) -> np.ndarray:
         chunk = data.size // self.size

@@ -14,6 +14,12 @@ the planner's SnapshotServer, from which the planner serves the other
 hosts (:343-365). Mock mode records batch calls and results instead of
 sending them.
 
+Each keep-alive passes the ``keepalive`` fault point (``suppress``
+skips it, so the planner expires a live host); a failed one and the
+first after it are flight-recorded. A pushed result is stamped
+``rsp`` and a woken local waiter ``wwk`` in the message's lifecycle
+ledger.
+
 Not ported (``ROADMAP.md`` Queue 1 #9 parts C and D): buffering results
 while the planner is down, coalesced result pushes and the high-rate
 submission path.
@@ -26,6 +32,7 @@ import time
 from typing import Optional
 
 from faabric_tpu_torch.batch_scheduler.decision import SchedulingDecision
+from faabric_tpu_torch.faults import SUPPRESS, fault_point, faults_enabled
 from faabric_tpu_torch.planner.server import PlannerCalls
 from faabric_tpu_torch.proto import (
     BatchExecuteRequest,
@@ -38,6 +45,11 @@ from faabric_tpu_torch.proto import (
     messages_to_wire,
 )
 from faabric_tpu_torch.snapshot.remote import SnapshotClient
+from faabric_tpu_torch.telemetry import flight_record, get_lifecycle
+from faabric_tpu_torch.telemetry.lifecycle import (
+    PHASE_RESULT_PUSH,
+    PHASE_WAITER_WAKE,
+)
 from faabric_tpu_torch.transport.client import MessageEndpointClient, RpcError
 from faabric_tpu_torch.transport.common import (
     PLANNER_ASYNC_PORT,
@@ -49,6 +61,11 @@ from faabric_tpu_torch.util.periodic import PeriodicBackgroundThread
 from faabric_tpu_torch.util.testing import is_mock_mode
 
 logger = get_logger(__name__)
+
+_FAULTS = faults_enabled()
+_FP_KEEPALIVE = fault_point("keepalive")
+
+_LC = get_lifecycle()
 
 # ---------------------------------------------------------------------------
 # Mock recording
@@ -85,14 +102,27 @@ class KeepAliveThread(PeriodicBackgroundThread):
         self.n_devices = n_devices
 
     def do_work(self) -> None:
+        if _FAULTS and _FP_KEEPALIVE.fire(
+                host=self.client.this_host) is SUPPRESS:
+            # An injected keep-alive loss: the planner expires this live
+            # host
+            return
         try:
             self.client.register_host(self.slots, self.n_devices,
                                       rejoin=True)
         except RpcError as e:
             # The interval paces the retries; the breaker makes a failed
             # tick instant while it is open
-            logger.warning("Keep-alive of %s failed: %s",
-                           self.client.this_host, e)
+            if not self.client.planner_down:
+                logger.warning("Keep-alive of %s failed: %s",
+                               self.client.this_host, e)
+                flight_record("planner_unreachable",
+                              host=self.client.this_host)
+            self.client.planner_down = True
+            return
+        if self.client.planner_down:
+            self.client.planner_down = False
+            flight_record("planner_reconnected", host=self.client.this_host)
 
 
 class PlannerClient(MessageEndpointClient):
@@ -107,6 +137,8 @@ class PlannerClient(MessageEndpointClient):
                          PLANNER_ASYNC_PORT, PLANNER_SYNC_PORT)
         self.this_host = this_host
         self._keep_alive: Optional[KeepAliveThread] = None
+        # Set while keep-alives fail (one flight record an outage)
+        self.planner_down = False
         # Local result promises: results land through the planner's push
         # to this host's FunctionCallServer or in a direct response
         self._results_lock = threading.Lock()
@@ -201,6 +233,8 @@ class PlannerClient(MessageEndpointClient):
             with _mock_lock:
                 _mock_results.append(msg)
             return
+        # The last stamp on this host's side of the wire
+        _LC.stamp(msg, PHASE_RESULT_PUSH)
         dicts, tail = messages_to_wire([msg])
         self.async_send(int(PlannerCalls.SET_MESSAGE_RESULT),
                         {"msg": dicts[0]}, tail)
@@ -208,6 +242,7 @@ class PlannerClient(MessageEndpointClient):
     def set_message_result_locally(self, msg: Message) -> None:
         """Resolve a local waiter (this host's FunctionCallServer calls
         this when the planner pushes a result)."""
+        _LC.stamp(msg, PHASE_WAITER_WAKE)
         with self._results_lock:
             if msg.id not in self._local_results:
                 self._local_results_order.append(msg.id)

@@ -36,11 +36,22 @@ PROCESSES and THREADS batches:
   dropped with a removed or rebooted host.
 
 The elastic scale hint and a decision that would freeze an app raise
-instead of running some other way. Not ported (``ROADMAP.md`` Queue 1
-#7 and #9): the journal (and its replay of state placement), freeze and
-migration, recovery requeues (a failed dispatch or push fails its
-messages instead), preloaded decisions, ingress, ``call_batch_group``
-and the telemetry.
+instead of running some other way.
+
+Telemetry, as the reference's: ``call_batch`` and the dispatch are
+``planner`` spans timed in histograms; every dispatch passes the
+``planner.dispatch`` fault point (a ``drop`` strands its messages until
+their host expires); messages get their lifecycle stamps (admit,
+schedule, dispatch, recorded) and recorded results are folded into the
+lifecycle stats and the SLO tracker; results, in-flight apps and the
+round trip are counted; host expiry and state failover are
+flight-recorded.
+
+Not ported (``ROADMAP.md`` Queue 1 #7 and #9): the journal (and its
+replay of state placement), freeze and migration, recovery requeues (a
+failed dispatch or push fails its messages instead), preloaded
+decisions, ingress, ``call_batch_group``, and the telemetry RPCs and
+``collect_telemetry`` (#7 part D).
 """
 
 from __future__ import annotations
@@ -71,6 +82,19 @@ from faabric_tpu_torch.proto import (
     update_batch_exec_app_id,
     update_batch_exec_group_id,
 )
+from faabric_tpu_torch.faults import DROP, fault_point, faults_enabled
+from faabric_tpu_torch.telemetry import (
+    flight_record,
+    get_lifecycle,
+    get_metrics,
+    span,
+)
+from faabric_tpu_torch.telemetry.lifecycle import (
+    PHASE_ADMIT,
+    PHASE_DISPATCH,
+    PHASE_RECORDED,
+    PHASE_SCHED,
+)
 from faabric_tpu_torch.transport.client_pool import ClientPool
 from faabric_tpu_torch.transport.common import MPI_BASE_PORT, MPI_PORTS_PER_HOST
 from faabric_tpu_torch.util.config import get_system_config
@@ -78,6 +102,30 @@ from faabric_tpu_torch.util.gids import generate_gid
 from faabric_tpu_torch.util.logging import get_logger
 
 logger = get_logger(__name__)
+
+_FAULTS = faults_enabled()
+_FP_DISPATCH = fault_point("planner.dispatch")
+
+# The messages' lifecycle ledger (a shared no-op while metrics are off)
+_LC = get_lifecycle()
+
+_metrics = get_metrics()
+_SCHEDULE_SECONDS = _metrics.histogram(
+    "faabric_planner_schedule_seconds",
+    "End-to-end call_batch latency (decision + mappings + dispatch)")
+_DISPATCH_SECONDS = _metrics.histogram(
+    "faabric_planner_dispatch_seconds",
+    "Per-decision worker dispatch latency (network, post-lock)")
+_IN_FLIGHT_APPS = _metrics.gauge(
+    "faabric_planner_in_flight_apps",
+    "Apps currently holding slots on the planner")
+_RESULTS_TOTAL = _metrics.counter(
+    "faabric_planner_results_total",
+    "Message results recorded by the planner")
+_RESULT_ROUNDTRIP = _metrics.histogram(
+    "faabric_planner_result_roundtrip_seconds",
+    "Message creation to result recorded at the planner (wall clocks of "
+    "the submitting host and the planner: cross-machine skew shifts it)")
 
 
 class PlannerHost:
@@ -127,6 +175,7 @@ class Planner:
                                          SchedulingDecision]] = {}
         # app_id → {msg_id: result}
         self._results: dict[int, dict[int, Message]] = {}
+        self._results_count = 0
         # app_id → expected message count (outlives the in-flight entry)
         self._expected: dict[int, int] = {}
         # app_id → next unassigned app/group index; monotonic, never
@@ -223,6 +272,7 @@ class Planner:
                      if now - h.register_ts > timeout}
             for ip in stale:
                 logger.warning("Expiring host %s (no keep-alive)", ip)
+                flight_record("host_expired", host=ip)
                 del self._hosts[ip]
             if stale:
                 self._drop_state_masters_for_locked(stale)
@@ -257,11 +307,24 @@ class Planner:
     def call_batch(self, req: BatchExecuteRequest) -> SchedulingDecision:
         """Schedule a batch: account under the lock, then send the
         group's mappings and dispatch after it."""
+        t0 = time.monotonic()
+        with span("planner", "call_batch", app_id=req.app_id,
+                  n_messages=req.n_messages()):
+            try:
+                return self._call_batch_inner(req)
+            finally:
+                _SCHEDULE_SECONDS.observe(time.monotonic() - t0)
+
+    def _call_batch_inner(self, req: BatchExecuteRequest
+                          ) -> SchedulingDecision:
         if req.elastic_scale_hint:
             raise ValueError("the elastic scale hint is not served by this "
                              "planner")
         # Messages must agree with their batch's app id
         update_batch_exec_app_id(req, req.app_id)
+        # The ledger's first stamp, unless an earlier hop stamped it
+        for m in req.messages:
+            _LC.stamp_first(m, PHASE_ADMIT)
 
         with self._lock:
             scheduler = get_batch_scheduler()
@@ -281,6 +344,8 @@ class Planner:
                          and decision_type == DecisionType.NEW)
             decision = (self._decision_from_cache_locked(req, host_map)
                         if cacheable else None)
+            if cacheable:
+                get_decision_cache().record_outcome(decision is not None)
             if decision is None:
                 decision = scheduler.make_scheduling_decision(
                     host_map, self._in_flight, req)
@@ -306,6 +371,7 @@ class Planner:
             else:
                 dispatches = self._handle_dist_change_locked(req, decision)
                 mappings = decision
+            _LC.stamp_many(req.messages, PHASE_SCHED)
 
             # Detached copies: results landing on other threads remove
             # rows from the live decision
@@ -314,6 +380,7 @@ class Planner:
             gids, hosts = self._group_hosts.get(req.app_id, (set(), set()))
             self._group_hosts[req.app_id] = (
                 gids | {mappings.group_id}, hosts | set(mappings.hosts))
+            _IN_FLIGHT_APPS.set(len(self._in_flight))
 
         # Network strictly outside the lock: mappings first (guests
         # block on wait_for_mappings before messaging), then dispatch
@@ -484,6 +551,14 @@ class Planner:
 
     def _do_dispatch(self,
                      dispatches: list[tuple[str, BatchExecuteRequest]]) -> None:
+        t0 = time.monotonic()
+        with span("planner", "dispatch", n_hosts=len(dispatches)):
+            self._do_dispatch_inner(dispatches)
+        if dispatches:
+            _DISPATCH_SECONDS.observe(time.monotonic() - t0)
+
+    def _do_dispatch_inner(
+            self, dispatches: list[tuple[str, BatchExecuteRequest]]) -> None:
         for ip, sub in dispatches:
             if (sub.type == int(BatchExecuteType.THREADS)
                     and not sub.single_host
@@ -493,6 +568,13 @@ class Planner:
                 self._fail_messages(sub.messages, b"Snapshot push failed")
                 continue
             try:
+                if _FAULTS:
+                    verdict = _FP_DISPATCH.fire(host=ip, app_id=sub.app_id)
+                    if verdict is DROP:
+                        # An injected silent loss: the messages strand
+                        # until their host's keep-alive expiry fails them
+                        continue
+                _LC.stamp_many(sub.messages, PHASE_DISPATCH)
                 self._clients.get(ip).execute_functions(sub)
             except Exception:  # noqa: BLE001 — a dead host must not stall
                 # the others; its messages report FAILED
@@ -533,10 +615,13 @@ class Planner:
         lock."""
         pushes: list[tuple[str, Message]] = []
         cleanups: dict[str, set[int]] = {}
+        recorded: list[Message] = []
         with self._lock:
             for msg in msgs:
                 if not self._record_result_locked(msg):
                     continue
+                _LC.stamp(msg, PHASE_RECORDED)
+                recorded.append(msg)
                 for ip in self._waiters.pop((msg.app_id, msg.id), set()):
                     pushes.append((ip, msg))
                 if msg.app_id not in self._in_flight:
@@ -545,6 +630,12 @@ class Planner:
                         gids, hosts = done
                         for host in hosts:
                             cleanups.setdefault(host, set()).update(gids)
+        # Fold the recorded ledgers into the per-phase digest and the
+        # SLO tracker outside the lock (~10 µs a message)
+        if recorded and _LC.enabled:
+            from faabric_tpu_torch.telemetry import get_lifecycle_stats
+
+            get_lifecycle_stats().fold(recorded)
         for ip, msg in pushes:
             try:
                 self._clients.get(ip).set_message_result(msg)
@@ -569,6 +660,10 @@ class Planner:
             logger.debug("Ignoring duplicate result for msg %d (app %d)",
                          msg_id, app_id)
             return False
+        self._results_count += 1
+        _RESULTS_TOTAL.inc()
+        if msg.timestamp:
+            _RESULT_ROUNDTRIP.observe(max(0.0, time.time() - msg.timestamp))
         in_flight = self._in_flight.get(app_id)
         if in_flight is not None:
             req, decision = in_flight
@@ -587,6 +682,7 @@ class Planner:
                     oldest = self._completed_order.pop(0)
                     self._results.pop(oldest, None)
                     self._expected.pop(oldest, None)
+            _IN_FLIGHT_APPS.set(len(self._in_flight))
         return True
 
     def get_message_result(self, app_id: int, msg_id: int,
@@ -714,6 +810,9 @@ class Planner:
                     self._state_masters[full] = backup
                     self._state_backups[full] = new_backup
                     self._state_epochs[full] = epoch
+                    flight_record("state_failover", key=full,
+                                  old_master=master, new_master=backup,
+                                  backup=new_backup, epoch=epoch)
                     promoted.append((full, backup, new_backup, epoch))
                 else:
                     del self._state_masters[full]
@@ -777,6 +876,25 @@ class Planner:
                         self._state_masters.pop(full, None)
                         self._state_backups.pop(full, None)
 
+    # -- gauges the planner server samples into the time-series ring --
+    def free_slot_watermark(self) -> int:
+        with self._lock:
+            return sum(max(0, h.state.slots - h.state.used_slots)
+                       for h in self._hosts.values())
+
+    def result_backlog(self) -> int:
+        """Outstanding result waits registered with the planner."""
+        with self._lock:
+            return len(self._waiters)
+
+    def in_flight_message_count(self) -> int:
+        with self._lock:
+            return sum(d.n_messages for _, d in self._in_flight.values())
+
+    def results_total(self) -> int:
+        with self._lock:
+            return self._results_count
+
     def reset(self) -> None:
         with self._lock:
             for d in (self._hosts, self._in_flight, self._results,
@@ -785,6 +903,8 @@ class Planner:
                       self._state_backups, self._state_epochs):
                 d.clear()
             self._completed_order.clear()
+            self._results_count = 0
+        _IN_FLIGHT_APPS.set(0)
         self._clients.close_all()
         self._snapshot_clients.close_all()
         from faabric_tpu_torch.transport.ptp_remote import (

@@ -72,14 +72,60 @@ class PlannerServer(MessageEndpointServer):
         self.expiry_reaper = _ExpiryReaper(self.planner)
 
     def start(self) -> None:
+        from faabric_tpu_torch.faults import set_fault_identity
+        from faabric_tpu_torch.telemetry import (
+            get_timeseries,
+            set_process_label,
+            start_profiler,
+            start_sampler,
+        )
+
+        set_process_label("planner")
+        set_fault_identity("planner")
         super().start()
         self.snapshot_server.start()
         # Quarter of the host timeout: an expiry is seen well inside one
         # more keep-alive period
         timeout = get_system_config().planner_host_timeout
         self.expiry_reaper.start(max(0.5, timeout / 4.0))
+        # Control-plane gauges sampled continuously into the time-series
+        # ring (trends, not instants). The sampler and the stack
+        # profiler are shared and refcounted: stop() releases only the
+        # shares this start() took
+        ring = get_timeseries()
+        planner = self.planner
+        self._ring_series = {
+            "free_slots": planner.free_slot_watermark,
+            "result_backlog": planner.result_backlog,
+            "in_flight_msgs": planner.in_flight_message_count,
+            "results_total": planner.results_total,
+        }
+        for name, fn in self._ring_series.items():
+            ring.register(name, fn)
+        start_sampler()
+        self._sampling = True
+        start_profiler()
+        self._profiling = True
 
     def stop(self) -> None:
+        from faabric_tpu_torch.telemetry import (
+            get_timeseries,
+            stop_profiler,
+            stop_sampler,
+        )
+
+        if getattr(self, "_sampling", False):
+            self._sampling = False
+            stop_sampler()
+        if getattr(self, "_profiling", False):
+            self._profiling = False
+            stop_profiler()
+        # Unregister what start() registered (matched by function, so a
+        # co-resident server that registered over these keeps its rows)
+        ring = get_timeseries()
+        for name, fn in getattr(self, "_ring_series", {}).items():
+            ring.unregister(name, fn)
+        self._ring_series = {}
         self.expiry_reaper.stop()
         self.snapshot_server.stop()
         super().stop()

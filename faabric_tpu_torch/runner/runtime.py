@@ -18,8 +18,13 @@ runtime's ``MpiWorldRegistry`` (``GuestContext.mpi_world``). The state
 KV's device view defaults to the factory's device type. The host's
 ``SnapshotRegistry`` is set on the scheduler and the planner client, and
 its ``SnapshotServer`` takes pushed snapshots, their diffs and remote
-threads' results (into the scheduler's thread results). Not
-ported: the HTTP endpoint, the sampler and profiler, and the
+threads' results (into the scheduler's thread results).
+
+Telemetry: the runtime labels the process's trace rows
+(``worker-<host>``) and stamps its host as the fault identity (the
+``src`` of host-pair rules); while it runs it holds a share of the
+process's time-series sampler (with its executor count as a series)
+and of the stack profiler. Not ported: the HTTP endpoint and the
 multi-process device plane (``ROADMAP.md`` Queue 1 #7-9).
 """
 
@@ -74,6 +79,14 @@ class WorkerRuntime:
                  factory: Optional[ExecutorFactory] = None,
                  planner_host: str | None = None) -> None:
         self.host = host
+        # Traces of co-located workers merge on one timeline; the label
+        # tells their rows apart
+        from faabric_tpu_torch.faults import set_fault_identity
+        from faabric_tpu_torch.telemetry import set_process_label
+
+        set_process_label(f"worker-{self.host}")
+        # Host-pair fault rules match src=<this host>
+        set_fault_identity(self.host)
         # None sizes the host to the machine; an explicit 0 registers a
         # host that takes no work
         self.slots = (get_system_config().get_usable_cores() if slots is None
@@ -118,12 +131,14 @@ class WorkerRuntime:
             self.ptp_server.start()
             self.snapshot_server.start()
             self.state_server.start()
+            self._start_sampling()
             self.planner_client.register_host(
                 self.slots, self.n_devices, overwrite=True,
                 start_keep_alive=True)
         except Exception:
             # A half-up worker must not keep its ports bound
             self._started = False
+            self._stop_sampling()
             self.planner_client.close()
             self.state_server.stop()
             self.snapshot_server.stop()
@@ -134,10 +149,45 @@ class WorkerRuntime:
         logger.debug("Worker %s up (slots=%d devices=%d)", self.host,
                      self.slots, self.n_devices)
 
+    def _start_sampling(self) -> None:
+        """Take shares of the refcounted sampler (with this runtime's
+        executor count as a series) and stack profiler."""
+        from faabric_tpu_torch.telemetry import (
+            get_timeseries,
+            start_profiler,
+            start_sampler,
+        )
+
+        self._executors_gauge = self.scheduler.get_executor_count
+        get_timeseries().register("executors", self._executors_gauge)
+        start_sampler()
+        self._sampling = True
+        start_profiler()
+        self._profiling = True
+
+    def _stop_sampling(self) -> None:
+        """Release exactly the shares ``_start_sampling`` took."""
+        from faabric_tpu_torch.telemetry import (
+            get_timeseries,
+            stop_profiler,
+            stop_sampler,
+        )
+
+        if getattr(self, "_sampling", False):
+            self._sampling = False
+            stop_sampler()
+        if getattr(self, "_profiling", False):
+            self._profiling = False
+            stop_profiler()
+        # Only this runtime's registration (matched by function)
+        get_timeseries().unregister("executors",
+                                    getattr(self, "_executors_gauge", None))
+
     def shutdown(self) -> None:
         if not self._started:
             return
         self._started = False
+        self._stop_sampling()
         self.planner_client.remove_host()
         self.scheduler.shutdown()
         self.ptp_server.stop()

@@ -7,9 +7,10 @@ planner's dispatch to a host's scheduler) and SET_MESSAGE_RESULT (the
 planner pushing a result to a host that waits for it). Sync plane:
 FLUSH (the host drops its executors and runs the factory's
 ``flush_host``). In mock mode the client records its calls instead of
-sending them. The reference's telemetry call and pipelined dispatch
-(EXECUTE_BATCHES) are not ported (``ROADMAP.md`` Queue 1 #9 parts B
-and D).
+sending them. The reference's telemetry call (GET_TELEMETRY, with
+``Planner.collect_telemetry``) and its pipelined dispatch
+(EXECUTE_BATCHES) are not ported (``ROADMAP.md`` Queue 1 #7 part D and
+#9 part D).
 """
 
 from __future__ import annotations

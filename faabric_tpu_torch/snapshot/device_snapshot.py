@@ -32,17 +32,20 @@ device diff queues onto a host snapshot.
 Every device-to-host copy of this module is counted in
 ``device_plane/copies.py`` (reason ``snapshot``): the flag vector, the
 gathered pages, the baseline a host snapshot is made from, and the
-tensor ``apply_diffs`` patches (with its copy back). The reference's
-statestats events are not ported (``ROADMAP.md`` Queue 1 #9 part B).
+tensor ``apply_diffs`` patches (with its copy back). Each diff is a
+``device_diff`` event of the state ledger, as the reference's.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from faabric_tpu_torch.device_plane.copies import D2H, H2D, count_copy
 from faabric_tpu_torch.snapshot.snapshot import SnapshotData, SnapshotDiff
+from faabric_tpu_torch.telemetry.statestats import get_state_stats
 
 DEVICE_PAGE_SIZE = 4096
 
@@ -151,11 +154,16 @@ class DeviceSnapshot:
         dirty pages are gathered on the device and copied in one batch.
         Adjacent dirty pages coalesce into one diff."""
         self._check(tensor)
+        stats = get_state_stats()
+        t0 = time.perf_counter() if stats.enabled else 0.0
         # One word image serves the compare, the gather and the
         # baseline refresh
         w = _as_word_image(tensor)
         idx = np.flatnonzero(self._flags_w(w))
         if idx.size == 0:
+            if stats.enabled:
+                stats.snapshot_event("device_diff",
+                                     seconds=time.perf_counter() - t0)
             return []
         rows = self._gather(w, idx)
         pages = rows.cpu().numpy()
@@ -174,6 +182,11 @@ class DeviceSnapshot:
         if update_baseline:
             # Only the dirty pages differ: write just them back
             self._scatter(rows, idx)
+        if stats.enabled:
+            stats.snapshot_event(
+                "device_diff", nbytes=sum(len(d.data) for d in diffs),
+                pages=int(idx.size), regions=len(diffs),
+                seconds=time.perf_counter() - t0)
         return diffs
 
     def _scatter(self, rows: torch.Tensor, idx: np.ndarray) -> None:

@@ -1,8 +1,9 @@
 """Snapshot registry: key -> SnapshotData, one a host.
 
 Counterpart of ``faabric_tpu/snapshot/registry.py`` (reference
-include/faabric/snapshot/SnapshotRegistry.h:13-44), less its residency
-gauge (the snapshot telemetry, ``ROADMAP.md`` Queue 1 #9 part B).
+include/faabric/snapshot/SnapshotRegistry.h:13-44). Every change of
+the table sets the state ledger's residency gauge (the bytes of the
+registered images).
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import threading
 from typing import Optional
 
 from faabric_tpu_torch.snapshot.snapshot import SnapshotData
+from faabric_tpu_torch.telemetry.statestats import get_state_stats
 
 
 class SnapshotRegistry:
@@ -28,6 +30,7 @@ class SnapshotRegistry:
             raise ValueError("Empty snapshot key")
         with self._lock:
             self._snapshots[key] = snap
+        self._note_residency()
 
     def get_snapshot(self, key: str) -> SnapshotData:
         with self._lock:
@@ -47,6 +50,7 @@ class SnapshotRegistry:
     def delete_snapshot(self, key: str) -> None:
         with self._lock:
             self._snapshots.pop(key, None)
+        self._note_residency()
 
     def get_snapshot_count(self) -> int:
         with self._lock:
@@ -61,3 +65,9 @@ class SnapshotRegistry:
     def clear(self) -> None:
         with self._lock:
             self._snapshots.clear()
+        self._note_residency()
+
+    def _note_residency(self) -> None:
+        stats = get_state_stats()
+        if stats.enabled:
+            stats.set_registry_bytes(self.resident_bytes())

@@ -12,14 +12,15 @@ travel in the JSON header.
 diffs to the main host: the server queues the diffs on the snapshot when
 it has it (a missing key drops them) and always hands the result to its
 scheduler's ``set_thread_result_locally``, which wakes
-``await_thread_result``. The reference's spans and statestats events are
-not ported (``ROADMAP.md`` Queue 1 #9 part B).
+``await_thread_result``. Each push is a ``snapshot`` span and a ``push``
+event of the state ledger, as the reference's.
 """
 
 from __future__ import annotations
 
 import enum
 import threading
+import time
 from typing import TYPE_CHECKING
 
 from faabric_tpu_torch.proto import Message
@@ -30,7 +31,9 @@ from faabric_tpu_torch.snapshot.snapshot import (
     SnapshotDiff,
     SnapshotMergeOperation,
 )
-from faabric_tpu_torch.transport.client import MessageEndpointClient
+from faabric_tpu_torch.telemetry import span
+from faabric_tpu_torch.telemetry.statestats import get_state_stats
+from faabric_tpu_torch.transport.client import MessageEndpointClient, _nbytes
 from faabric_tpu_torch.transport.common import (
     SNAPSHOT_ASYNC_PORT,
     SNAPSHOT_SYNC_PORT,
@@ -129,9 +132,15 @@ class SnapshotClient(MessageEndpointClient):
         }
         logger.debug("Pushing snapshot %s (%d bytes) to %s", key,
                      snap.size, self.host)
-        # The image goes out as it lies, without a copy into bytes
-        self.sync_send(int(SnapshotCalls.PUSH_SNAPSHOT), header,
-                       [memoryview(snap.data)])
+        stats = get_state_stats()
+        t0 = time.perf_counter() if stats.enabled else 0.0
+        with span("snapshot", "push", key=key, nbytes=snap.size):
+            # The image goes out as it lies, without a copy into bytes
+            self.sync_send(int(SnapshotCalls.PUSH_SNAPSHOT), header,
+                           [memoryview(snap.data)])
+        if stats.enabled:
+            stats.snapshot_event("push", nbytes=snap.size,
+                                 seconds=time.perf_counter() - t0)
 
     def push_snapshot_update(self, key: str,
                              diffs: list[SnapshotDiff]) -> None:
@@ -140,8 +149,15 @@ class SnapshotClient(MessageEndpointClient):
                 _diff_pushes.append((self.host, key, diffs))
             return
         metas, tail = diffs_to_wire(diffs)
-        self.sync_send(int(SnapshotCalls.PUSH_SNAPSHOT_UPDATE),
-                       {"key": key, "diffs": metas}, tail)
+        stats = get_state_stats()
+        t0 = time.perf_counter() if stats.enabled else 0.0
+        with span("snapshot", "push_update", key=key, nbytes=_nbytes(tail)):
+            self.sync_send(int(SnapshotCalls.PUSH_SNAPSHOT_UPDATE),
+                           {"key": key, "diffs": metas}, tail)
+        if stats.enabled:
+            stats.snapshot_event("push", nbytes=_nbytes(tail),
+                                 regions=len(diffs),
+                                 seconds=time.perf_counter() - t0)
 
     def push_thread_result(self, app_id: int, msg_id: int, return_value: int,
                            key: str, diffs: list[SnapshotDiff]) -> None:
@@ -155,10 +171,18 @@ class SnapshotClient(MessageEndpointClient):
                 _diff_pushes.append((self.host, key, diffs))
             return
         metas, tail = diffs_to_wire(diffs)
-        self.sync_send(int(SnapshotCalls.THREAD_RESULT), {
-            "app_id": app_id, "msg_id": msg_id,
-            "return_value": return_value, "key": key, "diffs": metas,
-        }, tail)
+        stats = get_state_stats()
+        t0 = time.perf_counter() if stats.enabled else 0.0
+        with span("snapshot", "thread_result", key=key,
+                  nbytes=_nbytes(tail)):
+            self.sync_send(int(SnapshotCalls.THREAD_RESULT), {
+                "app_id": app_id, "msg_id": msg_id,
+                "return_value": return_value, "key": key, "diffs": metas,
+            }, tail)
+        if stats.enabled:
+            stats.snapshot_event("push", nbytes=_nbytes(tail),
+                                 regions=len(diffs),
+                                 seconds=time.perf_counter() - t0)
 
     def delete_snapshot(self, key: str) -> None:
         if is_mock_mode():

@@ -16,8 +16,9 @@ range scanner where it loads.
 
 Images are host numpy buffers. A tensor on the card is diffed on the
 card by ``snapshot/device_snapshot.py``, whose diffs queue onto a host
-snapshot with the same offsets. The snapshot telemetry of the reference
-(its statestats events) is not ported (``ROADMAP.md`` Queue 1 #9 part B).
+snapshot with the same offsets. Diffs, applied diffs and restores are
+``diff``/``apply``/``restore`` events of the state ledger
+(``telemetry/statestats.py``), as the reference's.
 """
 
 from __future__ import annotations
@@ -25,10 +26,12 @@ from __future__ import annotations
 import dataclasses
 import enum
 import threading
+import time
 from typing import Iterable, Optional
 
 import numpy as np
 
+from faabric_tpu_torch.telemetry.statestats import get_state_stats
 from faabric_tpu_torch.util.dirty import PAGE_SIZE
 from faabric_tpu_torch.util.logging import get_logger
 
@@ -194,6 +197,8 @@ class SnapshotData:
                                 ) -> list[SnapshotDiff]:
         """Diff updated memory against this snapshot over the dirty pages,
         honouring merge regions (reference diffWithDirtyRegions)."""
+        stats = get_state_stats()
+        t0 = time.perf_counter() if stats.enabled else 0.0
         cur = np.frombuffer(mem, dtype=np.uint8)
         diffs: list[SnapshotDiff] = []
         if not dirty_pages.any():
@@ -247,6 +252,11 @@ class SnapshotData:
                     d = self._arith_diff(cur, region)
                     if d is not None:
                         diffs.append(d)
+        if stats.enabled:
+            stats.snapshot_event(
+                "diff", nbytes=sum(len(d.data) for d in diffs),
+                pages=int(dirty_pages.sum()), regions=len(regions),
+                seconds=time.perf_counter() - t0)
         return diffs
 
     def _bytewise_diffs(self, cur: np.ndarray, lo: int, hi: int
@@ -356,23 +366,34 @@ class SnapshotData:
     def write_queued_diffs(self) -> int:
         """Apply (and drain) queued diffs; returns how many applied
         (reference writeQueuedDiffs)."""
+        stats = get_state_stats()
+        t0 = time.perf_counter() if stats.enabled else 0.0
         with self._lock:
             diffs = self._queued_diffs
             self._queued_diffs = []
         for d in diffs:
             self.apply_diff(d)
+        if stats.enabled and diffs:
+            stats.snapshot_event(
+                "apply", nbytes=sum(len(d.data) for d in diffs),
+                regions=len(diffs), seconds=time.perf_counter() - t0)
         return len(diffs)
 
     # ------------------------------------------------------------------
     def map_to_memory(self, mem) -> None:
         """Restore: copy the snapshot image into executor memory
         (reference mapToMemory — there MAP_PRIVATE; here a copy)."""
+        stats = get_state_stats()
+        t0 = time.perf_counter() if stats.enabled else 0.0
         dst = np.frombuffer(mem, dtype=np.uint8)
         if dst.size < self.size:
             raise ValueError(
                 f"Target memory {dst.size} smaller than snapshot {self.size}")
         dst[:self.size] = self._data
         dst[self.size:] = 0
+        if stats.enabled:
+            stats.snapshot_event("restore", nbytes=self.size,
+                                 seconds=time.perf_counter() - t0)
 
 
 def _pages_to_ranges(flags: np.ndarray, limit: int) -> list[tuple[int, int]]:

@@ -215,6 +215,10 @@ class DeviceHandleRegistry:
                     dropped += 1
                     nbytes += entry[0].nbytes
         if dropped:
+            from faabric_tpu_torch.telemetry.flight import flight_record
+
+            flight_record("device_handle_invalidate", world=world_id,
+                          gen=gen, dropped=dropped, bytes=nbytes)
             logger.info(
                 "Invalidated %d device state handle(s) (%d bytes) for "
                 "world %s (generation %d)", dropped, nbytes, world_id, gen)

@@ -27,26 +27,47 @@ counted host-to-device copy (``h2d.state``). ``set_from_device`` writes
 a tensor's bytes back into the image as one counted device-to-host copy
 (``d2h.state``).
 
-Not ported: the reference's fault points (``state.*``) and its
-telemetry (access ledger, comm matrix, spans, flight records;
-``ROADMAP.md`` Queue 1 #7 part B and #9 part B).
+Telemetry and fault points, as the reference's: every op lands in the
+per-key access ledger (``telemetry/statestats.py``: op counts, bytes,
+chunks, pull amplification, dirty ratio, lock waits), remote transfers
+in the comm matrix's ``state`` cells and ``state`` spans, and the time
+a remote op takes inside an executor's run is charged to that
+invocation (``charge_state_time``). Failures, fencing and lock stalls
+are flight-recorded. ``state.pull``, ``state.push`` and
+``state.replicate`` are fault points; a ``drop`` there raises
+``FaultConnectionError``, as a dead peer would.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from faabric_tpu_torch.device_plane.copies import D2H, H2D, count_copy
+from faabric_tpu_torch.faults.registry import (
+    DROP,
+    FaultConnectionError,
+    fault_point,
+    faults_enabled,
+)
 from faabric_tpu_torch.state.backend import (
     MasterMemoryAuthority,
     RemoteAuthority,
     StaleStateEpoch,
     StateAuthority,
 )
+from faabric_tpu_torch.telemetry.commmatrix import get_comm_matrix
+from faabric_tpu_torch.telemetry.flight import flight_record
+from faabric_tpu_torch.telemetry.lifecycle import charge_state_time
+from faabric_tpu_torch.telemetry.statestats import (
+    get_state_stats,
+    lock_stall_threshold_s,
+)
+from faabric_tpu_torch.telemetry.tracer import span
 from faabric_tpu_torch.util.logging import get_logger
 from faabric_tpu_torch.util.retry import RetryPolicy
 
@@ -58,9 +79,25 @@ STATE_CHUNK_SIZE = 4096
 RANGE_BYTES = 4 << 20
 _RANGE_CHUNKS = RANGE_BYTES // STATE_CHUNK_SIZE
 
+# Fault points where state bytes travel; FAABRIC_FAULTS unset keeps
+# each at one module-global bool check
+_FAULTS = faults_enabled()
+_FP_PULL = fault_point("state.pull")
+_FP_PUSH = fault_point("state.push")
+_FP_REPLICATE = fault_point("state.replicate")
+
 # Bounded client-side retry after a failover: one re-resolve through
 # the planner per attempt
 _PLACEMENT_RETRY = RetryPolicy(max_attempts=3, backoff=0.05)
+
+
+def _fire_fault(point, **ctx) -> None:
+    """A ``drop`` at the state wire is a peer failure (a dropped state
+    RPC and a dead peer look the same here), so the retry and no-ack
+    paths run instead of bytes silently vanishing."""
+    if point.fire(**ctx) is DROP:
+        raise FaultConnectionError(
+            f"fault rule dropped {point.name} for {ctx.get('key')}")
 
 
 def n_chunks(size: int) -> int:
@@ -146,6 +183,12 @@ class StateKeyValue:
         self._dirty = np.zeros(chunks, dtype=bool)
         self._n_dirty = 0
 
+        self._stats = get_state_stats()
+        self._comm = get_comm_matrix()
+        self._stats.note_key(self.full_key, master=master_host,
+                             size=size, is_master=self.is_master,
+                             backup=backup_host, epoch=epoch)
+
     # ------------------------------------------------------------------
     def _chunk_range(self, offset: int, length: int) -> tuple[int, int]:
         first = offset // STATE_CHUNK_SIZE
@@ -188,6 +231,8 @@ class StateKeyValue:
         self.backup_host = backup
         if epoch > self.epoch:
             self.epoch = epoch
+        self._stats.note_key(self.full_key, master=self.master_host,
+                             backup=backup, epoch=self.epoch)
 
     def load_image(self, data: bytes, appended: list[bytes]) -> None:
         """Seed a freshly promoted master from its replica: the image is
@@ -238,8 +283,9 @@ class StateKeyValue:
             # Mastership landing on this host cannot convert a remote
             # image in place: the original failure surfaces
             return False
-        logger.info("State %s re-resolved: master %s -> %s (epoch %d)",
-                    self.full_key, self.master_host, master, epoch)
+        flight_record("state_reresolve", key=self.full_key,
+                      old_master=self.master_host, master=master,
+                      epoch=epoch)
         self.master_host = master
         self.backup_host = backup
         if epoch > self.epoch:
@@ -247,6 +293,8 @@ class StateKeyValue:
         if isinstance(auth, RemoteAuthority):
             auth.master_host = master
             auth.epoch = epoch
+        self._stats.note_key(self.full_key, master=master, backup=backup,
+                             epoch=epoch)
         return True
 
     def _replicate_writes(self, writes: list[tuple[int, bytes]]) -> None:
@@ -255,22 +303,55 @@ class StateKeyValue:
         happened."""
         if not writes or not self._has_backup():
             return
-        try:
-            self._client_factory(self.backup_host).replicate_chunks(
-                self.user, self.key, self.epoch, self.size, writes)
-        except Exception as e:  # noqa: BLE001
-            self._replication_failed(e)
+        if _FAULTS:
+            _fire_fault(_FP_REPLICATE, key=self.full_key,
+                        host=self.backup_host)
+        recording = self._stats.enabled
+        t0 = time.monotonic_ns() if recording else 0
+        nbytes = sum(len(d) for _o, d in writes)
+        with span("state", "replicate", key=self.full_key,
+                  chunks=len(writes)):
+            try:
+                self._client_factory(self.backup_host).replicate_chunks(
+                    self.user, self.key, self.epoch, self.size, writes)
+            except Exception as e:  # noqa: BLE001
+                self._replication_failed(e)
+        if recording:
+            dt_ns = time.monotonic_ns() - t0
+            charge_state_time(dt_ns)
+            self._stats.record(self.full_key, "replicate", nbytes=nbytes,
+                               chunks=len(writes), seconds=dt_ns / 1e9,
+                               remote=True)
+            self._comm.record(self.local_host, self.backup_host, "state",
+                              nbytes, seconds=dt_ns / 1e9,
+                              raw_bytes=nbytes)
 
     def _replicate_append(self, values: list[bytes],
                           replace: bool = False) -> None:
         if (not values and not replace) or not self._has_backup():
             return
-        try:
-            self._client_factory(self.backup_host).replicate_append(
-                self.user, self.key, self.epoch, self.size, values,
-                replace=replace)
-        except Exception as e:  # noqa: BLE001
-            self._replication_failed(e)
+        if _FAULTS:
+            _fire_fault(_FP_REPLICATE, key=self.full_key,
+                        host=self.backup_host)
+        recording = self._stats.enabled
+        t0 = time.monotonic_ns() if recording else 0
+        nbytes = sum(len(v) for v in values)
+        with span("state", "replicate_append", key=self.full_key,
+                  nbytes=nbytes):
+            try:
+                self._client_factory(self.backup_host).replicate_append(
+                    self.user, self.key, self.epoch, self.size, values,
+                    replace=replace)
+            except Exception as e:  # noqa: BLE001
+                self._replication_failed(e)
+        if recording:
+            dt_ns = time.monotonic_ns() - t0
+            charge_state_time(dt_ns)
+            self._stats.record(self.full_key, "replicate", nbytes=nbytes,
+                               seconds=dt_ns / 1e9, remote=True)
+            self._comm.record(self.local_host, self.backup_host, "state",
+                              nbytes, seconds=dt_ns / 1e9,
+                              raw_bytes=nbytes)
 
     def _replication_failed(self, err: Exception) -> None:
         """A backup forward failed. StaleStateEpoch means this master was
@@ -282,10 +363,14 @@ class StateKeyValue:
         if (isinstance(err, StaleStateEpoch)
                 or "StaleStateEpoch" in str(err)):
             self._stale = True
+            flight_record("state_fenced", key=self.full_key,
+                          host=self.local_host, epoch=self.epoch)
             raise StaleStateEpoch(
                 f"StaleStateEpoch: {self.full_key} master at "
                 f"{self.local_host} was fenced out during failover"
             ) from err
+        flight_record("state_replicate_fail", key=self.full_key,
+                      backup=self.backup_host, error=repr(err))
         old_backup = self.backup_host
         if not self._reresolve_master_placement():
             if self._stale:
@@ -301,6 +386,9 @@ class StateKeyValue:
         else:
             logger.warning("State %s runs unreplicated at %s",
                            self.full_key, self.local_host)
+            flight_record("state_unreplicated", key=self.full_key,
+                          host=self.local_host)
+            self._stats.set_replication_lag(self.full_key, self.size)
 
     def _reresolve_master_placement(self) -> bool:
         """Master side: claim through the planner again after a failed
@@ -314,10 +402,14 @@ class StateKeyValue:
             return False
         if master != self.local_host:
             self._stale = True
+            flight_record("state_fenced", key=self.full_key,
+                          host=self.local_host, epoch=epoch)
             return False
         self.backup_host = backup
         if epoch > self.epoch:
             self.epoch = epoch
+        self._stats.note_key(self.full_key, master=master, backup=backup,
+                             epoch=self.epoch)
         return True
 
     def full_sync_backup(self) -> None:
@@ -328,16 +420,28 @@ class StateKeyValue:
         if not self._has_backup():
             return
         client = self._client_factory(backup)
-        for lo in range(0, self.size, RANGE_BYTES):
-            hi = min(self.size, lo + RANGE_BYTES)
-            with self._lock:
-                data = self._data[lo:hi].tobytes()
-            client.replicate_chunks(self.user, self.key, self.epoch,
-                                    self.size, [(lo, data)])
-        appended = (self.authority.all_appended()
-                    if hasattr(self.authority, "all_appended") else [])
-        client.replicate_append(self.user, self.key, self.epoch,
-                                self.size, appended, replace=True)
+        # Replication lag, the bytes the backup still misses, shows in
+        # the ledger until the stream completes
+        self._stats.set_replication_lag(self.full_key, self.size)
+        sent = 0
+        with span("state", "anti_entropy", key=self.full_key,
+                  nbytes=self.size):
+            for lo in range(0, self.size, RANGE_BYTES):
+                hi = min(self.size, lo + RANGE_BYTES)
+                with self._lock:
+                    data = self._data[lo:hi].tobytes()
+                client.replicate_chunks(self.user, self.key, self.epoch,
+                                        self.size, [(lo, data)])
+                sent += hi - lo
+                self._stats.set_replication_lag(
+                    self.full_key, max(0, self.size - sent))
+            appended = (self.authority.all_appended()
+                        if hasattr(self.authority, "all_appended") else [])
+            client.replicate_append(self.user, self.key, self.epoch,
+                                    self.size, appended, replace=True)
+        self._stats.set_replication_lag(self.full_key, 0)
+        flight_record("state_anti_entropy", key=self.full_key,
+                      backup=backup, nbytes=self.size)
 
     def _dirty_runs(self) -> list[tuple[int, int]]:
         with self._lock:
@@ -364,27 +468,59 @@ class StateKeyValue:
         with self._lock:
             missing = [c for c in range(first, min(last, self._pulled.size))
                        if not self._pulled[c]]
-        for run_first, run_last in _runs(missing):
-            lo, hi = self._chunk_bytes(run_first, run_last)
-            data = self._remote_retry(
-                lambda lo=lo, hi=hi: self.authority.pull_chunk(lo, hi - lo))
-            with self._lock:
-                self._data[lo:lo + len(data)] = np.frombuffer(data, np.uint8)
-                self._pulled[run_first:run_last] = True
-                self._ever_pulled[run_first:run_last] = True
-                self._bump_version_locked()
+            fresh = sum(1 for c in missing if not self._ever_pulled[c])
+        if not missing:
+            return 0
+        recording = self._stats.enabled
+        t0 = time.monotonic_ns() if recording else 0
+        nbytes = 0
+        with span("state", "pull", key=self.full_key, chunks=len(missing)):
+            if _FAULTS:
+                _fire_fault(_FP_PULL, key=self.full_key,
+                            host=self.master_host)
+            for run_first, run_last in _runs(missing):
+                lo, hi = self._chunk_bytes(run_first, run_last)
+                try:
+                    data = self._remote_retry(
+                        lambda lo=lo, hi=hi:
+                        self.authority.pull_chunk(lo, hi - lo))
+                except Exception as e:  # noqa: BLE001 — record, re-raise
+                    flight_record("state_pull_fail", key=self.full_key,
+                                  master=self.master_host, offset=lo,
+                                  error=repr(e))
+                    raise
+                nbytes += len(data)
+                with self._lock:
+                    self._data[lo:lo + len(data)] = np.frombuffer(
+                        data, np.uint8)
+                    self._pulled[run_first:run_last] = True
+                    self._ever_pulled[run_first:run_last] = True
+                    self._bump_version_locked()
+        if recording:
+            dt_ns = time.monotonic_ns() - t0
+            charge_state_time(dt_ns)
+            self._stats.record(self.full_key, "pull", nbytes=nbytes,
+                               chunks=len(missing), fresh_chunks=fresh,
+                               seconds=dt_ns / 1e9, remote=True)
+            self._comm.record(self.master_host, self.local_host,
+                              "state", nbytes, seconds=dt_ns / 1e9,
+                              raw_bytes=nbytes)
         return len(missing)
 
     # ------------------------------------------------------------------
     # Reads
     # ------------------------------------------------------------------
     def get(self) -> bytes:
-        self._ensure_pulled(0, self.size)
+        pulled = self._ensure_pulled(0, self.size)
+        self._stats.record(self.full_key, "get", nbytes=self.size,
+                           remote=pulled > 0)
         with self._lock:
             return self._data.tobytes()
 
     def get_array(self) -> np.ndarray:
-        self._ensure_pulled(0, self.size)
+        pulled = self._ensure_pulled(0, self.size)
+        self._stats.record(self.full_key, "get", nbytes=self.size,
+                           remote=pulled > 0)
         with self._lock:
             return self._data.copy()
 
@@ -393,7 +529,9 @@ class StateKeyValue:
             raise ValueError(
                 f"Chunk [{offset}, {offset + length}) out of bounds "
                 f"(size {self.size})")
-        self._ensure_pulled(offset, length)
+        pulled = self._ensure_pulled(offset, length)
+        self._stats.record(self.full_key, "get_chunk", nbytes=length,
+                           remote=pulled > 0)
         with self._lock:
             return self._data[offset:offset + length].tobytes()
 
@@ -411,6 +549,10 @@ class StateKeyValue:
             self._dirty[:] = True
             self._n_dirty = int(self._dirty.size)
             self._bump_version_locked()
+            n_dirty = self._n_dirty
+        self._stats.record(self.full_key, "set", nbytes=self.size,
+                           chunks=n_chunks(self.size))
+        self._stats.set_dirty_outstanding(self.full_key, n_dirty)
 
     def set_chunk(self, offset: int, data: bytes) -> None:
         if offset + len(data) > self.size:
@@ -423,6 +565,10 @@ class StateKeyValue:
             self._dirty[first:last] = True
             self._pulled[first:last] = True
             self._bump_version_locked()
+            n_dirty = self._n_dirty
+        self._stats.record(self.full_key, "set_chunk",
+                           nbytes=len(data), chunks=last - first)
+        self._stats.set_dirty_outstanding(self.full_key, n_dirty)
 
     # ------------------------------------------------------------------
     # Push and pull (non-master <-> master)
@@ -434,22 +580,54 @@ class StateKeyValue:
         with self._lock:
             self._dirty[:] = False
             self._n_dirty = 0
+        self._stats.set_dirty_outstanding(self.full_key, 0)
 
     def push_full(self) -> None:
         """Push the whole value to the authority (in ranges)."""
         if self.is_master:
             self._ack_master_writes()
             return
-        self._ensure_pulled(0, self.size)
-        for lo in range(0, self.size, RANGE_BYTES):
-            hi = min(self.size, lo + RANGE_BYTES)
-            with self._lock:
-                data = self._data[lo:hi].tobytes()
-            self._remote_retry(
-                lambda lo=lo, d=data: self.authority.push_chunk(lo, d))
+        recording = self._stats.enabled
+        t0 = time.monotonic_ns() if recording else 0
+        with self._lock:
+            dirty_before = self._n_dirty
+        # The whole value is read first (the reference's get())
+        pulled = self._ensure_pulled(0, self.size)
+        self._stats.record(self.full_key, "get", nbytes=self.size,
+                           remote=pulled > 0)
+        with span("state", "push_full", key=self.full_key,
+                  nbytes=self.size):
+            if _FAULTS:
+                _fire_fault(_FP_PUSH, key=self.full_key,
+                            host=self.master_host)
+            try:
+                for lo in range(0, self.size, RANGE_BYTES):
+                    hi = min(self.size, lo + RANGE_BYTES)
+                    with self._lock:
+                        data = self._data[lo:hi].tobytes()
+                    self._remote_retry(
+                        lambda lo=lo, d=data: self.authority.push_chunk(lo,
+                                                                        d))
+            except Exception as e:  # noqa: BLE001 — record, re-raise
+                flight_record("state_push_fail", key=self.full_key,
+                              master=self.master_host, op="push_full",
+                              error=repr(e))
+                raise
         with self._lock:
             self._dirty[:] = False
             self._n_dirty = 0
+        if recording:
+            dt_ns = time.monotonic_ns() - t0
+            charge_state_time(dt_ns)
+            self._stats.record(self.full_key, "push_full",
+                               nbytes=self.size,
+                               chunks=n_chunks(self.size),
+                               dirty_chunks=dirty_before,
+                               seconds=dt_ns / 1e9, remote=True)
+            self._comm.record(self.local_host, self.master_host,
+                              "state", self.size, seconds=dt_ns / 1e9,
+                              raw_bytes=self.size)
+            self._stats.set_dirty_outstanding(self.full_key, 0)
 
     def push_partial(self) -> None:
         """Push only the dirty chunks (reference pushPartial), a run of
@@ -457,15 +635,50 @@ class StateKeyValue:
         if self.is_master:
             self._ack_master_writes()
             return
-        for first, last in self._dirty_runs():
-            lo, hi = self._chunk_bytes(first, last)
+        with self._lock:
+            n_dirty = self._n_dirty
+        runs = self._dirty_runs()
+        if not runs:
+            return
+        recording = self._stats.enabled
+        t0 = time.monotonic_ns() if recording else 0
+        nbytes = 0
+        with span("state", "push_partial", key=self.full_key,
+                  chunks=n_dirty):
+            if _FAULTS:
+                _fire_fault(_FP_PUSH, key=self.full_key,
+                            host=self.master_host)
+            for first, last in runs:
+                lo, hi = self._chunk_bytes(first, last)
+                with self._lock:
+                    data = self._data[lo:hi].tobytes()
+                try:
+                    self._remote_retry(
+                        lambda lo=lo, d=data:
+                        self.authority.push_chunks([(lo, d)]))
+                except Exception as e:  # noqa: BLE001 — record, re-raise
+                    flight_record("state_push_fail", key=self.full_key,
+                                  master=self.master_host,
+                                  op="push_partial", error=repr(e))
+                    raise
+                nbytes += len(data)
+                with self._lock:
+                    self._dirty[first:last] = False
+                    self._n_dirty = int(self._dirty.sum())
+        if recording:
+            dt_ns = time.monotonic_ns() - t0
+            charge_state_time(dt_ns)
+            self._stats.record(self.full_key, "push_partial",
+                               nbytes=nbytes,
+                               chunks=n_chunks(self.size),
+                               dirty_chunks=sum(b - a for a, b in runs),
+                               seconds=dt_ns / 1e9, remote=True)
+            self._comm.record(self.local_host, self.master_host,
+                              "state", nbytes, seconds=dt_ns / 1e9,
+                              raw_bytes=nbytes)
             with self._lock:
-                data = self._data[lo:hi].tobytes()
-            self._remote_retry(
-                lambda lo=lo, d=data: self.authority.push_chunks([(lo, d)]))
-            with self._lock:
-                self._dirty[first:last] = False
-                self._n_dirty = int(self._dirty.sum())
+                n_dirty = self._n_dirty
+            self._stats.set_dirty_outstanding(self.full_key, n_dirty)
 
     def pull(self) -> None:
         """Re-pull the whole value from the master."""
@@ -483,12 +696,21 @@ class StateKeyValue:
     # Appends (reference append/getAppended/clearAppended)
     # ------------------------------------------------------------------
     def append(self, data: bytes) -> None:
-        if self.is_master:
-            self.authority.append(data)
-            # Forward before returning: returning is the ack
-            self._replicate_append([bytes(data)])
-        else:
-            self._remote_retry(lambda: self.authority.append(data))
+        recording = self._stats.enabled
+        t0 = time.monotonic_ns() if recording else 0
+        with span("state", "append", key=self.full_key, nbytes=len(data)):
+            if self.is_master:
+                self.authority.append(data)
+                # Forward before returning: returning is the ack
+                self._replicate_append([bytes(data)])
+            else:
+                self._remote_retry(lambda: self.authority.append(data))
+        if recording:
+            dt_ns = time.monotonic_ns() - t0
+            charge_state_time(dt_ns)
+            self._stats.record(self.full_key, "append",
+                               nbytes=len(data), seconds=dt_ns / 1e9,
+                               remote=not self.is_master)
 
     def get_appended(self, n_values: int) -> list[bytes]:
         return self.authority.get_appended(n_values)
@@ -503,7 +725,21 @@ class StateKeyValue:
     # Locks (hosted by the authority)
     # ------------------------------------------------------------------
     def lock_global(self) -> None:
-        self.authority.lock()
+        recording = self._stats.enabled
+        t0 = time.monotonic_ns() if recording else 0
+        with span("state", "lock_global", key=self.full_key):
+            self.authority.lock()
+        if recording:
+            wait_s = (time.monotonic_ns() - t0) / 1e9
+            charge_state_time(int(wait_s * 1e9))
+            stalled = wait_s >= lock_stall_threshold_s()
+            self._stats.record(self.full_key, "lock_global",
+                               seconds=wait_s, remote=not self.is_master)
+            self._stats.lock_wait(self.full_key, wait_s, stalled=stalled)
+            if stalled:
+                flight_record("state_lock_stall", key=self.full_key,
+                              master=self.master_host,
+                              wait_ms=round(wait_s * 1e3, 3))
 
     def unlock_global(self) -> None:
         self.authority.unlock()

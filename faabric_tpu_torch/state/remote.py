@@ -21,6 +21,7 @@ import enum
 import threading
 from typing import TYPE_CHECKING
 
+from faabric_tpu_torch.telemetry import flight_record, span
 from faabric_tpu_torch.transport.client import MessageEndpointClient
 from faabric_tpu_torch.transport.common import (
     STATE_ASYNC_PORT,
@@ -57,6 +58,9 @@ class StateCalls(enum.IntEnum):
     REPLICATE = 10
     REPLICATE_APPEND = 11
     PROMOTE = 12
+
+
+_OP_NAMES = {int(c): c.name.lower() for c in StateCalls}
 
 
 _mock_lock = threading.Lock()
@@ -199,26 +203,31 @@ class StateServer(MessageEndpointServer):
         code = msg.code
         h = msg.header
         user, key = h["user"], h["key"]
+        op = _OP_NAMES.get(code, str(code))
 
         # The replication calls reach the backup, which holds no master
         # KV: they come before the master check
         if code == int(StateCalls.REPLICATE):
-            writes = list(zip((int(o) for o in h["offsets"]),
-                              _split(msg.payload, h["lengths"])))
-            self.state.apply_replica_chunks(
-                user, key, int(h["epoch"]), int(h["size"]), writes)
+            with span("state", "serve_replicate", key=f"{user}/{key}"):
+                writes = list(zip((int(o) for o in h["offsets"]),
+                                  _split(msg.payload, h["lengths"])))
+                self.state.apply_replica_chunks(
+                    user, key, int(h["epoch"]), int(h["size"]), writes)
             return handler_response()
 
         if code == int(StateCalls.REPLICATE_APPEND):
-            self.state.apply_replica_append(
-                user, key, int(h["epoch"]), int(h["size"]),
-                _split(msg.payload, h["lengths"]),
-                replace=bool(h.get("replace")))
+            with span("state", "serve_replicate_append",
+                      key=f"{user}/{key}"):
+                self.state.apply_replica_append(
+                    user, key, int(h["epoch"]), int(h["size"]),
+                    _split(msg.payload, h["lengths"]),
+                    replace=bool(h.get("replace")))
             return handler_response()
 
         if code == int(StateCalls.PROMOTE):
-            ok = self.state.promote_replica(
-                user, key, int(h["epoch"]), h.get("backup", ""))
+            with span("state", "serve_promote", key=f"{user}/{key}"):
+                ok = self.state.promote_replica(
+                    user, key, int(h["epoch"]), h.get("backup", ""))
             return handler_response(header={"ok": ok})
 
         req_epoch = int(h.get("epoch", 0))
@@ -229,25 +238,34 @@ class StateServer(MessageEndpointServer):
             # the request is the owner's data, so promote it now
             kv = self.state.maybe_self_promote(user, key, req_epoch)
         if kv is None or not kv.is_master:
+            # Stale master routing: a burst of these means the planner's
+            # master table and the clients' cached masters diverged
+            flight_record("state_not_master", key=f"{user}/{key}",
+                          host=self.state.host, op=op)
             raise KeyError(f"Host is not master for state {user}/{key}")
 
         # Reject ops older than our epoch, adopt newer ones, reject all
         # once this master knows it was fenced out
         kv.check_epoch(req_epoch)
 
+        with span("state", f"serve_{op}", key=f"{user}/{key}"):
+            return self._serve_master_op(kv, code, h, msg.payload)
+
+    def _serve_master_op(self, kv, code: int, h: dict,
+                         payload: bytes) -> TransportMessage:
         if code == int(StateCalls.PULL):
             return handler_response(
                 payload=kv.server_pull_chunk(h["offset"], h["length"]))
 
         if code == int(StateCalls.PUSH):
-            kv.server_push_chunk(h["offset"], msg.payload)
+            kv.server_push_chunk(h["offset"], payload)
             return handler_response()
 
         if code == int(StateCalls.SIZE):
             return handler_response(header={"size": kv.size})
 
         if code == int(StateCalls.APPEND):
-            kv.server_append(msg.payload)
+            kv.server_append(payload)
             return handler_response()
 
         if code == int(StateCalls.PULL_APPENDED):
@@ -261,7 +279,7 @@ class StateServer(MessageEndpointServer):
             return handler_response()
 
         if code == int(StateCalls.DELETE):
-            self.state.delete_kv(user, key)
+            self.state.delete_kv(h["user"], h["key"])
             return handler_response()
 
         if code == int(StateCalls.LOCK):

@@ -26,6 +26,7 @@ from faabric_tpu_torch.state.backend import (
 from faabric_tpu_torch.state.kv import StateKeyValue
 from faabric_tpu_torch.state.remote import StateClient
 from faabric_tpu_torch.state.replica import StateReplica
+from faabric_tpu_torch.telemetry import flight_record
 from faabric_tpu_torch.transport.client_pool import ClientPool
 from faabric_tpu_torch.util.config import get_system_config
 from faabric_tpu_torch.util.logging import get_logger
@@ -122,6 +123,9 @@ class State:
         else:
             master, backup, epoch = self.host, "", 0
         is_master = master == self.host
+        if is_master:
+            flight_record("state_master_claim", key=full, host=self.host,
+                          size=max(size, 0), backup=backup, epoch=epoch)
 
         if size <= 0:
             if is_master:
@@ -130,6 +134,8 @@ class State:
                 if self.planner_client is not None:
                     try:
                         self.planner_client.drop_state_master(user, key)
+                        flight_record("state_master_drop", key=full,
+                                      host=self.host, reason="no_size")
                     except Exception:  # noqa: BLE001
                         logger.warning("Could not release claim on %s", full)
                 raise ValueError(
@@ -156,6 +162,8 @@ class State:
                 and self.planner_client is not None:
             try:
                 self.planner_client.drop_state_master(user, key)
+                flight_record("state_master_drop", key=f"{user}/{key}",
+                              host=self.host, reason="delete")
             except Exception:  # noqa: BLE001
                 logger.debug("Could not drop master for %s/%s", user, key)
 
@@ -229,6 +237,8 @@ class State:
         rep.apply_append(kv.epoch, kv.size, appended, replace=True)
         with self._lock:
             self._kvs.pop(full, None)
+        flight_record("state_demoted", key=full, host=self.host,
+                      old_epoch=kv.epoch, new_epoch=epoch)
 
     def maybe_self_promote(self, user: str, key: str,
                            req_epoch: int) -> Optional[StateKeyValue]:
@@ -274,6 +284,8 @@ class State:
             self._replicas.pop(full, None)
         logger.warning("Promoted replica %s to master at %s (epoch %d, "
                        "new backup %r)", full, self.host, epoch, backup)
+        flight_record("state_promoted", key=full, host=self.host,
+                      epoch=epoch, backup=backup, size=kv.size)
         self._start_anti_entropy(kv)
         return True
 

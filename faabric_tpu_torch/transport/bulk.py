@@ -37,9 +37,14 @@ connection, and the sender re-ships that sequence number as a full
 frame. A reconnect resets both sides' caches (the receiver's lives with
 its connection).
 
-The reference's ``transport.bulk`` fault point, its spans, send-time
-histograms, comm-matrix and perf-profile records and flight records
-come with ``ROADMAP.md`` Queue 1 #7 and #9 part B.
+Every frame passes the ``transport.bulk`` fault point: ``kill_conn``
+drives the reconnect-and-resend path (or, on a ring, a bulk outage the
+broker routes round), and a ``drop`` on a coded delta frame corrupts its
+wire copy, so the receiver's check and the NACK heal run end to end.
+Each send is a ``transport.bulk`` span (``shm_push`` or ``tcp_send``)
+while tracing, goes into the send-time histogram of its path, and is
+recorded in the comm matrix (raw and wire bytes, codec), the perf
+store's profile of the peer host and the flight ring.
 """
 
 from __future__ import annotations
@@ -54,7 +59,17 @@ import time
 
 import numpy as np
 
-from faabric_tpu_torch.telemetry import get_metrics
+from faabric_tpu_torch.faults import DROP, fault_point, faults_enabled
+from faabric_tpu_torch.telemetry import (
+    NULL_FLIGHT,
+    NULL_SPAN,
+    get_comm_matrix,
+    get_flight,
+    get_metrics,
+    get_perf_store,
+    span,
+    tracing_enabled,
+)
 from faabric_tpu_torch.transport import shm
 from faabric_tpu_torch.transport.codec import (
     CODEC_FULL,
@@ -101,9 +116,24 @@ _BULK_RX_BYTES = {
                            "Bulk-plane payload bytes received", path=path)
     for path in ("tcp", "shm")
 }
+_BULK_SEND_SECONDS = {
+    path: _metrics.histogram("faabric_bulk_send_seconds",
+                             "Bulk-plane per-frame send latency", path=path)
+    for path in ("tcp", "shm")
+}
 _BULK_RECONNECTS = _metrics.counter(
     "faabric_bulk_reconnects_total",
     "Reconnect-and-resend recoveries after a stale/reset bulk connection")
+
+# Shared no-op handles while metrics or the flight ring are off. The
+# perf store profiles the destination HOST's link (what the governor
+# and the schedule compiler read); the comm matrix keeps ranks
+_COMM = get_comm_matrix()
+_FLIGHT = get_flight()
+_PERF = get_perf_store()
+
+_FAULTS = faults_enabled()
+_FP_BULK = fault_point("transport.bulk")
 
 BULK_PORT = 8014
 # Below this the RPC plane wins (no extra connection), unless the peer
@@ -585,7 +615,7 @@ class _Stripe:
     # -- the coded-stream send path --------------------------------------
     def send_coded(self, mode: str, group_id: int, send_idx: int,
                    recv_idx: int, seq: int, channel: int,
-                   parts: list) -> None:
+                   parts: list, nbytes: int) -> None:
         """Send one coded frame. ``parts`` are the ordered uint8 segments
         of the payload; the cache copies them only when the frame
         becomes a base. Encode runs under the stripe lock, which
@@ -602,8 +632,18 @@ class _Stripe:
                 self._ensure_nack_reader_locked()
                 self._process_nacks_locked()
                 frame = self.codec_tx.encode(key, parts, seq, mode)
+                if _FAULTS:
+                    # kill_conn drives the reconnect escape below; a
+                    # drop corrupts a coded frame's wire bytes (its crc
+                    # left stale) so the receiver NACKs and the heal runs
+                    verdict = _FP_BULK.fire(dest=self.host, bytes=nbytes,
+                                            codec=CODEC_LABELS[frame.codec])
+                    if verdict is DROP and frame.codec != CODEC_FULL:
+                        wire = frame.wire.copy()
+                        wire[:min(8, wire.size)] ^= 0x5A
+                        frame.wire = wire
                 self._send_coded_frame_locked(gh, gl, send_idx, recv_idx,
-                                              channel, seq, frame)
+                                              channel, seq, frame, group_id)
             except OSError:
                 # The receiver's cache died with the connection: resend
                 # FULL on a reset cache over a fresh one
@@ -614,7 +654,8 @@ class _Stripe:
                 frame = self.codec_tx.encode(key, parts, seq, mode)
                 try:
                     self._send_coded_frame_locked(
-                        gh, gl, send_idx, recv_idx, channel, seq, frame)
+                        gh, gl, send_idx, recv_idx, channel, seq, frame,
+                        group_id)
                     _BULK_RECONNECTS.inc()
                 except BaseException:
                     self._reset_locked()
@@ -622,13 +663,18 @@ class _Stripe:
 
     def _send_coded_frame_locked(self, gh: int, gl: int, send_idx: int,
                                  recv_idx: int, channel: int, seq: int,
-                                 frame: CodedFrame) -> None:
+                                 frame: CodedFrame, group_id: int) -> None:
         wire = frame.wire
+        label = CODEC_LABELS[frame.codec]
         head = _FRAME.pack(gh, gl, send_idx, recv_idx, channel, seq,
                            wire.nbytes, frame.codec, frame.flags, 0,
                            frame.base_epoch, frame.self_epoch, frame.crc,
                            frame.raw_nbytes)
-        _sendmsg_all(self.sock, [head, wire])
+        t0 = time.monotonic()
+        with span("transport.bulk", "tcp_send", bytes=wire.nbytes,
+                  raw_bytes=frame.raw_nbytes, dest=self.host,
+                  codec=label) if tracing_enabled() else NULL_SPAN:
+            _sendmsg_all(self.sock, [head, wire])
         self.coded_frames += 1
         self.tcp_frames += 1
         self.wire_bytes += wire.nbytes
@@ -637,6 +683,16 @@ class _Stripe:
             self.escape_frames += 1
         _BULK_TX_FRAMES["tcp"].inc()
         _BULK_TX_BYTES["tcp"].inc(wire.nbytes)
+        elapsed = time.monotonic() - t0
+        _BULK_SEND_SECONDS["tcp"].observe(elapsed)
+        _COMM.record(send_idx, recv_idx, "bulk-tcp", wire.nbytes, elapsed,
+                     raw_bytes=frame.raw_nbytes, codec=label)
+        _PERF.observe(self.host, "bulk-tcp", wire.nbytes, elapsed,
+                      codec=label)
+        if _FLIGHT is not NULL_FLIGHT:
+            _FLIGHT.record("send", group=group_id, src=send_idx,
+                           dst=recv_idx, plane="bulk-tcp",
+                           bytes=wire.nbytes, codec=label)
 
     def _ensure_nack_reader_locked(self) -> None:
         """One reader a live connection drains the NACK channel, so a
@@ -708,31 +764,50 @@ class _Stripe:
         frame = CodedFrame(CODEC_FULL, FLAG_CACHE | FLAG_ESCAPE, 0,
                            epoch, 0, base, base.nbytes)
         self._send_coded_frame_locked(gh, gl, send_idx, recv_idx,
-                                      channel, seq, frame)
+                                      channel, seq, frame, (gh << 64) | gl)
 
     # -- the per-frame send path -----------------------------------------
-    def send_frame(self, head: bytes, views: list, nbytes: int) -> None:
+    def send_frame(self, head: bytes, views: list, nbytes: int,
+                   group_id: int, send_idx: int, recv_idx: int) -> None:
         """``head`` is b"" when the caller joined the header into
         views[0] (tiny frames)."""
         bufs = [head, *views] if head else views
+        fired = False
         with self.lock:
             if self.sock is None:
                 self.sock = self._dial_locked()
             ring = self.ring
             if ring is not None and nbytes + _FRAME.size + 8 <= ring.capacity:
+                if _FAULTS:
+                    # kill_conn raised here leaves as a bulk outage and
+                    # the broker reroutes onto the RPC plane
+                    fired = True
+                    _FP_BULK.fire(dest=self.host, bytes=nbytes)
                 # A push timeout means the drain never started or died:
                 # the ring is dead, and the frame goes on TCP (retrying
                 # would stall every send under the stripe lock). The
                 # first push gets a short leash
-                pushed = ring.push(
-                    bufs, timeout=2.0 if self.shm_frames == 0 else 5.0,
-                    nbytes=nbytes + _FRAME.size)
+                t0 = time.monotonic()
+                with span("transport.bulk", "shm_push", bytes=nbytes,
+                          dest=self.host) if tracing_enabled() \
+                        else NULL_SPAN:
+                    pushed = ring.push(
+                        bufs, timeout=2.0 if self.shm_frames == 0 else 5.0,
+                        nbytes=nbytes + _FRAME.size)
                 if pushed:
                     self.shm_frames += 1
                     self.wire_bytes += nbytes
                     self.raw_bytes += nbytes
                     _BULK_TX_FRAMES["shm"].inc()
                     _BULK_TX_BYTES["shm"].inc(nbytes)
+                    elapsed = time.monotonic() - t0
+                    _BULK_SEND_SECONDS["shm"].observe(elapsed)
+                    _COMM.record(send_idx, recv_idx, "shm", nbytes, elapsed)
+                    _PERF.observe(self.host, "shm", nbytes, elapsed)
+                    if _FLIGHT is not NULL_FLIGHT:
+                        _FLIGHT.record("send", group=group_id,
+                                       src=send_idx, dst=recv_idx,
+                                       plane="shm", bytes=nbytes)
                     return
                 logger.warning("Shm ring for %s stalled; abandoning ring, "
                                "staying on TCP", self.tag)
@@ -745,8 +820,17 @@ class _Stripe:
                 ring.close(unlink=True)
                 self.ring = None
                 self.ring_refused = True
+            t0 = time.monotonic()
             try:
-                _sendmsg_all(self.sock, bufs)
+                if _FAULTS and not fired:
+                    # kill_conn lands in the except below: the
+                    # reconnect-and-resend path, as when the peer closed
+                    # the keep-alive connection
+                    _FP_BULK.fire(dest=self.host, bytes=nbytes)
+                with span("transport.bulk", "tcp_send", bytes=nbytes,
+                          dest=self.host) if tracing_enabled() \
+                        else NULL_SPAN:
+                    _sendmsg_all(self.sock, bufs)
             except OSError:
                 # One reconnect and resend: the usual cause is a stale
                 # keep-alive connection the peer closed. A frame that
@@ -766,6 +850,13 @@ class _Stripe:
             self.raw_bytes += nbytes
             _BULK_TX_FRAMES["tcp"].inc()
             _BULK_TX_BYTES["tcp"].inc(nbytes)
+            elapsed = time.monotonic() - t0
+            _BULK_SEND_SECONDS["tcp"].observe(elapsed)
+            _COMM.record(send_idx, recv_idx, "bulk-tcp", nbytes, elapsed)
+            _PERF.observe(self.host, "bulk-tcp", nbytes, elapsed)
+            if _FLIGHT is not NULL_FLIGHT:
+                _FLIGHT.record("send", group=group_id, src=send_idx,
+                               dst=recv_idx, plane="bulk-tcp", bytes=nbytes)
 
     def _reset_locked(self) -> None:
         if self.sock is not None:
@@ -935,7 +1026,7 @@ class BulkClient:
                     parts = [np.frombuffer(v, dtype=np.uint8)
                              for v in views]
                     stripe.send_coded(mode, group_id, send_idx,
-                                      recv_idx, seq, channel, parts)
+                                      recv_idx, seq, channel, parts, nbytes)
                     return
         head = _pack_raw((group_id >> 64) & _U64, group_id & _U64,
                          send_idx, recv_idx, channel, seq, nbytes)
@@ -943,7 +1034,8 @@ class BulkClient:
             # One joined buffer is cheaper than three pointer conversions
             views = [memoryview(b"".join((head, *views)))]
             head = b""
-        self._pick(nbytes, seq).send_frame(head, views, nbytes)
+        self._pick(nbytes, seq).send_frame(head, views, nbytes, group_id,
+                                           send_idx, recv_idx)
 
     def close(self) -> None:
         with self._lock:

@@ -6,14 +6,28 @@ push, sync request and response), dialled lazily through the host alias
 table, with a ``RetryPolicy`` (exponential backoff with jitter) and a
 circuit breaker per peer, so a peer that keeps failing fails the next
 call at once. Connections go through ``safe_create_connection``.
+
+Every send passes the ``transport.send`` fault point (host-pair rules
+included); sends are counted per plane, sync round-trips go into the
+RPC latency histogram and the perf store's ``ptp`` profile of the peer,
+and while tracing is on the caller's trace context rides the header
+(``_tc``) so the server's handler span links to it.
 """
 
 from __future__ import annotations
 
 import socket
 import threading
+import time
 from typing import Any
 
+from faabric_tpu_torch.faults import DROP, fault_point, faults_enabled
+from faabric_tpu_torch.telemetry import (
+    current_trace_context,
+    get_metrics,
+    get_perf_store,
+    tracing_enabled,
+)
 from faabric_tpu_torch.transport.common import (
     DEFAULT_SOCKET_TIMEOUT,
     resolve_host,
@@ -30,6 +44,35 @@ from faabric_tpu_torch.util.retry import (
     RetryPolicy,
     default_transport_retry_policy,
 )
+
+_FAULTS = faults_enabled()
+_FP_SEND = fault_point("transport.send")
+
+_metrics = get_metrics()
+_TX_FRAMES = {
+    plane: _metrics.counter(
+        "faabric_transport_tx_frames_total",
+        "Frames sent on the shared RPC plane", plane=plane)
+    for plane in ("async", "sync")
+}
+_TX_BYTES = {
+    plane: _metrics.counter(
+        "faabric_transport_tx_bytes_total",
+        "Payload bytes sent on the shared RPC plane", plane=plane)
+    for plane in ("async", "sync")
+}
+_RPC_SECONDS = _metrics.histogram(
+    "faabric_transport_rpc_seconds",
+    "Client-side sync RPC round-trip latency")
+_PERF = get_perf_store()
+
+
+def _nbytes(payload) -> int:
+    """Bytes of a frame's payload: bytes, or a list of buffers that go
+    out back to back."""
+    if isinstance(payload, (list, tuple)):
+        return sum(memoryview(p).nbytes for p in payload)
+    return len(payload)
 
 
 class RpcError(Exception):
@@ -73,17 +116,40 @@ class MessageEndpointClient:
             s.close()
         self._socks[plane] = None
 
+    @staticmethod
+    def _with_trace_context(header: dict[str, Any] | None) -> dict:
+        """While tracing, a copy of ``header`` with the caller's trace
+        context under ``_tc``; callers may share header dicts."""
+        if tracing_enabled():
+            tc = current_trace_context()
+            if tc is not None:
+                header = dict(header) if header else {}
+                header["_tc"] = tc
+                return header
+        return header or {}
+
     def async_send(self, code: int, header: dict[str, Any] | None = None,
                    payload: bytes = b"", seqnum: int = -1) -> None:
         """Fire-and-forget send, retried on a fresh connection under the
         retry policy."""
-        msg = TransportMessage(code=code, header=header or {},
+        msg = TransportMessage(code=code,
+                               header=self._with_trace_context(header),
                                payload=payload, seqnum=seqnum)
         with self._locks["async"]:
             self._check_breaker("async")
             for attempt in range(self.retry.max_attempts):
                 try:
+                    if _FAULTS and _FP_SEND.fire(
+                            host=self.host, plane="async",
+                            code=code) is DROP:
+                        # Injected silent loss: the caller believes the
+                        # send happened, so the breaker records success
+                        # (a half-open trial never ends without one)
+                        self.breaker.record_success()
+                        return
                     send_frame(self._get_sock("async"), msg)
+                    _TX_FRAMES["async"].inc()
+                    _TX_BYTES["async"].inc(_nbytes(payload))
                     self.breaker.record_success()
                     return
                 except (OSError, TransportError) as e:
@@ -105,18 +171,34 @@ class MessageEndpointClient:
         it, unless the caller passes ``idempotent=True``: then a reused
         connection that answered with no byte at all (a server restarted
         between requests) is retried too."""
-        msg = TransportMessage(code=code, header=header or {},
+        msg = TransportMessage(code=code,
+                               header=self._with_trace_context(header),
                                payload=payload)
+        t0 = time.monotonic()
         with self._locks["sync"]:
             self._check_breaker("sync")
             for attempt in range(self.retry.max_attempts):
                 fresh = self._socks["sync"] is None
                 sent = False
                 try:
+                    if _FAULTS and _FP_SEND.fire(
+                            host=self.host, plane="sync",
+                            code=code) is DROP:
+                        # A dropped request has no response to wait for:
+                        # it fails now, recorded as a failure so a
+                        # half-open trial is never stranded
+                        self.breaker.record_failure()
+                        raise RpcError(
+                            f"injected drop of sync RPC {code} to "
+                            f"{self.host}:{self.sync_port}")
                     sock = self._get_sock("sync")
+                    attempt_t0 = time.monotonic()
                     send_frame(sock, msg)
                     sent = True
+                    _TX_FRAMES["sync"].inc()
+                    _TX_BYTES["sync"].inc(_nbytes(payload))
                     resp = recv_frame(sock)
+                    attempt_elapsed = time.monotonic() - attempt_t0
                     self.breaker.record_success()
                     break
                 except (OSError, TransportError) as e:
@@ -130,6 +212,10 @@ class MessageEndpointClient:
                         raise RpcError(f"sync send to {self.host}:"
                                        f"{self.sync_port} failed: {e}") from e
                     self.retry.sleep(attempt)
+        _RPC_SECONDS.observe(time.monotonic() - t0)
+        # Only the successful attempt's round-trip: backoff sleeps and
+        # failed dials measure this client's patience, not the link
+        _PERF.observe(self.host, "ptp", _nbytes(payload), attempt_elapsed)
         if resp.response_code != int(MessageResponseCode.SUCCESS):
             raise RpcError(
                 f"RPC {code} to {self.host}:{self.sync_port} failed: "

@@ -32,14 +32,12 @@ comma-combinable), ``FAABRIC_DELTA_CACHE_MB`` (each side's base-cache
 budget, default 128) and ``FAABRIC_WIRE_CODEC_MIN_GIBS`` (the link speed
 above which ``auto`` keeps a link raw; default 4).
 
-The governor's measured inputs, the perf-profile store's per-host GiB/s
-and the comm matrix, and with them the threshold tuned from measured
-delta rates, come with ``ROADMAP.md`` Queue 1 #7 part B. Until then no
-link has evidence, so ``auto`` sends a cross-machine link's eligible
-frames as deltas: the reference's own verdict with an empty store and an
-empty matrix. The verdict for same-machine links (raw), the forced modes
-and the quant policy are unaffected. The flight records of verdict
-changes come with part B too.
+The governor reads a link's rate from the perf store's big-frame
+evidence for the destination host, then from the comm matrix's (src,
+dst) cell; an unmeasured link counts as slow. Without the knob set, the
+threshold is tuned from the store's measured delta rate times the
+link's observed compression ratio. Every verdict change is
+flight-recorded (``codec_verdict``) and counted.
 """
 
 from __future__ import annotations
@@ -47,11 +45,16 @@ from __future__ import annotations
 import os
 import sys
 import threading
+import time
 import zlib
 
 import numpy as np
 
-from faabric_tpu_torch.telemetry import get_metrics
+from faabric_tpu_torch.telemetry import (
+    flight_record,
+    get_metrics,
+    get_perf_store,
+)
 from faabric_tpu_torch.util.delta import (
     DeltaSettings,
     apply_delta,
@@ -97,6 +100,13 @@ ZLIB_ENTROPY_MAX = 6.5
 MAX_BASES_PER_STREAM = 48
 SENT_WINDOW = 16
 
+# Auto-mode bandwidth evidence comes only from size classes at least
+# this big: a compact delta frame's wall time is dispatch overhead and
+# reads as a falsely slow link, which would lock a fast link into
+# compression on its own output. With only small-frame evidence the
+# store reports None and the comm matrix's raw-rate fallback decides
+GOVERNOR_BW_EVIDENCE_BYTES = 256 * 1024
+
 _metrics = get_metrics()
 _CODEC_TX_FRAMES = {
     label: _metrics.counter(
@@ -134,6 +144,9 @@ _CODEC_BASE_REUSE_BYTES = {
         side=side)
     for side in ("send", "recv")
 }
+_CODEC_VERDICT_FLIPS = _metrics.counter(
+    "faabric_codec_verdict_flips_total",
+    "Governor per-link codec verdict changes (flight-recorded)")
 
 
 def count_escape(reason: str) -> None:
@@ -848,39 +861,61 @@ def _parse_mode(spec: str) -> frozenset:
 
 
 class WireCodecGovernor:
-    """Per-link codec choice, the same on both ends because the verdict
-    rides the bulk frame header (and, for the quant plane, the NaN-scale
-    sentinel of each chunk).
+    """Per-link codec selection, deterministic on both ends because the
+    verdict rides the bulk frame header (and the NaN-scale sentinel on
+    the quant plane) — the receiver decodes what the header says, never
+    what it guesses the sender chose.
 
-    Policy (``auto``): same-machine links stay raw, since a ring copy
-    beats any codec. A cross-machine link is coded while its measured
-    bandwidth is below ``FAABRIC_WIRE_CODEC_MIN_GIBS`` or unmeasured (a
-    fresh link is taken as slow until a measurement says otherwise).
-    Forced tokens (``delta``, ``zlib``) override locality, so tests and
-    runs on one machine can drive the codec plane; ``raw`` or ``off``
-    disables it."""
+    Policy (``auto``): shm-capable / same-machine links stay raw —
+    a ring memcpy beats any codec. Cross-machine links compress when
+    their measured bandwidth — the rolling profile store's big-frame
+    evidence first (which persists across restarts), the comm-matrix
+    window as fallback — is below
+    ``FAABRIC_WIRE_CODEC_MIN_GIBS`` (or unmeasured: a fresh WAN link is
+    assumed slow until a measurement says otherwise). Forced tokens
+    (``delta``/``zlib``) override locality so tests and benches can
+    exercise the codec plane on loopback; ``raw``/``off`` disables it.
+    Decisions are cached per (host, link, size-class) and re-evaluated
+    every comm-matrix window."""
+
+    WINDOW_SECONDS = 5.0
+
+    # Clamp range for the TUNED threshold: measurement glitches must
+    # not push the break-even outside physically sensible link speeds
+    TUNED_MIN_GIBS = 0.25
+    TUNED_MAX_GIBS = 32.0
 
     def __init__(self, mode: str | None = None) -> None:
         self._lock = threading.Lock()
         if mode is None:
             mode = os.environ.get("FAABRIC_WIRE_CODEC", "auto")
         self.mode = _parse_mode(mode)
+        # The auto-mode threshold is tuned from the perf store per
+        # destination (_threshold_gibs); the knob is an override, used
+        # only when set; 4.0 GiB/s is the no-evidence default
+        self.min_gibs_env_set = "FAABRIC_WIRE_CODEC_MIN_GIBS" in os.environ
         try:
             self.min_gibs = float(os.environ.get(
                 "FAABRIC_WIRE_CODEC_MIN_GIBS", "4.0"))
         except ValueError:
             self.min_gibs = 4.0
+            self.min_gibs_env_set = False
+        self._decisions: dict[tuple, tuple[str, float]] = {}
+        self._matrix_cells: list[dict] = []
+        self._matrix_expires = 0.0
 
     def set_mode(self, spec: str) -> None:
-        """Replace the mode (tests and smoke runs)."""
+        """Test/bench hook: replace the mode and drop cached verdicts."""
         with self._lock:
             self.mode = _parse_mode(spec)
+            self._decisions.clear()
 
     # -- bulk-plane (lossless) selection --------------------------------
     def bulk_codec(self, host: str, local: bool, src, dst,
                    nbytes: int) -> str:
-        """'delta', 'zlib' or 'raw' for one bulk frame. ``local`` is the
-        bulk client's verdict that ``host`` is this machine."""
+        """'delta' | 'zlib' | 'raw' for one bulk frame. ``local`` is the
+        shm-capability verdict the BulkClient already computed (aliased
+        same-machine peers count — their wire is a ring memcpy)."""
         mode = self.mode
         if "raw" in mode or "off" in mode:
             return "raw"
@@ -888,17 +923,123 @@ class WireCodecGovernor:
             return "delta"
         if "zlib" in mode:
             return "zlib"
+        # auto: locality first, then the measured link
         if local:
             return "raw"
-        gibs = self._link_gibs(host, src, dst)
-        return "delta" if gibs is None or gibs < self.min_gibs else "raw"
+        key = (host, src, dst, int(nbytes).bit_length())
+        now = time.monotonic()
+        with self._lock:
+            hit = self._decisions.get(key)
+            if hit is not None and now < hit[1]:
+                return hit[0]
+        # The perf store's decayed per-host bandwidth first (it
+        # survives restarts through FAABRIC_PERF_PROFILE_DIR), big-frame
+        # evidence only; the comm-matrix window while it has none
+        gibs = get_perf_store().link_gibs(
+            host, plane="bulk-tcp",
+            min_bytes=GOVERNOR_BW_EVIDENCE_BYTES)
+        source = "profile"
+        if gibs is None:
+            gibs = self._link_gibs(src, dst)
+            source = "commmatrix"
+        threshold, threshold_src = self._threshold_gibs(host, src, dst)
+        choice = "delta" if (gibs is None or gibs < threshold) \
+            else "raw"
+        with self._lock:
+            prev = self._decisions.get(key)
+            self._decisions[key] = (choice, now + self.WINDOW_SECONDS)
+            if len(self._decisions) > 4096:
+                self._decisions.clear()  # cardinality backstop
+        if prev is None or prev[0] != choice:
+            # Why a link changed codec; bounded by the decisions'
+            # cardinality times real changes, so the ring never floods
+            if prev is not None:
+                _CODEC_VERDICT_FLIPS.inc()
+            flight_record("codec_verdict", host=host, src=src, dst=dst,
+                          verdict=choice,
+                          prev=prev[0] if prev else None,
+                          gibs=round(gibs, 3) if gibs is not None
+                          else None, source=source,
+                          threshold=round(threshold, 3),
+                          threshold_src=threshold_src)
+        return choice
 
-    def _link_gibs(self, host: str, src, dst) -> float | None:
-        """The link's measured GiB/s: in the reference, the perf-profile
-        store's big-frame evidence for ``host``, then the comm matrix's
-        (src, dst) cell. Both come with ``ROADMAP.md`` Queue 1 #7 part
-        B; until then no link is measured."""
+    def _threshold_gibs(self, host: str, src, dst) -> tuple[float, str]:
+        """The raw-vs-compress break-even bandwidth for one link.
+
+        Priority: an EXPLICITLY set ``FAABRIC_WIRE_CODEC_MIN_GIBS``
+        always wins (the operator override). Otherwise the threshold is
+        TUNED from measurement: compression pays exactly while the raw
+        link is slower than the delta path's measured *effective*
+        payload rate — the store's delta-codec wire bandwidth toward
+        ``host`` × the link's observed raw/wire compression ratio (comm
+        matrix ``bytes_raw``/``bytes`` on delta rows; per-(src, dst)
+        first, any measured delta link as fallback). No delta evidence
+        yet → the 4 GiB/s default, exactly as before."""
+        if self.min_gibs_env_set:
+            return self.min_gibs, "env"
+        delta_gibs = get_perf_store().link_gibs(
+            host, plane="bulk-tcp", codec="delta")
+        if delta_gibs is None or delta_gibs <= 0:
+            return self.min_gibs, "default"
+        ratio = self._delta_ratio(src, dst)
+        if ratio is None:
+            return self.min_gibs, "default"
+        tuned = min(max(delta_gibs * ratio, self.TUNED_MIN_GIBS),
+                    self.TUNED_MAX_GIBS)
+        return tuned, "tuned"
+
+    def _delta_ratio(self, src, dst) -> float | None:
+        """Observed raw/wire byte ratio of delta frames — per (src,
+        dst) when that link has delta history, the matrix-wide delta
+        aggregate otherwise (a fresh link borrows the workload's
+        typical compressibility). Reuses the windowed comm-matrix
+        snapshot ``_link_gibs`` maintains."""
+        self._link_gibs(src, dst)  # refresh the window if due
+        with self._lock:
+            cells = self._matrix_cells
+        link_raw = link_wire = all_raw = all_wire = 0
+        for c in cells:
+            if c.get("codec") != "delta" or c.get("plane") != "bulk-tcp":
+                continue
+            wire = c.get("bytes", 0)
+            raw = c.get("bytes_raw", wire)
+            all_raw += raw
+            all_wire += wire
+            if c.get("src") == str(src) and c.get("dst") == str(dst):
+                link_raw += raw
+                link_wire += wire
+        if link_wire > 0:
+            return link_raw / link_wire
+        if all_wire > 0:
+            return all_raw / all_wire
         return None
+
+    def _link_gibs(self, src, dst) -> float | None:
+        """Measured GiB/s for the (src, dst) bulk link from the comm
+        matrix, refreshed once per window."""
+        from faabric_tpu_torch.telemetry import get_comm_matrix
+
+        now = time.monotonic()
+        with self._lock:
+            if now >= self._matrix_expires:
+                snap = get_comm_matrix().snapshot() or {}
+                self._matrix_cells = snap.get("cells", [])
+                self._matrix_expires = now + self.WINDOW_SECONDS
+            cells = self._matrix_cells
+        best = None
+        for c in cells:
+            if c.get("plane") != "bulk-tcp":
+                continue
+            if c.get("src") != str(src) or c.get("dst") != str(dst):
+                continue
+            lat = c.get("lat_sum") or 0.0
+            if lat <= 0:
+                continue
+            gibs = (c.get("bytes_raw", c.get("bytes", 0)) / lat) / (1 << 30)
+            if best is None or gibs > best:
+                best = gibs
+        return best
 
     # -- quant (lossy) policy for the MPI leader ring -------------------
     def quant_mode(self, world_knob: str) -> str:

@@ -35,9 +35,15 @@ plane's codec cache. A probe (``probe_message``, ``try_probe_message``)
 takes the next message off its queue and holds it for the recv that
 follows.
 
+While tracing is on, a send to another host is a ``ptp``/``send`` span
+with a flow start, and a recv a ``ptp``/``recv`` span that ends the
+flow of a remote sender (the ids derive from the sequence tuple, so the
+merged trace draws send → recv arrows). RPC-plane sends are recorded in
+the comm matrix and the flight ring (the bulk client records its own);
+an abort is counted, flight-recorded and dumps the ring.
+
 Not ported: peer-liveness probes of watched groups and the abort relay
-through the planner (``ROADMAP.md`` Queue 1 #7 part C), and the send
-spans, comm-matrix and flight records (part B).
+through the planner (``ROADMAP.md`` Queue 1 #7 part C).
 """
 
 from __future__ import annotations
@@ -49,6 +55,18 @@ import threading
 import time
 
 from faabric_tpu_torch.proto import PointToPointMapping, PointToPointMappings
+from faabric_tpu_torch.telemetry import (
+    NULL_FLIGHT,
+    flight_dump,
+    flight_record,
+    flow_id_for,
+    get_comm_matrix,
+    get_flight,
+    get_metrics,
+    get_tracer,
+    span,
+    tracing_enabled,
+)
 from faabric_tpu_torch.util.config import get_system_config
 from faabric_tpu_torch.util.logging import get_logger
 from faabric_tpu_torch.util.testing import is_mock_mode
@@ -61,6 +79,13 @@ NO_SEQUENCE_NUM = -1
 
 DATA_CHANNEL = 0
 COORD_CHANNEL = 1
+
+_GROUP_ABORTS = get_metrics().counter(
+    "faabric_ptp_group_aborts_total",
+    "Watched groups aborted after a peer failure")
+# Shared no-op handles while metrics or the flight ring are off
+_COMM = get_comm_matrix()
+_FLIGHT = get_flight()
 
 
 class GroupAbortedError(RuntimeError):
@@ -119,6 +144,9 @@ class PointToPointBroker:
         self._sent_seq: dict[tuple[int, int, int, int], int] = {}
         self._recv_seq: dict[tuple[int, int, int, int], int] = {}
         self._early: dict[tuple[int, int, int, int], dict[int, object]] = {}
+        # Remote messages taken off each queue while tracing: the next
+        # one's sequence number, for its flow-end event
+        self._taken_seq: dict[tuple[int, int, int, int], int] = {}
         # Messages a probe took off their queue, ahead of the queue
         self._peeked: dict[tuple[int, int, int, int], collections.deque] = {}
         self._groups: dict[int, PointToPointGroup] = {}
@@ -232,7 +260,17 @@ class PointToPointBroker:
         with self._lock:
             seq = self._sent_seq.get(key, 0)
             self._sent_seq[key] = seq + 1
-        self._send_remote(key, dst_host, wire, seq)
+        if not tracing_enabled():
+            self._send_remote(key, dst_host, wire, seq)
+            return
+        nbytes = sum(memoryview(b).nbytes for b in wire) \
+            if isinstance(wire, list) else len(wire)
+        with span("ptp", "send", group=group_id, src=send_idx,
+                  dst=recv_idx, dest_host=dst_host, bytes=nbytes,
+                  remote=True):
+            get_tracer().flow_start(
+                flow_id_for(group_id, send_idx, recv_idx, channel, seq))
+            self._send_remote(key, dst_host, wire, seq)
 
     def _send_remote(self, key: tuple[int, int, int, int], dst_host: str,
                      wire, seq: int) -> None:
@@ -265,8 +303,14 @@ class PointToPointBroker:
                 logger.debug("Bulk send to %s unavailable (%s); using "
                              "RPC plane for %.0fs", dst_host, e,
                              self.BULK_RETRY_SECONDS)
+        t0 = time.monotonic()
         self._get_client(dst_host).send_message(
             group_id, send_idx, recv_idx, wire, seq, channel)
+        _COMM.record(send_idx, recv_idx, "ptp", nbytes,
+                     time.monotonic() - t0)
+        if _FLIGHT is not NULL_FLIGHT:
+            _FLIGHT.record("send", group=group_id, src=send_idx,
+                           dst=recv_idx, plane="ptp", bytes=nbytes)
 
     def deliver(self, group_id: int, send_idx: int, recv_idx: int, data,
                 seq: int = NO_SEQUENCE_NUM,
@@ -306,6 +350,30 @@ class PointToPointBroker:
         order. Raises
         GroupAbortedError after an abort and TimeoutError after
         ``timeout`` seconds (the global message timeout when None)."""
+        if not tracing_enabled():
+            return self._recv_message_impl(group_id, send_idx, recv_idx,
+                                           timeout, channel)
+        # The span's length is the time this consumer waited; a remote
+        # sender's message closes its flow (a local send starts none)
+        with span("ptp", "recv", group=group_id, src=send_idx,
+                  dst=recv_idx):
+            data = self._recv_message_impl(group_id, send_idx, recv_idx,
+                                           timeout, channel)
+            key = (group_id, send_idx, recv_idx, channel)
+            with self._lock:
+                m = self._mappings.get(group_id, {}).get(send_idx)
+                remote = m is not None and m.host != self.host
+                if remote:
+                    seq = self._taken_seq.get(key, 0)
+                    self._taken_seq[key] = seq + 1
+            if remote:
+                get_tracer().flow_end(
+                    flow_id_for(group_id, send_idx, recv_idx, channel, seq))
+            return data
+
+    def _recv_message_impl(self, group_id: int, send_idx: int,
+                           recv_idx: int, timeout: float | None,
+                           channel: int):
         self._raise_if_aborted(group_id)
         key = (group_id, send_idx, recv_idx, channel)
         with self._lock:
@@ -425,6 +493,14 @@ class PointToPointBroker:
                 return
             self._aborted[group_id] = reason
             queues = [q for k, q in self._queues.items() if k[0] == group_id]
+        _GROUP_ABORTS.inc()
+        logger.warning("Aborting group %d on %s: %s", group_id, self.host,
+                       reason)
+        # The abort lands in the flight ring and the ring is dumped: the
+        # post-mortem of an aborted MPI world
+        flight_record("group_abort", group=group_id, host=self.host,
+                      reason=reason)
+        flight_dump("mpi_world_aborted")
         for q in queues:
             q.put(_ABORT)
 

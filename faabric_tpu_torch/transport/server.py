@@ -7,7 +7,9 @@ a sync plane (request and response, handled on the connection's own
 thread so that responses pair with their requests). A shutdown frame
 per worker stops the pool. ``set_request_latch`` and
 ``await_request_latch`` let a test wait for the server to handle a
-request.
+request. Frames and bytes are counted per plane, handling times go into
+a histogram, and while tracing is on each handler runs in a span that
+is the child of the caller's (the ``_tc`` header).
 """
 
 from __future__ import annotations
@@ -18,6 +20,13 @@ import threading
 import time
 from typing import Any
 
+from faabric_tpu_torch.telemetry import (
+    NULL_METRIC,
+    NULL_SPAN,
+    get_metrics,
+    span_from_remote,
+    tracing_enabled,
+)
 from faabric_tpu_torch.transport.message import (
     ConnectionClosed,
     MessageResponseCode,
@@ -31,6 +40,35 @@ from faabric_tpu_torch.util.logging import get_logger
 from faabric_tpu_torch.util.queues import Queue
 
 logger = get_logger(__name__)
+
+_metrics = get_metrics()
+_RX_FRAMES = {
+    plane: _metrics.counter(
+        "faabric_transport_rx_frames_total",
+        "Frames received on the shared RPC plane", plane=plane)
+    for plane in ("async", "sync")
+}
+_RX_BYTES = {
+    plane: _metrics.counter(
+        "faabric_transport_rx_bytes_total",
+        "Payload bytes received on the shared RPC plane", plane=plane)
+    for plane in ("async", "sync")
+}
+_TX_FRAMES = _metrics.counter(
+    "faabric_transport_tx_frames_total",
+    "Frames sent on the shared RPC plane", plane="sync-response")
+_TX_BYTES = _metrics.counter(
+    "faabric_transport_tx_bytes_total",
+    "Payload bytes sent on the shared RPC plane", plane="sync-response")
+_HANDLE_SECONDS = {
+    plane: _metrics.histogram(
+        "faabric_transport_handle_seconds",
+        "Server-side request handling latency", plane=plane)
+    for plane in ("async", "sync")
+}
+_QUEUE_DEPTH = _metrics.gauge(
+    "faabric_transport_work_queue_depth",
+    "Async-plane frames queued awaiting a worker thread")
 
 
 class MessageEndpointServer:
@@ -218,8 +256,12 @@ class MessageEndpointServer:
                     break
                 if msg.is_shutdown():
                     break
+                _RX_FRAMES[plane].inc()
+                _RX_BYTES[plane].inc(len(msg.payload))
                 if plane == "async":
                     self._work.enqueue(msg)
+                    if _QUEUE_DEPTH is not NULL_METRIC:
+                        _QUEUE_DEPTH.set(self._work.size())
                 else:
                     self._handle_sync(msg, conn)
         finally:
@@ -228,8 +270,13 @@ class MessageEndpointServer:
             conn.close()
 
     def _handle_sync(self, msg: TransportMessage, conn: socket.socket) -> None:
+        t0 = time.monotonic()
         try:
-            resp = self.do_sync_recv(msg)
+            with span_from_remote("transport", "sync_handle",
+                                  msg.header.get("_tc"), server=self.label,
+                                  code=msg.code) \
+                    if tracing_enabled() else NULL_SPAN:
+                resp = self.do_sync_recv(msg)
             if resp is None:
                 resp = TransportMessage(code=msg.code)
             resp.response_code = int(MessageResponseCode.SUCCESS)
@@ -238,8 +285,11 @@ class MessageEndpointServer:
             resp = TransportMessage(
                 code=msg.code, header={"error": str(e)},
                 response_code=int(MessageResponseCode.ERROR))
+        _HANDLE_SECONDS["sync"].observe(time.monotonic() - t0)
         try:
             send_frame(conn, resp)
+            _TX_FRAMES.inc()
+            _TX_BYTES.inc(len(resp.payload))
         except OSError:
             pass
         self._fire_request_latch()
@@ -249,11 +299,19 @@ class MessageEndpointServer:
             msg = self._work.dequeue()
             if msg.is_shutdown():
                 return
+            if _QUEUE_DEPTH is not NULL_METRIC:
+                _QUEUE_DEPTH.set(self._work.size())
+            t0 = time.monotonic()
             try:
-                self.do_async_recv(msg)
+                with span_from_remote("transport", "async_handle",
+                                      msg.header.get("_tc"),
+                                      server=self.label, code=msg.code) \
+                        if tracing_enabled() else NULL_SPAN:
+                    self.do_async_recv(msg)
             except Exception:  # noqa: BLE001 — one bad request must not
                 # end the worker
                 logger.exception("%s async handler error", self.label)
+            _HANDLE_SECONDS["async"].observe(time.monotonic() - t0)
             self._fire_request_latch()
 
 

@@ -16,9 +16,9 @@ announces its name in a sentinel frame, and the server attaches and
 drains it. Both planes stamp the same sequence numbers, and the
 receiving broker merges them.
 
-The frame and byte counters go through ``telemetry/metrics.py``. The
-push-wait histogram waits for the histograms of ``ROADMAP.md`` Queue 1
-#7 part B.
+Frames and bytes are counted both ways; a push that found no space
+records its blocking wait in ``faabric_shm_ring_push_wait_seconds``
+(consumer backpressure), and one that gave up counts as a stall.
 """
 
 from __future__ import annotations
@@ -43,6 +43,10 @@ _RING_RX_FRAMES = _metrics.counter(
     "faabric_shm_ring_rx_frames_total", "Frames popped from shm rings")
 _RING_RX_BYTES = _metrics.counter(
     "faabric_shm_ring_rx_bytes_total", "Payload bytes popped from shm rings")
+_RING_PUSH_WAIT = _metrics.histogram(
+    "faabric_shm_ring_push_wait_seconds",
+    "Blocking wait for ring space when the fast-path push found none "
+    "(consumer backpressure)")
 _RING_PUSH_STALLS = _metrics.counter(
     "faabric_shm_ring_push_stalls_total",
     "Ring pushes abandoned on timeout (sender fell back to TCP)")
@@ -124,9 +128,19 @@ class ShmRing:
         lib = get_shmring_lib()
         if lib is None:
             raise RuntimeError("native shm ring unavailable")
-        name = _next_name(tag)
-        path = os.path.join(SHM_DIR, name)
-        fd = os.open(path, os.O_CREAT | os.O_EXCL | os.O_RDWR, 0o600)
+        # A taken name (the reference's rings in this same process
+        # count from 1 too, or a dead process's file under a recycled
+        # pid) moves on to the next number
+        for _ in range(64):
+            name = _next_name(tag)
+            path = os.path.join(SHM_DIR, name)
+            try:
+                fd = os.open(path, os.O_CREAT | os.O_EXCL | os.O_RDWR, 0o600)
+                break
+            except FileExistsError:
+                continue
+        else:
+            raise FileExistsError(f"no free ring name for {tag}")
         try:
             os.ftruncate(fd, HDR_BYTES + capacity)
             mm = mmap.mmap(fd, HDR_BYTES + capacity)
@@ -200,14 +214,17 @@ class ShmRing:
             _RING_TX_BYTES.inc(sum(lens) if nbytes is None else nbytes)
             return True
         need = (sum(lens) if nbytes is None else nbytes) + 8
-        deadline = time.monotonic() + timeout
+        t0 = time.monotonic()
+        deadline = t0 + timeout
         while True:
             self._lib.ring_wait_space(self._base, need, 20_000)
             if self._try_pushv(segs, lens, n):
+                _RING_PUSH_WAIT.observe(time.monotonic() - t0)
                 _RING_TX_FRAMES.inc()
                 _RING_TX_BYTES.inc(need - 8)
                 return True
             if time.monotonic() >= deadline:
+                _RING_PUSH_WAIT.observe(time.monotonic() - t0)
                 _RING_PUSH_STALLS.inc()
                 return False
 

@@ -112,6 +112,10 @@ class RetryPolicy:
         if d > 0:
             time.sleep(d)
 
+    def schedule(self) -> list[float]:
+        """The whole backoff schedule (max_attempts - 1 sleeps)."""
+        return [self.delay(i) for i in range(self.max_attempts - 1)]
+
     def new_breaker(self) -> CircuitBreaker:
         return CircuitBreaker(threshold=self.breaker_threshold,
                               reset_after=self.breaker_reset)

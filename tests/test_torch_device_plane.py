@@ -645,3 +645,82 @@ def test_migration_remap_drops_the_rung(worlds):
     assert all(on_ranks(port, lambda w, r: w.activate_device_plane(
         r, device="cpu")).values())
     assert port.device_plane() is not None
+
+
+# ---------------------------------------------------------------------------
+# Telemetry: device cells, compile/execute spans, profiler and perf store
+# ---------------------------------------------------------------------------
+
+def _plane_bytes(matrix) -> dict:
+    out = {}
+    for c in (matrix.snapshot() or {}).get("cells", []):
+        out[c["plane"]] = out.get(c["plane"], 0) + c["bytes"]
+    return out
+
+
+def test_comm_matrix_device_rows_carry_the_traffic(worlds):
+    """The reference's case on both packages: an activated world's
+    allreduce lands every rank's payload in ``device`` cells and none in
+    the host planes'."""
+    from faabric_tpu.telemetry import get_comm_matrix as ref_matrix
+
+    from faabric_tpu_torch.telemetry import get_comm_matrix as port_matrix
+
+    ref, port = worlds
+    activate(ref, port)
+    payload = np.ones(1024, dtype=np.float32)
+    for world, matrix in ((ref, ref_matrix()), (port, port_matrix())):
+        b0 = _plane_bytes(matrix)
+        on_ranks(world, lambda w, r: w.allreduce(r, payload.copy(),
+                                                 MpiOp.SUM
+                                                 if w is port else RefOp.SUM))
+        b1 = _plane_bytes(matrix)
+        assert b1.get("device", 0) - b0.get("device", 0) == \
+            N * payload.nbytes
+        for host_plane in ("shm", "bulk-tcp"):
+            assert b1.get(host_plane, 0) == b0.get(host_plane, 0)
+
+
+def test_device_rounds_trace_compile_once_and_execute_each(worlds):
+    """A new key (kind, op, size, dtype, residency) gives one compile
+    span, every round one execute span; the profiler holds one execute
+    record per round and the perf store a ``("mesh", "device")`` rate."""
+    from faabric_tpu_torch.telemetry import (
+        get_collective_profiler,
+        get_perf_store,
+        get_tracer,
+        set_tracing,
+    )
+
+    def allreduce_executes():
+        series = [s for s in get_collective_profiler().snapshot()
+                  if s["world"] == port.id and s["collective"] == "allreduce"]
+        return sum("execute" in p for s in series
+                   for rd in s["rounds"].values() for p in rd.values())
+
+    _ref, port = worlds
+    _, plane = activate(*worlds)
+    datas = inputs("allreduce", np.float32, 5, 4096)
+    executes0 = allreduce_executes()
+    set_tracing(True)
+    try:
+        get_tracer().reset()
+        for _ in range(3):
+            on_ranks(port, lambda w, r: w.allreduce(
+                r, torch.from_numpy(datas[r].copy())))
+        on_ranks(port, lambda w, r: w.allgather(
+            r, torch.from_numpy(datas[r][:64].copy())))
+        names = [(e["name"], e["args"].get("kind"))
+                 for e in get_tracer().trace_events()
+                 if e.get("ph") == "X" and e.get("cat") == "mpi.phase"
+                 and e["name"] in ("compile", "execute")]
+    finally:
+        set_tracing(False)
+        get_tracer().reset()
+    assert names.count(("compile", "allreduce")) == 1
+    assert names.count(("execute", "allreduce")) == 3
+    assert names.count(("compile", "allgather")) == 1
+    assert names.count(("execute", "allgather")) == 1
+    assert plane.summary()["compiles"] == 2
+    assert allreduce_executes() - executes0 == 3
+    assert get_perf_store().link_gibs("mesh", plane="device") is not None

@@ -169,20 +169,145 @@ def test_topology_matches_reference(shape):
 @pytest.mark.parametrize("shape", sorted(SHAPES))
 @pytest.mark.parametrize("mode", [True, "force"])
 def test_choose_family_matches_reference(shape, mode):
-    """The reference reads measured links from its perf store; given an
-    empty store and comm matrix (every link unmeasured) it must pick
-    what the port picks."""
+    """Both packages read measured links from their perf stores; given
+    empty stores and comm matrices (every link unmeasured) they pick the
+    same families."""
     from faabric_tpu.telemetry.commmatrix import CommMatrix
     from faabric_tpu.telemetry.perfprofile import PerfProfileStore
+
+    from faabric_tpu_torch.telemetry.commmatrix import (
+        CommMatrix as PortMatrix,
+    )
+    from faabric_tpu_torch.telemetry.perfprofile import (
+        PerfProfileStore as PortStore,
+    )
 
     for coll in ("alltoall", "scatter", "scatterv", "scan", "allreduce",
                  "reduce_scatter", "allgather"):
         ref = ref_compile.choose_family(
             coll, RefTopology(SHAPES[shape]), 1 << 20, mode,
             store=PerfProfileStore(), matrix=CommMatrix())
-        port = port_compile.choose_family(coll, Topology(SHAPES[shape]),
-                                          1 << 20, mode)
+        port = port_compile.choose_family(
+            coll, Topology(SHAPES[shape]), 1 << 20, mode,
+            store=PortStore(), matrix=PortMatrix())
         assert port == ref, (shape, coll)
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("gibs", [None, 0.2, 1.99, 2.0, 40.0])
+@pytest.mark.parametrize("mode", [True, "force"])
+def test_choose_family_matches_reference_from_same_store(shape, gibs,
+                                                         mode):
+    """Both packages' stores observe the same big frames toward every
+    host at ``gibs`` GiB/s: the families and the worst measured rate
+    agree, and a fast link flips the composed families to flat."""
+    from faabric_tpu.telemetry.commmatrix import CommMatrix
+    from faabric_tpu.telemetry.perfprofile import PerfProfileStore
+
+    from faabric_tpu_torch.telemetry.commmatrix import (
+        CommMatrix as PortMatrix,
+    )
+    from faabric_tpu_torch.telemetry.perfprofile import (
+        PerfProfileStore as PortStore,
+    )
+
+    ref_store, port_store = PerfProfileStore(), PortStore()
+    hosts = sorted(set(SHAPES[shape].values()))
+    if gibs is not None:
+        nbytes = 8 << 20
+        for store in (ref_store, port_store):
+            for host in hosts:
+                for _ in range(3):
+                    store.observe(host, "bulk-tcp", nbytes,
+                                  nbytes / (gibs * (1 << 30)))
+    ref_topo, port_topo = RefTopology(SHAPES[shape]), Topology(SHAPES[shape])
+    assert port_compile.measured_cross_gibs(
+        port_topo, port_topo.host_of(0), store=port_store,
+        matrix=PortMatrix()) == ref_compile.measured_cross_gibs(
+        ref_topo, ref_topo.host_of(0), store=ref_store, matrix=CommMatrix())
+    for coll in ("alltoall", "scatter", "scatterv", "scan", "allreduce",
+                 "reduce_scatter", "allgather"):
+        ref = ref_compile.choose_family(coll, ref_topo, 1 << 20, mode,
+                                        store=ref_store, matrix=CommMatrix())
+        port = port_compile.choose_family(coll, port_topo, 1 << 20, mode,
+                                          store=port_store,
+                                          matrix=PortMatrix())
+        assert port == ref, (shape, coll)
+    if gibs == 40.0 and mode is True and len(hosts) > 1:
+        assert port_compile.choose_family(
+            "alltoall", port_topo, 1 << 20, mode, store=port_store,
+            matrix=PortMatrix()) == "alltoall.flat"
+
+
+class _StubStore:
+    def __init__(self, gibs):
+        self.gibs = gibs
+        self.calls = []
+
+    def link_gibs(self, dst, plane=None, min_bytes=0):
+        self.calls.append((dst, plane, min_bytes))
+        return self.gibs
+
+
+class _EmptyMatrix:
+    def snapshot(self):
+        return {}
+
+
+def test_selection_reads_link_gibs_and_flips_on_bandwidth():
+    """The reference's selection cases, on the port's compiler."""
+    topo = Topology(SHAPES["4x3-scattered"])
+    fast = _StubStore(port_compile.FAST_LINK_GIBS * 4)
+    assert port_compile.choose_family(
+        "alltoall", topo, 1 << 20, True, store=fast,
+        matrix=_EmptyMatrix()) == "alltoall.flat"
+    # one query per remote host of the topology
+    assert len(fast.calls) == 3
+    assert all(plane == "bulk-tcp" for _, plane, _ in fast.calls)
+    slow = _StubStore(port_compile.FAST_LINK_GIBS / 10)
+    assert port_compile.choose_family(
+        "alltoall", topo, 1 << 20, True, store=slow,
+        matrix=_EmptyMatrix()) == "alltoall.hier"
+    assert port_compile.choose_family(
+        "alltoall", topo, 1 << 20, True, store=_StubStore(None),
+        matrix=_EmptyMatrix()) == "alltoall.hier"
+
+
+def test_selection_default_path_reads_the_global_perf_store(monkeypatch):
+    import faabric_tpu_torch.telemetry.perfprofile as perfprofile
+
+    stub = _StubStore(port_compile.FAST_LINK_GIBS * 4)
+    monkeypatch.setattr(perfprofile, "get_perf_store", lambda: stub)
+    assert port_compile.choose_family(
+        "alltoall", Topology(SHAPES["2x3-gang"]), 1 << 20, True,
+        matrix=_EmptyMatrix()) == "alltoall.flat"
+    assert stub.calls, "selection never read get_perf_store().link_gibs"
+
+
+def test_selection_survives_metrics_off_null_store():
+    from faabric_tpu_torch.telemetry.perfprofile import NULL_PERF_STORE
+
+    assert port_compile.choose_family(
+        "alltoall", Topology(SHAPES["2x3-gang"]), 1 << 20, True,
+        store=NULL_PERF_STORE, matrix=_EmptyMatrix()) == "alltoall.hier"
+
+
+def test_selection_comm_matrix_fallback():
+    class _Matrix:
+        def snapshot(self):
+            # 1 GiB in 0.1 s toward rank 3 (on h1): a 10 GiB/s link
+            return {"cells": [{
+                "src": "0", "dst": "3", "plane": "bulk-tcp",
+                "bytes": 1 << 30, "bytes_raw": 1 << 30, "lat_sum": 0.1,
+            }]}
+
+    topo = Topology(SHAPES["2x3-gang"])
+    assert port_compile.measured_cross_gibs(
+        topo, "h0", store=_StubStore(None), matrix=_Matrix()) == \
+        pytest.approx(10.0, rel=0.01)
+    assert port_compile.choose_family(
+        "alltoall", topo, 1 << 20, True, store=_StubStore(None),
+        matrix=_Matrix()) == "alltoall.flat"
 
 
 def _pingpong(mod):

@@ -140,17 +140,22 @@ class Cluster:
 
 
 def reset_reference_links() -> None:
-    """Forget the links the reference measured in this process (its comm
-    matrix and perf store). It picks schedule families and wire codecs
-    from them; the port measures none and takes every link as slow, as
-    the reference does for an unmeasured one. A test that moves bytes
-    through the reference resets them before and after, so that no later
-    test in its worker reads its links."""
+    """Forget the links both packages measured in this process (each
+    one's comm matrix and perf store). Both pick schedule families and
+    wire codecs from them, so a test that compares the two starts them
+    equal; a test that moves bytes resets them before and after, so that
+    no later test in its worker reads its links."""
     from faabric_tpu.telemetry import get_comm_matrix
     from faabric_tpu.telemetry.perfprofile import reset_perf_profile
 
+    from faabric_tpu_torch import telemetry as port
+
     get_comm_matrix().reset()
     reset_perf_profile()
+    # In place: the port's call sites hold these objects
+    for store in (port.get_comm_matrix(), port.get_perf_store(),
+                  port.get_collective_profiler()):
+        store.reset()
 
 
 class Pair:

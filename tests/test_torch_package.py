@@ -56,6 +56,13 @@ def test_importing_every_module_pulls_in_no_jax_and_no_faabric_tpu():
             "faabric_tpu_torch.snapshot.device_snapshot",
             "faabric_tpu_torch.util.dirty", "faabric_tpu_torch.util.delta",
             "faabric_tpu_torch.util.native"} <= set(modules)
+    # faabric's telemetry (all eleven modules), fault points and clock
+    assert {f"faabric_tpu_torch.telemetry.{m}" for m in (
+        "metrics", "tracer", "commmatrix", "perfprofile", "flight",
+        "lifecycle", "statestats", "procstats", "timeseries", "profiler")
+    } | {"faabric_tpu_torch.telemetry", "faabric_tpu_torch.faults",
+         "faabric_tpu_torch.faults.registry",
+         "faabric_tpu_torch.util.clock"} <= set(modules)
     modules.append("chip_smoke")
     code = (
         "import importlib, sys\n"

@@ -4,16 +4,14 @@ Counterpart of ``tests/unit/test_wire_codec.py``. Both packages'
 ``SenderDeltaCache``s take the same payload sequences and must emit the
 same ``CodedFrame`` bytes, and each package's receiver cache decodes the
 other's frames; the governors' verdicts must be equal over a table of
-modes and locality (the reference's perf store and comm matrix reset
-first, since the port has neither yet). Then the escape protocol over a
-real port ``BulkServer``/``BulkClient`` pair on loopback with rings off:
-delta streams deliver bitwise, a dropped base NACKs and heals, a
-receiver restart recovers, a corrupted frame heals, and a coded stream
-stays on one stripe. The reference corrupts a frame through its
-``transport.bulk`` fault point; here the stripe's send is monkeypatched
-(the port's fault points come with ``ROADMAP.md`` Queue 1 #7 part B).
-The governor's tuned threshold reads the perf-profile store (part B)
-and has no case here.
+modes and locality (both packages' perf stores and comm matrices reset
+first), and over the same perf-store and matrix contents. The tuned
+threshold reads the perf store (the reference's cases, on the port's
+governor). Then the escape protocol over a real port
+``BulkServer``/``BulkClient`` pair on loopback with rings off: delta
+streams deliver bitwise, a dropped base NACKs and heals, a receiver
+restart recovers, a frame corrupted through the ``transport.bulk``
+fault point heals, and a coded stream stays on one stripe.
 """
 
 import time
@@ -247,6 +245,125 @@ def test_governor_verdicts_equal_reference(monkeypatch, mode, min_gibs):
                 ref.quant_for_link(knob, "h", local)
 
 
+class _StubPerfStore:
+    """A perf store's ``link_gibs`` with fixed answers."""
+
+    def __init__(self, raw_gibs=None, delta_gibs=None):
+        self.raw_gibs = raw_gibs
+        self.delta_gibs = delta_gibs
+
+    def link_gibs(self, dst, plane=None, min_bytes=0, codec=None):
+        return self.delta_gibs if codec == "delta" else self.raw_gibs
+
+
+def _inject_matrix(gov, cells):
+    gov._matrix_cells = cells
+    gov._matrix_expires = time.monotonic() + 999.0
+
+
+def test_governor_tuned_threshold_from_perf_store(monkeypatch):
+    """With the knob unset, the auto-mode threshold is tuned from the
+    store's measured delta rate times the observed raw/wire ratio:
+    compression pays while the raw link is slower than what delta would
+    deliver. The reference's case, on the port's governor."""
+    monkeypatch.delenv("FAABRIC_WIRE_CODEC_MIN_GIBS", raising=False)
+    store = _StubPerfStore(raw_gibs=1.0, delta_gibs=0.05)
+    monkeypatch.setattr(port_codec, "get_perf_store", lambda: store)
+    gov = WireCodecGovernor(mode="auto")
+    assert not gov.min_gibs_env_set
+    _inject_matrix(gov, [{"plane": "bulk-tcp", "codec": "delta",
+                          "src": "0", "dst": "1",
+                          "bytes": 1_000, "bytes_raw": 100_000}])
+    threshold, src = gov._threshold_gibs("far-a", 0, 1)
+    assert src == "tuned" and threshold == pytest.approx(5.0)
+    assert gov.bulk_codec("far-a", False, 0, 1, 1 << 20) == "delta"
+
+    gov2 = WireCodecGovernor(mode="auto")
+    _inject_matrix(gov2, [{"plane": "bulk-tcp", "codec": "delta",
+                           "src": "0", "dst": "1",
+                           "bytes": 100_000, "bytes_raw": 200_000}])
+    threshold, src = gov2._threshold_gibs("far-b", 0, 1)
+    assert src == "tuned"
+    assert threshold == pytest.approx(gov2.TUNED_MIN_GIBS)  # clamped
+    assert gov2.bulk_codec("far-b", False, 0, 1, 1 << 20) == "raw"
+    # A pair with no delta history borrows the matrix-wide ratio
+    threshold, src = gov2._threshold_gibs("far-c", 7, 8)
+    assert src == "tuned"
+
+
+def test_governor_threshold_env_knob_overrides(monkeypatch):
+    monkeypatch.setenv("FAABRIC_WIRE_CODEC_MIN_GIBS", "9.5")
+    store = _StubPerfStore(raw_gibs=6.0, delta_gibs=0.05)
+    monkeypatch.setattr(port_codec, "get_perf_store", lambda: store)
+    gov = WireCodecGovernor(mode="auto")
+    assert gov.min_gibs_env_set
+    _inject_matrix(gov, [{"plane": "bulk-tcp", "codec": "delta",
+                          "src": "0", "dst": "1",
+                          "bytes": 100_000, "bytes_raw": 200_000}])
+    assert gov._threshold_gibs("far-d", 0, 1) == (9.5, "env")
+    assert gov.bulk_codec("far-d", False, 0, 1, 1 << 20) == "delta"
+
+
+def test_governor_threshold_defaults_without_delta_evidence(monkeypatch):
+    monkeypatch.delenv("FAABRIC_WIRE_CODEC_MIN_GIBS", raising=False)
+    store = _StubPerfStore(raw_gibs=5.0, delta_gibs=None)
+    monkeypatch.setattr(port_codec, "get_perf_store", lambda: store)
+    gov = WireCodecGovernor(mode="auto")
+    _inject_matrix(gov, [])
+    assert gov._threshold_gibs("far-e", 0, 1) == (4.0, "default")
+    assert gov.bulk_codec("far-e", False, 0, 1, 1 << 20) == "raw"
+
+
+@pytest.mark.parametrize("min_gibs", [None, "9.5"])
+@pytest.mark.parametrize("case", ["fast", "slow", "small_frames_only",
+                                  "matrix_only", "tuned"])
+def test_governor_verdicts_equal_reference_from_same_store(
+        monkeypatch, case, min_gibs):
+    """Both packages' stores and matrices get the same observations;
+    their governors' verdicts, sources and thresholds must agree."""
+    from faabric_tpu.telemetry import get_comm_matrix as ref_matrix
+    from faabric_tpu.telemetry import get_perf_store as ref_store
+
+    from faabric_tpu_torch.telemetry import get_comm_matrix as port_matrix
+    from faabric_tpu_torch.telemetry import get_perf_store as port_store
+    from tests.test_torch_mpi_world import reset_reference_links
+
+    if min_gibs is None:
+        monkeypatch.delenv("FAABRIC_WIRE_CODEC_MIN_GIBS", raising=False)
+    else:
+        monkeypatch.setenv("FAABRIC_WIRE_CODEC_MIN_GIBS", min_gibs)
+    obs = {  # (host, plane, bytes, seconds, codec) observations
+        "fast": [("far", "bulk-tcp", 8 << 20, 0.0005, "raw")] * 4,
+        "slow": [("far", "bulk-tcp", 8 << 20, 0.5, "raw")] * 4,
+        "small_frames_only": [("far", "bulk-tcp", 4096, 0.01, "raw")] * 4,
+        "matrix_only": [],
+        "tuned": [("far", "bulk-tcp", 8 << 20, 0.004, "raw")] * 3
+        + [("far", "bulk-tcp", 1 << 20, 0.004, "delta")] * 3,
+    }[case]
+    cells = {  # comm-matrix records (src, dst, plane, bytes, s, kw)
+        "matrix_only": [(0, 1, "bulk-tcp", 64 << 20, 0.01, {})],
+        "tuned": [(0, 1, "bulk-tcp", 1 << 20, 0.004,
+                   {"raw_bytes": 8 << 20, "codec": "delta"})],
+    }.get(case, [])
+    reset_reference_links()
+    try:
+        for store in (port_store(), ref_store()):
+            for host, plane, nb, secs, codec in obs:
+                store.observe(host, plane, nb, secs, codec=codec)
+        for matrix in (port_matrix(), ref_matrix()):
+            for src, dst, plane, nb, secs, kw in cells:
+                matrix.record(src, dst, plane, nb, secs, **kw)
+        port = WireCodecGovernor(mode="auto")
+        ref = ref_codec.WireCodecGovernor(mode="auto")
+        assert port._threshold_gibs("far", 0, 1) == \
+            ref._threshold_gibs("far", 0, 1)
+        for nbytes in (1 << 18, 1 << 20, 1 << 26):
+            assert port.bulk_codec("far", False, 0, 1, nbytes) == \
+                ref.bulk_codec("far", False, 0, 1, nbytes), (case, nbytes)
+    finally:
+        reset_reference_links()
+
+
 def test_governor_env_and_set_mode(monkeypatch):
     monkeypatch.setenv("FAABRIC_WIRE_CODEC", "zlib")
     port_codec.reset_wire_governor()
@@ -378,31 +495,44 @@ def test_receiver_restart_mid_stream_recovers(bulk_codec_pair):
 
 
 def test_corrupt_delta_frame_heals(bulk_codec_pair, monkeypatch):
-    """The first delta frame's wire bytes are scrambled on their way out
-    (crc left stale); the receiver NACKs and the same seq heals
-    bitwise."""
+    """A ``drop`` rule of the ``transport.bulk`` fault point matching
+    codec=delta scrambles the first delta frame's wire bytes (crc left
+    stale); the receiver NACKs and the same seq heals bitwise."""
+    import faabric_tpu_torch.transport.bulk as bulkmod
+    from faabric_tpu_torch.faults.registry import (
+        get_fault_registry,
+        parse_fault_spec,
+        set_faults_enabled,
+    )
+
     broker, _holder, client, _ = bulk_codec_pair
     rng = np.random.default_rng(10)
     p = rng.integers(0, 255, 1 << 20, dtype=np.uint8)
     client.send(GROUP, 0, 1, [p], 0, 0)
     assert _await(broker, 1)
     send = _Stripe._send_coded_frame_locked
-    corrupted = []
+    sent = []
 
-    def scramble(self, gh, gl, s, r, c, seq, frame):
-        if frame.codec == CODEC_DELTA and not corrupted:
-            wire = frame.wire.copy()
-            wire[:min(8, wire.size)] ^= 0x5A
-            frame.wire = wire
-            corrupted.append(seq)
-        return send(self, gh, gl, s, r, c, seq, frame)
+    def record(self, gh, gl, s, r, c, seq, frame, group_id):
+        sent.append((seq, frame.codec, frame.flags))
+        return send(self, gh, gl, s, r, c, seq, frame, group_id)
 
-    monkeypatch.setattr(_Stripe, "_send_coded_frame_locked", scramble)
-    q = p.copy()
-    q[100:150] ^= 0x2
-    client.send(GROUP, 0, 1, [q], 1, 0)
-    assert _await(broker, 2), "corrupt frame did not heal"
-    assert corrupted == [1]
+    monkeypatch.setattr(_Stripe, "_send_coded_frame_locked", record)
+    set_faults_enabled(True)
+    pt = get_fault_registry().point("transport.bulk")
+    pt.set_rules(parse_fault_spec("transport.bulk=drop@codec=delta@times=1"))
+    monkeypatch.setattr(bulkmod, "_FAULTS", True)
+    monkeypatch.setattr(bulkmod, "_FP_BULK", pt)
+    try:
+        q = p.copy()
+        q[100:150] ^= 0x2
+        client.send(GROUP, 0, 1, [q], 1, 0)
+        assert _await(broker, 2), "corrupt frame did not heal"
+    finally:
+        pt.set_rules([])
+        set_faults_enabled(False)
+    # seq 1 went out as the corrupted delta, then healed as a full frame
+    assert [x[:2] for x in sent[:2]] == [(1, CODEC_DELTA), (1, CODEC_FULL)]
     assert broker.got[-1][0] == 1
     assert np.array_equal(np.asarray(broker.got[-1][1]), q)
     assert client.escape_frames >= 1
