@@ -69,7 +69,14 @@ two hosts on bulk TCP (spans, the comm matrix, the collective profiler,
 the perf store and a planted straggler checked against counters and
 each other), with fault rules failing or healing exactly what they
 name, then the same steps with telemetry off and on in child
-processes. For each path
+processes. Live migration, spot freeze and thaw, recovery and aborts:
+a data-parallel gang of the full-width model spread over two hosts
+consolidates onto one after its second step, its moved ranks re-entering
+there and taking rank 0's parameters; a spot-evicted serving guest parks
+its memory image on the planner and is thawed on the other host, its
+logits bitwise unchanged; a serving batch whose share on one host is
+stranded is requeued onto the other; an abort crosses hosts directly and
+through the planner's relay. For each path
 it checks the outputs and shows from the kernels' launch counts that
 the path ran through them; it times the kernels, their plain versions and the nearest
 PyTorch library calls, and prints one JSON line of kernel numbers (the
@@ -4023,6 +4030,697 @@ def telemetry_phase(dev, build, cfg=None, seq: int = 512,
     return path
 
 
+SPOT_HEADER = 4096   # the spot guest's marker page ahead of its weights
+SPOT_MARKER = 4242
+
+
+def register_migration_guests(job: dict) -> None:
+    """Phase 24's torch guests. ``mig/block`` holds its slot until
+    ``job["blockers_go"]`` is set. ``mpi/migrate`` is the data-parallel
+    trainer of ``mpi/ddp`` over ``ctx.mpi_world()`` (the reference's
+    ``fn_mpi_migrate``, ``tests/dist/procs.py:709-786``, with a
+    training step for its all-to-all round): after step
+    ``job["migrate_after"]`` rank 0 asks the planner for a migration,
+    the moved ranks prepare the world and raise
+    ``FunctionMigratedException``, and on re-entry as a MIGRATION batch
+    they join the stayed ranks' post-migration barrier, re-run the
+    device plane's handshake and take rank 0's parameters by
+    ``world.broadcast``. ``mig/spot`` (``fn_spot``, :888-926) writes the
+    model's seeded fp32 weights into its executor's memory image,
+    scores a prompt, and once its app leaves the planner's in-flight set
+    parks the image on the planner's snapshot registry and raises
+    ``FunctionFrozenException``; thawed on an image that holds the
+    weights, it rebuilds the model from the image and scores again.
+    ``mig/serve`` scores a prompt and generates ``job["n_new"]`` tokens.
+    ``mpi/abort``: the last rank aborts the world while the others are
+    blocked in an allreduce of a tensor on the guest's device; they
+    report how long the abort took to reach them."""
+    from faabric_tpu_torch.executor import (
+        FunctionFrozenException,
+        FunctionMigratedException,
+        register_function,
+    )
+    from faabric_tpu_torch.models import forward, generate
+    from faabric_tpu_torch.mpi import MpiOp, MpiWorldAborted
+    from faabric_tpu_torch.proto import BatchExecuteType
+    from faabric_tpu_torch.snapshot import SnapshotClient, SnapshotData
+
+    def sync(dev):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    @register_function("mig", "block")
+    def block(ctx):
+        if not job["blockers_go"].wait(300):
+            raise RuntimeError("blocker never released")
+
+    @register_function("mpi", "migrate")
+    def migrate(ctx):
+        msg, broker = ctx.message, ctx.broker
+        sched = ctx.executor.scheduler
+        pc = sched.planner_client
+        rank, dev = msg.mpi_rank, ctx.device
+        migrated_entry = ctx.request.type == int(BatchExecuteType.MIGRATION)
+        world = ctx.mpi_world()
+        model = job["model"](dev)
+        check_at = job["migrate_after"]
+        log_ = {"step_ms": [], "rungs": [], "n_hosts": []}
+        if migrated_entry:
+            # The stayed ranks wait in the new group's barrier for this
+            # rank before anyone touches the rewired world
+            broker.post_migration_hook(msg.group_id, msg.group_idx)
+            world.refresh_rank_hosts()
+            plane = world.activate_device_plane(rank, device=dev)
+            flat = world.broadcast(0, rank, np.empty(job["n_params"],
+                                                     np.float32))
+            load_flat(model, torch.as_tensor(flat, device=dev))
+            start = check_at
+            log_.update(job["pre"].pop(rank))
+        else:
+            plane = world.activate_device_plane(rank, device=dev)
+            start = 0
+        t_pause, pause_ms = None, None
+        for step in range(start, job["steps"]):
+            tokens, targets = job["batch"](step, rank, dev)
+            sync(dev)
+            t0 = time.perf_counter()
+            ddp_step(world, rank, model, tokens, targets, job["lr"])
+            sync(dev)
+            log_["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            log_["rungs"].append(world.rungs.get((rank, "allreduce")))
+            log_["n_hosts"].append(len(world.hosts()))
+            if t_pause is not None:
+                pause_ms, t_pause = (time.perf_counter() - t_pause) * 1e3, None
+            if migrated_entry or check_at is None or step != check_at - 1:
+                continue
+            # -- the migration point (reference mpiMigrationPoint) --------
+            t_pause = time.perf_counter()
+            # Co-located ranks share one world object, whose group id the
+            # first to prepare changes: read it before anyone can
+            old_gid = world.group_id
+            world.barrier(rank)
+            if rank == 0:
+                # The blockers' results are in: a check while some are
+                # still running would find a partial consolidation
+                job["at_check"].set()
+                if not job["blockers_done"].wait(120):
+                    raise RuntimeError("the blockers never finished")
+                t_check = time.perf_counter()
+                dec = pc.check_migration(msg.app_id)
+                job["check_ms"] = (time.perf_counter() - t_check) * 1e3
+                world.broadcast(0, 0, np.array([dec is not None], np.int64))
+                found = dec is not None
+            else:
+                found = bool(world.broadcast(0, rank,
+                                             np.zeros(1, np.int64))[0])
+            if not found:
+                raise RuntimeError("no migration opportunity")
+            dec, deadline = None, time.monotonic() + 60
+            while dec is None or dec.group_id == old_gid:
+                if time.monotonic() > deadline:
+                    raise RuntimeError("the new decision never arrived")
+                dec = pc.get_scheduling_decision(msg.app_id)
+                if dec is None or dec.group_id == old_gid:
+                    time.sleep(0.01)
+            idx = dec.app_idxs.index(msg.app_idx)
+            # Every rank is done with the old group before any prepares
+            world.barrier(rank)
+            world.prepare_migration(rank, dec.group_id)
+            if dec.hosts[idx] != sched.host:
+                job["pre"][rank] = {k: list(v) for k, v in log_.items()}
+                raise FunctionMigratedException()
+            broker.post_migration_hook(dec.group_id, dec.group_idxs[idx])
+            world.refresh_rank_hosts()
+            plane = world.activate_device_plane(rank, device=dev)
+            flat = world.broadcast(0, rank, flat_params(model))
+            if rank != 0:
+                load_flat(model, torch.as_tensor(flat, device=dev))
+        job["params"][rank] = flat_params(model)
+        world.barrier(rank)
+        return json.dumps({"rank": rank, "host": sched.host, "plane": plane,
+                           "migrated": migrated_entry, "pause_ms": pause_ms,
+                           **log_}).encode()
+
+    @register_function("mig", "spot")
+    def spot(ctx):
+        ex, dev = ctx.executor, ctx.device
+        pc = ex.scheduler.planner_client
+        need = SPOT_HEADER + 4 * job["n_params"]
+        mem = ex.get_memory_view()
+        thawed = (mem.size >= need
+                  and int(mem[:8].view(np.int64)[0]) == SPOT_MARKER)
+        if not thawed:
+            ex.set_memory_size(need)
+            mem = ex.get_memory_view()
+            weights = flat_params(job["spot_model"](dev)).cpu().numpy()
+            mem[SPOT_HEADER:need].view(np.float32)[:] = weights
+            mem[:8].view(np.int64)[0] = SPOT_MARKER
+        image = torch.from_numpy(mem[SPOT_HEADER:need].view(np.float32))
+        model = load_flat(job["blank_model"](dev), image.to(dev))
+        prompt = torch.as_tensor(job["spot_prompt"], device=dev)[None]
+        with torch.inference_mode():
+            logits = forward(model, prompt)
+        sync(dev)
+        job["logits"]["thawed" if thawed else "first"] = logits
+        if thawed:
+            return json.dumps({"host": ex.scheduler.host}).encode()
+        job["scored"].set()
+        deadline = time.monotonic() + 120
+        while pc.get_scheduling_decision(ctx.message.app_id) is not None:
+            if time.monotonic() > deadline:
+                raise RuntimeError("never frozen")
+            time.sleep(0.02)
+        # Frozen: the image goes to the planner, from which the thaw
+        # host restores it
+        t0 = time.perf_counter()
+        client = SnapshotClient(pc.host)
+        try:
+            client.push_snapshot(ctx.request.snapshot_key, SnapshotData(mem))
+        finally:
+            client.close()
+        job["park_ms"] = (time.perf_counter() - t0) * 1e3
+        raise FunctionFrozenException()
+
+    @register_function("mig", "serve")
+    def serve(ctx):
+        model = job["serve_model"]
+        prompt = torch.frombuffer(bytearray(ctx.message.input_data),
+                                  dtype=torch.int32).to(ctx.device)[None]
+        with torch.inference_mode():
+            scores = forward(model, prompt)[0].argmax(-1).to(torch.int32)
+            tokens = generate(model, prompt, job["n_new"])[0]
+        return torch.cat([scores, tokens]).cpu().numpy().tobytes()
+
+    @register_function("mpi", "abort")
+    def abort(ctx):
+        world = ctx.mpi_world()
+        rank, dev = ctx.message.mpi_rank, ctx.device
+        host = ctx.executor.scheduler.host
+        if rank == world.size - 1:
+            # Abort once the other ranks are blocked in the allreduce
+            if not job["blocked"].wait(60):
+                raise RuntimeError("the other ranks never reached the "
+                                   "allreduce")
+            time.sleep(0.3)
+            job["t_abort"] = time.perf_counter()
+            world.abort("rank 3 aborts")
+            return json.dumps({"rank": rank, "host": host,
+                               "aborted_by_me": True}).encode()
+        data = torch.ones(job["abort_elems"], device=dev)
+        with job["lock"]:
+            job["n_blocked"] += 1
+            if job["n_blocked"] == world.size - 1:
+                job["blocked"].set()
+        try:
+            world.allreduce(rank, data, MpiOp.SUM)
+        except MpiWorldAborted as e:
+            arrived = time.perf_counter() - job["t_abort"]
+            return json.dumps({"rank": rank, "host": host,
+                               "arrived_s": arrived,
+                               "reason": e.reason}).encode()
+        raise RuntimeError("the allreduce completed without its last rank")
+
+
+def migration_phase(dev, build, cfg=None, per_rank: int = 2,
+                    seq: int = 512, prompt_len: int = 2048,
+                    serve_len: int = 512, n_new: int = 32,
+                    base: int | None = None, parts: str = "abcd",
+                    tol: float = 1e-5) -> dict:
+    """Phase 24: live migration, spot freeze and thaw, recovery requeues
+    and cross-host group aborts, each on a port planner and two
+    WorkerRuntimes on loopback aliases, at the flagship's full width
+    (``ModelConfig()``, bf16 compute, seeded weights).
+
+    (a) A 4-rank data-parallel gang (``mpi/migrate``, ``per_rank`` x ``seq``
+    tokens a rank, lr 0.5) is spread 2 + 2 by blocker guests; after step
+    2 of 6 the blockers finish, rank 0 calls ``check_migration``, the 2
+    ranks on the other host prepare the world and re-enter on rank 0's
+    host as a MIGRATION batch, every rank runs ``post_migration_hook``
+    and re-activates the device plane, the re-entered ranks take rank
+    0's parameters by ``world.broadcast``, and steps 3-6 follow. One
+    migration is counted; every rank ends SUCCESS on the consolidated
+    host; the allreduces before it take a cross-host rung on a 2-host
+    world and after it the device rung; the final parameters are
+    bitwise equal across ranks and within ``tol`` relative L2 of an
+    unmigrated run of the same 6 steps (one host, the device rung
+    throughout: on the card the sums before the migration run in
+    another order); each run's launches are 4 ranks x 6 steps x (2L
+    flash forwards, L dQ, L dK/dV, 4L + 1 RMS), every one on the
+    ``wgmma`` bodies. (b) Spot
+    (``fn_spot``): a THREADS guest on host B writes the seeded weights
+    into its executor's memory image and scores a 1 x ``prompt_len``
+    prompt; host B is marked for eviction while the blockers fill host
+    A, ``check_migration`` returns MUST_FREEZE, the guest parks its
+    image on the planner and vacates; with every slot free the app is
+    in ``get_frozen_apps()``; the thaw lands on host A, which restores
+    the image, and the rebuilt model's logits are bitwise equal to
+    those before the freeze. (c) Recovery: phase 13's batch of 8
+    requests (``serve_len``-token prompts, ``n_new`` greedy tokens),
+    4 + 4 over the hosts; ``planner.dispatch=drop@host=B`` and
+    ``keepalive=suppress@host=B`` strand host B's share, its expiry
+    (host timeout 4 s for the part) requeues it onto host A: every
+    result SUCCESS with direct ``generate``'s tokens, the requeued
+    messages counter up by host B's share, an ``rqu`` stamp in each
+    requeued ledger, and exactly one batch's launches. (d) A 4-rank world
+    2 + 2 blocked in an allreduce of a tensor on the guest's device:
+    rank 3 aborts it and every other rank raises ``MpiWorldAborted``,
+    once directly and once with the direct abort dropped by a
+    ``transport.send`` rule, so that only the planner's relay reaches
+    the far host. ``parts`` picks the parts to run. Returns the phase's
+    kernel launches."""
+    from faabric_tpu_torch.batch_scheduler import reset_batch_scheduler
+    from faabric_tpu_torch.batch_scheduler.decision import MUST_FREEZE
+    from faabric_tpu_torch.executor import TorchExecutor, TorchExecutorFactory
+    from faabric_tpu_torch.faults import (
+        clear_faults,
+        get_fault_registry,
+        install_faults,
+    )
+    from faabric_tpu_torch.models import (
+        ModelConfig,
+        Transformer,
+        forward,
+        generate,
+    )
+    from faabric_tpu_torch.planner import get_planner
+    from faabric_tpu_torch.proto import (
+        BatchExecuteType,
+        ReturnValue,
+        batch_exec_factory,
+    )
+    from faabric_tpu_torch.telemetry import get_metrics
+    from faabric_tpu_torch.telemetry.lifecycle import PHASE_REQUEUE
+    from faabric_tpu_torch.util.config import get_system_config
+
+    log("phase 24: live migration, spot freeze and thaw, recovery "
+        "requeues and cross-host aborts")
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    if on_card:
+        log("  24 card: " + subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = cfg or ModelConfig()
+    n, steps, lr, L = MPI_RANKS, 6, 0.5, cfg.n_layers
+    corpus = np.random.RandomState(24).randint(
+        0, cfg.vocab_size, (steps, n * per_rank, seq + 1)).astype(np.int64)
+
+    def batch(step, rank, device):
+        b = torch.as_tensor(corpus[step, rank * per_rank:
+                                   (rank + 1) * per_rank], device=device)
+        return b[:, :-1], b[:, 1:]
+
+    def seeded(seed):
+        return lambda device: Transformer(
+            cfg, device=device,
+            generator=torch.Generator(device=device).manual_seed(seed))
+
+    class TimedExecutor(TorchExecutor):
+        """Times the restore of a THREADS batch's memory image."""
+
+        def restore(self, snapshot_key: str) -> None:
+            t0 = time.perf_counter()
+            super().restore(snapshot_key)
+            job["restore_ms"] = (time.perf_counter() - t0) * 1e3
+
+    class TimedFactory(TorchExecutorFactory):
+        def create_executor(self, msg):
+            return TimedExecutor(msg, self.device_type)
+
+    job = {"model": seeded(0), "blank_model": lambda d: Transformer(cfg,
+                                                                    device=d),
+           "spot_model": seeded(1), "batch": batch, "lr": lr,
+           "steps": steps, "n_params": 0, "params": {}, "pre": {},
+           "logits": {}, "n_new": n_new, "lock": threading.Lock()}
+    job["n_params"] = sum(p.numel() for p in job["blank_model"](dev)
+                          .parameters())
+    register_migration_guests(job)
+    factory = TimedFactory(device=dev.type)
+    planner = get_planner()
+    conf = get_system_config()
+    launches: dict = {}
+    wgmma = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv")
+
+    def add_launches(got, what, want=None):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        if not on_card:
+            return
+        if want is not None:
+            for k, v in want.items():
+                check(got.get(k, 0) == v,
+                      f"{what}: {k} launched {got.get(k, 0)} times, {v} "
+                      f"expected")
+        for k in wgmma:
+            if got.get(k):
+                check(got.get(f"{k}.wgmma", 0) == got[k],
+                      f"{what}: every {k} launch took the wgmma body")
+
+    def counted(fn):
+        if on_card:
+            torch.cuda.synchronize()
+        before = dict(build.LAUNCHES)
+        out = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        return out, {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items()
+                     if v != before.get(k, 0)}
+
+    def metric(name):
+        """A counter's value, or a histogram's (sum, count)."""
+        fam = get_metrics().snapshot().get(name, {})
+        rows = fam.get("series", [])
+        if fam.get("type") == "histogram":
+            return (sum(r["sum"] for r in rows), sum(r["count"] for r in rows))
+        return sum(r["value"] for r in rows)
+
+    # -- (a) a training gang migrated mid-run ----------------------------
+    if "a" in parts:
+        per_step = {"flash_attention": 2 * L, "flash_bwd_dq": L,
+                    "flash_bwd_dkv": L, "rms_norm": 4 * L + 1}
+        hosts = {"mig-host-a": 4, "mig-host-b": 4}
+        planner_server, workers = start_cluster(hosts, factory, base)
+        try:
+            client = workers[0].planner_client
+            # Unmigrated: one host from the start, the device rung
+            job.update(migrate_after=None)
+            job["params"].clear()
+            (results, wall_u), got_u = counted(
+                lambda: run_gang(client, "migrate", n))
+            outs_u = guest_outputs(results, "24a unmigrated run")
+            add_launches(got_u, "24a unmigrated run",
+                         {k: v * n * steps for k, v in per_step.items()})
+            check(len({o["host"] for o in outs_u}) == 1
+                  and all(set(o["rungs"]) == {"device"} for o in outs_u),
+                  "24a unmigrated run: 4 ranks on one host, every "
+                  "allreduce on the device rung")
+            want = {r: job["params"][r] for r in range(n)}
+            # Migrated: blockers hold 2 slots a host, so the gang spreads
+            # 2 + 2 (the reference test's recipe)
+            job.update(migrate_after=2, blockers_go=threading.Event(),
+                       at_check=threading.Event(),
+                       blockers_done=threading.Event())
+            job["params"].clear()
+            blockers = []
+            for _ in range(2):
+                b = batch_exec_factory("mig", "block", 2)
+                blockers.append((b, client.call_functions(b)))
+            check(sorted(h for _, d in blockers for h in d.hosts)
+                  == sorted(list(hosts) * 2),
+                  f"24a: the blockers hold 2 slots on each host")
+
+            def release_blockers():
+                # 1. the blockers finish; 2. rank 0 checks for a migration
+                job["at_check"].wait(300)
+                job["blockers_go"].set()
+                for b, _ in blockers:
+                    for m in b.messages:
+                        client.get_message_result(b.app_id, m.id, timeout=60)
+                job["blockers_done"].set()
+
+            releaser = threading.Thread(target=release_blockers, daemon=True)
+            releaser.start()
+            migrations0 = client.get_num_migrations()
+            (results, wall_m), got = counted(
+                lambda: run_gang(client, "migrate", n))
+            releaser.join(5)
+            outs = guest_outputs(results, "24a migrated run")
+            migrations = client.get_num_migrations() - migrations0
+            check(migrations == 1, f"24a: the planner counted {migrations} "
+                  f"migration(s), 1 expected")
+            final = {o["host"] for o in outs}
+            moved = [o["rank"] for o in outs if o["migrated"]]
+            check(len(final) == 1 and len(moved) == 2,
+                  f"24a: every rank SUCCESS on the consolidated host "
+                  f"{sorted(final)}; ranks {moved} re-entered there "
+                  f"({[(o['rank'], o['host']) for o in outs]})")
+            pre = [rg for o in outs for rg, h in zip(o["rungs"][:2],
+                                                     o["n_hosts"][:2])
+                   if h == 2 and rg != "device"]
+            post = [rg for o in outs for rg in o["rungs"][2:]]
+            check(len(pre) == 2 * n and all(o["n_hosts"][2:] == [1] * 4
+                                            for o in outs)
+                  and post == ["device"] * 4 * n,
+                  f"24a: steps 1-2 allreduced on a cross-host rung of a "
+                  f"2-host world ({sorted(set(pre))}), steps 3-6 on the "
+                  f"device rung of a 1-host world")
+            flat = [job["params"][r] for r in range(n)]
+            check(all(torch.equal(flat[0], f) for f in flat[1:]),
+                  "24a: the ranks' final parameters are bitwise equal")
+            rel = float((flat[0] - want[0]).norm() / want[0].norm())
+            check(rel <= tol, f"24a: final parameters against the "
+                  f"unmigrated run's: relative L2 {rel:.3g} (bound {tol:g})")
+            add_launches(got, "24a", {k: v * n * steps
+                                      for k, v in per_step.items()})
+            log(f"  24a launches: {got}")
+            pre_ms = [t for o in outs for t in o["step_ms"][:2]]
+            post_ms = [t for o in outs for t in o["step_ms"][3:]]
+            pause = outs[0]["pause_ms"]
+            log(f"  24a step ms before the migration (2 hosts, host ladder) "
+                f"median {np.median(pre_ms):.1f} (by rank and step: "
+                + "; ".join(", ".join(f"{t:.1f}" for t in o["step_ms"][:2])
+                            for o in outs)
+                + f"); after (one host, device rung, steps 4-6) median "
+                f"{np.median(post_ms):.1f} (by rank and step: "
+                + "; ".join(", ".join(f"{t:.1f}" for t in o["step_ms"][3:])
+                            for o in outs)
+                + f"); migration pause (rank 0 at the "
+                f"migration point to the end of step 3, waiting for the "
+                f"blockers' results included) {pause:.1f} ms, "
+                f"check_migration {job['check_ms']:.1f} ms;"
+                f" the unmigrated run's step ms median "
+                f"{np.median([t for o in outs_u for t in o['step_ms']]):.1f}"
+                f" (range {min(t for o in outs_u for t in o['step_ms']):.1f}"
+                f"-{max(t for o in outs_u for t in o['step_ms']):.1f})"
+                f"; gang wall {wall_m:.0f} ms migrated, {wall_u:.0f} ms "
+                f"unmigrated")
+            job["params"].clear()
+            del want, flat
+        finally:
+            for ev in ("blockers_go", "blockers_done"):
+                job.get(ev, threading.Event()).set()
+            stop_cluster(planner_server, workers)
+            register_migration_guests(job)
+
+    # -- (b) spot freeze and thaw of a serving guest ---------------------
+    if "b" in parts:
+        job.update(spot_prompt=np.random.RandomState(241).randint(
+            0, cfg.vocab_size, prompt_len), scored=threading.Event(),
+            blockers_go=threading.Event())
+        job["logits"].clear()
+        host_a, host_b = "spot-host-a", "spot-host-b"
+        reset_batch_scheduler("spot")
+        planner_server, workers = start_cluster({host_a: 2, host_b: 2},
+                                                factory, base)
+        try:
+            wa, wb = workers
+            req = batch_exec_factory("mig", "spot", 1)
+            req.type = int(BatchExecuteType.THREADS)
+            req.snapshot_key = f"mig/spot_{req.app_id}"
+            (d, got1) = counted(lambda: (
+                wb.planner_client.call_functions(req),
+                job["scored"].wait(300)))
+            check(d[0].hosts == [host_b] and d[1],
+                  f"24b: the guest runs on {d[0].hosts} and scored")
+            blk = batch_exec_factory("mig", "block", 2)
+            check(wa.planner_client.call_functions(blk).hosts
+                  == [host_a, host_a], "24b: blockers fill host A")
+            planner.set_next_evicted_host_ips([host_b])
+            dec = wa.planner_client.check_migration(req.app_id)
+            check(dec is not None and dec.app_id == MUST_FREEZE,
+                  "24b: with host B evicted and host A full, "
+                  "check_migration returns MUST_FREEZE")
+            deadline = time.monotonic() + 120
+            while "park_ms" not in job and time.monotonic() < deadline:
+                time.sleep(0.01)
+            check("park_ms" in job, "24b: the guest parked its image")
+            job["blockers_go"].set()
+            for m in blk.messages:
+                wa.planner_client.get_message_result(blk.app_id, m.id,
+                                                     timeout=60)
+            free = all(h.used_slots == 0
+                       for h in planner.get_available_hosts())
+            check(req.app_id in planner.get_frozen_apps() and free,
+                  "24b: the app is parked in get_frozen_apps() with every "
+                  "slot free")
+            thaw = batch_exec_factory("mig", "spot", 1)
+            thaw.app_id = req.app_id
+            t0 = time.perf_counter()
+
+            def thaw_run():
+                d2 = wa.planner_client.call_functions(thaw)
+                return d2, wa.planner_client.get_message_result(
+                    req.app_id, d2.message_ids[0], timeout=300)
+
+            (d2, res), got2 = counted(thaw_run)
+            thaw_ms = (time.perf_counter() - t0) * 1e3
+            check(d2.hosts == [host_a] and res.return_value
+                  == int(ReturnValue.SUCCESS)
+                  and json.loads(res.output_data)["host"] == host_a,
+                  f"24b: the thaw ran on {d2.hosts}: "
+                  f"{res.output_data[:200]!r}")
+            check(req.app_id not in planner.get_frozen_apps(),
+                  "24b: the app left the frozen set")
+            before, after = job["logits"]["first"], job["logits"]["thawed"]
+            check(torch.equal(before, after),
+                  f"24b: the logits of {tuple(after.shape)} after the thaw "
+                  f"on host A are bitwise equal to those before the freeze")
+            spot_launches = {k: got1.get(k, 0) + got2.get(k, 0)
+                             for k in set(got1) | set(got2)}
+            add_launches(spot_launches, "24b",
+                         {"flash_attention": 2 * L,
+                          "rms_norm": 2 * (2 * L + 1)})
+            log(f"  24b image {4 * job['n_params'] + SPOT_HEADER} bytes: park"
+                f" {job['park_ms']:.1f} ms, restore on host A "
+                f"{job['restore_ms']:.1f} ms, thaw round trip (call_functions"
+                f" to the result, the planner's push of the image included) "
+                f"{thaw_ms:.1f} ms")
+        finally:
+            job["blockers_go"].set()
+            planner.set_next_evicted_host_ips([])
+            reset_batch_scheduler()
+            stop_cluster(planner_server, workers)
+            job["logits"].clear()
+            register_migration_guests(job)
+
+    # -- (c) recovery of a serving batch ---------------------------------
+    if "c" in parts:
+        n_req = 8
+        host_a, host_b = "rec-host-a", "rec-host-b"
+        serve_model = seeded(0)(dev)
+        job["serve_model"] = serve_model
+        prompts = np.random.RandomState(0).randint(
+            0, cfg.vocab_size, (n_req, serve_len)).astype(np.int32)
+        direct = []
+        with torch.inference_mode():
+            for p in prompts:
+                prompt = torch.as_tensor(p, device=dev)[None]
+                scores = forward(serve_model, prompt)[0].argmax(-1)
+                tokens = generate(serve_model, prompt, n_new)[0]
+                direct.append(torch.cat([scores.to(torch.int32),
+                                         tokens]).cpu().numpy())
+        saved_timeout = conf.planner_host_timeout
+        conf.planner_host_timeout = 4.0
+        planner_server, workers = start_cluster({host_a: 4, host_b: 4},
+                                                factory, base)
+        try:
+            client = workers[0].planner_client
+            req = batch_exec_factory("mig", "serve", n_req)
+            for m, p in zip(req.messages, prompts):
+                m.input_data = p.tobytes()
+            requeued0 = metric("faabric_planner_requeued_messages_total")
+            rec0 = metric("faabric_planner_recovery_seconds")
+            install_faults(f"planner.dispatch=drop@host={host_b};"
+                           f"keepalive=suppress@host={host_b}")
+            t0 = time.perf_counter()
+
+            def serve_batch():
+                d = client.call_functions(req)
+                return d, [client.get_message_result(req.app_id, m.id,
+                                                     timeout=300)
+                           for m in req.messages]
+
+            (decision, results), got = counted(serve_batch)
+            wall = (time.perf_counter() - t0) * 1e3
+            clear_faults()
+            share = {mid for mid, h in zip(decision.message_ids,
+                                           decision.hosts) if h == host_b}
+            check(len(share) == n_req // 2 and len(set(decision.hosts)) == 2,
+                  f"24c: the batch spread {n_req - len(share)} + "
+                  f"{len(share)} over the hosts")
+            check(all(r.return_value == int(ReturnValue.SUCCESS)
+                      and np.array_equal(np.frombuffer(r.output_data,
+                                                       np.int32), d)
+                      for r, d in zip(results, direct)),
+                  "24c: all 8 results SUCCESS, tokens equal to direct "
+                  "forward and generate")
+            requeued = (metric("faabric_planner_requeued_messages_total")
+                        - requeued0)
+            check(requeued == len(share), f"24c: requeued messages rose by "
+                  f"{requeued}, host B's share is {len(share)}")
+            stamped = [r for r in results if r.id in share
+                       and PHASE_REQUEUE in r.lc]
+            check(len(stamped) == len(share), f"24c: {len(stamped)} of the "
+                  f"{len(share)} requeued ledgers hold an rqu stamp")
+            add_launches(got, "24c", {
+                "flash_attention": n_req * L,
+                "rms_norm": n_req * ((2 * L + 1) * (1 + n_new))})
+            rec = metric("faabric_planner_recovery_seconds")
+            log(f"  24c recovery seconds (histogram, detection to "
+                f"re-dispatch): {rec[0] - rec0[0]:.3f} over "
+                f"{rec[1] - rec0[1]} requeue(s); the batch's wall "
+                f"{wall:.0f} ms with a 4 s host timeout; launches {got}")
+        finally:
+            clear_faults()
+            conf.planner_host_timeout = saved_timeout
+            stop_cluster(planner_server, workers)
+            register_migration_guests(job)
+            del serve_model
+            job.pop("serve_model", None)
+
+    # -- (d) a cross-host abort, direct and through the planner's relay --
+    if "d" in parts:
+        planner_server, workers = start_cluster(
+            {"abt-host-a": 2, "abt-host-b": 2}, factory, base)
+        try:
+            client = workers[0].planner_client
+            far = None
+            for label in ("direct", "relay"):
+                job.update(blocked=threading.Event(), n_blocked=0,
+                           abort_elems=1 << 20)
+                fired = {}
+                if label == "relay":
+                    # Rank 3's host sends the abort to the far host, then
+                    # asks the planner to relay it: dropping the first
+                    # ABORT_GROUP frame to the far host leaves the relay
+                    # as the only way there
+                    install_faults(f"transport.send=drop@host={far}"
+                                   f"@code=8@plane=async@times=1")
+                try:
+                    results, wall = run_gang(client, "abort", n)
+                finally:
+                    fired = get_fault_registry().snapshot()
+                    clear_faults()
+                outs = guest_outputs(results, f"24d abort ({label})")
+                aborter, others = outs[-1], outs[:-1]
+                far_side = [o for o in others if o["host"] != aborter["host"]]
+                far = far_side[0]["host"] if far_side else None
+                check(aborter.get("aborted_by_me")
+                      and all("arrived_s" in o for o in others)
+                      and len(far_side) == 2,
+                      f"24d ({label}): rank 3 on {aborter['host']} aborted; "
+                      f"ranks {[o['rank'] for o in others]} raised "
+                      f"MpiWorldAborted, {len(far_side)} of them on the "
+                      f"far host {far}")
+                if label == "relay":
+                    dropped = sum(r["fired"]
+                                  for r in fired.get("transport.send", []))
+                    check(dropped == 1, f"24d (relay): the rule dropped "
+                          f"{dropped} abort frame(s), 1 expected")
+                    check(all("planner relay" in o["reason"]
+                              for o in far_side),
+                          "24d (relay): the far host learned of the abort "
+                          "through the planner's relay")
+                log(f"  24d ({label}) abort arrival by rank: "
+                    + ", ".join(f"r{o['rank']}@{o['host']} "
+                                f"{o['arrived_s'] * 1e3:.1f} ms"
+                                for o in others)
+                    + f"; gang wall {wall:.0f} ms")
+        finally:
+            clear_faults()
+            stop_cluster(planner_server, workers)
+
+    if on_card:
+        log(f"  24 peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+            f" GiB")
+    log(f"  phase 24 launches: {launches}")
+    log(f"  phase 24 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4105,7 +4803,8 @@ def main() -> int:
     # steps and its (4, 512) perplexity batches. Phase 20's steps run
     # (4096, 512) and its scorings (512, 512); phase 21's threads
     # (1024, 512), its scorings (512, 512); phases 22-23's ranks
-    # (1024, 512)
+    # (1024, 512); phase 24's ranks (1024, 512), its spot scorings
+    # (2048, 512), its served requests (512, 512) and (1, 512)
     for rows, d in [(4096, 512), (8, 512), (333, 512), (512, 512), (1, 512),
                     (1024, 512), (2, 512), (256, 512), (96, 512), (64, 512),
                     (4, 512), (2048, 512)]:
@@ -4132,7 +4831,9 @@ def main() -> int:
     # yardstick's; phase 20's steps run (8, 512, 8 heads) and its
     # scorings (1, 512, 8 heads); phase 21's threads (2, 512, 8 heads),
     # its scorings (1, 512, 8 heads); phases 22-23's ranks (2, 512, 8
-    # heads)
+    # heads); phase 24's ranks (2, 512, 8 heads), its spot scorings
+    # (1, 2048, 8 heads) and its served requests (1, 512, 8 heads), as
+    # QKV views
     for b, s_q, s_k, h, causal, dtype, views in [
             (8, 512, 512, 8, True, torch.bfloat16, False),
             (8, 128, 512, 8, True, torch.bfloat16, False),
@@ -4141,6 +4842,7 @@ def main() -> int:
             (8, 500, 530, 8, False, torch.bfloat16, False),
             (8, 512, 512, 8, True, torch.float32, False),
             (1, 2048, 2048, 8, True, torch.bfloat16, False),
+            (1, 2048, 2048, 8, True, torch.bfloat16, True),
             (1, 512, 512, 8, True, torch.bfloat16, False),
             (1, 512, 512, 8, True, torch.bfloat16, True),
             (2, 512, 512, 8, True, torch.bfloat16, False),
@@ -4649,20 +5351,22 @@ def main() -> int:
     planes_launches = planes_phase(dev, _build)
     # -- 23. telemetry and fault points on the data-parallel step ---------
     telemetry_launches = telemetry_phase(dev, _build)
+    # -- 24. migration, spot freeze and thaw, recovery, aborts -----------
+    migration_launches = migration_phase(dev, _build)
     # Each row's launches: the serving kernels' on the direct serving
     # path (phase 5) and under the executors (13), the backward kernels'
     # on the training path (9), the ring kernel's on the MPI path (12),
     # and every launch of the mesh (14), pipeline (15), MoE (16), guest
     # data-parallel (17), sharded decode and perplexity (18), state (19),
-    # snapshot (20), THREADS and chaining (21), data-plane (22) and
-    # telemetry (23) paths
+    # snapshot (20), THREADS and chaining (21), data-plane (22),
+    # telemetry (23) and migration, spot and recovery (24) paths
     path_launches = {
         name: sum(p.get(name, 0) for p in paths) + sum(
             p.get(name, 0) for p in (mesh_launches, pp_launches, moe_launches,
                                      guest_launches, serving_mesh_launches,
                                      state_launches, snapshot_launches,
                                      threads_launches, planes_launches,
-                                     telemetry_launches))
+                                     telemetry_launches, migration_launches))
         for name, paths in (
             ("rms_norm", (launches, faabric_launches)),
             ("flash_attention", (launches, faabric_launches)),

@@ -1,7 +1,12 @@
 """Pluggable executor engine (reference src/executor)."""
 
 from faabric_tpu_torch.executor.context import ExecutorContext
-from faabric_tpu_torch.executor.executor import Executor, ExecutorTask
+from faabric_tpu_torch.executor.executor import (
+    Executor,
+    ExecutorTask,
+    FunctionFrozenException,
+    FunctionMigratedException,
+)
 from faabric_tpu_torch.executor.factory import (
     ExecutorFactory,
     get_executor_factory,
@@ -20,6 +25,8 @@ __all__ = [
     "ExecutorContext",
     "ExecutorFactory",
     "ExecutorTask",
+    "FunctionFrozenException",
+    "FunctionMigratedException",
     "GuestContext",
     "TorchExecutor",
     "TorchExecutorFactory",

@@ -31,8 +31,11 @@ message's lifecycle ledger (queue exit, run start and end), and goes
 into the queue-wait and run histograms; a guest exception is
 flight-recorded and dumps the ring.
 
-Not ported: the migrated and frozen return paths with their exceptions
-(``ROADMAP.md`` Queue 1 #7 part C).
+A guest that must move raises ``FunctionMigratedException`` and one
+whose app is spot-frozen ``FunctionFrozenException`` (reference
+executor/executor.py:71-79): its task reports ``ReturnValue.MIGRATED``
+or ``FROZEN``, which the planner reads as a re-dispatch or a park, not
+as a guest error.
 """
 
 from __future__ import annotations
@@ -89,6 +92,15 @@ _RUN_SECONDS = _metrics.histogram(
     "Guest execute_task run time")
 _TASKS_TOTAL = _metrics.counter(
     "faabric_executor_tasks_total", "Tasks executed")
+
+
+class FunctionMigratedException(Exception):
+    """Raised by guest code that must move to its post-migration host
+    (reference include/faabric/executor/Executor.h)."""
+
+
+class FunctionFrozenException(Exception):
+    """Raised by guest code whose app is spot-frozen."""
 
 
 class ExecutorTask:
@@ -304,6 +316,12 @@ class Executor:
                       function=f"{msg.user}/{msg.function}") \
                     if tracing_enabled() else NULL_SPAN:
                 ret = self.execute_task(pool_idx, task.msg_idx, req)
+        except FunctionMigratedException:
+            logger.debug("%s task %d migrated", self.id, msg.id)
+            ret = int(ReturnValue.MIGRATED)
+        except FunctionFrozenException:
+            logger.debug("%s task %d frozen", self.id, msg.id)
+            ret = int(ReturnValue.FROZEN)
         except Exception as e:  # noqa: BLE001 — guest errors become results
             logger.exception("%s task %d failed", self.id, msg.id)
             ret = int(ReturnValue.FAILED)

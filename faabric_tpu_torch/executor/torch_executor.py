@@ -16,7 +16,9 @@ hand::
 
 Return conventions: ``bytes`` → output_data and SUCCESS; ``int`` →
 return value; ``None`` → SUCCESS. A guest that raises, or an unknown
-function, reports FAILED with the error text in output_data.
+function, reports FAILED with the error text in output_data, except
+that ``FunctionMigratedException`` and ``FunctionFrozenException``
+report MIGRATED and FROZEN.
 
 ``TorchExecutorFactory(device=None)`` runs guests on CUDA; without a
 card it raises. ``device="cpu"`` runs every rank on the CPU (the tests
@@ -40,7 +42,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from faabric_tpu_torch.executor.executor import Executor
+from faabric_tpu_torch.executor.executor import (
+    Executor,
+    FunctionFrozenException,
+    FunctionMigratedException,
+)
 from faabric_tpu_torch.executor.factory import ExecutorFactory
 from faabric_tpu_torch.proto import ReturnValue
 from faabric_tpu_torch.util.device import resolve_device
@@ -176,6 +182,8 @@ class TorchExecutor(Executor):
             return int(ReturnValue.FAILED)
         try:
             result = fn(GuestContext(self, msg, req))
+        except (FunctionMigratedException, FunctionFrozenException):
+            raise  # the executor reports MIGRATED or FROZEN
         except Exception as e:  # noqa: BLE001 — the guest's failure is its
             # result
             logger.exception("Guest %s/%s failed", msg.user, msg.function)

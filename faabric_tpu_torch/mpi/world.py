@@ -302,6 +302,13 @@ class MpiWorld:
         # (rank, collective) → the algorithm its last call took
         self.rungs: dict[tuple[int, str], str] = {}
 
+        # A blocked recv of this world probes its sender's host and
+        # raises MpiWorldAborted when that host is gone (some tests build
+        # worlds over stub brokers, or none, that have no watches)
+        watch = getattr(broker, "watch_group", None)
+        if watch is not None:
+            watch(group_id)
+
     def abort(self, reason: str = "MPI_Abort") -> None:
         """Every rank's blocked or future recv on this world raises
         MpiWorldAborted."""
@@ -2383,7 +2390,8 @@ class MpiWorld:
         stays down until every rank re-runs the activation handshake.
         The world's device state handles drop too
         (``state/device_handle.py::invalidate_world``): a migrated rank
-        never pulls a tensor of its old placement."""
+        never pulls a tensor of its old placement. The new group id is
+        watched."""
         with self._lock:
             if any(self._requests.values()):
                 raise RuntimeError(
@@ -2400,6 +2408,9 @@ class MpiWorld:
         from faabric_tpu_torch.state.device_handle import invalidate_world
 
         invalidate_world(self.id)
+        watch = getattr(self.broker, "watch_group", None)
+        if watch is not None:
+            watch(self.group_id)  # the probes follow the new group id
 
     def exec_graph_details(self) -> dict[str, int]:
         with self._lock:

@@ -20,8 +20,12 @@ first after it are flight-recorded. A pushed result is stamped
 ``rsp`` and a woken local waiter ``wwk`` in the message's lifecycle
 ledger.
 
-Not ported (``ROADMAP.md`` Queue 1 #9 parts C and D): buffering results
-while the planner is down, coalesced result pushes and the high-rate
+``check_migration`` and ``get_num_migrations`` reach the planner's
+migration path; ``relay_group_abort`` hands the planner a group abort
+for the hosts this one could not reach (reference :770-793).
+
+Not ported (``ROADMAP.md`` Queue 1 #9 part D): buffering results while
+the planner is down, coalesced result pushes and the high-rate
 submission path.
 """
 
@@ -313,6 +317,30 @@ class PlannerClient(MessageEndpointClient):
                                 ) -> Optional[SchedulingDecision]:
         resp = self.sync_send(int(PlannerCalls.GET_SCHEDULING_DECISION),
                               {"app_id": app_id}, idempotent=True)
+        if not resp.header.get("found"):
+            return None
+        return SchedulingDecision.from_dict(resp.header["decision"])
+
+    def relay_group_abort(self, group_id: int, reason: str,
+                          hosts: list[str]) -> None:
+        """Ask the planner to deliver a group abort to ``hosts``, which
+        this process could not reach directly. Fire and forget: the
+        relay is best effort on top of keep-alive expiry."""
+        if is_mock_mode():
+            return
+        self.async_send(int(PlannerCalls.RELAY_GROUP_ABORT), {
+            "group_id": group_id, "reason": reason, "hosts": list(hosts)})
+
+    def get_num_migrations(self) -> int:
+        resp = self.sync_send(int(PlannerCalls.GET_NUM_MIGRATIONS),
+                              idempotent=True)
+        return int(resp.header["num_migrations"])
+
+    def check_migration(self, app_id: int) -> Optional[SchedulingDecision]:
+        """The app's new placement when the planner finds a better one,
+        the MUST_FREEZE sentinel when the app must park, else None."""
+        resp = self.sync_send(int(PlannerCalls.CHECK_MIGRATION),
+                              {"app_id": app_id})
         if not resp.header.get("found"):
             return None
         return SchedulingDecision.from_dict(resp.header["decision"])

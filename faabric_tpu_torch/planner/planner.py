@@ -5,7 +5,7 @@ src/planner/Planner.cpp), for the part that gang-schedules FUNCTIONS,
 PROCESSES and THREADS batches:
 
 - host registration, removal, keep-alive and expiry (:300-516); the
-  in-flight messages of an expired host report FAILED;
+  in-flight messages of an expired host are recovered;
 - per-host device claiming (:140-150): every placement pins a device
   id, the least-loaded device of the chosen host;
 - ``call_batch`` for NEW, SCALE_CHANGE and DIST_CHANGE decisions
@@ -19,8 +19,29 @@ PROCESSES and THREADS batches:
 - before a THREADS sub-batch goes to a host other than its main host,
   the main thread's snapshot, which the main host's planner client
   pushed to the planner's registry, is pushed there
-  (``_push_snapshot_for_threads``, :1548-1570); a failed push fails
-  that host's messages ("Snapshot push failed");
+  (``_push_snapshot_for_threads``, :1548-1570);
+- recovery (:1176-1406): the messages of an expired host, of a failed
+  dispatch or of a failed THREADS snapshot push are requeued onto the
+  surviving hosts after an exponential backoff, within a budget of
+  ``planner_max_requeues`` rounds an app, and fail once it is spent. An
+  MPI app (any of its messages MPI) is never requeued: its world's
+  state died with its ranks. A genuine result that lands first always
+  wins over a synthetic FAILED one;
+- spot freeze and thaw (:1076-1091, :617-708): a MUST_FREEZE decision
+  parks the app's request and frees its claims (``get_frozen_apps``);
+  the next NEW request of the app resumes the whole parked request, on
+  sub-batches that are never single-host, so that the thaw host
+  restores the image that the frozen guests parked on the planner's
+  registry. A thaw that finds no slots parks the request again. Hosts
+  named by ``set_next_evicted_host_ips`` are marked for eviction in the
+  policy's host map;
+- migration (:1007-1074): ``check_migration`` asks the policy for a
+  DIST_CHANGE, which moves the app to a new group id and counts
+  ``get_num_migrations``. A rank that reports MIGRATED is re-dispatched
+  to its new host as a MIGRATION batch after the lock. A MIGRATED or
+  FROZEN report is not a result: it records nothing, and a host that
+  waits on the message keeps waiting for the real one (the reference
+  pushes the report to it);
 - the point-to-point mappings sent for each group (:1571-1577);
 - results: ``set_message_result(s)``, ``get_message_result`` (with a
   push to waiting hosts) and ``get_batch_results`` (:1585-1775);
@@ -35,8 +56,7 @@ PROCESSES and THREADS batches:
 - the planner's ``SnapshotRegistry`` and its pool of snapshot clients,
   dropped with a removed or rebooted host.
 
-The elastic scale hint and a decision that would freeze an app raise
-instead of running some other way.
+The elastic scale hint raises instead of running some other way.
 
 Telemetry, as the reference's: ``call_batch`` and the dispatch are
 ``planner`` spans timed in histograms; every dispatch passes the
@@ -45,12 +65,14 @@ their host expires); messages get their lifecycle stamps (admit,
 schedule, dispatch, recorded) and recorded results are folded into the
 lifecycle stats and the SLO tracker; results, in-flight apps and the
 round trip are counted; host expiry and state failover are
-flight-recorded.
+flight-recorded. Requeues are counted (rounds, messages, exhausted
+budgets), their detection-to-redispatch time goes into a histogram, a
+requeued message is stamped ``rqu`` and a recovery pass is
+flight-recorded and dumps the ring.
 
 Not ported (``ROADMAP.md`` Queue 1 #7 and #9): the journal (and its
-replay of state placement), freeze and migration, recovery requeues (a
-failed dispatch or push fails its messages instead), preloaded
-decisions, ingress, ``call_batch_group``, and the telemetry RPCs and
+replay of state placement), preloaded decisions, the elastic scale
+hint, ingress, ``call_batch_group``, and the telemetry RPCs and
 ``collect_telemetry`` (#7 part D).
 """
 
@@ -84,6 +106,7 @@ from faabric_tpu_torch.proto import (
 )
 from faabric_tpu_torch.faults import DROP, fault_point, faults_enabled
 from faabric_tpu_torch.telemetry import (
+    flight_dump,
     flight_record,
     get_lifecycle,
     get_metrics,
@@ -93,6 +116,7 @@ from faabric_tpu_torch.telemetry.lifecycle import (
     PHASE_ADMIT,
     PHASE_DISPATCH,
     PHASE_RECORDED,
+    PHASE_REQUEUE,
     PHASE_SCHED,
 )
 from faabric_tpu_torch.transport.client_pool import ClientPool
@@ -126,6 +150,19 @@ _RESULT_ROUNDTRIP = _metrics.histogram(
     "faabric_planner_result_roundtrip_seconds",
     "Message creation to result recorded at the planner (wall clocks of "
     "the submitting host and the planner: cross-machine skew shifts it)")
+_REQUEUES_TOTAL = _metrics.counter(
+    "faabric_planner_requeues_total",
+    "Recovery requeues performed (one per affected app per failure)")
+_REQUEUED_MESSAGES = _metrics.counter(
+    "faabric_planner_requeued_messages_total",
+    "Messages moved to surviving hosts by recovery requeues")
+_RETRY_EXHAUSTED = _metrics.counter(
+    "faabric_planner_retry_exhausted_total",
+    "Messages terminally failed after the requeue budget ran out")
+_RECOVERY_SECONDS = _metrics.histogram(
+    "faabric_planner_recovery_seconds",
+    "Failure detection to requeued messages re-dispatched (includes the "
+    "backoff delay)")
 
 
 class PlannerHost:
@@ -187,6 +224,13 @@ class Planner:
         # app_id → (every group id it used, every host involved), for
         # the group cleanup once the app completes
         self._group_hosts: dict[int, tuple[set[int], set[str]]] = {}
+        # app_id → recovery requeues spent (cleared when the app completes)
+        self._requeue_attempts: dict[int, int] = {}
+        # app_id → the parked request of a frozen app, and the hosts the
+        # next decisions must evacuate
+        self._evicted: dict[int, BatchExecuteRequest] = {}
+        self._next_evicted_ips: set[str] = set()
+        self._num_migrations = 0
         # State keys: full key → master host, backup host and fencing
         # epoch (the epoch outlives a drop)
         self._state_masters: dict[str, str] = {}
@@ -261,12 +305,13 @@ class Planner:
 
     def expire_hosts(self) -> None:
         """Drop hosts that missed their keep-alives. Their in-flight
-        messages can no longer report, so they report FAILED here, on a
-        thread of their own: expiry runs under callers' locks and the
-        results push over the network."""
+        messages can no longer report, so they are recovered, on one
+        thread an app: expiry runs under callers' locks, recovery sleeps
+        its backoff and dispatches over the network, and one app's
+        backoff must not hold another's."""
         timeout = get_system_config().planner_host_timeout
         now = time.monotonic()
-        doomed: list[Message] = []
+        doomed: dict[int, list[Message]] = {}
         with self._lock:
             stale = {ip for ip, h in self._hosts.items()
                      if now - h.register_ts > timeout}
@@ -276,22 +321,16 @@ class Planner:
                 del self._hosts[ip]
             if stale:
                 self._drop_state_masters_for_locked(stale)
-            for req, decision in self._in_flight.values():
+            for app_id, (req, decision) in self._in_flight.items():
                 ids = {mid for mid, h in zip(decision.message_ids,
                                              decision.hosts) if h in stale}
-                doomed.extend(m for m in req.messages if m.id in ids)
-        if doomed:
-            threading.Thread(target=self._fail_messages,
-                             args=(doomed, b"Host expired"),
-                             name="planner/expire", daemon=True).start()
-
-    def _fail_messages(self, msgs: list[Message], reason: bytes) -> None:
-        failed = []
-        for m in msgs:
-            m.return_value = int(ReturnValue.FAILED)
-            m.output_data = reason
-            failed.append(m)
-        self.set_message_results(failed)
+                if ids:
+                    doomed[app_id] = [m for m in req.messages if m.id in ids]
+        for app_id, msgs in doomed.items():
+            threading.Thread(target=self._recover_messages,
+                             args=(app_id, msgs, b"Host expired"),
+                             name=f"planner/recover@{app_id}",
+                             daemon=True).start()
 
     def get_available_hosts(self) -> list[HostState]:
         self.expire_hosts()
@@ -300,6 +339,13 @@ class Planner:
                               used_slots=h.state.used_slots,
                               n_devices=h.state.n_devices)
                     for h in self._hosts.values()]
+
+    def set_next_evicted_host_ips(self, ips: list[str]) -> None:
+        """Mark hosts for eviction: the spot policy places nothing new
+        on them, and a migration check evacuates or freezes the apps
+        running there."""
+        with self._lock:
+            self._next_evicted_ips = set(ips)
 
     # ------------------------------------------------------------------
     # Scheduling (reference Planner::callBatch)
@@ -334,6 +380,12 @@ class Planner:
             if (req.type == int(BatchExecuteType.MIGRATION)
                     and decision_type != DecisionType.DIST_CHANGE):
                 return do_not_migrate_decision()
+            # Thaw: a NEW request of a frozen app resumes the whole
+            # parked request
+            thawing = (decision_type == DecisionType.NEW
+                       and req.app_id in self._evicted)
+            if thawing:
+                req = self._evicted.pop(req.app_id)
 
             host_map = self._policy_host_map_locked()
             # Repeated fork-join shapes reuse their placement (reference
@@ -353,12 +405,16 @@ class Planner:
                     get_decision_cache().add_cached_decision(
                         req, list(decision.hosts), 0)
             if decision.app_id == NOT_ENOUGH_SLOTS:
+                if thawing:
+                    # A failed thaw must not lose the parked app: a later
+                    # one succeeds once slots free
+                    self._evicted[req.app_id] = req
                 logger.warning("Not enough slots for app %d (%d msgs)",
                                req.app_id, req.n_messages())
                 return decision
             if decision.app_id == MUST_FREEZE:
-                raise ValueError(f"app {req.app_id} would have to freeze: "
-                                 f"freezing is not served by this planner")
+                self._freeze_app_locked(req)
+                return decision
             if is_sentinel_decision(decision):  # DO_NOT_MIGRATE
                 return decision
 
@@ -372,6 +428,13 @@ class Planner:
                 dispatches = self._handle_dist_change_locked(req, decision)
                 mappings = decision
             _LC.stamp_many(req.messages, PHASE_SCHED)
+            if thawing:
+                # The thaw host is rarely the one the app froze on (that
+                # one was being evicted): a single-host sub-batch would
+                # skip the snapshot push and the restore, and resume on
+                # a blank image
+                for _, sub in dispatches:
+                    sub.single_host = False
 
             # Detached copies: results landing on other threads remove
             # rows from the live decision
@@ -443,16 +506,50 @@ class Planner:
                                    decision: SchedulingDecision) -> list:
         """Move the app's claims to the new placement under a new group
         id. Unmoved messages keep their ports and devices. Nothing is
-        dispatched: the ranks that move re-dispatch themselves, which
-        needs the migration path (not ported)."""
+        dispatched: a rank that moves reports MIGRATED and is
+        re-dispatched from ``set_message_results``."""
         old_req, old_decision = self._in_flight[req.app_id]
         self._release_for_decision_locked(old_decision)
         self._claim_for_decision_locked(decision, old_req,
                                         keep_from=old_decision)
         decision.group_id = generate_gid()
+        self._num_migrations += 1
         update_batch_exec_group_id(old_req, decision.group_id)
         self._in_flight[req.app_id] = (old_req, decision)
         return []
+
+    # -- migration and freezing (reference :1053-1091) --------------------
+    def check_migration(self, app_id: int) -> Optional[SchedulingDecision]:
+        """The app's new placement (a new group id, its mappings already
+        sent) when the policy finds a better one, the MUST_FREEZE
+        sentinel when the app had to park, else None."""
+        with self._lock:
+            in_flight = self._in_flight.get(app_id)
+            if in_flight is None:
+                return None
+            cur_req, _ = in_flight
+            mig_req = BatchExecuteRequest(
+                app_id=app_id, user=cur_req.user, function=cur_req.function,
+                type=int(BatchExecuteType.MIGRATION), subtype=cur_req.subtype)
+            mig_req.messages = list(cur_req.messages)
+        decision = self.call_batch(mig_req)
+        if decision.app_id == MUST_FREEZE:
+            return decision
+        if is_sentinel_decision(decision):
+            return None
+        return decision
+
+    def _freeze_app_locked(self, req: BatchExecuteRequest) -> None:
+        """Park a running app: free its claims and keep its request for
+        the thaw (reference Planner.cpp:1005-1019)."""
+        in_flight = self._in_flight.pop(req.app_id, None)
+        if in_flight is not None:
+            old_req, old_decision = in_flight
+            self._release_for_decision_locked(old_decision)
+            self._evicted[req.app_id] = old_req
+        else:
+            self._evicted[req.app_id] = req
+        _IN_FLIGHT_APPS.set(len(self._in_flight))
 
     def _decision_from_cache_locked(self, req: BatchExecuteRequest,
                                     host_map) -> Optional[SchedulingDecision]:
@@ -488,7 +585,8 @@ class Planner:
         self.expire_hosts()
         return {ip: HostState(ip=ip, slots=h.state.slots,
                               used_slots=h.state.used_slots,
-                              n_devices=h.state.n_devices)
+                              n_devices=h.state.n_devices,
+                              for_eviction=ip in self._next_evicted_ips)
                 for ip, h in self._hosts.items()}
 
     def _claim_for_decision_locked(
@@ -529,6 +627,188 @@ class Planner:
             self._release_row_locked(decision, i)
 
     # ------------------------------------------------------------------
+    # Recovery: requeues with backoff (reference :1176-1406)
+    # ------------------------------------------------------------------
+    def _fail_messages(self, msgs: list[Message], reason: bytes) -> None:
+        """Record FAILED results, so that batch waiters wake. A message
+        already recorded keeps its result (first write wins)."""
+        with self._lock:
+            todo = [m for m in msgs
+                    if m.id not in self._results.get(m.app_id, {})]
+        for m in todo:
+            m.return_value = int(ReturnValue.FAILED)
+            m.output_data = reason
+        if todo:
+            self.set_message_results(todo)
+
+    def _recover_messages(self, app_id: int, msgs: list[Message],
+                          reason: bytes) -> None:
+        """Requeue ``msgs`` after a backoff while the app's budget lasts,
+        else fail them. Runs on a thread of its own. An MPI app is never
+        requeued: its surviving ranks get MpiWorldAborted from the
+        transport, and the guest owns the restart."""
+        t_detect = time.monotonic()
+        conf = get_system_config()
+        with self._lock:
+            msgs = [m for m in msgs
+                    if m.id not in self._results.get(app_id, {})]
+            if not msgs:
+                return
+            record = self._in_flight.get(app_id)
+            in_flight = record is not None
+            used = self._requeue_attempts.get(app_id, 0)
+            # The whole app is scanned: the planner's copy of an MPI root
+            # often reads is_mpi False (the worker sets it when it builds
+            # the world), but the ranks it chained read True
+            app_is_mpi = in_flight and any(m.is_mpi
+                                           for m in record[0].messages)
+            retryable = (in_flight and not app_is_mpi
+                         and not any(m.is_mpi for m in msgs)
+                         and used < conf.planner_max_requeues)
+            if retryable:
+                self._requeue_attempts[app_id] = used + 1
+        flight_record("planner_recovery", app=app_id, n_messages=len(msgs),
+                      retryable=retryable,
+                      reason=reason.decode("utf-8", "replace"))
+        flight_dump("planner_recovery")
+        if not retryable:
+            if in_flight and used >= conf.planner_max_requeues:
+                _RETRY_EXHAUSTED.inc(len(msgs))
+                logger.warning("Requeue budget (%d) exhausted for app %d; "
+                               "failing %d msgs", conf.planner_max_requeues,
+                               app_id, len(msgs))
+            self._fail_messages(msgs, reason)
+            return
+        # The backoff keeps a requeue from racing the failure that
+        # displaced it, and many apps' retries from arriving together
+        time.sleep(self._requeue_delay(used))
+        self._requeue(app_id, msgs, t_detect, reason)
+
+    @staticmethod
+    def _requeue_delay(used: int) -> float:
+        from faabric_tpu_torch.util.retry import RetryPolicy
+
+        conf = get_system_config()
+        return RetryPolicy(max_attempts=conf.planner_max_requeues + 1,
+                           backoff=conf.planner_requeue_backoff,
+                           max_backoff=30.0).delay(used)
+
+    def _requeue(self, app_id: int, msgs: list[Message], t_detect: float,
+                 reason: bytes) -> None:
+        """Take the messages' dead rows out of the live decision, place
+        them again through the policy, merge the new rows in, then send
+        the mappings and dispatch after the lock."""
+        fail: Optional[list[Message]] = None
+        fail_reason = reason
+        retry_later = False
+        conf = get_system_config()
+        with self._lock:
+            pending = [m for m in msgs
+                       if m.id not in self._results.get(app_id, {})]
+            if not pending:
+                return  # genuine late results won every race
+            todo = {m.id for m in pending}
+            in_flight = self._in_flight.get(app_id)
+            if in_flight is None:
+                # The app's other results completed it during the
+                # backoff: these messages have no row and no result, and
+                # must fail or the batch never finishes
+                fail = pending
+                fail_reason = reason + b" (app completed around requeue)"
+            else:
+                req, decision = in_flight
+                for mid in todo:
+                    # An earlier round without capacity took the row out
+                    if mid in decision.message_ids:
+                        self._release_row_locked(
+                            decision, decision.message_ids.index(mid))
+                        decision.remove_message(mid)
+                retry_msgs = [m for m in req.messages if m.id in todo]
+                sub = BatchExecuteRequest(
+                    app_id=req.app_id, group_id=req.group_id, user=req.user,
+                    function=req.function, type=req.type,
+                    subtype=req.subtype, snapshot_key=req.snapshot_key)
+                sub.messages = retry_msgs
+                # An empty in-flight view: the slice places like a NEW
+                # batch of its own messages, whose idxs ride along
+                new_decision = get_batch_scheduler().make_scheduling_decision(
+                    self._policy_host_map_locked(), {}, sub)
+                if is_sentinel_decision(new_decision):
+                    # No capacity yet; it frees as running messages end, so
+                    # spend a budget unit on a longer backoff
+                    used = self._requeue_attempts.get(app_id, 0)
+                    if used < conf.planner_max_requeues:
+                        used += 1
+                        self._requeue_attempts[app_id] = used
+                        retry_later = True
+                    else:
+                        fail = retry_msgs
+                        fail_reason = reason + b" (no requeue capacity)"
+                else:
+                    new_decision.group_id = decision.group_id
+                    self._claim_for_decision_locked(new_decision, sub)
+                    for i in range(new_decision.n_messages):
+                        decision.add_message(
+                            new_decision.hosts[i],
+                            new_decision.message_ids[i],
+                            new_decision.app_idxs[i],
+                            new_decision.group_idxs[i],
+                            new_decision.mpi_ports[i],
+                            new_decision.device_ids[i])
+                    dispatches = self._build_dispatches(sub, new_decision)
+                    # A requeued slice of a multi-host app is not
+                    # single-host: the new host needs a THREADS snapshot
+                    single = len(decision.unique_hosts()) == 1
+                    for _, s in dispatches:
+                        s.single_host = single
+                    mappings = decision.clone()
+                    gids, hosts = self._group_hosts.get(app_id,
+                                                        (set(), set()))
+                    self._group_hosts[app_id] = (
+                        gids | {mappings.group_id},
+                        hosts | set(mappings.hosts))
+                    _REQUEUES_TOTAL.inc()
+                    _REQUEUED_MESSAGES.inc(len(todo))
+        if retry_later:
+            delay = self._requeue_delay(used)
+            logger.warning("No capacity to requeue %d msgs of app %d yet; "
+                           "retrying in %.2fs (attempt %d/%d)", len(todo),
+                           app_id, delay, used, conf.planner_max_requeues)
+            time.sleep(delay)
+            self._requeue(app_id, pending, t_detect, reason)
+            return
+        if fail is not None:
+            logger.warning("Failing %d unrecoverable msgs of app %d: %s",
+                           len(fail), app_id, fail_reason.decode())
+            _RETRY_EXHAUSTED.inc(len(fail))
+            self._fail_messages(fail, fail_reason)
+            return
+        hosts = sorted(set(new_decision.hosts))
+        logger.warning("Requeued %d msgs of app %d onto %s after: %s",
+                       len(todo), app_id, hosts, reason.decode())
+        # The stamp splits the dead first attempt from the re-dispatch in
+        # the message's ledger
+        _LC.stamp_many(retry_msgs, PHASE_REQUEUE)
+        flight_record("planner_requeued", app=app_id, n_messages=len(todo),
+                      hosts=hosts)
+        from faabric_tpu_torch.transport.ptp_remote import (
+            send_mappings_from_decision,
+        )
+
+        send_mappings_from_decision(mappings)
+        self._do_dispatch(dispatches)
+        _RECOVERY_SECONDS.observe(time.monotonic() - t_detect)
+
+    def _recover_dispatch(self, sub: BatchExecuteRequest,
+                          reason: bytes) -> None:
+        """A failed dispatch recovers on a thread of its own: its backoff
+        must not hold the dispatches after it."""
+        threading.Thread(
+            target=self._recover_messages,
+            args=(sub.app_id, list(sub.messages), reason),
+            name=f"planner/recover@{sub.app_id}", daemon=True).start()
+
+    # ------------------------------------------------------------------
     # Dispatch (reference Planner::dispatchSchedulingDecision)
     # ------------------------------------------------------------------
     def _build_dispatches(self, req: BatchExecuteRequest,
@@ -563,24 +843,25 @@ class Planner:
             if (sub.type == int(BatchExecuteType.THREADS)
                     and not sub.single_host
                     and not self._push_snapshot_for_threads(sub, ip)):
-                # Without its snapshot the host could not restore; the
-                # reference requeues onto another host (not ported)
-                self._fail_messages(sub.messages, b"Snapshot push failed")
+                # Without its snapshot the host could not restore: the
+                # messages go to a host that can be given it
+                self._recover_dispatch(sub, b"Snapshot push failed")
                 continue
             try:
                 if _FAULTS:
                     verdict = _FP_DISPATCH.fire(host=ip, app_id=sub.app_id)
                     if verdict is DROP:
                         # An injected silent loss: the messages strand
-                        # until their host's keep-alive expiry fails them
+                        # until their host's keep-alive expiry recovers
+                        # them
                         continue
                 _LC.stamp_many(sub.messages, PHASE_DISPATCH)
                 self._clients.get(ip).execute_functions(sub)
             except Exception:  # noqa: BLE001 — a dead host must not stall
-                # the others; its messages report FAILED
+                # the others; its messages are recovered
                 logger.exception("Dispatch of app %d to %s failed",
                                  sub.app_id, ip)
-                self._fail_messages(sub.messages, b"Dispatch failed")
+                self._recover_dispatch(sub, b"Dispatch failed")
 
     def _push_snapshot_for_threads(self, req: BatchExecuteRequest,
                                    host: str) -> bool:
@@ -616,14 +897,23 @@ class Planner:
         pushes: list[tuple[str, Message]] = []
         cleanups: dict[str, set[int]] = {}
         recorded: list[Message] = []
+        redispatches: list[tuple[str, BatchExecuteRequest]] = []
         with self._lock:
             for msg in msgs:
-                if not self._record_result_locked(msg):
-                    continue
-                _LC.stamp(msg, PHASE_RECORDED)
-                recorded.append(msg)
-                for ip in self._waiters.pop((msg.app_id, msg.id), set()):
-                    pushes.append((ip, msg))
+                if msg.return_value == int(ReturnValue.MIGRATED):
+                    # The rank left its old host: send it to its place in
+                    # the post-migration decision
+                    redispatch = self._build_migration_redispatch_locked(
+                        msg.app_id, msg.id)
+                    if redispatch is not None:
+                        redispatches.append(redispatch)
+                elif msg.return_value != int(ReturnValue.FROZEN):
+                    if not self._record_result_locked(msg):
+                        continue
+                    _LC.stamp(msg, PHASE_RECORDED)
+                    recorded.append(msg)
+                    for ip in self._waiters.pop((msg.app_id, msg.id), set()):
+                        pushes.append((ip, msg))
                 if msg.app_id not in self._in_flight:
                     done = self._group_hosts.pop(msg.app_id, None)
                     if done is not None:
@@ -650,6 +940,35 @@ class Planner:
 
             for host, gids in cleanups.items():
                 send_clear_groups(host, sorted(gids))
+        for redispatch in redispatches:
+            self._do_dispatch([redispatch])
+
+    def _build_migration_redispatch_locked(
+            self, app_id: int, msg_id: int
+    ) -> Optional[tuple[str, BatchExecuteRequest]]:
+        """The MIGRATION sub-batch that moves one migrated rank to its
+        post-migration host."""
+        in_flight = self._in_flight.get(app_id)
+        if in_flight is None:
+            return None
+        req, decision = in_flight
+        if msg_id not in decision.message_ids:
+            return None
+        target = decision.hosts[decision.message_ids.index(msg_id)]
+        for m in req.messages:
+            if m.id == msg_id:
+                m.return_value = 0
+                m.output_data = b""
+                sub = BatchExecuteRequest(
+                    app_id=req.app_id, group_id=req.group_id, user=req.user,
+                    function=req.function,
+                    type=int(BatchExecuteType.MIGRATION),
+                    subtype=req.subtype, snapshot_key=req.snapshot_key)
+                sub.messages = [m]
+                logger.debug("Re-dispatching migrated msg %d to %s", msg_id,
+                             target)
+                return target, sub
+        return None
 
     def _record_result_locked(self, msg: Message) -> bool:
         """First write wins: a FAILED result of an expired host racing a
@@ -677,6 +996,7 @@ class Planner:
             if decision.n_messages == 0:
                 del self._in_flight[app_id]
                 self._next_idx.pop(app_id, None)
+                self._requeue_attempts.pop(app_id, None)
                 self._completed_order.append(app_id)
                 while len(self._completed_order) > self.MAX_KEPT_APP_RESULTS:
                     oldest = self._completed_order.pop(0)
@@ -712,6 +1032,14 @@ class Planner:
         with self._lock:
             in_flight = self._in_flight.get(app_id)
             return in_flight[1].clone() if in_flight else None
+
+    def get_num_migrations(self) -> int:
+        with self._lock:
+            return self._num_migrations
+
+    def get_frozen_apps(self) -> list[int]:
+        with self._lock:
+            return list(self._evicted)
 
     # ------------------------------------------------------------------
     # State masters (reference planner/planner.py:357-460, 1784-1876)
@@ -899,11 +1227,14 @@ class Planner:
         with self._lock:
             for d in (self._hosts, self._in_flight, self._results,
                       self._expected, self._next_idx, self._waiters,
-                      self._group_hosts, self._state_masters,
-                      self._state_backups, self._state_epochs):
+                      self._group_hosts, self._requeue_attempts,
+                      self._evicted, self._next_evicted_ips,
+                      self._state_masters, self._state_backups,
+                      self._state_epochs):
                 d.clear()
             self._completed_order.clear()
             self._results_count = 0
+            self._num_migrations = 0
         _IN_FLIGHT_APPS.set(0)
         self._clients.close_all()
         self._snapshot_clients.close_all()

@@ -4,15 +4,18 @@ Counterpart of ``faabric_tpu/planner/server.py`` (reference
 src/planner/PlannerServer.cpp) for the calls that the gang path makes,
 under the reference's call numbers, and the planner's own
 ``SnapshotServer`` over ``planner.snapshot_registry`` at host
-``"planner"``, which takes THREADS batches' main-thread snapshots (the
-reference's planner_server runs both, src/planner/planner_server.cpp:
-9-43). An expiry reaper drives host expiry on a clock, so a dead
-worker's messages report FAILED even when nobody schedules.
+``"planner"``, which takes THREADS batches' main-thread snapshots and
+the images of frozen apps (the reference's planner_server runs both,
+src/planner/planner_server.cpp:9-43). An expiry reaper drives host
+expiry on a clock, so a dead worker's messages are recovered even when
+nobody schedules. ``RELAY_GROUP_ABORT`` fans a group abort out to the
+hosts its originator could not reach (reference :192-230).
 """
 
 from __future__ import annotations
 
 import enum
+import threading
 
 from faabric_tpu_torch.planner.planner import get_planner
 from faabric_tpu_torch.proto import (
@@ -31,7 +34,10 @@ from faabric_tpu_torch.transport.server import (
     handler_response,
 )
 from faabric_tpu_torch.util.config import get_system_config
+from faabric_tpu_torch.util.logging import get_logger
 from faabric_tpu_torch.util.periodic import PeriodicBackgroundThread
+
+logger = get_logger(__name__)
 
 
 class _ExpiryReaper(PeriodicBackgroundThread):
@@ -55,9 +61,16 @@ class PlannerCalls(enum.IntEnum):
     GET_MESSAGE_RESULT = 6
     GET_BATCH_RESULTS = 7
     GET_SCHEDULING_DECISION = 8
+    GET_NUM_MIGRATIONS = 9
     CALL_BATCH = 10
     CLAIM_STATE_MASTER = 12
     DROP_STATE_MASTER = 13
+    CHECK_MIGRATION = 14
+    # A host that aborts a group but cannot reach some of its peers (the
+    # direct abort rides the link that just died) hands the planner the
+    # unreachable hosts: the planner's links are independent of the
+    # worker pair's
+    RELAY_GROUP_ABORT = 17
 
 
 class PlannerServer(MessageEndpointServer):
@@ -131,12 +144,50 @@ class PlannerServer(MessageEndpointServer):
         super().stop()
 
     def do_async_recv(self, msg: TransportMessage) -> None:
-        if msg.code != int(PlannerCalls.SET_MESSAGE_RESULT):
+        if msg.code == int(PlannerCalls.SET_MESSAGE_RESULT):
+            # One result ("msg") or several ("msgs")
+            dicts = msg.header.get("msgs") or [msg.header["msg"]]
+            self.planner.set_message_results(
+                messages_from_wire(dicts, msg.payload))
+        elif msg.code == int(PlannerCalls.RELAY_GROUP_ABORT):
+            self._relay_group_abort(int(msg.header["group_id"]),
+                                    str(msg.header.get("reason", "")),
+                                    list(msg.header.get("hosts", [])))
+        else:
             raise ValueError(f"Unknown async planner call {msg.code}")
-        # One result ("msg") or several ("msgs")
-        dicts = msg.header.get("msgs") or [msg.header["msg"]]
-        self.planner.set_message_results(
-            messages_from_wire(dicts, msg.payload))
+
+    @staticmethod
+    def _relay_group_abort(group_id: int, reason: str,
+                           hosts: list) -> None:
+        """Send the abort to each of ``hosts`` on a thread of its own, so
+        that a slow peer never holds a server worker."""
+        from faabric_tpu_torch.telemetry import flight_record
+
+        flight_record("abort_relayed", group=group_id, reason=reason,
+                      n_hosts=len(hosts))
+        logger.warning("Relaying abort of group %d to %s: %s", group_id,
+                       hosts, reason)
+
+        def relay() -> None:
+            from faabric_tpu_torch.transport.ptp_remote import (
+                PointToPointClient,
+            )
+
+            for host in hosts:
+                try:
+                    client = PointToPointClient(host)
+                    try:
+                        client.abort_group(group_id,
+                                           f"{reason} (planner relay)")
+                    finally:
+                        client.close()
+                except Exception:  # noqa: BLE001 — a host dead to the
+                    # planner too is left to keep-alive expiry
+                    logger.debug("Abort relay of group %d to %s failed",
+                                 group_id, host, exc_info=True)
+
+        threading.Thread(target=relay, name=f"planner/abort-relay@{group_id}",
+                         daemon=True).start()
 
     def do_sync_recv(self, msg: TransportMessage) -> TransportMessage:
         code = msg.code
@@ -187,6 +238,17 @@ class PlannerServer(MessageEndpointServer):
 
         if code == int(PlannerCalls.GET_SCHEDULING_DECISION):
             decision = planner.get_scheduling_decision(h["app_id"])
+            if decision is None:
+                return handler_response(header={"found": False})
+            return handler_response(header={"found": True,
+                                            "decision": decision.to_dict()})
+
+        if code == int(PlannerCalls.GET_NUM_MIGRATIONS):
+            return handler_response(
+                header={"num_migrations": planner.get_num_migrations()})
+
+        if code == int(PlannerCalls.CHECK_MIGRATION):
+            decision = planner.check_migration(h["app_id"])
             if decision is None:
                 return handler_response(header={"found": False})
             return handler_response(header={"found": True,

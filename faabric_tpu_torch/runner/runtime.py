@@ -100,6 +100,9 @@ class WorkerRuntime:
         self.scheduler = Scheduler(self.host, self.planner_client)
         self.function_server = FunctionCallServer(self.scheduler)
         self.ptp_broker = PointToPointBroker(self.host)
+        # An abort that cannot cross a partitioned worker pair's link is
+        # relayed through the planner's own links
+        self.ptp_broker.planner_client = self.planner_client
         self.scheduler.ptp_broker = self.ptp_broker
         self.ptp_server = PointToPointServer(self.ptp_broker)
         # MPI worlds (the reference's MpiWorldRegistry singleton; one per

@@ -5,10 +5,10 @@ Counterpart of ``faabric_tpu/telemetry/perfprofile.py``. Telemetry
 produces raw signals — metrics, cross-host spans, the per-link
 comm matrix, the flight recorder — but every consumer that needed an
 *interpretation* re-derived it ad hoc: the wire-codec governor windowed
-the comm matrix for link bandwidth, and the upcoming schedule compiler
-(ROADMAP 5; GC3 arXiv:2201.11840 selects schedules from measured
-per-link profiles) has nothing to read at all. This module is the
-feedback store they share:
+the comm matrix for link bandwidth, and the schedule compiler (GC3
+arXiv:2201.11840 selects schedules from measured per-link profiles)
+had nothing to read at all. This module is the feedback store they
+share:
 
 - :class:`PerfProfileStore` — per-(dst-host, plane, codec, size-class)
   bandwidth/latency estimators (decayed streaming quantiles + EWMA,

@@ -1,11 +1,11 @@
 """Per-key state & snapshot access ledger + cluster state map
 (counterpart of ``faabric_tpu/telemetry/statestats.py``).
 
-ROADMAP item 2 rebuilds ``state/`` + ``snapshot/`` into a production
-sharded KV, but those packages were the last fully dark subsystems —
-the rebuild would start from folklore about hot keys, pull
-amplification and master skew. This module is the measurement layer it
-starts from instead, the same estimator shapes as the perf profile:
+``state/`` and ``snapshot/`` would otherwise be dark: without a
+ledger, any rework of them into a sharded KV would start from folklore
+about hot keys, pull amplification and master skew. This module is the
+measurement layer such work starts from, with the same estimator
+shapes as the perf profile:
 
 - :class:`StateStatsStore` — per-key ledger of every state op this
   process performed (get/set/get_chunk/set_chunk/pull/push_full/

@@ -42,8 +42,16 @@ merged trace draws send → recv arrows). RPC-plane sends are recorded in
 the comm matrix and the flight ring (the bulk client records its own);
 an abort is counted, flight-recorded and dumps the ring.
 
-Not ported: peer-liveness probes of watched groups and the abort relay
-through the planner (``ROADMAP.md`` Queue 1 #7 part C).
+Fault propagation (reference :228-364): an MPI world watches its group
+(``watch_group``). A blocked recv of a watched group wakes every
+``mpi_abort_check_seconds`` and probes its sender's host with one TCP
+dial; only a refused connection counts as death, and aborts the group.
+An abort made here goes to every other host of the group's mappings
+and, through ``planner_client``, to the planner, which relays it to
+the same hosts over its own links: a partition of the pair's link
+cannot swallow it. ``post_migration_hook`` re-syncs a migrated group
+with a barrier on its new id, and ``update_host_for_idx`` remaps one
+rank.
 """
 
 from __future__ import annotations
@@ -79,6 +87,10 @@ NO_SEQUENCE_NUM = -1
 
 DATA_CHANNEL = 0
 COORD_CHANNEL = 1
+
+# Seconds a peer-liveness dial may take before the peer counts as slow
+# (alive), not dead
+PEER_PROBE_TIMEOUT = 0.5
 
 _GROUP_ABORTS = get_metrics().counter(
     "faabric_ptp_group_aborts_total",
@@ -155,7 +167,14 @@ class PointToPointBroker:
         self._bulk_down_until: dict[str, float] = {}
         # host → whether it is this machine with shm rings usable
         self._shm_peers: dict[str, bool] = {}
+        # Groups whose blocked recvs probe their sender's host, group →
+        # abort reason, and host → until when its last probe holds
+        self._watched: set[int] = set()
         self._aborted: dict[int, str] = {}
+        self._peer_ok_until: dict[str, float] = {}
+        # Set by the worker runtime: an abort made here is relayed by the
+        # planner to the hosts a partition may keep it from
+        self.planner_client = None
 
     # ------------------------------------------------------------------
     # Mappings
@@ -220,6 +239,11 @@ class PointToPointBroker:
         with self._lock:
             return {idx for idx, m in self._mappings.get(group_id, {}).items()
                     if m.host == host}
+
+    def update_host_for_idx(self, group_id: int, idx: int, host: str) -> None:
+        """Remap one rank after a migration (reference updateHostForIdx)."""
+        with self._lock:
+            self._mappings[group_id][idx].host = host
 
     def group_size(self, group_id: int) -> int:
         with self._lock:
@@ -385,12 +409,17 @@ class PointToPointBroker:
     def _take(self, key: tuple[int, int, int, int],
               timeout: float | None):
         """The next payload off ``key``'s queue; None when ``timeout``
-        is 0 and the queue is empty."""
+        is 0 and the queue is empty. A watched group's wait is cut into
+        slices of ``mpi_abort_check_seconds``, each ending in a probe of
+        the sender's host."""
+        q = self._queue(key)
         try:
             if timeout == 0:
-                data = self._queue(key).get_nowait()
+                data = q.get_nowait()
+            elif not self._is_watched(key[0]):
+                data = q.get(timeout=timeout)
             else:
-                data = self._queue(key).get(timeout=timeout)
+                data = self._take_watched(key, q, timeout)
         except queue.Empty as e:
             if timeout == 0:
                 return None
@@ -398,6 +427,20 @@ class PointToPointBroker:
         if data is _ABORT:
             raise GroupAbortedError(key[0], self.group_aborted(key[0]) or "")
         return data
+
+    def _take_watched(self, key: tuple[int, int, int, int],
+                      q: queue.SimpleQueue, timeout: float):
+        check = get_system_config().mpi_abort_check_seconds
+        deadline = time.monotonic() + timeout
+        while True:
+            remaining = max(0.0, deadline - time.monotonic())
+            try:
+                return q.get(timeout=min(remaining, check))
+            except queue.Empty:
+                self._probe_sender(key)  # may abort and raise
+                self._raise_if_aborted(key[0])
+                if time.monotonic() >= deadline:
+                    raise
 
     def probe_message(self, group_id: int, send_idx: int, recv_idx: int,
                       timeout: float | None = None,
@@ -485,14 +528,30 @@ class PointToPointBroker:
     # ------------------------------------------------------------------
     # Abort
     # ------------------------------------------------------------------
-    def abort_group(self, group_id: int, reason: str) -> None:
+    def watch_group(self, group_id: int) -> None:
+        """Arm peer-liveness probes for a group's blocked recvs (an MPI
+        world watches its own)."""
+        with self._lock:
+            self._watched.add(group_id)
+
+    def _is_watched(self, group_id: int) -> bool:
+        return group_id in self._watched  # unlocked per-recv read
+
+    def abort_group(self, group_id: int, reason: str,
+                    propagate: bool = True) -> None:
         """Mark a group aborted and wake every blocked consumer; later
-        recvs fail at entry. Idempotent."""
+        recvs fail at entry. Idempotent. With ``propagate`` (an abort
+        made on this host) it goes to every other host of the group's
+        mappings, directly and through the planner's relay."""
         with self._lock:
             if group_id in self._aborted:
                 return
             self._aborted[group_id] = reason
             queues = [q for k, q in self._queues.items() if k[0] == group_id]
+            peer_hosts = ({m.host for m in
+                           self._mappings.get(group_id, {}).values()
+                           if m.host != self.host}
+                          if propagate else set())
         _GROUP_ABORTS.inc()
         logger.warning("Aborting group %d on %s: %s", group_id, self.host,
                        reason)
@@ -503,6 +562,23 @@ class PointToPointBroker:
         flight_dump("mpi_world_aborted")
         for q in queues:
             q.put(_ABORT)
+        for host in sorted(peer_hosts):
+            try:
+                self._get_client(host).abort_group(group_id, reason)
+            except Exception:  # noqa: BLE001 — the relay below covers it
+                logger.debug("Could not send the abort of group %d to %s",
+                             group_id, host)
+        if peer_hosts and self.planner_client is not None:
+            # Relayed for every peer, not only those whose send raised:
+            # an async write onto a dead link's warm connection lands in
+            # the kernel's buffer and raises nothing. A second abort is
+            # a no-op
+            try:
+                self.planner_client.relay_group_abort(
+                    group_id, reason, sorted(peer_hosts))
+            except Exception:  # noqa: BLE001 — expiry and probes remain
+                logger.debug("Abort relay of group %d through the planner "
+                             "failed", group_id, exc_info=True)
 
     def group_aborted(self, group_id: int) -> str | None:
         with self._lock:
@@ -512,6 +588,50 @@ class PointToPointBroker:
         reason = self.group_aborted(group_id)
         if reason is not None:
             raise GroupAbortedError(group_id, reason)
+
+    def _probe_sender(self, key: tuple[int, int, int, int]) -> None:
+        """Abort the group if the expected sender's host refuses
+        connections: its process is gone."""
+        group_id, send_idx = key[0], key[1]
+        with self._lock:
+            m = self._mappings.get(group_id, {}).get(send_idx)
+        host = m.host if m is not None else ""
+        if not host or host == self.host:
+            return
+        if not self._peer_alive(host):
+            reason = f"peer host {host} is unreachable (connection refused)"
+            self.abort_group(group_id, reason)
+            raise GroupAbortedError(group_id, reason)
+
+    def _peer_alive(self, host: str) -> bool:
+        """One bounded dial of the peer's point-to-point port. Only a
+        refused connection is death: a slow or unroutable peer keeps the
+        recv waiting for its own timeout. A success holds for one check
+        interval, so a stalled collective dials each host once an
+        interval."""
+        if is_mock_mode():
+            return True
+        now = time.monotonic()
+        with self._lock:
+            if now < self._peer_ok_until.get(host, 0.0):
+                return True
+        from faabric_tpu_torch.transport.common import (
+            POINT_TO_POINT_SYNC_PORT,
+            resolve_host,
+        )
+        from faabric_tpu_torch.util.network import safe_create_connection
+
+        try:
+            safe_create_connection(resolve_host(host, POINT_TO_POINT_SYNC_PORT),
+                                   timeout=PEER_PROBE_TIMEOUT).close()
+        except ConnectionRefusedError:
+            return False
+        except OSError:
+            return True
+        with self._lock:
+            self._peer_ok_until[host] = (
+                now + get_system_config().mpi_abort_check_seconds)
+        return True
 
     # ------------------------------------------------------------------
     # Groups
@@ -535,17 +655,26 @@ class PointToPointBroker:
             self._groups.pop(group_id, None)
             self._mappings.pop(group_id, None)
             self._flags.pop(group_id, None)
+            self._watched.discard(group_id)
             self._aborted.pop(group_id, None)
             for d in (self._queues, self._sent_seq, self._recv_seq,
                       self._early, self._peeked):
                 for key in [k for k in d if k[0] == group_id]:
                     del d[key]
 
+    def post_migration_hook(self, group_id: int, group_idx: int) -> None:
+        """Re-sync a migrated group: every member barriers on the new
+        group id, so that no rank runs ahead on stale mappings
+        (reference postMigrationHook)."""
+        self.wait_for_mappings(group_id)
+        self.get_group(group_id).barrier(group_idx)
+
     def clear(self) -> None:
         with self._lock:
             for d in (self._groups, self._mappings, self._flags,
                       self._queues, self._sent_seq, self._recv_seq,
-                      self._early, self._peeked, self._aborted):
+                      self._early, self._peeked, self._watched,
+                      self._aborted, self._peer_ok_until):
                 d.clear()
             clients = (list(self._clients.values())
                        + list(self._bulk_clients.values()))

@@ -3,8 +3,8 @@
 Counterpart of ``faabric_tpu/transport/ptp_remote.py`` (:94-264): the
 server delivers arriving messages into its host's broker in sequence
 order, runs lock and unlock requests for the groups whose main idx it
-holds, installs mappings and clears finished groups; the client sends
-them, and records them instead in mock mode. The planner pushes every
+holds, installs mappings, clears finished groups and aborts groups
+(``ABORT_GROUP``, :177-182, :254-260); the client sends them, and records them instead in mock mode. The planner pushes every
 decision's mappings through ``send_mappings_from_decision``.
 
 The server owns its host's ``BulkServer`` (``transport/bulk.py``) on
@@ -53,6 +53,7 @@ class PointToPointCall(enum.IntEnum):
     UNLOCK_GROUP_RECURSIVE = 5
     MAPPING = 6
     CLEAR_GROUP = 7
+    ABORT_GROUP = 8
 
 
 _LOCK_CALLS = {
@@ -179,6 +180,12 @@ class PointToPointClient(MessageEndpointClient):
         self.async_send(int(PointToPointCall.CLEAR_GROUP),
                         {"group_ids": list(group_ids)})
 
+    def abort_group(self, group_id: int, reason: str) -> None:
+        if is_mock_mode():
+            return
+        self.async_send(int(PointToPointCall.ABORT_GROUP),
+                        {"group_id": group_id, "reason": reason})
+
 
 class PointToPointServer(MessageEndpointServer):
     def __init__(self, broker: PointToPointBroker) -> None:
@@ -226,6 +233,12 @@ class PointToPointServer(MessageEndpointServer):
         elif code == PointToPointCall.CLEAR_GROUP:
             for gid in h["group_ids"]:
                 self.broker.clear_group(gid)
+        elif code == PointToPointCall.ABORT_GROUP:
+            # The originator told every member host itself: passing the
+            # abort on would only bounce it around the group
+            self.broker.abort_group(h["group_id"],
+                                    h.get("reason", "remote abort"),
+                                    propagate=False)
         else:
             raise ValueError(f"Unknown async PTP call {msg.code}")
 

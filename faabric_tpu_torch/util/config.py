@@ -67,6 +67,15 @@ class SystemConfig:
     # (workers re-register every half-timeout)
     planner_host: str = "localhost"
     planner_host_timeout: float = 30.0
+    # Recovery: each app's requeue budget when a host dies or a dispatch
+    # fails, and the base of the exponential requeue backoff
+    planner_max_requeues: int = 3
+    planner_requeue_backoff: float = 0.2
+
+    # While a recv of a watched (MPI) group blocks, the expected sender's
+    # host is probed every this many seconds; a refused connection aborts
+    # the world
+    mpi_abort_check_seconds: float = 2.0
 
     def reset(self) -> None:
         """Read every field from the environment again."""
@@ -94,6 +103,11 @@ class SystemConfig:
             "DIRTY_REGION_HINTS", "0") in ("1", "true", "on")
         self.planner_host = os.environ.get("PLANNER_HOST", "localhost")
         self.planner_host_timeout = _env_float("PLANNER_HOST_TIMEOUT", 30.0)
+        self.planner_max_requeues = _env_int("PLANNER_MAX_REQUEUES", 3)
+        self.planner_requeue_backoff = _env_float(
+            "PLANNER_REQUEUE_BACKOFF", 0.2)
+        self.mpi_abort_check_seconds = _env_float(
+            "MPI_ABORT_CHECK_SECONDS", 2.0)
 
     def get_usable_cores(self) -> int:
         if self.override_cpu_count > 0:

@@ -291,8 +291,11 @@ def test_get_available_hosts_and_removal(cluster):
 
 def test_host_expiry_fails_its_in_flight_messages():
     """A host that misses its keep-alives expires, and its in-flight
-    messages report FAILED so that waiters do not hang."""
+    messages report FAILED so that waiters do not hang: with no other
+    host to requeue them on, recovery spends its budget and fails
+    them."""
     set_mock_mode(True)
+    get_system_config().planner_requeue_backoff = 0.01
     planner = get_planner()
     planner.register_host("ghost", 4, 2)
     req = batch_exec_factory("demo", "echo", 2)
@@ -311,7 +314,7 @@ def test_host_expiry_fails_its_in_flight_messages():
     assert {m.return_value for m in status.message_results} == {
         int(ReturnValue.FAILED)}
     assert {m.output_data for m in status.message_results} == {
-        b"Host expired"}
+        b"Host expired (no requeue capacity)"}
 
 
 def test_planner_ping(cluster):

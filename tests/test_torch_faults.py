@@ -3,10 +3,10 @@
 Counterpart of ``tests/unit/test_faults.py``: the spec parser,
 deterministic firing, the ``RetryPolicy`` backoff schedule, the circuit
 breaker's transitions, the RPC client's fault point and breaker, and
-host-pair (partition) rules, on ``faabric_tpu_torch.faults``. Recovery
-requeues and abort relays are the reference's part C
-(``ROADMAP.md`` Queue 1 #7 part C) and have no case here; a planner
-that fails its messages when their host expires keeps its cases.
+host-pair (partition) rules, on ``faabric_tpu_torch.faults``. The
+recovery requeues and abort relays of the reference's file are held in
+``tests/test_torch_recovery.py``; the budget-exhaustion and
+first-write-wins cases stay here too.
 Cross-package: the same specs parse to equal rules and, under one seed,
 fire the identical sequence; ``FAABRIC_FAULTS`` is read at import, in a
 subprocess.

@@ -6,8 +6,8 @@ the process resource collector, the planner server's sampled gauges,
 and an end-to-end ledger across a port planner and ``WorkerRuntime``
 over real sockets. The doctor, timeline and flight-dump tools, the
 ingress queue stamp and the journal stamp belong to parts of the
-reference the port does not have yet (``ROADMAP.md`` Queue 1 #7 parts C
-and D); their cases are not here. Cross-package: the same stamp
+reference the port does not have yet (``ROADMAP.md`` Queue 1 #7 part D
+and #9 part C); their cases are not here. Cross-package: the same stamp
 ledgers give the reference's durations, folds and SLO verdicts.
 """
 

@@ -835,9 +835,11 @@ def test_threads_batch_under_a_short_switch_interval():
 
 def test_failed_snapshot_push_fails_that_hosts_messages():
     """hostB cannot take the main thread's snapshot (its SnapshotServer
-    is down): its threads report FAILED with the reason, hostA's run and
-    merge. The reference requeues them elsewhere instead (not ported)."""
+    is down): with no requeue budget its threads report FAILED with the
+    reason, hostA's run and merge. (With a budget they are requeued:
+    ``tests/test_torch_recovery.py``.)"""
     pk = PORT_PK
+    pk.config.get_system_config().planner_max_requeues = 0
     with Cluster(pk, free_base(), factory_of(pk, threads_executor(pk))) as c:
         c.workers["hostB"].snapshot_server.stop()
         w = c.workers["hostA"]
