@@ -76,7 +76,11 @@ there and taking rank 0's parameters; a spot-evicted serving guest parks
 its memory image on the planner and is thawed on the other host, its
 logits bitwise unchanged; a serving batch whose share on one host is
 stranded is requeued onto the other; an abort crosses hosts directly and
-through the planner's relay. For each path
+through the planner's relay. A serving batch outlives its planner: the
+planner runs as a child process over a write-ahead journal and is
+SIGKILLed while 4 of 8 requests are held in their guests; the held
+results wait on their workers and reach the restarted planner, which
+replays the journal, without any request running twice. For each path
 it checks the outputs and shows from the kernels' launch counts that
 the path ran through them; it times the kernels, their plain versions and the nearest
 PyTorch library calls, and prints one JSON line of kernel numbers (the
@@ -1691,23 +1695,33 @@ def guest_outputs(results, what: str) -> list[dict]:
     return [json.loads(m.output_data) for m in results]
 
 
-def start_cluster(hosts: dict, factory, base: int | None = None):
-    """A port planner and one started WorkerRuntime per ``hosts`` entry
-    (name → slots) on localhost aliases from port offset ``base`` (drawn
-    at random by default); returns (planner server, workers)."""
+def random_port_base() -> int:
+    """A port offset for a cluster's aliases: listener ports stay below
+    the client source ports (30500 up)."""
     import random
 
+    return random.randint(100, 190) * 100
+
+
+def start_cluster(hosts: dict, factory, base: int | None = None,
+                  planner: bool = True):
+    """A port planner and one started WorkerRuntime per ``hosts`` entry
+    (name → slots) on localhost aliases from port offset ``base`` (drawn
+    at random by default); returns (planner server, workers). With
+    ``planner=False`` the planner at ``base`` is another process's and
+    the planner server returned is None."""
     from faabric_tpu_torch.planner import PlannerServer, get_planner
     from faabric_tpu_torch.runner import WorkerRuntime
     from faabric_tpu_torch.transport import register_host_alias
 
     if base is None:
-        # Listener ports stay below the client source ports (30500 up)
-        base = random.randint(100, 190) * 100
+        base = random_port_base()
     register_host_alias("smoke-planner", "127.0.0.1", base)
-    get_planner().reset()
-    planner_server = PlannerServer(port_offset=base)
-    planner_server.start()
+    planner_server = None
+    if planner:
+        get_planner().reset()
+        planner_server = PlannerServer(port_offset=base)
+        planner_server.start()
     workers = []
     try:
         for i, (name, slots) in enumerate(hosts.items()):
@@ -1734,7 +1748,8 @@ def stop_cluster(planner_server, workers) -> None:
         for w in workers:
             w.shutdown()
     finally:
-        planner_server.stop()
+        if planner_server is not None:
+            planner_server.stop()
         get_planner().reset()
         clear_registered_functions()
         set_executor_factory(None)
@@ -4030,6 +4045,501 @@ def telemetry_phase(dev, build, cfg=None, seq: int = 512,
     return path
 
 
+def register_restart_guests(job: dict) -> None:
+    """Phase 25's torch guest. ``rst/serve`` scores its prompt and
+    generates ``job["n_new"]`` greedy tokens with ``job["model"]``; the
+    first ``job["hold"]`` requests to reach each host first record their
+    id and host in ``job["held"]`` and block until ``job["release"]`` is
+    set."""
+    from faabric_tpu_torch.executor import register_function
+    from faabric_tpu_torch.models import forward, generate
+
+    @register_function("rst", "serve")
+    def serve(ctx):
+        host = ctx.executor.scheduler.host
+        with job["lock"]:
+            hold = sum(h == host for h in job["held"].values()) < job["hold"]
+            if hold:
+                job["held"][ctx.message.id] = host
+                if len(job["held"]) == 2 * job["hold"]:
+                    job["all_held"].set()
+        if hold and not job["release"].wait(300):
+            raise RuntimeError("a held request was never released")
+        model = job["model"]
+        prompt = torch.frombuffer(bytearray(ctx.message.input_data),
+                                  dtype=torch.int32).to(ctx.device)[None]
+        with torch.inference_mode():
+            scores = forward(model, prompt)[0].argmax(-1).to(torch.int32)
+            tokens = generate(model, prompt, job["n_new"])[0]
+        return torch.cat([scores, tokens]).cpu().numpy().tobytes()
+
+
+def planner_child(argv: list[str]) -> int:
+    """``chip_smoke.py --planner-child <base> <host>=<offset> ...``: phase
+    25's planner, a process of its own. It serves a port planner at port
+    offset ``base``, reaching the named worker hosts at their offsets,
+    under the journal and timeout knobs of its environment; it prints one
+    JSON line once it serves (its boot id and journal replay stats), one
+    when the reconcile after a replay has run, and one when its standard
+    input closes, on which it stops the server (draining and closing the
+    journal) and exits."""
+    from faabric_tpu_torch.planner import PlannerServer, get_planner
+    from faabric_tpu_torch.transport import register_host_alias
+
+    base = int(argv[0])
+    for spec in argv[1:]:
+        host, offset = spec.split("=")
+        register_host_alias(host, "127.0.0.1", int(offset))
+    planner = get_planner()
+    server = PlannerServer(port_offset=base)
+    server.start()
+    print(json.dumps({"ready": True, "boot": planner.boot_id,
+                      "journal": planner._journal.enabled,
+                      "replay": planner._journal_replay_stats}), flush=True)
+    closed = threading.Event()
+    threading.Thread(target=lambda: (sys.stdin.read(), closed.set()),
+                     name="planner-child/stdin", daemon=True).start()
+    reported = False
+    while not closed.wait(0.05):
+        if not reported and planner._reconcile_stats is not None:
+            print(json.dumps({"reconcile": planner._reconcile_stats}),
+                  flush=True)
+            reported = True
+    server.stop()
+    print(json.dumps({"stopped": True}), flush=True)
+    return 0
+
+
+class PlannerChild:
+    """A ``--planner-child`` process: started with ``env`` added to this
+    process's environment, its standard error in ``log_path``, and its
+    JSON lines read by a thread of this process."""
+
+    def __init__(self, base: int, hosts: dict, env: dict, log_path: str):
+        import queue
+
+        self.lines: queue.Queue = queue.Queue()
+        self._log = open(log_path, "ab")
+        full_env = {k: v for k, v in os.environ.items()
+                    if k not in env or env[k] is not None}
+        full_env.update({k: v for k, v in env.items() if v is not None})
+        self.t_spawn = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--planner-child",
+             str(base), *(f"{h}={o}" for h, o in hosts.items())],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self._log,
+            env=full_env, cwd=os.path.dirname(os.path.abspath(__file__)))
+        threading.Thread(target=self._read, name="planner-child/out",
+                         daemon=True).start()
+        self.ready = self.expect("ready", 180)
+        self.ready_s = time.perf_counter() - self.t_spawn
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            try:
+                self.lines.put(json.loads(line))
+            except ValueError:
+                continue
+        self.lines.put(None)
+
+    def expect(self, key: str, timeout: float) -> dict:
+        """The next JSON line that holds ``key``; fails after ``timeout``
+        seconds or when the child's output ends first."""
+        import queue
+
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                got = self.lines.get(timeout=max(0.0, deadline
+                                                 - time.monotonic()))
+            except queue.Empty:
+                got = None
+            if got is None:
+                check(False, f"25: the planner child printed no {key!r} line "
+                      f"(exit code {self.proc.poll()})")
+            if key in got:
+                return got
+
+    def stop(self) -> None:
+        """Close its standard input and wait for a clean exit."""
+        self.proc.stdin.close()
+        self.expect("stopped", 60)
+        check(self.proc.wait(60) == 0, "25: the planner child exited 0")
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(60)
+        self._log.close()
+
+
+def wait_ports_free(base: int, timeout: float = 30.0) -> None:
+    """Wait until the planner's and its snapshot server's ports at offset
+    ``base`` bind again, as the servers bind them."""
+    import socket
+
+    from faabric_tpu_torch.transport.common import (
+        PLANNER_ASYNC_PORT,
+        PLANNER_SYNC_PORT,
+        SNAPSHOT_ASYNC_PORT,
+        SNAPSHOT_SYNC_PORT,
+    )
+
+    deadline = time.monotonic() + timeout
+    for port in (PLANNER_ASYNC_PORT, PLANNER_SYNC_PORT, SNAPSHOT_ASYNC_PORT,
+                 SNAPSHOT_SYNC_PORT):
+        while True:
+            s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            try:
+                s.bind(("0.0.0.0", base + port))
+                break
+            except OSError:
+                check(time.monotonic() < deadline,
+                      f"25: port {base + port} is free again")
+                time.sleep(0.05)
+            finally:
+                s.close()
+
+
+def restart_phase(dev, build, cfg=None, serve_len: int = 512,
+                  n_new: int = 32, base: int | None = None,
+                  host_timeout: float = 3.0, grace: float = 5.0) -> dict:
+    """Phase 25: a serving batch that outlives a SIGKILLed planner, at
+    the flagship's full width (``ModelConfig()``, bf16 compute, seeded
+    weights). The planner is a child process of this script
+    (``--planner-child``) with its write-ahead journal under ``build/``,
+    a ``host_timeout`` s host timeout and a ``grace`` s reconcile grace;
+    two WorkerRuntimes of 4 slots run here on loopback aliases. Their
+    planner clients' breakers reset after 1 s instead of 5 s, as the
+    grace is 5 s instead of the default 30 s: a breaker still open at
+    the grace's end would let the reconcile requeue live hosts' rows.
+
+    (a) 8 requests of phase 13 (``serve_len``-token prompts, ``n_new``
+    greedy tokens); the first 2 to reach each host block in the guest
+    until the phase releases them, and one waiter thread blocks in
+    ``get_message_result`` for each request. Once the planner has
+    recorded the 4 free results, it is SIGKILLed; the held guests are
+    released and their results, which cannot reach the planner, wait on
+    their workers (buffered, or in the recent window when a write went
+    into the dead connection); the planner restarts on the same port
+    offset and journal. Checked: every waiter returns; all 8 results
+    SUCCESS with the tokens of direct ``forward`` and ``generate``; the
+    results recorded before the kill kept; the replay finds 1 in-flight
+    app; both workers register again and the reconcile requeues
+    nothing; the held results arrive through ``FLUSH_RESULTS`` (each
+    worker's pending queue drained, a ``results_flushed`` flight record
+    each host); the launches are one batch's, so no request ran twice.
+    The port's ``journaldump --verify`` of the journal exits 0. (b) The
+    same batch with no crash, with the journal on and then off: the two
+    walls, with nothing checked about speed. Returns the phase's kernel
+    launches."""
+    import shutil
+
+    from faabric_tpu_torch.executor import TorchExecutorFactory
+    from faabric_tpu_torch.models import (
+        ModelConfig,
+        Transformer,
+        forward,
+        generate,
+    )
+    from faabric_tpu_torch.planner.journal import (
+        JOURNAL_FILE,
+        SNAPSHOT_FILE,
+        load_journal_dir,
+    )
+    from faabric_tpu_torch.proto import ReturnValue, batch_exec_factory
+    from faabric_tpu_torch.telemetry import get_flight, get_metrics
+
+    log("phase 25: a serving batch that outlives a SIGKILLed planner")
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    if on_card:
+        log("  25 card: " + subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip())
+    cfg = cfg or ModelConfig()
+    L, n_req = cfg.n_layers, 8
+    model = Transformer(cfg, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    prompts = np.random.RandomState(25).randint(
+        0, cfg.vocab_size, (n_req, serve_len)).astype(np.int32)
+    direct = []
+    with torch.inference_mode():
+        for p in prompts:
+            prompt = torch.as_tensor(p, device=dev)[None]
+            scores = forward(model, prompt)[0].argmax(-1)
+            tokens = generate(model, prompt, n_new)[0]
+            direct.append(torch.cat([scores.to(torch.int32),
+                                     tokens]).cpu().numpy())
+    job = {"model": model, "n_new": n_new, "lock": threading.Lock(),
+           "held": {}, "hold": 2, "all_held": threading.Event(),
+           "release": threading.Event()}
+    register_restart_guests(job)
+    want = {"flash_attention": n_req * L,
+            "rms_norm": n_req * (2 * L + 1) * (1 + n_new)}
+    launches: dict = {}
+
+    def counted(fn):
+        if on_card:
+            torch.cuda.synchronize()
+        before = dict(build.LAUNCHES)
+        out = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        got = {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items()
+               if v != before.get(k, 0)}
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return out, got
+
+    def metric(name):
+        fam = get_metrics().snapshot().get(name, {})
+        return sum(r["value"] for r in fam.get("series", []))
+
+    def new_request():
+        req = batch_exec_factory("rst", "serve", n_req)
+        for m, p in zip(req.messages, prompts):
+            m.input_data = p.tobytes()
+        return req
+
+    def check_outputs(results, what):
+        check(all(r.return_value == int(ReturnValue.SUCCESS)
+                  and np.array_equal(np.frombuffer(r.output_data, np.int32),
+                                     d)
+                  for r, d in zip(results, direct)),
+              f"{what}: all 8 results SUCCESS, tokens equal to direct "
+              "forward and generate")
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase25-", dir=os.path.join(here,
+                                                                "build"))
+    journal_dir = os.path.join(work, "journal")
+    base = random_port_base() if base is None else base
+    hosts = {"rst-host-a": 4, "rst-host-b": 4}
+    offsets = {h: base + 1000 * (i + 1) for i, h in enumerate(hosts)}
+    knobs = {"FAABRIC_PLANNER_JOURNAL_DIR": journal_dir,
+             "PLANNER_HOST_TIMEOUT": str(host_timeout),
+             "FAABRIC_PLANNER_RECONCILE_GRACE": str(grace)}
+    children: list = []
+
+    def child(**env):
+        c = PlannerChild(base, offsets, {**knobs, **env},
+                         os.path.join(work, f"planner-{len(children)}.log"))
+        children.append(c)
+        return c
+
+    def rejoined(workers, planner, timeout=60.0):
+        """Each host's seconds from ``planner``'s spawn to its client
+        seeing the planner's boot id."""
+        boot = planner.ready["boot"]
+        times = {}
+        deadline = time.monotonic() + timeout
+        while len(times) < len(workers) and time.monotonic() < deadline:
+            for w in workers:
+                if w.host not in times and w.planner_client._planner_boot \
+                        == boot:
+                    times[w.host] = time.perf_counter() - planner.t_spawn
+            time.sleep(0.01)
+        check(len(times) == len(workers), f"25: hosts {sorted(times)} of "
+              f"{sorted(hosts)} registered with the planner {boot[:8]}")
+        return times
+
+    def serve_batch(client):
+        t0 = time.perf_counter()
+        req = new_request()
+        client.call_functions(req)
+        results = [client.get_message_result(req.app_id, m.id, timeout=300)
+                   for m in req.messages]
+        return results, (time.perf_counter() - t0) * 1e3
+
+    saved_reset = os.environ.get("TRANSPORT_BREAKER_RESET")
+    workers: list = []
+    try:
+        first = child()
+        check(first.ready["journal"] and first.ready["replay"] is None,
+              "25: the planner child serves with its journal on and "
+              "nothing to replay")
+        os.environ["TRANSPORT_BREAKER_RESET"] = "1.0"
+        try:
+            _, workers = start_cluster(
+                hosts, TorchExecutorFactory(device=dev.type), base,
+                planner=False)
+        finally:
+            if saved_reset is None:
+                os.environ.pop("TRANSPORT_BREAKER_RESET", None)
+            else:
+                os.environ["TRANSPORT_BREAKER_RESET"] = saved_reset
+        client = workers[0].planner_client
+        clients = [w.planner_client for w in workers]
+
+        # -- (a) the crash and the restart ------------------------------
+        buffered0 = metric("faabric_planner_client_buffered_results_total")
+        flushed0 = metric("faabric_planner_client_flushed_results_total")
+        t_wall0 = time.time()
+        req = new_request()
+        done: dict = {}
+
+        def wait_one(m):
+            done[m.id] = (client.get_message_result(req.app_id, m.id,
+                                                    timeout=300),
+                          time.perf_counter())
+
+        def crash_and_restart():
+            decision = client.call_functions(req)
+            waiters = [threading.Thread(target=wait_one, args=(m,),
+                                        name=f"phase25/wait@{m.id}",
+                                        daemon=True) for m in req.messages]
+            for t in waiters:
+                t.start()
+            check(job["all_held"].wait(300), "25a: 4 requests are held "
+                  "in their guests")
+            deadline = time.monotonic() + 300
+            pre = []
+            while time.monotonic() < deadline:
+                pre = client.get_batch_results(req.app_id).message_results
+                if len(pre) >= n_req - len(job["held"]):
+                    break
+                time.sleep(0.02)
+            check(len(pre) == n_req - len(job["held"]),
+                  f"25a: the planner recorded {len(pre)} free results")
+            # Every waiter asked the planner before the kill (a sync
+            # call queues behind their asks on the client's sync lock)
+            while time.monotonic() < deadline and any(
+                    m.id not in client._result_interest
+                    and m.id not in done for m in req.messages):
+                time.sleep(0.01)
+            client.ping()
+            first.proc.kill()
+            first.proc.wait(60)
+            t_kill = time.perf_counter()
+            job["release"].set()
+            # The held results wait on their workers before the restart:
+            # buffered, or in the recent window (a write that went into
+            # the dead connection)
+            held = set(job["held"])
+
+            def parked():
+                ids = set()
+                for c in clients:
+                    with c._pending_lock:
+                        ids |= {m.id for m in c._pending_results}
+                        ids |= {m.id for _, m in c._recent_results}
+                return ids
+
+            while time.monotonic() < deadline and not held <= parked():
+                time.sleep(0.01)
+            check(held <= parked(), "25a: the 4 held results wait on "
+                  "their workers while the planner is down")
+            pending = {w.host: len(w.planner_client._pending_results)
+                       for w in workers}
+            wait_ports_free(base)
+            second = child()
+            rejoin = rejoined(workers, second)
+            for t in waiters:
+                t.join(300)
+            check(not any(t.is_alive() for t in waiters)
+                  and len(done) == n_req, f"25a: {len(done)} of the "
+                  f"{n_req} waiters returned")
+            return (decision, pre, t_kill, pending, second, rejoin)
+
+        (decision, pre, t_kill, pending, second, rejoin), got = counted(
+            crash_and_restart)
+        results = [done[m.id][0] for m in req.messages]
+        check_outputs(results, "25a")
+        kill_to_last = max(t for _, t in done.values()) - t_kill
+        host_of = dict(zip(decision.message_ids, decision.hosts))
+        check({host_of[mid] for mid in job["held"]} == set(hosts),
+              f"25a: the held requests {sorted(job['held'].values())} lie "
+              "on both hosts by the decision")
+        post = client.get_batch_results(req.app_id)
+        check(post.finished and len(post.message_results) == n_req,
+              "25a: the restarted planner holds all 8 results")
+        after = {m.id: m.output_data for m in post.message_results}
+        check(all(after.get(m.id) == m.output_data for m in pre),
+              "25a: the results recorded before the kill are kept")
+        replay = second.ready["replay"]
+        check(replay is not None and replay["inFlightApps"] == 1,
+              f"25a: the replay found {replay and replay['inFlightApps']} "
+              "in-flight app(s), 1 expected")
+        reconcile = second.expect("reconcile", grace + 60)["reconcile"]
+        check(reconcile["requeuedMessages"] == 0
+              and not reconcile["missingHosts"],
+              f"25a: the reconcile requeued {reconcile['requeuedMessages']}"
+              f" messages, missing {reconcile['missingHosts']}")
+        check(all(len(c._pending_results) == 0 for c in clients),
+              "25a: each worker's pending queue drained")
+        flushed_hosts = {e.get("host") for e in get_flight().events()
+                         if e["kind"] == "results_flushed"
+                         and e["ts"] >= t_wall0}
+        check(flushed_hosts >= set(hosts), f"25a: results_flushed flight "
+              f"records of {sorted(flushed_hosts)}")
+        buffered = (metric("faabric_planner_client_buffered_results_total")
+                    - buffered0)
+        flushed = (metric("faabric_planner_client_flushed_results_total")
+                   - flushed0)
+        check(flushed >= len(job["held"]), f"25a: {flushed} results came "
+              f"through FLUSH_RESULTS, the {len(job['held'])} held among "
+              "them")
+        if on_card:
+            for k, v in want.items():
+                check(got.get(k, 0) == v, f"25a: {k} launched "
+                      f"{got.get(k, 0)} times, one batch's {v} expected")
+            check(got.get("flash_attention.wgmma", 0)
+                  == got["flash_attention"],
+                  "25a: every flash forward took the wgmma body")
+
+        # -- (b) the journal's cost: a batch with no crash, on and off ---
+        job["hold"] = 0
+        rejoined(workers, second)
+        (results_on, wall_on), _ = counted(lambda: serve_batch(client))
+        check_outputs(results_on, "25b (journal on)")
+        second.stop()
+        dump = subprocess.run(
+            [sys.executable, "-m", "faabric_tpu_torch.runner.journaldump",
+             journal_dir, "--verify"], capture_output=True, text=True,
+            timeout=120, cwd=here)
+        check(dump.returncode == 0, f"25a: journaldump --verify exits "
+              f"{dump.returncode} ({dump.stderr[-500:]})")
+        snap, records, meta = load_journal_dir(journal_dir)
+        jbytes = os.path.getsize(os.path.join(journal_dir, JOURNAL_FILE))
+        sbytes = os.path.getsize(os.path.join(journal_dir, SNAPSHOT_FILE))
+        wait_ports_free(base)
+        third = child(FAABRIC_PLANNER_JOURNAL_DIR=None)
+        check(not third.ready["journal"], "25b: the third planner child "
+              "runs without a journal")
+        rejoined(workers, third)
+        (results_off, wall_off), _ = counted(lambda: serve_batch(client))
+        check_outputs(results_off, "25b (journal off)")
+        log(f"  25a replay {replay['seconds']} s ({replay['records']} "
+            f"records, snapshot {replay['snapshot']}, "
+            f"{replay['inFlightMessages']} in-flight messages, "
+            f"{replay['results']} results); kill to last result "
+            f"{kill_to_last:.3f} s; restart (spawn) to serving "
+            f"{second.ready_s:.3f} s, to rejoin by host (s): "
+            + ", ".join(f"{h} {t:.3f}" for h, t in sorted(rejoin.items()))
+            + f"; pending at restart {pending}; buffered {buffered:g}, "
+            f"flushed {flushed:g}; reconcile {reconcile}; launches {got}")
+        log(f"  25a journal at the end: {jbytes} bytes and {len(records)} "
+            f"records in {JOURNAL_FILE}, {sbytes} bytes in {SNAPSHOT_FILE} "
+            f"folding {meta.get('records_folded')} records")
+        log(f"  25b batch of 8 wall: journal on {wall_on:.1f} ms, journal "
+            f"off {wall_off:.1f} ms")
+    finally:
+        job["release"].set()
+        try:
+            stop_cluster(None, workers)
+        finally:
+            for c in children:
+                c.kill()
+            shutil.rmtree(work, ignore_errors=True)
+    log(f"  phase 25 launches: {launches}")
+    log(f"  phase 25 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 SPOT_HEADER = 4096   # the spot guest's marker page ahead of its weights
 SPOT_MARKER = 4242
 
@@ -4722,6 +5232,12 @@ def migration_phase(dev, build, cfg=None, per_rank: int = 2,
 
 
 def main() -> int:
+    here = os.path.dirname(os.path.abspath(__file__))
+    if (sys.argv[1:2] == ["--planner-child"]
+            and os.path.isdir(os.path.join(here, "faabric_tpu_torch"))):
+        # Phase 25's planner process: host code, which needs no card
+        sys.path.insert(0, here)
+        return planner_child(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
@@ -5353,20 +5869,24 @@ def main() -> int:
     telemetry_launches = telemetry_phase(dev, _build)
     # -- 24. migration, spot freeze and thaw, recovery, aborts -----------
     migration_launches = migration_phase(dev, _build)
+    # -- 25. a serving batch that outlives a SIGKILLed planner -----------
+    restart_launches = restart_phase(dev, _build)
     # Each row's launches: the serving kernels' on the direct serving
     # path (phase 5) and under the executors (13), the backward kernels'
     # on the training path (9), the ring kernel's on the MPI path (12),
     # and every launch of the mesh (14), pipeline (15), MoE (16), guest
     # data-parallel (17), sharded decode and perplexity (18), state (19),
     # snapshot (20), THREADS and chaining (21), data-plane (22),
-    # telemetry (23) and migration, spot and recovery (24) paths
+    # telemetry (23), migration, spot and recovery (24) and planner
+    # restart (25) paths
     path_launches = {
         name: sum(p.get(name, 0) for p in paths) + sum(
             p.get(name, 0) for p in (mesh_launches, pp_launches, moe_launches,
                                      guest_launches, serving_mesh_launches,
                                      state_launches, snapshot_launches,
                                      threads_launches, planes_launches,
-                                     telemetry_launches, migration_launches))
+                                     telemetry_launches, migration_launches,
+                                     restart_launches))
         for name, paths in (
             ("rms_norm", (launches, faabric_launches)),
             ("flash_attention", (launches, faabric_launches)),

@@ -24,9 +24,26 @@ ledger.
 migration path; ``relay_group_abort`` hands the planner a group abort
 for the hosts this one could not reach (reference :770-793).
 
-Not ported (``ROADMAP.md`` Queue 1 #9 part D): buffering results while
-the planner is down, coalesced result pushes and the high-rate
-submission path.
+The result plane (reference :86-146, :173-750): result pushes coalesce,
+so that one ``msgs`` frame carries whatever landed while a push was in
+flight; a push the planner cannot take buffers locally (bounded by
+count and bytes, oldest dropped) and drains through the confirmed
+``FLUSH_RESULTS`` call; results pushed in the last 60 s are kept and
+re-delivered when the planner may have lost them (a push that needed a
+reconnect, a changed ``boot`` id, a ``known: false`` rejoin, the end of
+an outage), the planner's first-write-wins dropping the ones that had
+landed. The keep-alive never raises: it flushes, and after any of those
+restart signals re-registers this host's interest in every result it
+waits on, since a restarted planner replays results but not its waiter
+map. A blocked ``get_message_result`` nudges the keep-alive to re-poll
+its own id every half host timeout at first, doubling up to 240 s (a
+push lost on a dead pooled connection fires no restart signal); a
+client with no keep-alive thread gets no lost-push recovery. Waiters of
+one id share its event and are counted, so that only the last to leave
+unregisters it.
+
+Not ported (``ROADMAP.md`` Queue 1 step 5, with the ingress):
+``submit_functions`` and ``submit_functions_many``.
 """
 
 from __future__ import annotations
@@ -49,7 +66,11 @@ from faabric_tpu_torch.proto import (
     messages_to_wire,
 )
 from faabric_tpu_torch.snapshot.remote import SnapshotClient
-from faabric_tpu_torch.telemetry import flight_record, get_lifecycle
+from faabric_tpu_torch.telemetry import (
+    flight_record,
+    get_lifecycle,
+    get_metrics,
+)
 from faabric_tpu_torch.telemetry.lifecycle import (
     PHASE_RESULT_PUSH,
     PHASE_WAITER_WAKE,
@@ -70,6 +91,17 @@ _FAULTS = faults_enabled()
 _FP_KEEPALIVE = fault_point("keepalive")
 
 _LC = get_lifecycle()
+
+_metrics = get_metrics()
+_BUFFERED_RESULTS = _metrics.counter(
+    "faabric_planner_client_buffered_results_total",
+    "Results queued locally because the planner was unreachable")
+_FLUSHED_RESULTS = _metrics.counter(
+    "faabric_planner_client_flushed_results_total",
+    "Buffered results delivered to the planner after reconnect")
+_DROPPED_RESULTS = _metrics.counter(
+    "faabric_planner_client_dropped_results_total",
+    "Buffered results dropped because the outage queue overflowed")
 
 # ---------------------------------------------------------------------------
 # Mock recording
@@ -111,22 +143,37 @@ class KeepAliveThread(PeriodicBackgroundThread):
             # An injected keep-alive loss: the planner expires this live
             # host
             return
+        client = self.client
         try:
-            self.client.register_host(self.slots, self.n_devices,
-                                      rejoin=True)
+            client.register_host(self.slots, self.n_devices, rejoin=True)
         except RpcError as e:
-            # The interval paces the retries; the breaker makes a failed
-            # tick instant while it is open
-            if not self.client.planner_down:
-                logger.warning("Keep-alive of %s failed: %s",
-                               self.client.this_host, e)
-                flight_record("planner_unreachable",
-                              host=self.client.this_host)
-            self.client.planner_down = True
+            # Never raise out of the keep-alive and never spin: the
+            # interval paces the retries and the breaker makes a failed
+            # tick instant while it is open. One log an outage
+            if not client.planner_down:
+                logger.warning("Planner unreachable from %s (%s); the "
+                               "keep-alive retries and results buffer "
+                               "locally", client.this_host, e)
+                flight_record("planner_unreachable", host=client.this_host)
+            client.planner_down = True
             return
-        if self.client.planner_down:
-            self.client.planner_down = False
-            flight_record("planner_reconnected", host=self.client.this_host)
+        if client.planner_down:
+            client.planner_down = False
+            logger.warning("Planner reachable again from %s; draining "
+                           "buffered results", client.this_host)
+            flight_record("planner_reconnected", host=client.this_host)
+            # A result pushed just before the outage may have died in
+            # the old connection's kernel buffer: re-deliver the recent
+            # window (first write wins at the planner), and resync once,
+            # since the planner behind the outage may be a restarted one
+            client.requeue_recent_results()
+            client._resync_all = True
+        # The flush is a no-op check while nothing is pending; the resync
+        # (one sync RPC per covered wait) runs only while a restart
+        # signal or a waiter's nudge is live
+        client.flush_pending_results()
+        if client._resync_all or client._resync_nudged:
+            client.resync_result_interest()
 
 
 class PlannerClient(MessageEndpointClient):
@@ -134,6 +181,12 @@ class PlannerClient(MessageEndpointClient):
 
     # Results kept locally for repeated reads, oldest dropped first
     MAX_CACHED_RESULTS = 10_000
+    # Both outage buffers are bounded by count and by payload bytes
+    MAX_PENDING_RESULTS = 10_000
+    MAX_PENDING_BYTES = 256 << 20
+    MAX_RECENT_RESULTS = 512
+    MAX_RECENT_BYTES = 64 << 20
+    RECENT_RESULT_WINDOW = 60.0
 
     def __init__(self, this_host: str = "",
                  planner_host: str | None = None) -> None:
@@ -149,6 +202,30 @@ class PlannerClient(MessageEndpointClient):
         self._local_results: dict[int, Message] = {}
         self._local_results_order: list[int] = []
         self._result_events: dict[int, threading.Event] = {}
+        # msg_id → threads blocked on its shared event: the registration
+        # unwinds only when the last of them leaves
+        self._result_waiters: dict[int, int] = {}
+        # msg_id → app_id of every outstanding wait, re-registered with a
+        # restarted planner (resync_result_interest)
+        self._result_interest: dict[int, int] = {}
+        # The outage buffers, under _pending_lock: results the planner
+        # could not take (drained by FLUSH_RESULTS), results queued
+        # behind a push in flight (they ride the next frame), and results
+        # pushed recently (re-delivered when the planner may have lost
+        # them)
+        self._pending_lock = threading.Lock()
+        self._pending_results: list[Message] = []
+        self._pending_bytes = 0
+        self._out_results: list[Message] = []
+        self._out_sending = False
+        self._recent_results: list[tuple[float, Message]] = []
+        self._recent_bytes = 0
+        # The planner's boot id last seen, and what the next resync
+        # round owes: every wait after a restart signal, else only the
+        # ids that blocked waiters nudged
+        self._planner_boot: str | None = None
+        self._resync_all = False
+        self._resync_nudged: set[int] = set()
         # Set by the WorkerRuntime: this host's snapshot registry, from
         # which THREADS batches push the main thread's snapshot
         self.snapshot_registry = None
@@ -170,11 +247,27 @@ class PlannerClient(MessageEndpointClient):
         resp = self.sync_send(int(PlannerCalls.REGISTER_HOST), header,
                               idempotent=True)
         timeout = float(resp.header.get("host_timeout", 30.0))
+        boot = resp.header.get("boot")
+        if boot is not None:
+            if self._planner_boot is not None and boot != self._planner_boot:
+                # The planner restarted between ticks; its replay may
+                # keep this host known, but its waiter map and any result
+                # write in the old incarnation's socket buffer are gone
+                logger.warning("Planner incarnation changed under %s; "
+                               "re-delivering recent results and waits",
+                               self.this_host)
+                self.requeue_recent_results()
+                self._resync_all = True
+            self._planner_boot = boot
         if rejoin and not overwrite and not resp.header.get("known", True):
             logger.warning("Host %s was unknown to the planner; rejoining",
                            self.this_host)
             self.sync_send(int(PlannerCalls.REGISTER_HOST),
                            {**header, "overwrite": True}, idempotent=True)
+            # The planner restarted or expired this host: re-deliver the
+            # recent results through the confirmed flush
+            self.requeue_recent_results()
+            self._resync_all = True
         if start_keep_alive and self._keep_alive is None:
             self._keep_alive = KeepAliveThread(self, slots, n_devices)
             self._keep_alive.start(max(0.5, timeout / 2))
@@ -187,9 +280,10 @@ class PlannerClient(MessageEndpointClient):
 
     def remove_host(self) -> None:
         """Deregister; best-effort, since the planner's expiry reaps the
-        host anyway."""
+        host anyway. Results buffered in an outage get a last flush."""
         self._stop_keep_alive()
         try:
+            self.flush_pending_results()
             self.sync_send(int(PlannerCalls.REMOVE_HOST),
                            {"host": self.this_host}, idempotent=True)
         except RpcError as e:
@@ -239,9 +333,193 @@ class PlannerClient(MessageEndpointClient):
             return
         # The last stamp on this host's side of the wire
         _LC.stamp(msg, PHASE_RESULT_PUSH)
-        dicts, tail = messages_to_wire([msg])
-        self.async_send(int(PlannerCalls.SET_MESSAGE_RESULT),
-                        {"msg": dicts[0]}, tail)
+        # Buffered results go first, so that the planner sees completion
+        # order (a racy emptiness probe: the flush checks under the lock)
+        if self._pending_results:
+            self.flush_pending_results()
+        with self._pending_lock:
+            self._out_results.append(msg)
+            if self._out_sending:
+                # Another thread's push is in flight; this result rides
+                # its next frame
+                return
+            self._out_sending = True
+        self._drain_out_results()
+
+    def _drain_out_results(self) -> None:
+        """Send what has accumulated as one push, until the queue is
+        empty. One thread owns the loop at a time (``_out_sending``), so
+        every exit clears the flag: a flag left set would park every
+        later result of this host."""
+        try:
+            while True:
+                with self._pending_lock:
+                    batch = self._out_results
+                    self._out_results = []
+                    if not batch:
+                        self._out_sending = False
+                        return
+                try:
+                    dicts, tail = messages_to_wire(batch)
+                    header = ({"msg": dicts[0]} if len(dicts) == 1
+                              else {"msgs": dicts})
+                    retried = self.async_send(
+                        int(PlannerCalls.SET_MESSAGE_RESULT), header, tail)
+                except RpcError:
+                    for m in batch:
+                        self._buffer_result(m)
+                    continue
+                except Exception:  # noqa: BLE001 — one message that cannot
+                    # be encoded must not sink the batch: each result is
+                    # pushed alone and only that one is dropped
+                    logger.exception("Batched result push from %s failed; "
+                                     "pushing the %d result(s) one by one",
+                                     self.this_host, len(batch))
+                    self._push_results_individually(batch)
+                    continue
+                with self._pending_lock:
+                    for m in batch:
+                        self._remember_result_locked(m)
+                if retried:
+                    # The frame went out only after a reconnect: an
+                    # earlier push on the old connection may have died in
+                    # the peer's kernel buffer
+                    logger.warning("Result push from %s needed a reconnect; "
+                                   "re-delivering the recent results",
+                                   self.this_host)
+                    self.requeue_recent_results()
+                    self.flush_pending_results()
+        except BaseException:
+            with self._pending_lock:
+                self._out_sending = False
+            raise
+
+    def _push_results_individually(self, batch: list[Message]) -> None:
+        for m in batch:
+            try:
+                dicts, tail = messages_to_wire([m])
+                self.async_send(int(PlannerCalls.SET_MESSAGE_RESULT),
+                                {"msg": dicts[0]}, tail)
+            except RpcError:
+                self._buffer_result(m)
+            except Exception:  # noqa: BLE001
+                logger.exception("Dropping unsendable result %d from %s",
+                                 m.id, self.this_host)
+            else:
+                with self._pending_lock:
+                    self._remember_result_locked(m)
+
+    @staticmethod
+    def _result_cost(msg: Message) -> int:
+        """A buffered result's retained bytes, roughly."""
+        return len(msg.output_data) + len(msg.input_data) + 512
+
+    def _remember_result_locked(self, msg: Message) -> None:
+        now = time.monotonic()
+        recent = self._recent_results
+        recent.append((now, msg))
+        self._recent_bytes += self._result_cost(msg)
+        cutoff = now - self.RECENT_RESULT_WINDOW
+        while recent and (recent[0][0] < cutoff
+                          or len(recent) > self.MAX_RECENT_RESULTS
+                          or self._recent_bytes > self.MAX_RECENT_BYTES):
+            self._recent_bytes -= self._result_cost(recent.pop(0)[1])
+
+    def requeue_recent_results(self) -> None:
+        """Move the recent results onto the pending queue, which the next
+        flush delivers: the planner they were pushed to may have died
+        with them in a kernel buffer."""
+        with self._pending_lock:
+            if not self._recent_results:
+                return
+            have = {m.id for m in self._pending_results}
+            resend = [m for _, m in self._recent_results
+                      if m.id not in have]
+            self._pending_results[:0] = resend
+            self._pending_bytes += sum(self._result_cost(m) for m in resend)
+            self._recent_results.clear()
+            self._recent_bytes = 0
+        if resend:
+            logger.info("Re-delivering %d recently pushed result(s) from "
+                        "%s", len(resend), self.this_host)
+
+    def _buffer_result(self, msg: Message) -> None:
+        """Queue a result the planner could not be reached for; the
+        keep-alive or the next push flushes it. Drop-oldest past the
+        bounds: a long outage must not exhaust a busy worker's memory."""
+        with self._pending_lock:
+            pending = self._pending_results
+            pending.append(msg)
+            self._pending_bytes += self._result_cost(msg)
+            dropped = 0
+            while pending and (len(pending) > self.MAX_PENDING_RESULTS
+                               or self._pending_bytes
+                               > self.MAX_PENDING_BYTES):
+                self._pending_bytes -= self._result_cost(pending.pop(0))
+                dropped += 1
+            n = len(pending)
+        if dropped:
+            _DROPPED_RESULTS.inc(dropped)
+            logger.warning("Outage result queue overflowed on %s; dropped "
+                           "%d oldest result(s)", self.this_host, dropped)
+        _BUFFERED_RESULTS.inc()
+        if not self.planner_down:
+            self.planner_down = True
+            logger.warning("Planner unreachable from %s; buffering results "
+                           "locally (%d queued)", self.this_host, n)
+            flight_record("planner_unreachable", host=self.this_host)
+
+    def flush_pending_results(self) -> None:
+        """Deliver the queued results through the sync ``FLUSH_RESULTS``
+        call, which confirms delivery. On failure they go back to the
+        queue's head for the next keep-alive tick."""
+        with self._pending_lock:
+            if not self._pending_results:
+                return
+            batch = self._pending_results
+            self._pending_results = []
+            self._pending_bytes = 0
+        try:
+            dicts, tail = messages_to_wire(batch)
+            resp = self.sync_send(int(PlannerCalls.FLUSH_RESULTS),
+                                  {"msgs": dicts, "host": self.this_host},
+                                  tail, idempotent=True)
+        except RpcError:
+            with self._pending_lock:
+                self._pending_results[:0] = batch
+                self._pending_bytes += sum(self._result_cost(m)
+                                           for m in batch)
+            return
+        accepted = int(resp.header.get("accepted", len(batch)))
+        _FLUSHED_RESULTS.inc(accepted)
+        logger.info("Flushed %d buffered result(s) from %s to the planner",
+                    accepted, self.this_host)
+        flight_record("results_flushed", host=self.this_host, n=accepted)
+
+    def resync_result_interest(self) -> bool:
+        """Register this host's interest again in the results it waits
+        on: every outstanding wait after a restart signal (a restarted
+        planner replays results but not its waiter map), else only the
+        ids blocked waiters nudged. Returns False when an RpcError cut
+        the round short; ``_resync_all`` then stays set for the next
+        tick, and the waiters' own intervals nudge again."""
+        with self._results_lock:
+            full = self._resync_all
+            nudged = self._resync_nudged
+            self._resync_nudged = set()
+            pending = [(mid, app) for mid, app in
+                       self._result_interest.items()
+                       if mid in self._result_events
+                       and (full or mid in nudged)]
+        for msg_id, app_id in pending:
+            try:
+                self._ask_result(app_id, msg_id)
+            except RpcError:
+                return False
+        if full:
+            with self._results_lock:
+                self._resync_all = False
+        return True
 
     def set_message_result_locally(self, msg: Message) -> None:
         """Resolve a local waiter (this host's FunctionCallServer calls
@@ -254,9 +532,25 @@ class PlannerClient(MessageEndpointClient):
             while len(self._local_results_order) > self.MAX_CACHED_RESULTS:
                 self._local_results.pop(self._local_results_order.pop(0),
                                         None)
+            self._result_interest.pop(msg.id, None)
+            self._result_waiters.pop(msg.id, None)
+            self._resync_nudged.discard(msg.id)
             ev = self._result_events.pop(msg.id, None)
         if ev is not None:
             ev.set()
+
+    def _drop_result_waiter_locked(self, msg_id: int) -> None:
+        """One waiter left (an error or its timeout). The event is shared
+        by every thread waiting on ``msg_id``, so the registration
+        unwinds only when the last one leaves."""
+        n = self._result_waiters.get(msg_id, 1) - 1
+        if n > 0:
+            self._result_waiters[msg_id] = n
+            return
+        self._result_waiters.pop(msg_id, None)
+        self._result_events.pop(msg_id, None)
+        self._result_interest.pop(msg_id, None)
+        self._resync_nudged.discard(msg_id)
 
     def _ask_result(self, app_id: int, msg_id: int) -> Optional[Message]:
         """One GET_MESSAGE_RESULT round: the result, or None after the
@@ -273,9 +567,11 @@ class PlannerClient(MessageEndpointClient):
     def get_message_result(self, app_id: int, msg_id: int,
                            timeout: float | None = None) -> Message:
         """Blocking result fetch; raises TimeoutError after ``timeout``
-        seconds (the global message timeout when None). Between pushes it
-        asks the planner again at a doubling interval, in case a push
-        was lost."""
+        seconds (the global message timeout when None). It asks the
+        planner once, which registers this host for the push; after
+        that it only nudges the keep-alive to re-poll this id, never
+        calling the planner itself (a hung planner would hold the sync
+        lock past the deadline)."""
         conf = get_system_config()
         timeout = conf.global_message_timeout if timeout is None else timeout
         with self._results_lock:
@@ -283,25 +579,38 @@ class PlannerClient(MessageEndpointClient):
             if cached is not None:
                 return cached
             ev = self._result_events.setdefault(msg_id, threading.Event())
+            self._result_interest[msg_id] = app_id
+            self._result_waiters[msg_id] = (
+                self._result_waiters.get(msg_id, 0) + 1)
+        try:
+            result = self._ask_result(app_id, msg_id)
+        except Exception:
+            # The caller owns the retry; a registration left behind
+            # would be re-polled by every resync round
+            with self._results_lock:
+                self._drop_result_waiter_locked(msg_id)
+            raise
+        if result is not None:
+            return result
         deadline = time.monotonic() + timeout
         poll = max(0.1, conf.planner_host_timeout / 2)
         while True:
-            result = self._ask_result(app_id, msg_id)
-            if result is not None:
-                return result
             remaining = deadline - time.monotonic()
-            if remaining > 0 and ev.wait(min(remaining, poll)):
+            if remaining <= 0:
                 with self._results_lock:
-                    return self._local_results[msg_id]
-            if time.monotonic() >= deadline:
-                with self._results_lock:
+                    # A result that landed as the wait expired wins
                     late = self._local_results.get(msg_id)
                     if late is not None:
                         return late
-                    self._result_events.pop(msg_id, None)
+                    self._drop_result_waiter_locked(msg_id)
                 raise TimeoutError(f"Timed out waiting for result of msg "
                                    f"{msg_id} (app {app_id})")
-            poll *= 2
+            if ev.wait(min(remaining, poll)):
+                with self._results_lock:
+                    return self._local_results[msg_id]
+            with self._results_lock:
+                self._resync_nudged.add(msg_id)
+            poll = min(poll * 2, 240.0)
 
     def get_batch_results(self, app_id: int) -> BatchExecuteRequestStatus:
         resp = self.sync_send(int(PlannerCalls.GET_BATCH_RESULTS),

@@ -54,7 +54,23 @@ PROCESSES and THREADS batches:
   the backup is told to promote), and a dead backup is replaced
   (``_drop_state_masters_for_locked``);
 - the planner's ``SnapshotRegistry`` and its pool of snapshot clients,
-  dropped with a removed or rebooted host.
+  dropped with a removed or rebooted host;
+- crash safety (:1879-2255): every durable mutation appends to the
+  write-ahead journal (``planner/journal.py``, the shared no-op while
+  ``FAABRIC_PLANNER_JOURNAL_DIR`` is unset): host registration, removal
+  and expiry, an ``app_update`` after each NEW, SCALE_CHANGE and
+  DIST_CHANGE decision and each requeue merge, results (on the
+  write-behind buffer), freezes, state-master claims, failovers,
+  backups and drops, and resets. A planner built over a journal
+  directory replays it (snapshot, then records, each branch
+  idempotent; a reference-written journal replays too), compacts it,
+  and arms a reconcile timer: rows whose host has not registered again
+  within ``FAABRIC_PLANNER_RECONCILE_GRACE`` (the host timeout when 0)
+  go to the requeue path, and state masterships of such hosts drop.
+  Replayed hosts are never live: they rejoin through the keep-alive's
+  ``known: false`` path, and their rows re-claim slots, MPI ports and
+  devices. ``boot_id`` is fresh each instance and never journaled: the
+  keep-alive response carries it, so a worker sees a restart.
 
 The elastic scale hint raises instead of running some other way.
 
@@ -70,16 +86,18 @@ budgets), their detection-to-redispatch time goes into a histogram, a
 requeued message is stamped ``rqu`` and a recovery pass is
 flight-recorded and dumps the ring.
 
-Not ported (``ROADMAP.md`` Queue 1 #7 and #9): the journal (and its
-replay of state placement), preloaded decisions, the elastic scale
-hint, ingress, ``call_batch_group``, and the telemetry RPCs and
-``collect_telemetry`` (#7 part D).
+Not ported (``ROADMAP.md`` Queue 1): preloaded decisions and the
+elastic scale hint; the ingress, ``call_batch_group`` and its journal
+group commit (``_journal_group_commit_locked``), which step 5 takes;
+``health_summary``, the telemetry RPCs and ``collect_telemetry`` (#7
+part D, step 4).
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import uuid
 from typing import Optional
 
 from faabric_tpu_torch.batch_scheduler import (
@@ -105,6 +123,7 @@ from faabric_tpu_torch.proto import (
     update_batch_exec_group_id,
 )
 from faabric_tpu_torch.faults import DROP, fault_point, faults_enabled
+from faabric_tpu_torch.planner.journal import open_planner_journal
 from faabric_tpu_torch.telemetry import (
     flight_dump,
     flight_record,
@@ -115,6 +134,7 @@ from faabric_tpu_torch.telemetry import (
 from faabric_tpu_torch.telemetry.lifecycle import (
     PHASE_ADMIT,
     PHASE_DISPATCH,
+    PHASE_JOURNAL,
     PHASE_RECORDED,
     PHASE_REQUEUE,
     PHASE_SCHED,
@@ -163,6 +183,14 @@ _RECOVERY_SECONDS = _metrics.histogram(
     "faabric_planner_recovery_seconds",
     "Failure detection to requeued messages re-dispatched (includes the "
     "backoff delay)")
+_JOURNAL_REPLAY_SECONDS = _metrics.histogram(
+    "faabric_planner_journal_replay_seconds",
+    "Wall time to rebuild planner state from the write-ahead journal "
+    "at restart (snapshot load + record application)")
+_RECONCILED_MESSAGES = _metrics.counter(
+    "faabric_planner_journal_reconciled_messages_total",
+    "Replayed in-flight messages handed to requeue recovery because "
+    "their host never re-registered within the reconcile grace window")
 
 
 class PlannerHost:
@@ -203,6 +231,12 @@ class Planner:
     MAX_KEPT_APP_RESULTS = 1000
 
     def __init__(self) -> None:
+        # Fresh each instance and never journaled: keep-alive responses
+        # carry it, so that a worker tells a restarted planner (whose
+        # replay may keep the worker "known" while its waiter map and
+        # any result write in a dead socket's buffer are gone) from an
+        # ordinary tick
+        self.boot_id = uuid.uuid4().hex
         # One lock guards all of the state below: decisions, claims and
         # results must change together
         self._lock = threading.RLock()
@@ -252,6 +286,20 @@ class Planner:
         self.snapshot_registry = SnapshotRegistry()
         self._snapshot_clients = ClientPool(SnapshotClient)
 
+        # Crash safety: the write-ahead journal, replayed before the
+        # planner serves. Replay only learns which hosts were known at
+        # the crash: hosts are never resurrected as live (their
+        # keep-alive clock died with the old process), they register
+        # again, and the reconcile requeues what belonged to hosts that
+        # do not come back
+        self._journal = open_planner_journal()
+        self._journal_last_hosts: set[str] = set()
+        self._journal_replay_stats: Optional[dict] = None
+        self._reconcile_stats: Optional[dict] = None
+        self._reconcile_timer: Optional[threading.Timer] = None
+        if self._journal.enabled:
+            self._recover_from_journal()
+
     # ------------------------------------------------------------------
     # Hosts (reference Planner.cpp:267-392)
     # ------------------------------------------------------------------
@@ -264,8 +312,12 @@ class Planner:
             existing = self._hosts.get(ip)
             if existing is None or overwrite:
                 self._hosts[ip] = PlannerHost(ip, slots, n_devices)
-                # In-flight decisions may still pin rows to this host
+                # In-flight decisions may still pin rows to this host (a
+                # replayed planner, or a rejoin racing a recovery)
                 self._reclaim_host_rows_locked(ip)
+                if self._journal.enabled:
+                    self._journal_append("host_register", ip=ip,
+                                         slots=slots, n_devices=n_devices)
                 logger.debug("Planner registered host %s (slots=%d "
                              "devices=%d)", ip, slots, n_devices)
             else:
@@ -280,7 +332,14 @@ class Planner:
         return get_system_config().planner_host_timeout
 
     def _reclaim_host_rows_locked(self, ip: str) -> None:
-        host = self._hosts[ip]
+        """Re-apply the slot, port and device claims of in-flight rows
+        pinned to a new host record, which starts at zero used slots
+        and would otherwise double-book the host under replayed (or
+        rejoin-racing-recovery) decisions."""
+        host = self._hosts.get(ip)
+        if host is None or not self._in_flight:
+            return
+        n = 0
         for _req, decision in self._in_flight.values():
             for i, h in enumerate(decision.hosts):
                 if h != ip:
@@ -291,6 +350,10 @@ class Planner:
                 dev = decision.device_ids[i]
                 if 0 <= dev < len(host.device_load):
                     host.device_load[dev] += 1
+                n += 1
+        if n:
+            logger.info("Re-claimed %d in-flight slot(s) on (re)registered "
+                        "host %s", n, ip)
 
     def is_host_registered(self, ip: str) -> bool:
         with self._lock:
@@ -298,9 +361,11 @@ class Planner:
 
     def remove_host(self, ip: str) -> None:
         with self._lock:
-            self._hosts.pop(ip, None)
+            existed = self._hosts.pop(ip, None) is not None
             # A removed host serves no state: fail its masterships over
             self._drop_state_masters_for_locked({ip})
+            if existed and self._journal.enabled:
+                self._journal_append("host_remove", ip=ip)
         self._snapshot_clients.drop(ip)
 
     def expire_hosts(self) -> None:
@@ -319,6 +384,8 @@ class Planner:
                 logger.warning("Expiring host %s (no keep-alive)", ip)
                 flight_record("host_expired", host=ip)
                 del self._hosts[ip]
+                if self._journal.enabled:
+                    self._journal_append("host_expired", ip=ip)
             if stale:
                 self._drop_state_masters_for_locked(stale)
             for app_id, (req, decision) in self._in_flight.items():
@@ -444,6 +511,11 @@ class Planner:
             self._group_hosts[req.app_id] = (
                 gids | {mappings.group_id}, hosts | set(mappings.hosts))
             _IN_FLIGHT_APPS.set(len(self._in_flight))
+            if self._journal.enabled:
+                # In the kernel before the mappings and the dispatch go
+                # out
+                self._journal_app_update_locked(req.app_id)
+                _LC.stamp_many(req.messages, PHASE_JOURNAL)
 
         # Network strictly outside the lock: mappings first (guests
         # block on wait_for_mappings before messaging), then dispatch
@@ -550,6 +622,9 @@ class Planner:
         else:
             self._evicted[req.app_id] = req
         _IN_FLIGHT_APPS.set(len(self._in_flight))
+        if self._journal.enabled:
+            self._journal_append("app_freeze", app_id=req.app_id,
+                                 req=self._evicted[req.app_id].to_dict())
 
     def _decision_from_cache_locked(self, req: BatchExecuteRequest,
                                     host_map) -> Optional[SchedulingDecision]:
@@ -769,6 +844,14 @@ class Planner:
                         hosts | set(mappings.hosts))
                     _REQUEUES_TOTAL.inc()
                     _REQUEUED_MESSAGES.inc(len(todo))
+                    if self._journal.enabled:
+                        # The moved rows are in the live decision: journal
+                        # the merged record, after a marker that
+                        # journaldump shows on its own line
+                        self._journal_append(
+                            "requeued", app_id=app_id, n_messages=len(todo),
+                            hosts=sorted(set(new_decision.hosts)))
+                        self._journal_app_update_locked(app_id)
         if retry_later:
             delay = self._requeue_delay(used)
             logger.warning("No capacity to requeue %d msgs of app %d yet; "
@@ -912,6 +995,11 @@ class Planner:
                         continue
                     _LC.stamp(msg, PHASE_RECORDED)
                     recorded.append(msg)
+                    if self._journal.enabled:
+                        # Lazy fields, built by the drain thread: a
+                        # stored result is never mutated afterwards
+                        self._journal_append_fields(
+                            "result", lambda m=msg: {"msg": m.to_dict()})
                     for ip in self._waiters.pop((msg.app_id, msg.id), set()):
                         pushes.append((ip, msg))
                 if msg.app_id not in self._in_flight:
@@ -970,19 +1058,23 @@ class Planner:
                 return target, sub
         return None
 
-    def _record_result_locked(self, msg: Message) -> bool:
+    def _record_result_locked(self, msg: Message,
+                              replay: bool = False) -> bool:
         """First write wins: a FAILED result of an expired host racing a
         late genuine one, or a duplicate, never overwrites. Returns False
-        on a duplicate."""
+        on a duplicate. Journal replay shares it (``replay``), so that a
+        replayed planner lands in the state the crashed one held."""
         app_id, msg_id = msg.app_id, msg.id
         if msg_id in self._results.get(app_id, {}):
             logger.debug("Ignoring duplicate result for msg %d (app %d)",
                          msg_id, app_id)
             return False
-        self._results_count += 1
-        _RESULTS_TOTAL.inc()
-        if msg.timestamp:
-            _RESULT_ROUNDTRIP.observe(max(0.0, time.time() - msg.timestamp))
+        if not replay:
+            self._results_count += 1
+            _RESULTS_TOTAL.inc()
+            if msg.timestamp:
+                _RESULT_ROUNDTRIP.observe(
+                    max(0.0, time.time() - msg.timestamp))
         in_flight = self._in_flight.get(app_id)
         if in_flight is not None:
             req, decision = in_flight
@@ -997,13 +1089,21 @@ class Planner:
                 del self._in_flight[app_id]
                 self._next_idx.pop(app_id, None)
                 self._requeue_attempts.pop(app_id, None)
-                self._completed_order.append(app_id)
-                while len(self._completed_order) > self.MAX_KEPT_APP_RESULTS:
-                    oldest = self._completed_order.pop(0)
-                    self._results.pop(oldest, None)
-                    self._expected.pop(oldest, None)
+                if app_id not in self._completed_order:
+                    self._completed_order.append(app_id)
+                self._evict_old_results_locked()
             _IN_FLIGHT_APPS.set(len(self._in_flight))
+        if replay and app_id not in self._in_flight:
+            # The live path pops this for the group cleanup; replay lands
+            # in the same state without the network
+            self._group_hosts.pop(app_id, None)
         return True
+
+    def _evict_old_results_locked(self) -> None:
+        while len(self._completed_order) > self.MAX_KEPT_APP_RESULTS:
+            oldest = self._completed_order.pop(0)
+            self._results.pop(oldest, None)
+            self._expected.pop(oldest, None)
 
     def get_message_result(self, app_id: int, msg_id: int,
                            waiting_host: str = "") -> Optional[Message]:
@@ -1073,12 +1173,15 @@ class Planner:
                     logger.warning(
                         "State master for %s is not registered; promoting "
                         "backup %s (epoch %d)", full, master, epoch)
+                    new_backup = self._elect_backup_locked(full, {master})
                     self._state_masters[full] = master
-                    self._state_backups[full] = self._elect_backup_locked(
-                        full, {master})
+                    self._state_backups[full] = new_backup
                     self._state_epochs[full] = epoch
-                    promoted.append((full, master,
-                                     self._state_backups[full], epoch))
+                    if self._journal.enabled:
+                        self._journal_append("state_failover", key=full,
+                                             host=master, backup=new_backup,
+                                             epoch=epoch)
+                    promoted.append((full, master, new_backup, epoch))
                 else:
                     if stale:
                         logger.warning(
@@ -1090,13 +1193,21 @@ class Planner:
                         full, {master})
                     if replicas > 0:
                         self._state_epochs[full] = epoch
+                    if self._journal.enabled:
+                        self._journal_append(
+                            "state_claim", key=full, host=master,
+                            backup=self._state_backups[full], epoch=epoch)
             elif replicas > 0 and self._hosts:
                 # A live master: heal a dead or absent backup (no epoch
                 # bump, ownership did not change)
                 backup = self._state_backups.get(full, "")
                 if not backup or backup not in self._hosts:
-                    self._state_backups[full] = self._elect_backup_locked(
-                        full, {master})
+                    new_backup = self._elect_backup_locked(full, {master})
+                    if new_backup != backup:
+                        self._state_backups[full] = new_backup
+                        if self._journal.enabled:
+                            self._journal_append("state_backup", key=full,
+                                                 backup=new_backup)
             placement = (master, self._state_backups.get(full, ""),
                          self._state_epochs.get(full, 0))
         if promoted:
@@ -1105,10 +1216,12 @@ class Planner:
 
     def drop_state_master(self, user: str, key: str) -> None:
         with self._lock:
-            self._state_masters.pop(f"{user}/{key}", None)
+            dropped = self._state_masters.pop(f"{user}/{key}", None)
             # The epoch survives the drop: the next claim must fence out
             # any process still holding the old mastership
             self._state_backups.pop(f"{user}/{key}", None)
+            if dropped is not None and self._journal.enabled:
+                self._journal_append("state_drop", key=f"{user}/{key}")
 
     def state_placement(self) -> dict[str, dict]:
         """Per-key placement: full key → {master, backup, epoch}."""
@@ -1138,6 +1251,10 @@ class Planner:
                     self._state_masters[full] = backup
                     self._state_backups[full] = new_backup
                     self._state_epochs[full] = epoch
+                    if self._journal.enabled:
+                        self._journal_append("state_failover", key=full,
+                                             host=backup, backup=new_backup,
+                                             epoch=epoch)
                     flight_record("state_failover", key=full,
                                   old_master=master, new_master=backup,
                                   backup=new_backup, epoch=epoch)
@@ -1145,10 +1262,16 @@ class Planner:
                 else:
                     del self._state_masters[full]
                     self._state_backups.pop(full, None)
+                    if self._journal.enabled:
+                        self._journal_append("state_drop", key=full)
                     dropped.append(full)
             elif backup and backup in ips:
-                self._state_backups[full] = self._elect_backup_locked(
+                new_backup = self._elect_backup_locked(
                     full, {master} | set(ips))
+                self._state_backups[full] = new_backup
+                if self._journal.enabled:
+                    self._journal_append("state_backup", key=full,
+                                         backup=new_backup)
         if dropped:
             logger.warning("Dropped %d state mastership(s) of dead host(s) "
                            "%s (no live backup)", len(dropped), sorted(ips))
@@ -1200,9 +1323,352 @@ class Planner:
                     "Host %s holds no replica of %s; dropping the "
                     "mastership so the next claim re-elects", master, full)
                 with self._lock:
-                    if self._state_epochs.get(full, 0) == epoch:
-                        self._state_masters.pop(full, None)
+                    if (self._state_epochs.get(full, 0) == epoch
+                            and self._state_masters.pop(full, None)
+                            is not None):
                         self._state_backups.pop(full, None)
+                        if self._journal.enabled:
+                            self._journal_append("state_drop", key=full)
+
+    # ------------------------------------------------------------------
+    # Crash safety: write-ahead journal, restart replay and reconcile
+    # (reference :1879-2255)
+    # ------------------------------------------------------------------
+    def _journal_append(self, kind: str, **fields) -> None:
+        """Append one mutation record. Call sites hold the planner lock,
+        so the journal's order is the state's; the log folds into a
+        snapshot when it crosses the compaction threshold."""
+        self._journal_append_fields(kind, fields)
+
+    def _journal_append_fields(self, kind: str, fields) -> None:
+        """``result`` records ride the write-behind buffer (a tail lost
+        in a crash is re-delivered by the workers' recent-results
+        flush); every other record is written through before the
+        planner acts on it."""
+        j = self._journal
+        if kind == "result":
+            j.append(kind, fields)
+        else:
+            j.append_durable(kind, fields)
+        if j.since_compact >= j.compact_records:
+            with span("journal", "compact", records=j.since_compact):
+                j.compact(self._journal_snapshot_locked())
+
+    def _app_update_fields_locked(self, app_id: int) -> dict:
+        """An ``app_update`` record's fields: the app's live request,
+        decision and index bookkeeping, which covers every decision type
+        and the requeue merges. An app that already completed (fast
+        tasks can finish before the record) keeps only its expected
+        count; its results carry the rest."""
+        fields: dict = {
+            "app_id": app_id,
+            "expected": self._expected.get(app_id, 0),
+            "next_idx": self._next_idx.get(app_id, 0),
+        }
+        gids, ghosts = self._group_hosts.get(app_id, (set(), set()))
+        fields["group"] = [sorted(gids), sorted(ghosts)]
+        in_flight = self._in_flight.get(app_id)
+        if in_flight is not None:
+            req, decision = in_flight
+            fields["req"] = req.to_dict()
+            fields["decision"] = decision.to_dict()
+        return fields
+
+    def _journal_app_update_locked(self, app_id: int) -> None:
+        self._journal_append("app_update",
+                             **self._app_update_fields_locked(app_id))
+
+    def _journal_snapshot_locked(self) -> dict:
+        """The whole durable state as one JSON-safe dict: the compaction
+        target, and what ``_apply_journal_snapshot_locked`` restores
+        (JSON turns the int keys into strings; apply turns them back)."""
+        return {
+            "in_flight": {
+                str(a): {"req": req.to_dict(), "decision": d.to_dict()}
+                for a, (req, d) in self._in_flight.items()},
+            "results": {
+                str(a): {str(mid): m.to_dict() for mid, m in res.items()}
+                for a, res in self._results.items()},
+            "expected": {str(a): n for a, n in self._expected.items()},
+            "next_idx": {str(a): n for a, n in self._next_idx.items()},
+            "completed_order": list(self._completed_order),
+            "requeue_attempts": {
+                str(a): n for a, n in self._requeue_attempts.items()},
+            "state_masters": dict(self._state_masters),
+            "state_backups": dict(self._state_backups),
+            "state_epochs": dict(self._state_epochs),
+            "evicted": {str(a): req.to_dict()
+                        for a, req in self._evicted.items()},
+            "group_hosts": {str(a): [sorted(g), sorted(h)]
+                            for a, (g, h) in self._group_hosts.items()},
+            "num_migrations": self._num_migrations,
+            "known_hosts": sorted(set(self._hosts)
+                                  or self._journal_last_hosts),
+        }
+
+    def _apply_journal_snapshot_locked(self, state: dict) -> None:
+        self._in_flight = {
+            int(a): (BatchExecuteRequest.from_dict(v["req"]),
+                     SchedulingDecision.from_dict(v["decision"]))
+            for a, v in (state.get("in_flight") or {}).items()}
+        self._results = {
+            int(a): {int(mid): Message.from_dict(m)
+                     for mid, m in res.items()}
+            for a, res in (state.get("results") or {}).items()}
+        self._expected = {int(a): int(n) for a, n in
+                          (state.get("expected") or {}).items()}
+        self._next_idx = {int(a): int(n) for a, n in
+                          (state.get("next_idx") or {}).items()}
+        self._completed_order = [int(a) for a in
+                                 state.get("completed_order") or []]
+        self._requeue_attempts = {
+            int(a): int(n) for a, n in
+            (state.get("requeue_attempts") or {}).items()}
+        self._state_masters = dict(state.get("state_masters") or {})
+        self._state_backups = dict(state.get("state_backups") or {})
+        self._state_epochs = {k: int(v) for k, v in
+                              (state.get("state_epochs") or {}).items()}
+        self._evicted = {int(a): BatchExecuteRequest.from_dict(r)
+                         for a, r in (state.get("evicted") or {}).items()}
+        self._group_hosts = {
+            int(a): (set(g[0]), set(g[1]))
+            for a, g in (state.get("group_hosts") or {}).items()}
+        self._num_migrations = int(state.get("num_migrations") or 0)
+        self._journal_last_hosts = set(state.get("known_hosts") or [])
+
+    def _apply_journal_record_locked(self, rec: dict) -> None:
+        """Apply one replayed record. Every branch is idempotent: the
+        same record applied twice (a compaction crash's overlap, a
+        double replay) lands in the same state. ``flush_hosts``,
+        ``flush_scheduling`` and ``group`` come only from the
+        reference's planner, whose journals replay here too."""
+        kind = rec.get("k")
+        if kind == "host_register":
+            self._journal_last_hosts.add(rec["ip"])
+        elif kind in ("host_remove", "host_expired"):
+            self._journal_last_hosts.discard(rec["ip"])
+        elif kind == "flush_hosts":
+            self._journal_last_hosts.clear()
+        elif kind == "app_update":
+            app_id = int(rec["app_id"])
+            self._expected[app_id] = int(rec.get("expected") or 0)
+            if rec.get("next_idx"):
+                self._next_idx[app_id] = int(rec["next_idx"])
+            group = rec.get("group") or [[], []]
+            gids, ghosts = self._group_hosts.get(app_id, (set(), set()))
+            self._group_hosts[app_id] = (gids | set(group[0]),
+                                         ghosts | set(group[1]))
+            self._evicted.pop(app_id, None)
+            if rec.get("req") is None:
+                return
+            req = BatchExecuteRequest.from_dict(rec["req"])
+            decision = SchedulingDecision.from_dict(rec["decision"])
+            # Rows whose results already replayed stay out: a re-applied
+            # app_update must not bring back rows that earlier result
+            # records removed (on a second pass those results are
+            # duplicates and would not remove them again)
+            recorded = self._results.get(app_id, {})
+            for mid in [m for m in decision.message_ids if m in recorded]:
+                decision.remove_message(mid)
+                req.messages = [m for m in req.messages if m.id != mid]
+            if decision.n_messages == 0 and recorded:
+                self._in_flight.pop(app_id, None)
+                self._next_idx.pop(app_id, None)
+                self._requeue_attempts.pop(app_id, None)
+                if app_id not in self._completed_order:
+                    self._completed_order.append(app_id)
+                self._evict_old_results_locked()
+            else:
+                self._in_flight[app_id] = (req, decision)
+                self._results.setdefault(app_id, {})
+        elif kind == "result":
+            self._record_result_locked(Message.from_dict(rec["msg"]),
+                                       replay=True)
+        elif kind == "app_freeze":
+            app_id = int(rec["app_id"])
+            self._in_flight.pop(app_id, None)
+            self._evicted[app_id] = BatchExecuteRequest.from_dict(
+                rec["req"])
+        elif kind == "state_claim":
+            self._state_masters[rec["key"]] = rec["host"]
+            if "backup" in rec:
+                self._state_backups[rec["key"]] = rec["backup"]
+            if rec.get("epoch"):
+                self._state_epochs[rec["key"]] = int(rec["epoch"])
+        elif kind == "state_failover":
+            self._state_masters[rec["key"]] = rec["host"]
+            self._state_backups[rec["key"]] = rec.get("backup", "")
+            self._state_epochs[rec["key"]] = int(rec["epoch"])
+        elif kind == "state_backup":
+            self._state_backups[rec["key"]] = rec.get("backup", "")
+        elif kind == "state_drop":
+            self._state_masters.pop(rec["key"], None)
+            self._state_backups.pop(rec["key"], None)
+            # The epoch stays: it fences a revived former master
+        elif kind == "group":
+            # One scheduling tick's records in one on-disk record, atomic
+            # by its CRC and idempotent because every branch is
+            for sub in rec.get("recs") or []:
+                self._apply_journal_record_locked(sub)
+        elif kind == "requeued":
+            pass  # a marker: the state rides in its app_update
+        elif kind == "flush_scheduling":
+            self._in_flight.clear()
+            self._results.clear()
+            self._expected.clear()
+            self._next_idx.clear()
+            self._completed_order.clear()
+            self._waiters.clear()
+            self._requeue_attempts.clear()
+        elif kind == "reset":
+            self._apply_journal_snapshot_locked({})
+            self._waiters.clear()
+            self._next_evicted_ips.clear()
+        else:
+            logger.debug("Skipping unknown journal record kind %r", kind)
+
+    def _recover_from_journal(self) -> None:
+        """Restart replay: snapshot and journal into planner state, then
+        arm the reconcile timer, so that decisions stranded on hosts
+        that never register again flow into the requeue path."""
+        t0 = time.monotonic()
+        snapshot, records, meta = self._journal.replay()
+        if snapshot is None and not records:
+            return
+        with span("journal", "replay", records=len(records)):
+            with self._lock:
+                if snapshot is not None:
+                    self._apply_journal_snapshot_locked(snapshot)
+                for rec in records:
+                    try:
+                        self._apply_journal_record_locked(rec)
+                    except Exception:  # noqa: BLE001 — one bad record
+                        # must not void the rest of the recovery
+                        logger.exception(
+                            "Skipping unreplayable journal record %r",
+                            rec.get("k"))
+                in_flight_apps = len(self._in_flight)
+                in_flight_msgs = sum(
+                    d.n_messages for _, d in self._in_flight.values())
+                n_results = sum(len(r) for r in self._results.values())
+                n_masters = len(self._state_masters)
+                _IN_FLIGHT_APPS.set(in_flight_apps)
+                if not meta.get("snapshot_error"):
+                    # Fold the replayed log at once: a crash-restart loop
+                    # must not re-apply an ever-growing journal. Not over
+                    # an unreadable snapshot, which compacting would
+                    # overwrite with this partial state
+                    self._journal.compact(self._journal_snapshot_locked())
+        elapsed = time.monotonic() - t0
+        _JOURNAL_REPLAY_SECONDS.observe(elapsed)
+        self._journal_replay_stats = {
+            "records": meta.get("records", len(records)),
+            "snapshot": bool(meta.get("snapshot")),
+            # An unreadable snapshot means the records were applied over
+            # an empty base state: a partial recovery
+            "snapshotError": meta.get("snapshot_error"),
+            "partial": bool(meta.get("snapshot_error")),
+            "torn": bool(meta.get("torn")),
+            "tornBytes": meta.get("torn_bytes", 0),
+            "inFlightApps": in_flight_apps,
+            "inFlightMessages": in_flight_msgs,
+            "results": n_results,
+            "stateMasters": n_masters,
+            "lastKnownHosts": sorted(self._journal_last_hosts),
+            "seconds": round(elapsed, 4),
+            "ts": time.time(),
+        }
+        logger.warning(
+            "Planner replayed journal: %d record(s)%s -> %d in-flight "
+            "app(s) (%d msgs), %d result(s), %d state master(s) in "
+            "%.3fs", len(records),
+            " + snapshot" if meta.get("snapshot") else "",
+            in_flight_apps, in_flight_msgs, n_results, n_masters, elapsed)
+        if meta.get("snapshot_error"):
+            logger.error(
+                "PARTIAL journal recovery: snapshot unreadable (%s); the "
+                "records were applied over an empty base state, and apps "
+                "folded into the snapshot are missing",
+                meta["snapshot_error"])
+        flight_record("journal_replayed", records=len(records),
+                      apps=in_flight_apps, messages=in_flight_msgs,
+                      results=n_results, torn=bool(meta.get("torn")),
+                      partial=bool(meta.get("snapshot_error")))
+        flight_dump("planner_restart_replay")
+        if in_flight_apps or n_masters:
+            conf = get_system_config()
+            grace = (conf.planner_reconcile_grace
+                     or conf.planner_host_timeout)
+            self._reconcile_timer = threading.Timer(
+                grace, self._reconcile_after_restart)
+            self._reconcile_timer.daemon = True
+            self._reconcile_timer.start()
+            logger.warning("Reconcile armed: hosts have %.1fs to register "
+                           "again before stranded decisions requeue", grace)
+
+    def _reconcile_after_restart(self) -> None:
+        """The grace window closed: in-flight rows whose host has not
+        registered again go to the requeue path, and state masterships
+        of such hosts drop, so that the next claim elects again."""
+        conf = get_system_config()
+        doomed: dict[int, list[Message]] = {}
+        with span("journal", "reconcile"):
+            with self._lock:
+                self._reconcile_timer = None
+                registered = set(self._hosts)
+                missing: set[str] = set()
+                for app_id, (req, decision) in self._in_flight.items():
+                    for i, h in enumerate(decision.hosts):
+                        if h in registered:
+                            continue
+                        missing.add(h)
+                        mid = decision.message_ids[i]
+                        doomed.setdefault(app_id, []).extend(
+                            m for m in req.messages if m.id == mid)
+                ghosts = {v for v in self._state_masters.values()
+                          if v not in registered}
+                if ghosts:
+                    self._drop_state_masters_for_locked(ghosts)
+        n_msgs = sum(len(v) for v in doomed.values())
+        self._reconcile_stats = {
+            "ts": time.time(),
+            "graceSeconds": (conf.planner_reconcile_grace
+                             or conf.planner_host_timeout),
+            "missingHosts": sorted(missing),
+            "requeuedApps": len(doomed),
+            "requeuedMessages": n_msgs,
+            "droppedStateMasters": len(ghosts),
+        }
+        flight_record("planner_reconcile", apps=len(doomed),
+                      messages=n_msgs, missing_hosts=sorted(missing))
+        if not doomed:
+            logger.info("Reconcile after restart: every replayed host "
+                        "registered again; nothing to requeue")
+            return
+        _RECONCILED_MESSAGES.inc(n_msgs)
+        logger.warning(
+            "Reconcile after restart: host(s) %s never registered again; "
+            "requeueing %d message(s) across %d app(s)",
+            sorted(missing), n_msgs, len(doomed))
+        for app_id, msgs in doomed.items():
+            threading.Thread(
+                target=self._recover_messages,
+                args=(app_id, msgs,
+                      b"Host never re-registered after planner restart"),
+                name=f"planner/recover@{app_id}", daemon=True).start()
+
+    def flush_journal(self) -> None:
+        """Drain and fsync the journal's batched writes."""
+        self._journal.flush()
+
+    def close_journal(self) -> None:
+        """Drain, fsync and close the journal (its fd and drain thread),
+        and cancel a pending reconcile. Reopening takes a new Planner."""
+        with self._lock:
+            if self._reconcile_timer is not None:
+                self._reconcile_timer.cancel()
+                self._reconcile_timer = None
+        self._journal.close()
 
     # -- gauges the planner server samples into the time-series ring --
     def free_slot_watermark(self) -> int:
@@ -1225,6 +1691,13 @@ class Planner:
 
     def reset(self) -> None:
         with self._lock:
+            if self._reconcile_timer is not None:
+                self._reconcile_timer.cancel()
+                self._reconcile_timer = None
+            if self._journal.enabled:
+                # A reset is a durable mutation: without the record a
+                # replay would bring back the state before it
+                self._journal_append("reset")
             for d in (self._hosts, self._in_flight, self._results,
                       self._expected, self._next_idx, self._waiters,
                       self._group_hosts, self._requeue_attempts,

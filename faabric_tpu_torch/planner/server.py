@@ -10,6 +10,10 @@ src/planner/planner_server.cpp:9-43). An expiry reaper drives host
 expiry on a clock, so a dead worker's messages are recovered even when
 nobody schedules. ``RELAY_GROUP_ABORT`` fans a group abort out to the
 hosts its originator could not reach (reference :192-230).
+``FLUSH_RESULTS`` takes the results a worker buffered while the planner
+was down (reference :357-367), ``REGISTER_HOST`` answers with the
+planner's ``boot`` id, and ``stop()`` drains, fsyncs and closes the
+planner's journal.
 """
 
 from __future__ import annotations
@@ -66,6 +70,9 @@ class PlannerCalls(enum.IntEnum):
     CLAIM_STATE_MASTER = 12
     DROP_STATE_MASTER = 13
     CHECK_MIGRATION = 14
+    # A worker's results buffered while the planner was down, delivered
+    # with a confirmation (the push is fire and forget)
+    FLUSH_RESULTS = 16
     # A host that aborts a group but cannot reach some of its peers (the
     # direct abort rides the link that just died) hands the planner the
     # unreachable hosts: the planner's links are independent of the
@@ -142,6 +149,9 @@ class PlannerServer(MessageEndpointServer):
         self.expiry_reaper.stop()
         self.snapshot_server.stop()
         super().stop()
+        # A clean stop: drain the write-behind buffer, fsync, and release
+        # the journal's fd and drain thread
+        self.planner.close_journal()
 
     def do_async_recv(self, msg: TransportMessage) -> None:
         if msg.code == int(PlannerCalls.SET_MESSAGE_RESULT):
@@ -205,7 +215,8 @@ class PlannerServer(MessageEndpointServer):
                 h["host"], h["slots"], h.get("n_devices", 0),
                 overwrite=h.get("overwrite", False))
             return handler_response(header={"host_timeout": timeout,
-                                            "known": known})
+                                            "known": known,
+                                            "boot": planner.boot_id})
 
         if code == int(PlannerCalls.REMOVE_HOST):
             planner.remove_host(h["host"])
@@ -264,6 +275,16 @@ class PlannerServer(MessageEndpointServer):
         if code == int(PlannerCalls.DROP_STATE_MASTER):
             planner.drop_state_master(h["user"], h["key"])
             return handler_response()
+
+        if code == int(PlannerCalls.FLUSH_RESULTS):
+            msgs = messages_from_wire(h.get("msgs", []), msg.payload)
+            for result in msgs:
+                # First write wins, so a flush retried after a
+                # half-delivered attempt is harmless
+                planner.set_message_result(result)
+            logger.info("Flushed %d buffered result(s) from %s", len(msgs),
+                        h.get("host", "?"))
+            return handler_response(header={"accepted": len(msgs)})
 
         if code == int(PlannerCalls.CALL_BATCH):
             decision = planner.call_batch(ber_from_wire(h["ber"],

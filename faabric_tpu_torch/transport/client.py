@@ -129,9 +129,14 @@ class MessageEndpointClient:
         return header or {}
 
     def async_send(self, code: int, header: dict[str, Any] | None = None,
-                   payload: bytes = b"", seqnum: int = -1) -> None:
+                   payload: bytes = b"", seqnum: int = -1) -> int:
         """Fire-and-forget send, retried on a fresh connection under the
-        retry policy."""
+        retry policy. Returns the number of failed attempts before the
+        frame went out. A non-zero count means an earlier async frame on
+        the old connection may have been lost into a dead peer's kernel
+        buffer (the first write after a peer dies "succeeds"; only the
+        next one errors): the planner client re-delivers its recent
+        results on it."""
         msg = TransportMessage(code=code,
                                header=self._with_trace_context(header),
                                payload=payload, seqnum=seqnum)
@@ -146,12 +151,12 @@ class MessageEndpointClient:
                         # send happened, so the breaker records success
                         # (a half-open trial never ends without one)
                         self.breaker.record_success()
-                        return
+                        return attempt
                     send_frame(self._get_sock("async"), msg)
                     _TX_FRAMES["async"].inc()
                     _TX_BYTES["async"].inc(_nbytes(payload))
                     self.breaker.record_success()
-                    return
+                    return attempt
                 except (OSError, TransportError) as e:
                     self._reset_sock("async")
                     self.breaker.record_failure()

@@ -71,6 +71,15 @@ class SystemConfig:
     # fails, and the base of the exponential requeue backoff
     planner_max_requeues: int = 3
     planner_requeue_backoff: float = 0.2
+    # Crash safety: the planner's write-ahead journal directory (empty
+    # turns journaling off), its fsync batching interval, the record
+    # count that triggers a snapshot compaction, and how long a
+    # restarted planner waits for hosts to re-register before requeueing
+    # their replayed in-flight messages (0 means the host timeout)
+    planner_journal_dir: str = ""
+    planner_journal_fsync_interval: float = 0.05
+    planner_journal_compact_records: int = 20000
+    planner_reconcile_grace: float = 0.0
 
     # While a recv of a watched (MPI) group blocks, the expected sender's
     # host is probed every this many seconds; a refused connection aborts
@@ -106,6 +115,14 @@ class SystemConfig:
         self.planner_max_requeues = _env_int("PLANNER_MAX_REQUEUES", 3)
         self.planner_requeue_backoff = _env_float(
             "PLANNER_REQUEUE_BACKOFF", 0.2)
+        self.planner_journal_dir = os.environ.get(
+            "FAABRIC_PLANNER_JOURNAL_DIR", "")
+        self.planner_journal_fsync_interval = _env_float(
+            "FAABRIC_PLANNER_JOURNAL_FSYNC_INTERVAL", 0.05)
+        self.planner_journal_compact_records = _env_int(
+            "FAABRIC_PLANNER_JOURNAL_COMPACT_RECORDS", 20000)
+        self.planner_reconcile_grace = _env_float(
+            "FAABRIC_PLANNER_RECONCILE_GRACE", 0.0)
         self.mpi_abort_check_seconds = _env_float(
             "MPI_ABORT_CHECK_SECONDS", 2.0)
 

@@ -1,9 +1,8 @@
 """The port's state KV against the JAX package's, on the same inputs.
 
 Counterparts of ``tests/unit/test_state.py`` (every case),
-``tests/unit/test_state_replication.py`` (every case but the journal
-replay, whose planner journal is not ported) and the device-handle cases
-of ``tests/unit/test_device_resident.py``. Each scenario runs once on
+``tests/unit/test_state_replication.py`` (every case) and the
+device-handle cases of ``tests/unit/test_device_resident.py``. Each scenario runs once on
 each package (``REF``, ``PORT``) with the same bytes and keeps the
 reference test's own assertions; the two runs' observations must then
 be equal. Two-host scenarios stand up a planner and two worker runtimes
@@ -619,6 +618,33 @@ def test_failover_promotes_backup_bumps_epoch_and_fences_corpse():
     assert placement["u/k"]["epoch"] == 2
     assert expired["u/x"]["master"] == first[1]
     assert expired["u/x"]["epoch"] == 2
+
+
+def test_journal_replays_failover_placement(monkeypatch, tmp_path):
+    """A restarted planner knows the promoted owner and the fencing
+    epoch: a revived former master cannot win an ack race against a
+    journal that outlives the crash."""
+
+    def scenario(pk):
+        set_env(monkeypatch,
+                FAABRIC_PLANNER_JOURNAL_DIR=str(tmp_path / pk.name),
+                FAABRIC_PLANNER_RECONCILE_GRACE="30")
+        pk.testing.set_mock_mode(True)
+        p = _planner(pk, "h1", "h2", "h3")
+        p.claim_state_master("u", "k", "h1")
+        p.remove_host("h1")
+        placement = p.state_placement()
+        assert placement["u/k"]["epoch"] == 2
+        p.flush_journal()
+        p2 = pk.planner.Planner()
+        try:
+            assert p2.state_placement() == placement
+        finally:
+            p.close_journal()
+            p2.close_journal()
+        return placement
+
+    both(scenario)
 
 
 def _dead_backup(pk):
