@@ -42,12 +42,12 @@ payloads and one data-parallel step of the full-width model whose
 gradient crosses hosts on the host ladder; one worker runtime with 4
 slots trains 3 data-parallel steps whose gradient allreduce runs on the
 device plane. The mesh half of serving: ``generate`` and
-``evaluate_perplexity`` of the full-width model laid over dp 2 x tp 4
-(8 ranks on the card) against the unsharded model. faabric's state KV
-as guests use it: over two hosts, one guest writes the flagship's fp32
-weights into a key, four pull them and score, four count under the
-global lock and append, and a device state handle passes between two
-guests. faabric's snapshots as guests use them: over two hosts, one
+``evaluate_perplexity`` of the full-width model at 2 layers laid over
+dp 2 x tp 4 (8 ranks on the card) against the unsharded model. faabric's
+state KV as guests use it: over two hosts, one guest writes the
+flagship's fp32 weights into a key, four pull them and score, four count
+under the global lock and append, and a device state handle passes
+between two guests. faabric's snapshots as guests use them: over two hosts, one
 guest holds the flagship's fp32 weights as one flat tensor on the card
 behind a device state handle and pushes its ``DeviceSnapshot`` to the
 other host; after a sparse SGD step and a full AdamW step, the on-device
@@ -80,7 +80,13 @@ through the planner's relay. A serving batch outlives its planner: the
 planner runs as a child process over a write-ahead journal and is
 SIGKILLed while 4 of 8 requests are held in their guests; the held
 results wait on their workers and reach the restarted planner, which
-replays the journal, without any request running twice. For each path
+replays the journal, without any request running twice. Hosts as
+processes: the data-parallel step of the data planes again, with its
+planner started through ``python -m faabric_tpu_torch.runner planner``
+and its two worker hosts as child processes of this script
+(``--worker-child``) on the card, held bitwise to the same step with
+both hosts in this process. Every phase prints ``phase N: start`` and
+``phase N: ok in X s``, and a failed check its phase. For each path
 it checks the outputs and shows from the kernels' launch counts that
 the path ran through them; it times the kernels, their plain versions and the nearest
 PyTorch library calls, and prints one JSON line of kernel numbers (the
@@ -97,6 +103,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -169,8 +176,6 @@ def profile_top(fn, label: str, top: int = 6) -> tuple[float, dict]:
     rank threads lost its first kernel from the trace on the card."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
@@ -211,8 +216,29 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.detach().float() - b.detach().float()).abs().max())
 
 
+_phase: dict = {"n": None, "t0": 0.0}
+
+
+def begin_phase(n: int) -> None:
+    """Close the phase that runs (``phase N: ok in X s``) and start phase
+    ``n`` (``phase n: start``)."""
+    end_phase()
+    _phase.update(n=n, t0=time.perf_counter())
+    log(f"phase {n}: start")
+
+
+def end_phase() -> None:
+    if _phase["n"] is not None:
+        log(f"phase {_phase['n']}: ok in "
+            f"{time.perf_counter() - _phase['t0']:.1f} s")
+        _phase["n"] = None
+
+
 def check(ok: bool, what: str) -> None:
+    """Pass, or print the phase and what was compared and raise."""
     if not ok:
+        where = "" if _phase["n"] is None else f"phase {_phase['n']}: "
+        log(f"{where}check failed: {what}")
         raise AssertionError(what)
     log(f"  ok  {what}")
 
@@ -1950,8 +1976,10 @@ def mpi_guest_phase(dev, build) -> dict:
 
 def sharded_serving_phase(dev, build) -> dict:
     """Phase 18: the mesh half of serving at full width (``ModelConfig()``
-    weights from ``params_to_numpy``'s numpy form, as ``params_from_jax``
-    takes them) over dp 2 x tp 4, 8 ranks on the one card. In fp32 the
+    with its depth cut to 2 layers, which keeps the script inside its
+    time limit; weights from ``params_to_numpy``'s numpy form, as
+    ``params_from_jax`` takes them) over dp 2 x tp 4, 8 ranks on the one
+    card. In fp32 the
     tp-sharded greedy decode of 32 tokens from a (4, 128) prompt must give
     the unsharded port's tokens, with whole-prompt and chunked (48)
     prefill, and every rank of a decode must have run the RMS-norm kernel
@@ -1971,9 +1999,10 @@ def sharded_serving_phase(dev, build) -> dict:
     )
     from faabric_tpu_torch.parallel import MeshConfig, build_mesh, named
 
-    log("phase 18: tp-sharded decode and perplexity, dp 2 x tp 4, full width")
+    log("phase 18: tp-sharded decode and perplexity, dp 2 x tp 4, full "
+        "width at 2 layers")
     t_phase = time.perf_counter()
-    cfg = ModelConfig()
+    cfg = dataclasses.replace(ModelConfig(), n_layers=2)
     cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
     np_params = params_to_numpy(Transformer(
         cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(18)))
@@ -3112,9 +3141,11 @@ def register_planes_guests(job: dict) -> None:
     allreduce (``allreduce_quant`` off) after the step's: each rank's
     gradient lands in ``job["grads"]``, rank 0's two sums in
     ``job["sums"]``. Each rank leaves its flat parameters in
-    ``job["params"]`` and returns JSON: its host, the world's leaders, the
-    rungs, step, broadcast and allreduce ms, and the bytes its host's bulk
-    client to the other host put on the wire during each allreduce."""
+    ``job["params"]`` (and, when the job holds a ``"first"`` dict, its
+    parameters after the first step there) and returns JSON: its host,
+    the world's leaders, the rungs, step, broadcast and allreduce ms, and
+    the bytes its host's bulk client to the other host put on the wire
+    during each allreduce."""
     from faabric_tpu_torch.executor import register_function
     from faabric_tpu_torch.mpi import MpiOp
 
@@ -3171,6 +3202,8 @@ def register_planes_guests(job: dict) -> None:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            if s == 0 and "first" in job:
+                job["first"][rank] = flat_params(model)
         job["params"][rank] = flat_params(model)
         world.barrier(rank)
         rungs = {kind: algo for (r, kind), algo in world.rungs.items()
@@ -3209,8 +3242,33 @@ def plane_bytes() -> dict:
             "escapes": _metric(snap, "faabric_codec_escapes_total")}
 
 
+PLANES_HOSTS = {"mpi-host-a": 2, "mpi-host-b": 2}
+
+
+def _planes_job(cfg, per_rank: int, seq: int) -> dict:
+    """Phase 22's (and 26's) model and batches: ``cfg`` from seed 22,
+    each of the 4 ranks (per_rank, seq) tokens of a seeded corpus, SGD at
+    lr 0.5."""
+    from faabric_tpu_torch.models import Transformer
+
+    corpus = np.random.RandomState(22).randint(
+        0, cfg.vocab_size, (2, MPI_RANKS * per_rank, seq + 1)
+    ).astype(np.int64)
+
+    def batch(step, rank, device):
+        b = torch.as_tensor(corpus[step % 2, rank * per_rank:
+                                   (rank + 1) * per_rank], device=device)
+        return b[:, :-1], b[:, 1:]
+
+    return {"model": lambda device: Transformer(
+                cfg, device=device,
+                generator=torch.Generator(device=device).manual_seed(22)),
+            "batch": batch, "lr": 0.5, "params": {}, "grads": {},
+            "sums": {}}
+
+
 def planes_phase(dev, build, cfg=None, per_rank: int = 2, seq: int = 512,
-                 base: int | None = None) -> dict:
+                 base: int | None = None, keep: dict | None = None) -> dict:
     """Phase 22: the flagship's data-parallel step across two hosts on
     each of faabric's data planes. A planner and two WorkerRuntimes
     (``mpi-host-a``, ``mpi-host-b``, 2 slots each) gang-schedule 4 ranks,
@@ -3240,9 +3298,12 @@ def planes_phase(dev, build, cfg=None, per_rank: int = 2, seq: int = 512,
     times its steps, every flash forward on the ``wgmma`` body (on the
     card). Logs per plane the step and allreduce ms by rank, the bytes on
     rings, TCP and RPC, the device busy share and peak memory. Returns
-    the parts' launches."""
+    the parts' launches. ``keep``, when given, receives what phase 26
+    compares with: the flat parameters the step starts from
+    (``"start"``), those after 22a's and 22b's one step (``"shm"``,
+    ``"tcp"``) and those steps' wall ms by rank (``"step_ms"``)."""
     from faabric_tpu_torch.executor import TorchExecutorFactory
-    from faabric_tpu_torch.models import ModelConfig, Transformer
+    from faabric_tpu_torch.models import ModelConfig
     from faabric_tpu_torch.mpi import world as world_mod
     from faabric_tpu_torch.transport import bulk as bulk_mod
     from faabric_tpu_torch.transport.codec import (
@@ -3262,22 +3323,13 @@ def planes_phase(dev, build, cfg=None, per_rank: int = 2, seq: int = 512,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     cfg = cfg or ModelConfig()
-    n, lr = MPI_RANKS, 0.5
-    hosts = {"mpi-host-a": 2, "mpi-host-b": 2}
-    corpus = np.random.RandomState(22).randint(
-        0, cfg.vocab_size, (2, n * per_rank, seq + 1)).astype(np.int64)
-
-    def batch(step, rank, device):
-        b = torch.as_tensor(corpus[step % 2, rank * per_rank:
-                                   (rank + 1) * per_rank], device=device)
-        return b[:, :-1], b[:, 1:]
-
-    params, grads, sums = {}, {}, {}
-    job = {"model": lambda device: Transformer(
-               cfg, device=device,
-               generator=torch.Generator(device=device).manual_seed(22)),
-           "batch": batch, "lr": lr, "params": params, "grads": grads,
-           "sums": sums}
+    n = MPI_RANKS
+    hosts = PLANES_HOSTS
+    job = _planes_job(cfg, per_rank, seq)
+    params, grads, sums = job["params"], job["grads"], job["sums"]
+    if keep is not None:
+        keep["start"] = flat_params(job["model"](dev))
+        keep["step_ms"] = {}
     per_step = {"flash_attention": 2 * cfg.n_layers,
                 "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
                 "rms_norm": 4 * cfg.n_layers + 1}
@@ -3372,6 +3424,9 @@ def planes_phase(dev, build, cfg=None, per_rank: int = 2, seq: int = 512,
               f"22a: the RPC plane carried {moved['rpc_frames']:.0f} "
               f"data-channel messages and bulk TCP {moved['tcp']:.0f} bytes")
         params_a = params[0].clone()
+        if keep is not None:
+            keep["shm"] = params_a
+            keep["step_ms"]["shm"] = {o["rank"]: o["step_ms"] for o in outs}
         log(f"  22a: a gradient of {params_a.numel():,} fp32 values a rank")
         profile("a (shm rings)", client)
 
@@ -3432,6 +3487,9 @@ def planes_phase(dev, build, cfg=None, per_rank: int = 2, seq: int = 512,
         outs, moved = run_part("b (bulk TCP)", client, 1)
         check(torch.equal(params[0], params_a),
               "22b: the parameters are bitwise equal to 22a's")
+        if keep is not None:
+            keep["tcp"] = params[0].clone()
+            keep["step_ms"]["tcp"] = {o["rank"]: o["step_ms"] for o in outs}
         bulk = clients(workers)
         stripes = [c.stripe_frames() for c in bulk]
         data_used = [sum(1 for i, (tcp, _) in sf.items() if i and tcp)
@@ -3605,11 +3663,17 @@ def _telemetry_job(cfg, per_rank: int = 2, seq: int = 512) -> dict:
 TELEMETRY_HOSTS = {"tel-host-a": 2, "tel-host-b": 2}
 
 
-def telemetry_steps() -> dict:
+def telemetry_steps(base: int) -> dict:
     """23b's three steps again, without the straggler, in a process whose
     telemetry the environment set (run as ``chip_smoke.py
-    --telemetry-steps`` by phase 23): returns which planes were on and
-    each rank's step ms."""
+    --telemetry-steps <base>`` by phase 23), on a cluster of its own at
+    port offset ``base``. It first takes one untimed step on such a
+    cluster and stops it, so that the process is warm (the CUDA context,
+    the libraries' first calls, the allocator); then it prints a ``warm``
+    line and waits for a line on its standard input, so that its start
+    and warm-up overlap the other children's while the timed steps run
+    one child at a time. Returns which planes were on and each rank's
+    step ms."""
     from faabric_tpu_torch.executor import TorchExecutorFactory
     from faabric_tpu_torch.models import ModelConfig
     from faabric_tpu_torch.ops import _build
@@ -3618,23 +3682,29 @@ def telemetry_steps() -> dict:
 
     _build.kernels()
     job = _telemetry_job(ModelConfig())
-    job.update(steps=3)
-    register_telemetry_guests(job)
-    planner_server, workers = start_cluster(TELEMETRY_HOSTS,
-                                            TorchExecutorFactory())
-    try:
-        outs = guest_outputs(run_gang(workers[0].planner_client,
-                                      "traced_step", MPI_RANKS)[0],
-                             "23d: three steps")
-    finally:
-        stop_cluster(planner_server, workers)
+
+    def gang(steps: int, what: str) -> list:
+        job.update(steps=steps)
+        register_telemetry_guests(job)
+        planner_server, workers = start_cluster(
+            TELEMETRY_HOSTS, TorchExecutorFactory(), base)
+        try:
+            return guest_outputs(run_gang(workers[0].planner_client,
+                                          "traced_step", MPI_RANKS)[0], what)
+        finally:
+            stop_cluster(planner_server, workers)
+
+    gang(1, "23d: the warm-up step")
+    print(json.dumps({"warm": True}), flush=True)
+    sys.stdin.readline()
+    outs = gang(3, "23d: three steps")
     return {"metrics": metrics_enabled(), "tracing": tracing_enabled(),
             "profiler": profile_enabled(),
             "steps": {str(o["rank"]): o["step_ms"] for o in outs}}
 
 
 def telemetry_phase(dev, build, cfg=None, seq: int = 512,
-                    base: int | None = None, straggle_s: float = 0.3,
+                    base: int | None = None, straggle_s: float = 1.0,
                     child: bool = True) -> dict:
     """Phase 23: faabric's telemetry and fault points on the flagship's
     data-parallel step, tracing on (``FAABRIC_TRACING=1`` in the
@@ -3651,9 +3721,10 @@ def telemetry_phase(dev, build, cfg=None, seq: int = 512,
     measured after step 1, the Chrome trace (``build/telemetry_23b.json``,
     parsed back) holds 3 ``mpi``/``allreduce`` spans a rank with their
     ``mpi.phase`` children inside, and a planted straggler (rank 3 sleeps
-    300 ms before step 3's allreduce) is the one rank ``find_stragglers``
-    flags; ``critical_path`` of that round names the rank bound by the
-    wait, not the straggler, whose own total is the round's shortest.
+    ``straggle_s`` before step 3's allreduce) is the one rank
+    ``find_stragglers`` flags; ``critical_path`` of that round names the
+    rank bound by the wait, not the straggler, whose own total is the
+    round's shortest.
     23c, faults armed through ``install_faults`` on 23b's cluster:
     ``mpi.collective=raise@after=2`` fails a 2-rank gang's guests with
     the fault's text and the next gang after ``clear_faults`` succeeds;
@@ -3663,14 +3734,16 @@ def telemetry_phase(dev, build, cfg=None, seq: int = 512,
     step's first delta frame, which heals through the NACK: the ranks'
     parameters and summed gradients are bitwise equal to the same steps
     on the raw wire. 23d: 23b's three steps again (no straggler), each
-    in a child process: telemetry off (``FAABRIC_METRICS=0``), metrics
-    without the stack profiler (``FAABRIC_PROFILE=0``), metrics with it,
-    and all of it with tracing; their step times are printed side by
-    side, a plain measurement (``child=False`` leaves 23d out: the
-    children need the card). ``straggle_s`` is the
-    planted sleep; ranks whose idle gap exceeds the round's median by
-    less than half of it are not stragglers. Returns the phase's kernel
-    launches."""
+    in a child process after an untimed warm-up step there (the four
+    children warm up together): telemetry off (``FAABRIC_METRICS=0``),
+    metrics without the stack profiler (``FAABRIC_PROFILE=0``), metrics
+    with it, and all of it with tracing; their step times are printed
+    side by side, a plain measurement (``child=False`` leaves 23d out:
+    the children need the card). ``straggle_s`` is the planted sleep; ranks whose idle gap exceeds the round's median by
+    less than half of it are not stragglers. The finder also wants the
+    sleep above 0.15 of the round's median total, which on a slower card
+    host (an allreduce of 1.4 s) 300 ms was not: 1 s stands above both.
+    Returns the phase's kernel launches."""
     from faabric_tpu_torch.executor import TorchExecutorFactory
     from faabric_tpu_torch.faults import clear_faults, install_faults
     from faabric_tpu_torch.models import ModelConfig
@@ -4013,33 +4086,55 @@ def telemetry_phase(dev, build, cfg=None, seq: int = 512,
     if not child:
         log(f"  phase 23 launches: {path}")
         return path
-    base_env = {k: v for k, v in os.environ.items()
-                if not k.startswith("FAABRIC_")}
-    base_env["SHM_BULK"] = "0"
+    # The four children start and warm up together, each on a cluster of
+    # its own 3000 ports from the others', and each runs its timed steps
+    # alone once all are warm: their start-ups overlap, their steps do not
+    bases = [10000 + 3000 * i for i in range(4)]
+    for b in bases:
+        wait_ports_free(b, label="23d")
+        for off in (1000, 2000):
+            wait_ports_free(b + off, label="23d", ports=worker_ports())
+    env = {k: None for k in os.environ if k.startswith("FAABRIC_")}
+    env["SHM_BULK"] = "0"
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    for label, knobs, want in (
-            ("off", {"FAABRIC_METRICS": "0"}, (False, False, False)),
-            ("metrics", {"FAABRIC_PROFILE": "0"}, (True, False, False)),
-            ("metrics, profiler", {}, (True, False, True)),
-            ("metrics, profiler, tracing", {"FAABRIC_TRACING": "1"},
-             (True, True, True))):
-        out = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--telemetry-steps"],
-            env={**base_env, **knobs}, capture_output=True, text=True,
-            timeout=600)
-        check(out.returncode == 0, f"23d {label}: the child exited "
-              f"{out.returncode} ({out.stderr[-2000:]})")
-        got = json.loads(out.stdout.strip().splitlines()[-1])
-        check((got["metrics"], got["tracing"], got["profiler"]) == want,
-              f"23d {label}: metrics, tracing, profiler "
-              f"{got['metrics'], got['tracing'], got['profiler']}")
-        log(f"  23d step wall ms by rank, {label} ({knobs or 'defaults'}; "
-            f"a child process): "
-            + "; ".join(f"{r}: " + ", ".join(f"{t:.1f}" for t in ms)
-                        for r, ms in sorted(got["steps"].items()))
-            + f" [{smi}]")
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase23d-", dir=os.path.join(here,
+                                                                 "build"))
+    children = []
+    try:
+        for i, (label, knobs, want) in enumerate((
+                ("off", {"FAABRIC_METRICS": "0"}, (False, False, False)),
+                ("metrics", {"FAABRIC_PROFILE": "0"}, (True, False, False)),
+                ("metrics, profiler", {}, (True, False, True)),
+                ("metrics, profiler, tracing", {"FAABRIC_TRACING": "1"},
+                 (True, True, True)))):
+            children.append((label, knobs, want, JsonChild(
+                [sys.executable, os.path.abspath(__file__),
+                 "--telemetry-steps", str(bases[i])], {**env, **knobs},
+                os.path.join(work, f"child-{i}.log"),
+                f"23d {label}: the child")))
+        for _, _, _, c in children:
+            c.expect("warm", 600)
+        for label, knobs, want, c in children:
+            c.send("go")
+            got = c.expect("steps", 600)
+            check(c.proc.wait(60) == 0, f"23d {label}: the child exited "
+                  f"{c.proc.returncode}")
+            check((got["metrics"], got["tracing"], got["profiler"]) == want,
+                  f"23d {label}: metrics, tracing, profiler "
+                  f"{got['metrics'], got['tracing'], got['profiler']}")
+            log(f"  23d step wall ms by rank, {label} ({knobs or 'defaults'}; "
+                f"a child process): "
+                + "; ".join(f"{r}: " + ", ".join(f"{t:.1f}" for t in ms)
+                            for r, ms in sorted(got["steps"].items()))
+                + f" [{smi}]")
+    finally:
+        for _, _, _, c in children:
+            c.kill()
+        shutil.rmtree(work, ignore_errors=True)
     log(f"  phase 23 launches: {path}")
     log(f"  phase 23 took {time.perf_counter() - t_phase:.1f} s")
     return path
@@ -4110,14 +4205,19 @@ def planner_child(argv: list[str]) -> int:
     return 0
 
 
-class PlannerChild:
-    """A ``--planner-child`` process: started with ``env`` added to this
-    process's environment, its standard error in ``log_path``, and its
-    JSON lines read by a thread of this process."""
+class JsonChild:
+    """A child process of this script: ``argv`` started with ``env``
+    added to this process's environment (a None value removes the
+    variable), in this script's directory, its standard error in
+    ``log_path`` and its JSON lines on standard output read by a thread.
+    ``label`` names it in failed checks."""
 
-    def __init__(self, base: int, hosts: dict, env: dict, log_path: str):
+    def __init__(self, argv: list[str], env: dict, log_path: str,
+                 label: str):
         import queue
 
+        self.label = label
+        self.log_path = log_path
         self.lines: queue.Queue = queue.Queue()
         self._log = open(log_path, "ab")
         full_env = {k: v for k, v in os.environ.items()
@@ -4125,14 +4225,11 @@ class PlannerChild:
         full_env.update({k: v for k, v in env.items() if v is not None})
         self.t_spawn = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--planner-child",
-             str(base), *(f"{h}={o}" for h, o in hosts.items())],
-            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self._log,
-            env=full_env, cwd=os.path.dirname(os.path.abspath(__file__)))
-        threading.Thread(target=self._read, name="planner-child/out",
+            argv, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=self._log, env=full_env,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        threading.Thread(target=self._read, name=f"{label}/out",
                          daemon=True).start()
-        self.ready = self.expect("ready", 180)
-        self.ready_s = time.perf_counter() - self.t_spawn
 
     def _read(self) -> None:
         for line in self.proc.stdout:
@@ -4155,27 +4252,62 @@ class PlannerChild:
             except queue.Empty:
                 got = None
             if got is None:
-                check(False, f"25: the planner child printed no {key!r} line "
-                      f"(exit code {self.proc.poll()})")
+                with open(self.log_path, "rb") as f:
+                    tail = f.read()[-2000:].decode(errors="replace")
+                check(False, f"{self.label} printed no {key!r} line "
+                      f"(exit code {self.proc.poll()}; its log ends: {tail})")
             if key in got:
                 return got
+
+    def send(self, line: str) -> None:
+        self.proc.stdin.write(line.encode() + b"\n")
+        self.proc.stdin.flush()
 
     def stop(self) -> None:
         """Close its standard input and wait for a clean exit."""
         self.proc.stdin.close()
         self.expect("stopped", 60)
-        check(self.proc.wait(60) == 0, "25: the planner child exited 0")
+        check(self.proc.wait(60) == 0, f"{self.label} exited 0")
 
     def kill(self) -> None:
         if self.proc.poll() is None:
             self.proc.kill()
             self.proc.wait(60)
+        try:
+            self.proc.stdin.close()
+        except OSError:
+            pass
         self._log.close()
 
 
-def wait_ports_free(base: int, timeout: float = 30.0) -> None:
-    """Wait until the planner's and its snapshot server's ports at offset
-    ``base`` bind again, as the servers bind them."""
+class PlannerChild(JsonChild):
+    """A ``--planner-child`` process (phase 25), ready once it serves."""
+
+    def __init__(self, base: int, hosts: dict, env: dict, log_path: str):
+        super().__init__(
+            [sys.executable, os.path.abspath(__file__), "--planner-child",
+             str(base), *(f"{h}={o}" for h, o in hosts.items())],
+            env, log_path, "25: the planner child")
+        self.ready = self.expect("ready", 180)
+        self.ready_s = time.perf_counter() - self.t_spawn
+
+
+def worker_ports() -> tuple:
+    """The service ports a worker host binds: all but the planner's."""
+    from faabric_tpu_torch.transport.bulk import BULK_PORT
+    from faabric_tpu_torch.transport.common import (
+        POINT_TO_POINT_SYNC_PORT,
+        STATE_ASYNC_PORT,
+    )
+
+    return (*range(STATE_ASYNC_PORT, POINT_TO_POINT_SYNC_PORT + 1),
+            BULK_PORT)
+
+
+def wait_ports_free(base: int, timeout: float = 30.0, label: str = "25",
+                    ports=None) -> None:
+    """Wait until ``ports`` (by default the planner's and its snapshot
+    server's) at offset ``base`` bind again, as the servers bind them."""
     import socket
 
     from faabric_tpu_torch.transport.common import (
@@ -4186,8 +4318,8 @@ def wait_ports_free(base: int, timeout: float = 30.0) -> None:
     )
 
     deadline = time.monotonic() + timeout
-    for port in (PLANNER_ASYNC_PORT, PLANNER_SYNC_PORT, SNAPSHOT_ASYNC_PORT,
-                 SNAPSHOT_SYNC_PORT):
+    for port in ports or (PLANNER_ASYNC_PORT, PLANNER_SYNC_PORT,
+                          SNAPSHOT_ASYNC_PORT, SNAPSHOT_SYNC_PORT):
         while True:
             s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
             s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -4196,7 +4328,7 @@ def wait_ports_free(base: int, timeout: float = 30.0) -> None:
                 break
             except OSError:
                 check(time.monotonic() < deadline,
-                      f"25: port {base + port} is free again")
+                      f"{label}: port {base + port} is free again")
                 time.sleep(0.05)
             finally:
                 s.close()
@@ -4206,8 +4338,9 @@ def restart_phase(dev, build, cfg=None, serve_len: int = 512,
                   n_new: int = 32, base: int | None = None,
                   host_timeout: float = 3.0, grace: float = 5.0) -> dict:
     """Phase 25: a serving batch that outlives a SIGKILLed planner, at
-    the flagship's full width (``ModelConfig()``, bf16 compute, seeded
-    weights). The planner is a child process of this script
+    the flagship's full width (``ModelConfig()`` with its depth cut to 2
+    layers, which keeps the script inside its time limit; bf16 compute,
+    seeded weights). The planner is a child process of this script
     (``--planner-child``) with its write-ahead journal under ``build/``,
     a ``host_timeout`` s host timeout and a ``grace`` s reconcile grace;
     two WorkerRuntimes of 4 slots run here on loopback aliases. Their
@@ -4234,8 +4367,6 @@ def restart_phase(dev, build, cfg=None, serve_len: int = 512,
     same batch with no crash, with the journal on and then off: the two
     walls, with nothing checked about speed. Returns the phase's kernel
     launches."""
-    import shutil
-
     from faabric_tpu_torch.executor import TorchExecutorFactory
     from faabric_tpu_torch.models import (
         ModelConfig,
@@ -4259,7 +4390,7 @@ def restart_phase(dev, build, cfg=None, serve_len: int = 512,
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True, timeout=60).stdout.strip())
-    cfg = cfg or ModelConfig()
+    cfg = cfg or dataclasses.replace(ModelConfig(), n_layers=2)
     L, n_req = cfg.n_layers, 8
     model = Transformer(cfg, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(0))
@@ -4786,9 +4917,13 @@ def migration_phase(dev, build, cfg=None, per_rank: int = 2,
     the image, and the rebuilt model's logits are bitwise equal to
     those before the freeze. (c) Recovery: phase 13's batch of 8
     requests (``serve_len``-token prompts, ``n_new`` greedy tokens),
-    4 + 4 over the hosts; ``planner.dispatch=drop@host=B`` and
-    ``keepalive=suppress@host=B`` strand host B's share, its expiry
-    (host timeout 4 s for the part) requeues it onto host A: every
+    4 + 4 over the hosts; ``planner.dispatch=drop@host=B`` strands host
+    B's share, and once host A's share has returned,
+    ``keepalive=suppress@host=B`` silences host B, whose expiry (host
+    timeout 4 s for the part) requeues its share onto host A's free
+    slots (the planner's recovery finds no capacity while host A's share
+    runs, and the app then completes around the requeue, as the
+    reference's does, so the expiry must not come first): every
     result SUCCESS with direct ``generate``'s tokens, the requeued
     messages counter up by host B's share, an ``rqu`` stamp in each
     requeued ledger, and exactly one batch's launches. (d) A 4-rank world
@@ -5123,15 +5258,21 @@ def migration_phase(dev, build, cfg=None, per_rank: int = 2,
                 m.input_data = p.tobytes()
             requeued0 = metric("faabric_planner_requeued_messages_total")
             rec0 = metric("faabric_planner_recovery_seconds")
-            install_faults(f"planner.dispatch=drop@host={host_b};"
-                           f"keepalive=suppress@host={host_b}")
+            install_faults(f"planner.dispatch=drop@host={host_b}")
             t0 = time.perf_counter()
 
             def serve_batch():
                 d = client.call_functions(req)
-                return d, [client.get_message_result(req.app_id, m.id,
-                                                     timeout=300)
-                           for m in req.messages]
+                by_id = dict(zip(d.message_ids, d.hosts))
+                results = {m.id: client.get_message_result(
+                    req.app_id, m.id, timeout=300)
+                    for m in req.messages if by_id[m.id] == host_a}
+                install_faults(f"planner.dispatch=drop@host={host_b};"
+                               f"keepalive=suppress@host={host_b}")
+                results.update({m.id: client.get_message_result(
+                    req.app_id, m.id, timeout=300)
+                    for m in req.messages if m.id not in results})
+                return d, [results[m.id] for m in req.messages]
 
             (decision, results), got = counted(serve_batch)
             wall = (time.perf_counter() - t0) * 1e3
@@ -5231,6 +5372,342 @@ def migration_phase(dev, build, cfg=None, per_rank: int = 2,
     return launches
 
 
+def _digest(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def worker_child(argv: list[str]) -> int:
+    """``chip_smoke.py --worker-child <spec>``: one host of phase 26, a
+    process of its own. ``spec`` is JSON: the host's name and slots, the
+    planner's host, the model config, the per-rank batch shape, the steps
+    a gang takes, the file of fp32 parameters every rank starts from, a
+    directory for its reports and the device its guests run on. It loads
+    the kernels this script built (it never builds them) and registers
+    phase 22's guest (:func:`register_planes_guests`) while the planner
+    starts; then it takes lines on its standard input and prints JSON
+    lines. ``boot`` (once the planner serves) starts a ``WorkerRuntime``
+    and prints ``ready`` with the top-level modules it loaded; ``report
+    <plane>`` prints ``report``: its ranks' parameters after the gang's
+    first step (written to a file), the digests of their final
+    parameters, and the kernel launches and plane bytes since the last
+    report; ``restart <SHM_BULK>`` restarts the runtime under that value
+    (a fresh broker, so fresh links). When its standard input closes it
+    shuts the runtime down and prints ``stopped``."""
+    from faabric_tpu_torch.executor import TorchExecutorFactory
+    from faabric_tpu_torch.models import ModelConfig
+    from faabric_tpu_torch.ops import _build
+    from faabric_tpu_torch.runner import WorkerRuntime
+
+    spec = json.loads(argv[0])
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _build.kernels()
+    cfg = ModelConfig(**{**spec["cfg"], "compute_dtype": getattr(
+        torch, spec["cfg"]["compute_dtype"])})
+    start = torch.from_numpy(np.fromfile(spec["start"], np.float32)).to(dev)
+    job = _planes_job(cfg, spec["per_rank"], spec["seq"])
+    make = job["model"]
+    job.update(model=lambda device: load_flat(make(device), start),
+               steps=spec["steps"], broadcast=False, exact=False, world={},
+               first={})
+    register_planes_guests(job)
+    host = spec["host"]
+
+    def boot():
+        runtime = WorkerRuntime(host=host, slots=spec["slots"],
+                                factory=TorchExecutorFactory(dev.type),
+                                planner_host=spec["planner"])
+        runtime.start()
+        return runtime
+
+    def ready_line():
+        print(json.dumps({"ready": True, "host": host,
+                          "modules": sorted({m.split(".")[0]
+                                             for m in sys.modules})}),
+              flush=True)
+
+    runtime = None
+    build_launches, bytes0 = dict(_build.LAUNCHES), plane_bytes()
+    try:
+        for line in sys.stdin:
+            cmd, _, arg = line.strip().partition(" ")
+            if cmd == "boot":
+                runtime = boot()
+                ready_line()
+            elif cmd == "report":
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                ranks = sorted(job["params"])
+                path = os.path.join(spec["out"], f"{host}-{arg}.f32")
+                with open(path, "wb") as f:
+                    for r in ranks:
+                        job["first"][r].cpu().numpy().tofile(f)
+                moved = {k: v - bytes0[k] for k, v in plane_bytes().items()}
+                launches = {k: v - build_launches.get(k, 0)
+                            for k, v in _build.LAUNCHES.items()
+                            if v != build_launches.get(k, 0)}
+                print(json.dumps({
+                    "report": arg, "host": host, "ranks": ranks,
+                    "first": path, "final": {str(r): _digest(job["params"][r])
+                                             for r in ranks},
+                    "launches": launches, "bytes": moved,
+                    "modules": sorted({m.split(".")[0]
+                                       for m in sys.modules})}), flush=True)
+                job["params"].clear()
+                job["first"].clear()
+                build_launches, bytes0 = dict(_build.LAUNCHES), plane_bytes()
+            elif cmd == "restart":
+                runtime.shutdown()
+                os.environ["SHM_BULK"] = arg
+                runtime = boot()
+                ready_line()
+    finally:
+        if runtime is not None:
+            runtime.shutdown()
+    print(json.dumps({"stopped": True}), flush=True)
+    return 0
+
+
+def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
+                    seq: int = 512, steps: int = 3, base: int | None = None,
+                    child_argv: list[str] | None = None) -> dict:
+    """Phase 26: phase 22's two-host step with its hosts as OS
+    processes. The planner is ``python -m faabric_tpu_torch.runner
+    planner`` and ``mpi-host-a`` and ``mpi-host-b`` are ``chip_smoke.py
+    --worker-child`` processes (:func:`worker_child`; ``child_argv``
+    replaces that command line), each a ``WorkerRuntime`` of 2 slots
+    whose guests run on ``dev``; this process is a 0-slot client host
+    that submits the 4-rank gang (2 + 2) of :func:`register_planes_guests`'
+    step, ``steps`` steps at ``cfg``'s width, from the flat parameters
+    phase 22 started from (``keep["start"]``, handed over in a file).
+    First on the shm rings, now crossing a process boundary, then on bulk
+    TCP (the children restarted under ``SHM_BULK=0``). For each plane:
+    the ranks split 2 + 2 and took the flat ring; each child's ranks'
+    parameters after the first step are bitwise equal to phase 22's one
+    step on the same plane from the same start (``keep["shm"]``,
+    ``keep["tcp"]``), and the four ranks' final parameters are bitwise
+    equal to each other; the children's bytes went on the plane's path
+    alone; their kernel launches are 2 ranks' steps each (on the card),
+    every flash forward on ``wgmma``; no child loaded JAX or the JAX
+    package. Logs each child's spawn to ready, each rank's first step
+    and the median of the others against phase 22's in-process step, and
+    the bytes on rings and TCP. Every child is stopped, and killed if it
+    does not stop, before the phase returns. Returns the children's
+    launches."""
+    import queue
+    import signal
+    import statistics
+
+    from faabric_tpu_torch.executor import TorchExecutorFactory
+    from faabric_tpu_torch.models import ModelConfig
+    from faabric_tpu_torch.runner import WorkerRuntime
+    from faabric_tpu_torch.transport import (
+        clear_host_aliases,
+        register_host_alias,
+    )
+
+    log("phase 26: the two-host step with its hosts as processes")
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    if on_card:
+        log("  26 card: " + subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip())
+    cfg = cfg or ModelConfig()
+    n = MPI_RANKS
+    per_step = {"flash_attention": 2 * cfg.n_layers,
+                "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
+                "rms_norm": 4 * cfg.n_layers + 1}
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase26-", dir=os.path.join(here,
+                                                                "build"))
+    base = random_port_base() if base is None else base
+    planner_host, client_host = "proc-planner", "proc-client"
+    offsets = {planner_host: base, client_host: base + 2500}
+    for i, h in enumerate(PLANES_HOSTS):
+        offsets[h] = base + 1000 * (i + 1)
+    wait_ports_free(base, label="26")
+    for h, off in offsets.items():
+        if h != planner_host:
+            wait_ports_free(off, label="26", ports=worker_ports())
+    env = {"FAABRIC_HOST_ALIASES": ",".join(
+        f"{h}=127.0.0.1+{o}" for h, o in offsets.items()), "SHM_BULK": "1"}
+    start_path = os.path.join(work, "start.f32")
+    keep["start"].cpu().numpy().tofile(start_path)
+    cfg_spec = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+                if f.name not in ("compute_dtype", "param_dtype")}
+    cfg_spec["compute_dtype"] = str(cfg.compute_dtype).split(".")[-1]
+    check(cfg.param_dtype == torch.float32, "26: fp32 parameters")
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    argv = child_argv or [sys.executable, os.path.abspath(__file__),
+                          "--worker-child"]
+    planner = None
+    children: dict = {}
+    client = None
+    path: dict = {}
+    plog = open(os.path.join(work, "planner.log"), "ab")
+    try:
+        # The planner, through the port's deployment entry point, and the
+        # worker hosts, which load while it starts and boot once it serves
+        t0 = time.perf_counter()
+        planner = subprocess.Popen(
+            [sys.executable, "-m", "faabric_tpu_torch.runner", "planner",
+             "--port-offset", str(base)], cwd=here, stdin=subprocess.DEVNULL,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            env={**os.environ, **env})
+        up: queue.Queue = queue.Queue()
+
+        def read_planner():
+            for line in planner.stderr:
+                plog.write(line)
+                plog.flush()
+                if b"Planner up" in line:
+                    up.put(True)
+            up.put(False)
+
+        threading.Thread(target=read_planner, name="26/planner-log",
+                         daemon=True).start()
+        for h, slots in PLANES_HOSTS.items():
+            spec = {"host": h, "slots": slots, "planner": planner_host,
+                    "cfg": cfg_spec, "per_rank": per_rank, "seq": seq,
+                    "steps": steps, "start": start_path, "out": work,
+                    "device": str(dev)}
+            children[h] = JsonChild([*argv, json.dumps(spec)], env,
+                                    os.path.join(work, f"{h}.log"),
+                                    f"26: the {h} child")
+        try:
+            served = up.get(timeout=180)
+        except queue.Empty:
+            served = False
+        check(served, f"26: the planner process serves (exit code "
+              f"{planner.poll()}; log {os.path.join(work, 'planner.log')})")
+        planner_s = time.perf_counter() - t0
+        for c in children.values():
+            c.send("boot")
+        spawn_s = {}
+        for h, c in children.items():
+            ready = c.expect("ready", 180)
+            spawn_s[h] = time.perf_counter() - c.t_spawn
+            bad = sorted(set(ready["modules"])
+                         & {"jax", "jaxlib", "faabric_tpu", "tests"})
+            check(not bad and "faabric_tpu_torch" in ready["modules"],
+                  f"26: the {h} child loaded the port and nothing of JAX or "
+                  f"the JAX package ({bad})")
+        log("  26 spawn to ready (s): planner " f"{planner_s:.3f}, "
+            + ", ".join(f"{h} {t:.3f}" for h, t in spawn_s.items()))
+        for h, off in offsets.items():
+            register_host_alias(h, "127.0.0.1", off)
+        client = WorkerRuntime(host=client_host, slots=0,
+                               factory=TorchExecutorFactory(dev.type),
+                               planner_host=planner_host)
+        client.start()
+        for plane in ("shm", "tcp"):
+            if plane == "tcp":
+                for c in children.values():
+                    c.send("restart 0")
+                for c in children.values():
+                    c.expect("ready", 180)
+            results, wall = run_gang(client.planner_client, "planes_step", n)
+            outs = guest_outputs(results, f"26 ({plane})")
+            check(sorted(o["host"] for o in outs) == sorted(
+                h for h, k in PLANES_HOSTS.items() for _ in range(k)),
+                f"26 ({plane}): 4 ranks split 2 + 2 across the processes")
+            check(all(o["rungs"].get("allreduce") == "ring" for o in outs),
+                  f"26 ({plane}): the gradient allreduce took the flat ring")
+            for c in children.values():
+                c.send(f"report {plane}")
+            reports = {h: c.expect("report", 300)
+                       for h, c in children.items()}
+            want = keep[plane].cpu()
+            finals = set()
+            moved = {"shm": 0.0, "tcp": 0.0}
+            for h, rep in reports.items():
+                flat = torch.from_numpy(np.fromfile(rep["first"], np.float32))
+                os.remove(rep["first"])
+                flat = flat.view(len(rep["ranks"]), -1)
+                for r, got in zip(rep["ranks"], flat):
+                    same = torch.equal(got, want)
+                    diff = 0.0 if same else float((got - want).abs().max())
+                    check(same, f"26 ({plane}): rank {r}'s parameters "
+                          f"after the first step in the {h} process are "
+                          f"bitwise equal to phase 22's in-process step "
+                          f"(max |diff| {diff:.6g})")
+                finals |= set(rep["final"].values())
+                for k in moved:
+                    moved[k] += rep["bytes"][k]
+                bad = sorted(set(rep["modules"])
+                             & {"jax", "jaxlib", "faabric_tpu", "tests"})
+                check(not bad, f"26 ({plane}): the {h} child loaded nothing "
+                      f"of JAX or the JAX package ({bad})")
+                got = rep["launches"]
+                if on_card:
+                    for name, count in per_step.items():
+                        check(got.get(name, 0) == count * 2 * steps,
+                              f"26 ({plane}): {name} launched "
+                              f"{got.get(name, 0)} times in the {h} process "
+                              f"= {count} a step x 2 ranks x {steps} steps")
+                    check(got.get("flash_attention.wgmma", 0)
+                          == got.get("flash_attention", -1),
+                          f"26 ({plane}): every flash forward in the {h} "
+                          f"process took the wgmma body")
+                for k, v in got.items():
+                    path[k] = path.get(k, 0) + v
+            check(len(finals) == 1, f"26 ({plane}): the 4 ranks' parameters "
+                  f"after {steps} steps are bitwise equal across the "
+                  f"processes ({len(finals)} digests)")
+            if plane == "shm":
+                check(moved["shm"] > 0 and moved["tcp"] == 0,
+                      f"26 (shm): the children put {moved['shm']:,.0f} bytes "
+                      f"on rings and {moved['tcp']:,.0f} on bulk TCP")
+            else:
+                check(moved["tcp"] > 0 and moved["shm"] == 0,
+                      f"26 (tcp): the children put {moved['tcp']:,.0f} bytes "
+                      f"on bulk TCP and {moved['shm']:,.0f} on rings")
+            ref = keep["step_ms"][plane]
+            log(f"  26 ({plane}) first step ms by rank: "
+                + ", ".join(f"{o['step_ms'][0]:.1f}" for o in outs)
+                + "; median of steps 2-" f"{steps} by rank: "
+                + ", ".join(f"{statistics.median(o['step_ms'][1:]):.1f}"
+                            for o in outs)
+                + "; phase 22's in-process step by rank: "
+                + ", ".join(f"{ref[o['rank']][0]:.1f}" for o in outs)
+                + f"; {wall:.1f} ms through the planner")
+            log(f"  26 ({plane}) bytes the children sent: rings "
+                f"{moved['shm']:,.0f}, bulk TCP {moved['tcp']:,.0f}; launches "
+                + "; ".join(f"{h} {rep['launches']}"
+                            for h, rep in reports.items()))
+    finally:
+        try:
+            if client is not None:
+                client.shutdown()
+            for c in children.values():
+                c.stop()
+            if planner is not None and planner.poll() is None:
+                planner.send_signal(signal.SIGTERM)
+                check(planner.wait(60) == 0,
+                      "26: the planner process stopped on SIGTERM with 0")
+        finally:
+            for c in children.values():
+                c.kill()
+            if planner is not None and planner.poll() is None:
+                planner.kill()
+                planner.wait(60)
+            plog.close()
+            clear_host_aliases()
+            shutil.rmtree(work, ignore_errors=True)
+    log(f"  phase 26 launches: {path}")
+    log(f"  phase 26 took {time.perf_counter() - t_phase:.1f} s")
+    return path
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if (sys.argv[1:2] == ["--planner-child"]
@@ -5248,10 +5725,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, here)
-    if sys.argv[1:] == ["--telemetry-steps"]:
+    if sys.argv[1:2] == ["--telemetry-steps"]:
         # Phase 23d's child: 23b's steps under the knobs it was given
-        print(json.dumps(telemetry_steps()), flush=True)
+        print(json.dumps(telemetry_steps(int(sys.argv[2]))), flush=True)
         return 0
+    if sys.argv[1:2] == ["--worker-child"]:
+        # Phase 26's worker hosts
+        return worker_child(sys.argv[2:])
     # Arm the fault registry before the port loads (an inert rule on a
     # point nothing fires): its call sites keep live handles, and phase
     # 23's install_faults arms them
@@ -5291,6 +5771,7 @@ def main() -> int:
     from faabric_tpu_torch.ops.rms_norm import _reference_rms_norm, rms_norm
     from faabric_tpu_torch.util.device import resolve_device
 
+    begin_phase(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = resolve_device()
@@ -5302,6 +5783,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # -- 2. build ----------------------------------------------------------
+    begin_phase(2)
     t0 = time.perf_counter()
     _build.kernels()
     log(f"kernel build seconds: {time.perf_counter() - t0:.1f}")
@@ -5309,6 +5791,7 @@ def main() -> int:
     errs: dict[str, float] = {}
 
     # -- 3. RMS kernel against its plain version -----------------------------
+    begin_phase(3)
     log("phase 3: rms_norm kernel vs plain")
     # (512, 512) and (1, 512): the faabric phase's scoring forward and
     # each of its decode steps; (1024, 512): each DDP rank's 2 x 512 rows
@@ -5336,6 +5819,7 @@ def main() -> int:
                   f"rms_norm ({rows}, {d}) {dtype}: max |err| {err:.3g}")
 
     # -- 4. flash kernel against its plain version ---------------------------
+    begin_phase(4)
     log("phase 4: flash attention kernel vs plain")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # views: q, k, v as views of one (B, S, 3, H, 64) product, as the
@@ -5418,6 +5902,7 @@ def main() -> int:
     launches = dict(_build.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log(f"main path launches: {launches}")
+    begin_phase(5)
     log("phase 5: full-width forward")
     for name in ("rms_norm", "flash_attention"):
         check(launches.get(name, 0) > 0, f"main path launched {name} "
@@ -5461,6 +5946,7 @@ def main() -> int:
           "kernel path as close to fp32 as the plain bf16 path")
     del f32_logits, ref_logits, err_k, err_r
 
+    begin_phase(6)
     log("phase 6: generate")
     check(tuple(new_tokens.shape) == (8, n_new)
           and int(new_tokens.min()) >= 0
@@ -5479,6 +5965,7 @@ def main() -> int:
           f"last position: max |err| {step_err:.3g} (limit {2 * noise_max:.3g})")
 
     # -- 7. timings ----------------------------------------------------------
+    begin_phase(7)
     log("phase 7: timings")
     x = torch.randn(4096, 512, device=dev, generator=gen).to(torch.bfloat16)
     scale = torch.rand(512, device=dev, generator=gen) + 0.5
@@ -5544,6 +6031,7 @@ def main() -> int:
 
 
     # -- 8. backward kernels against their plain version ---------------------
+    begin_phase(8)
     log("phase 8: flash backward kernels (dQ with delta, dK/dV) vs plain")
 
     def bwd_inputs(b, s_q, s_k, h, d, causal, dtype, g_lse=False,
@@ -5658,6 +6146,7 @@ def main() -> int:
     del base, g_out, g_lse, f32, got, want
 
     # -- 9. the training path at full width ----------------------------------
+    begin_phase(9)
     log("phase 9: training, ModelConfig() defaults, 8 x 512 batches")
     n_steps, resume_at = 10, 5
     corpus = np.random.RandomState(0).randint(
@@ -5763,6 +6252,7 @@ def main() -> int:
     del grads_k, grads_r, grads_32
 
     # -- 10. training timings -------------------------------------------------
+    begin_phase(10)
     log("phase 10: training timings")
     tok, tgt = batches[0]
     step_ms = host_ms(lambda: step(train_model, opt, tok, tgt))
@@ -5839,46 +6329,67 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 11/12. the ring kernel and the MPI world on the card ---------------
+    begin_phase(11)
     ring_t, ring_bounds, ring_err = ring_kernel_phase(dev)
+    begin_phase(12)
     mpi_launches = mpi_world_phase(dev, _build)
     check(mpi_launches.get("ring_permute", 0) > 0,
           f"MPI phase launched ring_permute "
           f"{mpi_launches.get('ring_permute', 0)} times")
 
     # -- 13. faabric's own path: planner, worker, executors ---------------
+    begin_phase(13)
     faabric_launches = faabric_phase(dev, model, _build)
     # -- 14. dryrun_multichip stages 1-3 and the sharded step -------------
+    begin_phase(14)
     mesh_launches = mesh_phase(dev, _build, (step_ms, step_busy))
     # -- 15. the pipeline, GPipe and 1F1B --------------------------------
+    begin_phase(15)
     pp_launches = pipeline_phase(dev, _build)
     # -- 16. the MoE family ----------------------------------------------
+    begin_phase(16)
     moe_launches = moe_phase(dev, _build)
     # -- 17. faabric's MPI through guests ---------------------------------
+    begin_phase(17)
     guest_launches = mpi_guest_phase(dev, _build)
     # -- 18. the mesh half of serving -------------------------------------
+    begin_phase(18)
     serving_mesh_launches = sharded_serving_phase(dev, _build)
     # -- 19. the state KV through guests ----------------------------------
+    begin_phase(19)
     state_launches = state_phase(dev, _build)
     # -- 20. snapshots through guests -------------------------------------
+    begin_phase(20)
     snapshot_launches = snapshot_phase(dev, _build)
     # -- 21. THREADS batches, merged through snapshot diffs; chaining -----
+    begin_phase(21)
     threads_launches = threads_phase(dev, _build)
     # -- 22. the gradient across two hosts on each data plane -------------
-    planes_launches = planes_phase(dev, _build)
+    begin_phase(22)
+    plane_steps: dict = {}
+    planes_launches = planes_phase(dev, _build, keep=plane_steps)
     # -- 23. telemetry and fault points on the data-parallel step ---------
+    begin_phase(23)
     telemetry_launches = telemetry_phase(dev, _build)
     # -- 24. migration, spot freeze and thaw, recovery, aborts -----------
+    begin_phase(24)
     migration_launches = migration_phase(dev, _build)
     # -- 25. a serving batch that outlives a SIGKILLed planner -----------
+    begin_phase(25)
     restart_launches = restart_phase(dev, _build)
+    # -- 26. phase 22's step with its hosts as processes -------------------
+    begin_phase(26)
+    process_launches = processes_phase(dev, _build, plane_steps)
+    del plane_steps
+    end_phase()
     # Each row's launches: the serving kernels' on the direct serving
     # path (phase 5) and under the executors (13), the backward kernels'
     # on the training path (9), the ring kernel's on the MPI path (12),
     # and every launch of the mesh (14), pipeline (15), MoE (16), guest
     # data-parallel (17), sharded decode and perplexity (18), state (19),
     # snapshot (20), THREADS and chaining (21), data-plane (22),
-    # telemetry (23), migration, spot and recovery (24) and planner
-    # restart (25) paths
+    # telemetry (23), migration, spot and recovery (24), planner restart
+    # (25) and host-process (26, launched in its worker processes) paths
     path_launches = {
         name: sum(p.get(name, 0) for p in paths) + sum(
             p.get(name, 0) for p in (mesh_launches, pp_launches, moe_launches,
@@ -5886,7 +6397,7 @@ def main() -> int:
                                      state_launches, snapshot_launches,
                                      threads_launches, planes_launches,
                                      telemetry_launches, migration_launches,
-                                     restart_launches))
+                                     restart_launches, process_launches))
         for name, paths in (
             ("rms_norm", (launches, faabric_launches)),
             ("flash_attention", (launches, faabric_launches)),
@@ -5931,4 +6442,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except Exception as e:
+        if _phase["n"] is not None:
+            log(f"phase {_phase['n']}: FAILED after "
+                f"{time.perf_counter() - _phase['t0']:.1f} s: "
+                f"{type(e).__name__}: {e}")
+        raise

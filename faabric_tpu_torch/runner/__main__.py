@@ -1,0 +1,134 @@
+"""Deployment entry points: the planner_server and worker binaries.
+
+Counterpart of ``faabric_tpu/runner/__main__.py`` (reference
+src/planner/planner_server.cpp:9-43, src/runner/FaabricMain.cpp)::
+
+    python -m faabric_tpu_torch.runner planner [--port-offset N]
+    python -m faabric_tpu_torch.runner worker --host NAME [--slots N]
+        [--devices N] [--planner-host NAME] [--device cuda|cpu]
+
+The planner role serves ``PlannerServer`` (its RPC and its snapshot
+server) at ``--port-offset``. The worker role boots a ``WorkerRuntime``
+(function-call, point-to-point, snapshot and state servers, keep-alive
+registration with the planner) whose torch guests run on the card; a
+caller asks for the CPU with ``--device cpu``. Both run until SIGTERM or
+SIGINT, which record and dump the flight ring under the signal's own
+name and then stop the role cleanly (exit 0).
+
+Not ported yet, and refused rather than started without: the planner's
+REST endpoint (a nonzero ``--http-port``, ``ROADMAP.md`` Queue 1 #9 part
+D, step 4) and the ``redis`` role (#9 part D, step 5).
+"""
+
+from __future__ import annotations
+
+import argparse
+import signal
+import sys
+import threading
+
+from faabric_tpu_torch.util.crash import install_crash_handler
+from faabric_tpu_torch.util.logging import get_logger
+
+logger = get_logger("faabric_tpu_torch.runner")
+
+NOT_PORTED = {
+    "http": "the planner's REST endpoint is not ported yet (ROADMAP.md "
+            "Queue 1 #9 part D, step 4); leave --http-port at 0",
+    "redis": "the redis role is not ported yet (ROADMAP.md Queue 1 #9 "
+             "part D, step 5)",
+}
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(prog="faabric_tpu_torch.runner")
+    sub = parser.add_subparsers(dest="role", required=True)
+
+    p_planner = sub.add_parser("planner")
+    p_planner.add_argument("--port-offset", type=int, default=0)
+    p_planner.add_argument("--http-port", type=int, default=0,
+                           help="REST endpoint port: not ported yet, "
+                                "only 0 is accepted")
+
+    p_redis = sub.add_parser("redis", help="not ported yet")
+    p_redis.add_argument("--port", type=int, default=6379)
+    p_redis.add_argument("--bind", default="127.0.0.1")
+
+    p_worker = sub.add_parser("worker")
+    p_worker.add_argument("--host", default="",
+                          help="this worker's identity (default: primary IP)")
+    p_worker.add_argument("--slots", type=int, default=None,
+                          help="execution slots (default: one per usable "
+                               "core; 0 = observer host)")
+    p_worker.add_argument("--devices", type=int, default=None,
+                          help="devices to register (default: the card "
+                               "count for CUDA guests, 0 on the CPU)")
+    p_worker.add_argument("--planner-host", default=None)
+    p_worker.add_argument("--device", choices=("cuda", "cpu"),
+                          default="cuda",
+                          help="where guests run (default: the card)")
+
+    args = parser.parse_args(argv)
+    if args.role == "redis":
+        parser.error(NOT_PORTED["redis"])
+    if args.role == "planner" and args.http_port:
+        parser.error(NOT_PORTED["http"])
+    if args.role == "worker":
+        from faabric_tpu_torch.executor import TorchExecutorFactory
+
+        # Raises without a card unless --device cpu, before anything of
+        # the process changes
+        factory = TorchExecutorFactory(args.device)
+    install_crash_handler()
+
+    stop = threading.Event()
+
+    def _on_signal(signum, _frame):
+        # Dump the flight ring while the process state is intact, under
+        # the name of the signal that came (a post-mortem must not claim
+        # a SIGTERM for an operator's Ctrl-C); the shutdown survives any
+        # failure of the dump
+        try:
+            from faabric_tpu_torch.telemetry import flight_dump, flight_record
+
+            name = signal.Signals(signum).name.lower()
+            flight_record(name, role=args.role)
+            flight_dump(name)
+        except Exception:  # noqa: BLE001 — never lose the shutdown
+            pass
+        finally:
+            stop.set()
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, _on_signal)
+
+    if args.role == "planner":
+        from faabric_tpu_torch.planner import PlannerServer
+
+        server = PlannerServer(port_offset=args.port_offset)
+        server.start()
+        logger.info("Planner up (rpc offset %d)", args.port_offset)
+        stop.wait()
+        server.stop()
+    else:
+        from faabric_tpu_torch.runner import WorkerRuntime
+        from faabric_tpu_torch.util.network import (
+            get_primary_ip_for_this_host,
+        )
+
+        runtime = WorkerRuntime(host=args.host
+                                or get_primary_ip_for_this_host(),
+                                slots=args.slots,
+                                n_devices=args.devices,
+                                factory=factory,
+                                planner_host=args.planner_host)
+        runtime.start()
+        logger.info("Worker %s up (guests on %s)", runtime.host, args.device)
+        stop.wait()
+        runtime.shutdown()
+    logger.info("%s stopped", args.role.capitalize())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

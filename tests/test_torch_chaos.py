@@ -1,0 +1,449 @@
+"""The reference's chaos cases on the port: worker and planner processes
+SIGKILLed mid-batch.
+
+Counterpart of ``tests/dist/test_chaos.py``: with a worker killed
+mid-batch the planner requeues the dead host's messages onto the
+survivor and the batch completes within the retry budget; a collective
+on the broken MPI world raises MpiWorldAborted in bounded time; the
+survivors leave flight dumps; an expired but live worker rejoins; a
+SIGKILLed planner restarts from its journal and the batch completes.
+
+Every case stands up its own cluster of ``tests/test_torch_procs.py``
+processes on a port slot of ``tests/conftest.py`` (the kill leaves no
+reusable fixture behind). The kill cases are chaos and slow, as the
+reference's; tier-1 runs the worker kill of
+``tests/test_torch_multiprocess.py``. Waiting for step 5 (``ROADMAP.md``
+#10): ``:479``, the kill at full QPS, which needs the ingress and
+``submit_functions_many``.
+"""
+
+import time
+
+import pytest
+
+from faabric_tpu_torch.proto import ReturnValue, batch_exec_factory
+from tests.test_torch_multiprocess import ProcCluster
+
+pytestmark = pytest.mark.chaos
+
+
+class ChaosCluster(ProcCluster):
+    """A planner and two workers as OS processes on a private port range,
+    named after ``tag``; the test process joins as a 0-slot client
+    host."""
+
+    def __init__(self, tag: str, slots=(4, 4), extra_env: dict | None = None,
+                 worker_env: dict | None = None):
+        super().__init__(tag, {f"{tag}w{i}": s for i, s in enumerate(slots)},
+                         extra_env=extra_env, worker_env=worker_env)
+
+
+def wait_finished(me, app_id, timeout):
+    deadline = time.time() + timeout
+    status = me.planner_client.get_batch_results(app_id)
+    while not status.finished and time.time() < deadline:
+        time.sleep(0.2)
+        status = me.planner_client.get_batch_results(app_id)
+    assert status.finished, (
+        f"batch {app_id} never finished: "
+        f"{len(status.message_results)}/{status.expected_num_messages}")
+    return status
+
+
+def wait_world_spread(me, app_id):
+    """The decision of an 8-rank world once every rank is placed over
+    both workers."""
+    deadline = time.time() + 30
+    live = None
+    while time.time() < deadline:
+        live = me.planner_client.get_scheduling_decision(app_id)
+        if live is not None and live.n_messages == 8 \
+                and len(set(live.hosts)) == 2:
+            break
+        time.sleep(0.2)
+    assert live is not None and live.n_messages == 8, live
+    return live
+
+
+@pytest.mark.slow
+def test_chaos_kill_worker_mid_batch_requeues_and_completes():
+    """SIGKILL a worker holding live messages mid-batch: the planner's
+    expiry → requeue-with-backoff recovery moves them to the survivor
+    and the batch completes fully SUCCESS within the retry budget."""
+    cluster = ChaosCluster(
+        "ckA", slots=(8, 4),
+        extra_env={"PLANNER_HOST_TIMEOUT": "3",
+                   "PLANNER_REQUEUE_BACKOFF": "0.3",
+                   "PLANNER_MAX_REQUEUES": "5"}).start()
+    try:
+        me = cluster.me
+        wa, wb = cluster.workers
+        # 12 × 2.5 s sleeps over 8 + 4 slots: 8 land on the big worker,
+        # 4 on the one about to be killed
+        req = batch_exec_factory("dist", "sleep", 12)
+        for m in req.messages:
+            m.input_data = b"2.5"
+        decision = me.planner_client.call_functions(req)
+        placed = {}
+        for h in decision.hosts:
+            placed[h] = placed.get(h, 0) + 1
+        assert placed.get(wb), f"nothing placed on {wb}: {placed}"
+
+        time.sleep(0.5)  # the batch is genuinely mid-flight
+        t_kill = cluster.kill(wb)
+
+        status = wait_finished(me, req.app_id, timeout=60)
+        recovery_s = time.monotonic() - t_kill
+        assert status.expected_num_messages == 12
+        assert len(status.message_results) == 12
+        bad = [(m.id, m.return_value, m.output_data)
+               for m in status.message_results
+               if m.return_value != int(ReturnValue.SUCCESS)]
+        assert not bad, f"requeued batch had failures: {bad}"
+        # The killed worker's messages re-ran on the survivor
+        by_host = {m.executed_host for m in status.message_results}
+        assert by_host == {wa}, by_host
+        # Recovery: inside expiry (3 s) + the backoff budget, nowhere
+        # near the 60 s socket timeout
+        assert recovery_s < 45, f"recovery took {recovery_s:.1f}s"
+    finally:
+        cluster.stop()
+
+
+@pytest.mark.slow
+def test_chaos_requeued_invocations_carry_spanning_ledger():
+    """SIGKILL a worker mid-batch: the requeued invocations' lifecycle
+    ledgers span both attempts (admit on the original submission, a
+    ``requeue`` stamp at the recovery boundary, the second attempt's run
+    and result stamps after it)."""
+    from faabric_tpu_torch.telemetry.lifecycle import (
+        PHASE_ADMIT,
+        PHASE_RECORDED,
+        PHASE_REQUEUE,
+        PHASE_RUN_START,
+        ledger_durations,
+    )
+
+    cluster = ChaosCluster(
+        "ckL", slots=(8, 4),
+        extra_env={"PLANNER_HOST_TIMEOUT": "3",
+                   "PLANNER_REQUEUE_BACKOFF": "0.3",
+                   "PLANNER_MAX_REQUEUES": "5"}).start()
+    try:
+        me = cluster.me
+        wa, wb = cluster.workers
+        req = batch_exec_factory("dist", "sleep", 12)
+        for m in req.messages:
+            m.input_data = b"2.5"
+        decision = me.planner_client.call_functions(req)
+        victims = {decision.message_ids[i]
+                   for i, h in enumerate(decision.hosts) if h == wb}
+        assert victims, f"nothing placed on {wb}"
+
+        time.sleep(0.5)  # genuinely mid-flight
+        cluster.kill(wb)
+
+        status = wait_finished(me, req.app_id, timeout=60)
+        assert len(status.message_results) == 12
+        requeued = [m for m in status.message_results if m.id in victims]
+        assert requeued
+        for m in status.message_results:
+            assert m.return_value == int(ReturnValue.SUCCESS), \
+                m.output_data
+            assert PHASE_ADMIT in m.lc and PHASE_RECORDED in m.lc, \
+                sorted(m.lc)
+        for m in requeued:
+            lc = m.lc
+            # The requeue boundary is visible and ordered
+            assert PHASE_REQUEUE in lc, sorted(lc)
+            assert lc[PHASE_ADMIT] < lc[PHASE_REQUEUE], lc
+            assert lc[PHASE_REQUEUE] < lc[PHASE_RUN_START], lc
+            assert lc[PHASE_RUN_START] < lc[PHASE_RECORDED], lc
+            d = ledger_durations(lc)
+            # Detection (3 s expiry) + backoff dominates the requeue phase
+            assert d["requeue"] > 0.5, d
+            assert m.executed_host == wa
+        # The survivors' ledgers carry no requeue boundary
+        untouched = [m for m in status.message_results
+                     if m.id not in victims]
+        assert untouched
+        assert all(PHASE_REQUEUE not in m.lc for m in untouched)
+    finally:
+        cluster.stop()
+
+
+@pytest.mark.slow
+def test_chaos_mpi_world_abort_is_bounded():
+    """SIGKILL a worker hosting half an MPI world mid-collective: the
+    surviving ranks raise MpiWorldAborted within the liveness-check
+    bound instead of hanging to the 60 s socket timeout; the dead ranks'
+    messages are failed by expiry (MPI is never requeued), so the batch
+    still completes."""
+    cluster = ChaosCluster(
+        "ckB", extra_env={"PLANNER_HOST_TIMEOUT": "3",
+                          "MPI_ABORT_CHECK_SECONDS": "1"}).start()
+    try:
+        me = cluster.me
+        req = batch_exec_factory("dist", "mpi_abort", 1)
+        req.messages[0].mpi_rank = 0
+        me.planner_client.call_functions(req)
+        live = wait_world_spread(me, req.app_id)
+        # Kill the worker not hosting rank 0, so that the root rank's
+        # result reports the abort
+        rank0_host = live.hosts[live.group_idxs.index(0)]
+        victim = next(w for w in cluster.workers if w != rank0_host)
+        time.sleep(1.0)  # let the collective loop get going
+        cluster.kill(victim)
+
+        status = wait_finished(me, req.app_id, timeout=90)
+        aborted, dead = [], []
+        for m in status.message_results:
+            if m.return_value == int(ReturnValue.SUCCESS):
+                assert m.output_data.startswith(b"aborted:"), m.output_data
+                aborted.append(float(m.output_data.split(b":")[1]))
+            else:
+                dead.append(m)
+        # Every survivor rank aborted, in bounded time
+        assert len(aborted) == 4, (aborted, dead)
+        assert max(aborted) < 15.0, f"abort took {max(aborted):.1f}s"
+        # The killed ranks were failed (MPI is terminal)
+        assert len(dead) == 4
+        assert all(b"expired" in m.output_data or b"failed" in
+                   m.output_data.lower() for m in dead), dead
+    finally:
+        cluster.stop()
+
+
+@pytest.mark.slow
+def test_chaos_sigkill_leaves_flight_recorder_dumps(tmp_path):
+    """SIGKILL a worker hosting half an MPI world: every surviving
+    process leaves a flight dump in FAABRIC_FLIGHT_DIR (the surviving
+    worker on the MpiWorldAborted transition, the planner on its
+    recovery pass), and the merged ring holds the injected fault
+    firings and the group-abort transition. The port's dumps read back
+    through the reference's ``runner/flightdump.py`` (the port's CLI is
+    step 4)."""
+    from faabric_tpu.runner import flightdump
+
+    flight_dir = str(tmp_path / "flight")
+    cluster = ChaosCluster(
+        "ckF", extra_env={"PLANNER_HOST_TIMEOUT": "3",
+                          "MPI_ABORT_CHECK_SECONDS": "1",
+                          "FAABRIC_FLIGHT_DIR": flight_dir},
+        # Harmless injected delays on the collective path: chaos runs
+        # must be distinguishable from real faults in the black box
+        worker_env={"FAABRIC_FAULTS": "mpi.collective=delay:1ms@times=3"},
+    ).start()
+    try:
+        me = cluster.me
+        req = batch_exec_factory("dist", "mpi_abort", 1)
+        req.messages[0].mpi_rank = 0
+        me.planner_client.call_functions(req)
+        live = wait_world_spread(me, req.app_id)
+        rank0_host = live.hosts[live.group_idxs.index(0)]
+        victim = next(w for w in cluster.workers if w != rank0_host)
+        survivor = next(w for w in cluster.workers if w != victim)
+        time.sleep(1.0)  # collective rounds (and fault firings) underway
+        cluster.kill(victim)
+
+        wait_finished(me, req.app_id, timeout=90)
+
+        # Give the planner's recovery thread a beat to write its dump
+        deadline = time.time() + 15
+        dumps = []
+        while time.time() < deadline:
+            dumps = flightdump.load_dumps(flight_dir)
+            if len({d["process"] for d in dumps}) >= 2:
+                break
+            time.sleep(0.5)
+
+        processes = {d["process"] for d in dumps}
+        # Every surviving stateful host dumped
+        assert any(survivor in p for p in processes), (processes, dumps)
+        assert any(p == "planner" for p in processes), processes
+
+        merged = flightdump.merge(flight_dir)
+        assert merged, "merged flight ring is empty"
+        kinds = {e["kind"] for e in merged}
+        assert "fault_fired" in kinds, kinds
+        assert "group_abort" in kinds, kinds
+        fault = next(e for e in merged if e["kind"] == "fault_fired")
+        assert fault["point"] == "mpi.collective"
+        assert fault["action"] == "delay"
+        abort = next(e for e in merged if e["kind"] == "group_abort")
+        assert "reason" in abort and abort["group"]
+        text = flightdump.render(merged, last=20)
+        assert "group_abort" in text
+    finally:
+        cluster.stop()
+
+
+@pytest.mark.slow
+def test_chaos_suppressed_keepalives_expire_then_rejoin():
+    """FAABRIC_FAULTS=keepalive=suppress@times=N on a worker: the planner
+    expires the live worker; when its keep-alives resume, the 'known:
+    False' response triggers an overwrite re-register and the worker
+    rejoins the pool, with no restart."""
+    cluster = ChaosCluster(
+        "ckC", extra_env={"PLANNER_HOST_TIMEOUT": "2"},
+        worker_env={"FAABRIC_FAULTS": "keepalive=suppress@times=4@host=ckCw1"},
+    ).start()
+    try:
+        me = cluster.me
+        w0, w1 = cluster.workers
+
+        def hosts():
+            return {h["ip"] for h in me.planner_client.get_available_hosts()}
+
+        # w1's first ~4 keep-alives are suppressed: it drops off...
+        deadline = time.time() + 20
+        gone = False
+        while time.time() < deadline:
+            if w1 not in hosts():
+                gone = True
+                break
+            time.sleep(0.25)
+        assert gone, f"{w1} never expired: {hosts()}"
+        assert w0 in hosts()
+
+        # ...and once the suppression budget is spent, rejoins on its own
+        deadline = time.time() + 20
+        back = False
+        while time.time() < deadline:
+            if w1 in hosts():
+                back = True
+                break
+            time.sleep(0.25)
+        assert back, f"{w1} never rejoined: {hosts()}"
+
+        # And it takes work again
+        req = batch_exec_factory("dist", "square", 8)
+        for i, m in enumerate(req.messages):
+            m.input_data = str(i + 1).encode()
+        d = me.planner_client.call_functions(req)
+        assert set(d.hosts) == {w0, w1}, d.hosts
+        status = wait_finished(me, req.app_id, timeout=30)
+        assert all(m.return_value == int(ReturnValue.SUCCESS)
+                   for m in status.message_results)
+    finally:
+        cluster.stop()
+
+
+def wait_finished_tolerant(me, app_id, timeout):
+    """wait_finished where the planner itself goes away mid-poll: an
+    RpcError (connection refused, open breaker) is part of the
+    scenario."""
+    deadline = time.time() + timeout
+    status = None
+    while time.time() < deadline:
+        try:
+            status = me.planner_client.get_batch_results(app_id)
+            if status.finished:
+                return status
+        except Exception:  # noqa: BLE001 — planner down is expected
+            pass
+        time.sleep(0.25)
+    raise AssertionError(f"batch {app_id} never finished: {status}")
+
+
+@pytest.mark.slow
+def test_chaos_planner_sigkill_restart_recovers(tmp_path):
+    """SIGKILL the planner mid-batch. The restarted planner replays its
+    write-ahead journal (pre-crash results intact, the in-flight
+    decision restored), workers rejoin through the known:false
+    keep-alive path and flush the results they buffered during the
+    outage, and the batch completes with every message SUCCESS. The
+    reference reads the replay from ``/healthz``; the port's planner
+    process prints it in its ready line, and the test waits for the
+    planner through a planner RPC."""
+    from faabric_tpu.runner import flightdump
+
+    from faabric_tpu_torch.runner import journaldump
+
+    journal_dir = str(tmp_path / "journal")
+    flight_dir = str(tmp_path / "flight")
+    cluster = ChaosCluster(
+        "ckP", slots=(8, 4),
+        extra_env={"PLANNER_HOST_TIMEOUT": "3",
+                   "PLANNER_REQUEUE_BACKOFF": "0.3",
+                   "PLANNER_MAX_REQUEUES": "5",
+                   "FAABRIC_PLANNER_JOURNAL_DIR": journal_dir,
+                   "FAABRIC_PLANNER_RECONCILE_GRACE": "5",
+                   "FAABRIC_FLIGHT_DIR": flight_dir}).start()
+    try:
+        me = cluster.me
+        # 12 tasks over 8 + 4 slots: four quick ones finish (and journal
+        # their results) before the kill; the 4 s stragglers finish
+        # during the outage and buffer worker-side
+        req = batch_exec_factory("dist", "sleep", 12)
+        for i, m in enumerate(req.messages):
+            m.input_data = b"0.5" if i < 4 else b"4"
+        me.planner_client.call_functions(req)
+
+        # Wait until pre-crash results are recorded at the planner
+        deadline = time.time() + 20
+        pre_crash = set()
+        while time.time() < deadline:
+            status = me.planner_client.get_batch_results(req.app_id)
+            pre_crash = {m.id for m in status.message_results}
+            if len(pre_crash) >= 2:
+                break
+            time.sleep(0.2)
+        assert len(pre_crash) >= 2, "no results recorded before the kill"
+
+        t_kill = cluster.kill(cluster.planner_host)
+        time.sleep(1.0)  # outage window: stragglers complete and buffer
+
+        # Restart on the same journal directory, and wait for the
+        # planner through its RPC
+        ready = cluster.restart_planner()
+        deadline = time.time() + 60
+        while True:
+            try:
+                me.planner_client.get_available_hosts()
+                break
+            except Exception:  # noqa: BLE001 — not serving yet
+                assert time.time() < deadline, "the planner never served"
+                time.sleep(0.25)
+
+        status = wait_finished_tolerant(me, req.app_id, timeout=60)
+        recovery_s = time.monotonic() - t_kill
+        assert status.expected_num_messages == 12
+        assert len(status.message_results) == 12
+        bad = [(m.id, m.return_value, m.output_data)
+               for m in status.message_results
+               if m.return_value != int(ReturnValue.SUCCESS)]
+        assert not bad, f"batch had failures after planner restart: {bad}"
+        # Pre-crash results rode the journal through the restart
+        post = {m.id for m in status.message_results}
+        assert pre_crash <= post
+        assert recovery_s < 45, f"recovery took {recovery_s:.1f}s"
+
+        # The restarted planner's replay
+        journal = ready["journal"]
+        assert journal["enabled"]
+        replay = ready["lastReplay"]
+        assert replay["records"] + (
+            1 if replay["snapshot"] else 0) >= 1
+        assert replay["inFlightApps"] >= 1
+        # Both workers (and the client host) re-registered
+        assert len(me.planner_client.get_available_hosts()) >= 3
+
+        # The flight recorder kept the black box: the restarted planner
+        # dumped on replay
+        deadline = time.time() + 10
+        merged = []
+        while time.time() < deadline:
+            merged = flightdump.merge(flight_dir)
+            if any(e["kind"] == "journal_replayed" for e in merged):
+                break
+            time.sleep(0.5)
+        kinds = {e["kind"] for e in merged}
+        assert "journal_replayed" in kinds, kinds
+
+        # And journaldump can verify and render the journal directory
+        snapshot, records, meta = journaldump.load_journal_dir(journal_dir)
+        assert not meta.get("torn")
+        assert snapshot is not None or records
+    finally:
+        cluster.stop()

@@ -1295,3 +1295,28 @@ def test_planner_restart_on_the_card(cuda_device):
     assert launches["flash_attention"] == launches["flash_attention.wgmma"] \
         == batches * 8 * L
     assert launches["rms_norm"] == batches * 8 * (2 * L + 1) * (1 + n_new)
+
+
+@pytest.mark.cuda
+def test_processes_step_on_the_card(cuda_device, monkeypatch):
+    """``chip_smoke.py``'s phase 26 at full width on the card: phase 22
+    first (the in-process step on each plane), then the same step with
+    its planner and its two worker hosts as processes. Each process's
+    ranks' parameters after the first step are bitwise equal to phase
+    22's on the same plane; the children's launches come back: 3 steps
+    of 2 ranks a child, 2 children, 2 planes, every flash forward on
+    ``wgmma``."""
+    import chip_smoke
+    from faabric_tpu_torch.models import ModelConfig
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    keep: dict = {}
+    chip_smoke.planes_phase(cuda_device, _build, keep=keep)
+    launches = chip_smoke.processes_phase(cuda_device, _build, keep)
+    L = ModelConfig().n_layers
+    steps = 2 * 4 * 3  # planes x ranks x steps
+    assert launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == steps * L
+    assert launches["flash_attention"] == launches["flash_attention.wgmma"] \
+        == steps * 2 * L
+    assert launches["rms_norm"] == steps * (4 * L + 1)

@@ -903,14 +903,29 @@ def test_chip_smoke_restart_phase_small():
     import chip_smoke
     from faabric_tpu_torch.models import ModelConfig
     from faabric_tpu_torch.ops import _build
-    from tests.conftest import next_port_base
+    from faabric_tpu_torch.transport.common import STATE_ASYNC_PORT
+    from tests.test_torch_mpi import _hold_ports
+    from tests.test_torch_multiprocess import port_slot
 
     cfg = ModelConfig(vocab_size=512, d_model=64, n_layers=2, n_heads=1,
                       d_ff=256, max_seq=64, attention_impl="reference",
                       norm_impl="reference", compute_dtype=torch.float32)
+    # The planner child takes seconds to bind the slot, and the workers
+    # bind theirs only after it: a listening socket on a port of the slot
+    # that nothing of the phase binds (the planner's offset's state port)
+    # keeps other test workers' next_port_base() off the slot meanwhile
+    for _ in range(20):
+        base = port_slot()
+        sentinel = _hold_ports([base + STATE_ASYNC_PORT], listen=True)
+        if sentinel:
+            break
+    assert sentinel, "no free port slot"
     # A longer host timeout and grace than the card's: a loaded test
     # worker must not expire a live host or reconcile before its rejoin
-    launches = chip_smoke.restart_phase(
-        torch.device("cpu"), _build, cfg=cfg, serve_len=16, n_new=4,
-        base=next_port_base(), host_timeout=6.0, grace=15.0)
+    try:
+        launches = chip_smoke.restart_phase(
+            torch.device("cpu"), _build, cfg=cfg, serve_len=16, n_new=4,
+            base=base, host_timeout=6.0, grace=15.0)
+    finally:
+        sentinel[0].close()
     assert launches == {}  # the plain versions run on the CPU

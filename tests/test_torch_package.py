@@ -63,6 +63,10 @@ def test_importing_every_module_pulls_in_no_jax_and_no_faabric_tpu():
     } | {"faabric_tpu_torch.telemetry", "faabric_tpu_torch.faults",
          "faabric_tpu_torch.faults.registry",
          "faabric_tpu_torch.util.clock"} <= set(modules)
+    # Hosts as processes: the deployment entry point and its crash
+    # handler
+    assert {"faabric_tpu_torch.runner.__main__",
+            "faabric_tpu_torch.util.crash"} <= set(modules)
     modules.append("chip_smoke")
     code = (
         "import importlib, sys\n"
@@ -91,6 +95,42 @@ def test_chip_smoke_imports_nothing_of_jax_even_inside_its_phases():
             names.add(node.module.split(".")[0])
     assert "faabric_tpu_torch" in names
     assert not names & {"jax", "jaxlib", "faabric_tpu", "optax"}, names
+
+
+def test_process_bodies_import_nothing_of_jax_or_the_reference_tests():
+    """The port's host process bodies (``tests/test_torch_procs.py``) and
+    its entry point name the port, torch, numpy and the standard library
+    alone: no JAX, no JAX package, nothing of ``tests/``."""
+    import ast
+
+    for path in (ROOT / "tests" / "test_torch_procs.py",
+                 PKG / "runner" / "__main__.py", PKG / "util" / "crash.py"):
+        names = set()
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names.add(node.module.split(".")[0])
+        assert not names & {"jax", "jaxlib", "faabric_tpu", "optax",
+                            "tests"}, (path, names)
+    code = ("import sys\n"
+            f"sys.argv = [{str(ROOT / 'tests' / 'test_torch_procs.py')!r}]\n"
+            "import runpy\n"
+            "runpy.run_path(sys.argv[0], run_name='procs')\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
+            "             in ('jax', 'jaxlib', 'faabric_tpu'))\n"
+            "print('BAD', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("BAD []"), out.stdout
+
+
+def test_runner_worker_raises_without_cuda_unless_cpu_is_asked(no_cuda):
+    from faabric_tpu_torch.runner.__main__ import main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["worker", "--host", "nocard", "--slots", "0"])
 
 
 @pytest.fixture

@@ -1,0 +1,151 @@
+"""The flagship's two-host step with its hosts as OS processes, on the
+CPU: ``chip_smoke.py``'s phase 26 (``processes_phase``) at a small width.
+
+Phase 22 (``planes_phase``) runs first in this process, as in the
+script, and hands over where its step started and what it gave on each
+plane. Phase 26 then starts the planner through ``python -m
+faabric_tpu_torch.runner planner`` and the two worker hosts as child
+processes of ``chip_smoke.worker_child``, and holds their ranks'
+parameters after the first step bitwise to phase 22's. The width is
+chosen so that the gradient takes the flat ring over two hosts, as at
+full width, without patching the world's chunk size (the children would
+not see a patch). The kernels run only on the card; here the children
+count their plain norm and attention calls under the kernels' names, so
+that the launch counts they carry back can be checked.
+"""
+
+import os
+import sys
+
+import pytest
+import torch
+
+import chip_smoke  # noqa: E402
+from faabric_tpu_torch.models import ModelConfig  # noqa: E402
+from faabric_tpu_torch.ops import _build  # noqa: E402
+from faabric_tpu_torch.transport.common import STATE_ASYNC_PORT  # noqa: E402
+from tests.test_torch_mpi import _hold_ports  # noqa: E402
+from tests.test_torch_multiprocess import port_slot  # noqa: E402
+
+SMALL = dict(vocab_size=4096, d_model=256, n_layers=2, n_heads=4, d_ff=512,
+             max_seq=64, attention_impl="reference", norm_impl="reference")
+SEQ, STEPS = 32, 3
+
+# A worker child whose plain norm and attention count launches under the
+# kernels' names (the CPU runs no kernel), on one intra-op thread
+COUNTING_CHILD = """
+import sys
+import torch
+import chip_smoke
+import faabric_tpu_torch.models.transformer as t
+from faabric_tpu_torch.ops import _build
+
+torch.set_num_threads(1)
+
+def counted(fn, name):
+    def call(*args, **kwargs):
+        _build.count_launch(name)
+        return fn(*args, **kwargs)
+    return call
+
+t._rms_norm = counted(t._rms_norm, "rms_norm")
+t._attention = counted(t._attention, "flash_attention")
+sys.exit(chip_smoke.worker_child(sys.argv[1:]))
+"""
+
+
+def _children_of(pid: int) -> set[int]:
+    """Live processes whose parent is ``pid`` (from /proc)."""
+    out = set()
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == pid and fields[0] != "Z":
+            out.add(int(name))
+    return out
+
+
+def test_chip_smoke_processes_phase_small(monkeypatch):
+    """Phase 26 at a small width: on the shm rings across processes and
+    on bulk TCP, each host process's ranks' parameters after the first
+    step are bitwise equal to phase 22's in-process step from the same
+    start, and the four ranks' final parameters to each other; the
+    children's launch counts come back and add up; they load nothing of
+    JAX or of the JAX package; no child outlives the phase. Both phases
+    run their CPU arithmetic on one intra-op thread: a CPU reduction's
+    order follows the threads that take part, which a loaded machine
+    varies between processes (the card's kernels do not vary)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _processes_phase_small(monkeypatch)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _processes_phase_small(monkeypatch):
+    cfg = ModelConfig(**SMALL, compute_dtype=torch.float32)
+    passed = []
+    real_check = chip_smoke.check
+
+    def check(ok, what):
+        real_check(ok, what)
+        passed.append(what)
+
+    monkeypatch.setattr(chip_smoke, "check", check)
+    keep: dict = {}
+    before = _children_of(os.getpid())
+    chip_smoke.planes_phase(torch.device("cpu"), _build, cfg=cfg, seq=SEQ,
+                            base=port_slot(), keep=keep)
+    assert {"start", "shm", "tcp", "step_ms"} <= set(keep)
+    # The children take seconds to start before they bind the slot's
+    # ports: a listening socket on a port of the slot that none of them
+    # binds (the planner's offset's state port) keeps other test
+    # workers' next_port_base() off the slot meanwhile
+    for _ in range(20):
+        base = port_slot()
+        sentinel = _hold_ports([base + STATE_ASYNC_PORT], listen=True)
+        if sentinel:
+            break
+    assert sentinel, "no free port slot"
+    try:
+        launches = chip_smoke.processes_phase(
+            torch.device("cpu"), _build, keep, cfg=cfg, seq=SEQ, steps=STEPS,
+            base=base, child_argv=[sys.executable, "-c", COUNTING_CHILD])
+    finally:
+        sentinel[0].close()
+    assert _children_of(os.getpid()) <= before
+
+    L = cfg.n_layers
+    runs = 2 * chip_smoke.MPI_RANKS * STEPS  # planes x ranks x steps
+    assert launches == {"rms_norm": runs * (4 * L + 1),
+                        "flash_attention": runs * 2 * L}, launches
+    for plane in ("shm", "tcp"):
+        same = [w for w in passed if w.startswith(f"26 ({plane}): rank ")
+                and "bitwise equal to phase 22's in-process step" in w]
+        assert len(same) == chip_smoke.MPI_RANKS, passed
+        assert any(w.startswith(f"26 ({plane}): the 4 ranks' parameters")
+                   for w in passed)
+    loaded = [w for w in passed
+              if "loaded the port and nothing of JAX" in w]
+    assert len(loaded) == 2, passed
+
+
+@pytest.mark.parametrize("argv", [["--worker-child", "{}"]])
+def test_worker_child_needs_a_card(argv):
+    """``chip_smoke.py --worker-child`` is dispatched after the CUDA
+    check: without a card it exits non-zero and prints no result."""
+    import subprocess
+
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a machine without a card")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "chip_smoke.py", *argv], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and out.stdout == "", out
+    assert "CUDA" in out.stderr
