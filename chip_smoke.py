@@ -85,7 +85,12 @@ processes: the data-parallel step of the data planes again, with its
 planner started through ``python -m faabric_tpu_torch.runner planner``
 and its two worker hosts as child processes of this script
 (``--worker-child``) on the card, held bitwise to the same step with
-both hosts in this process. Every phase prints ``phase N: start`` and
+both hosts in this process. Their telemetry, read live: after each
+plane's steps the planner's REST endpoint (``/metrics``, ``/trace``,
+``/commmatrix``, ``/healthz``, ``/topology``, ``/profile`` and the rest)
+and the workers' own endpoints are scraped and held against the
+children's counters, and the doctor, timeline, statemap, profile and
+flightdump CLIs read them. Every phase prints ``phase N: start`` and
 ``phase N: ok in X s``, and a failed check its phase. For each path
 it checks the outputs and shows from the kernels' launch counts that
 the path ran through them; it times the kernels, their plain versions and the nearest
@@ -5472,6 +5477,254 @@ def worker_child(argv: list[str]) -> int:
     return 0
 
 
+# A host's HTTP endpoint port past its alias offset (phase 27): the
+# services take 8003-8014 and MPI worlds 8020 up
+HTTP_PORT = 8016
+
+
+def _get(url: str, timeout: float = 60.0) -> tuple[bytes, float]:
+    """One GET: (body, ms); fails the phase unless it answers 200."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        body = resp.read()
+        status = resp.status
+    ms = (time.perf_counter() - t0) * 1e3
+    check(status == 200, f"27: GET {url} answers 200 ({status})")
+    return body, ms
+
+
+def _cli_out(main_fn, argv: list[str]) -> tuple[int, str]:
+    """A CLI's ``main(argv)`` run in this process: (exit code, stdout)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main_fn(argv)
+    return rc, out.getvalue()
+
+
+SURFACES = ("/metrics", "/trace", "/commmatrix", "/healthz", "/topology",
+            "/profile", "/statemap", "/perf", "/timeseries", "/flight")
+
+
+def scrape_phase(plane: str, base_url: str, worker_urls: dict, outs: list,
+                 sent: dict, app_id: int, on_card: bool, work: str) -> None:
+    """Phase 27: the telemetry surfaces of phase 26's live cluster, read
+    after ``plane``'s steps and before its children stop. Every GET
+    surface of the planner's endpoint answers and parses; ``/metrics``
+    has rows of the planner and both hosts, and each host's bulk bytes
+    there equal what its child reported (``sent``: host → plane bytes
+    so far); ``/trace`` holds the three processes under three pids, the
+    guests' MPI spans, cross-process flow pairs and remote-parent links;
+    ``/commmatrix``'s cells on the plane run between the two hosts'
+    ranks and their bytes equal the children's plane counters (and the
+    matrix's Prometheus view is within 5% of its JSON); ``/healthz``
+    lists both hosts with breaker rows and the journal; ``/topology``
+    both hosts with their devices; ``/profile`` rows of each host; each
+    worker's own ``/healthz`` and ``/metrics`` answer. Then the CLIs: the
+    doctor against the live endpoint (exit 0, findings JSON), as a
+    subprocess on the tcp plane and in this process on the shm plane,
+    the doctor's ``--dir`` mode in this process over the sources
+    dumped to files (the findings of the live view of the same
+    sources), and ``timeline``, ``statemap``, ``profile`` and
+    ``flightdump --url`` through their ``main``. Starts no process but
+    the doctor's and checks no wall time; logs each surface's bytes and
+    response time and the doctor's findings."""
+    import re
+
+    from faabric_tpu_torch.runner import (
+        doctor,
+        flightdump,
+        profile,
+        statemap,
+        timeline,
+    )
+
+    begin_phase(27)
+    tag = f"27 ({plane})"
+    if on_card:
+        log(f"  {tag} card: " + subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip())
+    hosts = list(PLANES_HOSTS)
+    bodies: dict = {}
+    sizes = []
+    for path in SURFACES:
+        body, ms = _get(base_url + path)
+        bodies[path] = body.decode()
+        sizes.append(f"{path} {len(body):,} B {ms:.1f} ms")
+    log(f"  {tag} planner surfaces: " + "; ".join(sizes))
+    docs = {p: json.loads(b) for p, b in bodies.items() if p != "/metrics"}
+
+    # /metrics: Prometheus text, rows of every process
+    sample_re = re.compile(
+        r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? ([0-9.eE+-]+|\+Inf)$')
+    rows = [ln for ln in bodies["/metrics"].splitlines()
+            if ln and not ln.startswith("#")]
+    bad = [ln for ln in rows if not sample_re.match(ln)]
+    check(rows and not bad, f"{tag}: /metrics parses as Prometheus text "
+          f"({len(rows)} samples; unparseable: {bad[:2]})")
+    for h in ("planner", *hosts):
+        check(any(f'host="{h}"' in ln for ln in rows),
+              f"{tag}: /metrics has rows under host={h}")
+
+    def host_sum(family: str, host: str, **labels) -> float:
+        want = [f'host="{host}"'] + [f'{k}="{v}"' for k, v in labels.items()]
+        return sum(float(ln.rsplit(" ", 1)[1]) for ln in rows
+                   if ln.startswith(family + "{")
+                   and all(w in ln for w in want))
+
+    for h in hosts:
+        for path in ("shm", "tcp"):
+            got = host_sum("faabric_bulk_tx_bytes_total", h, path=path)
+            check(got == sent[h][path],
+                  f"{tag}: /metrics' {path} bytes of {h} ({got:,.0f}) equal "
+                  f"what its child reported ({sent[h][path]:,.0f})")
+
+    # /trace: three processes, MPI spans, flows and remote parents
+    events = docs["/trace"]["traceEvents"]
+    labels = {e["pid"]: e["args"]["name"] for e in events
+              if e.get("ph") == "M" and e.get("name") == "process_name"}
+    procs = {lab: pid for pid, lab in labels.items()}
+    want = ["planner", *(f"worker-{h}" for h in hosts)]
+    check(all(w in procs for w in want)
+          and len({procs[w] for w in want}) == 3,
+          f"{tag}: /trace merges the planner's and both hosts' spans under "
+          f"three pids ({labels})")
+    for h in hosts:
+        n = sum(1 for e in events if e.get("pid") == procs[f"worker-{h}"]
+                and e.get("cat") == "mpi" and e.get("ph") == "X")
+        check(n > 0, f"{tag}: /trace holds {n} MPI spans of {h}'s guests")
+    starts = {e["id"]: e["pid"] for e in events
+              if e.get("ph") == "s" and e.get("cat") == "flow"}
+    finishes: dict = {}
+    for e in events:
+        if e.get("ph") == "f" and e.get("cat") == "flow":
+            finishes.setdefault(e["id"], set()).add(e["pid"])
+    cross = sum(1 for fid, pid in starts.items()
+                if any(p != pid for p in finishes.get(fid, ())))
+    check(starts and cross >= 0.9 * len(starts),
+          f"{tag}: {cross} of {len(starts)} remote sends' flows finish in "
+          f"another process (at least 90%)")
+    home = {e["args"]["span_id"]: e["pid"] for e in events
+            if e.get("ph") == "X" and "span_id" in e.get("args", {})}
+    linked = sum(1 for e in events if e.get("ph") == "X"
+                 and e.get("args", {}).get("remote_parent")
+                 and home.get(e["args"].get("parent_span_id"),
+                              e["pid"]) != e["pid"])
+    check(linked > 0, f"{tag}: {linked} spans link to a remote parent in "
+          f"another process")
+
+    # /commmatrix against the children's plane counters
+    host_of = {str(o["rank"]): o["host"] for o in outs}
+    mplane = {"shm": "shm", "tcp": "bulk-tcp"}[plane]
+    cells = [c for h in hosts for c in docs["/commmatrix"]["hosts"].get(h, [])
+             if c["plane"] == mplane]
+    check(cells and all(host_of.get(c["src"]) != host_of.get(c["dst"])
+                        and {host_of.get(c["src"]), host_of.get(c["dst"])}
+                        <= set(hosts) for c in cells),
+          f"{tag}: /commmatrix has {len(cells)} {mplane} cells, each between "
+          f"the two hosts' ranks")
+    m_bytes = sum(c["bytes"] for c in cells)
+    c_bytes = sum(sent[h][plane] for h in hosts)
+    check(m_bytes == c_bytes, f"{tag}: /commmatrix's {mplane} bytes "
+          f"({m_bytes:,}) equal the children's plane counters "
+          f"({c_bytes:,.0f})")
+    all_cells = sum(c["bytes"] for h in hosts
+                    for c in docs["/commmatrix"]["hosts"].get(h, []))
+    prom = sum(host_sum("faabric_comm_bytes_total", h) for h in hosts)
+    check(abs(prom - all_cells) <= 0.05 * all_cells,
+          f"{tag}: /metrics' faabric_comm_bytes_total of the hosts "
+          f"({prom:,.0f}) is within 5% of /commmatrix's ({all_cells:,})")
+
+    # /healthz, /topology, /profile
+    health = {r["host"]: r for r in docs["/healthz"]["hosts"]}
+    check(all(h in health and health[h]["breaker"] for h in hosts)
+          and "journal" in docs["/healthz"],
+          f"{tag}: /healthz lists both hosts with breaker rows "
+          f"({ {h: health.get(h, {}).get('breaker') for h in hosts} }) and "
+          f"the journal")
+    n_dev = torch.cuda.device_count() if on_card else 0
+    topo = docs["/topology"]["hosts"]
+    check(all(topo.get(h, {}).get("n_devices") == n_dev for h in hosts)
+          and (not on_card or n_dev == 1),
+          f"{tag}: /topology lists both hosts with n_devices {n_dev} "
+          f"({topo})")
+    prof_hosts = {r["host"] for r in docs["/profile"].get("stacks", [])}
+    check(set(hosts) <= prof_hosts,
+          f"{tag}: /profile has rows of each host ({sorted(prof_hosts)})")
+    for key, path in (("keys", "/statemap"), ("links", "/perf"),
+                      ("hosts", "/timeseries"), ("events", "/flight")):
+        check(key in docs[path], f"{tag}: {path} parses ({key})")
+    for h, url in worker_urls.items():
+        body, ms = _get(url + "/healthz")
+        hz = json.loads(body)
+        mt, mms = _get(url + "/metrics")
+        check(hz["status"] == "ok" and hz["host"] == h
+              and b"faabric_process" in mt,
+              f"{tag}: {h}'s own /healthz ({ms:.1f} ms) and /metrics "
+              f"({len(mt):,} B, {mms:.1f} ms) answer")
+
+    # The CLIs: the doctor as a subprocess on the last plane (its torch
+    # import costs seconds on the card host, so once is enough), in this
+    # process on the first; the others in this process
+    t0 = time.perf_counter()
+    if plane == "tcp":
+        out = subprocess.run(
+            [sys.executable, "-m", "faabric_tpu_torch.runner.doctor",
+             "--url", base_url, "--json"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300)
+        rc, text, how = out.returncode, out.stdout, "as a subprocess"
+        err = out.stderr[-500:]
+    else:
+        rc, text = _cli_out(doctor.main, ["--url", base_url, "--json"])
+        how, err = "in this process", ""
+    doctor_s = time.perf_counter() - t0
+    check(rc == 0, f"{tag}: the doctor CLI against the live endpoint exits "
+          f"0 {how} ({rc}; {err})")
+    live_findings = json.loads(text)["findings"]
+    shown = "; ".join(f"[{f['severity']}] {f['kind']}: {f['subject']}"
+                      for f in live_findings[:8])
+    log(f"  {tag} doctor --url {how} ({doctor_s:.1f} s, "
+        f"{len(live_findings)} findings): {shown or 'none'}")
+    ddir = os.path.join(work, f"doctor-{plane}")
+    os.makedirs(ddir, exist_ok=True)
+    for name in doctor.SOURCES:
+        body = bodies[f"/{name}"]
+        fname = "metrics.txt" if name == "metrics" else f"{name}.json"
+        with open(os.path.join(ddir, fname), "w") as f:
+            f.write(body)
+    sources = {name: (doctor.parse_prometheus(bodies[f"/{name}"])
+                      if name == "metrics" else docs[f"/{name}"])
+               for name in doctor.SOURCES}
+    rc, text = _cli_out(doctor.main, ["--dir", ddir, "--json"])
+    dir_findings = json.loads(text)["findings"]
+    check(rc == 0 and dir_findings == json.loads(json.dumps(
+        doctor.diagnose(sources))),
+          f"{tag}: the doctor's --dir mode over the dumped sources gives the "
+          f"findings of the same sources read live ({len(dir_findings)})")
+    # Each CLI exits 1 when its document is empty: phase 26's step uses
+    # no state key, so the state map has no rows
+    for name, main_fn, argv, want_rc in (
+            ("timeline", timeline.main, [str(app_id), "--url", base_url], 0),
+            ("statemap", statemap.main, ["--url", base_url],
+             0 if docs["/statemap"]["keys"] else 1),
+            ("profile", profile.main, ["--url", base_url, "--top", "5"], 0),
+            ("flightdump", flightdump.main,
+             ["--url", base_url, *(a for u in worker_urls.values()
+                                   for a in ("--url", u)), "--last", "5"],
+             0)):
+        rc, text = _cli_out(main_fn, argv)
+        check(rc == want_rc and text.strip(), f"{tag}: {name} prints a "
+              f"rendering ({len(text):,} chars, exit code {rc})")
+        log(f"  {tag} {name}: " + " | ".join(text.strip().splitlines()[:3]))
+
+
 def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
                     seq: int = 512, steps: int = 3, base: int | None = None,
                     child_argv: list[str] | None = None) -> dict:
@@ -5495,9 +5748,13 @@ def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
     every flash forward on ``wgmma``; no child loaded JAX or the JAX
     package. Logs each child's spawn to ready, each rank's first step
     and the median of the others against phase 22's in-process step, and
-    the bytes on rings and TCP. Every child is stopped, and killed if it
-    does not stop, before the phase returns. Returns the children's
-    launches."""
+    the bytes on rings and TCP. The planner serves its REST endpoint
+    (``--http-port``) and each child its worker endpoint
+    (``WORKER_HTTP_PORT``), each at its offset plus ``HTTP_PORT``, and
+    every process traces: after each plane's steps, before its children
+    stop, phase 27 (:func:`scrape_phase`) reads the live cluster through
+    them. Every child is stopped, and killed if it does not stop, before
+    the phase returns. Returns the children's launches."""
     import queue
     import signal
     import statistics
@@ -5536,8 +5793,15 @@ def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
     for h, off in offsets.items():
         if h != planner_host:
             wait_ports_free(off, label="26", ports=worker_ports())
+        if h != client_host:
+            wait_ports_free(off, label="26", ports=(HTTP_PORT,))
     env = {"FAABRIC_HOST_ALIASES": ",".join(
-        f"{h}=127.0.0.1+{o}" for h, o in offsets.items()), "SHM_BULK": "1"}
+        f"{h}=127.0.0.1+{o}" for h, o in offsets.items()), "SHM_BULK": "1",
+        "FAABRIC_TRACING": "1"}
+    base_url = f"http://127.0.0.1:{base + HTTP_PORT}"
+    worker_urls = {h: f"http://127.0.0.1:{offsets[h] + HTTP_PORT}"
+                   for h in PLANES_HOSTS}
+    sent = {h: {"shm": 0.0, "tcp": 0.0} for h in PLANES_HOSTS}
     start_path = os.path.join(work, "start.f32")
     keep["start"].cpu().numpy().tofile(start_path)
     cfg_spec = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
@@ -5560,7 +5824,8 @@ def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
         t0 = time.perf_counter()
         planner = subprocess.Popen(
             [sys.executable, "-m", "faabric_tpu_torch.runner", "planner",
-             "--port-offset", str(base)], cwd=here, stdin=subprocess.DEVNULL,
+             "--port-offset", str(base), "--http-port",
+             str(base + HTTP_PORT)], cwd=here, stdin=subprocess.DEVNULL,
             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
             env={**os.environ, **env})
         up: queue.Queue = queue.Queue()
@@ -5580,9 +5845,10 @@ def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
                     "cfg": cfg_spec, "per_rank": per_rank, "seq": seq,
                     "steps": steps, "start": start_path, "out": work,
                     "device": str(dev)}
-            children[h] = JsonChild([*argv, json.dumps(spec)], env,
-                                    os.path.join(work, f"{h}.log"),
-                                    f"26: the {h} child")
+            children[h] = JsonChild(
+                [*argv, json.dumps(spec)],
+                {**env, "WORKER_HTTP_PORT": str(offsets[h] + HTTP_PORT)},
+                os.path.join(work, f"{h}.log"), f"26: the {h} child")
         try:
             served = up.get(timeout=180)
         except queue.Empty:
@@ -5643,6 +5909,7 @@ def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
                 finals |= set(rep["final"].values())
                 for k in moved:
                     moved[k] += rep["bytes"][k]
+                    sent[h][k] += rep["bytes"][k]
                 bad = sorted(set(rep["modules"])
                              & {"jax", "jaxlib", "faabric_tpu", "tests"})
                 check(not bad, f"26 ({plane}): the {h} child loaded nothing "
@@ -5684,6 +5951,11 @@ def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
                 f"{moved['shm']:,.0f}, bulk TCP {moved['tcp']:,.0f}; launches "
                 + "; ".join(f"{h} {rep['launches']}"
                             for h, rep in reports.items()))
+            # -- 27. the live cluster's telemetry surfaces ----------------
+            scrape_phase(plane, base_url, worker_urls, outs, sent,
+                         results[0].app_id, on_card, work)
+            if plane == "shm":
+                begin_phase(26)
     finally:
         try:
             if client is not None:
@@ -6377,7 +6649,8 @@ def main() -> int:
     # -- 25. a serving batch that outlives a SIGKILLed planner -----------
     begin_phase(25)
     restart_launches = restart_phase(dev, _build)
-    # -- 26. phase 22's step with its hosts as processes -------------------
+    # -- 26. phase 22's step with its hosts as processes, and 27. their
+    # telemetry surfaces, scraped after each plane's steps ---------------
     begin_phase(26)
     process_launches = processes_phase(dev, _build, plane_steps)
     del plane_steps

@@ -51,6 +51,8 @@ class DecisionCache:
     def __init__(self) -> None:
         self._cache: dict[str, CachedDecision] = {}
         self._lock = threading.Lock()
+        self._hits = 0
+        self._misses = 0
 
     @staticmethod
     def _key(req: BatchExecuteRequest) -> str:
@@ -74,11 +76,26 @@ class DecisionCache:
         with self._lock:
             self._cache[self._key(req)] = CachedDecision(hosts, group_id)
 
-    @staticmethod
-    def record_outcome(hit: bool) -> None:
+    def record_outcome(self, hit: bool) -> None:
         """Count one lookup's outcome (an entry whose hosts lost their
         slots counts as a miss: the policy ran)."""
+        with self._lock:
+            if hit:
+                self._hits += 1
+            else:
+                self._misses += 1
         (_HITS if hit else _MISSES).inc()
+
+    def stats(self) -> dict:
+        """Entries and lookup outcomes, for the planner's health view."""
+        with self._lock:
+            total = self._hits + self._misses
+            return {
+                "entries": len(self._cache),
+                "hits": self._hits,
+                "misses": self._misses,
+                "hitRate": round(self._hits / total, 4) if total else 0.0,
+            }
 
     def clear(self) -> None:
         with self._lock:

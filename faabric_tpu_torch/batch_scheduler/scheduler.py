@@ -237,6 +237,14 @@ def get_batch_scheduler() -> BatchScheduler:
         return _scheduler
 
 
+def get_batch_scheduler_mode() -> str:
+    """The policy in force: the override, else the config's mode."""
+    from faabric_tpu_torch.util.config import get_system_config
+
+    with _scheduler_lock:
+        return _mode_override or get_system_config().batch_scheduler_mode
+
+
 def reset_batch_scheduler(new_mode: str | None = None) -> None:
     """Drop the cached policy; an explicit ``new_mode`` overrides the config
     knob for this process without touching the environment or the live

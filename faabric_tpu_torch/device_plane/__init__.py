@@ -26,6 +26,7 @@ from faabric_tpu_torch.device_plane.copies import (
 from faabric_tpu_torch.device_plane.plane import (
     DEVICE_PLANE_TIMEOUT_S,
     DevicePlane,
+    device_planes_summary,
     is_device_payload,
 )
 from faabric_tpu_torch.device_plane.registry import (
@@ -49,6 +50,7 @@ __all__ = [
     "MeshMismatch",
     "count_copy",
     "device_copy_totals",
+    "device_planes_summary",
     "is_device_payload",
     "registration_row",
     "reset_device_copy_totals",

@@ -71,6 +71,7 @@ import logging
 import os
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -121,6 +122,26 @@ _FALLBACKS = _metrics.counter(
 # round's payload to the perf store's device-plane profile
 _PROFILER = get_collective_profiler()
 _PERF = get_perf_store()
+
+# This process's live planes, whose summaries the telemetry RPC and the
+# planner's ``GET /topology`` list. Weak: a destroyed world's plane must
+# not be kept alive by the scrape surface
+_PLANES: "weakref.WeakSet[DevicePlane]" = weakref.WeakSet()
+_PLANES_LOCK = threading.Lock()
+
+
+def device_planes_summary() -> list[dict]:
+    """The summaries of this process's live planes, by world id."""
+    with _PLANES_LOCK:
+        planes = list(_PLANES)
+    out = []
+    for p in planes:
+        try:
+            out.append(p.summary())
+        except Exception:  # noqa: BLE001 — a scrape must not raise
+            pass
+    out.sort(key=lambda s: s.get("world_id", 0))
+    return out
 
 
 def is_device_payload(data) -> bool:
@@ -198,6 +219,8 @@ class DevicePlane:
         # Keys (kind, op, size, dtype, all-resident) whose first round
         # ran: a new one is a compile
         self._compiled: set[tuple] = set()
+        with _PLANES_LOCK:
+            _PLANES.add(self)
 
     # ------------------------------------------------------------------
     # Eligibility / residency / fallback ladder

@@ -86,11 +86,20 @@ budgets), their detection-to-redispatch time goes into a histogram, a
 requeued message is stamped ``rqu`` and a recovery pass is
 flight-recorded and dumps the ring.
 
-Not ported (``ROADMAP.md`` Queue 1): preloaded decisions and the
-elastic scale hint; the ingress, ``call_batch_group`` and its journal
-group commit (``_journal_group_commit_locked``), which step 5 takes;
-``health_summary``, the telemetry RPCs and ``collect_telemetry`` (#7
-part D, step 4).
+Observability (:1092, :2264-2585): ``get_cluster_topology``,
+``in_flight_summary``, ``health_summary`` (hosts with keep-alive ages
+and breaker rows, results, lifecycle and SLO, the perf aggregation's
+age, the decision cache and the journal's stats with its last replay
+and reconcile) and ``collect_telemetry``, which scrapes the workers'
+telemetry blocks concurrently under one deadline, with at most one
+scrape in flight per host; the planner's REST endpoint
+(``endpoint/http_server.py``) reads them. ``flush_hosts``,
+``flush_all_executors`` and ``flush_scheduling_state`` serve its FLUSH
+requests, and the first and last of them are journaled.
+
+Not ported (``ROADMAP.md`` Queue 1 #9 part D, step 5): preloaded
+decisions and the elastic scale hint; the ingress, ``call_batch_group``
+and its journal group commit (``_journal_group_commit_locked``).
 """
 
 from __future__ import annotations
@@ -270,6 +279,11 @@ class Planner:
         self._state_masters: dict[str, str] = {}
         self._state_backups: dict[str, str] = {}
         self._state_epochs: dict[str, int] = {}
+        self._results_failed = 0
+        # The last /perf aggregation's summary, for the health view
+        self._perf_agg_stats: Optional[dict] = None
+        # host → the thread of its telemetry scrape in flight
+        self._telemetry_scrapes: dict[str, threading.Thread] = {}
 
         from faabric_tpu_torch.scheduler.function_call import (
             FunctionCallClient,
@@ -1071,6 +1085,8 @@ class Planner:
             return False
         if not replay:
             self._results_count += 1
+            if msg.return_value == int(ReturnValue.FAILED):
+                self._results_failed += 1
             _RESULTS_TOTAL.inc()
             if msg.timestamp:
                 _RESULT_ROUNDTRIP.observe(
@@ -1140,6 +1156,222 @@ class Planner:
     def get_frozen_apps(self) -> list[int]:
         with self._lock:
             return list(self._evicted)
+
+    # ------------------------------------------------------------------
+    # Observability (reference planner/planner.py:1092, 2264-2585)
+    # ------------------------------------------------------------------
+    def get_cluster_topology(self) -> dict:
+        """Per-host capacity and the rank-to-host topology of every
+        in-flight MPI world (JSON-safe)."""
+        with self._lock:
+            hosts = {ip: {"slots": h.state.slots,
+                          "used_slots": h.state.used_slots,
+                          "n_devices": h.state.n_devices}
+                     for ip, h in self._hosts.items()}
+            worlds = {}
+            for app_id, (req, dec) in self._in_flight.items():
+                if req.n_messages() and req.messages[0].is_mpi:
+                    worlds[app_id] = dec.topology().to_dict()
+        return {"hosts": hosts, "worlds": worlds}
+
+    def get_in_flight_apps(self) -> dict[int, SchedulingDecision]:
+        with self._lock:
+            return {app: d for app, (_, d) in self._in_flight.items()}
+
+    def in_flight_summary(self) -> dict:
+        """The in-flight apps, frozen apps, hosts marked for eviction and
+        migrations (reference GetInFlightAppsResponse,
+        planner.proto:69-89)."""
+        with self._lock:
+            apps = [{
+                "appId": app_id,
+                "subType": req.subtype,
+                "size": decision.n_messages,
+                "hostIps": decision.unique_hosts(),
+            } for app_id, (req, decision) in self._in_flight.items()]
+            frozen = [{"appId": app_id, "subType": req.subtype,
+                       "size": req.n_messages()}
+                      for app_id, req in self._evicted.items()]
+            evicted_ips = sorted(self._next_evicted_ips)
+            n_migrations = self._num_migrations
+        return {
+            "apps": apps,
+            "numMigrations": n_migrations,
+            "nextEvictedVmIps": evicted_ips,
+            "frozenApps": frozen,
+        }
+
+    def health_summary(self) -> dict:
+        """The planner's ``GET /healthz``: each registered host's
+        keep-alive age and this planner's breaker toward it, in-flight
+        and result counts, the lifecycle digest and SLO status, the perf
+        block, the decision cache and the journal. Built from planner
+        state alone: a health probe never waits on the workers it
+        reports."""
+        from faabric_tpu_torch.telemetry import (
+            get_collective_profiler,
+            get_lifecycle_stats,
+            get_perf_store,
+            get_slo_tracker,
+        )
+
+        conf = get_system_config()
+        now = time.monotonic()
+        with self._lock:
+            hosts = [{
+                "host": ip,
+                "slots": h.state.slots,
+                "usedSlots": h.state.used_slots,
+                "keepAliveAgeSeconds": round(now - h.register_ts, 3),
+                "timeoutSeconds": conf.planner_host_timeout,
+            } for ip, h in self._hosts.items()]
+            in_flight_apps = len(self._in_flight)
+            in_flight_messages = sum(
+                d.n_messages for _, d in self._in_flight.values())
+            results_total = self._results_count
+            results_failed = self._results_failed
+        # Breakers live on the pooled dispatch clients; a host with no
+        # client yet has no breaker row. Read state and failures, never
+        # allow(): that would take a half-open breaker's one trial
+        breakers = {}
+        for ip, client in self._clients.items():
+            b = getattr(client, "breaker", None)
+            if b is not None:
+                breakers[ip] = {"state": b.state,
+                                "consecutiveFailures": b.failures}
+        for row in hosts:
+            row["breaker"] = breakers.get(row["host"])
+        journal = self._journal.stats()
+        if self._journal_replay_stats is not None:
+            journal["lastReplay"] = self._journal_replay_stats
+        if self._reconcile_stats is not None:
+            journal["lastReconcile"] = self._reconcile_stats
+        agg = self._perf_agg_stats
+        perf_block = {
+            "profileLinksLocal": get_perf_store().cardinality(),
+            "stragglersLocal": len(get_collective_profiler().detect()),
+            "lastAggregationAgeSeconds": (
+                round(now - agg["at"], 3) if agg else None),
+            "clusterLinks": agg["links"] if agg else None,
+            "clusterStragglers": agg["stragglers"] if agg else None,
+        }
+        return {
+            "status": "ok",
+            "hosts": hosts,
+            "inFlightApps": in_flight_apps,
+            "inFlightMessages": in_flight_messages,
+            "resultsTotal": results_total,
+            "resultsFailed": results_failed,
+            "lifecycle": get_lifecycle_stats().snapshot(),
+            "slo": get_slo_tracker().status(),
+            "perf": perf_block,
+            "decisionCache": get_decision_cache().stats(),
+            "journal": journal,
+        }
+
+    def note_perf_aggregation(self, doc: dict) -> None:
+        """Record a finished ``/perf`` aggregation's summary: the health
+        view reports its age and counts."""
+        self._perf_agg_stats = {
+            "at": time.monotonic(),
+            "links": len(doc.get("links") or []),
+            "stragglers": len(doc.get("stragglers") or []),
+        }
+
+    def collect_telemetry(self, include_trace: bool = False,
+                          timeout: float = 5.0,
+                          blocks: tuple[str, ...] | None = None) -> dict:
+        """Host label → telemetry blocks, for this (planner) process
+        under ``planner`` and every registered worker under its name.
+        Workers are scraped concurrently under one deadline: a host that
+        fails or is still busy past ``timeout`` is left out. ``blocks``
+        narrows both the planner's own entry and the workers' answers."""
+        from faabric_tpu_torch.scheduler.function_call import (
+            local_telemetry,
+        )
+
+        out: dict = {"planner": local_telemetry(include_trace, blocks)}
+        # One scrape in flight per host: a wedged host's scrape holds its
+        # client's sync lock until the socket times out, and new threads
+        # would pile up behind it. A host whose scrape is still in
+        # flight is left out of this answer
+        ips = [h.ip for h in self.get_available_hosts()]
+        # Each thread writes its own cell: a straggler that lands after
+        # the deadline never touches the dict the caller reads
+        cells: list = [None] * len(ips)
+
+        def scrape(i: int, ip: str) -> None:
+            try:
+                cells[i] = self._clients.get(ip).get_telemetry(
+                    include_trace, blocks=blocks)
+            except Exception:  # noqa: BLE001
+                logger.warning("Telemetry scrape of %s failed", ip)
+            finally:
+                self._telemetry_scrapes.pop(ip, None)
+
+        threads = []
+        for i, ip in enumerate(ips):
+            t = threading.Thread(target=scrape, args=(i, ip),
+                                 name=f"telemetry/scrape@{ip}", daemon=True)
+            if self._telemetry_scrapes.setdefault(ip, t) is not t:
+                logger.warning("Skipping the telemetry scrape of %s: the "
+                               "last one is still in flight", ip)
+                continue
+            try:
+                t.start()
+            except RuntimeError:
+                self._telemetry_scrapes.pop(ip, None)
+                logger.warning("Could not start the telemetry scrape of %s",
+                               ip)
+                continue
+            threads.append(t)
+        deadline = time.monotonic() + timeout
+        for t in threads:
+            t.join(max(0.0, deadline - time.monotonic()))
+        for ip, tel in zip(ips, cells):
+            if tel is not None:
+                out[ip] = tel
+        return out
+
+    def flush_hosts(self) -> None:
+        with self._lock:
+            if self._journal.enabled:
+                self._journal_append("flush_hosts")
+            self._hosts.clear()
+
+    def flush_all_executors(self) -> list[str]:
+        """Send a flush to every registered worker; returns the hosts."""
+        hosts = [h.ip for h in self.get_available_hosts()]
+        for ip in hosts:
+            try:
+                self._clients.get(ip).send_flush()
+            except Exception:  # noqa: BLE001
+                logger.exception("Flush of %s failed", ip)
+        return hosts
+
+    def flush_scheduling_state(self) -> None:
+        """Drop in-flight apps, results and waiters, and return every
+        claim, keeping the hosts."""
+        with self._lock:
+            if self._journal.enabled:
+                self._journal_append("flush_scheduling")
+            self._in_flight.clear()
+            _IN_FLIGHT_APPS.set(0)
+            self._results.clear()
+            self._expected.clear()
+            self._next_idx.clear()
+            self._completed_order.clear()
+            self._waiters.clear()
+            self._requeue_attempts.clear()
+            for h in self._hosts.values():
+                h.state.used_slots = 0
+                h.used_mpi_ports.clear()
+                h.device_load = [0] * len(h.device_load)
+        get_decision_cache().clear()
+
+    def num_registered_hosts(self) -> int:
+        with self._lock:
+            return len(self._hosts)
 
     # ------------------------------------------------------------------
     # State masters (reference planner/planner.py:357-460, 1784-1876)
@@ -1707,6 +1939,7 @@ class Planner:
                 d.clear()
             self._completed_order.clear()
             self._results_count = 0
+            self._results_failed = 0
             self._num_migrations = 0
         _IN_FLIGHT_APPS.set(0)
         self._clients.close_all()

@@ -4,20 +4,26 @@ Counterpart of ``faabric_tpu/runner/__main__.py`` (reference
 src/planner/planner_server.cpp:9-43, src/runner/FaabricMain.cpp)::
 
     python -m faabric_tpu_torch.runner planner [--port-offset N]
+        [--http-port P]
     python -m faabric_tpu_torch.runner worker --host NAME [--slots N]
         [--devices N] [--planner-host NAME] [--device cuda|cpu]
 
 The planner role serves ``PlannerServer`` (its RPC and its snapshot
-server) at ``--port-offset``. The worker role boots a ``WorkerRuntime``
-(function-call, point-to-point, snapshot and state servers, keep-alive
-registration with the planner) whose torch guests run on the card; a
-caller asks for the CPU with ``--device cpu``. Both run until SIGTERM or
-SIGINT, which record and dump the flight ring under the signal's own
-name and then stop the role cleanly (exit 0).
+server) at ``--port-offset`` and, with a nonzero ``--http-port``, the
+REST endpoint (``endpoint/http_server.py``) on that port, bound to
+loopback unless ``ENDPOINT_INTERFACE`` names another interface. Where
+the reference serves ``ENDPOINT_PORT`` (8080) when the flag is 0, 0
+leaves the endpoint off here and no ``ENDPOINT_PORT`` is read, so that
+planners that share a machine never contend for one default port. The worker role boots a
+``WorkerRuntime`` (function-call, point-to-point, snapshot and state
+servers, keep-alive registration with the planner, and the worker
+endpoint when ``WORKER_HTTP_PORT`` is set) whose torch guests run on
+the card; a caller asks for the CPU with ``--device cpu``. Both run
+until SIGTERM or SIGINT, which record and dump the flight ring under
+the signal's own name and then stop the role cleanly (exit 0).
 
-Not ported yet, and refused rather than started without: the planner's
-REST endpoint (a nonzero ``--http-port``, ``ROADMAP.md`` Queue 1 #9 part
-D, step 4) and the ``redis`` role (#9 part D, step 5).
+Not ported yet, and refused rather than started without: the ``redis``
+role (``ROADMAP.md`` Queue 1 #9 part D, step 5).
 """
 
 from __future__ import annotations
@@ -33,8 +39,6 @@ from faabric_tpu_torch.util.logging import get_logger
 logger = get_logger("faabric_tpu_torch.runner")
 
 NOT_PORTED = {
-    "http": "the planner's REST endpoint is not ported yet (ROADMAP.md "
-            "Queue 1 #9 part D, step 4); leave --http-port at 0",
     "redis": "the redis role is not ported yet (ROADMAP.md Queue 1 #9 "
              "part D, step 5)",
 }
@@ -47,8 +51,7 @@ def main(argv: list[str] | None = None) -> int:
     p_planner = sub.add_parser("planner")
     p_planner.add_argument("--port-offset", type=int, default=0)
     p_planner.add_argument("--http-port", type=int, default=0,
-                           help="REST endpoint port: not ported yet, "
-                                "only 0 is accepted")
+                           help="REST endpoint port (0: no endpoint)")
 
     p_redis = sub.add_parser("redis", help="not ported yet")
     p_redis.add_argument("--port", type=int, default=6379)
@@ -71,8 +74,6 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
     if args.role == "redis":
         parser.error(NOT_PORTED["redis"])
-    if args.role == "planner" and args.http_port:
-        parser.error(NOT_PORTED["http"])
     if args.role == "worker":
         from faabric_tpu_torch.executor import TorchExecutorFactory
 
@@ -107,9 +108,21 @@ def main(argv: list[str] | None = None) -> int:
 
         server = PlannerServer(port_offset=args.port_offset)
         server.start()
-        logger.info("Planner up (rpc offset %d)", args.port_offset)
-        stop.wait()
-        server.stop()
+        endpoint = None
+        try:
+            if args.http_port:
+                from faabric_tpu_torch.endpoint import PlannerHttpEndpoint
+
+                endpoint = PlannerHttpEndpoint(port=args.http_port)
+                endpoint.start()
+            logger.info("Planner up (rpc offset %d, http %s)",
+                        args.port_offset,
+                        f":{endpoint.port}" if endpoint else "off")
+            stop.wait()
+        finally:
+            if endpoint is not None:
+                endpoint.stop()
+            server.stop()
     else:
         from faabric_tpu_torch.runner import WorkerRuntime
         from faabric_tpu_torch.util.network import (

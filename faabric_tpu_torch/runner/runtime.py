@@ -24,13 +24,18 @@ Telemetry: the runtime labels the process's trace rows
 (``worker-<host>``) and stamps its host as the fault identity (the
 ``src`` of host-pair rules); while it runs it holds a share of the
 process's time-series sampler (with its executor count as a series)
-and of the stack profiler. Not ported: the HTTP endpoint and the
-multi-process device plane (``ROADMAP.md`` Queue 1 #7-9).
+and of the stack profiler. With ``WORKER_HTTP_PORT`` set, it serves the
+worker's HTTP endpoint (``endpoint/worker_endpoint.py``: ``/healthz``,
+``/metrics``, ``/timeseries``, ``/flight``, ``/profile``) on that port
+while it runs. Not ported: the multi-process device plane (``ROADMAP.md``
+Queue 1 #8, step 7).
 """
 
 from __future__ import annotations
 
 from typing import Optional
+
+import os
 
 import torch
 
@@ -54,6 +59,17 @@ from faabric_tpu_torch.util.logging import get_logger
 from faabric_tpu_torch.util.network import LOCALHOST
 
 logger = get_logger(__name__)
+
+
+def worker_http_port() -> int:
+    """``WORKER_HTTP_PORT``: the worker endpoint's port (0, unset or
+    malformed: no endpoint)."""
+    raw = os.environ.get("WORKER_HTTP_PORT", "0")
+    try:
+        return int(raw)
+    except ValueError:
+        logger.warning("Ignoring malformed WORKER_HTTP_PORT=%r", raw)
+        return 0
 
 
 def _factory_device_type() -> str | None:
@@ -122,6 +138,12 @@ class WorkerRuntime:
                            device=_factory_device_type())
         self.scheduler.state = self.state
         self.state_server = StateServer(self.state, self.host)
+        self.http_endpoint = None
+        http_port = worker_http_port()
+        if http_port:
+            from faabric_tpu_torch.endpoint import WorkerHttpEndpoint
+
+            self.http_endpoint = WorkerHttpEndpoint(http_port, runtime=self)
         self._started = False
 
     def start(self) -> None:
@@ -134,6 +156,8 @@ class WorkerRuntime:
             self.ptp_server.start()
             self.snapshot_server.start()
             self.state_server.start()
+            if self.http_endpoint is not None:
+                self.http_endpoint.start()
             self._start_sampling()
             self.planner_client.register_host(
                 self.slots, self.n_devices, overwrite=True,
@@ -143,6 +167,8 @@ class WorkerRuntime:
             self._started = False
             self._stop_sampling()
             self.planner_client.close()
+            if self.http_endpoint is not None:
+                self.http_endpoint.stop()
             self.state_server.stop()
             self.snapshot_server.stop()
             self.ptp_server.stop()
@@ -192,6 +218,8 @@ class WorkerRuntime:
         self._started = False
         self._stop_sampling()
         self.planner_client.remove_host()
+        if self.http_endpoint is not None:
+            self.http_endpoint.stop()
         self.scheduler.shutdown()
         self.ptp_server.stop()
         self.snapshot_server.stop()

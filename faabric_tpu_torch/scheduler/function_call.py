@@ -6,16 +6,17 @@ FunctionCallClient.cpp). Async plane: EXECUTE_FUNCTIONS (the
 planner's dispatch to a host's scheduler) and SET_MESSAGE_RESULT (the
 planner pushing a result to a host that waits for it). Sync plane:
 FLUSH (the host drops its executors and runs the factory's
-``flush_host``). In mock mode the client records its calls instead of
-sending them. The reference's telemetry call (GET_TELEMETRY, with
-``Planner.collect_telemetry``) and its pipelined dispatch
-(EXECUTE_BATCHES) are not ported (``ROADMAP.md`` Queue 1 #7 part D and
-#9 part D).
+``flush_host``) and GET_TELEMETRY (the host's telemetry blocks, which
+``Planner.collect_telemetry`` scrapes for the planner's REST
+endpoint). In mock mode the client records its calls instead of
+sending them. The reference's pipelined dispatch (EXECUTE_BATCHES)
+waits for the ingress (``ROADMAP.md`` Queue 1 #9 part D, step 5).
 """
 
 from __future__ import annotations
 
 import enum
+import json
 import threading
 from typing import TYPE_CHECKING
 
@@ -50,6 +51,7 @@ class FunctionCalls(enum.IntEnum):
     EXECUTE_FUNCTIONS = 1
     FLUSH = 2
     SET_MESSAGE_RESULT = 3
+    GET_TELEMETRY = 4
 
 
 # ---------------------------------------------------------------------------
@@ -114,6 +116,67 @@ class FunctionCallClient(MessageEndpointClient):
             return
         self.sync_send(int(FunctionCalls.FLUSH))
 
+    def get_telemetry(self, include_trace: bool = False,
+                      blocks: tuple[str, ...] | None = None) -> dict:
+        """This host's telemetry blocks (and its trace buffer when asked):
+        what the planner merges behind its REST endpoint. ``blocks``
+        narrows the answer to the named blocks (a trend poll asks for
+        ``("timeseries",)`` alone)."""
+        if is_mock_mode():
+            return {"metrics": {}, "trace": []}
+        header: dict = {"trace": bool(include_trace)}
+        if blocks is not None:
+            header["blocks"] = list(blocks)
+        resp = self.sync_send(int(FunctionCalls.GET_TELEMETRY), header,
+                              idempotent=True)
+        return json.loads(resp.payload.decode()) if resp.payload else {}
+
+
+def telemetry_builders() -> dict:
+    """Block name → a function that builds that block of this process's
+    telemetry. Blocks are built lazily, so that a narrowed request pays
+    only for what it names."""
+    from faabric_tpu_torch.device_plane.plane import device_planes_summary
+    from faabric_tpu_torch.telemetry import (
+        get_comm_matrix,
+        get_lifecycle_stats,
+        get_metrics,
+        get_timeseries,
+        perf_telemetry_block,
+        profile_telemetry_block,
+        statestats_telemetry_block,
+    )
+
+    return {
+        "metrics": lambda: get_metrics().snapshot(),
+        "commmatrix": lambda: get_comm_matrix().snapshot(),
+        # rolling link profiles and collective phase series (GET /perf)
+        "perf": perf_telemetry_block,
+        "lifecycle": lambda: get_lifecycle_stats().snapshot(),
+        "timeseries": lambda: get_timeseries().snapshot(),
+        # live device planes' summaries (GET /topology)
+        "device_planes": device_planes_summary,
+        # per-key state ledger and snapshot stats (GET /statemap)
+        "statestats": statestats_telemetry_block,
+        # the stack sampler's trie and GIL gauge (GET /profile)
+        "profile": profile_telemetry_block,
+    }
+
+
+def local_telemetry(include_trace: bool = False,
+                    blocks=None) -> dict:
+    """This process's telemetry blocks (``blocks`` None builds every
+    one), with its trace events when asked; the process gauges are
+    refreshed first."""
+    from faabric_tpu_torch.telemetry import get_proc_stats, trace_events
+
+    get_proc_stats().refresh()
+    body = {name: build() for name, build in telemetry_builders().items()
+            if blocks is None or name in blocks}
+    if include_trace:
+        body["trace"] = trace_events()
+    return body
+
 
 class FunctionCallServer(MessageEndpointServer):
     def __init__(self, scheduler: "Scheduler") -> None:
@@ -140,4 +203,9 @@ class FunctionCallServer(MessageEndpointServer):
         if msg.code == int(FunctionCalls.FLUSH):
             self.scheduler.flush()
             return handler_response()
+        if msg.code == int(FunctionCalls.GET_TELEMETRY):
+            body = local_telemetry(bool(msg.header.get("trace")),
+                                   msg.header.get("blocks"))
+            # In the payload: a full trace buffer is bulk data
+            return handler_response(payload=json.dumps(body).encode())
         raise ValueError(f"Unknown sync function call {msg.code}")

@@ -35,6 +35,12 @@ class ClientPool(Generic[T]):
         if client is not None:
             client.close()
 
+    def items(self) -> list[tuple[str, T]]:
+        """The (host, client) pairs, without creating any client: the
+        planner's health view reads its breakers here."""
+        with self._lock:
+            return list(self._clients.items())
+
     def close_all(self) -> None:
         with self._lock:
             clients = list(self._clients.values())

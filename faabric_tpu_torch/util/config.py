@@ -48,6 +48,10 @@ class SystemConfig:
     bound_timeout: float = 30.0
     reaper_interval_secs: float = 30.0
 
+    # The interface the planner's REST endpoint binds (empty binds
+    # loopback); its port is always the caller's (``--http-port``)
+    endpoint_interface: str = ""
+
     # RPC server worker threads per plane
     function_server_threads: int = 2
     point_to_point_server_threads: int = 8
@@ -101,6 +105,7 @@ class SystemConfig:
             "GLOBAL_MESSAGE_TIMEOUT", 60000) / 1000.0
         self.bound_timeout = _env_int("BOUND_TIMEOUT", 30000) / 1000.0
         self.reaper_interval_secs = _env_int("REAPER_INTERVAL_SECS", 30)
+        self.endpoint_interface = os.environ.get("ENDPOINT_INTERFACE", "")
         self.function_server_threads = _env_int("FUNCTION_SERVER_THREADS", 2)
         self.point_to_point_server_threads = _env_int(
             "POINT_TO_POINT_SERVER_THREADS", 8)

@@ -43,6 +43,13 @@ class CircuitBreaker:
             self._maybe_half_open_locked()
             return self._state
 
+    @property
+    def failures(self) -> int:
+        """Consecutive failures since the last success; unlike allow(),
+        reading it never takes the half-open trial."""
+        with self._lock:
+            return self._failures
+
     def _maybe_half_open_locked(self) -> None:
         if (self._state == self.OPEN
                 and self._clock() - self._opened_at >= self.reset_after):

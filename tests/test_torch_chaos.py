@@ -7,6 +7,11 @@ survivor and the batch completes within the retry budget; a collective
 on the broken MPI world raises MpiWorldAborted in bounded time; the
 survivors leave flight dumps; an expired but live worker rejoins; a
 SIGKILLed planner restarts from its journal and the batch completes.
+Then the planned disruptions of ``tests/dist/test_lifecycle.py`` (``:41``,
+``:109``): an MPI world migrated under traffic, read back through the
+planner's ``/commmatrix``, and a spot freeze whose thaw restores the
+parked image on the other worker, the eviction sent through the REST
+endpoint.
 
 Every case stands up its own cluster of ``tests/test_torch_procs.py``
 processes on a port slot of ``tests/conftest.py`` (the kill leaves no
@@ -33,9 +38,10 @@ class ChaosCluster(ProcCluster):
     host."""
 
     def __init__(self, tag: str, slots=(4, 4), extra_env: dict | None = None,
-                 worker_env: dict | None = None):
+                 worker_env: dict | None = None, http: bool = False):
         super().__init__(tag, {f"{tag}w{i}": s for i, s in enumerate(slots)},
-                         extra_env=extra_env, worker_env=worker_env)
+                         extra_env=extra_env, worker_env=worker_env,
+                         http=http)
 
 
 def wait_finished(me, app_id, timeout):
@@ -220,10 +226,9 @@ def test_chaos_sigkill_leaves_flight_recorder_dumps(tmp_path):
     process leaves a flight dump in FAABRIC_FLIGHT_DIR (the surviving
     worker on the MpiWorldAborted transition, the planner on its
     recovery pass), and the merged ring holds the injected fault
-    firings and the group-abort transition. The port's dumps read back
-    through the reference's ``runner/flightdump.py`` (the port's CLI is
-    step 4)."""
-    from faabric_tpu.runner import flightdump
+    firings and the group-abort transition, read back through the
+    port's ``runner/flightdump.py``."""
+    from faabric_tpu_torch.runner import flightdump
 
     flight_dir = str(tmp_path / "flight")
     cluster = ChaosCluster(
@@ -356,9 +361,7 @@ def test_chaos_planner_sigkill_restart_recovers(tmp_path):
     reference reads the replay from ``/healthz``; the port's planner
     process prints it in its ready line, and the test waits for the
     planner through a planner RPC."""
-    from faabric_tpu.runner import flightdump
-
-    from faabric_tpu_torch.runner import journaldump
+    from faabric_tpu_torch.runner import flightdump, journaldump
 
     journal_dir = str(tmp_path / "journal")
     flight_dir = str(tmp_path / "flight")
@@ -445,5 +448,154 @@ def test_chaos_planner_sigkill_restart_recovers(tmp_path):
         snapshot, records, meta = journaldump.load_journal_dir(journal_dir)
         assert not meta.get("torn")
         assert snapshot is not None or records
+    finally:
+        cluster.stop()
+
+
+def _rest(base: str, http_type, payload=""):
+    import json
+    import urllib.request
+
+    body = json.dumps({"http_type": int(http_type),
+                       "payload": payload}).encode()
+    req = urllib.request.Request(f"{base}/", data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=10) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+@pytest.mark.slow
+def test_chaos_live_migration_under_traffic():
+    """A 3-rank world spread over both workers streams barrier and
+    all-to-all rounds; once the blockers drain, the planner consolidates
+    it onto one worker mid-stream. Every staying rank's pause is
+    bounded, no round is lost or corrupted, and the comm matrix kept
+    the cross-host links the migration removed
+    (``tests/dist/test_lifecycle.py:41``)."""
+    from tests.test_torch_multiprocess import http_json
+
+    cluster = ChaosCluster("ckM", http=True)
+    cluster.start()
+    try:
+        me = cluster.me
+        blockers = []
+        for count in (2, 3):
+            b = batch_exec_factory("dist", "sleep", count)
+            for m in b.messages:
+                m.input_data = b"4.0"
+            me.planner_client.call_functions(b)
+            blockers.append(b)
+
+        req = batch_exec_factory("dist", "mpi_migrate_traffic", 1)
+        req.messages[0].mpi_rank = 0
+        me.planner_client.call_functions(req)
+        r = me.planner_client.get_message_result(
+            req.app_id, req.messages[0].id, timeout=90.0)
+        assert r.return_value == int(ReturnValue.SUCCESS), r.output_data
+
+        status = wait_finished(me, req.app_id, timeout=45)
+        assert status.expected_num_messages == 3
+        final_hosts, pauses = set(), []
+        for m in status.message_results:
+            assert m.return_value == int(ReturnValue.SUCCESS), m.output_data
+            parts = m.output_data.decode().split(":")
+            assert parts[1] == "migrate-traffic-ok", m.output_data
+            final_hosts.add(parts[2])
+            if float(parts[3]) >= 0:  # the stayers timed the pause
+                pauses.append(float(parts[3]))
+        assert len(final_hosts) == 1, final_hosts
+        assert me.planner_client.get_num_migrations() >= 1
+        assert pauses, "no staying rank measured a migration pause"
+        assert max(pauses) < 10_000, f"migration pause {max(pauses)}ms"
+
+        matrix = http_json(cluster.http_url, "/commmatrix")
+        planes = {row["plane"] for row in matrix["total"]}
+        assert planes & {"ptp", "bulk-tcp", "shm"}, matrix["total"][:5]
+        assert sum(row["messages"] for row in matrix["total"]) > 0
+
+        for b in blockers:
+            wait_finished(me, b.app_id, timeout=30)
+    finally:
+        cluster.stop()
+
+
+@pytest.mark.slow
+def test_chaos_spot_freeze_thaw_restores_on_other_host():
+    """Spot eviction of the host running a THREADS app: the guests park
+    the live image on the planner and vacate; the thaw, with the evicted
+    host still tainted, lands on the other worker, restores the parked
+    image there and completes (``tests/dist/test_lifecycle.py:109``)."""
+    import numpy as np
+
+    from faabric_tpu_torch.endpoint import HttpMessageType
+    from faabric_tpu_torch.proto import BatchExecuteType
+    from faabric_tpu_torch.snapshot import SnapshotData
+
+    cluster = ChaosCluster("ckS", extra_env={"BATCH_SCHEDULER_MODE": "spot"},
+                           http=True)
+    cluster.start()
+    try:
+        me = cluster.me
+        req = batch_exec_factory("dist", "spot", 2)
+        req.type = int(BatchExecuteType.THREADS)
+        for i, m in enumerate(req.messages):
+            m.group_idx = i
+        key = f"dist/spot_{req.app_id}"
+        req.snapshot_key = key
+        me.snapshot_registry.register_snapshot(
+            key, SnapshotData(np.zeros(16384, np.uint8).tobytes()))
+
+        decision = me.planner_client.call_functions(req)
+        exec_hosts = set(decision.hosts)
+        assert len(exec_hosts) == 1, decision.hosts  # bin-packed
+        victim = exec_hosts.pop()
+        other = next(w for w in cluster.workers if w != victim)
+        time.sleep(1.0)  # the guests run and marked their memory
+
+        # Fill the other worker, so that the eviction cannot move the
+        # app: spot with spare capacity migrates, with none it freezes
+        blockers = batch_exec_factory("dist", "sleep", 4)
+        for m in blockers.messages:
+            m.input_data = b"6"
+        db = me.planner_client.call_functions(blockers)
+        assert set(db.hosts) == {other}, db.hosts
+
+        _rest(cluster.http_url, HttpMessageType.SET_NEXT_EVICTED_VM, victim)
+        me.planner_client.check_migration(req.app_id)
+
+        deadline = time.time() + 20
+        frozen = False
+        while time.time() < deadline:
+            if me.planner_client.get_scheduling_decision(req.app_id) is None:
+                frozen = True
+                break
+            time.sleep(0.2)
+        assert frozen, "app never left the in-flight set after eviction"
+        time.sleep(1.0)  # the vacate and the parked image land
+
+        wait_finished(me, blockers.app_id, timeout=30)
+
+        # Thaw: a new request of the app resumes the parked batch on the
+        # untainted worker, where the planner pushes the parked image
+        thaw = batch_exec_factory("dist", "spot", 1)
+        thaw.app_id = req.app_id
+        t_thaw = time.monotonic()
+        d2 = me.planner_client.call_functions(thaw)
+        assert d2.n_messages == 2, d2.n_messages
+        assert set(d2.hosts) == {other}, d2.hosts
+
+        first = me.planner_client.get_message_result(
+            req.app_id, d2.message_ids[0], timeout=30.0)
+        thaw_s = time.monotonic() - t_thaw
+        assert first.return_value == int(ReturnValue.SUCCESS), \
+            first.output_data
+        assert first.output_data == f"thawed:{other}".encode(), \
+            first.output_data
+
+        status = wait_finished(me, req.app_id, timeout=30)
+        assert len(status.message_results) == 2
+        for m in status.message_results:
+            assert m.return_value == int(ReturnValue.SUCCESS), m.output_data
+            assert m.output_data == f"thawed:{other}".encode()
+        assert thaw_s < 20, f"thaw to first result took {thaw_s:.1f}s"
     finally:
         cluster.stop()

@@ -1305,7 +1305,7 @@ def test_processes_step_on_the_card(cuda_device, monkeypatch):
     ranks' parameters after the first step are bitwise equal to phase
     22's on the same plane; the children's launches come back: 3 steps
     of 2 ranks a child, 2 children, 2 planes, every flash forward on
-    ``wgmma``."""
+    ``wgmma``. Phase 27 scrapes the live cluster after each plane."""
     import chip_smoke
     from faabric_tpu_torch.models import ModelConfig
 

@@ -5,9 +5,8 @@ JAX package.
 The reference's 19 cases of ``tests/unit/test_journal.py`` run on the
 port with the same inputs: the record codec, torn tails, the null
 journal, replay and its idempotence, slot re-claims, compaction, the
-reconcile, the journal's stats and replay stats (where the reference
-reads them through ``health_summary``, which the port has not yet), the
-state-master corpse fixes, the client's outage buffer, keep-alive,
+reconcile, the journal's stats and replay stats through
+``health_summary``, the state-master corpse fixes, the client's outage buffer, keep-alive,
 waiter bookkeeping and resync, and ``journaldump``. Then the cross-package
 cases: record bytes; a journal written by one package's planner through
 a scripted sequence (hosts, a NEW batch, results, a spot freeze, state
@@ -280,21 +279,20 @@ def test_reconcile_requeues_only_unregistered_hosts(monkeypatch, tmp_path):
 
 
 def test_healthz_reports_journal_and_replay(monkeypatch, tmp_path):
-    """The reference reads these through ``health_summary()["journal"]``
-    (the journal's stats plus ``lastReplay``); the port reads the same
-    two sources directly."""
     set_mock_mode(True)
     p = _journaled_planner(monkeypatch, tmp_path)
     p.register_host("h1", 2, 0)
-    j = p._journal.stats()
+    health = p.health_summary()
+    j = health["journal"]
     assert j["enabled"] and j["records"] >= 1
     assert j["sizeBytes"] > HEADER_LEN
     assert "lastFsyncAgeSeconds" in j
     p.flush_journal()
 
     p2 = _journaled_planner(monkeypatch, tmp_path)
-    assert p2._journal_replay_stats["records"] >= 1
-    assert p2._journal_replay_stats["lastKnownHosts"] == ["h1"]
+    j2 = p2.health_summary()["journal"]
+    assert j2["lastReplay"]["records"] >= 1
+    assert j2["lastReplay"]["lastKnownHosts"] == ["h1"]
 
 
 def test_journal_disabled_healthz_and_noop():
@@ -304,8 +302,7 @@ def test_journal_disabled_healthz_and_noop():
     p = Planner()
     assert not p._journal.enabled
     p.register_host("h1", 2, 0)
-    assert p._journal.stats() == {"enabled": False}
-    assert p._journal_replay_stats is None
+    assert p.health_summary()["journal"] == {"enabled": False}
 
 
 # ---------------------------------------------------------------------------
@@ -327,7 +324,7 @@ def test_expire_hosts_drops_dead_state_masters(monkeypatch):
         p._hosts["doomed"].register_ts -= 0.3
     p.register_host("alive", 2, 0)
     p.expire_hosts()
-    assert len(p.get_available_hosts()) == 1
+    assert p.num_registered_hosts() == 1
     assert p.claim_state_master("u", "k", "alive")[0] == "alive"
     assert p.claim_state_master("u", "k2", "alive")[0] == "alive"
 

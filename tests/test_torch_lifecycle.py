@@ -3,11 +3,12 @@
 Counterpart of ``tests/unit/test_lifecycle.py``: ledger stamps and
 durations, the fold digest, the SLO burn tracker, the time-series ring,
 the process resource collector, the planner server's sampled gauges,
-and an end-to-end ledger across a port planner and ``WorkerRuntime``
-over real sockets. The doctor, timeline and flight-dump tools, the
-ingress queue stamp and the journal stamp belong to parts of the
-reference the port does not have yet (``ROADMAP.md`` Queue 1 #7 part D
-and #9 part C); their cases are not here. Cross-package: the same stamp
+the doctor's lifecycle analyzers, the flight-dump merge of live rings
+and the timeline renderer on the port's CLIs, and an end-to-end ledger
+across a port planner and ``WorkerRuntime`` over real sockets. The
+ingress queue stamp and the journal group commit's stamp belong to the
+ingress, which the port does not have yet (``ROADMAP.md`` Queue 1 #9
+part D, step 5); their cases wait for it. Cross-package: the same stamp
 ledgers give the reference's durations, folds and SLO verdicts.
 """
 
@@ -470,9 +471,117 @@ class TestProcStats:
 # Doctor analyzers
 # ---------------------------------------------------------------------------
 
+class TestDoctorAnalyzers:
+    def test_dominant_phase_finding(self):
+        from faabric_tpu_torch.runner.doctor import check_lifecycle
+
+        stats = LifecycleStats()
+        stats.fold([_folded_message(25.0, i) for i in range(30)])
+        findings = check_lifecycle({"lifecycle": stats.snapshot()})
+        assert findings and findings[0]["kind"] == "dominant_phase"
+        assert "'run'" in findings[0]["subject"]
+
+    def test_dominant_phase_needs_evidence(self):
+        from faabric_tpu_torch.runner.doctor import check_lifecycle
+
+        stats = LifecycleStats()
+        stats.fold([_folded_message(25.0)])
+        assert check_lifecycle({"lifecycle": stats.snapshot()}) == []
+        assert check_lifecycle(None) == []
+
+    def test_slo_finding_only_when_burning(self):
+        from faabric_tpu_torch.runner.doctor import check_slo
+
+        slo = SloTracker(spec="p99_e2e_ms=10", windows=[2.0],
+                         bucket_s=1.0, burn_threshold=2.0, min_count=5)
+        for _ in range(20):
+            slo.observe(0.001, False)
+        assert check_slo({"slo": slo.status()}) == []
+        for _ in range(20):
+            slo.observe(0.500, False)
+        findings = check_slo({"slo": slo.status()})
+        assert findings and findings[0]["kind"] == "slo_burn"
+        assert "p99_e2e_ms" in findings[0]["subject"]
+
+    def test_queue_growth_and_exhaustion(self):
+        from faabric_tpu_torch.runner.doctor import check_queue_trend
+
+        grow = {"hosts": {"planner": {"series": {
+            "ingress_depth": [[100.0 + i, 2.0 * i] for i in range(20)],
+            "free_slots": [[100.0 + i, 0.0] for i in range(20)],
+        }}}}
+        kinds = {f["kind"] for f in check_queue_trend(grow)}
+        assert kinds == {"queue_growth", "capacity_exhausted"}
+
+        flat = {"hosts": {"planner": {"series": {
+            "ingress_depth": [[100.0 + i, 3.0] for i in range(20)],
+            "free_slots": [[100.0 + i, 6.0] for i in range(20)],
+        }}}}
+        assert check_queue_trend(flat) == []
+        assert check_queue_trend(None) == []
+
+
 # ---------------------------------------------------------------------------
 # flightdump live rings + timeline renderer
 # ---------------------------------------------------------------------------
+
+class TestTools:
+    def test_flightdump_merges_live_ring_pseudo_dumps(self):
+        from faabric_tpu_torch.runner.flightdump import merge_dumps
+
+        live = {"process": "worker-w0", "pid": 42, "reason": "live",
+                "dumped_at": 2000.0,
+                "events": [{"ts": 10.0, "seq": 1, "kind": "x"}]}
+        disk = {"process": "planner", "pid": 7, "reason": "sigterm",
+                "dumped_at": 1000.0,
+                "events": [{"ts": 9.0, "seq": 3, "kind": "y"}]}
+        events = merge_dumps([live, disk])
+        assert [e["kind"] for e in events] == ["y", "x"]
+        assert events[1]["process"] == "worker-w0"
+        assert events[1]["dump_reason"] == "live"
+
+    def _status(self):
+        msgs = []
+        for i in range(2):
+            d = _folded_message(5.0, i).to_dict()
+            d["executed_host"] = "hA"
+            msgs.append(d)
+        return {"appId": 123, "finished": True, "messageResults": msgs}
+
+    def test_timeline_rows_and_text(self):
+        from faabric_tpu_torch.runner.timeline import (
+            _BAR_MARKS,
+            _msg_rows,
+            render_text,
+        )
+
+        rows = _msg_rows(self._status())
+        assert len(rows) == 2
+        assert rows[0]["durations"]["run"] == pytest.approx(0.005)
+        text = render_text(123, rows)
+        assert "app 123: 2 message(s)" in text
+        assert "run=" in text
+        # Distinct bar marks: the five r-labels must not collapse
+        assert "u=result_push" in text and "c=record" in text
+        assert len(set(_BAR_MARKS.values())) == len(_BAR_MARKS)
+
+    def test_timeline_chrome_trace(self):
+        from faabric_tpu_torch.runner.timeline import (
+            _msg_rows,
+            chrome_trace_events,
+        )
+
+        events = chrome_trace_events(123, _msg_rows(self._status()))
+        phases = [e["name"] for e in events if e["ph"] == "X"]
+        assert "run" in phases and "ingress_queue" in phases
+        assert all(e["dur"] > 0 for e in events if e["ph"] == "X")
+
+    def test_timeline_empty(self):
+        from faabric_tpu_torch.runner.timeline import _msg_rows, render_text
+
+        assert "no messages" in render_text(9, _msg_rows(
+            {"messageResults": [{"id": 1, "lc": {}}]}))
+
 
 # ---------------------------------------------------------------------------
 # End-to-end: real planner + worker in one process, every RPC over

@@ -8,8 +8,9 @@ crosses a process boundary. The ports come from
 ``tests/conftest.py::next_port_base`` and are held by listening sockets
 until each child binds them, never from fixed aliases.
 
-Waiting for later steps (``ROADMAP.md`` #10): the cases that read the
-planner's REST endpoint (``:241``, ``:341``, ``:401``, step 4), and the
+The planner serves its REST endpoint, and the telemetry cases (``:241``,
+``:341``, ``:401``) read ``/metrics``, ``/trace``, ``/commmatrix`` and
+``/healthz`` from it. Waiting for a later step (``ROADMAP.md`` #10): the
 device plane across processes (``:618``, step 7).
 """
 
@@ -56,11 +57,17 @@ def port_slot(timeout: float = 120.0) -> int:
         time.sleep(0.1)
 
 
+# A host's HTTP endpoint port past its offset: free in every host's
+# range (the services take 8003-8014, MPI worlds 8020 up)
+HTTP_PORT = 8016
+
+
 def _service_ports() -> list[int]:
     from faabric_tpu_torch.transport import common as tc
     from faabric_tpu_torch.transport.bulk import BULK_PORT
 
-    return [*range(tc.STATE_ASYNC_PORT, tc.PLANNER_SYNC_PORT + 1), BULK_PORT]
+    return [*range(tc.STATE_ASYNC_PORT, tc.PLANNER_SYNC_PORT + 1), BULK_PORT,
+            HTTP_PORT]
 
 
 class Child:
@@ -152,10 +159,15 @@ class ProcCluster:
     of ``tests/conftest.py`` (planner at the base, workers at +1000 and
     +2000, this process's 0-slot client host at +2500), with
     ``extra_env`` in every process's environment (this one's too, while
-    the cluster runs) and ``worker_env`` in the workers' alone."""
+    the cluster runs), ``worker_env`` in the workers' alone and
+    ``host_env[host]`` in one host's. With ``http`` the planner serves
+    its REST endpoint (``http_url``), and each host of ``worker_http``
+    its worker endpoint (``worker_url(host)``), each on its own offset
+    plus ``HTTP_PORT``."""
 
     def __init__(self, tag: str, workers: dict, extra_env: dict | None = None,
-                 worker_env: dict | None = None):
+                 worker_env: dict | None = None, http: bool = False,
+                 host_env: dict | None = None, worker_http=()):
         assert len(workers) <= 2
         self.tag = tag
         self.planner_host = f"{tag}pl"
@@ -164,6 +176,9 @@ class ProcCluster:
         self.slots = dict(workers)
         self.extra_env = dict(extra_env or {})
         self.worker_env = dict(worker_env or {})
+        self.host_env = {h: dict(e) for h, e in (host_env or {}).items()}
+        self.http = http
+        self.worker_http = set(worker_http)
         self.children: dict[str, Child] = {}
         self.ready: dict[str, dict] = {}
         self.me = None
@@ -207,7 +222,24 @@ class ProcCluster:
                **self.extra_env}
         if host in self.workers:
             env.update(self.worker_env)
+        env.update(self.host_env.get(host, {}))
+        port = self._offsets()[host] + HTTP_PORT
+        if host == self.planner_host and self.http:
+            env["DIST_HTTP_PORT"] = str(port)
+        if host in self.worker_http:
+            env["WORKER_HTTP_PORT"] = str(port)
         return env
+
+    @property
+    def http_url(self) -> str:
+        """The planner's REST endpoint."""
+        assert self.http, "this cluster's planner serves no endpoint"
+        return f"http://127.0.0.1:{self.base + HTTP_PORT}"
+
+    def worker_url(self, host: str) -> str:
+        """A worker's own HTTP endpoint."""
+        assert host in self.worker_http, host
+        return f"http://127.0.0.1:{self._offsets()[host] + HTTP_PORT}"
 
     def spawn(self, host: str, held: list) -> Child:
         if host == self.planner_host:
@@ -322,9 +354,12 @@ class ProcCluster:
 @pytest.fixture(scope="module")
 def dist_cluster():
     """A planner and two worker processes (4 slots each); this process is
-    the client host. Tracing is on in every process."""
+    the client host. Tracing is on in every process, and the planner
+    serves its REST endpoint, so that the telemetry cases scrape
+    ``/metrics``, ``/trace`` and ``/commmatrix`` from the workers."""
     cluster = ProcCluster("mp", {"w1": 4, "w2": 4},
-                          extra_env={"FAABRIC_TRACING": "1"}).start()
+                          extra_env={"FAABRIC_TRACING": "1"},
+                          http=True).start()
     try:
         yield cluster
     finally:
@@ -340,6 +375,27 @@ def wait_batch_finished(me, app_id, timeout=20.0):
         status = me.planner_client.get_batch_results(app_id)
     assert status.finished, f"batch {app_id} never finished"
     return status
+
+
+def http_text(base: str, path: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"{base}{path}", timeout=20) as resp:
+        assert resp.status == 200
+        return resp.read().decode()
+
+
+def http_json(base: str, path: str):
+    import json
+
+    return json.loads(http_text(base, path))
+
+
+def host_sum(text: str, family: str, host: str) -> float:
+    """The sum of ``family``'s samples under ``host="<host>"`` in a
+    merged Prometheus text."""
+    return sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+               if line.startswith(family + "{") and f'host="{host}"' in line)
 
 
 def test_dist_function_batch(dist_cluster):
@@ -408,10 +464,10 @@ def test_dist_chunked_ring_allreduce_over_frame_cap(dist_cluster, tmp_path):
     on every rank, (b) the ring algorithm ran (allreduce spans tagged
     algo=ring at this size), (c) ≥90% of remote sends keep their
     cross-process flow links, and (d) the comm matrix's bulk/shm bytes
-    stay within 5% of the transport layer's own bulk counters. The
-    reference reads (b)-(d) from the planner's merged ``/trace``,
-    ``/commmatrix`` and ``/metrics``; here each host process dumps its
-    own, merged the same way (the endpoint is step 4)."""
+    stay within 5% of the transport layer's own bulk counters, each
+    over the views every host process dumps, merged as the planner's
+    endpoint merges them; then (e) the live planner's ``/trace``,
+    ``/commmatrix`` and ``/metrics`` agree with those dumped views."""
     from faabric_tpu_torch.telemetry import merge_cell_rows
 
     cluster = dist_cluster
@@ -466,6 +522,217 @@ def test_dist_chunked_ring_allreduce_over_frame_cap(dist_cluster, tmp_path):
     assert bulk_tx > 40 * (1 << 20), bulk_tx
     assert matrix_bulk_bytes == pytest.approx(bulk_tx, rel=0.05), (
         matrix_bulk_bytes, bulk_tx)
+
+    # (e) the live endpoint's views of the same processes
+    by_host = {("planner" if d["process"] == "planner"
+                else d["process"].removeprefix("worker-")): d for d in dumps}
+    live_trace = http_json(cluster.http_url, "/trace")["traceEvents"]
+
+    def ring_spans(evs):
+        return sorted((e["tid"], e["ts"], e["dur"]) for e in evs
+                      if e.get("cat") == "mpi" and e["name"] == "allreduce"
+                      and e.get("args", {}).get("algo") == "ring")
+
+    assert ring_spans(live_trace) == ring_spans(events)
+    live_starts = {e["id"] for e in live_trace
+                   if e.get("ph") == "s" and e.get("cat") == "flow"}
+    assert set(starts) <= live_starts
+    live_matrix = http_json(cluster.http_url, "/commmatrix")["hosts"]
+    live_text = http_text(cluster.http_url, "/metrics")
+    for host, d in by_host.items():
+        def bulk_rows(cells):
+            return sorted((c["src"], c["dst"], c["plane"], c["bytes"])
+                          for c in cells
+                          if c["plane"] in ("bulk-tcp", "shm"))
+
+        assert bulk_rows(live_matrix[host]) == bulk_rows(d["cells"]), host
+        dumped = sum(float(line.rsplit(" ", 1)[1])
+                     for line in d["metrics"].splitlines()
+                     if line.startswith("faabric_bulk_tx_bytes_total{"))
+        assert host_sum(live_text, "faabric_bulk_tx_bytes_total",
+                        host) == dumped, host
+
+
+def run_rank0(me, function: str, timeout: float = 60.0):
+    """Submit rank 0 of an MPI function; wait for the whole world."""
+    req = batch_exec_factory("dist", function, 1)
+    req.messages[0].mpi_rank = 0
+    me.planner_client.call_functions(req)
+    r = me.planner_client.get_message_result(req.app_id, req.messages[0].id,
+                                             timeout=timeout)
+    assert r.return_value == int(ReturnValue.SUCCESS), r.output_data
+    return wait_batch_finished(me, req.app_id, timeout=30)
+
+
+def cluster_rows(cluster, text: str) -> list[str]:
+    """The sample lines of the cluster's own processes (its planner and
+    workers) in a merged Prometheus text. This test process is a host
+    too, but its registry carries what earlier tests of the process
+    left in it, while their fixtures reset its comm matrix."""
+    hosts = ["planner", *cluster.workers]
+    return [line for line in text.splitlines()
+            if line and not line.startswith("#")
+            and any(f'host="{h}"' in line for h in hosts)]
+
+
+def test_dist_telemetry_metrics_and_trace(dist_cluster):
+    """A multi-process allreduce gives (a) a planner-served /metrics page
+    with Prometheus-parseable transport byte and frame counters from
+    every host's registry and (b) a Chrome trace whose MPI allreduce
+    spans decompose >=90% of the collectives' wall time into named
+    phases (``tests/dist/test_multiprocess.py:241``)."""
+    import re
+
+    cluster = dist_cluster
+    run_rank0(cluster.me, "mpi_telemetry")
+    base = cluster.http_url
+
+    text = http_text(base, "/metrics")
+    sample_re = re.compile(
+        r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? ([0-9.eE+-]+|\+Inf)$')
+    samples = []
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = sample_re.match(line)
+        assert m, f"unparseable exposition line: {line!r}"
+        samples.append((m.group(1), m.group(2) or "", float(m.group(3))
+                        if m.group(3) != "+Inf" else float("inf")))
+    for host in ("w1", "w2", "planner"):
+        tx = [s for s in samples
+              if s[0] == "faabric_transport_tx_bytes_total"
+              and f'host="{host}"' in s[1]]
+        assert tx and sum(v for _, _, v in tx) > 0, (host, text[:2000])
+        frames = [s for s in samples
+                  if s[0] == "faabric_transport_tx_frames_total"
+                  and f'host="{host}"' in s[1]]
+        assert frames, (host, text[:2000])
+    bulk = [s for s in samples if s[0] in ("faabric_bulk_tx_bytes_total",
+                                           "faabric_shm_ring_tx_bytes_total")]
+    assert sum(v for _, _, v in bulk) > 8 * (1 << 20), bulk
+    coll = [s for s in samples if s[0] == "faabric_mpi_collectives_total"
+            and 'op="allreduce"' in s[1]]
+    assert sum(v for _, _, v in coll) >= 8, coll
+
+    trace = http_json(base, "/trace")
+    events = trace["traceEvents"]
+    assert isinstance(events, list) and events
+    allreduces = [e for e in events if e.get("cat") == "mpi"
+                  and e["name"] == "allreduce"
+                  and e.get("args", {}).get("bytes", 0) >= (12 << 20)]
+    assert len(allreduces) >= 8, f"{len(allreduces)} allreduce spans"
+    phases = [e for e in events if e.get("cat") == "mpi.phase"]
+    spans = []  # (wall, covered, phase names) per allreduce
+    for ar in allreduces:
+        lo, hi = ar["ts"], ar["ts"] + ar["dur"]
+        mine = [p for p in phases
+                if p["pid"] == ar["pid"] and p["tid"] == ar["tid"]
+                and p["ts"] >= lo - 1 and p["ts"] + p["dur"] <= hi + 1]
+        assert mine, f"allreduce span with no phases: {ar}"
+        spans.append((ar["dur"], sum(p["dur"] for p in mine),
+                      [p["name"] for p in mine]))
+    # As the reference: the worst quarter of spans are taken as
+    # preemption outliers of a loaded machine, the strict floors hold on
+    # the rest
+    spans.sort(key=lambda s: s[1] / max(s[0], 1e-9))
+    kept = spans[len(spans) // 4:]
+    for wall, covered, names in kept:
+        assert covered >= 0.75 * wall, (
+            f"phases cover {covered / max(wall, 1e-9):.0%} "
+            f"of allreduce wall: {names}")
+    total_wall = sum(s[0] for s in kept)
+    total_covered = sum(s[1] for s in kept)
+    assert total_covered >= 0.9 * total_wall, (
+        f"phases cover {total_covered / total_wall:.0%} of total "
+        "allreduce wall time")
+
+
+def test_dist_trace_cross_host_links(dist_cluster):
+    """The merged /trace of a multi-process allreduce is linked across
+    hosts: >=90% of remote ptp sends have their flow's finish in another
+    process, and RPC handler spans carry their remote caller's trace
+    context (``tests/dist/test_multiprocess.py:341``)."""
+    cluster = dist_cluster
+    run_rank0(cluster.me, "mpi_flow")
+    events = http_json(cluster.http_url, "/trace")["traceEvents"]
+
+    sends = [e for e in events if e.get("cat") == "ptp"
+             and e.get("name") == "send"
+             and e.get("args", {}).get("remote")]
+    assert len(sends) >= 8, f"only {len(sends)} remote send spans"
+    starts = {}
+    for e in events:
+        if e.get("ph") == "s" and e.get("cat") == "flow":
+            starts[e["id"]] = e["pid"]
+    finishes = {}
+    for e in events:
+        if e.get("ph") == "f" and e.get("cat") == "flow":
+            finishes.setdefault(e["id"], set()).add(e["pid"])
+    assert starts, "no flow-start events in merged trace"
+    cross = sum(1 for fid, pid in starts.items()
+                if any(p != pid for p in finishes.get(fid, ())))
+    coverage = cross / len(starts)
+    assert coverage >= 0.9, (
+        f"only {coverage:.0%} of {len(starts)} remote sends have a "
+        "cross-process flow link")
+    # Handler spans joined their caller's trace, whose parent span lives
+    # in another process
+    span_home = {}
+    for e in events:
+        if e.get("ph") == "X" and "span_id" in e.get("args", {}):
+            span_home[e["args"]["span_id"]] = e["pid"]
+    linked = [e for e in events if e.get("ph") == "X"
+              and e.get("args", {}).get("remote_parent")
+              and span_home.get(e["args"].get("parent_span_id"),
+                                e["pid"]) != e["pid"]]
+    assert linked, "no cross-host parent→child span links in /trace"
+    # Three processes of the cluster, three distinct rows
+    assert len({e["pid"] for e in events}) >= 3
+
+
+def test_dist_commmatrix_and_healthz(dist_cluster):
+    """/commmatrix reports rank-pair bytes within 5% of the transport's
+    own bulk counters, and its Prometheus view within 5% of its JSON
+    view; /healthz lists the registered hosts with their keep-alive ages
+    (``tests/dist/test_multiprocess.py:401``). The sums run over the
+    cluster's own processes (``cluster_rows``)."""
+    cluster = dist_cluster
+    run_rank0(cluster.me, "mpi_matrix")
+    base = cluster.http_url
+
+    matrix = http_json(base, "/commmatrix")
+    from faabric_tpu_torch.telemetry import merge_cell_rows
+
+    total = merge_cell_rows({h: cells for h, cells in matrix["hosts"].items()
+                             if h in ("planner", *cluster.workers)})
+    assert total, "empty merged comm matrix after a cross-host allreduce"
+    matrix_bytes = sum(row["bytes"] for row in total)
+    assert matrix_bytes > 8 * (1 << 20), total[:5]
+    assert all(row["plane"] in ("ptp", "bulk-tcp", "shm")
+               for row in total), total[:5]
+
+    bulk_tx = comm_bytes_metric = 0.0
+    for line in cluster_rows(cluster, http_text(base, "/metrics")):
+        if line.startswith("faabric_bulk_tx_bytes_total{"):
+            bulk_tx += float(line.rsplit(" ", 1)[1])
+        elif line.startswith("faabric_comm_bytes_total{"):
+            comm_bytes_metric += float(line.rsplit(" ", 1)[1])
+    matrix_bulk_bytes = sum(row["bytes"] for row in total
+                            if row["plane"] in ("bulk-tcp", "shm"))
+    assert bulk_tx > 0
+    assert matrix_bulk_bytes == pytest.approx(bulk_tx, rel=0.05), (
+        matrix_bulk_bytes, bulk_tx)
+    assert comm_bytes_metric == pytest.approx(matrix_bytes, rel=0.05), (
+        comm_bytes_metric, matrix_bytes)
+
+    health = http_json(base, "/healthz")
+    assert health["status"] == "ok"
+    hosts = {h["host"]: h for h in health["hosts"]}
+    assert {"w1", "w2"} <= set(hosts)
+    for w in ("w1", "w2"):
+        age = hosts[w]["keepAliveAgeSeconds"]
+        assert 0 <= age < hosts[w]["timeoutSeconds"]
+    assert health["inFlightApps"] >= 0
 
 
 @pytest.mark.parametrize("behaviour,rank0_out", [

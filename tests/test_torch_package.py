@@ -67,11 +67,62 @@ def test_importing_every_module_pulls_in_no_jax_and_no_faabric_tpu():
     # handler
     assert {"faabric_tpu_torch.runner.__main__",
             "faabric_tpu_torch.util.crash"} <= set(modules)
+    # The observability surfaces: the planner's REST endpoint, the
+    # worker endpoint and the CLIs that read them
+    assert set(OBSERVABILITY_MODULES) <= set(modules)
     modules.append("chip_smoke")
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'faabric_tpu'))\n"
+        "print('BAD', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("BAD []"), out.stdout
+
+
+OBSERVABILITY_MODULES = (
+    "faabric_tpu_torch.endpoint", "faabric_tpu_torch.endpoint.http_server",
+    "faabric_tpu_torch.endpoint.worker_endpoint",
+    "faabric_tpu_torch.runner.doctor", "faabric_tpu_torch.runner.flightdump",
+    "faabric_tpu_torch.runner.timeline", "faabric_tpu_torch.runner.statemap",
+    "faabric_tpu_torch.runner.profile")
+CLIS = ("doctor", "flightdump", "timeline", "statemap", "profile")
+
+
+def test_endpoint_and_cli_modules_load_alone_in_a_fresh_interpreter():
+    """Each endpoint and CLI module loads by itself in a new interpreter
+    (each CLI answers ``--help``), with nothing of JAX or of the JAX
+    package, and imports no such module in any function either."""
+    import ast
+
+    for mod in OBSERVABILITY_MODULES:
+        path = ROOT / Path(*mod.split(".")).with_suffix(".py")
+        if not path.exists():
+            path = ROOT / Path(*mod.split(".")) / "__init__.py"
+        names = set()
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names.add(node.module.split(".")[0])
+        assert not names & {"jax", "jaxlib", "faabric_tpu"}, (mod, names)
+    code = (
+        "import contextlib, importlib, io, sys\n"
+        f"for m in {OBSERVABILITY_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"for c in {CLIS!r}:\n"
+        "    out = io.StringIO()\n"
+        "    try:\n"
+        "        with contextlib.redirect_stdout(out):\n"
+        "            importlib.import_module(\n"
+        "                'faabric_tpu_torch.runner.' + c).main(['--help'])\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, (c, e.code)\n"
+        "    assert 'usage' in out.getvalue(), c\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'faabric_tpu'))\n"
         "print('BAD', bad)\n")

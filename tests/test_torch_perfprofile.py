@@ -3,9 +3,10 @@
 Counterpart of ``tests/unit/test_perfprofile.py``: decayed estimators,
 the rolling profile store (cardinality cap, persistence round trip),
 the collective profiler's rounds, critical paths and entry-skew
-stragglers, the wire-codec governor reading the store, and the rolling
-delta bases. The doctor's cases are the reference's part D
-(``ROADMAP.md`` Queue 1 #7 part D). Cross-package: ``DecayedStat``,
+stragglers, the wire-codec governor reading the store, the rolling
+delta bases, and the doctor's cases (its selftest, Prometheus parsing,
+health checks, ``--dir`` mode and the profile-against-matrix check) on
+the port's ``runner/doctor.py``. Cross-package: ``DecayedStat``,
 ``find_stragglers``, ``critical_path`` and ``aggregate_perf`` give the
 reference's answers, to 1e-12 relative, on the same numpy inputs and
 the same injected clock.
@@ -396,6 +397,89 @@ def test_governor_verdict_flip_emits_flight_record():
 # ---------------------------------------------------------------------------
 # Doctor analyzers
 # ---------------------------------------------------------------------------
+
+def test_doctor_selftest_finds_planted_faults(capsys):
+    from faabric_tpu_torch.runner.doctor import run_selftest
+
+    assert run_selftest() == 0
+    out = capsys.readouterr().out
+    assert "slow_link" in out and "straggler" in out
+
+
+def test_doctor_parse_prometheus():
+    from faabric_tpu_torch.runner.doctor import parse_prometheus
+
+    text = ('# HELP x y\n# TYPE x counter\n'
+            'x{a="1",b="two"} 3\nx 4.5\nbad line\n')
+    parsed = parse_prometheus(text)
+    assert parsed["x"][0] == ({"a": "1", "b": "two"}, 3.0)
+    assert parsed["x"][1] == ({}, 4.5)
+
+
+def test_doctor_healthz_checks():
+    from faabric_tpu_torch.runner.doctor import check_healthz
+
+    findings = check_healthz({
+        "hosts": [
+            {"host": "w1", "keepAliveAgeSeconds": 29.0,
+             "timeoutSeconds": 30,
+             "breaker": {"state": "open", "consecutiveFailures": 7}},
+        ],
+        "ingress": {"shedTotal": 500, "admittedTotal": 1000,
+                    "queueDepth": 900, "queueMax": 1024},
+        "journal": {"enabled": True, "bufferedRecords": 4000,
+                    "dirty": True, "lastFsyncAgeSeconds": 9.0,
+                    "fsyncIntervalSeconds": 0.05},
+    })
+    kinds = {f["kind"] for f in findings}
+    assert {"breaker_open", "keepalive_at_risk", "admission_shed",
+            "journal_fsync_pressure"} <= kinds
+
+
+def test_doctor_dir_mode_roundtrip(tmp_path):
+    from faabric_tpu_torch.runner.doctor import (
+        diagnose,
+        load_dir,
+        selftest_sources,
+    )
+
+    sources = selftest_sources()
+    (tmp_path / "perf.json").write_text(json.dumps(sources["perf"]))
+    (tmp_path / "healthz.json").write_text(
+        json.dumps(sources["healthz"]))
+    (tmp_path / "topology.json").write_text(
+        json.dumps(sources["topology"]))
+    metrics_text = (
+        'faabric_codec_frames_total{codec="delta"} 900\n'
+        'faabric_codec_escapes_total{reason="nack"} 120\n')
+    (tmp_path / "metrics.txt").write_text(metrics_text)
+    loaded = load_dir(str(tmp_path))
+    findings = diagnose(loaded)
+    kinds = [f["kind"] for f in findings[:5]]
+    assert "slow_link" in kinds and "straggler" in kinds
+    assert "codec_escape_storm" in [f["kind"] for f in findings]
+
+
+def test_doctor_agreement_check_compares_wire_bytes():
+    """A compressed link moves few wire bytes for many raw ones: the
+    profile-against-matrix check must compare wire rates on both sides,
+    or every healthy delta link reads as a broken feed."""
+    from faabric_tpu_torch.runner.doctor import (
+        check_profile_matrix_agreement,
+    )
+
+    lat = (1 << 20) / (2.0 * (1 << 30))  # 1 MiB of wire at 2.0 GiB/s
+    perf = {"links": [{"src": "h1", "dst": "h2", "plane": "bulk-tcp",
+                       "codec": "delta", "size_class": "1MiB",
+                       "messages": 50, "bytes": 1 << 20,
+                       "gibs_avg": 2.0, "gibs_ewma": 2.0}]}
+    matrix = {"hosts": {"h1": [{
+        "src": "0", "dst": "4", "plane": "bulk-tcp", "codec": "delta",
+        "bytes": 1 << 20,          # wire
+        "bytes_raw": 16 << 20,     # 16x compression
+        "lat_sum": lat}]}}
+    assert check_profile_matrix_agreement(perf, matrix) == []
+
 
 # ---------------------------------------------------------------------------
 # Rolling double-buffer bases (byte-accounting pin)

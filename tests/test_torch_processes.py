@@ -1,5 +1,8 @@
 """The flagship's two-host step with its hosts as OS processes, on the
-CPU: ``chip_smoke.py``'s phase 26 (``processes_phase``) at a small width.
+CPU: ``chip_smoke.py``'s phase 26 (``processes_phase``) at a small width,
+with phase 27 (``scrape_phase``), which reads the live cluster through
+the planner's REST endpoint, the workers' endpoints and the CLIs after
+each plane's steps.
 
 Phase 22 (``planes_phase``) runs first in this process, as in the
 script, and hands over where its step started and what it gave on each
@@ -134,6 +137,18 @@ def _processes_phase_small(monkeypatch):
     loaded = [w for w in passed
               if "loaded the port and nothing of JAX" in w]
     assert len(loaded) == 2, passed
+    # Phase 27 ran its checks on both planes (launch and device checks
+    # aside, they run on the CPU as on the card)
+    for plane in ("shm", "tcp"):
+        scraped = [w for w in passed if w.startswith(f"27 ({plane}): ")]
+        for what in ("/metrics parses", "three pids", "/commmatrix's",
+                     "the doctor CLI against the live endpoint exits 0",
+                     "--dir mode", "flightdump prints", "timeline prints",
+                     "/healthz lists both hosts", "/profile has rows"):
+            assert any(what in w for w in scraped), (plane, what, scraped)
+        # The doctor runs as a subprocess once, on the last plane
+        how = "as a subprocess" if plane == "tcp" else "in this process"
+        assert any("exits 0 " + how in w for w in scraped), (plane, scraped)
 
 
 @pytest.mark.parametrize("argv", [["--worker-child", "{}"]])

@@ -17,8 +17,10 @@ standard input closes, and at the latest after ``DIST_PROC_TTL``
 seconds (600 by default), so an aborted run leaves no process holding a
 port. A line ``dump <path>`` on its standard input writes the process's
 trace events, comm-matrix cells and Prometheus text to ``path`` as JSON
-(the view the reference's planner merges behind ``GET /trace``,
-``/commmatrix`` and ``/metrics``, whose endpoint is not ported yet).
+(the process's own share of what the planner merges behind ``GET
+/trace``, ``/commmatrix`` and ``/metrics``). With ``DIST_HTTP_PORT`` set
+a planner serves its REST endpoint on that port, and with
+``WORKER_HTTP_PORT`` set a worker serves its own endpoint.
 
 ``PROCS_HELD_FDS`` names listening sockets the parent held on this
 host's ports while the interpreter started; the body closes them right
@@ -91,6 +93,12 @@ class DistExecutor(Executor):
         return world, msg.mpi_rank
 
     # ------------------------------------------------------------------
+    def fn_noop(self, msg, req):
+        """The cheapest invocation: the lifecycle cases measure the path,
+        not the task."""
+        msg.output_data = b"ok"
+        return int(ReturnValue.SUCCESS)
+
     def fn_square(self, msg, req):
         n = int(msg.input_data.decode())
         msg.output_data = str(n * n).encode()
@@ -116,11 +124,58 @@ class DistExecutor(Executor):
         """12 MiB-per-rank allreduce: the chunk-pipelined leader trees and
         the bulk data plane in a planner-scheduled world across worker
         processes."""
+        return self._allreduce_workload(msg, 7500, 12 << 20)
+
+    def _allreduce_workload(self, msg, world_id: int, nbytes: int,
+                            rounds: int = 1):
+        """``rounds`` allreduces of ``nbytes`` of int32 a rank on world
+        ``world_id``; every element must equal sum(1..size)."""
         from faabric_tpu_torch.mpi import MpiOp
 
-        world, rank = self._world(msg, 7500)
-        out = world.allreduce(rank, np.full((12 << 20) // 4, rank + 1,
-                                            np.int32), MpiOp.SUM)
+        world, rank = self._world(msg, world_id)
+        out = None
+        for _ in range(rounds):
+            out = world.allreduce(rank, np.full(nbytes // 4, rank + 1,
+                                                np.int32), MpiOp.SUM)
+        world.barrier(rank)
+        ok = bool((out == world.size * (world.size + 1) // 2).all())
+        msg.output_data = f"r{rank}:{'ok' if ok else int(out[0])}".encode()
+        return int(ReturnValue.SUCCESS if ok else ReturnValue.FAILED)
+
+    def fn_mpi_telemetry(self, msg, req):
+        """The 12 MiB-a-rank allreduce on a world of its own, for the
+        endpoint's /metrics and /trace case."""
+        return self._allreduce_workload(msg, 7510, 12 << 20)
+
+    def fn_mpi_flow(self, msg, req):
+        """A few 1 MiB allreduces on a world of their own: fresh remote
+        send and receive flow pairs for the /trace links case."""
+        return self._allreduce_workload(msg, 7520, 1 << 20, rounds=3)
+
+    def fn_mpi_matrix(self, msg, req):
+        """The 12 MiB-a-rank allreduce on a world of its own: fresh bulk
+        bytes for the /commmatrix case."""
+        return self._allreduce_workload(msg, 7530, 12 << 20)
+
+    def fn_mpi_perf(self, msg, req):
+        """Allreduce rounds with one planted straggler: the rank named by
+        ``MPI_PERF_SLOW_RANK`` sleeps ``MPI_PERF_SLOW_S`` before entering
+        each collective, so every other rank waits on it while only its
+        entry stamp reads late (the doctor's case, with a slow link
+        planted by a fault rule on one worker)."""
+        from faabric_tpu_torch.mpi import MpiOp
+
+        slow_rank = int(os.environ.get("MPI_PERF_SLOW_RANK", "-1"))
+        slow_s = float(os.environ.get("MPI_PERF_SLOW_S", "0.08"))
+        rounds = int(os.environ.get("MPI_PERF_ROUNDS", "8"))
+        nbytes = int(os.environ.get("MPI_PERF_NBYTES", str(16 << 20)))
+        world, rank = self._world(msg, 7600)
+        out = None
+        for _ in range(rounds):
+            if rank == slow_rank:
+                time.sleep(slow_s)
+            out = world.allreduce(rank, np.full(nbytes // 4, rank + 1,
+                                                np.int32), MpiOp.SUM)
         world.barrier(rank)
         ok = bool((out == world.size * (world.size + 1) // 2).all())
         msg.output_data = f"r{rank}:{'ok' if ok else int(out[0])}".encode()
@@ -540,6 +595,126 @@ class DistExecutor(Executor):
         msg.output_data = f"r{rank}:migrate-ok:{my_host}".encode()
         return int(ReturnValue.SUCCESS)
 
+    def fn_mpi_migrate_traffic(self, msg, req):
+        """A world that migrates under traffic: the migration of
+        :meth:`fn_mpi_migrate` while the world streams barrier and
+        all-to-all rounds, every staying rank timing its pause from the
+        migration point to its first round after it. Reports
+        ``r<rank>:migrate-traffic-ok:<host>:<pause_ms>`` (-1 for the
+        moved rank, whose wall time spans two executions). The same two
+        changes to the reference's guest as :meth:`fn_mpi_migrate`."""
+        from faabric_tpu_torch.executor.executor import (
+            FunctionMigratedException,
+        )
+        from faabric_tpu_torch.proto import BatchExecuteType
+
+        world, rank = self._world(msg, 7970, size=3)
+        my_host = self.scheduler.host
+        pc = self.scheduler.planner_client
+        loops, check = 24, 6
+        migrated_entry = req.type == int(BatchExecuteType.MIGRATION)
+        start = check + 1 if migrated_entry else 0
+        pause_ms = -1.0
+        if migrated_entry:
+            self.scheduler.ptp_broker.post_migration_hook(
+                msg.group_id, msg.group_idx)
+            world.refresh_rank_hosts()
+            # The stayers' pause-measuring round
+            world.barrier(rank)
+            if not self._all_to_all_round(world, rank, 1000 + check):
+                msg.output_data = f"r{rank}:bad-postmig".encode()
+                return int(ReturnValue.FAILED)
+        for i in range(start, loops):
+            world.barrier(rank)
+            if not self._all_to_all_round(world, rank, i):
+                msg.output_data = f"r{rank}:bad-alltoall@{i}".encode()
+                return int(ReturnValue.FAILED)
+            if i != check or migrated_entry:
+                continue
+            t_pause = time.monotonic()
+            old_gid = world.group_id
+            world.barrier(rank)
+            if rank == 0:
+                deadline = time.time() + 20
+                dec = None
+                while dec is None and time.time() < deadline:
+                    dec = pc.check_migration(msg.app_id)
+                    if dec is None:
+                        time.sleep(0.25)
+                flag = np.array([1 if dec is not None else 0], np.int64)
+                world.broadcast(0, 0, flag)
+            else:
+                flag = world.broadcast(0, rank, np.zeros(1, np.int64))
+            if int(np.asarray(flag)[0]) == 0:
+                msg.output_data = f"r{rank}:no-migration".encode()
+                return int(ReturnValue.FAILED)
+            dec = pc.get_scheduling_decision(msg.app_id)
+            deadline = time.time() + 10
+            while (dec is None or dec.group_id == old_gid) \
+                    and time.time() < deadline:
+                time.sleep(0.1)
+                dec = pc.get_scheduling_decision(msg.app_id)
+            idx = dec.app_idxs.index(msg.app_idx)
+            target = dec.hosts[idx]
+            world.barrier(rank)
+            world.prepare_migration(rank, dec.group_id)
+            if target != my_host:
+                raise FunctionMigratedException()
+            self.scheduler.ptp_broker.post_migration_hook(
+                dec.group_id, dec.group_idxs[idx])
+            world.refresh_rank_hosts()
+            # The pause ends when the rewired world completes a round
+            world.barrier(rank)
+            if not self._all_to_all_round(world, rank, 1000 + i):
+                msg.output_data = f"r{rank}:bad-postmig".encode()
+                return int(ReturnValue.FAILED)
+            pause_ms = (time.monotonic() - t_pause) * 1000.0
+        world.barrier(rank)
+        msg.output_data = (f"r{rank}:migrate-traffic-ok:{my_host}:"
+                           f"{pause_ms:.0f}").encode()
+        return int(ReturnValue.SUCCESS)
+
+    def fn_spot(self, msg, req):
+        """Spot freeze, then thaw on another host: the first entry stamps
+        a marker into the executor's memory and waits to be frozen; once
+        its app leaves the in-flight set it parks the live image on the
+        planner's snapshot registry under the batch's key and vacates
+        with FunctionFrozenException. The thawed entry, wherever it
+        lands, finds the restored marker and reports its host."""
+        from faabric_tpu_torch.executor.executor import (
+            FunctionFrozenException,
+        )
+        from faabric_tpu_torch.snapshot import SnapshotData
+        from faabric_tpu_torch.snapshot.remote import SnapshotClient
+
+        pc = self.scheduler.planner_client
+        # A marker slot a task: the batch's tasks share this memory
+        off = 64 * (1 + msg.group_idx)
+        marker = self.memory[off:off + 8].view(np.int64)
+        if marker[0] == 4242:
+            msg.output_data = f"thawed:{self.scheduler.host}".encode()
+            return int(ReturnValue.SUCCESS)
+        marker[0] = 4242
+        deadline = time.time() + 30
+        while time.time() < deadline:
+            try:
+                dec = pc.get_scheduling_decision(msg.app_id)
+            except Exception:  # noqa: BLE001 — a planner blip: wait on
+                dec = object()
+            if dec is None:
+                snap = SnapshotData(self.memory.tobytes())
+                with self._batch_lock:
+                    try:
+                        SnapshotClient(pc.host).push_snapshot(
+                            req.snapshot_key, snap)
+                    except Exception:  # noqa: BLE001 — report, not wedge
+                        msg.output_data = b"snapshot-park-failed"
+                        return int(ReturnValue.FAILED)
+                raise FunctionFrozenException()
+            time.sleep(0.1)
+        msg.output_data = b"never-frozen"
+        return int(ReturnValue.FAILED)
+
     def fn_mpi_alltoall_sleep(self, msg, req):
         """mpi_alltoall_sleep.cpp: barrier + all-to-all rounds with a
         straggler (rank 3 sleeps 2 s) between two streams of rounds."""
@@ -623,6 +798,66 @@ class DistExecutor(Executor):
         return int(ReturnValue.SUCCESS)
 
 
+    def fn_state_hot(self, msg, req):
+        """Hammer the planted hot key from this (non-master) host: three
+        full pulls and a two-chunk dirty push; reports the wire bytes it
+        moved, which the statemap case holds against the ledger and the
+        ``plane=state`` comm-matrix rows."""
+        from faabric_tpu_torch.state import STATE_CHUNK_SIZE
+
+        kv = self.scheduler.state.get_kv("dist", "hot")
+        wire = 0
+        for _ in range(3):
+            kv.pull()
+            wire += kv.size
+        kv.set_chunk(0, b"\x09" * STATE_CHUNK_SIZE)
+        kv.set_chunk(2 * STATE_CHUNK_SIZE, b"\x09" * STATE_CHUNK_SIZE)
+        wire += kv.n_dirty_chunks() * STATE_CHUNK_SIZE
+        kv.push_partial()
+        msg.output_data = f"wire={wire}".encode()
+        return int(ReturnValue.SUCCESS)
+
+    def fn_profile_spin(self, msg, req):
+        """Burn this executor thread in a distinctly named frame for
+        input_data seconds, with two lock-convoy threads beside it: the
+        hotspot and GIL pressure the merged /profile and the doctor must
+        pin on this host and the ``executor/pool`` thread class."""
+        dur = float(msg.input_data.decode() or "4")
+        stop = threading.Event()
+        lock = threading.Lock()
+
+        def convoy():
+            x = 0
+            while not stop.is_set():
+                with lock:
+                    for _ in range(2_000):
+                        x = (x * 48271) % 2147483647
+                stop.wait(0.002)
+
+        helpers = [threading.Thread(target=convoy, name=f"test/convoy@{i}",
+                                    daemon=True) for i in range(2)]
+        for t in helpers:
+            t.start()
+        try:
+            _planted_profile_burn(dur)
+        finally:
+            stop.set()
+            for t in helpers:
+                t.join(timeout=5)
+        msg.output_data = b"spun"
+        return int(ReturnValue.SUCCESS)
+
+
+def _planted_profile_burn(dur: float) -> None:
+    """The frame the profile case looks for in the merged /profile: its
+    name must stay unique in the tree."""
+    end = time.monotonic() + dur
+    x = 0
+    while time.monotonic() < end:
+        for _ in range(5_000):
+            x = (x * 1103515245 + 12345) & 0x7FFFFFFF
+
+
 class DistFactory(ExecutorFactory):
     def create_executor(self, msg):
         return DistExecutor(msg)
@@ -689,12 +924,22 @@ def run_planner(port_offset: int = 0) -> None:
     server = PlannerServer(port_offset=port_offset)
     _release_held_ports()
     server.start()
+    endpoint = None
+    http_port = int(os.environ.get("DIST_HTTP_PORT", "0"))
     try:
+        if http_port:
+            from faabric_tpu_torch.endpoint import PlannerHttpEndpoint
+
+            endpoint = PlannerHttpEndpoint(port=http_port)
+            endpoint.start()
         _serve_until_stdin_closes({
             "role": "planner", "boot": planner.boot_id,
             "journal": planner._journal.stats(),
-            "lastReplay": planner._journal_replay_stats})
+            "lastReplay": planner._journal_replay_stats,
+            "http": endpoint.port if endpoint else 0})
     finally:
+        if endpoint is not None:
+            endpoint.stop()
         server.stop()
 
 

@@ -5,8 +5,9 @@ Counterparts of the CLI and crash-handler cases of
 adds: a planner and a worker started as processes through
 ``python -m faabric_tpu_torch.runner``, stopped by SIGTERM and SIGINT
 into flight dumps named after the signal, the worker's guests on the
-card unless ``--device cpu``, and the refusals of what is not ported
-yet.
+card unless ``--device cpu``, the planner's REST endpoint at a nonzero
+``--http-port``, and the refusal of what is not ported yet (the
+``redis`` role).
 """
 
 import os
@@ -94,9 +95,6 @@ def test_runner_cli_has_the_reference_roles(monkeypatch):
 
 
 def test_runner_refuses_what_is_not_ported_and_names_its_roadmap_item():
-    out = runner("planner", "--http-port", "18080")
-    assert out.returncode != 0
-    assert "ROADMAP.md" in out.stderr and "#9 part D, step 4" in out.stderr
     out = runner("redis")
     assert out.returncode != 0
     assert "ROADMAP.md" in out.stderr and "#9 part D, step 5" in out.stderr
@@ -183,9 +181,8 @@ def test_runner_planner_and_cpu_worker_as_processes_stop_on_signals(tmp_path):
     planner; SIGTERM stops the planner and SIGINT the worker, each
     cleanly (exit 0) and each leaving a flight dump whose record names
     the signal that came."""
-    from faabric_tpu.runner import flightdump
-
     from faabric_tpu_torch.planner.client import PlannerClient
+    from faabric_tpu_torch.runner import flightdump
     from faabric_tpu_torch.transport import (
         clear_host_aliases,
         register_host_alias,
@@ -233,3 +230,49 @@ def test_runner_planner_and_cpu_worker_as_processes_stop_on_signals(tmp_path):
         rec = next(e for e in d["events"] if e["kind"] == reason)
         assert rec["role"] == ("planner" if reason == "sigterm"
                                else "worker")
+
+
+def test_runner_planner_serves_rest_endpoint_at_http_port():
+    """A nonzero ``--http-port`` starts the planner's REST endpoint: its
+    GET surfaces and POST requests answer, EXECUTE_BATCH answers 501
+    naming the step it waits for, and SIGTERM still stops the planner
+    cleanly."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    from tests.test_torch_multiprocess import HTTP_PORT, http_json, http_text
+
+    env = {k: v for k, v in os.environ.items()
+           if k != "FAABRIC_FLIGHT_DIR"}
+    planner, base = start_until(
+        lambda b: ["planner", "--port-offset", str(b), "--http-port",
+                   str(b + HTTP_PORT)], lambda b: env, "Planner up")
+    try:
+        url = f"http://127.0.0.1:{base + HTTP_PORT}"
+        assert f"http :{base + HTTP_PORT}" in "".join(planner.log)
+        health = http_json(url, "/healthz")
+        assert health["status"] == "ok" and health["hosts"] == []
+        assert "faabric_planner_in_flight_apps" in http_text(url, "/metrics")
+
+        def post(http_type, payload=""):
+            body = json.dumps({"http_type": http_type,
+                               "payload": payload}).encode()
+            req = urllib.request.Request(f"{url}/", data=body,
+                                         method="POST")
+            try:
+                with urllib.request.urlopen(req, timeout=10) as resp:
+                    return resp.status, json.loads(resp.read())
+            except urllib.error.HTTPError as e:
+                return e.code, json.loads(e.read())
+
+        assert post(14) == (200, {"policy": "bin-pack"})  # GET_POLICY
+        from faabric_tpu_torch.proto import batch_exec_factory
+
+        status, out = post(10, json.dumps(
+            batch_exec_factory("demo", "echo", 1).to_dict()))
+        assert status == 501 and "step 5" in out["error"], out
+        assert planner.stop(signal.SIGTERM) == 0, planner.log
+    finally:
+        planner.kill()
+

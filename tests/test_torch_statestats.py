@@ -4,10 +4,10 @@ Counterpart of ``tests/unit/test_statestats.py``: the per-key access
 ledger of the port's ``StateKeyValue`` against hand-computed bytes, the
 cardinality cap's ``other`` bucket, the metrics-off no-op identity,
 state time charged to the running invocation, the statemap merge and
-render, and the snapshot events and registry residency. The doctor's
-analyzers are the reference's part D (``ROADMAP.md`` Queue 1 #7 part
-D). Cross-package: the same ops on a port and a reference key give the
-same ledger rows, and the same telemetry gives the same statemap.
+render, the snapshot events and registry residency, and the port
+doctor's state analyzers on planted skew. Cross-package: the same ops
+on a port and a reference key give the same ledger rows, and the same
+telemetry gives the same statemap.
 """
 
 import numpy as np
@@ -342,6 +342,83 @@ class TestStatemap:
 # ---------------------------------------------------------------------------
 # Doctor analyzers on planted skew
 # ---------------------------------------------------------------------------
+
+class TestDoctorStateAnalyzers:
+    def _map(self, tel):
+        return aggregate_statemap(tel)
+
+    def test_hot_key_skew_found_on_planted_skew(self):
+        from faabric_tpu_torch.runner.doctor import check_hot_key_skew
+
+        tel = {"hA": {"statestats": {"keys": [
+            _ledger_row("demo/hot", master="hA", bytes_total=512 << 20,
+                        ops_total=100, is_master=True, size=64 << 20),
+            _ledger_row("demo/c0", bytes_total=2 << 20, ops_total=5),
+            _ledger_row("demo/c1", bytes_total=2 << 20, ops_total=5),
+            _ledger_row("demo/c2", bytes_total=3 << 20, ops_total=5),
+        ]}}}
+        findings = check_hot_key_skew(self._map(tel))
+        assert len(findings) == 1
+        f = findings[0]
+        assert f["kind"] == "hot_key_skew"
+        assert "demo/hot" in f["subject"]
+        assert f["severity"] > 45
+
+    def test_hot_key_skew_quiet_on_uniform_traffic(self):
+        from faabric_tpu_torch.runner.doctor import check_hot_key_skew
+
+        tel = {"hA": {"statestats": {"keys": [
+            _ledger_row(f"demo/k{i}", bytes_total=8 << 20, ops_total=10)
+            for i in range(4)
+        ]}}}
+        assert check_hot_key_skew(self._map(tel)) == []
+
+    def test_master_hotspot_found_on_planted_imbalance(self):
+        from faabric_tpu_torch.runner.doctor import check_master_hotspot
+
+        findings = check_master_hotspot(self._map(_planted_tel()))
+        assert any(f["kind"] == "master_hotspot" and "hA" in f["subject"]
+                   for f in findings)
+
+    def test_pull_amplification_and_lock_convoy(self):
+        from faabric_tpu_torch.runner.doctor import (
+            check_lock_convoy,
+            check_pull_amplification,
+        )
+
+        tel = {"hB": {"statestats": {"keys": [
+            _ledger_row("demo/amp", bytes_total=200 << 20, ops_total=50,
+                        remote_reads=50, pull_chunks_total=5000,
+                        pull_chunks_fresh=100),
+            _ledger_row("demo/locky", bytes_total=1 << 20, ops_total=40,
+                        lock_waits=120, lock_stalls=24),
+        ]}}}
+        smap = self._map(tel)
+        amp = check_pull_amplification(smap)
+        assert any(f["kind"] == "pull_amplification"
+                   and "demo/amp" in f["subject"] for f in amp)
+        convoy = check_lock_convoy(smap)
+        assert any(f["kind"] == "lock_convoy"
+                   and "demo/locky" in f["subject"] for f in convoy)
+
+    def test_analyzers_quiet_without_statemap(self):
+        from faabric_tpu_torch.runner.doctor import (
+            check_hot_key_skew,
+            check_lock_convoy,
+            check_master_hotspot,
+            check_pull_amplification,
+        )
+
+        for check in (check_hot_key_skew, check_master_hotspot,
+                      check_pull_amplification, check_lock_convoy):
+            assert check(None) == []
+            assert check({}) == []
+
+    def test_doctor_selftest_plants_and_finds_all_four(self):
+        from faabric_tpu_torch.runner.doctor import run_selftest
+
+        assert run_selftest() == 0
+
 
 # ---------------------------------------------------------------------------
 # Snapshot lifecycle estimators

@@ -5,7 +5,8 @@ Counterpart of ``tests/unit/test_telemetry.py``: every case of it runs on
 nesting, disabled-mode fast paths, Prometheus text and Chrome
 ``trace_event`` JSON, trace contexts and flow ids, the flight ring and
 the comm matrix). A flight dump written by the port is read back with
-the reference's ``runner/flightdump.py`` (the port has no such CLI).
+the port's ``runner/flightdump.py`` (``tests/test_torch_doctor.py`` holds
+it against the reference's on the same dumps).
 Then the cross-package checks on the same inputs: the Prometheus text
 of the same registry operations is byte-equal, and a 3 + 3 world with
 tracing on gives both packages the same multiset of spans and the same
@@ -520,8 +521,7 @@ def test_flight_ring_capacity_is_preallocated_and_bounded():
 
 
 def test_flight_dump_and_flightdump_merge(tmp_path, monkeypatch):
-    # The reference's reader: a port dump must parse with it
-    from faabric_tpu.runner import flightdump
+    from faabric_tpu_torch.runner import flightdump
 
     from faabric_tpu_torch.telemetry import FlightRecorder
 
@@ -923,14 +923,14 @@ time.sleep(10)
 
 def test_install_signal_dump_dumps_and_still_dies(tmp_path):
     """SIGTERM after ``install_signal_dump`` writes the ring (read back
-    by the reference's reader) and the process still dies of the signal
-    (exit -15)."""
+    by the port's ``flightdump``) and the process still dies of the
+    signal (exit -15)."""
     import os
     import subprocess
     import sys
     from pathlib import Path
 
-    from faabric_tpu.runner import flightdump
+    from faabric_tpu_torch.runner import flightdump
 
     root = Path(__file__).resolve().parents[1]
     env = {k: v for k, v in os.environ.items()
