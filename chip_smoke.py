@@ -2132,17 +2132,18 @@ def load_flat(model, flat: torch.Tensor):
 
 
 def register_state_guests(job: dict) -> None:
-    """Torch guests over faabric's state KV (``ctx.state()``):
-    ``state/write`` puts ``job["model"](device)``'s flat fp32 parameters
-    into key smoke/weights (``set_from_device``, ``push_full``), creates
-    the counter and the log keys, and keeps its logits on
-    ``job["tokens"]``; ``state/read`` pulls the weights, loads a model of
+    """Torch guests over faabric's state KV (``ctx.state()``), on the
+    keys of user ``job["user"]``: ``state/write`` puts
+    ``job["model"](device)``'s flat fp32 parameters into key weights
+    (``set_from_device``, ``push_full``), creates the counter and the
+    log keys, and keeps its logits on ``job["tokens"]``; ``state/read`` pulls the weights, loads a model of
     ``job["cfg"]`` from ``get_device_array(torch.float32)`` and keeps its
     logits; ``state/count`` adds ``job["iters"]`` to the counter under the
     global lock and appends once; ``handle/push`` registers a tensor
     under a device state handle and returns it as a dict, which
-    ``handle/pull`` pulls. Each returns JSON with its host and timings;
-    the logits and the pushed tensor go to ``job["out"]``."""
+    ``handle/pull`` pulls. Each returns JSON with its host, its timings
+    and the class of the key's authority; the logits and the pushed
+    tensor go to ``job["out"]``."""
     from faabric_tpu_torch.executor import register_function
     from faabric_tpu_torch.models import Transformer, forward
     from faabric_tpu_torch.state import get_device_handle_registry
@@ -2151,7 +2152,9 @@ def register_state_guests(job: dict) -> None:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    def reply(ctx, **fields):
+    def reply(ctx, kv=None, **fields):
+        if kv is not None:
+            fields["backend"] = type(kv.authority).__name__
         return json.dumps({"host": ctx.state().host, **fields}).encode()
 
     def score(model, dev):
@@ -2165,7 +2168,7 @@ def register_state_guests(job: dict) -> None:
         dev, state = ctx.device, ctx.state()
         model = job["model"](dev)
         flat = flat_params(model)
-        kv = state.get_kv("smoke", "weights", flat.numel() * 4)
+        kv = state.get_kv(job["user"], "weights", flat.numel() * 4)
         sync(dev)
         t0 = time.perf_counter()
         kv.set_from_device(flat)
@@ -2173,12 +2176,13 @@ def register_state_guests(job: dict) -> None:
         kv.push_full()
         t2 = time.perf_counter()
         for key in ("counter", "log"):
-            small = state.get_kv("smoke", key, 8)
+            small = state.get_kv(job["user"], key, 8)
             small.set(bytes(8))
             small.push_full()
-        job["out"]["writer"] = (state.host, score(model, dev))
-        return reply(ctx, set_ms=(t1 - t0) * 1e3, push_ms=(t2 - t1) * 1e3,
-                     master=kv.is_master, backup=kv.backup_host)
+        job["out"]["writer"] = (state.host, score(model, dev), flat)
+        return reply(ctx, kv, set_ms=(t1 - t0) * 1e3,
+                     push_ms=(t2 - t1) * 1e3, master=kv.is_master,
+                     backup=kv.backup_host)
 
     @register_function("smoke", "state_read")
     def read(ctx):
@@ -2186,7 +2190,7 @@ def register_state_guests(job: dict) -> None:
         # (nothing to pull on the master's host) and makes the device
         # view, the second finds both done
         dev, state = ctx.device, ctx.state()
-        kv = state.get_kv("smoke", "weights")
+        kv = state.get_kv(job["user"], "weights")
         with job["locks"][state.host]:
             first = state.host not in job["pulled"]
             t0 = time.perf_counter()
@@ -2200,14 +2204,14 @@ def register_state_guests(job: dict) -> None:
             cached = kv.get_device_array(torch.float32) is flat
         model = load_flat(Transformer(job["cfg"], device=dev), flat)
         job["out"][ctx.message.id] = (state.host, score(model, dev))
-        return reply(ctx, pull_ms=(t1 - t0) * 1e3, view_ms=(t2 - t1) * 1e3,
-                     first=first, cached=cached, ptr=flat.data_ptr(),
-                     master=kv.is_master, size=kv.size)
+        return reply(ctx, kv, pull_ms=(t1 - t0) * 1e3,
+                     view_ms=(t2 - t1) * 1e3, first=first, cached=cached,
+                     ptr=flat.data_ptr(), master=kv.is_master, size=kv.size)
 
     @register_function("smoke", "state_count")
     def count(ctx):
         state = ctx.state()
-        kv = state.get_kv("smoke", "counter")
+        kv = state.get_kv(job["user"], "counter")
         t0 = time.perf_counter()
         for _ in range(job["iters"]):
             kv.lock_global()
@@ -2219,9 +2223,9 @@ def register_state_guests(job: dict) -> None:
             finally:
                 kv.unlock_global()
         ms = (time.perf_counter() - t0) * 1e3
-        state.get_kv("smoke", "log").append(
+        state.get_kv(job["user"], "log").append(
             f"{state.host}/{ctx.message.id}".encode())
-        return reply(ctx, ms=ms, master=kv.is_master)
+        return reply(ctx, kv, ms=ms, master=kv.is_master)
 
     @register_function("smoke", "handle_push")
     def push(ctx):
@@ -2240,15 +2244,22 @@ def register_state_guests(job: dict) -> None:
 
 
 def run_batch(client, function: str, n: int, input_data: bytes = b"",
-              timeout: float = 300.0):
+              timeout: float = 300.0, hosts=None):
     """Submit ``n`` messages of ``smoke/<function>`` (each with
     ``input_data``) and wait for all of them; returns the results in
-    message order and the wall ms."""
+    message order and the wall ms. ``hosts`` (one a message) places the
+    batch by a decision preloaded through the planner client."""
+    from faabric_tpu_torch.batch_scheduler import SchedulingDecision
     from faabric_tpu_torch.proto import batch_exec_factory
 
     req = batch_exec_factory("smoke", function, n)
     for m in req.messages:
         m.input_data = input_data
+    if hosts is not None:
+        decision = SchedulingDecision(req.app_id, 0)
+        for m, host in zip(req.messages, hosts, strict=True):
+            decision.add_message(host, m.id, m.app_idx, m.app_idx)
+        client.preload_scheduling_decision(decision)
     t0 = time.perf_counter()
     client.call_functions(req)
     deadline = time.monotonic() + timeout
@@ -2267,7 +2278,7 @@ def run_batch(client, function: str, n: int, input_data: bytes = b"",
 
 def state_phase(dev, build, cfg=None, iters: int = 1000,
                 hosts=("state-host-a", "state-host-b"),
-                base: int | None = None) -> dict:
+                base: int | None = None, redis_iters: int = 250) -> dict:
     """Phase 19: faabric's state KV through torch guests on two hosts (a
     port planner and two WorkerRuntimes, 2 slots each, ``inmemory`` mode
     with one backup a key). A guest puts the flagship's whole fp32
@@ -2277,8 +2288,10 @@ def state_phase(dev, build, cfg=None, iters: int = 1000,
     four guests add ``iters`` each to a counter under ``lock_global``
     (exact) and append once (every value back); a device state handle
     passed between two guests of one host is the same storage, with no
-    counted copy, and ``pull_host`` counts one. Returns the launches of
-    the writer's and readers' batches (the phase's main path)."""
+    counted copy, and ``pull_host`` counts one. Then 19r on the same
+    cluster (``redis_state_part``) with ``redis_iters`` increments a
+    counter guest. Returns the launches of the writers' and readers'
+    batches (the phase's main path) of both parts."""
     from faabric_tpu_torch.device_plane.copies import (
         device_copy_totals,
         reset_device_copy_totals,
@@ -2299,7 +2312,7 @@ def state_phase(dev, build, cfg=None, iters: int = 1000,
     tokens = torch.randint(0, cfg.vocab_size, (1, 512),
                            generator=torch.Generator().manual_seed(19))
     job = {"cfg": cfg, "tokens": tokens, "iters": iters, "out": out,
-           "pulled": set(),
+           "user": "smoke", "pulled": set(),
            "locks": {h: threading.Lock() for h in hosts},
            "model": lambda device: Transformer(
                cfg, device=device,
@@ -2323,7 +2336,7 @@ def state_phase(dev, build, cfg=None, iters: int = 1000,
         launches = dict(build.LAUNCHES)
         copies = device_copy_totals()
         readers = guest_outputs(r_res, "19 readers")
-        writer_host, want = out.pop("writer")
+        writer_host, want, _ = out.pop("writer")
         check(w["master"] and w["backup"] and w["backup"] != writer_host,
               f"19: the writer on {writer_host} is the key's master, its "
               f"backup {w['backup']}; {n_params:,} fp32 parameters, "
@@ -2410,9 +2423,151 @@ def state_phase(dev, build, cfg=None, iters: int = 1000,
                                                         "bytes": nbytes}},
               f"19: pull_host counts one D2H copy of {nbytes:,} bytes")
         reg.drop(pushed["handle"])
+        log(f"  phase 19 before 19r: {time.perf_counter() - t_phase:.1f} s")
+        r_launches = redis_state_part(dev, build, client, job, hosts,
+                                      n_params, redis_iters)
+        launches = {k: launches.get(k, 0) + r_launches.get(k, 0)
+                    for k in {*launches, *r_launches}}
     finally:
+        t_stop = time.perf_counter()
         stop_cluster(planner_server, workers)
+        log(f"  19: the cluster stopped in {time.perf_counter() - t_stop:.1f} s")
     log(f"  phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def redis_state_part(dev, build, client, job: dict, hosts, n_params: int,
+                     iters: int) -> dict:
+    """Phase 19r: phase 19's state path on a Redis authority, on phase
+    19's running cluster. The port's ``MiniRedisServer`` serves on a
+    thread of this process and ``STATE_MODE=redis`` points both
+    runtimes at it (the config is read again, and restored after). The
+    writer puts the flagship's fp32 weights into a Redis-backed key from
+    a tensor on ``dev``; two readers, one on each host by a preloaded
+    decision, pull the key and score it bitwise equal to the writer;
+    four guests add ``iters`` each to a counter under ``lock_global``
+    and append once. Every guest's key must be a ``RedisAuthority``, and
+    the server must hold the weights' exact bytes. Returns the launches
+    of the writer's and readers' batches."""
+    from faabric_tpu_torch.device_plane.copies import (
+        device_copy_totals,
+        reset_device_copy_totals,
+    )
+    from faabric_tpu_torch.redis import MiniRedisServer
+    from faabric_tpu_torch.state import State
+    from faabric_tpu_torch.util.config import get_system_config
+
+    log("phase 19r: the state path on a Redis authority")
+    t_part = time.perf_counter()
+    if dev.type == "cuda":
+        log("  19r card: " + subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip())
+    knobs = ("STATE_MODE", "REDIS_STATE_HOST", "REDIS_PORT")
+    saved = {k: os.environ.get(k) for k in knobs}
+    server = MiniRedisServer()
+    server.start()
+    conf = get_system_config()
+    out = job["out"]
+    try:
+        os.environ.update(STATE_MODE="redis", REDIS_STATE_HOST="127.0.0.1",
+                          REDIS_PORT=str(server.port))
+        conf.reset()
+        check(conf.state_mode == "redis"
+              and conf.redis_port == server.port,
+              f"19r: STATE_MODE {conf.state_mode}, REDIS_PORT "
+              f"{conf.redis_port}")
+        user = job["user"] = "smoke-redis"
+        job["pulled"], job["iters"] = set(), iters
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        reset_device_copy_totals()
+        build.reset_launch_counts()
+        w_res, w_wall = run_batch(client, "state_write", 1)
+        (w,) = guest_outputs(w_res, "19r writer")
+        r_res, r_wall = run_batch(client, "state_read", 2,
+                                  hosts=list(hosts))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        copies = device_copy_totals()
+        readers = guest_outputs(r_res, "19r readers")
+        writer_host, want, flat = out.pop("writer")
+        # One D2H copy of the writer's parameters, outside the counted
+        # window, to hold the server's value against byte for byte
+        want_bytes = flat.cpu().numpy().tobytes()
+        del flat
+        value = server.store.data.get(f"fstate:{user}/weights".encode())
+        check(all(g["backend"] == "RedisAuthority" for g in [w, *readers])
+              and len(want_bytes) == n_params * 4 and value == want_bytes,
+              f"19r: the writer's and readers' keys are Redis-backed "
+              f"({[g['backend'] for g in [w, *readers]]}), the server "
+              f"holds {len(value) if value is not None else 0:,} bytes, "
+              f"equal to the writer's {n_params * 4:,}: "
+              f"{value == want_bytes}")
+        del want_bytes
+        got = [out.pop(m.id) for m in r_res]
+        check(sorted(h for h, _ in got) == sorted(hosts)
+              and all(r["first"] and r["cached"]
+                      and r["size"] == n_params * 4 for r in readers),
+              f"19r: one reader on each host ({[h for h, _ in got]}), "
+              "each pulled the key and made the device view")
+        check(all(torch.equal(lg, want) for _, lg in got),
+              f"19r: both readers' (1, 512) logits equal the writer's bit "
+              f"for bit ({tuple(want.shape)})")
+        h2d = copies["by_reason"].get("h2d.state", {})
+        d2h = copies["by_reason"].get("d2h.state", {})
+        check(h2d.get("count") == 2 and h2d.get("bytes") == 2 * n_params * 4
+              and d2h.get("count") == 1 and d2h.get("bytes") == n_params * 4,
+              f"19r: copies counted: {copies['by_reason']}")
+        per_forward = {"rms_norm": 2 * job["cfg"].n_layers + 1,
+                       "flash_attention": job["cfg"].n_layers}
+        if dev.type == "cuda":
+            for name, n in per_forward.items():
+                check(launches.get(name, 0) == 3 * n,
+                      f"19r: {name} launched {launches.get(name, 0)} times "
+                      f"= 3 forwards (writer and 2 readers) x {n}")
+        log(f"  19r writer on {writer_host}: {n_params * 4:,} bytes, "
+            f"set_from_device {w['set_ms']:.1f} ms, push_full to Redis "
+            f"{w['push_ms']:.1f} ms; {w_wall:.1f} ms through the planner")
+        for r in readers:
+            log(f"  19r reader on {r['host']}: pull from Redis "
+                f"{r['pull_ms']:.1f} ms, device view {r['view_ms']:.1f} ms")
+        log(f"  19r readers: {r_wall:.1f} ms through the planner")
+
+        c_res, c_wall = run_batch(client, "state_count", 4)
+        counters = guest_outputs(c_res, "19r counters")
+        probe = State("19r-probe", device=torch.device("cpu"))
+        kv = probe.get_kv(user, "counter")
+        kv.pull()
+        total = int.from_bytes(kv.get_chunk(0, 8), "little")
+        check(total == 4 * iters
+              and all(c["backend"] == "RedisAuthority" for c in counters)
+              and sorted(c["host"] for c in counters)
+              == sorted(list(hosts) * 2),
+              f"19r: four guests (two a host) each added {iters} under "
+              f"lock_global on Redis: the counter reads {total}; "
+              + ", ".join(f"{c['host']} {c['ms'] / iters:.3f} ms an "
+                          "increment" for c in counters))
+        appended = probe.get_kv(user, "log").get_appended(4)
+        want_log = sorted(f"{c['host']}/{m.id}".encode()
+                          for c, m in zip(counters, c_res))
+        check(sorted(appended) == want_log,
+              f"19r: get_appended returns every guest's value {appended}")
+        log(f"  19r counters: {c_wall:.1f} ms through the planner")
+    finally:
+        job["user"] = "smoke"
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        conf.reset()
+        t_stop = time.perf_counter()
+        server.stop()
+        log(f"  19r took {time.perf_counter() - t_part:.1f} s (the server's "
+            f"stop {time.perf_counter() - t_stop:.1f} s)")
     return launches
 
 
@@ -4180,9 +4335,10 @@ def planner_child(argv: list[str]) -> int:
     offset ``base``, reaching the named worker hosts at their offsets,
     under the journal and timeout knobs of its environment; it prints one
     JSON line once it serves (its boot id and journal replay stats), one
-    when the reconcile after a replay has run, and one when its standard
-    input closes, on which it stops the server (draining and closing the
-    journal) and exits."""
+    when the reconcile after a replay has run, one with its
+    ``health_summary()`` for each ``health`` line on its standard input,
+    and one when that input closes, on which it stops the server
+    (draining and closing the journal) and exits."""
     from faabric_tpu_torch.planner import PlannerServer, get_planner
     from faabric_tpu_torch.transport import register_host_alias
 
@@ -4193,20 +4349,33 @@ def planner_child(argv: list[str]) -> int:
     planner = get_planner()
     server = PlannerServer(port_offset=base)
     server.start()
-    print(json.dumps({"ready": True, "boot": planner.boot_id,
-                      "journal": planner._journal.enabled,
-                      "replay": planner._journal_replay_stats}), flush=True)
+    out_lock = threading.Lock()
+
+    def emit(doc: dict) -> None:
+        with out_lock:
+            sys.stdout.write(json.dumps(doc) + "\n")
+            sys.stdout.flush()
+
+    emit({"ready": True, "boot": planner.boot_id,
+          "journal": planner._journal.enabled,
+          "replay": planner._journal_replay_stats})
     closed = threading.Event()
-    threading.Thread(target=lambda: (sys.stdin.read(), closed.set()),
-                     name="planner-child/stdin", daemon=True).start()
+
+    def read_stdin() -> None:
+        for line in sys.stdin:
+            if line.strip() == "health":
+                emit({"health": planner.health_summary()})
+        closed.set()
+
+    threading.Thread(target=read_stdin, name="planner-child/stdin",
+                     daemon=True).start()
     reported = False
     while not closed.wait(0.05):
         if not reported and planner._reconcile_stats is not None:
-            print(json.dumps({"reconcile": planner._reconcile_stats}),
-                  flush=True)
+            emit({"reconcile": planner._reconcile_stats})
             reported = True
     server.stop()
-    print(json.dumps({"stopped": True}), flush=True)
+    emit({"stopped": True})
     return 0
 
 
@@ -4370,8 +4539,15 @@ def restart_phase(dev, build, cfg=None, serve_len: int = 512,
     each host); the launches are one batch's, so no request ran twice.
     The port's ``journaldump --verify`` of the journal exits 0. (b) The
     same batch with no crash, with the journal on and then off: the two
-    walls, with nothing checked about speed. Returns the phase's kernel
-    launches."""
+    walls, with nothing checked about speed. (c) After (b)'s journal-on
+    batch, on the same planner child: the 8 requests as 8 apps through
+    one ``submit_functions_many`` call (SUBMIT_BATCH; ``call_functions``
+    is made to fail meanwhile), each result awaited. Checked: the tokens
+    of direct ``forward`` and ``generate``; by the child's
+    ``health_summary()["ingress"]``, 8 messages admitted through a tick,
+    none shed and none on the immediate path; the 8 apps' ``app_update``
+    records inside ``group`` records of the journal and nowhere else;
+    the launches one batch's. Returns the phase's kernel launches."""
     from faabric_tpu_torch.executor import TorchExecutorFactory
     from faabric_tpu_torch.models import (
         ModelConfig,
@@ -4489,6 +4665,28 @@ def restart_phase(dev, build, cfg=None, serve_len: int = 512,
         client.call_functions(req)
         results = [client.get_message_result(req.app_id, m.id, timeout=300)
                    for m in req.messages]
+        return results, (time.perf_counter() - t0) * 1e3
+
+    def ingress_of(planner):
+        planner.send("health")
+        return planner.expect("health", 60)["health"]["ingress"]
+
+    def submit_batch(client, reqs):
+        """The requests through one SUBMIT_BATCH call; CALL_BATCH fails
+        meanwhile."""
+        def no_call_batch(_req):
+            raise AssertionError("25c: a request went through CALL_BATCH")
+
+        t0 = time.perf_counter()
+        client.call_functions = no_call_batch
+        try:
+            accepted, retry_after = client.submit_functions_many(reqs)
+        finally:
+            del client.call_functions
+        check(accepted, f"25c: SUBMIT_BATCH accepted the {len(reqs)} "
+              f"requests (retry after {retry_after} s)")
+        results = [client.get_message_result(r.app_id, r.messages[0].id,
+                                             timeout=300) for r in reqs]
         return results, (time.perf_counter() - t0) * 1e3
 
     saved_reset = os.environ.get("TRANSPORT_BREAKER_RESET")
@@ -4632,6 +4830,35 @@ def restart_phase(dev, build, cfg=None, serve_len: int = 512,
         rejoined(workers, second)
         (results_on, wall_on), _ = counted(lambda: serve_batch(client))
         check_outputs(results_on, "25b (journal on)")
+
+        # -- (c) the batch through the ingress: SUBMIT_BATCH -----------
+        ing0 = ingress_of(second)
+        singles = []
+        for p in prompts:
+            r = batch_exec_factory("rst", "serve", 1)
+            r.messages[0].input_data = p.tobytes()
+            singles.append(r)
+        (results_c, wall_c), got_c = counted(
+            lambda: submit_batch(client, singles))
+        check_outputs(results_c, "25c")
+        ing1 = ingress_of(second)
+        delta = {k: ing1[k] - ing0[k] for k in (
+            "admittedTotal", "shedTotal", "immediateTotal", "batchedTotal",
+            "ticks")}
+        check(delta["admittedTotal"] == n_req and delta["shedTotal"] == 0
+              and delta["immediateTotal"] == 0
+              and delta["batchedTotal"] == n_req and delta["ticks"] >= 1
+              and ing1["batchedTotal"] >= 1 and ing1["ticks"] >= 1
+              and ing1["queueDepth"] == 0,
+              f"25c: the planner's ingress admitted every message through "
+              f"its ticks and shed none: {delta}")
+        if on_card:
+            for k, v in want.items():
+                check(got_c.get(k, 0) == v, f"25c: {k} launched "
+                      f"{got_c.get(k, 0)} times, one batch's {v} expected")
+            check(got_c.get("flash_attention.wgmma", 0)
+                  == got_c["flash_attention"],
+                  "25c: every flash forward took the wgmma body")
         second.stop()
         dump = subprocess.run(
             [sys.executable, "-m", "faabric_tpu_torch.runner.journaldump",
@@ -4640,6 +4867,16 @@ def restart_phase(dev, build, cfg=None, serve_len: int = 512,
         check(dump.returncode == 0, f"25a: journaldump --verify exits "
               f"{dump.returncode} ({dump.stderr[-500:]})")
         snap, records, meta = load_journal_dir(journal_dir)
+        c_apps = {r.app_id for r in singles}
+        grouped = {sub["app_id"] for rec in records if rec["k"] == "group"
+                   for sub in rec["recs"] if sub["k"] == "app_update"}
+        loose = {rec["app_id"] for rec in records
+                 if rec["k"] == "app_update"}
+        n_groups = sum(rec["k"] == "group" for rec in records)
+        check(n_groups >= 1 and c_apps <= grouped and not c_apps & loose,
+              f"25c: the journal holds {n_groups} group record(s) with "
+              f"{len(c_apps & grouped)} of the 8 apps' app_updates, "
+              f"{len(c_apps & loose)} outside them")
         jbytes = os.path.getsize(os.path.join(journal_dir, JOURNAL_FILE))
         sbytes = os.path.getsize(os.path.join(journal_dir, SNAPSHOT_FILE))
         wait_ports_free(base)
@@ -4663,6 +4900,10 @@ def restart_phase(dev, build, cfg=None, serve_len: int = 512,
             f"folding {meta.get('records_folded')} records")
         log(f"  25b batch of 8 wall: journal on {wall_on:.1f} ms, journal "
             f"off {wall_off:.1f} ms")
+        log(f"  25c 8 apps through SUBMIT_BATCH to their last result: "
+            f"{wall_c:.1f} ms; ingress {delta}, last tick "
+            f"{ing1['lastTickMs']} ms, {ing1['lastTickBatch']} request(s); "
+            f"launches {got_c}")
     finally:
         job["release"].set()
         try:

@@ -7,12 +7,13 @@ schema, src/planner/planner.proto:33-66), served by a stdlib
 
 ``POST /`` takes ``{"http_type": <int>, "payload": <json string>}`` and
 answers JSON: RESET, the three FLUSHes, GET_AVAILABLE_HOSTS, GET_CONFIG,
-GET_EXEC_GRAPH, GET_IN_FLIGHT_APPS, EXECUTE_BATCH_STATUS, SET_POLICY,
-GET_POLICY and SET_NEXT_EVICTED_VM. EXECUTE_BATCH goes through the
-ingress and PRELOAD_SCHEDULING_DECISION through preloaded decisions,
-neither of which the port has yet (``ROADMAP.md`` Queue 1 #9 part D,
-step 5): a well-formed request of either is answered 501 with an error
-that names that step, and is never run some other way.
+GET_EXEC_GRAPH, GET_IN_FLIGHT_APPS, EXECUTE_BATCH, EXECUTE_BATCH_STATUS,
+PRELOAD_SCHEDULING_DECISION, SET_POLICY, GET_POLICY and
+SET_NEXT_EVICTED_VM. EXECUTE_BATCH goes through the planner's ingress
+with the request's user as its source and a queue wait of at most 1 s
+(each waiting request holds an HTTP thread); a shed answers 429 with
+``Retry-After``, the ingress's backlog-scaled hint in whole seconds,
+at least 1 (reference :382-440).
 
 ``GET`` serves the cluster's telemetry, merged from the planner's own
 and every registered worker's blocks (``Planner.collect_telemetry``):
@@ -35,10 +36,15 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 from faabric_tpu_torch.batch_scheduler import reset_batch_scheduler
-from faabric_tpu_torch.batch_scheduler.decision import SchedulingDecision
+from faabric_tpu_torch.batch_scheduler.decision import (
+    MUST_FREEZE,
+    NOT_ENOUGH_SLOTS,
+    SchedulingDecision,
+)
 from faabric_tpu_torch.batch_scheduler.scheduler import (
     get_batch_scheduler_mode,
 )
+from faabric_tpu_torch.ingress import IngressShedError
 from faabric_tpu_torch.planner.planner import Planner, get_planner
 from faabric_tpu_torch.proto import (
     BatchExecuteRequest,
@@ -49,8 +55,6 @@ from faabric_tpu_torch.util.exec_graph import build_exec_graph
 from faabric_tpu_torch.util.logging import get_logger
 
 logger = get_logger(__name__)
-
-STEP_5 = "ROADMAP.md Queue 1 step 5"
 
 
 class HttpMessageType(enum.IntEnum):
@@ -70,12 +74,6 @@ class HttpMessageType(enum.IntEnum):
     SET_POLICY = 13
     GET_POLICY = 14
     SET_NEXT_EVICTED_VM = 15
-
-
-def _not_ported(what: str) -> tuple[int, str]:
-    return 501, json.dumps({
-        "error": f"{what} is not ported yet: it waits for the ingress and "
-                 f"preloaded decisions ({STEP_5})"})
 
 
 class PlannerHttpEndpoint:
@@ -289,13 +287,14 @@ class PlannerHttpEndpoint:
         http_type = msg.get("http_type", int(HttpMessageType.NO_TYPE))
         payload = msg.get("payload", "")
         try:
-            status, out = self._dispatch(http_type, payload)
+            out = self._dispatch(http_type, payload)
         except Exception as e:  # noqa: BLE001 — errors cross the wire
             logger.exception("HTTP handler error (type %s)", http_type)
             return 500, json.dumps({"error": str(e)}), {}
-        return status, out, {}
+        # A shed carries its Retry-After in a third slot
+        return out if len(out) == 3 else (*out, {})
 
-    def _dispatch(self, http_type: int, payload: str) -> tuple[int, str]:
+    def _dispatch(self, http_type: int, payload: str) -> tuple:
         planner = self.planner
         t = HttpMessageType(http_type)
 
@@ -350,7 +349,24 @@ class PlannerHttpEndpoint:
             req = BatchExecuteRequest.from_dict(json.loads(payload))
             if not is_batch_exec_request_valid(req):
                 return 400, json.dumps({"error": "Bad BatchExecRequest"})
-            return _not_ported("EXECUTE_BATCH")
+            try:
+                decision = planner.ingress.submit(
+                    req, source=req.user or "rest", timeout=1.0)
+            except IngressShedError as e:
+                return (429, json.dumps({
+                    "error": "Overloaded: invocation shed",
+                    "reason": e.reason,
+                    "retryAfterSeconds": round(e.retry_after, 3),
+                }), {"Retry-After": str(max(1, int(e.retry_after + 0.5)))})
+            if decision.app_id == NOT_ENOUGH_SLOTS:
+                return 500, json.dumps({"error": "No available hosts"})
+            if decision.app_id == MUST_FREEZE:
+                return 200, json.dumps({"appId": req.app_id,
+                                        "frozen": True})
+            return 200, json.dumps({"appId": req.app_id,
+                                    "groupId": decision.group_id,
+                                    "hosts": decision.hosts,
+                                    "messageIds": decision.message_ids})
 
         if t == HttpMessageType.EXECUTE_BATCH_STATUS:
             req = json.loads(payload) if payload else {}
@@ -365,8 +381,10 @@ class PlannerHttpEndpoint:
             })
 
         if t == HttpMessageType.PRELOAD_SCHEDULING_DECISION:
-            SchedulingDecision.from_dict(json.loads(payload))
-            return _not_ported("PRELOAD_SCHEDULING_DECISION")
+            decision = SchedulingDecision.from_dict(json.loads(payload))
+            planner.preload_scheduling_decision(decision)
+            return 200, json.dumps({"status": "preloaded",
+                                    "appId": decision.app_id})
 
         if t == HttpMessageType.SET_POLICY:
             policy = payload.strip().strip('"')

@@ -42,8 +42,10 @@ client with no keep-alive thread gets no lost-push recovery. Waiters of
 one id share its event and are counted, so that only the last to leave
 unregisters it.
 
-Not ported (``ROADMAP.md`` Queue 1 step 5, with the ingress):
-``submit_functions`` and ``submit_functions_many``.
+``submit_functions_many`` (reference :376-410) puts batches into the
+planner's ingress queue with one SUBMIT_BATCH call and answer ``(accepted, retry_after)`` at once; the
+results come back as any others do. ``preload_scheduling_decision``
+records a decision the planner places an app's batches by.
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ from faabric_tpu_torch.proto import (
     BatchExecuteType,
     Message,
     ber_to_wire,
+    bers_to_wire,
     get_main_thread_snapshot_key,
     messages_from_wire,
     messages_to_wire,
@@ -307,6 +310,25 @@ class PlannerClient(MessageEndpointClient):
         resp = self.sync_send(int(PlannerCalls.CALL_BATCH),
                               {"ber": header, "host": self.this_host}, tail)
         return SchedulingDecision.from_dict(resp.header["decision"])
+
+    def submit_functions_many(self, reqs: list[BatchExecuteRequest]
+                              ) -> tuple[bool, float]:
+        """Put independent batches into the planner's ingress queue with
+        one SUBMIT_BATCH call and return ``(accepted, retry_after)`` at
+        once: no decision comes back, and the results arrive as any
+        others do. Admission takes or sheds them all together; not
+        accepted means back off ``retry_after`` seconds and retry."""
+        if not reqs:
+            return True, 0.0
+        if is_mock_mode():
+            with _mock_lock:
+                _mock_batch_calls.extend(reqs)
+            return True, 0.0
+        header, tail = bers_to_wire(reqs)
+        header["host"] = self.this_host
+        resp = self.sync_send(int(PlannerCalls.SUBMIT_BATCH), header, tail)
+        return (bool(resp.header.get("accepted")),
+                float(resp.header.get("retry_after", 0.0)))
 
     def _push_main_thread_snapshot(self, req: BatchExecuteRequest) -> None:
         """This host is the THREADS batch's main host; its main-thread
@@ -668,6 +690,11 @@ class PlannerClient(MessageEndpointClient):
     def drop_state_master(self, user: str, key: str) -> None:
         self.sync_send(int(PlannerCalls.DROP_STATE_MASTER),
                        {"user": user, "key": key}, idempotent=True)
+
+    def preload_scheduling_decision(self,
+                                    decision: SchedulingDecision) -> None:
+        self.sync_send(int(PlannerCalls.PRELOAD_SCHEDULING_DECISION),
+                       {"decision": decision.to_dict()}, idempotent=True)
 
     def close(self) -> None:
         self._stop_keep_alive()

@@ -72,7 +72,22 @@ PROCESSES and THREADS batches:
   devices. ``boot_id`` is fresh each instance and never journaled: the
   keep-alive response carries it, so a worker sees a restart.
 
-The elastic scale hint raises instead of running some other way.
+The elastic scale hint (:624-628, :1028): a SCALE_CHANGE request with
+``elastic_scale_hint`` grows to every free slot of its app's main host
+(an OpenMP-style fork). Preloaded decisions (:1447-1480): a decision
+preloaded for an app places its NEW and SCALE_CHANGE requests by app
+idx, falling back to the policy when it does not cover a request or
+would oversubscribe a host; it is dropped when the app completes, on a
+reset and on a scheduling flush.
+
+The invocation ingress (:289-295, :726-935): ``self.ingress`` admits
+the calls of the planner's RPC and REST surfaces and batches
+overlapping ones into scheduling ticks. ``call_batch_group`` places a
+tick's NEW requests under one lock pass, journals them as one ``group``
+record (``_journal_group_commit_locked``), sends their mappings batched
+per host and dispatches each host's sub-batches in one EXECUTE_BATCHES
+call (``_do_dispatch_pipelined``); ``fail_unscheduled`` gives a
+fire-and-forget submission that was never placed its FAILED results.
 
 Telemetry, as the reference's: ``call_batch`` and the dispatch are
 ``planner`` spans timed in histograms; every dispatch passes the
@@ -89,17 +104,13 @@ flight-recorded and dumps the ring.
 Observability (:1092, :2264-2585): ``get_cluster_topology``,
 ``in_flight_summary``, ``health_summary`` (hosts with keep-alive ages
 and breaker rows, results, lifecycle and SLO, the perf aggregation's
-age, the decision cache and the journal's stats with its last replay
-and reconcile) and ``collect_telemetry``, which scrapes the workers'
-telemetry blocks concurrently under one deadline, with at most one
-scrape in flight per host; the planner's REST endpoint
+age, the ingress, the decision cache and the journal's stats with its
+last replay and reconcile) and ``collect_telemetry``, which scrapes the
+workers' telemetry blocks concurrently under one deadline, with at most
+one scrape in flight per host; the planner's REST endpoint
 (``endpoint/http_server.py``) reads them. ``flush_hosts``,
 ``flush_all_executors`` and ``flush_scheduling_state`` serve its FLUSH
 requests, and the first and last of them are journaled.
-
-Not ported (``ROADMAP.md`` Queue 1 #9 part D, step 5): preloaded
-decisions and the elastic scale hint; the ingress, ``call_batch_group``
-and its journal group commit (``_journal_group_commit_locked``).
 """
 
 from __future__ import annotations
@@ -273,6 +284,8 @@ class Planner:
         # next decisions must evacuate
         self._evicted: dict[int, BatchExecuteRequest] = {}
         self._next_evicted_ips: set[str] = set()
+        # app_id → its preloaded decision
+        self._preloaded: dict[int, SchedulingDecision] = {}
         self._num_migrations = 0
         # State keys: full key → master host, backup host and fencing
         # epoch (the epoch outlives a drop)
@@ -313,6 +326,13 @@ class Planner:
         self._reconcile_timer: Optional[threading.Timer] = None
         if self._journal.enabled:
             self._recover_from_journal()
+
+        # The invocation ingress between the endpoints and call_batch.
+        # Synchronized on its own; its tick thread starts at the first
+        # batched submission and stops with the PlannerServer
+        from faabric_tpu_torch.ingress import IngressCoordinator
+
+        self.ingress = IngressCoordinator(self)
 
     # ------------------------------------------------------------------
     # Hosts (reference Planner.cpp:267-392)
@@ -444,9 +464,6 @@ class Planner:
 
     def _call_batch_inner(self, req: BatchExecuteRequest
                           ) -> SchedulingDecision:
-        if req.elastic_scale_hint:
-            raise ValueError("the elastic scale hint is not served by this "
-                             "planner")
         # Messages must agree with their batch's app id
         update_batch_exec_app_id(req, req.app_id)
         # The ledger's first stamp, unless an earlier hop stamped it
@@ -467,24 +484,36 @@ class Planner:
                        and req.app_id in self._evicted)
             if thawing:
                 req = self._evicted.pop(req.app_id)
+            # Elastic scale-up: an OpenMP-style fork with the hint grows
+            # to every free slot of its main host
+            if (decision_type == DecisionType.SCALE_CHANGE
+                    and req.elastic_scale_hint and req.messages):
+                self._apply_elastic_scale_locked(req)
 
             host_map = self._policy_host_map_locked()
+            decision = None
+            preloaded = self._preloaded.get(req.app_id)
+            if preloaded is not None and decision_type in (
+                    DecisionType.NEW, DecisionType.SCALE_CHANGE):
+                decision = self._slice_preloaded_locked(preloaded, req)
             # Repeated fork-join shapes reuse their placement (reference
             # DecisionCache). NEW decisions only: a scale change extends
             # an app's placement and must not take or poison entries
             # keyed by (user, function, type, count)
             cacheable = (req.type == int(BatchExecuteType.THREADS)
                          and decision_type == DecisionType.NEW)
-            decision = (self._decision_from_cache_locked(req, host_map)
-                        if cacheable else None)
-            if cacheable:
-                get_decision_cache().record_outcome(decision is not None)
+            from_cache = False
+            if decision is None and cacheable:
+                decision = self._decision_from_cache_locked(req, host_map)
+                from_cache = decision is not None
+                get_decision_cache().record_outcome(from_cache)
             if decision is None:
                 decision = scheduler.make_scheduling_decision(
                     host_map, self._in_flight, req)
-                if cacheable and not is_sentinel_decision(decision):
-                    get_decision_cache().add_cached_decision(
-                        req, list(decision.hosts), 0)
+            if (cacheable and not from_cache
+                    and not is_sentinel_decision(decision)):
+                get_decision_cache().add_cached_decision(
+                    req, list(decision.hosts), 0)
             if decision.app_id == NOT_ENOUGH_SLOTS:
                 if thawing:
                     # A failed thaw must not lose the parked app: a later
@@ -540,6 +569,190 @@ class Planner:
         send_mappings_from_decision(mappings)
         self._do_dispatch(dispatches)
         return result
+
+    # ------------------------------------------------------------------
+    # Batched scheduling ticks (reference :719-933): the ingress hands a
+    # tick's NEW invocations to call_batch_group
+    # ------------------------------------------------------------------
+    @staticmethod
+    def is_batchable_shape(req: BatchExecuteRequest) -> bool:
+        """The lock-free half of the tick eligibility check: a plain
+        FUNCTIONS or PROCESSES batch with no MPI message. Admission reads
+        only this (probing planner state there would queue every
+        submission behind the ticks); the tick checks the rest under the
+        lock and defers what turns out to be a scale change or the
+        like."""
+        if req.type not in (int(BatchExecuteType.FUNCTIONS),
+                            int(BatchExecuteType.PROCESSES)):
+            return False
+        return bool(req.messages) and not any(m.is_mpi
+                                              for m in req.messages)
+
+    def call_batch_group(self, reqs: list[BatchExecuteRequest]
+                         ) -> tuple[list[Optional[SchedulingDecision]],
+                                    set[int]]:
+        """Schedule one tick's NEW invocations. Returns ``(results,
+        deferred)``: ``results[i]`` is the detached decision, or None
+        when the cluster had no room this tick (the caller queues it
+        again; slots free as results land); the indices in ``deferred``
+        are no longer NEW requests and go through ``call_batch``.
+
+        One lock pass and one host-map build for the whole tick, the
+        decision cache as a fast path, one group-commit journal record,
+        the mappings batched per host and one dispatch call a host."""
+        results: list[Optional[SchedulingDecision]] = [None] * len(reqs)
+        deferred: set[int] = set()
+        mapping_clones: list[SchedulingDecision] = []
+        dispatch_groups: dict[str, list[BatchExecuteRequest]] = {}
+        journal_apps: list[int] = []
+        cache = get_decision_cache()
+        t0 = time.monotonic()
+        with span("planner", "call_batch_group", n_requests=len(reqs)):
+            with self._lock:
+                scheduler = get_batch_scheduler()
+                # One host-map view for the tick (with the expiry sweep),
+                # updated in place as claims land
+                view = self._policy_host_map_locked()
+                # A request larger than the free slots goes back to the
+                # queue without a policy run: a full cluster costs a tick
+                # one compare per queued request
+                free = sum(max(0, h.slots - h.used_slots)
+                           for h in view.values())
+                for i, req in enumerate(reqs):
+                    update_batch_exec_app_id(req, req.app_id)
+                    decision_type = scheduler.get_decision_type(
+                        self._in_flight, req)
+                    if (decision_type != DecisionType.NEW
+                            or req.app_id in self._evicted
+                            or req.app_id in self._preloaded):
+                        deferred.add(i)
+                        continue
+                    if req.n_messages() > free:
+                        continue  # no room this tick
+                    decision = self._decision_from_cache_locked(req, view)
+                    from_cache = decision is not None
+                    cache.record_outcome(from_cache)
+                    if decision is None:
+                        decision = scheduler.make_scheduling_decision(
+                            view, self._in_flight, req)
+                    if decision.app_id == NOT_ENOUGH_SLOTS:
+                        continue  # no room this tick
+                    if is_sentinel_decision(decision):
+                        deferred.add(i)
+                        continue
+                    if not from_cache:
+                        cache.add_cached_decision(
+                            req, list(decision.hosts), 0)
+                    dispatches = self._handle_new_locked(req, decision)
+                    _LC.stamp_many(req.messages, PHASE_SCHED)
+                    free -= decision.n_messages
+                    for ip in decision.hosts:
+                        h = view.get(ip)
+                        if h is not None:
+                            h.used_slots += 1
+                    results[i] = decision.clone()
+                    mappings = decision.clone()
+                    mapping_clones.append(mappings)
+                    gids, hosts = self._group_hosts.get(
+                        req.app_id, (set(), set()))
+                    self._group_hosts[req.app_id] = (
+                        gids | {mappings.group_id},
+                        hosts | set(mappings.hosts))
+                    journal_apps.append(req.app_id)
+                    for ip, sub in dispatches:
+                        dispatch_groups.setdefault(ip, []).append(sub)
+                if journal_apps and self._journal.enabled:
+                    self._journal_group_commit_locked(journal_apps)
+                    for subs in dispatch_groups.values():
+                        for sub in subs:
+                            _LC.stamp_many(sub.messages, PHASE_JOURNAL)
+                _IN_FLIGHT_APPS.set(len(self._in_flight))
+            # Network strictly outside the lock: the mappings first
+            # (guests wait for them before messaging), then one dispatch
+            # call per host
+            if mapping_clones:
+                from faabric_tpu_torch.transport.ptp_remote import (
+                    send_mappings_for_decisions,
+                )
+
+                send_mappings_for_decisions(mapping_clones)
+            self._do_dispatch_pipelined(dispatch_groups)
+        if journal_apps:
+            _SCHEDULE_SECONDS.observe(
+                (time.monotonic() - t0) / len(journal_apps))
+        return results, deferred
+
+    def _journal_group_commit_locked(self, app_ids: list[int]) -> None:
+        """One ``group`` journal record for the tick's app updates,
+        written before the dispatch as ``append_durable`` is."""
+        j = self._journal
+        j.append_group([("app_update", self._app_update_fields_locked(a))
+                        for a in app_ids])
+        if j.since_compact >= j.compact_records:
+            with span("journal", "compact", records=j.since_compact):
+                j.compact(self._journal_snapshot_locked())
+
+    def _do_dispatch_pipelined(
+            self, groups: dict[str, list[BatchExecuteRequest]]) -> None:
+        """One EXECUTE_BATCHES call per host carrying every sub-batch of
+        the tick bound there. A host that fails hands its sub-batches to
+        the dispatch recovery. Several hosts are dispatched on threads of
+        their own, so that one unreachable host does not hold the
+        others."""
+        if not groups:
+            return
+        t0 = time.monotonic()
+
+        def dispatch_one(ip: str, subs: list[BatchExecuteRequest]) -> None:
+            try:
+                if _FAULTS:
+                    verdict = _FP_DISPATCH.fire(host=ip,
+                                                app_id=subs[0].app_id)
+                    if verdict is DROP:
+                        return
+                for sub in subs:
+                    _LC.stamp_many(sub.messages, PHASE_DISPATCH)
+                self._clients.get(ip).execute_functions_many(subs)
+            except Exception:  # noqa: BLE001 — a dead host must not stall
+                # the tick's other hosts
+                logger.exception("Dispatch of %d app(s) to %s failed",
+                                 len(subs), ip)
+                for sub in subs:
+                    self._recover_dispatch(sub, b"Dispatch failed")
+
+        with span("planner", "dispatch_pipelined", n_hosts=len(groups)):
+            if len(groups) == 1:
+                dispatch_one(*next(iter(groups.items())))
+            else:
+                workers = [threading.Thread(
+                    target=dispatch_one, args=(ip, subs),
+                    name=f"planner/dispatch@{ip}", daemon=True)
+                    for ip, subs in groups.items()]
+                for w in workers:
+                    w.start()
+                for w in workers:
+                    w.join()
+        _DISPATCH_SECONDS.observe(time.monotonic() - t0)
+
+    def fail_unscheduled(self, req: BatchExecuteRequest,
+                         reason: bytes) -> None:
+        """FAILED results for a fire-and-forget submission shed before it
+        was placed, so that its batch-status pollers finish."""
+        with self._lock:
+            if req.app_id in self._in_flight:
+                return  # a schedule won the race; its results come
+            self._expected.setdefault(req.app_id, req.n_messages())
+        for m in req.messages:
+            m.return_value = int(ReturnValue.FAILED)
+            m.output_data = reason
+        try:
+            self.set_message_results(req.messages)
+        except Exception:  # noqa: BLE001
+            logger.exception("Failing unscheduled app %d", req.app_id)
+        with self._lock:
+            if req.app_id not in self._completed_order:
+                self._completed_order.append(req.app_id)
+                self._evict_old_results_locked()
 
     def _handle_new_locked(self, req: BatchExecuteRequest,
                            decision: SchedulingDecision) -> list:
@@ -603,6 +816,29 @@ class Planner:
         update_batch_exec_group_id(old_req, decision.group_id)
         self._in_flight[req.app_id] = (old_req, decision)
         return []
+
+    def _apply_elastic_scale_locked(self, req: BatchExecuteRequest) -> None:
+        """Grow a scale-change request so that its app fills every free
+        slot of its main host."""
+        import copy
+
+        old_req, old_decision = self._in_flight[req.app_id]
+        main_host = (old_req.messages[0].main_host
+                     or old_decision.hosts[0]) if old_decision.hosts else ""
+        host = self._hosts.get(main_host)
+        if host is None:
+            return
+        extra = host.state.available - req.n_messages()
+        template = req.messages[0]
+        for _ in range(max(0, extra)):
+            clone = copy.deepcopy(template)
+            clone.id = generate_gid()
+            clone.app_idx = 0  # assigned in order by the scale change
+            clone.group_idx = 0
+            req.messages.append(clone)
+        if extra > 0:
+            logger.debug("Elastic scale: app %d grows by %d to fill %s",
+                         req.app_id, extra, main_host)
 
     # -- migration and freezing (reference :1053-1091) --------------------
     def check_migration(self, app_id: int) -> Optional[SchedulingDecision]:
@@ -668,6 +904,44 @@ class Planner:
         logger.debug("Reused the cached placement of %s/%s x%d", req.user,
                      req.function, req.n_messages())
         return decision
+
+    # -- preloaded decisions (reference :1447-1480) ------------------------
+    def preload_scheduling_decision(self,
+                                    decision: SchedulingDecision) -> None:
+        with self._lock:
+            self._preloaded[decision.app_id] = decision
+        logger.debug("Preloaded a decision for app %d (%d msgs)",
+                     decision.app_id, decision.n_messages)
+
+    def _slice_preloaded_locked(self, preloaded: SchedulingDecision,
+                                req: BatchExecuteRequest
+                                ) -> Optional[SchedulingDecision]:
+        """The preloaded rows of the request's app idxs, or None (the
+        policy places it) when the preload does not cover the request,
+        names an unknown host or would oversubscribe one: other apps may
+        have taken the slots since it was recorded."""
+        out = SchedulingDecision(req.app_id, preloaded.group_id)
+        by_idx = {preloaded.app_idxs[i]: i
+                  for i in range(preloaded.n_messages)}
+        need: dict[str, int] = {}
+        for msg in req.messages:
+            i = by_idx.get(msg.app_idx)
+            if i is None:
+                logger.warning("The preloaded decision of app %d lacks app "
+                               "idx %d; the policy places it", req.app_id,
+                               msg.app_idx)
+                return None
+            out.add_message(preloaded.hosts[i], msg.id, msg.app_idx,
+                            preloaded.group_idxs[i])
+            need[preloaded.hosts[i]] = need.get(preloaded.hosts[i], 0) + 1
+        for ip, n in need.items():
+            h = self._hosts.get(ip)
+            if h is None or h.state.slots - h.state.used_slots < n:
+                logger.warning("The preloaded decision of app %d needs %d "
+                               "slots on %s; the policy places it",
+                               req.app_id, n, ip)
+                return None
+        return out
 
     # -- resource accounting ---------------------------------------------
     def _policy_host_map_locked(self) -> dict[str, HostState]:
@@ -1104,6 +1378,7 @@ class Planner:
             if decision.n_messages == 0:
                 del self._in_flight[app_id]
                 self._next_idx.pop(app_id, None)
+                self._preloaded.pop(app_id, None)
                 self._requeue_attempts.pop(app_id, None)
                 if app_id not in self._completed_order:
                     self._completed_order.append(app_id)
@@ -1265,6 +1540,8 @@ class Planner:
             "lifecycle": get_lifecycle_stats().snapshot(),
             "slo": get_slo_tracker().status(),
             "perf": perf_block,
+            # Admission depth and sheds, tick occupancy
+            "ingress": self.ingress.stats(),
             "decisionCache": get_decision_cache().stats(),
             "journal": journal,
         }
@@ -1363,6 +1640,7 @@ class Planner:
             self._completed_order.clear()
             self._waiters.clear()
             self._requeue_attempts.clear()
+            self._preloaded.clear()
             for h in self._hosts.values():
                 h.state.used_slots = 0
                 h.used_mpi_ports.clear()
@@ -1752,8 +2030,10 @@ class Planner:
             self._completed_order.clear()
             self._waiters.clear()
             self._requeue_attempts.clear()
+            self._preloaded.clear()
         elif kind == "reset":
             self._apply_journal_snapshot_locked({})
+            self._preloaded.clear()
             self._waiters.clear()
             self._next_evicted_ips.clear()
         else:
@@ -1933,7 +2213,7 @@ class Planner:
             for d in (self._hosts, self._in_flight, self._results,
                       self._expected, self._next_idx, self._waiters,
                       self._group_hosts, self._requeue_attempts,
-                      self._evicted, self._next_evicted_ips,
+                      self._preloaded, self._evicted, self._next_evicted_ips,
                       self._state_masters, self._state_backups,
                       self._state_epochs):
                 d.clear()
@@ -1950,6 +2230,9 @@ class Planner:
 
         get_decision_cache().clear()
         close_mapping_clients()
+        # After the wipe: a fire-and-forget submission still queued gets
+        # its FAILED results now, which the wipe would otherwise erase
+        self.ingress.shed_all("planner reset")
 
 
 _planner: Optional[Planner] = None

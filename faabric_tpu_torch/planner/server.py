@@ -14,6 +14,17 @@ hosts its originator could not reach (reference :192-230).
 was down (reference :357-367), ``REGISTER_HOST`` answers with the
 planner's ``boot`` id, and ``stop()`` drains, fsyncs and closes the
 planner's journal.
+
+Invocations enter through the planner's ingress (reference :299-335):
+``CALL_BATCH`` submits and waits for the decision, its queue wait
+capped at ``max(0.05, tick_ms / 250)`` s so that a full cluster keeps
+answering NOT_ENOUGH_SLOTS promptly (a shed answers NOT_ENOUGH_SLOTS
+too); ``SUBMIT_BATCH`` enqueues many independent batches and answers at
+once with the admission verdict and its retry hint.
+``PRELOAD_SCHEDULING_DECISION`` records a decision for an app. The
+server starts the ingress before its transport and stops it before the
+transport closes, and samples the ingress's depth, shed count and tick
+time beside the planner's gauges.
 """
 
 from __future__ import annotations
@@ -21,9 +32,15 @@ from __future__ import annotations
 import enum
 import threading
 
+from faabric_tpu_torch.batch_scheduler.decision import (
+    SchedulingDecision,
+    not_enough_slots_decision,
+)
+from faabric_tpu_torch.ingress import IngressShedError
 from faabric_tpu_torch.planner.planner import get_planner
 from faabric_tpu_torch.proto import (
     ber_from_wire,
+    bers_from_wire,
     messages_from_wire,
     messages_to_wire,
 )
@@ -67,6 +84,7 @@ class PlannerCalls(enum.IntEnum):
     GET_SCHEDULING_DECISION = 8
     GET_NUM_MIGRATIONS = 9
     CALL_BATCH = 10
+    PRELOAD_SCHEDULING_DECISION = 11
     CLAIM_STATE_MASTER = 12
     DROP_STATE_MASTER = 13
     CHECK_MIGRATION = 14
@@ -78,6 +96,9 @@ class PlannerCalls(enum.IntEnum):
     # unreachable hosts: the planner's links are independent of the
     # worker pair's
     RELAY_GROUP_ABORT = 17
+    # Many independent batches into the ingress queue; the answer is the
+    # admission verdict, not a decision
+    SUBMIT_BATCH = 18
 
 
 class PlannerServer(MessageEndpointServer):
@@ -102,6 +123,9 @@ class PlannerServer(MessageEndpointServer):
 
         set_process_label("planner")
         set_fault_identity("planner")
+        # Re-arm a stopped ingress before the transport delivers
+        # submissions
+        self.planner.ingress.start()
         super().start()
         self.snapshot_server.start()
         # Quarter of the host timeout: an expiry is seen well inside one
@@ -115,7 +139,11 @@ class PlannerServer(MessageEndpointServer):
         ring = get_timeseries()
         planner = self.planner
         self._ring_series = {
+            "ingress_depth": lambda: planner.ingress.admission.depth(),
+            "ingress_shed_total":
+                lambda: planner.ingress.admission.shed_total(),
             "free_slots": planner.free_slot_watermark,
+            "tick_ms": planner.ingress.last_tick_ms,
             "result_backlog": planner.result_backlog,
             "in_flight_msgs": planner.in_flight_message_count,
             "results_total": planner.results_total,
@@ -148,6 +176,10 @@ class PlannerServer(MessageEndpointServer):
         self._ring_series = {}
         self.expiry_reaper.stop()
         self.snapshot_server.stop()
+        # The tick thread stops before the transport: what is still
+        # queued resolves as unschedulable instead of dispatching into a
+        # closing server
+        self.planner.ingress.stop()
         super().stop()
         # A clean stop: drain the write-behind buffer, fsync, and release
         # the journal's fd and drain thread
@@ -287,8 +319,33 @@ class PlannerServer(MessageEndpointServer):
             return handler_response(header={"accepted": len(msgs)})
 
         if code == int(PlannerCalls.CALL_BATCH):
-            decision = planner.call_batch(ber_from_wire(h["ber"],
-                                                        msg.payload))
+            # A lone call takes the ingress's immediate path; overlapping
+            # ones share a tick, and ineligible requests pass through.
+            # The queue wait is capped: this plane's few workers must
+            # keep answering keep-alives, and a full cluster answers
+            # NOT_ENOUGH_SLOTS as before the ingress
+            req = ber_from_wire(h["ber"], msg.payload)
+            wait_s = max(0.05, get_system_config().planner_tick_ms / 250)
+            try:
+                decision = planner.ingress.submit(
+                    req, source=h.get("host", ""), timeout=wait_s)
+            except IngressShedError:
+                decision = not_enough_slots_decision()
             return handler_response(header={"decision": decision.to_dict()})
+
+        if code == int(PlannerCalls.SUBMIT_BATCH):
+            try:
+                planner.ingress.submit_many(bers_from_wire(h, msg.payload),
+                                            source=h.get("host", ""))
+            except IngressShedError as e:
+                return handler_response(header={
+                    "accepted": False, "retry_after": e.retry_after,
+                    "reason": e.reason})
+            return handler_response(header={"accepted": True})
+
+        if code == int(PlannerCalls.PRELOAD_SCHEDULING_DECISION):
+            planner.preload_scheduling_decision(
+                SchedulingDecision.from_dict(h["decision"]))
+            return handler_response()
 
         raise ValueError(f"Unknown sync planner call {code}")

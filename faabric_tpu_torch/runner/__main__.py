@@ -7,6 +7,7 @@ src/planner/planner_server.cpp:9-43, src/runner/FaabricMain.cpp)::
         [--http-port P]
     python -m faabric_tpu_torch.runner worker --host NAME [--slots N]
         [--devices N] [--planner-host NAME] [--device cuda|cpu]
+    python -m faabric_tpu_torch.runner redis [--port P] [--bind ADDR]
 
 The planner role serves ``PlannerServer`` (its RPC and its snapshot
 server) at ``--port-offset`` and, with a nonzero ``--http-port``, the
@@ -18,12 +19,13 @@ planners that share a machine never contend for one default port. The worker rol
 ``WorkerRuntime`` (function-call, point-to-point, snapshot and state
 servers, keep-alive registration with the planner, and the worker
 endpoint when ``WORKER_HTTP_PORT`` is set) whose torch guests run on
-the card; a caller asks for the CPU with ``--device cpu``. Both run
-until SIGTERM or SIGINT, which record and dump the flight ring under
-the signal's own name and then stop the role cleanly (exit 0).
-
-Not ported yet, and refused rather than started without: the ``redis``
-role (``ROADMAP.md`` Queue 1 #9 part D, step 5).
+the card; a caller asks for the CPU with ``--device cpu``. The redis
+role serves the port's ``MiniRedisServer`` on ``--bind``:``--port``
+(default 127.0.0.1:6379), the state authority of ``STATE_MODE=redis``
+for workers whose ``REDIS_STATE_HOST`` and ``REDIS_PORT`` name it. Each
+role runs until SIGTERM or SIGINT, which record and dump the flight
+ring under the signal's own name and then stop the role cleanly (exit
+0).
 """
 
 from __future__ import annotations
@@ -38,12 +40,6 @@ from faabric_tpu_torch.util.logging import get_logger
 
 logger = get_logger("faabric_tpu_torch.runner")
 
-NOT_PORTED = {
-    "redis": "the redis role is not ported yet (ROADMAP.md Queue 1 #9 "
-             "part D, step 5)",
-}
-
-
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="faabric_tpu_torch.runner")
     sub = parser.add_subparsers(dest="role", required=True)
@@ -53,7 +49,7 @@ def main(argv: list[str] | None = None) -> int:
     p_planner.add_argument("--http-port", type=int, default=0,
                            help="REST endpoint port (0: no endpoint)")
 
-    p_redis = sub.add_parser("redis", help="not ported yet")
+    p_redis = sub.add_parser("redis")
     p_redis.add_argument("--port", type=int, default=6379)
     p_redis.add_argument("--bind", default="127.0.0.1")
 
@@ -72,8 +68,6 @@ def main(argv: list[str] | None = None) -> int:
                           help="where guests run (default: the card)")
 
     args = parser.parse_args(argv)
-    if args.role == "redis":
-        parser.error(NOT_PORTED["redis"])
     if args.role == "worker":
         from faabric_tpu_torch.executor import TorchExecutorFactory
 
@@ -123,6 +117,14 @@ def main(argv: list[str] | None = None) -> int:
             if endpoint is not None:
                 endpoint.stop()
             server.stop()
+    elif args.role == "redis":
+        from faabric_tpu_torch.redis import MiniRedisServer
+
+        srv = MiniRedisServer(host=args.bind, port=args.port)
+        srv.start()
+        logger.info("Mini redis up on %s:%d", args.bind, srv.port)
+        stop.wait()
+        srv.stop()
     else:
         from faabric_tpu_torch.runner import WorkerRuntime
         from faabric_tpu_torch.util.network import (

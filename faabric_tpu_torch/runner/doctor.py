@@ -7,10 +7,10 @@ planner's scrape surfaces.
 
 Counterpart of ``faabric_tpu/runner/doctor.py``: the same analyzers,
 over the port's own telemetry helpers, give the same ranked findings
-over the same sources. The admission-shedding and journal group-commit
-analyzers read metrics that only the ingress emits (``ROADMAP.md``
-Queue 1 #9 part D, step 5); until then they find nothing, as the
-reference's do on a cluster without that traffic.
+over the same sources. The admission-shedding, queue-trend and journal
+group-commit analyzers read what the planner's ingress reports: its
+``ingress`` block on ``/healthz``, its ``ingress_depth`` series on
+``/timeseries`` and the journal's group commits.
 
 Ingests ``/perf`` (the rolling performance-profile aggregation),
 ``/metrics`` (Prometheus text), ``/commmatrix``, ``/healthz`` and

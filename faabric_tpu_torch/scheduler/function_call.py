@@ -8,9 +8,11 @@ planner pushing a result to a host that waits for it). Sync plane:
 FLUSH (the host drops its executors and runs the factory's
 ``flush_host``) and GET_TELEMETRY (the host's telemetry blocks, which
 ``Planner.collect_telemetry`` scrapes for the planner's REST
-endpoint). In mock mode the client records its calls instead of
-sending them. The reference's pipelined dispatch (EXECUTE_BATCHES)
-waits for the ingress (``ROADMAP.md`` Queue 1 #9 part D, step 5).
+endpoint). EXECUTE_BATCHES (:52, :100-120) is the planner's pipelined
+dispatch: every sub-batch of a scheduling tick bound for one host in
+one async call, which the server unpacks and hands to the scheduler in
+order, going on past a sub-batch that raises (:193-210). In mock mode
+the client records its calls instead of sending them.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from faabric_tpu_torch.proto import (
     Message,
     ber_from_wire,
     ber_to_wire,
+    bers_from_wire,
+    bers_to_wire,
     messages_from_wire,
     messages_to_wire,
 )
@@ -40,10 +44,13 @@ from faabric_tpu_torch.transport.server import (
     handler_response,
 )
 from faabric_tpu_torch.util.config import get_system_config
+from faabric_tpu_torch.util.logging import get_logger
 from faabric_tpu_torch.util.testing import is_mock_mode
 
 if TYPE_CHECKING:  # pragma: no cover
     from faabric_tpu_torch.scheduler.scheduler import Scheduler
+
+logger = get_logger(__name__)
 
 
 class FunctionCalls(enum.IntEnum):
@@ -52,6 +59,8 @@ class FunctionCalls(enum.IntEnum):
     FLUSH = 2
     SET_MESSAGE_RESULT = 3
     GET_TELEMETRY = 4
+    # The pipelined dispatch: a tick's sub-batches for one host
+    EXECUTE_BATCHES = 5
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +108,24 @@ class FunctionCallClient(MessageEndpointClient):
             return
         header, tail = ber_to_wire(req)
         self.async_send(int(FunctionCalls.EXECUTE_FUNCTIONS), header, tail)
+
+    def execute_functions_many(self,
+                               reqs: list[BatchExecuteRequest]) -> None:
+        """Every sub-batch bound for this host in one async call: the
+        headers ride a ``bers`` list with each request's tail length,
+        and the tails follow one another in the payload."""
+        if not reqs:
+            return
+        if len(reqs) == 1:
+            self.execute_functions(reqs[0])
+            return
+        if is_mock_mode():
+            with _mock_lock:
+                for req in reqs:
+                    _batch_messages.append((self.host, req))
+            return
+        header, tail = bers_to_wire(reqs)
+        self.async_send(int(FunctionCalls.EXECUTE_BATCHES), header, tail)
 
     def set_message_result(self, msg: Message) -> None:
         if is_mock_mode():
@@ -193,6 +220,17 @@ class FunctionCallServer(MessageEndpointServer):
         if msg.code == int(FunctionCalls.EXECUTE_FUNCTIONS):
             self.scheduler.execute_batch(
                 ber_from_wire(msg.header, msg.payload))
+        elif msg.code == int(FunctionCalls.EXECUTE_BATCHES):
+            # Each sub-batch in arrival order. One that raises must not
+            # drop the rest of the frame: the planner recorded them all
+            # as dispatched, and nothing else would run them
+            for req in bers_from_wire(msg.header, msg.payload):
+                try:
+                    self.scheduler.execute_batch(req)
+                except Exception:  # noqa: BLE001
+                    logger.exception("Sub-batch of app %d failed; going on "
+                                     "with the rest of the frame",
+                                     req.app_id)
         elif msg.code == int(FunctionCalls.SET_MESSAGE_RESULT):
             result = messages_from_wire([msg.header["msg"]], msg.payload)[0]
             self.scheduler.planner_client.set_message_result_locally(result)

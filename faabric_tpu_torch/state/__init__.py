@@ -1,11 +1,13 @@
 """Distributed state KV (reference src/state).
 
-Counterpart of ``faabric_tpu/state/``, less the Redis authority
-(``ROADMAP.md`` Queue 1 #9 part D).
+Counterpart of ``faabric_tpu/state/``: the in-memory, shared-file and
+Redis authorities, the KV, replicas and their placement, the state RPC,
+the host-wide ``State`` and the device state handles.
 """
 
 from faabric_tpu_torch.state.backend import (
     MasterMemoryAuthority,
+    RedisAuthority,
     RemoteAuthority,
     SharedFileAuthority,
     StaleStateEpoch,
@@ -39,6 +41,7 @@ __all__ = [
     "get_device_handle_registry",
     "reset_device_handles",
     "MasterMemoryAuthority",
+    "RedisAuthority",
     "RemoteAuthority",
     "STATE_CHUNK_SIZE",
     "SharedFileAuthority",

@@ -14,8 +14,13 @@ by ``STATE_MODE``:
   appends as length-prefixed records in ``.append``, the global lock a
   flock on ``.lock``. The layout is the reference's, so a port process
   and a reference process share a key through one ``STATE_DIR``.
-- ``redis``: not ported (``ROADMAP.md`` Queue 1 #9 part D, with the
-  reference's ``faabric_tpu/redis/``); ``State.get_kv`` raises.
+- ``redis``: a Redis server is the authority (:class:`RedisAuthority`):
+  value bytes in the string key ``fstate:<user>/<key>`` (GETRANGE and
+  SETRANGE, grown on create), appends in the list ``...:append``, the
+  global lock a SET-NX-PX token on ``...:lock`` with a TTL, released by
+  a compare-and-delete. Tests and single-host runs use the port's
+  ``MiniRedisServer``; ``REDIS_STATE_HOST`` and ``REDIS_PORT`` point it
+  at a real Redis.
 
 ``StateKeyValue`` keeps the chunked pull, dirty push and append
 protocol and hands every authority interaction to one of these.
@@ -29,6 +34,7 @@ import os
 import struct
 import threading
 import time
+import uuid
 from typing import Optional
 
 _APPEND_REC = struct.Struct("<I")
@@ -339,3 +345,101 @@ class SharedFileAuthority(StateAuthority):
                 os.unlink(p)
             except OSError:
                 pass
+
+
+class RedisAuthority(StateAuthority):
+    """The authority is a Redis server (``redis`` mode): value bytes in a
+    string key (GETRANGE/SETRANGE — the reference's pull/push mapping,
+    src/state/RedisStateKeyValue.cpp), appends in a list key, the global
+    lock a SET-NX-PX token key with TTL (so a crashed holder cannot wedge
+    the cluster). Speaks RESP through :mod:`faabric_tpu_torch.redis`, to
+    a real Redis or the in-repo MiniRedisServer. The key layout is the
+    reference's, so both packages share a key over one server."""
+
+    local = False
+
+    LOCK_ACQUIRE_TIMEOUT = 30.0
+    LOCK_TTL_MS = 60_000
+
+    def __init__(self, user: str, key: str, size: int) -> None:
+        self.user = user
+        self.key = key
+        self._key = f"fstate:{user}/{key}".encode()
+        self._append_key = self._key + b":append"
+        self._lock_key = self._key + b":lock"
+        # Token is thread-local: authorities are shared across threads
+        # through the cached StateKeyValue, and a TTL expiry means two
+        # threads can hold (what they think is) the lock concurrently —
+        # a shared token slot would let one thread's unlock delete the
+        # other's live lock
+        self._lock_tls = threading.local()
+
+        cli = self._cli()
+        cur = cli.strlen(self._key)
+        if size > cur:
+            # Grow to the requested size (zero-fill, first creator sizes)
+            cli.setrange(self._key, size - 1, b"\x00")
+            cur = size
+        elif size <= 0 and cur <= 0:
+            raise ValueError(
+                f"State key {user}/{key} does not exist in redis yet; "
+                "creation needs an explicit size")
+        self.size = cur
+
+    @staticmethod
+    def _cli():
+        from faabric_tpu_torch.redis import get_redis
+
+        return get_redis()
+
+    def pull_chunk(self, offset: int, length: int) -> bytes:
+        return self._cli().getrange(self._key, offset, offset + length - 1)
+
+    def push_chunk(self, offset: int, data: bytes) -> None:
+        if offset + len(data) > self.size:
+            raise ValueError("Pushed chunk out of bounds")
+        self._cli().setrange(self._key, offset, data)
+
+    def push_chunks(self, writes: list[tuple[int, bytes]]) -> None:
+        """Pipelined multi-chunk push, one round-trip (reference
+        setRangePipeline); kv.push_partial sends all dirty chunks here."""
+        for offset, data in writes:
+            if offset + len(data) > self.size:
+                raise ValueError("Pushed chunk out of bounds")
+        self._cli().setrange_pipeline(self._key, writes)
+
+    def append(self, data: bytes) -> None:
+        self._cli().rpush(self._append_key, data)
+
+    def get_appended(self, n_values: int) -> list[bytes]:
+        if n_values <= 0:
+            return []  # LRANGE 0 -1 would mean "whole list"
+        vals = self._cli().lrange(self._append_key, 0, n_values - 1)
+        if len(vals) < n_values:
+            raise ValueError(f"Only {len(vals)} appended values")
+        return vals
+
+    def clear_appended(self) -> None:
+        self._cli().delete(self._append_key)
+
+    def lock(self) -> None:
+        token = uuid.uuid4().bytes
+        cli = self._cli()
+        deadline = time.monotonic() + self.LOCK_ACQUIRE_TIMEOUT
+        while not cli.set_nx_px(self._lock_key, token, self.LOCK_TTL_MS):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"Timed out acquiring global lock on "
+                    f"{self.user}/{self.key}")
+            time.sleep(0.01)
+        self._lock_tls.token = token
+
+    def unlock(self) -> None:
+        token = getattr(self._lock_tls, "token", None)
+        self._lock_tls.token = None
+        if token is None:
+            raise RuntimeError("unlock without lock")
+        self._cli().del_if_eq(self._lock_key, token)
+
+    def delete_keys(self) -> None:
+        self._cli().delete(self._key, self._append_key, self._lock_key)

@@ -20,6 +20,7 @@ import threading
 from typing import Optional
 
 from faabric_tpu_torch.state.backend import (
+    RedisAuthority,
     SharedFileAuthority,
     StaleStateEpoch,
 )
@@ -72,9 +73,10 @@ class State:
         if mode in ("file", "shm"):
             kv = self._make_file_kv(user, key, size, conf.state_dir)
         elif mode == "redis":
-            raise NotImplementedError(
-                "STATE_MODE=redis is not ported: the Redis authority comes "
-                "with faabric_tpu/redis/ (ROADMAP.md Queue 1 #9 part D)")
+            authority = RedisAuthority(user, key, size)
+            kv = StateKeyValue(user, key, authority.size, False, "<redis>",
+                               authority=authority, local_host=self.host,
+                               device=self.device)
         elif mode != "inmemory":
             raise ValueError(f"Unknown STATE_MODE {mode!r}")
         else:

@@ -10,7 +10,7 @@ small dict, no locks on the hot path, so the recorder is cheap enough to
 stay on by default. When a terminal condition fires (``MpiWorldAborted``
 → the broker's group abort, a planner requeue, an unhandled executor
 exception, SIGTERM), the ring is serialized to ``FAABRIC_FLIGHT_DIR`` as
-one JSON file per process; ``python -m faabric_tpu.runner.flightdump``
+one JSON file per process; ``python -m faabric_tpu_torch.runner.flightdump``
 merges the files from every host onto one wall-clock timeline.
 
 Knobs:

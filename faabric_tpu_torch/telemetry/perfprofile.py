@@ -32,7 +32,7 @@ share:
 - Pure merge/analysis helpers (:func:`merge_link_rows`,
   :func:`merge_collective_series`, :func:`aggregate_perf`) shared by
   the planner's ``/perf`` aggregation and the cluster doctor
-  (``python -m faabric_tpu.runner.doctor``), which also runs them on
+  (``python -m faabric_tpu_torch.runner.doctor``), which also runs them on
   dumped files — post-mortem diagnosis needs no live cluster.
 
 Knobs: ``FAABRIC_PERF_PROFILE`` (``0`` disables both stores even with

@@ -27,7 +27,7 @@ Two attribution signals separate wall-blocked from CPU-burning frames:
 Surfacing follows the established plane pattern end to end: a
 ``profile`` block on GET_TELEMETRY, planner-merged and per-host
 ``GET /profile``, ``faabric_profile_*`` / ``faabric_gil_pressure`` on
-/metrics and /timeseries, ``python -m faabric_tpu.runner.profile``
+/metrics and /timeseries, ``python -m faabric_tpu_torch.runner.profile``
 (top-down / bottom-up / flamegraph-collapsed / diff / selftest), and
 doctor analyzers ``cpu_hotspot`` / ``gil_saturation`` /
 ``sampler_starved``.

@@ -21,7 +21,7 @@ shapes as the perf profile:
   cardinality) and ``/timeseries`` gauges: ``state_resident_bytes``,
   ``state_dirty_chunks``, ``snapshot_registry_bytes``.
 - :func:`aggregate_statemap` — the pure merge behind the planner's
-  ``GET /statemap`` and ``python -m faabric_tpu.runner.statemap``:
+  ``GET /statemap`` and ``python -m faabric_tpu_torch.runner.statemap``:
   per-key master host, size, access/byte totals by origin host,
   hot-key ranking, per-host mastership byte totals and the cluster
   locality ratio (local vs remote reads). Each host reports only its
@@ -570,7 +570,7 @@ def merge_placement(doc: dict, placement: dict) -> dict:
 
 def render_statemap(doc: dict, top: int = 20) -> str:
     """Terminal table of a :func:`aggregate_statemap` document — the
-    ``python -m faabric_tpu.runner.statemap`` surface."""
+    ``python -m faabric_tpu_torch.runner.statemap`` surface."""
     keys = (doc or {}).get("keys") or []
     hosts = (doc or {}).get("hosts") or {}
     lines = [f"{'#':>3} {'key':<28} {'master':<12} {'backup':<12} "

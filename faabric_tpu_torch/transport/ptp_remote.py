@@ -4,8 +4,12 @@ Counterpart of ``faabric_tpu/transport/ptp_remote.py`` (:94-264): the
 server delivers arriving messages into its host's broker in sequence
 order, runs lock and unlock requests for the groups whose main idx it
 holds, installs mappings, clears finished groups and aborts groups
-(``ABORT_GROUP``, :177-182, :254-260); the client sends them, and records them instead in mock mode. The planner pushes every
-decision's mappings through ``send_mappings_from_decision``.
+(``ABORT_GROUP``, :177-182, :254-260); the client sends them, and
+records them instead in mock mode. The planner pushes a decision's
+mappings through ``send_mappings_from_decision``, and a scheduling
+tick's through ``send_mappings_for_decisions`` (:308): one async
+MAPPING call a host, carrying every group bound there
+(``send_mappings_many``, :106).
 
 The server owns its host's ``BulkServer`` (``transport/bulk.py``) on
 the host's alias offset: it starts it after itself and stops it first.
@@ -132,6 +136,22 @@ class PointToPointClient(MessageEndpointClient):
         self.sync_send(int(PointToPointCall.MAPPING),
                        {"mappings": mappings.to_dict()}, idempotent=True)
 
+    def send_mappings_many(self,
+                           mappings: list[PointToPointMappings]) -> None:
+        """A scheduling tick's mappings for this host in one async call.
+        Fire and forget is safe: guests wait in ``wait_for_mappings``
+        until they land, and the tick does not wait for each host to
+        apply them."""
+        if not mappings:
+            return
+        if is_mock_mode():
+            with _mock_lock:
+                for m in mappings:
+                    _sent_mappings.append((self.host, m))
+            return
+        self.async_send(int(PointToPointCall.MAPPING),
+                        {"mappings_list": [m.to_dict() for m in mappings]})
+
     def send_message(self, group_id: int, send_idx: int, recv_idx: int,
                      data, seq: int = -1, channel: int = 0) -> None:
         """``data`` is bytes, or a list of byte buffers sent back to back
@@ -230,6 +250,12 @@ class PointToPointServer(MessageEndpointServer):
                 group.lock(h["group_idx"], recursive)
             else:
                 group.unlock(h["group_idx"], recursive)
+        elif code == PointToPointCall.MAPPING:
+            # A scheduling tick's mappings (the confirmed single form
+            # rides the sync plane)
+            for d in h.get("mappings_list") or [h["mappings"]]:
+                self.broker.set_up_local_mappings_from_mappings(
+                    PointToPointMappings.from_dict(d))
         elif code == PointToPointCall.CLEAR_GROUP:
             for gid in h["group_ids"]:
                 self.broker.clear_group(gid)
@@ -244,8 +270,11 @@ class PointToPointServer(MessageEndpointServer):
 
     def do_sync_recv(self, msg: TransportMessage) -> TransportMessage:
         if msg.code == int(PointToPointCall.MAPPING):
-            self.broker.set_up_local_mappings_from_mappings(
-                PointToPointMappings.from_dict(msg.header["mappings"]))
+            # One group's mappings, or a list of them
+            for d in (msg.header.get("mappings_list")
+                      or [msg.header["mappings"]]):
+                self.broker.set_up_local_mappings_from_mappings(
+                    PointToPointMappings.from_dict(d))
             return handler_response()
         raise ValueError(f"Unknown sync PTP call {msg.code}")
 
@@ -280,6 +309,25 @@ def send_mappings_from_decision(decision) -> None:
         except Exception:  # noqa: BLE001 — a dead host must not stall others
             logger.exception("Failed sending mappings of group %d to %s",
                              decision.group_id, host)
+
+
+def send_mappings_for_decisions(decisions) -> None:
+    """A scheduling tick's mappings, grouped by host: one call a host
+    instead of one a (decision, host)."""
+    per_host: dict[str, list] = {}
+    for decision in decisions:
+        if decision.n_messages == 0 or not decision.group_id:
+            continue
+        mappings = mappings_from_decision(decision)
+        for host in decision.unique_hosts():
+            per_host.setdefault(host, []).append(mappings)
+    for host, mlist in per_host.items():
+        try:
+            _get_dist_client(host).send_mappings_many(mlist)
+        except Exception:  # noqa: BLE001 — a dead host must not stall
+            # the tick's other hosts
+            logger.exception("Failed sending %d mapping set(s) to %s",
+                             len(mlist), host)
 
 
 def send_clear_groups(host: str, group_ids: list[int]) -> None:

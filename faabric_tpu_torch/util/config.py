@@ -35,6 +35,9 @@ class SystemConfig:
     # planner-placed backup host, and a master forwards dirty chunks to
     # it before acking; 0 runs single masters with no epochs
     state_replicas: int = 1
+    # The Redis server of the ``redis`` state mode, and its port
+    redis_state_host: str = "redis"
+    redis_port: int = 6379
 
     # Scheduling: bin-pack | compact | spot
     batch_scheduler_mode: str = "bin-pack"
@@ -84,6 +87,14 @@ class SystemConfig:
     planner_journal_fsync_interval: float = 0.05
     planner_journal_compact_records: int = 20000
     planner_reconcile_grace: float = 0.0
+    # The invocation ingress: the scheduling tick's period, the admission
+    # queue's bound (messages), each source's credit cap (queued messages
+    # before that source sheds), and how long a queued invocation may
+    # wait for capacity before it fails back to its caller
+    planner_tick_ms: float = 5.0
+    ingress_queue_max: int = 20000
+    ingress_source_credits: int = 8192
+    ingress_queue_timeout: float = 30.0
 
     # While a recv of a watched (MPI) group blocks, the expected sender's
     # host is probed every this many seconds; a refused connection aborts
@@ -96,6 +107,8 @@ class SystemConfig:
         self.state_dir = os.environ.get("STATE_DIR",
                                         "/dev/shm/faabric_tpu_state")
         self.state_replicas = _env_int("FAABRIC_STATE_REPLICAS", 1)
+        self.redis_state_host = os.environ.get("REDIS_STATE_HOST", "redis")
+        self.redis_port = _env_int("REDIS_PORT", 6379)
         self.batch_scheduler_mode = os.environ.get("BATCH_SCHEDULER_MODE",
                                                    "bin-pack")
         self.gang_schedule_mpi = os.environ.get(
@@ -128,6 +141,12 @@ class SystemConfig:
             "FAABRIC_PLANNER_JOURNAL_COMPACT_RECORDS", 20000)
         self.planner_reconcile_grace = _env_float(
             "FAABRIC_PLANNER_RECONCILE_GRACE", 0.0)
+        self.planner_tick_ms = _env_float("FAABRIC_PLANNER_TICK_MS", 5.0)
+        self.ingress_queue_max = _env_int("FAABRIC_INGRESS_QUEUE_MAX", 20000)
+        self.ingress_source_credits = _env_int(
+            "FAABRIC_INGRESS_SOURCE_CREDITS", 8192)
+        self.ingress_queue_timeout = _env_float(
+            "FAABRIC_INGRESS_QUEUE_TIMEOUT", 30.0)
         self.mpi_abort_check_seconds = _env_float(
             "MPI_ABORT_CHECK_SECONDS", 2.0)
 

@@ -17,15 +17,27 @@ Every case stands up its own cluster of ``tests/test_torch_procs.py``
 processes on a port slot of ``tests/conftest.py`` (the kill leaves no
 reusable fixture behind). The kill cases are chaos and slow, as the
 reference's; tier-1 runs the worker kill of
-``tests/test_torch_multiprocess.py``. Waiting for step 5 (``ROADMAP.md``
-#10): ``:479``, the kill at full QPS, which needs the ingress and
-``submit_functions_many``.
+``tests/test_torch_multiprocess.py``.
+
+The ingress's cases: ``:479``, a worker SIGKILLed while 600 one-message
+apps stream in through ``submit_functions_many`` (every app ends with
+exactly one SUCCESS, the journal's group commits intact, the requeue in
+the flight dumps), and ``tests/dist/test_lifecycle.py:202``, two elastic
+fork waves that grow onto the main host's free slots. Then the state
+plane's failover cases of ``tests/dist/test_state_failover.py`` (``:81``
+a SIGKILLed master loses no acknowledged write, ``:190`` a revived
+stale master cannot ack), with each key's master pinned by a preloaded
+decision. The reference runs those on three workers; a port slot holds
+two (``ProcCluster``), so the keys' backups are the other worker.
 """
 
+import signal
+import threading
 import time
 
 import pytest
 
+from faabric_tpu_torch.batch_scheduler import SchedulingDecision
 from faabric_tpu_torch.proto import ReturnValue, batch_exec_factory
 from tests.test_torch_multiprocess import ProcCluster
 
@@ -598,4 +610,387 @@ def test_chaos_spot_freeze_thaw_restores_on_other_host():
             assert m.output_data == f"thawed:{other}".encode()
         assert thaw_s < 20, f"thaw to first result took {thaw_s:.1f}s"
     finally:
+        cluster.stop()
+
+
+@pytest.mark.slow
+def test_chaos_worker_sigkill_at_full_qps_recovers(tmp_path):
+    """A worker SIGKILLed while one-message no-op apps stream through
+    SUBMIT_BATCH, the scheduling ticks and the pipelined dispatch: the
+    requeue moves the dead worker's messages to the survivor, every app
+    ends with exactly one SUCCESS result, the journal stays intact with
+    its group commits, and the flight dumps show the recovery."""
+    import json
+    import urllib.request
+
+    from faabric_tpu_torch.runner import flightdump, journaldump
+
+    journal_dir = str(tmp_path / "journal")
+    flight_dir = str(tmp_path / "flight")
+    cluster = ChaosCluster(
+        "ckQ", slots=(16, 16), http=True,
+        extra_env={"PLANNER_HOST_TIMEOUT": "2",
+                   "PLANNER_REQUEUE_BACKOFF": "0.2",
+                   "PLANNER_MAX_REQUEUES": "5",
+                   "FAABRIC_PLANNER_JOURNAL_DIR": journal_dir,
+                   "FAABRIC_FLIGHT_DIR": flight_dir}).start()
+    try:
+        me = cluster.me
+        total, bulk = 600, 25
+
+        def results_total() -> int:
+            with urllib.request.urlopen(f"{cluster.http_url}/healthz",
+                                        timeout=5) as r:
+                return json.loads(r.read()).get("resultsTotal", 0)
+
+        app_ids: list[int] = []
+        submit_errs: list[str] = []
+
+        def pump() -> None:
+            try:
+                left = total
+                while left > 0:
+                    n = min(bulk, left)
+                    reqs = [batch_exec_factory("dist", "noop", 1)
+                            for _ in range(n)]
+                    while True:
+                        ok, retry_after = \
+                            me.planner_client.submit_functions_many(reqs)
+                        if ok:
+                            break
+                        time.sleep(retry_after)
+                    app_ids.extend(r.app_id for r in reqs)
+                    left -= n
+            except Exception as e:  # noqa: BLE001
+                submit_errs.append(str(e))
+
+        pumper = threading.Thread(target=pump, name="qps-pump")
+        pumper.start()
+        # The stream at full rate, then a worker killed mid-flight
+        deadline = time.time() + 30
+        while results_total() < 120 and time.time() < deadline:
+            time.sleep(0.1)
+        assert results_total() >= 120, "the stream never reached its rate"
+        t_kill = cluster.kill(cluster.workers[1])
+        pumper.join(timeout=60)
+        assert not submit_errs, submit_errs
+
+        deadline = time.time() + 90
+        done = 0
+        while time.time() < deadline:
+            done = results_total()
+            if done >= total:
+                break
+            time.sleep(0.25)
+        recovery_s = time.monotonic() - t_kill
+        assert done >= total, f"only {done}/{total} completed"
+        assert recovery_s < 75, f"recovery took {recovery_s:.1f}s"
+
+        # No lost and no duplicated results
+        bad = []
+        for app_id in app_ids:
+            status = me.planner_client.get_batch_results(app_id)
+            if (not status.finished or len(status.message_results) != 1
+                    or status.message_results[0].return_value
+                    != int(ReturnValue.SUCCESS)):
+                bad.append((app_id, status.finished,
+                            [(m.return_value, m.output_data)
+                             for m in status.message_results]))
+        assert not bad, f"{len(bad)} bad apps, e.g. {bad[:3]}"
+
+        # The journal intact, its tick group commits in the log or
+        # folded into a compaction snapshot
+        snapshot, records, meta = journaldump.load_journal_dir(journal_dir)
+        assert not meta.get("torn") and not meta.get("snapshot_error")
+        assert (any(r.get("k") == "group" for r in records)
+                or snapshot is not None)
+
+        deadline = time.time() + 15
+        kinds: set = set()
+        while time.time() < deadline:
+            kinds = {e["kind"] for e in flightdump.merge(flight_dir)}
+            if "planner_requeued" in kinds:
+                break
+            time.sleep(0.5)
+        assert "planner_recovery" in kinds or "planner_requeued" in kinds, \
+            kinds
+    finally:
+        cluster.stop()
+
+
+@pytest.mark.slow
+def test_chaos_elastic_scale_up_down_mid_app():
+    """Two elastic fork waves of a long-running parent grow onto its
+    main host's free slots, drain (the scale-down frees the slots) and
+    grow again, and every message of every wave reports once."""
+    cluster = ChaosCluster("ckE", slots=(4, 4)).start()
+    try:
+        me = cluster.me
+        parent = batch_exec_factory("dist", "sleep", 1)
+        parent.messages[0].input_data = b"12"
+        d = me.planner_client.call_functions(parent)
+        main_host = d.hosts[0]
+
+        wave_sizes = []
+        for wave in range(2):
+            scale = batch_exec_factory("dist", "square", 1)
+            scale.app_id = parent.app_id
+            scale.elastic_scale_hint = True
+            scale.messages[0].input_data = b"7"
+            scale.messages[0].main_host = main_host
+            ds = me.planner_client.call_functions(scale)
+            assert ds.n_messages >= 3, (wave, ds.n_messages)  # grew
+            assert set(ds.hosts) == {main_host}, ds.hosts
+            wave_sizes.append(ds.n_messages)
+            for mid in ds.message_ids:
+                r = me.planner_client.get_message_result(
+                    parent.app_id, mid, timeout=20.0)
+                assert r.return_value == int(ReturnValue.SUCCESS), \
+                    r.output_data
+                assert r.output_data == b"49"
+        # Both waves filled the same freed room: no slot leaked
+        assert wave_sizes[0] == wave_sizes[1], wave_sizes
+
+        status = wait_finished(me, parent.app_id, timeout=40)
+        assert status.expected_num_messages == 1 + sum(wave_sizes)
+        assert len(status.message_results) == 1 + sum(wave_sizes)
+        assert all(m.return_value == int(ReturnValue.SUCCESS)
+                   for m in status.message_results)
+    finally:
+        cluster.stop()
+
+
+# ---------------------------------------------------------------------------
+# The state plane's failover (tests/dist/test_state_failover.py)
+# ---------------------------------------------------------------------------
+def _payload(key: str, seq: int) -> bytes:
+    from faabric_tpu_torch.state import STATE_CHUNK_SIZE
+
+    pat = f"{key}:{seq}|".encode()
+    return (pat * (STATE_CHUNK_SIZE // len(pat) + 1))[:STATE_CHUNK_SIZE]
+
+
+def _pick_keys(n: int, masters: list, workers: list, all_hosts: list,
+               prefix: str = "k") -> dict:
+    """key -> its master, round robin over ``masters``, keeping the keys
+    whose consistent-hash backup is a worker process."""
+    from faabric_tpu_torch.state import place_backup
+
+    chosen: dict = {}
+    j = 0
+    while len(chosen) < n:
+        key, j = f"{prefix}{j}", j + 1
+        master = masters[len(chosen) % len(masters)]
+        others = [h for h in all_hosts if h != master]
+        if place_backup(f"chaos/{key}", others) in workers:
+            chosen[key] = master
+    return chosen
+
+
+def _claim_on(me, owner: dict) -> None:
+    """``fn_state_claim`` for each key on its master, placed by a
+    preloaded decision (the first writer is the master)."""
+    req = batch_exec_factory("dist", "state_claim", len(owner))
+    pre = SchedulingDecision(app_id=req.app_id, group_id=0)
+    for i, (key, host) in enumerate(owner.items()):
+        req.messages[i].input_data = key.encode()
+        pre.add_message(host, 0, req.messages[i].app_idx, i)
+    me.planner_client.preload_scheduling_decision(pre)
+    decision = me.planner_client.call_functions(req)
+    assert list(decision.hosts) == list(owner.values()), \
+        f"preload not honoured: {decision.hosts}"
+    status = wait_finished(me, req.app_id, timeout=30)
+    got = {m.output_data.decode() for m in status.message_results}
+    assert got == {f"{k}@{h}" for k, h in owner.items()}, got
+
+
+@pytest.mark.slow
+def test_chaos_sigkill_state_master_loses_zero_acked_writes():
+    """SIGKILL the hottest master mid-stream: every acknowledged write
+    stays readable byte for byte through the promoted backup, and the
+    failover is bounded."""
+    from faabric_tpu_torch.state import STATE_CHUNK_SIZE as CHUNK
+    from faabric_tpu_torch.state import place_backup
+
+    cluster = ChaosCluster("ckS", slots=(4, 4),
+                           extra_env={"PLANNER_HOST_TIMEOUT": "3"}).start()
+    try:
+        me = cluster.me
+        workers = cluster.workers
+        all_hosts = workers + [cluster.client_host]
+        owner = _pick_keys(6, workers, workers, all_hosts)
+        keys = list(owner)
+        _claim_on(me, owner)
+
+        # The planner's election agrees with the pure placement function
+        placed0 = {k: me.planner_client.claim_state_master("chaos", k)
+                   for k in keys}
+        for k, (m, b, e) in placed0.items():
+            assert m == owner[k], (k, m)
+            assert b == place_backup(
+                f"chaos/{k}", [h for h in all_hosts if h != m]), (k, b)
+            assert e >= 1, (k, e)
+
+        kvs = {k: me.state.get_kv("chaos", k, 4 * CHUNK) for k in keys}
+        acked: dict = {}
+        by_master: dict = {}
+        seq = 0
+
+        def write(k: str) -> None:
+            nonlocal seq
+            p = _payload(k, seq)
+            seq += 1
+            kvs[k].set_chunk(CHUNK, p)
+            kvs[k].push_partial()  # its return is the ack
+            acked[k] = p
+            by_master[owner[k]] = by_master.get(owner[k], 0) + 1
+
+        for _ in range(4):
+            for k in keys:
+                write(k)
+        hot = [k for k in keys if owner[k] == workers[0]]
+        for _ in range(4):
+            for k in hot:
+                write(k)
+        victim = max(by_master, key=by_master.get)
+        assert victim == workers[0], by_master
+
+        # Dirty, unacknowledged chunks on the victim's keys as it dies
+        for k in hot:
+            kvs[k].set_chunk(CHUNK, b"\x00" * CHUNK)
+        t_kill = cluster.kill(victim)
+
+        # Writes to the victim's keys resume once expiry reaps it and
+        # its backups are promoted
+        failover_s = None
+        deadline = time.time() + 60
+        for k in hot:
+            while True:
+                try:
+                    write(k)
+                    break
+                except Exception:  # noqa: BLE001
+                    assert time.time() < deadline, \
+                        f"no failover for {k} within budget"
+                    try:  # ticks the planner's expiry
+                        me.planner_client.get_available_hosts()
+                    except Exception:  # noqa: BLE001
+                        pass
+                    time.sleep(0.25)
+            if failover_s is None:
+                failover_s = time.monotonic() - t_kill
+
+        for _ in range(2):
+            for k in keys:
+                write(k)
+
+        # The backup was promoted, the epoch moved on, and the dead host
+        # is nowhere in the new placement
+        for k in hot:
+            m0, b0, e0 = placed0[k]
+            m1, b1, e1 = me.planner_client.claim_state_master("chaos", k)
+            assert m1 == b0, (k, m1, b0)
+            assert e1 == e0 + 1, (k, e0, e1)
+            assert victim not in (m1, b1), (k, m1, b1)
+
+        # No acknowledged write lost
+        for k in keys:
+            kvs[k].pull()
+            assert kvs[k].get_chunk(CHUNK, CHUNK) == acked[k], \
+                f"acked write to {k} lost or corrupt after failover"
+        assert failover_s is not None and failover_s < 30.0, failover_s
+    finally:
+        cluster.stop()
+
+
+@pytest.mark.slow
+def test_chaos_revived_stale_master_cannot_ack():
+    """SIGSTOP a master past its keep-alive expiry (its master KV stays
+    in memory), fail over, SIGCONT it: the revived ex-master's write is
+    refused by the epoch fence, and its bytes never reach the
+    authoritative copy."""
+    from faabric_tpu_torch.state import STATE_CHUNK_SIZE as CHUNK
+
+    cluster = ChaosCluster("ckT", slots=(2, 2),
+                           extra_env={"PLANNER_HOST_TIMEOUT": "2"}).start()
+    stopped = None
+    try:
+        me = cluster.me
+        w0 = cluster.workers[0]
+        all_hosts = cluster.workers + [cluster.client_host]
+        owner = _pick_keys(1, [w0], cluster.workers, all_hosts,
+                           prefix="fence")
+        (key,) = owner
+        _claim_on(me, owner)
+        m0, b0, e0 = me.planner_client.claim_state_master("chaos", key)
+        assert m0 == w0 and b0 in cluster.workers, (m0, b0)
+
+        # An acked write through the doomed master; then the client's
+        # KV goes, so that no later op targets the stopped process
+        kv = me.state.get_kv("chaos", key, 4 * CHUNK)
+        kv.set_chunk(CHUNK, _payload(key, 0))
+        kv.push_partial()
+        me.state.delete_kv("chaos", key)
+
+        stopped = cluster.children[w0].proc
+        stopped.send_signal(signal.SIGSTOP)
+        deadline = time.time() + 30
+        while True:
+            try:
+                me.planner_client.get_available_hosts()
+                m1, b1, e1 = me.planner_client.claim_state_master(
+                    "chaos", key)
+                if m1 != w0 and e1 > e0:
+                    break
+            except Exception:  # noqa: BLE001
+                pass
+            assert time.time() < deadline, "failover never happened"
+            time.sleep(0.25)
+        assert m1 == b0 and e1 == e0 + 1, (m1, b0, e0, e1)
+
+        # An acked write through the new master
+        kv2 = me.state.get_kv("chaos", key, 4 * CHUNK)
+        post = _payload(key, 1)
+        deadline = time.time() + 30
+        while True:
+            try:
+                kv2.set_chunk(CHUNK, post)
+                kv2.push_partial()
+                break
+            except Exception:  # noqa: BLE001
+                assert time.time() < deadline, "new master never acked"
+                time.sleep(0.25)
+
+        # The revived host rejoins, still holding its old master KV
+        stopped.send_signal(signal.SIGCONT)
+        stopped = None
+        deadline = time.time() + 30
+        while True:
+            hosts = {h["ip"] for h in me.planner_client.get_available_hosts()}
+            if w0 in hosts:
+                break
+            assert time.time() < deadline, f"{w0} never rejoined: {hosts}"
+            time.sleep(0.25)
+
+        # The probe runs on the revived host, placed there by a preloaded
+        # decision: its stale master KV cannot ack
+        req = batch_exec_factory("dist", "state_stale_probe", 1)
+        req.messages[0].input_data = key.encode()
+        pre = SchedulingDecision(app_id=req.app_id, group_id=0)
+        pre.add_message(w0, 0, req.messages[0].app_idx, 0)
+        me.planner_client.preload_scheduling_decision(pre)
+        me.planner_client.call_functions(req)
+        status = wait_finished(me, req.app_id, timeout=30)
+        (probe,) = status.message_results
+        assert probe.return_value == int(ReturnValue.SUCCESS), probe
+        assert probe.output_data == b"fenced:StaleStateEpoch", \
+            probe.output_data
+
+        # The authoritative copy never saw the refused bytes
+        kv2.pull()
+        assert kv2.get_chunk(0, CHUNK) == bytes([7]) * CHUNK
+        assert kv2.get_chunk(CHUNK, CHUNK) == post
+    finally:
+        if stopped is not None:
+            stopped.send_signal(signal.SIGCONT)
         cluster.stop()

@@ -1280,9 +1280,10 @@ def test_planner_restart_on_the_card(cuda_device):
     """``chip_smoke.py``'s phase 25 at a small width on the card: a batch
     of 8 requests outlives a SIGKILLed planner child (4 held in their
     guests across the kill, their results flushed after the restart),
-    then runs again with the journal on and off. The phase checks that
-    the crash's batch launched one batch's kernels; the three batches
-    launch three times that, every flash forward on ``wgmma``."""
+    then runs again with the journal on, as 8 apps through SUBMIT_BATCH
+    (25c) and with the journal off. The phase checks that the crash's
+    batch and 25c's launched one batch's kernels each; the four batches
+    launch four times that, every flash forward on ``wgmma``."""
     import chip_smoke
     from faabric_tpu_torch.models import ModelConfig
 
@@ -1291,7 +1292,7 @@ def test_planner_restart_on_the_card(cuda_device):
     n_new = 8
     launches = chip_smoke.restart_phase(cuda_device, _build, cfg=cfg,
                                         serve_len=64, n_new=n_new)
-    batches, L = 3, cfg.n_layers
+    batches, L = 4, cfg.n_layers
     assert launches["flash_attention"] == launches["flash_attention.wgmma"] \
         == batches * 8 * L
     assert launches["rms_norm"] == batches * 8 * (2 * L + 1) * (1 + n_new)

@@ -3,15 +3,14 @@ package's.
 
 Counterparts of the REST cases of
 ``tests/unit/test_endpoint_and_migration.py`` (``:250`` hosts, config
-and policy; ``:296`` in-flight apps and eviction; ``:310`` ``/metrics``
-and ``/trace``; ``:355`` ``/topology``; ``:381`` bad requests) on a port
-planner and two ``WorkerRuntime``s in one process, with the reference's
-assertions. The reference drives their traffic with EXECUTE_BATCH, which
-goes through the ingress; the port has no ingress yet (``ROADMAP.md``
-Queue 1 #9 part D, step 5), so the traffic goes through
-``call_functions``, and EXECUTE_BATCH and PRELOAD_SCHEDULING_DECISION
-answer 501 naming that step (``:267``, which runs a batch through
-EXECUTE_BATCH, waits for it). The worker endpoint's cases of
+and policy; ``:267`` a batch through EXECUTE_BATCH, its status and its
+exec graph; ``:296`` in-flight apps and eviction; ``:310`` ``/metrics``
+and ``/trace``; ``:355`` ``/topology``; ``:381`` bad requests) and its
+elastic scale hint (``:203``) on a port planner and two
+``WorkerRuntime``s in one process, with the reference's assertions;
+then a decision preloaded through PRELOAD_SCHEDULING_DECISION placing
+an EXECUTE_BATCH where it says, and a shed EXECUTE_BATCH answered 429
+with ``Retry-After`` over HTTP. The worker endpoint's cases of
 ``tests/unit/test_aux.py`` (``:292``, ``:362``) follow, then the
 cross-package check: one collected-telemetry document, built from both
 packages' registries fed the same seeded events, handed to each
@@ -26,6 +25,7 @@ endpoint binds a port of its slot.
 import copy
 import json
 import re
+import time
 import urllib.error
 import urllib.request
 
@@ -151,25 +151,116 @@ def test_rest_batch_status_exec_graph_and_flushes(cluster):
     assert post(port, HttpMessageType.RESET) == (200, {"status": "reset"})
 
 
-def test_rest_execute_batch_and_preload_wait_for_step_5(cluster):
-    """A well-formed EXECUTE_BATCH or PRELOAD_SCHEDULING_DECISION is
-    answered 501 with an error naming ``ROADMAP.md`` step 5, and runs
-    nothing."""
+def test_rest_preloaded_decision_places_execute_batch(cluster):
+    """A decision preloaded through PRELOAD_SCHEDULING_DECISION places
+    the app's EXECUTE_BATCH where it says (one message a host, against
+    bin-pack's both on one), and the planner drops it once the app
+    completes."""
     workers, port, _ = cluster
     req = PORT_PK.proto.batch_exec_factory("demo", "echo", 2)
-    status, out = post(port, HttpMessageType.EXECUTE_BATCH,
-                       json.dumps(req.to_dict()))
-    assert status == 501
-    assert "ROADMAP.md Queue 1 step 5" in out["error"], out
     decision = PORT_PK.batch_scheduler.SchedulingDecision(req.app_id, 0)
-    decision.add_message("hostA", req.messages[0].id, 0, 0)
+    for m, host in zip(req.messages, ("hostB", "hostA")):
+        decision.add_message(host, m.id, m.app_idx, m.app_idx)
     status, out = post(port, HttpMessageType.PRELOAD_SCHEDULING_DECISION,
                        json.dumps(decision.to_dict()))
-    assert status == 501
-    assert "ROADMAP.md Queue 1 step 5" in out["error"], out
+    assert (status, out) == (200, {"status": "preloaded",
+                                   "appId": req.app_id})
+    status, out = post(port, HttpMessageType.EXECUTE_BATCH,
+                       json.dumps(req.to_dict()))
+    assert status == 200, out
+    assert out["hosts"] == ["hostB", "hostA"]
+    assert out["messageIds"] == [m.id for m in req.messages]
+    finish(workers["hostA"], req)
     planner = PORT_PK.planner.get_planner()
+    with planner._lock:
+        assert req.app_id not in planner._preloaded
+
+
+def test_rest_execute_batch_and_status(cluster):
+    """``:267``: a batch through EXECUTE_BATCH (the ingress's immediate
+    path), polled to its end with EXECUTE_BATCH_STATUS, then its exec
+    graph."""
+    _, port, _ = cluster
+    req = PORT_PK.proto.batch_exec_factory("demo", "echo", 4)
+    for m in req.messages:
+        m.input_data = b"abc"
+    status, out = post(port, HttpMessageType.EXECUTE_BATCH,
+                       json.dumps(req.to_dict()))
+    assert status == 200
+    assert out["appId"] == req.app_id
+    assert len(out["hosts"]) == 4
+
+    deadline = time.time() + 30
+    while time.time() < deadline:
+        status, out = post(port, HttpMessageType.EXECUTE_BATCH_STATUS,
+                           json.dumps({"app_id": req.app_id}))
+        if out.get("finished"):
+            break
+        time.sleep(0.05)
+    assert out["finished"]
+    assert len(out["messageResults"]) == 4
+    assert all(m["return_value"] == 0 for m in out["messageResults"])
+
+    status, graph = post(
+        port, HttpMessageType.GET_EXEC_GRAPH,
+        json.dumps({"app_id": req.app_id, "id": req.messages[0].id}))
+    assert status == 200
+    assert graph["root"]["msg"]["id"] == req.messages[0].id
+    ingress = PORT_PK.planner.get_planner().health_summary()["ingress"]
+    assert ingress["admittedTotal"] >= 4 and ingress["immediateTotal"] >= 1
+
+
+def test_rest_execute_batch_shed_answers_429_with_retry_after(
+        cluster, monkeypatch):
+    """Over HTTP: a batch larger than the admission queue's bound is
+    shed with 429 and a ``Retry-After`` header, and runs nothing."""
+    from faabric_tpu_torch.ingress import AdmissionController
+
+    _, port, _ = cluster
+    planner = PORT_PK.planner.get_planner()
+    monkeypatch.setattr(planner.ingress, "admission",
+                        AdmissionController(queue_max=1,
+                                            source_credits=100))
+    req = PORT_PK.proto.batch_exec_factory("tenant", "echo", 2)
+    body = json.dumps({"http_type": int(HttpMessageType.EXECUTE_BATCH),
+                       "payload": json.dumps(req.to_dict())}).encode()
+    http_req = urllib.request.Request(f"http://127.0.0.1:{port}/",
+                                      data=body, method="POST")
+    with pytest.raises(urllib.error.HTTPError) as err:
+        urllib.request.urlopen(http_req, timeout=10)
+    assert err.value.code == 429
+    assert int(err.value.headers["Retry-After"]) >= 1
+    out = json.loads(err.value.read())
+    assert out["retryAfterSeconds"] > 0 and "queue" in out["reason"]
+    assert planner.health_summary()["ingress"]["shedTotal"] == 2
     assert planner.get_in_flight_apps() == {}
-    assert all(h.used_slots == 0 for h in planner.get_available_hosts())
+
+
+def test_elastic_scale_hint_fills_main_host(cluster):
+    """``:203``: an OpenMP-style fork asks for one message with the
+    elastic hint and grows to every free slot of its main host."""
+    workers, _, gate = cluster
+    w = workers["hostA"]
+    # The parent stays in flight (gated) while it forks
+    req = PORT_PK.proto.batch_exec_factory("demo", "gated", 1)
+    req.messages[0].main_host = "hostB"
+    d1 = w.planner_client.call_functions(req)
+    main_host = d1.hosts[0]
+    req.messages[0].main_host = main_host
+
+    scale = PORT_PK.proto.batch_exec_factory("demo", "echo", 1)
+    scale.app_id = req.app_id
+    scale.elastic_scale_hint = True
+    scale.messages[0].main_host = main_host
+    d = w.planner_client.call_functions(scale)
+    # Grew past the one message asked for, to the main host's 3 free
+    # slots, all on the main host
+    assert d.n_messages == 3 and set(d.hosts) == {main_host}
+    gate.gate.set()
+    for m in req.messages:
+        w.planner_client.get_message_result(req.app_id, m.id, timeout=15.0)
+    status = PORT_PK.planner.get_planner().get_batch_results(req.app_id)
+    assert status.expected_num_messages == 4
 
 
 def test_rest_in_flight_and_evict(cluster):

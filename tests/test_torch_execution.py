@@ -49,7 +49,6 @@ from faabric_tpu_torch.scheduler import (
 )
 from faabric_tpu_torch.transport import (
     PointToPointBroker,
-    RpcError,
     clear_host_aliases,
     register_host_alias,
 )
@@ -372,9 +371,13 @@ def test_group_mappings_distributed_with_dispatch(cluster):
 
 
 def test_batch_types_the_planner_does_not_serve_raise(cluster):
-    """The elastic scale hint raises; a THREADS batch is served (on one
-    host here, so it restores nothing) and its threads report through
-    the thread-result path."""
+    """A THREADS batch is served (on one host here, so it restores
+    nothing) and its threads report through the thread-result path. The
+    elastic scale hint, which the planner now serves, grows only a scale
+    change: on a NEW batch it is placed as asked (the growth itself is
+    ``tests/test_torch_endpoint.py::test_elastic_scale_hint_fills_main_host``).
+    The test keeps the name it had while the planner refused the hint,
+    so that its runs stay comparable."""
     w = cluster["workers"]["hostA"]
     req = batch_exec_factory("demo", "echo", 2)
     req.type = int(BatchExecuteType.THREADS)
@@ -393,8 +396,10 @@ def test_batch_types_the_planner_does_not_serve_raise(cluster):
                for m in req.messages)
     req = batch_exec_factory("demo", "echo", 2)
     req.elastic_scale_hint = True
-    with pytest.raises(RpcError, match="elastic"):
-        w.planner_client.call_functions(req)
+    decision = w.planner_client.call_functions(req)
+    assert decision.n_messages == 2
+    assert all(r.return_value == int(ReturnValue.SUCCESS)
+               for r in results_of(w, req))
     deadline = time.monotonic() + RESULT_TIMEOUT
     while (any(h["used_slots"] for h in w.planner_client.get_available_hosts())
            and time.monotonic() < deadline):

@@ -5,11 +5,11 @@ durations, the fold digest, the SLO burn tracker, the time-series ring,
 the process resource collector, the planner server's sampled gauges,
 the doctor's lifecycle analyzers, the flight-dump merge of live rings
 and the timeline renderer on the port's CLIs, and an end-to-end ledger
-across a port planner and ``WorkerRuntime`` over real sockets. The
-ingress queue stamp and the journal group commit's stamp belong to the
-ingress, which the port does not have yet (``ROADMAP.md`` Queue 1 #9
-part D, step 5); their cases wait for it. Cross-package: the same stamp
-ledgers give the reference's durations, folds and SLO verdicts.
+across a port planner and ``WorkerRuntime`` over real sockets, the
+ingress's queue-exit stamp among its phases, and the journal's stamp
+between schedule and dispatch when the journal is on. Cross-package:
+the same stamp ledgers give the reference's durations, folds and SLO
+verdicts.
 """
 
 import math
@@ -29,6 +29,7 @@ from faabric_tpu_torch.telemetry.lifecycle import (
     PHASE_ADMIT,
     PHASE_DISPATCH,
     PHASE_EXEC_QUEUE_EXIT,
+    PHASE_JOURNAL,
     PHASE_QUEUE_EXIT,
     PHASE_RECORDED,
     PHASE_REQUEUE,
@@ -634,8 +635,7 @@ def test_e2e_ledger_spans_the_invocation(lifecycle_cluster):
         # Every planner + executor stamp made the round trip (the
         # worker-side result_push stamp rides the wire to the planner;
         # waiter_wake is stamped as the push lands back here)
-        # (no ingress queue-exit stamp: the port has no ingress)
-        for phase in (PHASE_ADMIT, PHASE_SCHED,
+        for phase in (PHASE_ADMIT, PHASE_QUEUE_EXIT, PHASE_SCHED,
                       PHASE_DISPATCH, PHASE_EXEC_QUEUE_EXIT,
                       PHASE_RUN_START, PHASE_RUN_END, PHASE_RESULT_PUSH,
                       PHASE_RECORDED):
@@ -658,6 +658,37 @@ def test_e2e_ledger_spans_the_invocation(lifecycle_cluster):
     assert lifecycle["count"] >= 2
     assert lifecycle["e2e"]["count"] >= 2
     assert lifecycle["dominant_p99"], lifecycle
+    # ...which healthz carries, beside the ingress that admitted them
+    from faabric_tpu_torch.planner import get_planner
+
+    health = get_planner().health_summary()
+    assert health["lifecycle"]["count"] >= 2
+    assert health["ingress"]["admittedTotal"] >= 2
+
+
+def test_e2e_journal_stamp_lands_when_journal_enabled(
+        lifecycle_cluster, tmp_path):
+    """With the write-ahead journal on, the ledger carries the journal
+    phase between schedule and dispatch."""
+    from faabric_tpu_torch.planner import get_planner
+    from faabric_tpu_torch.planner.journal import open_planner_journal
+
+    planner = get_planner()
+    old_journal = planner._journal
+    planner._journal = open_planner_journal(str(tmp_path))
+    try:
+        w = lifecycle_cluster
+        req = batch_exec_factory("demo", "echo", 1)
+        req.messages[0].input_data = b"x"
+        w.planner_client.call_functions(req)
+        r = w.planner_client.get_message_result(
+            req.app_id, req.messages[0].id, timeout=15.0)
+        assert PHASE_JOURNAL in r.lc
+        assert r.lc[PHASE_SCHED] <= r.lc[PHASE_JOURNAL] <= \
+            r.lc[PHASE_DISPATCH]
+    finally:
+        planner._journal.close()
+        planner._journal = old_journal
 
 
 # ---------------------------------------------------------------------------

@@ -70,6 +70,11 @@ def test_importing_every_module_pulls_in_no_jax_and_no_faabric_tpu():
     # The observability surfaces: the planner's REST endpoint, the
     # worker endpoint and the CLIs that read them
     assert set(OBSERVABILITY_MODULES) <= set(modules)
+    # The invocation ingress and the Redis layer
+    assert {"faabric_tpu_torch.ingress", "faabric_tpu_torch.ingress.admission",
+            "faabric_tpu_torch.ingress.tick", "faabric_tpu_torch.redis",
+            "faabric_tpu_torch.redis.client",
+            "faabric_tpu_torch.redis.miniserver"} <= set(modules)
     modules.append("chip_smoke")
     code = (
         "import importlib, sys\n"

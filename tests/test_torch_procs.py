@@ -797,6 +797,41 @@ class DistExecutor(Executor):
         msg.output_data = b"state-ok"
         return int(ReturnValue.SUCCESS)
 
+    def fn_state_claim(self, msg, req):
+        """Claim the key named in input_data on this host (its first
+        writer is its master) and seed a recognisable first chunk, so
+        that a failover case knows which worker masters which key."""
+        from faabric_tpu_torch.state import STATE_CHUNK_SIZE
+
+        key = msg.input_data.decode()
+        state = self.scheduler.state
+        kv = state.get_kv("chaos", key, 4 * STATE_CHUNK_SIZE)
+        kv.set_chunk(0, bytes([7]) * STATE_CHUNK_SIZE)
+        kv.push_partial()
+        msg.output_data = f"{key}@{state.host}".encode()
+        return int(ReturnValue.SUCCESS)
+
+    def fn_state_stale_probe(self, msg, req):
+        """Try an acked write through the master KV this revived host
+        still holds from before a failover promoted its backup; reports
+        what happened (the epoch fence must refuse the ack)."""
+        from faabric_tpu_torch.state import STATE_CHUNK_SIZE, StaleStateEpoch
+
+        key = msg.input_data.decode()
+        kv = self.scheduler.state.try_get_kv("chaos", key)
+        if kv is None or not kv.is_master:
+            msg.output_data = b"no-master-kv"
+            return int(ReturnValue.SUCCESS)
+        kv.set_chunk(0, b"\xee" * STATE_CHUNK_SIZE)
+        try:
+            kv.push_partial()
+        except StaleStateEpoch:
+            msg.output_data = b"fenced:StaleStateEpoch"
+        except Exception as e:  # noqa: BLE001 — report, never ack
+            msg.output_data = f"error:{type(e).__name__}".encode()
+        else:
+            msg.output_data = b"ACKED"
+        return int(ReturnValue.SUCCESS)
 
     def fn_state_hot(self, msg, req):
         """Hammer the planted hot key from this (non-master) host: three

@@ -6,8 +6,8 @@ adds: a planner and a worker started as processes through
 ``python -m faabric_tpu_torch.runner``, stopped by SIGTERM and SIGINT
 into flight dumps named after the signal, the worker's guests on the
 card unless ``--device cpu``, the planner's REST endpoint at a nonzero
-``--http-port``, and the refusal of what is not ported yet (the
-``redis`` role).
+``--http-port`` (EXECUTE_BATCH through the ingress), and the ``redis``
+role serving the port's ``MiniRedisServer``.
 """
 
 import os
@@ -94,10 +94,32 @@ def test_runner_cli_has_the_reference_roles(monkeypatch):
     assert set(port["worker"]) - set(ref["worker"]) == {"--device"}
 
 
-def test_runner_refuses_what_is_not_ported_and_names_its_roadmap_item():
-    out = runner("redis")
-    assert out.returncode != 0
-    assert "ROADMAP.md" in out.stderr and "#9 part D, step 5" in out.stderr
+# The redis role's port past a slot's base: free in every host's range
+# (the services take 8003-8014, an HTTP endpoint 8016, MPI worlds 8020 up)
+REDIS_PORT = 8017
+
+
+def test_runner_redis_role_serves_ping():
+    """``python -m faabric_tpu_torch.runner redis`` serves the port's
+    mini server: it answers PING and a SET/GET, and SIGTERM stops it
+    cleanly."""
+    from faabric_tpu_torch.redis import RedisClient
+
+    proc, base = start_until(
+        lambda b: ["redis", "--port", str(b + REDIS_PORT)],
+        lambda b: dict(os.environ), "Mini redis up")
+    try:
+        assert f"127.0.0.1:{base + REDIS_PORT}" in "".join(proc.log)
+        cli = RedisClient("127.0.0.1", base + REDIS_PORT)
+        try:
+            assert cli.ping()
+            cli.set("runner", b"ok")
+            assert cli.get("runner") == b"ok"
+        finally:
+            cli.close()
+        assert proc.stop(signal.SIGTERM) == 0, proc.log
+    finally:
+        proc.kill()
 
 
 def test_runner_worker_runs_guests_on_the_card_unless_cpu_is_asked():
@@ -234,8 +256,9 @@ def test_runner_planner_and_cpu_worker_as_processes_stop_on_signals(tmp_path):
 
 def test_runner_planner_serves_rest_endpoint_at_http_port():
     """A nonzero ``--http-port`` starts the planner's REST endpoint: its
-    GET surfaces and POST requests answer, EXECUTE_BATCH answers 501
-    naming the step it waits for, and SIGTERM still stops the planner
+    GET surfaces and POST requests answer, an EXECUTE_BATCH to a planner
+    with no hosts answers the reference's 500 "No available hosts" (the
+    ingress's immediate path), and SIGTERM still stops the planner
     cleanly."""
     import json
     import urllib.error
@@ -271,7 +294,10 @@ def test_runner_planner_serves_rest_endpoint_at_http_port():
 
         status, out = post(10, json.dumps(
             batch_exec_factory("demo", "echo", 1).to_dict()))
-        assert status == 501 and "step 5" in out["error"], out
+        assert (status, out) == (500, {"error": "No available hosts"})
+        health = http_json(url, "/healthz")
+        assert health["ingress"]["admittedTotal"] == 1
+        assert health["ingress"]["immediateTotal"] == 1
         assert planner.stop(signal.SIGTERM) == 0, planner.log
     finally:
         planner.kill()

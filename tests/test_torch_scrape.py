@@ -17,13 +17,17 @@ to its host and thread class). Each case stands up its own
 ``ProcCluster`` (``tests/test_torch_multiprocess.py``) on a port slot of
 ``tests/conftest.py``, its endpoints on the slot's own ports.
 
-The lifecycle case submits with ``call_functions``, and the parts of it
-that read the ingress wait for step 5 (``ROADMAP.md`` #10): the queue
-exit stamp, the timeline's ``ingress_queue`` phase, and the burst that
-fills the ingress-depth series. Two assertions need an idle machine or
-a sampler's luck and are chaos and slow, as the chaos cases are: the
-ledgers' 90% coverage of their walls (without the ingress, a call's
-wait for a planner thread precedes its first stamp) and the profile
+The lifecycle case submits through ``call_functions``, whose CALL_BATCH
+goes through the planner's ingress: every ledger holds the ingress's
+queue-exit stamp and the timeline renders the ``ingress_queue`` phase.
+(The reference submits in bulks through ``submit_functions_many``; 120
+apps dispatched at once can queue for the workers' executors long
+enough, on a loaded machine, that ``executor_queue`` outweighs the
+planted run in the p99.) Four cases need an idle machine or a sampler's
+luck and are chaos and slow, as the chaos cases are: the ledgers' 90%
+coverage of their walls, the reference's bulk load with its p99 and
+doctor assertions, the burst of phase B whose backlog the 50 ms sampler
+must catch in the planner's ``ingress_depth`` series, and the profile
 case (50 samples on each worker while one of them spins).
 """
 
@@ -37,6 +41,7 @@ from faabric_tpu_torch.telemetry.lifecycle import (
     PHASE_ADMIT,
     PHASE_DISPATCH,
     PHASE_EXEC_QUEUE_EXIT,
+    PHASE_QUEUE_EXIT,
     PHASE_RECORDED,
     PHASE_RESULT_PUSH,
     PHASE_RUN_END,
@@ -284,6 +289,14 @@ def test_dist_statemap_attribution_and_doctor(cluster_of):
 RUN_DELAY_S = 0.2
 N_THREADS = 3
 PER_THREAD = 40
+BULK = 10
+BULKS = 4
+BURST = 400
+LIFECYCLE_ENV = {
+    "FAABRIC_FAULTS": f"executor.run=delay:{int(RUN_DELAY_S * 1e3)}ms",
+    "FAABRIC_TIMESERIES_INTERVAL_S": "0.05",
+    "FAABRIC_SLO": "p99_e2e_ms=5,error_rate=0.01",
+    "FAABRIC_SLO_WINDOWS": "10,30"}
 
 
 @pytest.fixture(scope="module")
@@ -293,41 +306,55 @@ def lifecycle_cluster():
     p99 must burn."""
     cluster = ProcCluster(
         "lf", {"lfw1": 64, "lfw2": 64}, http=True, worker_http=("lfw1",),
-        extra_env={
-            "FAABRIC_FAULTS": f"executor.run=delay:{int(RUN_DELAY_S * 1e3)}ms",
-            "FAABRIC_TIMESERIES_INTERVAL_S": "0.05",
-            "FAABRIC_SLO": "p99_e2e_ms=5,error_rate=0.01",
-            "FAABRIC_SLO_WINDOWS": "10,30"}).start()
+        extra_env=LIFECYCLE_ENV).start()
     try:
         yield cluster
     finally:
         cluster.stop()
 
 
-def lifecycle_load(cluster) -> list[tuple[object, float]]:
+def lifecycle_load(cluster, bulk: bool = False
+                   ) -> list[tuple[object, float]]:
     """Three threads submit 40 single-message noop apps each, then wait
     for their results: (result, submit time) of every message, each
-    SUCCESS with the phases from admission to the waiter's wake and the
-    planted run delay inside its run phase."""
+    SUCCESS with the phases from admission through the ingress queue to
+    the waiter's wake and the planted run delay inside its run phase.
+    Each app goes in its own CALL_BATCH, or with ``bulk`` as the
+    reference sends them: ``BULKS`` SUBMIT_BATCH calls of ``BULK`` apps
+    a thread, on the shared client."""
     from faabric_tpu_torch.planner.client import PlannerClient
 
     client = cluster.me.planner_client
     per_thread: list[list] = [[] for _ in range(N_THREADS)]
     errors: list[str] = []
 
+    def submit_each(sub) -> list:
+        submitted = []
+        for _ in range(PER_THREAD):
+            req = batch_exec_factory("dist", "noop", 1)
+            t0 = time.monotonic()
+            sub.call_functions(req)
+            submitted.append((t0, req))
+        return submitted
+
+    def submit_bulks() -> list:
+        submitted = []
+        for _ in range(BULKS):
+            reqs = [batch_exec_factory("dist", "noop", 1)
+                    for _ in range(BULK)]
+            t0 = time.monotonic()
+            accepted, retry = client.submit_functions_many(reqs)
+            assert accepted, f"bulk shed (retry {retry})"
+            submitted.extend((t0, req) for req in reqs)
+        return submitted
+
     def submitter(ti: int) -> None:
-        # Each thread submits on a client of its own, as the reference's
-        # submit RPCs return before scheduling: one shared client's sync
-        # lock would queue a thread's call behind the others' whole
-        # call_batch, before the planner stamps its admission
+        # Each thread calls on a client of its own: one shared client's
+        # sync lock would queue a thread's call behind the others' whole
+        # CALL_BATCH, before the planner stamps its admission
         sub = PlannerClient(cluster.client_host, cluster.planner_host)
         try:
-            submitted = []
-            for _ in range(PER_THREAD):
-                req = batch_exec_factory("dist", "noop", 1)
-                t0 = time.monotonic()
-                sub.call_functions(req)
-                submitted.append((t0, req))
+            submitted = submit_bulks() if bulk else submit_each(sub)
             for t0, req in submitted:
                 msg = client.get_message_result(
                     req.app_id, req.messages[0].id, timeout=90.0)
@@ -344,7 +371,7 @@ def lifecycle_load(cluster) -> list[tuple[object, float]]:
     for t in threads:
         t.join()
     assert not errors, errors
-    required = (PHASE_ADMIT, PHASE_SCHED, PHASE_DISPATCH,
+    required = (PHASE_ADMIT, PHASE_QUEUE_EXIT, PHASE_SCHED, PHASE_DISPATCH,
                 PHASE_EXEC_QUEUE_EXIT, PHASE_RUN_START, PHASE_RUN_END,
                 PHASE_RESULT_PUSH, PHASE_RECORDED, PHASE_WAITER_WAKE)
     done = [row for rows in per_thread for row in rows]
@@ -362,10 +389,10 @@ def lifecycle_load(cluster) -> list[tuple[object, float]]:
 @pytest.mark.slow
 def test_dist_lifecycle_ledgers_span_their_invocations(lifecycle_cluster):
     """Every invocation's ledger spans at least 90% of its wall from the
-    test's submit to the waiter's wake (the reference's bar). Without
-    the ingress the ledger starts when the planner takes the call, so on
-    a loaded machine the wait for a planner thread before it falls
-    outside the ledger: this case needs an idle machine."""
+    test's submit to the waiter's wake (the reference's bar). The ledger
+    starts when the planner's ingress admits the call, so on a loaded
+    machine the wait for a planner thread before it falls outside the
+    ledger: this case needs an idle machine."""
     low_coverage = []
     for msg, t0 in lifecycle_load(lifecycle_cluster):
         wall = msg.lc[PHASE_WAITER_WAKE] / 1e9 - t0
@@ -423,12 +450,73 @@ def test_dist_lifecycle_ledger_timeseries_slo_and_doctor(lifecycle_cluster):
     app_id = done[-1][0].app_id
     rows = _msg_rows(fetch_status(base, app_id))
     assert rows, f"timeline found no ledgers for app {app_id}"
-    assert "run=" in render_text(app_id, rows)
+    text = render_text(app_id, rows)
+    assert "run=" in text and "ingress_queue=" in text
 
     ts = http_json(base, "/timeseries")
     for host in ("lfw1", "lfw2"):
         series = (ts["hosts"].get(host) or {}).get("series") or {}
         assert series.get("proc_rss_bytes"), (host, sorted(series))
+
+
+@pytest.mark.chaos
+@pytest.mark.slow
+def test_dist_lifecycle_bulk_load_run_dominates_p99(cluster_of):
+    """The reference's own load, 120 apps in bulks of 10 through
+    SUBMIT_BATCH, on a cluster of its own: ``run`` dominates the p99 on
+    ``/healthz``, the SLO burns and the doctor names ``run``. With the
+    bulks dispatched at once, a loaded machine can keep the apps in the
+    workers' executor queues longer than the planted run, so this case
+    needs an idle machine."""
+    from faabric_tpu_torch.runner.doctor import diagnose, fetch_live
+
+    cluster = cluster_of("lb", {"lbw1": 64, "lbw2": 64}, http=True,
+                         extra_env=LIFECYCLE_ENV)
+    base = cluster.http_url
+    lifecycle_load(cluster, bulk=True)
+
+    health = http_json(base, "/healthz")
+    lifecycle = health["lifecycle"]
+    assert lifecycle["count"] >= N_THREADS * PER_THREAD
+    assert lifecycle["dominant_p99"][0]["phase"] == "run", \
+        lifecycle["dominant_p99"][:3]
+    latency = [t for t in health["slo"]["targets"]
+               if t["name"] == "p99_e2e_ms"][0]
+    assert latency["burning"], latency
+
+    findings = diagnose(fetch_live(base))
+    dominant = [f for f in findings if f["kind"] == "dominant_phase"]
+    assert dominant, [f["kind"] for f in findings]
+    assert "'run'" in dominant[0]["subject"], dominant[0]
+
+
+@pytest.mark.chaos
+@pytest.mark.slow
+def test_dist_lifecycle_burst_fills_ingress_depth_series(lifecycle_cluster):
+    """Phase B of the reference's case: 400 messages in one submit
+    against 128 slots of 200 ms runs hold admission credits for over a
+    second, so the planner's 50 ms sampler catches a nonzero
+    ``ingress_depth`` series. Whether it does is the sampler's luck."""
+    cluster = lifecycle_cluster
+    base = cluster.http_url
+    client = cluster.me.planner_client
+    base_results = http_json(base, "/healthz")["resultsTotal"]
+    reqs = [batch_exec_factory("dist", "noop", 1) for _ in range(BURST)]
+    accepted, retry = client.submit_functions_many(reqs)
+    assert accepted, f"burst shed (retry {retry})"
+    deadline = time.time() + 120
+    done = 0
+    while time.time() < deadline:
+        done = http_json(base, "/healthz")["resultsTotal"] - base_results
+        if done >= BURST:
+            break
+        time.sleep(0.2)
+    assert done >= BURST, f"burst incomplete: {done}/{BURST}"
+    ts = http_json(base, "/timeseries")
+    planner_series = (ts["hosts"].get("planner") or {}).get("series") or {}
+    depth = planner_series.get("ingress_depth") or []
+    assert depth, f"no ingress_depth series: {sorted(planner_series)}"
+    assert max(v for _t, v in depth) > 0, depth[-10:]
 
 
 def test_dist_flight_endpoints_and_flightdump_url(lifecycle_cluster):

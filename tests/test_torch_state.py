@@ -174,9 +174,22 @@ def test_chunk_bounds_and_master_needs_size():
 
 
 def test_redis_mode_is_not_ported(monkeypatch):
-    set_env(monkeypatch, STATE_MODE="redis")
-    with pytest.raises(NotImplementedError, match="Queue 1 #9 part D"):
-        port_state.State("hostX").get_kv("demo", "r", 8)
+    """``STATE_MODE=redis`` is served now (``tests/test_torch_redis.py``
+    holds it against the reference): with no server to reach, both
+    packages fail alike, with their ``RedisConnectionError``; an unknown
+    mode is refused alike. (The test keeps the name it had while the port
+    refused the mode, so that its runs stay comparable.)"""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]  # nothing listens there once closed
+    set_env(monkeypatch, STATE_MODE="redis", REDIS_STATE_HOST="127.0.0.1",
+            REDIS_PORT=str(port))
+    for pk in (REF, PORT):
+        with pytest.raises(ConnectionError, match="Cannot reach redis") as e:
+            pk.state.State("hostX").get_kv("demo", "r", 8)
+        assert type(e.value).__name__ == "RedisConnectionError"
     set_env(monkeypatch, STATE_MODE="bogus")
     for pk in (REF, PORT):
         with pytest.raises(ValueError, match="Unknown STATE_MODE"):
@@ -1069,7 +1082,9 @@ def test_guests_share_state_over_two_hosts():
     writes the weights, four guests over both hosts pull them and score
     bit for bit as the writer, four add to a counter under the global
     lock (exact) and append once, and a device state handle passes
-    between two guests of one host with no counted copy."""
+    between two guests of one host with no counted copy; then 19r, the
+    same path on a Redis authority (a mini server of the test process,
+    two readers placed one a host by a preloaded decision)."""
     import chip_smoke
     from faabric_tpu_torch.models import ModelConfig
     from faabric_tpu_torch.ops import _build
@@ -1079,5 +1094,5 @@ def test_guests_share_state_over_two_hosts():
                       d_ff=128, max_seq=512)
     launches = chip_smoke.state_phase(torch.device("cpu"), _build, cfg=cfg,
                                       iters=40, hosts=("sgA", "sgB"),
-                                      base=next_port_base())
+                                      base=next_port_base(), redis_iters=40)
     assert launches == {}  # CPU tensors take the kernels' plain versions
