@@ -85,12 +85,19 @@ processes: the data-parallel step of the data planes again, with its
 planner started through ``python -m faabric_tpu_torch.runner planner``
 and its two worker hosts as child processes of this script
 (``--worker-child``) on the card, held bitwise to the same step with
-both hosts in this process. Their telemetry, read live: after each
+both hosts in this process, the worker processes under the port's
+lock-order detector (``FAABRIC_LOCKCHECK=1``), which must see no
+held-before cycle. Their telemetry, read live: after each
 plane's steps the planner's REST endpoint (``/metrics``, ``/trace``,
 ``/commmatrix``, ``/healthz``, ``/topology``, ``/profile`` and the rest)
 and the workers' own endpoints are scraped and held against the
 children's counters, and the doctor, timeline, statemap, profile and
-flightdump CLIs read them. Every phase prints ``phase N: start`` and
+flightdump CLIs read them. Then a worker process is SIGKILLed under a
+serving batch: 8 requests of the full-width model at 2 layers over the
+two worker processes, the share of one held in its guests when that
+process is killed; the planner finds the lost host by its host timeout
+and requeues the share onto the other, every token equal to direct
+serving. Every phase prints ``phase N: start`` and
 ``phase N: ok in X s``, and a failed check its phase. For each path
 it checks the outputs and shows from the kernels' launch counts that
 the path ran through them; it times the kernels, their plain versions and the nearest
@@ -3403,6 +3410,10 @@ def plane_bytes() -> dict:
 
 
 PLANES_HOSTS = {"mpi-host-a": 2, "mpi-host-b": 2}
+# Phase 26's planner process's host timeout (s): phase 28 waits one out
+# when it kills a worker process, and the workers' keep-alives every
+# half of it must hold through phase 26's steps
+PROCESS_HOST_TIMEOUT = 8.0
 
 
 def _planes_job(cfg, per_rank: int, seq: int) -> dict:
@@ -4304,8 +4315,8 @@ def register_restart_guests(job: dict) -> None:
     """Phase 25's torch guest. ``rst/serve`` scores its prompt and
     generates ``job["n_new"]`` greedy tokens with ``job["model"]``; the
     first ``job["hold"]`` requests to reach each host first record their
-    id and host in ``job["held"]`` and block until ``job["release"]`` is
-    set."""
+    id and host in ``job["held"]`` (and call ``job["on_hold"](id, host)``
+    where the job has one) and block until ``job["release"]`` is set."""
     from faabric_tpu_torch.executor import register_function
     from faabric_tpu_torch.models import forward, generate
 
@@ -4318,6 +4329,8 @@ def register_restart_guests(job: dict) -> None:
                 job["held"][ctx.message.id] = host
                 if len(job["held"]) == 2 * job["hold"]:
                     job["all_held"].set()
+        if hold and job.get("on_hold") is not None:
+            job["on_hold"](ctx.message.id, host)
         if hold and not job["release"].wait(300):
             raise RuntimeError("a held request was never released")
         model = job["model"]
@@ -5637,12 +5650,25 @@ def worker_child(argv: list[str]) -> int:
     and prints ``ready`` with the top-level modules it loaded; ``report
     <plane>`` prints ``report``: its ranks' parameters after the gang's
     first step (written to a file), the digests of their final
-    parameters, and the kernel launches and plane bytes since the last
-    report; ``restart <SHM_BULK>`` restarts the runtime under that value
-    (a fresh broker, so fresh links). When its standard input closes it
-    shuts the runtime down and prints ``stopped``."""
+    parameters, the kernel launches and plane bytes since the last
+    report, and the lock-order detector's summary; ``restart <SHM_BULK>
+    [<slots>]`` restarts the runtime under that value (a fresh broker, so
+    fresh links), with ``slots`` slots when given; ``launches`` prints
+    ``launches``: the kernel launches since the last report and the
+    detector's summary. Phase 28's serving guest (phase 25's ``rst/serve``
+    over ``spec["serve"]["cfg"]``, seeded as the parent's direct model)
+    holds the first ``spec["serve"]["hold"]`` requests that reach this
+    host and prints ``held`` for each. With ``FAABRIC_LOCKCHECK=1`` the
+    process runs under the lock-order detector (installed before any
+    module of the port loads); it exits 1 when the detector saw a
+    held-before cycle. When its standard input closes it shuts the
+    runtime down and prints ``stopped``."""
+    from faabric_tpu_torch.analysis import lockcheck
+
+    lockcheck.install_from_env()
+
     from faabric_tpu_torch.executor import TorchExecutorFactory
-    from faabric_tpu_torch.models import ModelConfig
+    from faabric_tpu_torch.models import ModelConfig, Transformer
     from faabric_tpu_torch.ops import _build
     from faabric_tpu_torch.runner import WorkerRuntime
 
@@ -5662,6 +5688,25 @@ def worker_child(argv: list[str]) -> int:
                first={})
     register_planes_guests(job)
     host = spec["host"]
+    serve = spec["serve"]
+    scfg = ModelConfig(**{**serve["cfg"], "compute_dtype": getattr(
+        torch, serve["cfg"]["compute_dtype"])})
+
+    def on_hold(msg_id, on_host):
+        # One write, so that the line never interleaves with another
+        sys.stdout.write(json.dumps({"held": msg_id, "host": on_host})
+                         + "\n")
+        sys.stdout.flush()
+
+    register_restart_guests({
+        "model": Transformer(scfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(serve["seed"])),
+        "n_new": serve["n_new"], "lock": threading.Lock(), "held": {},
+        "hold": serve["hold"], "all_held": threading.Event(),
+        "release": threading.Event(), "on_hold": on_hold})
+
+    def lockcheck_summary():
+        return lockcheck.exit_summary() if lockcheck.installed() else None
 
     def boot():
         runtime = WorkerRuntime(host=host, slots=spec["slots"],
@@ -5702,20 +5747,36 @@ def worker_child(argv: list[str]) -> int:
                                              for r in ranks},
                     "launches": launches, "bytes": moved,
                     "modules": sorted({m.split(".")[0]
-                                       for m in sys.modules})}), flush=True)
+                                       for m in sys.modules}),
+                    "lockcheck": lockcheck_summary()}), flush=True)
                 job["params"].clear()
                 job["first"].clear()
                 build_launches, bytes0 = dict(_build.LAUNCHES), plane_bytes()
+            elif cmd == "launches":
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                launches = {k: v - build_launches.get(k, 0)
+                            for k, v in _build.LAUNCHES.items()
+                            if v != build_launches.get(k, 0)}
+                print(json.dumps({"launches": launches, "host": host,
+                                  "lockcheck": lockcheck_summary()}),
+                      flush=True)
+                build_launches = dict(_build.LAUNCHES)
             elif cmd == "restart":
                 runtime.shutdown()
-                os.environ["SHM_BULK"] = arg
+                shm_bulk, _, slots = arg.partition(" ")
+                os.environ["SHM_BULK"] = shm_bulk
+                if slots:
+                    spec["slots"] = int(slots)
                 runtime = boot()
                 ready_line()
     finally:
         if runtime is not None:
             runtime.shutdown()
     print(json.dumps({"stopped": True}), flush=True)
-    return 0
+    # Under the detector: the report line on standard error, and 1 for
+    # a held-before cycle
+    return lockcheck.finish()
 
 
 # A host's HTTP endpoint port past its alias offset (phase 27): the
@@ -5723,8 +5784,9 @@ def worker_child(argv: list[str]) -> int:
 HTTP_PORT = 8016
 
 
-def _get(url: str, timeout: float = 60.0) -> tuple[bytes, float]:
-    """One GET: (body, ms); fails the phase unless it answers 200."""
+def _get(url: str, timeout: float = 60.0,
+         tag: str = "27") -> tuple[bytes, float]:
+    """One GET: (body, ms); fails phase ``tag`` unless it answers 200."""
     import urllib.request
 
     t0 = time.perf_counter()
@@ -5732,7 +5794,7 @@ def _get(url: str, timeout: float = 60.0) -> tuple[bytes, float]:
         body = resp.read()
         status = resp.status
     ms = (time.perf_counter() - t0) * 1e3
-    check(status == 200, f"27: GET {url} answers 200 ({status})")
+    check(status == 200, f"{tag}: GET {url} answers 200 ({status})")
     return body, ms
 
 
@@ -5965,10 +6027,143 @@ def scrape_phase(plane: str, base_url: str, worker_urls: dict, outs: list,
               f"rendering ({len(text):,} chars, exit code {rc})")
         log(f"  {tag} {name}: " + " | ".join(text.strip().splitlines()[:3]))
 
+def _planner_scrape(base_url: str, family: str) -> float:
+    """The sum of ``family``'s samples of the planner's own process in
+    its endpoint's merged ``/metrics``."""
+    body, _ms = _get(base_url + "/metrics", tag="28")
+    return sum(float(ln.rsplit(" ", 1)[1])
+               for ln in body.decode().splitlines()
+               if ln.startswith(family + "{") and 'host="planner"' in ln)
+
+
+def kill_phase(dev, children: dict, dead: list, client, base_url: str,
+               serve_cfg, serve_len: int, n_new: int) -> dict:
+    """Phase 28: a serving batch across phase 26's live worker processes,
+    one of them SIGKILLed under it. The children restart with 4 slots
+    each and serve phase 25's guest (``rst/serve``: ``serve_cfg``, seed
+    0, ``serve_len``-token prompts, ``n_new`` greedy tokens); the one on
+    ``mpi-host-b`` holds every request that reaches it. 8 requests go in
+    one batch; once ``mpi-host-a``'s share returned and every request of
+    ``mpi-host-b``'s share is held there, that child is SIGKILLed (and
+    moved from ``children`` to ``dead``). The planner finds the loss by
+    its host timeout (``PROCESS_HOST_TIMEOUT``) and requeues the share onto
+    ``mpi-host-a``. Checked: the batch spread 4 + 4; all 8 results
+    SUCCESS with the tokens of direct ``forward`` and ``generate``; the
+    requeued ones ran on ``mpi-host-a`` and carry the ``rqu`` stamp; by
+    the planner's scrape, ``faabric_planner_recovery_seconds`` counted
+    one recovery more; the killed child exited -9; on the card,
+    ``mpi-host-a``'s launches are the 8 requests' (every request ran
+    once there) and its lock-order detector saw no cycle. Logs the kill
+    to the last result, the recovery seconds and the launches; returns
+    the launches."""
+    from faabric_tpu_torch.models import Transformer, forward, generate
+    from faabric_tpu_torch.proto import ReturnValue, batch_exec_factory
+    from faabric_tpu_torch.telemetry.lifecycle import PHASE_REQUEUE
+
+    log("phase 28: a worker process SIGKILLed under a serving batch")
+    on_card = dev.type == "cuda"
+    if on_card:
+        log("  28 card: " + subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip())
+    host_a, host_b = list(PLANES_HOSTS)
+    n_req, L = 8, serve_cfg.n_layers
+    model = Transformer(serve_cfg, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    prompts = np.random.RandomState(28).randint(
+        0, serve_cfg.vocab_size, (n_req, serve_len)).astype(np.int32)
+    direct = []
+    with torch.inference_mode():
+        for p in prompts:
+            prompt = torch.as_tensor(p, device=dev)[None]
+            scores = forward(model, prompt)[0].argmax(-1)
+            tokens = generate(model, prompt, n_new)[0]
+            direct.append(torch.cat([scores.to(torch.int32),
+                                     tokens]).cpu().numpy())
+    del model
+    for c in children.values():
+        c.send("restart 0 4")
+    for c in children.values():
+        c.expect("ready", 180)
+    # The launch counts of the batch start here
+    for c in children.values():
+        c.send("launches")
+        c.expect("launches", 60)
+    rec0 = _planner_scrape(base_url, "faabric_planner_recovery_seconds_count")
+    rec_s0 = _planner_scrape(base_url, "faabric_planner_recovery_seconds_sum")
+    req = batch_exec_factory("rst", "serve", n_req)
+    for m, p in zip(req.messages, prompts):
+        m.input_data = p.tobytes()
+    pc = client.planner_client
+    decision = pc.call_functions(req)
+    by_id = dict(zip(decision.message_ids, decision.hosts))
+    share = sorted(mid for mid, h in by_id.items() if h == host_b)
+    check(len(share) == n_req // 2 and set(by_id.values()) == {host_a,
+                                                                host_b},
+          f"28: the batch spread {n_req - len(share)} + {len(share)} over "
+          f"{host_a} and {host_b}")
+    results = {mid: pc.get_message_result(req.app_id, mid, timeout=300)
+               for mid, h in by_id.items() if h == host_a}
+    held = set()
+    while len(held) < len(share):
+        got = children[host_b].expect("held", 300)
+        held.add(got["held"])
+    check(held == set(share), f"28: every request of {host_b}'s share ran "
+          f"on {host_b} before the kill ({len(held)} held there)")
+    victim = children.pop(host_b)
+    dead.append(victim)
+    t_kill = time.perf_counter()
+    victim.proc.kill()
+    rc = victim.proc.wait(60)
+    check(rc == -9, f"28: the {host_b} child exited -9 on SIGKILL ({rc})")
+    for mid in share:
+        results[mid] = pc.get_message_result(req.app_id, mid, timeout=300)
+    kill_s = time.perf_counter() - t_kill
+    ordered = [results[m.id] for m in req.messages]
+    check(all(r.return_value == int(ReturnValue.SUCCESS)
+              and np.array_equal(np.frombuffer(r.output_data, np.int32), d)
+              for r, d in zip(ordered, direct)),
+          "28: all 8 results SUCCESS, tokens equal to direct forward and "
+          "generate")
+    moved = [results[mid] for mid in share]
+    check(all(r.executed_host == host_a and PHASE_REQUEUE in r.lc
+              for r in moved),
+          f"28: the {len(share)} requeued requests ran on {host_a} and "
+          f"carry the rqu stamp ("
+          f"{[(r.executed_host, PHASE_REQUEUE in r.lc) for r in moved]})")
+    rec = _planner_scrape(base_url,
+                          "faabric_planner_recovery_seconds_count") - rec0
+    rec_s = _planner_scrape(base_url,
+                            "faabric_planner_recovery_seconds_sum") - rec_s0
+    check(rec == 1, f"28: the planner's faabric_planner_recovery_seconds "
+          f"count rose by 1 in its scrape ({rec:g})")
+    children[host_a].send("launches")
+    rep = children[host_a].expect("launches", 60)
+    got = rep["launches"]
+    if on_card:
+        want = {"flash_attention": n_req * L,
+                "rms_norm": n_req * (2 * L + 1) * (1 + n_new)}
+        for name, count in want.items():
+            check(got.get(name, 0) == count,
+                  f"28: {name} launched {got.get(name, 0)} times in the "
+                  f"{host_a} process = the 8 requests' {count}")
+    lc = rep["lockcheck"]
+    check(lc is not None and lc["cycles"] == [],
+          f"28: the {host_a} process's lock-order detector saw no "
+          f"held-before cycle ({lc and lc['cycles']})")
+    log(f"  28 SIGKILL to the last result {kill_s:.3f} s with a "
+        f"{PROCESS_HOST_TIMEOUT:g} s host timeout; recovery seconds "
+        f"(detection to re-dispatch, the planner's histogram) "
+        f"{rec_s:.3f}; launches in "
+        f"the {host_a} process {got}")
+    return got
+
 
 def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
                     seq: int = 512, steps: int = 3, base: int | None = None,
-                    child_argv: list[str] | None = None) -> dict:
+                    child_argv: list[str] | None = None, serve_cfg=None,
+                    serve_len: int = 512, n_new: int = 32) -> dict:
     """Phase 26: phase 22's two-host step with its hosts as OS
     processes. The planner is ``python -m faabric_tpu_torch.runner
     planner`` and ``mpi-host-a`` and ``mpi-host-b`` are ``chip_smoke.py
@@ -5994,8 +6189,16 @@ def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
     (``WORKER_HTTP_PORT``), each at its offset plus ``HTTP_PORT``, and
     every process traces: after each plane's steps, before its children
     stop, phase 27 (:func:`scrape_phase`) reads the live cluster through
-    them. Every child is stopped, and killed if it does not stop, before
-    the phase returns. Returns the children's launches."""
+    them. The children run under the lock-order detector
+    (``FAABRIC_LOCKCHECK=1``): each report carries its summary, any
+    held-before cycle fails the phase, and the same-site nestings,
+    blocking sites and longest holds are logged. The planner's host
+    timeout is ``PROCESS_HOST_TIMEOUT``. After phase 27's scrape of bulk TCP,
+    phase 28 (:func:`kill_phase`) SIGKILLs ``mpi-host-b``'s child under
+    a serving batch of ``serve_cfg`` (``ModelConfig()`` at 2 layers by
+    default). Every child is stopped, and killed if it does not stop,
+    before the phase returns. Returns the children's launches, phase
+    28's included."""
     import queue
     import signal
     import statistics
@@ -6017,6 +6220,7 @@ def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True, timeout=60).stdout.strip())
     cfg = cfg or ModelConfig()
+    serve_cfg = serve_cfg or dataclasses.replace(ModelConfig(), n_layers=2)
     n = MPI_RANKS
     per_step = {"flash_attention": 2 * cfg.n_layers,
                 "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
@@ -6048,6 +6252,10 @@ def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
     cfg_spec = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
                 if f.name not in ("compute_dtype", "param_dtype")}
     cfg_spec["compute_dtype"] = str(cfg.compute_dtype).split(".")[-1]
+    serve_spec = {f.name: getattr(serve_cfg, f.name)
+                  for f in dataclasses.fields(serve_cfg)
+                  if f.name not in ("compute_dtype", "param_dtype")}
+    serve_spec["compute_dtype"] = str(serve_cfg.compute_dtype).split(".")[-1]
     check(cfg.param_dtype == torch.float32, "26: fp32 parameters")
     if on_card:
         torch.cuda.synchronize()
@@ -6056,6 +6264,7 @@ def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
                           "--worker-child"]
     planner = None
     children: dict = {}
+    dead: list = []
     client = None
     path: dict = {}
     plog = open(os.path.join(work, "planner.log"), "ab")
@@ -6068,7 +6277,8 @@ def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
              "--port-offset", str(base), "--http-port",
              str(base + HTTP_PORT)], cwd=here, stdin=subprocess.DEVNULL,
             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
-            env={**os.environ, **env})
+            env={**os.environ, **env,
+                 "PLANNER_HOST_TIMEOUT": str(PROCESS_HOST_TIMEOUT)})
         up: queue.Queue = queue.Queue()
 
         def read_planner():
@@ -6085,10 +6295,13 @@ def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
             spec = {"host": h, "slots": slots, "planner": planner_host,
                     "cfg": cfg_spec, "per_rank": per_rank, "seq": seq,
                     "steps": steps, "start": start_path, "out": work,
-                    "device": str(dev)}
+                    "device": str(dev),
+                    "serve": {"cfg": serve_spec, "n_new": n_new, "seed": 0,
+                              "hold": 0 if h == "mpi-host-a" else 4}}
             children[h] = JsonChild(
                 [*argv, json.dumps(spec)],
-                {**env, "WORKER_HTTP_PORT": str(offsets[h] + HTTP_PORT)},
+                {**env, "WORKER_HTTP_PORT": str(offsets[h] + HTTP_PORT),
+                 "FAABRIC_LOCKCHECK": "1"},
                 os.path.join(work, f"{h}.log"), f"26: the {h} child")
         try:
             served = up.get(timeout=180)
@@ -6155,6 +6368,19 @@ def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
                              & {"jax", "jaxlib", "faabric_tpu", "tests"})
                 check(not bad, f"26 ({plane}): the {h} child loaded nothing "
                       f"of JAX or the JAX package ({bad})")
+                lc = rep["lockcheck"]
+                check(lc is not None and lc["cycles"] == [],
+                      f"26 ({plane}): the {h} process ran under the "
+                      f"lock-order detector ({lc and lc['sites']} sites, "
+                      f"{lc and lc['edges']} held-before edges) and saw no "
+                      f"cycle ({lc and lc['cycles']})")
+                log(f"  26 ({plane}) {h} lockcheck: same-site nestings "
+                    f"{lc['same_site_nesting']}; blocking sites "
+                    + "; ".join(f"{b['call']} x{b['n']} holding "
+                                f"{b['held']}" for b in lc["blocking"])
+                    + "; longest holds " + "; ".join(
+                        f"{x['site']} {x['max_s'] * 1e3:.2f} ms"
+                        for x in lc["longest_holds"]))
                 got = rep["launches"]
                 if on_card:
                     for name, count in per_step.items():
@@ -6197,6 +6423,12 @@ def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
                          results[0].app_id, on_card, work)
             if plane == "shm":
                 begin_phase(26)
+        # -- 28. a worker process SIGKILLed under a serving batch ---------
+        begin_phase(28)
+        for k, v in kill_phase(dev, children, dead, client, base_url,
+                               serve_cfg, serve_len, n_new).items():
+            path[k] = path.get(k, 0) + v
+        begin_phase(26)
     finally:
         try:
             if client is not None:
@@ -6208,7 +6440,7 @@ def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
                 check(planner.wait(60) == 0,
                       "26: the planner process stopped on SIGTERM with 0")
         finally:
-            for c in children.values():
+            for c in [*children.values(), *dead]:
                 c.kill()
             if planner is not None and planner.poll() is None:
                 planner.kill()

@@ -14,6 +14,16 @@ without a card and without that request they raise. Hand-written CUDA
 kernels for Hopper live in ``ops/csrc/`` and are built at first use.
 """
 
-from faabric_tpu_torch.util.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name: str):
+    # Loaded on first use: importing the package itself loads nothing
+    # (not torch), so that ``analysis/`` stays standard-library only and
+    # the lock-order detector installs before any lock of the port
+    if name == "resolve_device":
+        from faabric_tpu_torch.util.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(
+        f"module 'faabric_tpu_torch' has no attribute {name!r}")

@@ -48,6 +48,10 @@ class CachedDecision:
 
 
 class DecisionCache:
+    # Concurrency contract (analysis/concheck.py): map + counters under the
+    # cache's own leaf lock.
+    GUARDS = {"_cache": "_lock", "_hits": "_lock", "_misses": "_lock"}
+
     def __init__(self) -> None:
         self._cache: dict[str, CachedDecision] = {}
         self._lock = threading.Lock()

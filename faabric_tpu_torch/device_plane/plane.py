@@ -199,6 +199,21 @@ class _Round:
 class DevicePlane:
     """Collectives bound to one world's resolved device."""
 
+    # Concurrency contract (analysis/concheck.py): rendezvous state, the
+    # disable verdict, the round counts and the compiled-key set mutate
+    # under _lock from N rank threads. The reference's executable cache
+    # and its leaf _cache_lock (_cache, _cache_hits, _cache_compiles,
+    # _compile_ms) have no counterpart: a round here launches a
+    # hand-written kernel, so there is no executable to hold, and
+    # _compiled only records which keys ran once.
+    GUARDS = {
+        "_rounds": "_lock",
+        "_rank_seq": "_lock",
+        "_disabled": "_lock",
+        "_executed": "_lock",
+        "_compiled": "_lock",
+    }
+
     def __init__(self, world_id: int, devices, local_ranks,
                  topology_gen: int) -> None:
         self.world_id = world_id
@@ -505,6 +520,7 @@ class DevicePlane:
         """Observability snapshot (tests, smoke runs)."""
         with self._lock:
             rounds = dict(self._executed)
+            compiles = len(self._compiled)
         return {
             "world_id": self.world_id,
             "size": self.n,
@@ -513,7 +529,7 @@ class DevicePlane:
             "topology_gen": self.topology_gen,
             "disabled": self.disabled_reason,
             "rounds": rounds,
-            "compiles": len(self._compiled),
+            "compiles": compiles,
             # ring rounds on the card are kernel launches; on the CPU
             # they run the plain version
             "ring_launches": (rounds.get("ring_permute", 0)

@@ -178,8 +178,9 @@ class IngressCoordinator:
         if not self._planner.is_batchable_shape(req):
             return self._planner.call_batch(req)
 
-        # A latched flag, read without the lock by design: the second
-        # check under the lock below closes the post-stop enqueue race
+        # concheck: ok(guard-unlocked) — latched flag, racy read by
+        # design: the post-stop enqueue race is closed by the second
+        # check under the lock below
         if self._stopped:
             raise IngressShedError(0.5, "ingress stopped")
 
@@ -274,8 +275,8 @@ class IngressCoordinator:
         for r in reqs:
             (batchable if self._planner.is_batchable_shape(r)
              else direct).append(r)
-        # A latched flag, read without the lock by design: the enqueue
-        # below checks again under the lock
+        # concheck: ok(guard-unlocked) — latched flag, racy read by
+        # design; the enqueue below re-checks under the lock
         if self._stopped:
             raise IngressShedError(0.5, "ingress stopped")
         total = sum(r.n_messages() for r in batchable)

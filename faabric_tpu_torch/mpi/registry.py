@@ -37,6 +37,12 @@ class MpiWorldRegistry:
     must share one object, since the device plane's rendezvous lives
     in it."""
 
+    # Concurrency contract (analysis/concheck.py): world creation/join/
+    # destroy race across executor threads; the id map is the shared
+    # state (reservation under the lock is what makes duplicate create
+    # fail instead of double-chaining ranks).
+    GUARDS = {"_worlds": "_lock"}
+
     def __init__(self, broker, planner_client=None) -> None:
         self.broker = broker
         self.planner_client = planner_client

@@ -310,8 +310,15 @@ class ScheduleCache:
     classes — the property the selection-sync round in MpiWorld relies
     on (see ``_sched_family``)."""
 
-    # Entries and counters mutate under the cache lock; rank threads of
-    # one process share it
+    # Concurrency contract (analysis/concheck.py): entries and counters
+    # mutate under the cache lock; rank threads of one process share it
+    GUARDS = {
+        "_entries": "_lock",
+        "_families": "_lock",
+        "compiles": "_lock",
+        "hits": "_lock",
+    }
+
     MAX_ENTRIES = 256
 
     def __init__(self) -> None:

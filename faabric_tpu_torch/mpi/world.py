@@ -183,6 +183,10 @@ class _SendWorker:
     a rank's sends to one destination in order; daemon so a transfer
     wedged on a dead peer never holds up interpreter exit."""
 
+    # _closed orders submits against shutdown's sentinel (see submit);
+    # the SimpleQueue itself is internally synchronized
+    GUARDS = {"_closed": "_state_lock"}
+
     def __init__(self, name: str) -> None:
         import queue as _queue
 
@@ -241,6 +245,28 @@ class _LocalMpiPayload:
 
 
 class MpiWorld:
+    # Concurrency contract (analysis/concheck.py): rank bookkeeping and
+    # topology caches mutate under the world RLock — collectives on N
+    # rank threads share them. Deliberately unlisted: record_exec_graph
+    # (configured before traffic starts), _in_send_pool (thread-local),
+    # _send_workers (per-rank entries created under _lock in
+    # _send_worker(); reads are GIL-atomic dict hits on an add-only
+    # dict), _split_seq (only mutated under _lock in _split_draw).
+    GUARDS = {
+        "_requests": "_lock",
+        "_next_request_id": "_lock",
+        "_rank_hosts": "_lock",
+        "_rank_devices": "_lock",
+        "_topology_cache": "_lock",
+        "_same_machine_cache": "_lock",
+        "_topology_gen": "_lock",
+        "_msg_count_to_rank": "_lock",
+        "_msg_type_count": "_lock",
+        "_device_collectives": "_lock",
+        "_device_plane": "_lock",
+        "_sched_seen": "_lock",
+    }
+
     # Above 2 x CHUNK_BYTES a single-machine allreduce or reduce_scatter
     # takes the ring, a broadcast and a reduce stream in chunks; above
     # CHUNK_BYTES a contribution takes the allgather ring. A one-host

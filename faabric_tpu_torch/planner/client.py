@@ -182,6 +182,28 @@ class KeepAliveThread(PeriodicBackgroundThread):
 class PlannerClient(MessageEndpointClient):
     """One per worker runtime, carrying the worker's host identity."""
 
+    # Concurrency contract (analysis/concheck.py): waiter machinery under
+    # _results_lock, outage buffers under _pending_lock. Deliberately
+    # unlisted: planner_down and _resync_all are set-only signal flags
+    # whose races are benign (consumed under _results_lock /
+    # re-checked by the keep-alive tick); _planner_boot is only touched
+    # from the keep-alive thread; _keep_alive and the snapshot-client
+    # handles are start/stop sequenced by the runtime.
+    GUARDS = {
+        "_local_results": "_results_lock",
+        "_local_results_order": "_results_lock",
+        "_result_events": "_results_lock",
+        "_result_waiters": "_results_lock",
+        "_result_interest": "_results_lock",
+        "_resync_nudged": "_results_lock",
+        "_pending_results": "_pending_lock",
+        "_pending_bytes": "_pending_lock",
+        "_recent_results": "_pending_lock",
+        "_recent_bytes": "_pending_lock",
+        "_out_results": "_pending_lock",
+        "_out_sending": "_pending_lock",
+    }
+
     # Results kept locally for repeated reads, oldest dropped first
     MAX_CACHED_RESULTS = 10_000
     # Both outage buffers are bounded by count and by payload bytes
@@ -356,7 +378,10 @@ class PlannerClient(MessageEndpointClient):
         # The last stamp on this host's side of the wire
         _LC.stamp(msg, PHASE_RESULT_PUSH)
         # Buffered results go first, so that the planner sees completion
-        # order (a racy emptiness probe: the flush checks under the lock)
+        # order
+        # concheck: ok(guard-unlocked) — racy emptiness probe by design:
+        # flush_pending_results re-checks under _pending_lock, so a torn
+        # read only costs one early/late flush attempt
         if self._pending_results:
             self.flush_pending_results()
         with self._pending_lock:

@@ -246,6 +246,42 @@ class PlannerHost:
 
 
 class Planner:
+    # Concurrency contract (analysis/concheck.py): every listed
+    # attribute may only be touched inside `with self._lock`. One RLock
+    # guards the whole control-plane state —
+    # scheduling correctness depends on decisions/claims/results
+    # mutating atomically, and the hot path (one dict hit per RPC) does
+    # not contend enough to shard it. NOT listed: boot_id (immutable
+    # after __init__), _telemetry_scrapes (GIL-atomic setdefault/pop by
+    # design), _clients/_snapshot_clients/_journal/snapshot_registry/
+    # ingress (internally synchronized), _journal_replay_stats/
+    # _reconcile_stats (write-once diagnostics), _perf_agg_stats
+    # (GIL-atomic whole-dict swap), _reconcile_timer
+    # (start/stop sequenced by recovery). The reference's _device_plane
+    # entry is left out: the port's planner keeps no cross-process
+    # device-plane roster yet (its rank planes live in one process).
+    GUARDS = {
+        "_hosts": "_lock",
+        "_in_flight": "_lock",
+        "_results": "_lock",
+        "_expected": "_lock",
+        "_next_idx": "_lock",
+        "_completed_order": "_lock",
+        "_waiters": "_lock",
+        "_requeue_attempts": "_lock",
+        "_preloaded": "_lock",
+        "_evicted": "_lock",
+        "_next_evicted_ips": "_lock",
+        "_group_hosts": "_lock",
+        "_num_migrations": "_lock",
+        "_state_masters": "_lock",
+        "_state_backups": "_lock",
+        "_state_epochs": "_lock",
+        "_journal_last_hosts": "_lock",
+        "_results_count": "_lock",
+        "_results_failed": "_lock",
+    }
+
     # Completed apps' results are kept for late readers, oldest dropped
     # first beyond this many apps
     MAX_KEPT_APP_RESULTS = 1000
@@ -2086,6 +2122,8 @@ class Planner:
             "inFlightMessages": in_flight_msgs,
             "results": n_results,
             "stateMasters": n_masters,
+            # concheck: ok(guard-unlocked) — __init__-time replay: the
+            # planner is not yet published to any server thread
             "lastKnownHosts": sorted(self._journal_last_hosts),
             "seconds": round(elapsed, 4),
             "ts": time.time(),

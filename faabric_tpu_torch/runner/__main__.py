@@ -25,18 +25,28 @@ role serves the port's ``MiniRedisServer`` on ``--bind``:``--port``
 for workers whose ``REDIS_STATE_HOST`` and ``REDIS_PORT`` name it. Each
 role runs until SIGTERM or SIGINT, which record and dump the flight
 ring under the signal's own name and then stop the role cleanly (exit
-0).
+0). With ``FAABRIC_LOCKCHECK=1`` every role runs under the lock-order
+detector (``analysis/lockcheck.py``), installed before the roles'
+modules load; at the stop it writes its report line to standard error
+and exits 1 if it saw a held-before cycle, unless
+``FAABRIC_LOCKCHECK_GATE=0``.
 """
 
 from __future__ import annotations
 
-import argparse
-import signal
-import sys
-import threading
+# The lock-order detector goes in first, before any module of the port
+# creates a lock (FAABRIC_LOCKCHECK=1; see analysis/lockcheck.py)
+from faabric_tpu_torch.analysis import lockcheck as _lockcheck
 
-from faabric_tpu_torch.util.crash import install_crash_handler
-from faabric_tpu_torch.util.logging import get_logger
+_lockcheck.install_from_env()
+
+import argparse  # noqa: E402
+import signal  # noqa: E402
+import sys  # noqa: E402
+import threading  # noqa: E402
+
+from faabric_tpu_torch.util.crash import install_crash_handler  # noqa: E402
+from faabric_tpu_torch.util.logging import get_logger  # noqa: E402
 
 logger = get_logger("faabric_tpu_torch.runner")
 
@@ -142,7 +152,9 @@ def main(argv: list[str] | None = None) -> int:
         stop.wait()
         runtime.shutdown()
     logger.info("%s stopped", args.role.capitalize())
-    return 0
+    # Under the detector: its report, and a nonzero status for a
+    # held-before cycle while FAABRIC_LOCKCHECK_GATE is on
+    return _lockcheck.finish()
 
 
 if __name__ == "__main__":

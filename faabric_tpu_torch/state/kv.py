@@ -125,7 +125,7 @@ def _torch_dtype(dtype) -> torch.dtype:
 
 
 class StateKeyValue:
-    # Concurrency contract (the reference's, for tools/concheck.py): the
+    # Concurrency contract (analysis/concheck.py): the
     # image and every mask and cache derived from it mutate under the
     # one RLock. Not listed: epoch (a monotone int), backup_host (a
     # whole-string swap) and _stale (a one-way latch).

@@ -248,46 +248,44 @@ class StateServer(MessageEndpointServer):
         # once this master knows it was fenced out
         kv.check_epoch(req_epoch)
 
+        # The master ops: each member is named here, in the dispatch
+        # itself, so that the protocol-drift pass sees its handler
         with span("state", f"serve_{op}", key=f"{user}/{key}"):
-            return self._serve_master_op(kv, code, h, msg.payload)
+            if code == int(StateCalls.PULL):
+                return handler_response(
+                    payload=kv.server_pull_chunk(h["offset"], h["length"]))
 
-    def _serve_master_op(self, kv, code: int, h: dict,
-                         payload: bytes) -> TransportMessage:
-        if code == int(StateCalls.PULL):
-            return handler_response(
-                payload=kv.server_pull_chunk(h["offset"], h["length"]))
+            if code == int(StateCalls.PUSH):
+                kv.server_push_chunk(h["offset"], msg.payload)
+                return handler_response()
 
-        if code == int(StateCalls.PUSH):
-            kv.server_push_chunk(h["offset"], payload)
-            return handler_response()
+            if code == int(StateCalls.SIZE):
+                return handler_response(header={"size": kv.size})
 
-        if code == int(StateCalls.SIZE):
-            return handler_response(header={"size": kv.size})
+            if code == int(StateCalls.APPEND):
+                kv.server_append(msg.payload)
+                return handler_response()
 
-        if code == int(StateCalls.APPEND):
-            kv.server_append(payload)
-            return handler_response()
+            if code == int(StateCalls.PULL_APPENDED):
+                values = kv.get_appended(h["n_values"])
+                return handler_response(
+                    header={"lengths": [len(v) for v in values]},
+                    payload=b"".join(values))
 
-        if code == int(StateCalls.PULL_APPENDED):
-            values = kv.get_appended(h["n_values"])
-            return handler_response(
-                header={"lengths": [len(v) for v in values]},
-                payload=b"".join(values))
+            if code == int(StateCalls.CLEAR_APPENDED):
+                kv.clear_appended()
+                return handler_response()
 
-        if code == int(StateCalls.CLEAR_APPENDED):
-            kv.clear_appended()
-            return handler_response()
+            if code == int(StateCalls.DELETE):
+                self.state.delete_kv(user, key)
+                return handler_response()
 
-        if code == int(StateCalls.DELETE):
-            self.state.delete_kv(h["user"], h["key"])
-            return handler_response()
+            if code == int(StateCalls.LOCK):
+                kv.lock_global()
+                return handler_response()
 
-        if code == int(StateCalls.LOCK):
-            kv.lock_global()
-            return handler_response()
+            if code == int(StateCalls.UNLOCK):
+                kv.unlock_global()
+                return handler_response()
 
-        if code == int(StateCalls.UNLOCK):
-            kv.unlock_global()
-            return handler_response()
-
-        raise ValueError(f"Unknown sync state call {code}")
+            raise ValueError(f"Unknown sync state call {code}")

@@ -264,7 +264,7 @@ class LifecycleStats:
     planner as results are recorded (outside the planner lock); read by
     ``/healthz``, ``GET_TELEMETRY`` and the doctor."""
 
-    # Concurrency contract (tools/concheck.py): estimator maps mutate
+    # Concurrency contract (analysis/concheck.py): estimator maps mutate
     # under one leaf lock; fold/snapshot never hold it across blocking
     # calls. The Prometheus handles are internally locked per series.
     GUARDS = {

@@ -277,7 +277,7 @@ class PerfProfileStore:
     host is implicit (the planner adds it when aggregating, exactly like
     the comm matrix's per-host outbound convention)."""
 
-    # Concurrency contract (tools/concheck.py): registry structures
+    # Concurrency contract (analysis/concheck.py): registry structures
     # mutate under _lock; per-entry stats under the entry's own lock.
     # NOT listed: _fast — the send-hot-path cache, WRITTEN only under
     # _lock but deliberately read lock-free (GIL-atomic dict.get; a

@@ -44,7 +44,7 @@ NULL_PROC_STATS = _NullProcStats()
 class ProcStats:
     MIN_REFRESH_S = 0.2
 
-    # Concurrency contract (tools/concheck.py): the throttle clock, the
+    # Concurrency contract (analysis/concheck.py): the throttle clock, the
     # cached sample and the CPU baseline mutate under one leaf lock;
     # the /proc reads run outside it.
     GUARDS = {

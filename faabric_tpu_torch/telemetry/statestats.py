@@ -212,7 +212,7 @@ class StateStatsStore:
     ``user/key`` names; the reporting host is implicit (the planner
     tags rows when aggregating, the comm-matrix/perf convention)."""
 
-    # Concurrency contract (tools/concheck.py): the key registry
+    # Concurrency contract (analysis/concheck.py): the key registry
     # mutates under _lock; per-key stats under the entry's own lock.
     # NOT listed: _fast — the record-hot-path cache, WRITTEN only
     # under _lock but deliberately read lock-free (GIL-atomic

@@ -88,7 +88,7 @@ class _Series:
 class TimeSeriesRing:
     """Named gauge samplers + their preallocated history rings."""
 
-    # Concurrency contract (tools/concheck.py): registration map, ring
+    # Concurrency contract (analysis/concheck.py): registration map, ring
     # cursor and the timestamp ring mutate under one leaf lock; sampler
     # callables run OUTSIDE it (a stuck gauge must not wedge snapshot
     # readers), writing each value with one locked slot store.

@@ -214,6 +214,17 @@ class BulkServer:
     delivers their frames into its queues: a thread a connection, and a
     drain thread an announced ring."""
 
+    # Concurrency contract (analysis/concheck.py): _conns/_threads are
+    # touched by start(), the accept loop and stop() concurrently;
+    # _attached_rings by every conn thread. _listener/_stopping are
+    # write-once-then-read (start/stop sequencing) and stay unlisted.
+    GUARDS = {
+        "_conns": "_lock",
+        "_threads": "_lock",
+        "_attached_rings": "_lock",
+        "_rx_codecs": "_lock",
+    }
+
     # Drain batch scratch: every sub-threshold frame fits, a large frame
     # never does (it takes the exact-size path)
     BATCH_BUF_BYTES = BULK_THRESHOLD + _FRAME.size + 64
@@ -523,6 +534,23 @@ class _Stripe:
     connection and the stripe's state; ``codec_tx`` has its own lock,
     taken after it."""
 
+    # Concurrency contract: the stripe lock serializes the connection
+    # AND the per-stripe state. Socket ops deliberately happen while it
+    # is held — per-stripe serialization of the byte stream IS the
+    # design (frames must not interleave); the broker's lock-free reads
+    # of ring/ring_refused in small_frames_ok() carry line pragmas.
+    # codec_tx (the sender-side base cache) carries its OWN lock and
+    # GUARDS contract; lock order is stripe.lock → codec_tx._lock.
+    GUARDS = {
+        "sock": "lock",
+        "ring": "lock",
+        "ring_refused": "lock",
+        "shm_frames": "lock",
+        "nack_buf": "lock",
+        "coded_frames": "lock",
+        "escape_frames": "lock",
+    }
+
     __slots__ = ("host", "tag", "ring_bytes", "sock", "ring",
                  "ring_refused", "lock", "shm_frames", "tcp_frames",
                  "codec_tx", "nack_buf", "nack_thread", "coded_frames",
@@ -579,6 +607,10 @@ class _Stripe:
             return
         name = ring.name.encode()
         try:
+            # concheck: ok(blocking-under-lock) — the stripe lock IS the
+            # stream serializer: the announce must not interleave with a
+            # concurrent frame on this connection, and dial-time has no
+            # frames queued behind it
             sock.sendall(_pack_raw(0, 0, 0, 0, 0, len(name),
                                    SHM_ANNOUNCE) + name)
         except OSError:
@@ -588,6 +620,9 @@ class _Stripe:
             raise
         try:
             sock.settimeout(5.0)
+            # concheck: ok(blocking-under-lock) — ACK read is bounded by
+            # the 5 s settimeout above and happens once per dial, before
+            # any sender can be queued on this fresh stripe
             ack = sock.recv(1)
         except OSError:
             ack = b""
@@ -600,6 +635,8 @@ class _Stripe:
                            "staying on TCP", self.tag)
             # A late ACK may mean a drain exists: retire it
             try:
+                # concheck: ok(blocking-under-lock) — dial-time stream
+                # serialization, same contract as the announce above
                 sock.sendall(_pack_raw(0, 0, 0, 0, 0, 0, SHM_RETIRE))
             except OSError:
                 pass
@@ -814,6 +851,10 @@ class _Stripe:
                 # The drain finishes the buffered frames first; their
                 # seqs precede this one's, so order holds
                 try:
+                    # concheck: ok(blocking-under-lock) — by design: the
+                    # stripe lock serializes this connection's byte
+                    # stream, so every write on it happens under the
+                    # lock (see the _Stripe GUARDS contract)
                     self.sock.sendall(_pack_raw(0, 0, 0, 0, 0, 0, SHM_RETIRE))
                 except OSError:
                     pass
@@ -891,6 +932,10 @@ class BulkClient:
     least); the control ring takes at most 4 MiB on top. ``SHM_BULK=0``
     disables the rings."""
 
+    # _rr is deliberately unlisted: the round-robin counter's data race
+    # is benign (it only spreads load) and documented at the use site.
+    GUARDS = {"_stripes": "_lock"}
+
     def __init__(self, host: str) -> None:
         self.host = host
         self._lock = threading.Lock()
@@ -918,20 +963,26 @@ class BulkClient:
             return s
 
     def _pick(self, nbytes: int, seq: int) -> _Stripe:
-        # Unlocked fast path: a dict read of add-only entries, the
-        # locked _stripe() on a miss
         if BULK_STRIPES == 0 or nbytes < BULK_THRESHOLD or seq < 0:
+            # concheck: ok(guard-unlocked) — documented lock-free
+            # per-message fast path: dict.get on a GIL-atomic dict whose
+            # values are only ever added, with the locked _stripe() as
+            # the miss path
             s = self._stripes.get(0)
             return s if s is not None else self._stripe(0)
         # A race on the counter only spreads load
         self._rr = rr = (self._rr + 1) % BULK_STRIPES
-        s = self._stripes.get(1 + rr)
+        s = self._stripes.get(1 + rr)  # concheck: ok(guard-unlocked)
         return s if s is not None else self._stripe(1 + rr)
 
     def small_frames_ok(self) -> bool:
         """Whether sub-threshold frames should come here: the control
         stripe has (or can set up) a live shm ring. Dials on first use;
         an OSError reaches the broker, which marks the plane down."""
+        # Lock-free fast path — this runs per small message once the
+        # ring is up, and must cost a dict read + an attribute read
+        # concheck: ok(guard-unlocked) — same GIL-atomic add-only dict
+        # contract as _pick; ring/ring_refused reads are monotonic flags
         s = self._stripes.get(0)
         if s is not None:
             if s.ring is not None:
@@ -1022,6 +1073,10 @@ class BulkClient:
             if mode != "raw":
                 stripe = self._stripe(self._pin_idx(
                     group_id, send_idx, recv_idx, channel))
+                # concheck: ok(guard-unlocked) — monotonic ring flag
+                # read, same contract as small_frames_ok: a ring that
+                # appears after this check only delays coding by one
+                # frame, never corrupts it
                 if stripe.ring is None:
                     parts = [np.frombuffer(v, dtype=np.uint8)
                              for v in views]

@@ -17,6 +17,11 @@ class ClientPool(Generic[T]):
     # The host → client map is shared by every dispatching thread;
     # close() runs outside the lock, since it waits on socket teardown
 
+    # Concurrency contract (analysis/concheck.py): the host→client map is
+    # shared by every dispatching thread. Note close() happens OUTSIDE
+    # the lock on purpose — a client close blocks on network teardown.
+    GUARDS = {"_clients": "_lock"}
+
     def __init__(self, factory: Callable[[str], T]) -> None:
         self._factory = factory
         self._clients: dict[str, T] = {}

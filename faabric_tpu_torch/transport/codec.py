@@ -294,11 +294,20 @@ class SenderDeltaCache:
     SAME sequence number (the ordered-recv path then heals the gap).
     """
 
-    # Concurrency contract: every structure is mutated under _lock.
-    # Callers also hold the owning stripe's lock (lock order
-    # stripe.lock → _lock, see _Stripe): encode and the NACK-heal
-    # resends must serialize so base/delta wire order matches cache
-    # order — _lock guards the STRUCTURES, the stripe lock the PROTOCOL.
+    # Concurrency contract (analysis/concheck.py): every structure is
+    # mutated under _lock. Callers additionally hold the owning
+    # stripe's lock (lock order stripe.lock → _lock, see _Stripe):
+    # encode and the NACK-heal resends must serialize against each
+    # other so base/delta wire order matches cache order — _lock alone
+    # guards the STRUCTURES, the stripe lock guards the PROTOCOL.
+    GUARDS = {
+        "_streams": "_lock",
+        "_bytes": "_lock",
+        "_lru": "_lock",
+        "reused": "_lock",
+        "reused_bytes": "_lock",
+        "reconstructed": "_lock",
+    }
 
     def __init__(self, budget_bytes: int | None = None) -> None:
         self._lock = threading.Lock()
@@ -650,6 +659,12 @@ class ReceiverDeltaCache:
     side). ``decode`` returns the raw payload array, or None when the
     frame cannot be decoded safely (caller NACKs)."""
 
+    GUARDS = {
+        "_streams": "_lock",
+        "_bytes": "_lock",
+        "_lru": "_lock",
+    }
+
 
     def __init__(self, budget_bytes: int | None = None) -> None:
         self._lock = threading.Lock()
@@ -877,6 +892,16 @@ class WireCodecGovernor:
     exercise the codec plane on loopback; ``raw``/``off`` disables it.
     Decisions are cached per (host, link, size-class) and re-evaluated
     every comm-matrix window."""
+
+    # Concurrency contract: the decision cache is read/written from
+    # every sending thread; the mode/threshold fields are set once in
+    # __init__ (or under _lock by set_mode) and read lock-free as
+    # immutable snapshots.
+    GUARDS = {
+        "_decisions": "_lock",
+        "_matrix_cells": "_lock",
+        "_matrix_expires": "_lock",
+    }
 
     WINDOW_SECONDS = 5.0
 

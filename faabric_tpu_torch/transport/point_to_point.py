@@ -141,6 +141,28 @@ class PointToPointBroker:
     """One host's view of its groups. Instantiable per host identity, so
     several hosts can run side by side in one process."""
 
+    # Concurrency contract (analysis/concheck.py). The broker is the
+    # hottest lock in the tree, so it keeps documented LOCK-FREE fast
+    # paths over GIL-atomic add-only dicts — those carry line pragmas
+    # at the use sites; everything else goes through self._lock. The
+    # reference's _ooo and _unseq staging maps are left out: the port's
+    # ordered receive keeps no out-of-order or unsequenced backlog.
+    GUARDS = {
+        "_mappings": "_lock",
+        "_flags": "_lock",
+        "_queues": "_lock",
+        "_sent_seq": "_lock",
+        "_recv_seq": "_lock",
+        "_groups": "_lock",
+        "_clients": "_lock",
+        "_bulk_clients": "_lock",
+        "_bulk_down_until": "_lock",
+        "_shm_peers": "_lock",
+        "_watched": "_lock",
+        "_aborted": "_lock",
+        "_peer_ok_until": "_lock",
+    }
+
     def __init__(self, host: str) -> None:
         self.host = host
         self._lock = threading.RLock()
@@ -327,9 +349,23 @@ class PointToPointBroker:
                 logger.debug("Bulk send to %s unavailable (%s); using "
                              "RPC plane for %.0fs", dst_host, e,
                              self.BULK_RETRY_SECONDS)
+        from faabric_tpu_torch.transport.client import RpcError
+
         t0 = time.monotonic()
-        self._get_client(dst_host).send_message(
-            group_id, send_idx, recv_idx, wire, seq, channel)
+        try:
+            self._get_client(dst_host).send_message(
+                group_id, send_idx, recv_idx, wire, seq, channel)
+        except RpcError as e:
+            if self._is_watched(group_id):
+                # A send to a watched peer that failed for good (the
+                # client's retries and breaker already ran) dooms the
+                # whole group: one typed abort, sent to the peers and
+                # relayed through the planner, instead of a transport
+                # error on this rank and a hang on the far side
+                reason = f"send to {dst_host} failed: {e}"
+                self.abort_group(group_id, reason)
+                raise GroupAbortedError(group_id, reason) from e
+            raise
         _COMM.record(send_idx, recv_idx, "ptp", nbytes,
                      time.monotonic() - t0)
         if _FLIGHT is not NULL_FLIGHT:
@@ -484,7 +520,8 @@ class PointToPointBroker:
             return client
 
     def _get_bulk_client(self, host: str):
-        client = self._bulk_clients.get(host)  # unlocked per-message read
+        # concheck: ok(guard-unlocked) — documented fast path
+        client = self._bulk_clients.get(host)  # lock-free per-message path
         if client is not None:
             return client
         from faabric_tpu_torch.transport.bulk import BulkClient
@@ -502,7 +539,7 @@ class PointToPointBroker:
     def _shm_peer(self, host: str) -> bool:
         """Whether ``host`` is this machine and shm rings are usable:
         the rule for the small-frame fast path. Cached a host."""
-        cached = self._shm_peers.get(host)  # unlocked per-message read
+        cached = self._shm_peers.get(host)  # concheck: ok(guard-unlocked)
         if cached is not None:
             return cached
         from faabric_tpu_torch.transport import shm
@@ -517,6 +554,9 @@ class PointToPointBroker:
         return result
 
     def _bulk_down(self, host: str) -> bool:
+        # GIL-atomic dict read — this runs per message on the send hot
+        # path now that small frames route through the bulk plane
+        # concheck: ok(guard-unlocked)
         until = self._bulk_down_until.get(host, 0.0)
         return until > 0.0 and time.monotonic() < until
 
@@ -535,7 +575,8 @@ class PointToPointBroker:
             self._watched.add(group_id)
 
     def _is_watched(self, group_id: int) -> bool:
-        return group_id in self._watched  # unlocked per-recv read
+        # GIL-atomic set membership; per-message hot path
+        return group_id in self._watched  # concheck: ok(guard-unlocked)
 
     def abort_group(self, group_id: int, reason: str,
                     propagate: bool = True) -> None:

@@ -60,13 +60,6 @@ class PointToPointCall(enum.IntEnum):
     ABORT_GROUP = 8
 
 
-_LOCK_CALLS = {
-    PointToPointCall.LOCK_GROUP: (True, False),
-    PointToPointCall.LOCK_GROUP_RECURSIVE: (True, True),
-    PointToPointCall.UNLOCK_GROUP: (False, False),
-    PointToPointCall.UNLOCK_GROUP_RECURSIVE: (False, True),
-}
-
 _CHANNELS = ((0, "data"), (1, "coord"))
 _RPC_FRAMES = {
     channel: get_metrics().counter(
@@ -233,8 +226,16 @@ class PointToPointServer(MessageEndpointServer):
         if code == PointToPointCall.MESSAGE:
             self.broker.deliver(h["group_id"], h["send_idx"], h["recv_idx"],
                                 msg.payload, msg.seqnum, h.get("channel", 0))
-        elif code in _LOCK_CALLS:
-            is_lock, recursive = _LOCK_CALLS[code]
+        elif code in (PointToPointCall.LOCK_GROUP,
+                      PointToPointCall.LOCK_GROUP_RECURSIVE,
+                      PointToPointCall.UNLOCK_GROUP,
+                      PointToPointCall.UNLOCK_GROUP_RECURSIVE):
+            # The dispatch names each member it serves, so that the
+            # protocol-drift pass sees the handlers
+            is_lock = code in (PointToPointCall.LOCK_GROUP,
+                               PointToPointCall.LOCK_GROUP_RECURSIVE)
+            recursive = code in (PointToPointCall.LOCK_GROUP_RECURSIVE,
+                                 PointToPointCall.UNLOCK_GROUP_RECURSIVE)
             # The mappings may still be on their way when the first lock
             # arrives
             try:

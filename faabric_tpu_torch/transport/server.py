@@ -72,6 +72,18 @@ _QUEUE_DEPTH = _metrics.gauge(
 
 
 class MessageEndpointServer:
+    # Concurrency contract (analysis/concheck.py): the connection set and
+    # per-connection reader threads are shared between the accept loops
+    # and stop(); the test latch is armed/fired across threads.
+    # Deliberately unlisted: _threads (the fixed worker/accept pool) and
+    # _running are start/stop sequenced, the listeners are write-once at
+    # start, and _work is an internally-synchronized queue.
+    GUARDS = {
+        "_conns": "_conn_lock",
+        "_conn_threads": "_conn_lock",
+        "_request_latch": "_latch_lock",
+    }
+
     def __init__(self, async_port: int, sync_port: int, label: str = "",
                  n_threads: int = 2, bind_host: str = "0.0.0.0") -> None:
         self.async_port = async_port

@@ -26,8 +26,17 @@ handler, or a userfaultfd with its event thread. Load them only in a
 process that owns its signal handling (a test runs them in a subprocess
 of its own).
 
-Not ported: the sanitizer builds that ``FAABRIC_NATIVE_SAN`` selects
-(``ROADMAP.md`` Queue 1 #8).
+``FAABRIC_NATIVE_SAN=tsan|asan`` builds every helper with the matching
+``-fsanitize`` flags (and ``-O1 -g``, no ``-march=native``) into a
+suffixed library (``libshmring.tsan.so``), so the sanitized and the
+normal builds never replace each other. A sanitized library loads only
+into an interpreter with the sanitizer's runtime preloaded
+(``LD_PRELOAD=$(g++ -print-file-name=libtsan.so)``); without it the
+loader refuses it like any other failed load (a warning, then the
+numpy or TCP path) rather than let ASan's runtime abort the process. The
+compile itself never runs under an inherited ``LD_PRELOAD``. The knob is
+read at each build; ``FAABRIC_NATIVE_BUILD_DIR`` moves the whole build
+directory (a sanitizer run builds into a temporary one).
 """
 
 from __future__ import annotations
@@ -50,6 +59,29 @@ _SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_ROOT = os.path.join(_REPO_ROOT, "build", "native")
+
+# FAABRIC_NATIVE_SAN=tsan|asan: the compile flags of each mode
+_SAN_FLAGS = {
+    "tsan": ("-fsanitize=thread", "-O1", "-g", "-fno-omit-frame-pointer"),
+    "asan": ("-fsanitize=address", "-O1", "-g",
+             "-fno-omit-frame-pointer"),
+}
+
+
+def _san_mode() -> str:
+    mode = os.environ.get("FAABRIC_NATIVE_SAN", "").strip().lower()
+    return mode if mode in _SAN_FLAGS else ""
+
+
+def _san_runtime_loaded(san: str) -> bool:
+    """Whether this process mapped lib<san>: dlopen of an ASan library
+    into a process without its runtime aborts the process, so the
+    loader asks first."""
+    try:
+        with open("/proc/self/maps") as f:
+            return any(f"lib{san}." in line for line in f)
+    except OSError:
+        return True  # cannot tell: let dlopen decide
 
 _lock = threading.Lock()
 # name -> loaded lib, or None after a failed attempt (one try a process)
@@ -74,17 +106,23 @@ def build_dir() -> str:
     except OSError:
         pass
     tag = hashlib.sha256("\n".join(ident).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_ROOT, tag)
+    root = os.environ.get("FAABRIC_NATIVE_BUILD_DIR") or BUILD_ROOT
+    return os.path.join(root, tag)
 
 
-def _compile(src: str, so: str, extra_args: tuple) -> None:
+def _compile(src: str, so: str, extra_args: tuple, san: str) -> None:
     os.makedirs(os.path.dirname(so), exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(so))
     os.close(fd)
+    opt = _SAN_FLAGS[san] if san else ("-O3", "-march=native")
+    # g++ under an inherited sanitizer preload runs every compiler pass
+    # through the interceptors: minutes instead of seconds
+    env = {k: v for k, v in os.environ.items() if k != "LD_PRELOAD"}
     try:
-        subprocess.run(["g++", "-O3", "-march=native", "-shared", "-fPIC",
+        subprocess.run(["g++", *opt, "-shared", "-fPIC",
                         src, "-o", tmp, *extra_args],
-                       check=True, capture_output=True, timeout=120)
+                       check=True, capture_output=True, timeout=120,
+                       env=env)
         os.replace(tmp, so)
     finally:
         if os.path.exists(tmp):
@@ -98,17 +136,25 @@ def _build_and_load(name: str, src_file: str, so_file: str,
                     fail_note: str) -> Optional[ctypes.CDLL]:
     """Compile if stale, load, declare, install; no lock held."""
     src = os.path.join(_SRC_DIR, src_file)
+    san = _san_mode()
+    if san:
+        so_file = f"{so_file.removesuffix('.so')}.{san}.so"
     so = os.path.join(build_dir(), so_file)
     if not os.path.exists(src):
         return None
     if not os.path.exists(so) or (os.path.getmtime(so)
                                   < os.path.getmtime(src)):
         try:
-            _compile(src, so, extra_args)
+            _compile(src, so, extra_args, san)
         except (subprocess.SubprocessError, OSError) as e:
             logger.warning("Native %s build failed (%s); %s",
                            name, e, fail_note)
             return None
+    if san and not _san_runtime_loaded(san):
+        logger.warning("Could not load %s: the %s runtime is not "
+                       "preloaded (LD_PRELOAD=$(g++ -print-file-name="
+                       "lib%s.so))", so, san, san)
+        return None
     try:
         lib = ctypes.CDLL(so)
     except OSError as e:

@@ -8,10 +8,11 @@ on the broken MPI world raises MpiWorldAborted in bounded time; the
 survivors leave flight dumps; an expired but live worker rejoins; a
 SIGKILLed planner restarts from its journal and the batch completes.
 Then the planned disruptions of ``tests/dist/test_lifecycle.py`` (``:41``,
-``:109``): an MPI world migrated under traffic, read back through the
-planner's ``/commmatrix``, and a spot freeze whose thaw restores the
-parked image on the other worker, the eviction sent through the REST
-endpoint.
+``:109``, ``:248``): an MPI world migrated under traffic, read back
+through the planner's ``/commmatrix``, a spot freeze whose thaw restores
+the parked image on the other worker, the eviction sent through the
+REST endpoint, and a directed partition of one worker pair by fault
+rules, which every rank survives with a bounded abort.
 
 Every case stands up its own cluster of ``tests/test_torch_procs.py``
 processes on a port slot of ``tests/conftest.py`` (the kill leaves no
@@ -756,6 +757,53 @@ def test_chaos_elastic_scale_up_down_mid_app():
         assert len(status.message_results) == 1 + sum(wave_sizes)
         assert all(m.return_value == int(ReturnValue.SUCCESS)
                    for m in status.message_results)
+    finally:
+        cluster.stop()
+
+
+@pytest.mark.slow
+def test_chaos_host_pair_partition_heals_bounded():
+    """A DIRECTED partition of one worker pair by fault rules
+    (``tests/dist/test_lifecycle.py:248``): w1 -> w0 dead on the RPC and
+    bulk planes through src/dest ctx matchers in ONE cluster-wide spec;
+    w0 -> w1 and every planner link alive. The sending side aborts its
+    MPI world in bounded time, and — since its direct abort broadcast
+    rides the very link that died — the far side can only learn through
+    the planner's out-of-band relay. Every rank reports a bounded abort
+    instead of hanging to the 60 s socket timeout."""
+    w0, w1 = "ckNw0", "ckNw1"
+    partition = ";".join([
+        # The RPC plane armed from boot: the abort broadcast must find
+        # the link already dead
+        f"transport.send=kill_conn@src={w1}@host={w0}@times=400",
+        # The bulk and shm data plane, from some rounds in
+        f"transport.bulk=kill_conn@src={w1}@dest={w0}@after=200@times=400",
+    ])
+    cluster = ChaosCluster(
+        "ckN", slots=(4, 4),
+        extra_env={"MPI_ABORT_CHECK_SECONDS": "1",
+                   "PLANNER_HOST_TIMEOUT": "30"},
+        worker_env={"FAABRIC_FAULTS": partition}).start()
+    try:
+        me = cluster.me
+        req = batch_exec_factory("dist", "mpi_partition", 1)
+        req.messages[0].mpi_rank = 0
+        me.planner_client.call_functions(req)
+
+        status = wait_finished(me, req.app_id, timeout=90)
+        assert status.expected_num_messages == 8
+        aborted = []
+        for m in status.message_results:
+            assert m.return_value == int(ReturnValue.SUCCESS), \
+                (m.mpi_rank, m.output_data)
+            assert m.output_data.startswith(b"aborted:"), m.output_data
+            aborted.append(float(m.output_data.split(b":")[1]))
+        # EVERY rank aborted, the side whose direct broadcast the
+        # partition swallowed too (the planner's relay)
+        assert len(aborted) == 8, aborted
+        # Under the 60 s socket timeout with margin: the check interval
+        # is 1 s and the relay one RPC hop
+        assert max(aborted) < 20.0, f"partition heal took {max(aborted)}s"
     finally:
         cluster.stop()
 

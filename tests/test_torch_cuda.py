@@ -1306,7 +1306,9 @@ def test_processes_step_on_the_card(cuda_device, monkeypatch):
     ranks' parameters after the first step are bitwise equal to phase
     22's on the same plane; the children's launches come back: 3 steps
     of 2 ranks a child, 2 children, 2 planes, every flash forward on
-    ``wgmma``. Phase 27 scrapes the live cluster after each plane."""
+    ``wgmma``. Phase 27 scrapes the live cluster after each plane; phase
+    28 serves 8 requests (2 layers, 32 new tokens each) across a
+    SIGKILLed child, all of them run once on the surviving one."""
     import chip_smoke
     from faabric_tpu_torch.models import ModelConfig
 
@@ -1317,7 +1319,9 @@ def test_processes_step_on_the_card(cuda_device, monkeypatch):
     launches = chip_smoke.processes_phase(cuda_device, _build, keep)
     L = ModelConfig().n_layers
     steps = 2 * 4 * 3  # planes x ranks x steps
+    served, serve_L, n_new = 8, 2, 32  # phase 28's requests
     assert launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == steps * L
     assert launches["flash_attention"] == launches["flash_attention.wgmma"] \
-        == steps * 2 * L
-    assert launches["rms_norm"] == steps * (4 * L + 1)
+        == steps * 2 * L + served * serve_L
+    assert launches["rms_norm"] == steps * (4 * L + 1) + served * (
+        2 * serve_L + 1) * (1 + n_new)

@@ -37,6 +37,17 @@ F32_RTOL = 1e-6
 F16_RTOL = 1e-5
 
 
+@pytest.fixture(autouse=True)
+def _forget_links():
+    """The reference's device plane records "device" rows in its comm
+    matrix: a later test in the worker (the reference's process cases
+    among them) must not read them."""
+    yield
+    from tests.test_torch_mpi_world import reset_reference_links
+
+    reset_reference_links()
+
+
 @pytest.fixture
 def worlds():
     ref, port = make_worlds(940)

@@ -539,7 +539,10 @@ def _refusing_port_pair() -> tuple[int, list]:
 def test_send_to_another_host_raises():
     """A send to a rank on a host that runs no point-to-point server
     raises to the sender at once (the connection is refused); it does
-    not hang or vanish."""
+    not hang or vanish. The world watches its group, so the refused
+    send aborts it, as the reference's broker does: the sender gets
+    MpiWorldAborted naming the host, caused by the transport's
+    RpcError."""
     from tests.conftest import next_port_base
 
     from faabric_tpu_torch.transport import (
@@ -566,8 +569,10 @@ def test_send_to_another_host_raises():
         d.add_message("hB", 2, 1, 1)
         broker.set_up_local_mappings_from_decision(d)
         world = MpiWorld(broker, 931, 2, 931)
-        with pytest.raises(RpcError, match="hB"):
+        with pytest.raises(MpiWorldAborted, match="hB") as err:
             world.send(0, 1, np.zeros(4, np.float32))
+        assert isinstance(err.value.__cause__, RpcError)
+        assert broker.group_aborted(931) == err.value.reason
     finally:
         broker.clear()
         clear_host_aliases()

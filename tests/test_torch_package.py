@@ -89,6 +89,45 @@ def test_importing_every_module_pulls_in_no_jax_and_no_faabric_tpu():
     assert out.stdout.strip().endswith("BAD []"), out.stdout
 
 
+ANALYSIS_MODULES = (
+    "faabric_tpu_torch.analysis", "faabric_tpu_torch.analysis.guards",
+    "faabric_tpu_torch.analysis.protodrift",
+    "faabric_tpu_torch.analysis.lockcheck",
+    "faabric_tpu_torch.analysis.concheck")
+
+
+def test_analysis_imports_only_the_standard_library():
+    """The concurrency suite is host code of the standard library alone:
+    no module of it names JAX, the JAX package or torch, and loading
+    all of them in a new interpreter loads none of those (so the
+    lock-order detector can install before anything creates a lock)."""
+    import ast
+
+    for mod in ANALYSIS_MODULES:
+        path = ROOT / Path(*mod.split(".")).with_suffix(".py")
+        if not path.exists():
+            path = ROOT / Path(*mod.split(".")) / "__init__.py"
+        names = set()
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names.add(node.module.split(".")[0])
+        assert names <= set(sys.stdlib_module_names) | {
+            "__future__", "faabric_tpu_torch"}, (mod, names)
+    code = (
+        "import importlib, sys\n"
+        f"for m in {ANALYSIS_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'faabric_tpu', 'torch', 'numpy'))\n"
+        "print('BAD', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("BAD []"), out.stdout
+
+
 OBSERVABILITY_MODULES = (
     "faabric_tpu_torch.endpoint", "faabric_tpu_torch.endpoint.http_server",
     "faabric_tpu_torch.endpoint.worker_endpoint",

@@ -14,7 +14,10 @@ chosen so that the gradient takes the flat ring over two hosts, as at
 full width, without patching the world's chunk size (the children would
 not see a patch). The kernels run only on the card; here the children
 count their plain norm and attention calls under the kernels' names, so
-that the launch counts they carry back can be checked.
+that the launch counts they carry back can be checked. The children run
+under the lock-order detector, and phase 28 (``kill_phase``) SIGKILLs
+one of them under a serving batch of a small model, whose requests the
+planner requeues onto the other.
 """
 
 import os
@@ -33,6 +36,8 @@ from tests.test_torch_multiprocess import port_slot  # noqa: E402
 SMALL = dict(vocab_size=4096, d_model=256, n_layers=2, n_heads=4, d_ff=512,
              max_seq=64, attention_impl="reference", norm_impl="reference")
 SEQ, STEPS = 32, 3
+# Phase 28's serving batch: 8 requests of SERVE_LEN tokens, N_NEW more
+SERVE_LEN, N_NEW = 16, 4
 
 # A worker child whose plain norm and attention count launches under the
 # kernels' names (the CPU runs no kernel), on one intra-op thread
@@ -79,7 +84,9 @@ def test_chip_smoke_processes_phase_small(monkeypatch):
     step are bitwise equal to phase 22's in-process step from the same
     start, and the four ranks' final parameters to each other; the
     children's launch counts come back and add up; they load nothing of
-    JAX or of the JAX package; no child outlives the phase. Both phases
+    JAX or of the JAX package and their lock-order detectors see no
+    cycle; phase 28's batch comes back whole across the SIGKILLed
+    child; no child outlives the phase. Both phases
     run their CPU arithmetic on one intra-op thread: a CPU reduction's
     order follows the threads that take part, which a loaded machine
     varies between processes (the card's kernels do not vary)."""
@@ -119,15 +126,19 @@ def _processes_phase_small(monkeypatch):
     try:
         launches = chip_smoke.processes_phase(
             torch.device("cpu"), _build, keep, cfg=cfg, seq=SEQ, steps=STEPS,
-            base=base, child_argv=[sys.executable, "-c", COUNTING_CHILD])
+            base=base, child_argv=[sys.executable, "-c", COUNTING_CHILD],
+            serve_cfg=cfg, serve_len=SERVE_LEN, n_new=N_NEW)
     finally:
         sentinel[0].close()
     assert _children_of(os.getpid()) <= before
 
     L = cfg.n_layers
     runs = 2 * chip_smoke.MPI_RANKS * STEPS  # planes x ranks x steps
-    assert launches == {"rms_norm": runs * (4 * L + 1),
-                        "flash_attention": runs * 2 * L}, launches
+    served = _serving_calls(cfg, monkeypatch)
+    assert launches == {
+        "rms_norm": runs * (4 * L + 1) + 8 * served["rms_norm"],
+        "flash_attention": runs * 2 * L + 8 * served["flash_attention"],
+    }, launches
     for plane in ("shm", "tcp"):
         same = [w for w in passed if w.startswith(f"26 ({plane}): rank ")
                 and "bitwise equal to phase 22's in-process step" in w]
@@ -149,6 +160,45 @@ def _processes_phase_small(monkeypatch):
         # The doctor runs as a subprocess once, on the last plane
         how = "as a subprocess" if plane == "tcp" else "in this process"
         assert any("exits 0 " + how in w for w in scraped), (plane, scraped)
+        # Both children ran the plane under the lock-order detector
+        clean = [w for w in passed if w.startswith(f"26 ({plane}): ")
+                 and "lock-order detector" in w and "saw no cycle" in w]
+        assert len(clean) == 2, passed
+    # Phase 28: the kill, the requeue and the recovery, all checked
+    killed = [w for w in passed if w.startswith("28: ")]
+    for what in ("the batch spread 4 + 4", "ran on mpi-host-b before the "
+                 "kill", "exited -9 on SIGKILL", "all 8 results SUCCESS",
+                 "carry the rqu stamp", "count rose by 1",
+                 "detector saw no held-before cycle"):
+        assert any(what in w for w in killed), (what, killed)
+    assert any(w == "26: the planner process stopped on SIGTERM with 0"
+               for w in passed), passed
+
+
+def _serving_calls(cfg, monkeypatch) -> dict:
+    """The counted norm and attention calls of one request of phase 28's
+    guest (its scores, then its greedy tokens) at ``cfg``."""
+    import faabric_tpu_torch.models.transformer as t
+    from faabric_tpu_torch.models import Transformer, forward, generate
+
+    calls = {"rms_norm": 0, "flash_attention": 0}
+
+    def counted(fn, name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    monkeypatch.setattr(t, "_rms_norm", counted(t._rms_norm, "rms_norm"))
+    monkeypatch.setattr(t, "_attention",
+                        counted(t._attention, "flash_attention"))
+    model = Transformer(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    prompt = torch.zeros(1, SERVE_LEN, dtype=torch.int64)
+    with torch.inference_mode():
+        forward(model, prompt)
+        generate(model, prompt, N_NEW)
+    return calls
 
 
 @pytest.mark.parametrize("argv", [["--worker-child", "{}"]])

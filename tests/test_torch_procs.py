@@ -513,6 +513,29 @@ class DistExecutor(Executor):
         msg.output_data = f"done:{time.monotonic() - t0:.1f}".encode()
         return int(ReturnValue.SUCCESS)
 
+    def fn_mpi_partition(self, msg, req):
+        """A network partition between a host pair (the reference's
+        ``tests/dist/procs.py:928``): loops small allreduces; when the
+        fault registry partitions this world's hosts (transport.send and
+        transport.bulk ``kill_conn`` with src/dest ctx matchers), the
+        abort machinery must surface MpiWorldAborted in bounded time,
+        reported as ``aborted:<seconds>`` on world 9200."""
+        from faabric_tpu_torch.mpi import MpiOp, MpiWorldAborted
+
+        world, rank = self._world(msg, 9200)
+        data = np.ones(1024, np.float32)
+        for _ in range(600):
+            t_round = time.monotonic()
+            try:
+                world.allreduce(rank, data, MpiOp.SUM)
+            except MpiWorldAborted:
+                elapsed = time.monotonic() - t_round
+                msg.output_data = f"aborted:{elapsed:.2f}".encode()
+                return int(ReturnValue.SUCCESS)
+            time.sleep(0.05)
+        msg.output_data = b"never-partitioned"
+        return int(ReturnValue.FAILED)
+
     @staticmethod
     def _all_to_all_round(world, rank, i) -> bool:
         """The reference's doAllToAll (tests/dist/mpi/mpi_native.cpp):

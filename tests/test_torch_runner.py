@@ -302,3 +302,93 @@ def test_runner_planner_serves_rest_endpoint_at_http_port():
     finally:
         planner.kill()
 
+
+
+def test_runner_roles_run_under_the_lock_order_detector():
+    """With ``FAABRIC_LOCKCHECK=1`` the planner and a worker (``--device
+    cpu``) run under the port's lock-order detector, installed before
+    the port's modules load (their module-level locks are checked too),
+    and each writes one ``lockcheck-report:`` line at its stop: no
+    held-before cycle, and the stop still exits 0."""
+    import ast
+    import json
+
+    from faabric_tpu_torch.analysis.lockcheck import REPORT_MARKER
+
+    # Offsets of the slot that no other cluster of the suite binds
+    # (tests/test_torch_procs_collectives.py)
+    def env(base):
+        return {**os.environ, "FAABRIC_LOCKCHECK": "1",
+                "FAABRIC_HOST_ALIASES": f"lcpl=127.0.0.1+{base + 300},"
+                                        f"lcw=127.0.0.1+{base + 1500}"}
+
+    from tests.test_torch_mpi import _hold_ports
+    from tests.test_torch_multiprocess import _service_ports, port_slot
+
+    # Both roles up on one slot, moving to another slot when a port was
+    # taken while an interpreter started
+    planner = worker = None
+    for _ in range(5):
+        base = port_slot()
+        free = _hold_ports((base + off + p for off in (300, 1500)
+                            for p in _service_ports()))
+        for sock in free:
+            sock.close()
+        if not free:
+            continue
+        planner = RunnerProc(["planner", "--port-offset", str(base + 300)],
+                             env(base))
+        if planner.wait_for("Planner up"):
+            worker = RunnerProc(["worker", "--host", "lcw", "--slots", "2",
+                                 "--planner-host", "lcpl", "--device",
+                                 "cpu"], env(base))
+            if worker.wait_for("Worker lcw up"):
+                break
+            worker.kill()
+        planner.kill()
+        planner = worker = None
+    assert planner is not None and worker is not None, \
+        "the roles never came up on a free slot"
+    try:
+        reports = {}
+        for name, proc, sig in (("worker", worker, signal.SIGINT),
+                                ("planner", planner, signal.SIGTERM)):
+            proc.proc.send_signal(sig)
+            assert proc.proc.wait(60) == 0, proc.log
+            while proc.lines.get(timeout=60) is not None:
+                pass  # the whole log, up to the end of its stderr
+            lines = [ln for ln in proc.log if ln.startswith(REPORT_MARKER)]
+            assert len(lines) == 1, proc.log[-20:]
+            reports[name] = json.loads(lines[0][len(REPORT_MARKER):])
+    finally:
+        for p in (worker, planner):
+            if p is not None:
+                p.kill()
+    for name, rep in reports.items():
+        assert rep["cycles"] == [], (name, rep)
+        assert rep["sites"] > 10 and rep["longest_holds"], (name, rep)
+
+    # Installed before the port loads: the entry point's import checks
+    # every module-level lock of the roles' modules (telemetry's leaf
+    # locks are exempt by design)
+    script = (
+        "import sys, faabric_tpu_torch.runner.__main__\n"
+        "from faabric_tpu_torch.runner import WorkerRuntime\n"
+        "from faabric_tpu_torch.planner import PlannerServer\n"
+        "import _thread\n"
+        "kinds = (type(_thread.allocate_lock()), type(_thread.RLock()))\n"
+        "seen = {f'{n}.{k}': type(v).__name__\n"
+        "        for n, m in list(sys.modules.items())\n"
+        "        if n.startswith('faabric_tpu_torch.')\n"
+        "        and not n.startswith('faabric_tpu_torch.telemetry')\n"
+        "        for k, v in vars(m).items()\n"
+        "        if isinstance(v, kinds) or type(v).__name__ in\n"
+        "        ('_CheckedLock', '_CheckedRLock')}\n"
+        "print(sorted(seen.items()))\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         env={**os.environ, "FAABRIC_LOCKCHECK": "1"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    seen = dict(ast.literal_eval(out.stdout.strip().splitlines()[-1]))
+    assert len(seen) > 10 and all(v.startswith("_Checked")
+                                  for v in seen.values()), seen

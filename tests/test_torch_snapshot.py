@@ -213,6 +213,35 @@ import torch  # noqa: E402
 
 pytest.importorskip("jax")
 
+
+def _build_reference_native_once() -> None:
+    """Build the JAX package's native helpers before its
+    ``tests/unit/test_snapshot.py`` is collected. That module picks its
+    tracker cases by loading ``libsegvtracker.so`` and
+    ``libuffdtracker.so`` while it is collected, and its loader compiles
+    straight into ``native/build/``: in a fresh checkout every xdist
+    worker compiles at once, one can load a library another is still
+    writing, and it then collects other cases than its peers (xdist
+    refuses the run). This module is collected first in every worker;
+    here the workers build one at a time under a file lock, in a
+    subprocess (the trackers install process-wide state), and the later
+    ones find the libraries built."""
+    import fcntl
+
+    lock_dir = ROOT / "native" / "build"
+    lock_dir.mkdir(parents=True, exist_ok=True)
+    with open(lock_dir / ".collect.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        subprocess.run(
+            [sys.executable, "-c",
+             "from faabric_tpu.util import native as n\n"
+             "n.get_shmring_lib(); n.get_pagediff_lib()\n"
+             "n.get_segv_lib(); n.get_uffd_lib()\n"],
+            cwd=ROOT, capture_output=True, timeout=600)
+
+
+_build_reference_native_once()
+
 import faabric_tpu.device_plane.copies as ref_copies  # noqa: E402
 import faabric_tpu.snapshot as ref_snapshot  # noqa: E402
 import faabric_tpu.snapshot.device_snapshot as ref_devsnap  # noqa: E402

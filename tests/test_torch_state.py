@@ -106,6 +106,12 @@ def _isolate(tmp_path, monkeypatch):
     monkeypatch.undo()
     for pk in (REF, PORT):
         pk.config.get_system_config().reset()
+    # Replication records "state" rows in each package's comm matrix: a
+    # later test in the worker (the reference's process cases among
+    # them) must not read them
+    from tests.test_torch_mpi_world import reset_reference_links
+
+    reset_reference_links()
 
 
 def set_env(monkeypatch, **env):

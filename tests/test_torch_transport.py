@@ -527,6 +527,47 @@ def test_mock_mode_records_ptp():
         (int(PointToPointCall.UNLOCK_GROUP_RECURSIVE), "phantom", 77, 2)]
 
 
+@pytest.mark.parametrize("watched", [True, False])
+def test_failed_send_to_a_watched_peer_aborts_the_group(watched):
+    """A send whose RPC fails for good (retries and breaker spent) aborts
+    a watched group — an MPI world — with one typed GroupAbortedError
+    that names the dead link and goes to the peers; an unwatched group
+    sees the transport error itself. (The port raised the RpcError in
+    both cases, so a directed partition left the far side of an MPI
+    world waiting on a sender that had given up.)"""
+    from faabric_tpu_torch.transport import GroupAbortedError
+    from faabric_tpu_torch.transport.client import RpcError
+
+    broker = PointToPointBroker("near")
+    broker.set_up_local_mappings_from_decision(
+        make_decision(19, [("near", 0), ("far", 1)]))
+    if watched:
+        broker.watch_group(19)
+    calls = []
+
+    class DeadLink:
+        def send_message(self, *args):
+            calls.append(("send", args[:3]))
+            raise RpcError("async send to far:8009 failed: refused")
+
+        def abort_group(self, group_id, reason):
+            calls.append(("abort", group_id))
+
+    broker._shm_peer = lambda host: False  # the RPC plane, no dial
+    broker._get_client = lambda host: DeadLink()
+    want = GroupAbortedError if watched else RpcError
+    with pytest.raises(want) as err:
+        broker.send_message(19, 0, 1, b"x" * 64)
+    if watched:
+        assert err.value.reason == ("send to far failed: async send to "
+                                    "far:8009 failed: refused")
+        assert broker.group_aborted(19) == err.value.reason
+        assert calls == [("send", (19, 0, 1)), ("abort", 19)]
+    else:
+        assert broker.group_aborted(19) is None
+        assert calls == [("send", (19, 0, 1))]
+
+
 def test_abort_wakes_blocked_receivers():
     broker = PointToPointBroker("solo")
     broker.set_up_local_mappings_from_decision(
