@@ -92,7 +92,13 @@ plane's steps the planner's REST endpoint (``/metrics``, ``/trace``,
 ``/commmatrix``, ``/healthz``, ``/topology``, ``/profile`` and the rest)
 and the workers' own endpoints are scraped and held against the
 children's counters, and the doctor, timeline, statemap, profile and
-flightdump CLIs read them. Then a worker process is SIGKILLed under a
+flightdump CLIs read them. The two worker processes also join a
+2-process device plane through the planner at boot, and a gang of 2 + 2
+ranks across them runs on it: int32 collectives against the host ring,
+the flagship gradient's fp32 allreduce resident on the card, its bytes
+crossing the processes through CUDA IPC windows, against the
+single-process plane's fold, and the ring permute whose kernel writes
+into the other process's window. Then a worker process is SIGKILLed under a
 serving batch: 8 requests of the full-width model at 2 layers over the
 two worker processes, the share of one held in its guests when that
 process is killed; the planner finds the lost host by its host timeout
@@ -4450,11 +4456,13 @@ class JsonChild:
         self.proc.stdin.write(line.encode() + b"\n")
         self.proc.stdin.flush()
 
-    def stop(self) -> None:
-        """Close its standard input and wait for a clean exit."""
+    def stop(self) -> dict:
+        """Close its standard input and wait for a clean exit; returns
+        its ``stopped`` line."""
         self.proc.stdin.close()
-        self.expect("stopped", 60)
+        line = self.expect("stopped", 60)
         check(self.proc.wait(60) == 0, f"{self.label} exited 0")
+        return line
 
     def kill(self) -> None:
         if self.proc.poll() is None:
@@ -5631,6 +5639,261 @@ def migration_phase(dev, build, cfg=None, per_rank: int = 2,
     return launches
 
 
+# Phase 29's int32 payload a rank (divisible by the 4 ranks)
+XPROC_INT_ELEMS = 4096
+# Phase 29's timed rounds of each kind (after one checked round)
+XPROC_ITERS = 5
+
+
+def rank_event_ms(fn, iters: int, dev) -> tuple:
+    """``iters`` calls of ``fn`` on a rank's thread, each timed by a CUDA
+    event pair on the thread's current stream (host clock on the CPU):
+    (the last call's result, the ms of each call). A collective's time
+    runs from this rank's arrival to its result being ready."""
+    ms, res = [], None
+    for _ in range(iters):
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = fn()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            res = fn()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return res, ms
+
+
+def register_xproc_guests(job: dict) -> None:
+    """Phase 29's guest, ``mpi/plane_xproc``: one rank of a world whose
+    ranks live in two worker processes of one device plane. First the
+    host ring's int32 ``allreduce``, ``allgather`` and ``reduce_scatter``;
+    then the plane, activated explicitly on the rank's device; the same
+    three on it (bitwise against the host ring and numpy); a
+    device-resident fp32 allreduce of ``job["elems"]`` elements a rank
+    (the inputs from ``torch.Generator`` seeds ``job["seed"] + rank`` on
+    the device): a warm-up round, which grows the exchange's windows,
+    then ``XPROC_ITERS`` rounds timed by CUDA events on the rank's
+    stream, with the host↔device copies and the bytes on rings and bulk
+    TCP counted around them; then the ring permute (shift 1) at that
+    size against its plain version over the regenerated inputs, and
+    ``XPROC_ITERS`` timed hops, each a round (the rank's arrival to its
+    result) and, from the plane's summary, the ring kernel's launch
+    alone in this process. Returns JSON: its host, the verdict, the
+    plane's summary, the checks, the result's digest, the times."""
+    from faabric_tpu_torch.device_plane import device_copy_totals
+    from faabric_tpu_torch.executor import register_function
+    from faabric_tpu_torch.mpi import MpiOp
+    from faabric_tpu_torch.ops.ring_permute import _reference_ring_permute
+
+    @register_function("mpi", "plane_xproc")
+    def plane_xproc(ctx):
+        world = ctx.mpi_world()
+        rank = ctx.message.mpi_rank
+        dev = ctx.device
+        n = world.size
+        out = {"rank": rank, "host": world.host_for_rank(rank)}
+        rng = np.random.default_rng(29)
+        ints = [rng.integers(-9999, 9999, XPROC_INT_ELEMS).astype(np.int32)
+                for _ in range(n)]
+        k = XPROC_INT_ELEMS // n
+
+        def three():
+            return (world.allreduce(rank, ints[rank].copy(), MpiOp.SUM),
+                    world.allgather(rank, ints[rank][:64].copy()),
+                    world.reduce_scatter(rank, ints[rank].copy(), MpiOp.SUM))
+
+        host = three()
+        out["active"] = world.activate_device_plane(rank, device=dev)
+        plane = world.device_plane()
+        if plane is None:
+            return json.dumps(out).encode()
+        summary = plane.summary()
+        out["plane"] = {key: summary[key] for key in (
+            "process_index", "process_count", "size", "device")}
+        got = three()
+        want = (sum(ints), np.concatenate([a[:64] for a in ints]),
+                sum(ints)[rank * k:(rank + 1) * k])
+        out["int32"] = {
+            kind: bool(g.dtype == np.int32 and np.array_equal(g, h)
+                       and np.array_equal(g, w)
+                       and world.rungs[rank, kind] == "device")
+            for kind, g, h, w in zip(("allreduce", "allgather",
+                                      "reduce_scatter"), got, host, want)}
+
+        def make(r):
+            return torch.randn(job["elems"], device=dev,
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(job["seed"] + r))
+
+        x = make(rank)
+        world.allreduce(rank, x, MpiOp.SUM)  # the windows grow here
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        world.barrier(rank)
+        c0, b0 = device_copy_totals(), plane_bytes()
+        y, out["allreduce_ms"] = rank_event_ms(
+            lambda: world.allreduce(rank, x, MpiOp.SUM), XPROC_ITERS, dev)
+        c1, b1 = device_copy_totals(), plane_bytes()
+        out["copies"] = [c1["count"] - c0["count"], c1["bytes"] - c0["bytes"]]
+        out["host_bytes"] = [b1["shm"] - b0["shm"], b1["tcp"] - b0["tcp"]]
+        out["resident"] = bool(y.device == dev and world.rungs[
+            rank, "allreduce"] == "device")
+        out["digest"] = _digest(y)
+        del y
+        world.barrier(rank)
+        hop = plane.ring_permute(rank, x, 1)
+        ins = [make(r) for r in range(n)]
+        outs = [torch.empty_like(t) for t in ins]
+        _reference_ring_permute(ins, outs, 1)
+        out["ring_bitwise"] = bool(torch.equal(hop, outs[rank]))
+        del ins, outs, hop
+        world.barrier(rank)
+        _, out["ring_ms"] = rank_event_ms(
+            lambda: plane.ring_permute(rank, x, 1), XPROC_ITERS, dev)
+        world.barrier(rank)
+        # The process's launches of the timed hops, the kernel alone
+        out["ring_kernel_ms"] = plane.summary()["ring_kernel_ms"][
+            -XPROC_ITERS:]
+        return json.dumps(out).encode()
+
+
+def xproc_phase(dev, children: dict, client,
+                elems: int = GRAD_ELEMS) -> dict:
+    """Phase 29: the device plane across phase 26's two worker processes,
+    which joined a 2-process plane through the planner at boot. A gang of
+    4 ranks (2 a process) of :func:`register_xproc_guests`' guest; the
+    children's launches since the last report are read first, so that
+    the gang's alone come back after it. Checked: the ranks split 2 + 2,
+    the plane activated on every rank over 2 processes; its int32
+    allreduce, allgather and reduce_scatter bitwise against the host ring
+    and numpy; the resident fp32 allreduce of ``elems`` a rank (the
+    flagship's gradient by default) stayed on the device with zero
+    host↔device copies and zero bytes on rings or bulk TCP, and is
+    bitwise equal to the single-process plane's fold of the same inputs
+    (computed here); the ring permute across the processes bitwise
+    against its plain version, with one ring launch a round in each
+    process (on the card). Logs the cross-process times beside the
+    single-process plane's at the same size. Returns the children's
+    launches."""
+    from faabric_tpu_torch.device_plane import DevicePlane
+    from faabric_tpu_torch.mpi import MpiOp
+
+    log("phase 29: the device plane across the worker processes")
+    on_card = dev.type == "cuda"
+    if on_card:
+        log("  29 card: " + subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip())
+    for c in children.values():
+        c.send("launches")
+        c.expect("launches", 60)
+    results, wall = run_gang(client.planner_client, "plane_xproc", MPI_RANKS)
+    outs = guest_outputs(results, "29")
+    check(sorted(o["host"] for o in outs) == sorted(
+        h for h, k in PLANES_HOSTS.items() for _ in range(k)),
+        "29: 4 ranks split 2 + 2 across the processes")
+    check(all(o["active"] and o["plane"]["process_count"] == 2
+              and o["plane"]["size"] == MPI_RANKS for o in outs),
+          f"29: the plane activated on every rank over 2 processes "
+          f"({[o.get('plane') for o in outs]})")
+    check(len({o["plane"]["process_index"] for o in outs}) == 2,
+          "29: the ranks' plane process indices split 2 + 2")
+    for kind in ("allreduce", "allgather", "reduce_scatter"):
+        check(all(o["int32"][kind] for o in outs),
+              f"29: int32 {kind} on the plane across the processes bitwise "
+              f"against the host ring and numpy")
+    check(all(o["resident"] for o in outs),
+          "29: the fp32 allreduce stayed on the device rung")
+    check(all(o["copies"] == [0, 0] for o in outs),
+          f"29: the resident fp32 allreduce of {elems:,} elements a rank "
+          f"made zero host<->device copies ({[o['copies'] for o in outs]})")
+    check(all(o["host_bytes"] == [0, 0] for o in outs),
+          f"29: and put zero bytes on rings and bulk TCP "
+          f"({[o['host_bytes'] for o in outs]})")
+    check(all(o["ring_bitwise"] for o in outs),
+          "29: the ring permute across the processes is bitwise its plain "
+          "version")
+
+    # The single-process plane on the same inputs, in this process
+    ins = [torch.randn(elems, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(2900 + r)) for r in range(MPI_RANKS)]
+    plane = DevicePlane(2929, [dev] * MPI_RANKS, range(MPI_RANKS), 0)
+    single = run_ranks(MPI_RANKS, lambda r: plane.allreduce(
+        r, ins[r], MpiOp.SUM))
+    want = _digest(single[0])
+    check(all(_digest(single[r]) == want for r in range(MPI_RANKS)),
+          "29: the single-process plane's ranks agree")
+    del single
+    check(all(o["digest"] == want for o in outs),
+          f"29: the cross-process fp32 allreduce ({elems * 4:,} bytes a "
+          f"rank) is bitwise equal to the single-process plane's fold")
+    launches: dict = {}
+    for h, c in children.items():
+        c.send("launches")
+        got = c.expect("launches", 60)["launches"]
+        if on_card:
+            check(got.get("ring_permute", 0) == XPROC_ITERS + 1,
+                  f"29: the ring kernel launched {got.get('ring_permute', 0)}"
+                  f" times in the {h} process = one a ring round "
+                  f"({XPROC_ITERS + 1})")
+        for key, v in got.items():
+            launches[key] = launches.get(key, 0) + v
+    if on_card:
+        def single_ms(fn):
+            # As the guests time theirs: each rank thread's own events
+            got = run_ranks(MPI_RANKS, lambda r: rank_event_ms(
+                lambda: fn(r), XPROC_ITERS, dev)[1])
+            return [t for r in range(MPI_RANKS) for t in got[r]]
+
+        ar1 = single_ms(lambda r: plane.allreduce(r, ins[r], MpiOp.SUM))
+        ring1 = single_ms(lambda r: plane.ring_permute(r, ins[r], 1))
+        ar2 = [t for o in outs for t in o["allreduce_ms"]]
+        ring2 = [t for o in outs for t in o["ring_ms"]]
+        # One launch a process: each process's ranks report the same
+        kern = {o["host"]: o["ring_kernel_ms"] for o in outs}
+        kern2 = [t for h in sorted(kern) for t in kern[h]]
+        check(len(kern2) == len(kern) * XPROC_ITERS,
+              f"29: the ring kernel's own times came back, {XPROC_ITERS} "
+              f"a process ({len(kern2)})")
+        bound_ms = 2 * 2 * elems * 4 / HBM_BYTES_PER_S * 1e3
+        log(f"  29 allreduce of {elems:,} fp32 a rank x {MPI_RANKS} ranks, "
+            f"CUDA-event ms (median): across 2 processes "
+            f"{np.median(ar2):.4f} (by rank, first to last: "
+            + ", ".join(f"{t:.4f}" for t in ar2) + "); single-process "
+            f"plane {np.median(ar1):.4f} (" + ", ".join(
+                f"{t:.4f}" for t in ar1) + ")")
+        log(f"  29 ring kernel across the processes, its launch alone "
+            f"(2 shards of {elems:,} fp32 into a local output and a peer's "
+            f"IPC window), CUDA-event ms (median): "
+            f"{np.median(kern2):.4f} (by process: " + "; ".join(
+                f"{h} " + ", ".join(f"{t:.4f}" for t in kern[h])
+                for h in sorted(kern)) + f"); a launch reads "
+            f"{2 * elems * 4:,} bytes and writes as many, bound "
+            f"{bound_ms:.4f} ms")
+        log(f"  29 ring hop round of {elems:,} fp32 a rank (a rank's "
+            f"arrival to its result: rendezvous, the launch, syncs, "
+            f"barriers, the copy-out), CUDA-event ms (median): across 2 "
+            f"processes {np.median(ring2):.4f} (by rank: " + ", ".join(
+                f"{t:.4f}" for t in ring2) + "); single-process plane "
+            f"{np.median(ring1):.4f} (" + ", ".join(
+                f"{t:.4f}" for t in ring1) + ")")
+        log("  29 times: " + json.dumps({
+            "elems": elems, "xproc_allreduce_ms": float(np.median(ar2)),
+            "single_allreduce_ms": float(np.median(ar1)),
+            "xproc_ring_kernel_ms": float(np.median(kern2)),
+            "xproc_ring_kernel_bound_ms": bound_ms,
+            "xproc_ring_ms": float(np.median(ring2)),
+            "single_ring_ms": float(np.median(ring1))}))
+    del ins, plane
+    log(f"  29 gang through the planner: {wall:.1f} ms")
+    return launches
+
+
 def _digest(t: torch.Tensor) -> str:
     import hashlib
 
@@ -5647,13 +5910,16 @@ def worker_child(argv: list[str]) -> int:
     phase 22's guest (:func:`register_planes_guests`) while the planner
     starts; then it takes lines on its standard input and prints JSON
     lines. ``boot`` (once the planner serves) starts a ``WorkerRuntime``
-    and prints ``ready`` with the top-level modules it loaded; ``report
+    and prints ``ready`` with the top-level modules it loaded, the device
+    plane's summary and the seconds its join took; ``report
     <plane>`` prints ``report``: its ranks' parameters after the gang's
     first step (written to a file), the digests of their final
     parameters, the kernel launches and plane bytes since the last
     report, and the lock-order detector's summary; ``restart <SHM_BULK>
     [<slots>]`` restarts the runtime under that value (a fresh broker, so
-    fresh links), with ``slots`` slots when given; ``launches`` prints
+    fresh links), with ``slots`` slots when given, its ``ready`` line
+    adding the seconds of the shutdown, of the plane's leave within it
+    and of the boot; ``launches`` prints
     ``launches``: the kernel launches since the last report and the
     detector's summary. Phase 28's serving guest (phase 25's ``rst/serve``
     over ``spec["serve"]["cfg"]``, seeded as the parent's direct model)
@@ -5662,7 +5928,8 @@ def worker_child(argv: list[str]) -> int:
     process runs under the lock-order detector (installed before any
     module of the port loads); it exits 1 when the detector saw a
     held-before cycle. When its standard input closes it shuts the
-    runtime down and prints ``stopped``."""
+    runtime down and prints ``stopped`` with the seconds of its plane's
+    leave."""
     from faabric_tpu_torch.analysis import lockcheck
 
     lockcheck.install_from_env()
@@ -5687,6 +5954,8 @@ def worker_child(argv: list[str]) -> int:
                steps=spec["steps"], broadcast=False, exact=False, world={},
                first={})
     register_planes_guests(job)
+    register_xproc_guests({"elems": spec.get("xproc_elems", GRAD_ELEMS),
+                           "seed": 2900})
     host = spec["host"]
     serve = spec["serve"]
     scfg = ModelConfig(**{**serve["cfg"], "compute_dtype": getattr(
@@ -5711,12 +5980,20 @@ def worker_child(argv: list[str]) -> int:
     def boot():
         runtime = WorkerRuntime(host=host, slots=spec["slots"],
                                 factory=TorchExecutorFactory(dev.type),
-                                planner_host=spec["planner"])
+                                planner_host=spec["planner"],
+                                device_plane_size=spec.get("plane", 0),
+                                plane_devices=[dev])
         runtime.start()
         return runtime
 
-    def ready_line():
+    def ready_line(restart=None):
+        from faabric_tpu_torch.parallel import current_plane, plane_summary
+
         print(json.dumps({"ready": True, "host": host,
+                          "plane": (plane_summary() if current_plane()
+                                    else None),
+                          "plane_join_s": runtime.plane_join_s,
+                          "restart": restart,
                           "modules": sorted({m.split(".")[0]
                                              for m in sys.modules})}),
               flush=True)
@@ -5763,17 +6040,24 @@ def worker_child(argv: list[str]) -> int:
                       flush=True)
                 build_launches = dict(_build.LAUNCHES)
             elif cmd == "restart":
+                t0 = time.perf_counter()
                 runtime.shutdown()
+                restart = {"shutdown_s": time.perf_counter() - t0,
+                           "plane_leave_s": runtime.plane_leave_s}
                 shm_bulk, _, slots = arg.partition(" ")
                 os.environ["SHM_BULK"] = shm_bulk
                 if slots:
                     spec["slots"] = int(slots)
+                t0 = time.perf_counter()
                 runtime = boot()
-                ready_line()
+                restart["boot_s"] = time.perf_counter() - t0
+                ready_line(restart)
     finally:
         if runtime is not None:
             runtime.shutdown()
-    print(json.dumps({"stopped": True}), flush=True)
+    print(json.dumps({"stopped": True, "plane_leave_s": (
+        runtime.plane_leave_s if runtime is not None else None)}),
+        flush=True)
     # Under the detector: the report line on standard error, and 1 for
     # a held-before cycle
     return lockcheck.finish()
@@ -6036,6 +6320,21 @@ def _planner_scrape(base_url: str, family: str) -> float:
                if ln.startswith(family + "{") and 'host="planner"' in ln)
 
 
+def _s(x) -> str:
+    return "none" if x is None else f"{x:.3f}"
+
+
+def log_restarts(tag: str, readies: dict) -> None:
+    """Each child's restart from its ``ready`` line: the shutdown with
+    the device plane's leave within it, the boot with the plane's join
+    (the planner's roster and the rendezvous with the other child)."""
+    log(f"  {tag} restart (s): " + "; ".join(
+        f"{h} shutdown {_s(r['restart']['shutdown_s'])} (plane leave "
+        f"{_s(r['restart']['plane_leave_s'])}), boot "
+        f"{_s(r['restart']['boot_s'])} (plane join {_s(r['plane_join_s'])})"
+        for h, r in readies.items()))
+
+
 def kill_phase(dev, children: dict, dead: list, client, base_url: str,
                serve_cfg, serve_len: int, n_new: int) -> dict:
     """Phase 28: a serving batch across phase 26's live worker processes,
@@ -6084,8 +6383,8 @@ def kill_phase(dev, children: dict, dead: list, client, base_url: str,
     del model
     for c in children.values():
         c.send("restart 0 4")
-    for c in children.values():
-        c.expect("ready", 180)
+    log_restarts("28", {h: c.expect("ready", 180)
+                        for h, c in children.items()})
     # The launch counts of the batch start here
     for c in children.values():
         c.send("launches")
@@ -6163,7 +6462,9 @@ def kill_phase(dev, children: dict, dead: list, client, base_url: str,
 def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
                     seq: int = 512, steps: int = 3, base: int | None = None,
                     child_argv: list[str] | None = None, serve_cfg=None,
-                    serve_len: int = 512, n_new: int = 32) -> dict:
+                    serve_len: int = 512, n_new: int = 32,
+                    xproc_elems: int = GRAD_ELEMS,
+                    parts: tuple = ("26", "29", "28")) -> dict:
     """Phase 26: phase 22's two-host step with its hosts as OS
     processes. The planner is ``python -m faabric_tpu_torch.runner
     planner`` and ``mpi-host-a`` and ``mpi-host-b`` are ``chip_smoke.py
@@ -6196,9 +6497,14 @@ def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
     timeout is ``PROCESS_HOST_TIMEOUT``. After phase 27's scrape of bulk TCP,
     phase 28 (:func:`kill_phase`) SIGKILLs ``mpi-host-b``'s child under
     a serving batch of ``serve_cfg`` (``ModelConfig()`` at 2 layers by
-    default). Every child is stopped, and killed if it does not stop,
-    before the phase returns. Returns the children's launches, phase
-    28's included."""
+    default). The children join a 2-process device plane through the
+    planner at boot (and again at each restart); the steps above keep to
+    the host planes they name, since nothing activates the plane on its
+    own. Before phase 28, phase 29 (:func:`xproc_phase`) runs a gang on
+    that plane at ``xproc_elems`` fp32 a rank. ``parts`` picks phases
+    26 (with 27), 29 and 28. Every child is stopped, and killed if it
+    does not stop, before the phase returns. Returns the children's
+    launches, phases 28's and 29's included."""
     import queue
     import signal
     import statistics
@@ -6295,7 +6601,8 @@ def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
             spec = {"host": h, "slots": slots, "planner": planner_host,
                     "cfg": cfg_spec, "per_rank": per_rank, "seq": seq,
                     "steps": steps, "start": start_path, "out": work,
-                    "device": str(dev),
+                    "device": str(dev), "plane": len(PLANES_HOSTS),
+                    "xproc_elems": xproc_elems,
                     "serve": {"cfg": serve_spec, "n_new": n_new, "seed": 0,
                               "hold": 0 if h == "mpi-host-a" else 4}}
             children[h] = JsonChild(
@@ -6312,29 +6619,37 @@ def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
         planner_s = time.perf_counter() - t0
         for c in children.values():
             c.send("boot")
-        spawn_s = {}
+        spawn_s, joins = {}, {}
         for h, c in children.items():
             ready = c.expect("ready", 180)
             spawn_s[h] = time.perf_counter() - c.t_spawn
+            joins[h] = ready["plane_join_s"]
             bad = sorted(set(ready["modules"])
                          & {"jax", "jaxlib", "faabric_tpu", "tests"})
             check(not bad and "faabric_tpu_torch" in ready["modules"],
                   f"26: the {h} child loaded the port and nothing of JAX or "
                   f"the JAX package ({bad})")
+            plane = ready["plane"] or {}
+            check(plane.get("process_count") == len(PLANES_HOSTS)
+                  and plane.get("local_devices") == 1,
+                  f"26: the {h} child joined the {len(PLANES_HOSTS)}-process "
+                  f"device plane at boot ({plane})")
         log("  26 spawn to ready (s): planner " f"{planner_s:.3f}, "
-            + ", ".join(f"{h} {t:.3f}" for h, t in spawn_s.items()))
+            + ", ".join(f"{h} {t:.3f}" for h, t in spawn_s.items())
+            + "; the device plane's join within it: " + ", ".join(
+                f"{h} {_s(r)}" for h, r in joins.items()))
         for h, off in offsets.items():
             register_host_alias(h, "127.0.0.1", off)
         client = WorkerRuntime(host=client_host, slots=0,
                                factory=TorchExecutorFactory(dev.type),
                                planner_host=planner_host)
         client.start()
-        for plane in ("shm", "tcp"):
+        for plane in ("shm", "tcp") if "26" in parts else ():
             if plane == "tcp":
                 for c in children.values():
                     c.send("restart 0")
-                for c in children.values():
-                    c.expect("ready", 180)
+                log_restarts("26 (tcp)", {h: c.expect("ready", 180)
+                                          for h, c in children.items()})
             results, wall = run_gang(client.planner_client, "planes_step", n)
             outs = guest_outputs(results, f"26 ({plane})")
             check(sorted(o["host"] for o in outs) == sorted(
@@ -6423,18 +6738,27 @@ def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
                          results[0].app_id, on_card, work)
             if plane == "shm":
                 begin_phase(26)
+        # -- 29. the device plane across the worker processes -------------
+        if "29" in parts:
+            begin_phase(29)
+            for k, v in xproc_phase(dev, children, client,
+                                    elems=xproc_elems).items():
+                path[k] = path.get(k, 0) + v
         # -- 28. a worker process SIGKILLed under a serving batch ---------
-        begin_phase(28)
-        for k, v in kill_phase(dev, children, dead, client, base_url,
-                               serve_cfg, serve_len, n_new).items():
-            path[k] = path.get(k, 0) + v
+        if "28" in parts:
+            begin_phase(28)
+            for k, v in kill_phase(dev, children, dead, client, base_url,
+                                   serve_cfg, serve_len, n_new).items():
+                path[k] = path.get(k, 0) + v
         begin_phase(26)
     finally:
         try:
             if client is not None:
                 client.shutdown()
-            for c in children.values():
-                c.stop()
+            for h, c in list(children.items()):
+                left = c.stop()["plane_leave_s"]
+                log(f"  26 the {h} child left the device plane in "
+                    f"{_s(left)} s at its stop")
             if planner is not None and planner.poll() is None:
                 planner.send_signal(signal.SIGTERM)
                 check(planner.wait(60) == 0,

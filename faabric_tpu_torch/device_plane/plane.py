@@ -37,6 +37,16 @@ executor records an event after the round, which each rank's current
 stream waits on before the rank returns, and each result is marked as
 used on that stream for the caching allocator.
 
+Across processes (a world whose ranks live in several processes of a
+joined device plane, ``parallel/distributed.py``): the last local
+arriver of each process runs the round for its local ranks through
+``xproc.py``, which gives every process every rank's deposit (gloo on
+the CPU; CUDA IPC windows on one card), and folds them in rank order
+with the same code, so the results are bitwise the single-process
+plane's. A ring round is one launch of the ring kernel per process,
+writing into local outputs and peers' windows. The exchange runs on a
+gloo group of the plane's own per world plane, made at its first round.
+
 Telemetry, as the reference's: the first round of a key (kind, op,
 size, dtype, residency) is its ``compile``: an ``mpi.phase``/``compile``
 span over the load of the round's kernels (the nvcc build, on the card,
@@ -215,14 +225,34 @@ class DevicePlane:
     }
 
     def __init__(self, world_id: int, devices, local_ranks,
-                 topology_gen: int) -> None:
+                 topology_gen: int, processes=None,
+                 exchange_name: str | None = None) -> None:
         self.world_id = world_id
         self.devices = list(devices)          # rank i ↔ devices[i]
-        self.device = self.devices[0]
         self.n = len(self.devices)
         self.local_ranks = tuple(sorted(local_ranks))
         self.n_local = len(self.local_ranks)
+        # This process's device (a remote rank's entry names its own)
+        self.device = self.devices[self.local_ranks[0]]
         self.topology_gen = topology_gen
+        # rank → its plane process index; the exchange between them (a
+        # gloo group and, on the card, IPC windows) is made at the first
+        # round, under exchange_name, which every process of the world
+        # must give it alike and no other activation may reuse
+        self.processes = (list(processes) if processes is not None
+                          else [0] * self.n)
+        self.process_count = len(set(self.processes))
+        self.process_index = (self.processes[self.local_ranks[0]]
+                              if self.n else 0)
+        self._xproc = None
+        if self.process_count > 1:
+            from faabric_tpu_torch.device_plane import xproc
+
+            if not exchange_name:
+                raise ValueError("a plane across processes needs an "
+                                 "exchange_name")
+            self._xproc = xproc.Exchanger(exchange_name, self.processes,
+                                          self.device)
 
         # Rendezvous state, the disable verdict and the round counts
         # mutate under _lock from the N rank threads
@@ -451,13 +481,13 @@ class DevicePlane:
                 start, end = (torch.cuda.Event(enable_timing=True),
                               torch.cuda.Event(enable_timing=True))
                 start.record(stream)
-                outs = self._compute(kind, op_code, ins)
+                outs = self._round(kind, op_code, ranks, ins)
                 end.record(stream)
                 # The span and the rate end when the card has finished
                 end.synchronize()
                 elapsed = start.elapsed_time(end) / 1e3
             else:
-                outs = self._compute(kind, op_code, ins)
+                outs = self._round(kind, op_code, ranks, ins)
                 elapsed = time.monotonic() - t0
         _PROFILER.record_phase(self.world_id, kind, executor_rank,
                                "execute", elapsed)
@@ -480,15 +510,32 @@ class DevicePlane:
             results[r] = out.cpu().numpy()
         return results, None
 
-    def _compute(self, kind: str, op_code: int, ins: list) -> list:
-        """The round itself over the flat deposits in rank order: one
-        freshly allocated output per rank, none aliasing an input."""
-        n = len(ins)
+    def _round(self, kind: str, op_code: int, ranks: list, ins: list) -> list:
+        """The round's outputs for the local ``ranks`` (whose flat
+        deposits ``ins`` are): in this process alone, or through the
+        exchange with the world's other processes."""
+        if self._xproc is None:
+            return self._compute(kind, op_code, ins)
+        local = dict(zip(ranks, ins))
         if kind == "ring_permute":
-            return permute_body(ins, op_code)
+            outs = self._xproc.ring(local, op_code)
+            return [outs[r] for r in ranks]
+        with self._xproc.gather(local) as every:
+            return self._compute(kind, op_code, every, want=ranks)
+
+    def _compute(self, kind: str, op_code: int, ins: list,
+                 want=None) -> list:
+        """The round itself over every rank's flat deposit, in rank
+        order: one freshly allocated output for each rank of ``want``
+        (all by default), none aliasing an input."""
+        n = len(ins)
+        want = list(range(n)) if want is None else list(want)
+        if kind == "ring_permute":
+            outs = permute_body(ins, op_code)
+            return [outs[r] for r in want]
         if kind == "allgather":
             out = torch.cat(ins)
-            return [out] + [out.clone() for _ in range(n - 1)]
+            return [out] + [out.clone() for _ in want[1:]]
         op = MpiOp(op_code)
         fold = _FOLDS[op]
 
@@ -509,12 +556,19 @@ class DevicePlane:
 
         if kind == "allreduce":
             acc = reduce(ins)
-            return [acc] + [acc.clone() for _ in range(n - 1)]
+            return [acc] + [acc.clone() for _ in want[1:]]
         if kind == "reduce_scatter":
             k = ins[0].shape[0] // n
             return [reduce([t[r * k:(r + 1) * k] for t in ins])
-                    for r in range(n)]
+                    for r in want]
         raise RuntimeError(f"unknown device collective {kind}")
+
+    def close(self) -> None:
+        """Release the cross-process exchange (its windows and
+        mappings), without waiting on a peer. A plane of one process has
+        nothing to release."""
+        if self._xproc is not None:
+            self._xproc.close()
 
     def summary(self) -> dict:
         """Observability snapshot (tests, smoke runs)."""
@@ -527,6 +581,8 @@ class DevicePlane:
             "local_ranks": list(self.local_ranks),
             "device": str(self.device),
             "topology_gen": self.topology_gen,
+            "process_index": self.process_index,
+            "process_count": self.process_count,
             "disabled": self.disabled_reason,
             "rounds": rounds,
             "compiles": compiles,
@@ -536,4 +592,8 @@ class DevicePlane:
                               if self.device.type == "cuda" else 0),
             # process-wide, not per plane
             "process_device_copies": device_copy_totals(),
+            # across processes on the card: the ring kernel's own ms in
+            # this process's latest ring rounds
+            "ring_kernel_ms": (self._xproc.ring_kernel_ms()
+                               if self._xproc is not None else []),
         }

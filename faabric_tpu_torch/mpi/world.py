@@ -264,6 +264,7 @@ class MpiWorld:
         "_msg_type_count": "_lock",
         "_device_collectives": "_lock",
         "_device_plane": "_lock",
+        "_plane_activations": "_lock",
         "_sched_seen": "_lock",
     }
 
@@ -322,6 +323,9 @@ class MpiWorld:
         # None until activate_device_plane's handshake resolves the
         # world onto one device; cleared on migration remaps
         self._device_plane = None
+        # rank → activation handshakes it made: the Nth handshake of
+        # every rank, in every process, names one cross-process exchange
+        self._plane_activations: dict[int, int] = {}
         self._send_workers: dict[int, _SendWorker] = {}
         self._in_send_pool = threading.local()
         self._split_seq = 0  # split-generation draws (see _split_draw)
@@ -461,17 +465,25 @@ class MpiWorld:
             registration_row,
             resolve_local_device,
         )
-        from faabric_tpu_torch.device_plane.registry import resolve_mesh
+        from faabric_tpu_torch.device_plane.registry import (
+            rank_processes,
+            resolve_mesh,
+        )
         from faabric_tpu_torch.util.device import resolve_device
 
         device = (resolve_local_device(self, rank) if device is None
                   else resolve_device(device))
         self.topology()  # the generation below must be of a built one
+        dropped = None
         with self._lock:
             gen = self._topology_gen
+            seq = self._plane_activations.get(rank, 0) + 1
+            self._plane_activations[rank] = seq
             plane = self._device_plane
             if plane is not None and plane.topology_gen != gen:
-                self._device_plane = None
+                dropped, self._device_plane = plane, None
+        if dropped is not None:
+            dropped.close()
         # The handshake rides the host ladder even while a plane is live
         rows = self._allgather_host(rank, registration_row(rank, device))
         with self._lock:
@@ -486,8 +498,10 @@ class MpiWorld:
             logger.info("Device plane for world %s not activated: %s",
                         self.id, e)
             return False
-        plane = DevicePlane(self.id, devices, local_ranks=local_ranks,
-                            topology_gen=gen)
+        plane = DevicePlane(
+            self.id, devices, local_ranks=local_ranks, topology_gen=gen,
+            processes=rank_processes(rows, self.size),
+            exchange_name=f"world/{self.id}/{self.group_id}/{gen}/{seq}")
         with self._lock:
             # First resolver publishes; a re-handshake REPLACES a
             # disabled plane (activation is the recovery path after a
@@ -499,6 +513,11 @@ class MpiWorld:
             if (cur is None or cur.topology_gen != gen
                     or cur.disabled_reason is not None):
                 self._device_plane = plane
+                dropped = cur
+            else:
+                dropped = None
+        if dropped is not None:
+            dropped.close()
         return True
 
     def device_plane(self):
@@ -2401,11 +2420,15 @@ class MpiWorld:
         return sub, list(member_ranks).index(rank)
 
     def close(self) -> None:
-        """Stop this world's send workers (registry teardown)."""
+        """Stop this world's send workers and release its device plane
+        (registry teardown)."""
         with self._lock:
             workers, self._send_workers = dict(self._send_workers), {}
+            plane, self._device_plane = self._device_plane, None
         for w in workers.values():
             w.shutdown()
+        if plane is not None:
+            plane.close()
 
     # ------------------------------------------------------------------
     # Migration (reference prepareMigration)
@@ -2430,7 +2453,9 @@ class MpiWorld:
             self._same_machine_cache = None
             self._topology_gen += 1
             self._device_collectives.clear()
-            self._device_plane = None
+            plane, self._device_plane = self._device_plane, None
+        if plane is not None:
+            plane.close()
         from faabric_tpu_torch.state.device_handle import invalidate_world
 
         invalidate_world(self.id)

@@ -6,7 +6,7 @@ the repository root. Only ``csrc/binding.cpp`` includes PyTorch's headers;
 the ``.cu`` files keep a plain C interface, so nvcc never compiles those
 headers. Where ``ninja`` (which ``load`` needs) is missing, the ``.cu``
 files are built with ``nvcc -shared`` into a plain library loaded through
-``ctypes`` instead, behind the same five functions:
+``ctypes`` instead, behind the same functions:
 
     rms_norm_fwd(x, scale, out, eps)
     flash_fwd(q, k, v, o, lse, scale, causal, body)
@@ -14,6 +14,14 @@ files are built with ``nvcc -shared`` into a plain library loaded through
                  body)
     flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, scale, causal, body)
     ring_permute(ins, outs, shift)
+    ring_permute_ptrs(ins, dst_ptrs)
+    ipc_alloc(device, nbytes) -> ptr, ipc_free(device, ptr),
+    ipc_handle(device, ptr) -> bytes, ipc_open(device, handle) -> ptr,
+    ipc_close(device, ptr)
+
+The ``ipc_*`` functions (``csrc/ipc_window.cu``) are no kernels: they
+allocate and map the cross-process device plane's windows
+(``device_plane/xproc.py``).
 
 A build failure raises; nothing swaps in the plain PyTorch versions.
 
@@ -102,6 +110,19 @@ def _load_with_nvcc():
     lib.faabric_flash_bwd_dkv.restype = i
     lib.faabric_ring_permute.argtypes = [p, p, i, i, i64, p]
     lib.faabric_ring_permute.restype = i
+    pp = ctypes.POINTER(ctypes.c_void_p)
+    lib.faabric_ipc_handle_size.argtypes = []
+    lib.faabric_ipc_handle_size.restype = i
+    lib.faabric_ipc_alloc.argtypes = [i, i64, pp]
+    lib.faabric_ipc_alloc.restype = i
+    lib.faabric_ipc_free.argtypes = [i, p]
+    lib.faabric_ipc_free.restype = i
+    lib.faabric_ipc_get_handle.argtypes = [i, p, ctypes.c_char_p]
+    lib.faabric_ipc_get_handle.restype = i
+    lib.faabric_ipc_open.argtypes = [i, ctypes.c_char_p, pp]
+    lib.faabric_ipc_open.restype = i
+    lib.faabric_ipc_close.argtypes = [i, p]
+    lib.faabric_ipc_close.restype = i
 
     def dtype_code(t):
         return {torch.float32: 0, torch.bfloat16: 1}[t.dtype]
@@ -151,11 +172,46 @@ def _load_with_nvcc():
             srcs, dsts, n, shift, ins[0].numel() * ins[0].element_size(),
             stream(ins[0])))
 
+    def ring_permute_ptrs(ins, dst_ptrs):
+        n = len(ins)
+        srcs = (ctypes.c_void_p * n)(*(t.data_ptr() for t in ins))
+        dsts = (ctypes.c_void_p * n)(*dst_ptrs)
+        _check_rc("ring_permute_ptrs", lib.faabric_ring_permute(
+            srcs, dsts, n, 0, ins[0].numel() * ins[0].element_size(),
+            stream(ins[0])))
+
+    def ipc_alloc(device, nbytes):
+        ptr = ctypes.c_void_p()
+        _check_rc("ipc_alloc", lib.faabric_ipc_alloc(device, nbytes,
+                                                     ctypes.byref(ptr)))
+        return ptr.value
+
+    def ipc_free(device, ptr):
+        _check_rc("ipc_free", lib.faabric_ipc_free(device, ptr))
+
+    def ipc_handle(device, ptr):
+        out = ctypes.create_string_buffer(lib.faabric_ipc_handle_size())
+        _check_rc("ipc_handle", lib.faabric_ipc_get_handle(device, ptr, out))
+        return out.raw
+
+    def ipc_open(device, handle):
+        ptr = ctypes.c_void_p()
+        _check_rc("ipc_open", lib.faabric_ipc_open(device, handle,
+                                                   ctypes.byref(ptr)))
+        return ptr.value
+
+    def ipc_close(device, ptr):
+        _check_rc("ipc_close", lib.faabric_ipc_close(device, ptr))
+
     # The ctypes functions hold ``lib``; keep it alive with them
     return SimpleNamespace(rms_norm_fwd=rms_norm_fwd, flash_fwd=flash_fwd,
                            flash_bwd_dq=flash_bwd_dq,
                            flash_bwd_dkv=flash_bwd_dkv,
-                           ring_permute=ring_permute, lib=lib)
+                           ring_permute=ring_permute,
+                           ring_permute_ptrs=ring_permute_ptrs,
+                           ipc_alloc=ipc_alloc, ipc_free=ipc_free,
+                           ipc_handle=ipc_handle, ipc_open=ipc_open,
+                           ipc_close=ipc_close, lib=lib)
 
 
 def _load():

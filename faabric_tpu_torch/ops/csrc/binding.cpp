@@ -14,6 +14,7 @@
 
 #include <cstdint>
 #include <initializer_list>
+#include <string>
 #include <vector>
 
 extern "C" int faabric_rms_norm_fwd(const void* x, const void* scale,
@@ -43,6 +44,14 @@ extern "C" int faabric_flash_bwd_dkv(
 extern "C" int faabric_ring_permute(const void* const* srcs,
                                     void* const* dsts, int n, int shift,
                                     int64_t nbytes, void* stream);
+extern "C" int faabric_ipc_handle_size();
+extern "C" int faabric_ipc_alloc(int device, int64_t nbytes, void** ptr);
+extern "C" int faabric_ipc_free(int device, void* ptr);
+extern "C" int faabric_ipc_get_handle(int device, void* ptr,
+                                      unsigned char* out);
+extern "C" int faabric_ipc_open(int device, const unsigned char* in,
+                                void** ptr);
+extern "C" int faabric_ipc_close(int device, void* ptr);
 
 namespace {
 
@@ -229,6 +238,70 @@ void ring_permute(const std::vector<at::Tensor>& ins,
       current_stream(ins[0])));
 }
 
+// ins: contiguous CUDA tensors of one dtype, numel and device; dsts: one
+// raw device pointer per input (a local tensor's or a window mapped from
+// another process), each receiving its input's bytes: the kernel's
+// shift-0 form, outs[r] = ins[r]
+void ring_permute_ptrs(const std::vector<at::Tensor>& ins,
+                       const std::vector<int64_t>& dsts) {
+  const int64_t n = static_cast<int64_t>(ins.size());
+  TORCH_CHECK(n >= 1 && static_cast<int64_t>(dsts.size()) == n,
+              "ring_permute_ptrs: one destination per input, at least one");
+  std::vector<const void*> srcs(n);
+  std::vector<void*> outs(n);
+  for (int64_t r = 0; r < n; ++r) {
+    TORCH_CHECK(ins[r].is_cuda() && ins[r].is_contiguous() &&
+                    ins[r].device() == ins[0].device() &&
+                    ins[r].scalar_type() == ins[0].scalar_type() &&
+                    ins[r].numel() == ins[0].numel(),
+                "ring_permute_ptrs: contiguous CUDA tensors of one device, "
+                "dtype and numel");
+    TORCH_CHECK(dsts[r] != 0, "ring_permute_ptrs: null destination");
+    srcs[r] = ins[r].data_ptr();
+    outs[r] = reinterpret_cast<void*>(dsts[r]);
+  }
+  const c10::cuda::CUDAGuard guard(ins[0].device());
+  check_launch(faabric_ring_permute(
+      srcs.data(), outs.data(), static_cast<int>(n), 0,
+      ins[0].numel() * static_cast<int64_t>(ins[0].element_size()),
+      current_stream(ins[0])));
+}
+
+int64_t ipc_alloc(int64_t device, int64_t nbytes) {
+  void* ptr = nullptr;
+  C10_CUDA_CHECK(static_cast<cudaError_t>(
+      faabric_ipc_alloc(static_cast<int>(device), nbytes, &ptr)));
+  return reinterpret_cast<int64_t>(ptr);
+}
+
+void ipc_free(int64_t device, int64_t ptr) {
+  C10_CUDA_CHECK(static_cast<cudaError_t>(faabric_ipc_free(
+      static_cast<int>(device), reinterpret_cast<void*>(ptr))));
+}
+
+pybind11::bytes ipc_handle(int64_t device, int64_t ptr) {
+  std::vector<unsigned char> out(faabric_ipc_handle_size());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(faabric_ipc_get_handle(
+      static_cast<int>(device), reinterpret_cast<void*>(ptr), out.data())));
+  return pybind11::bytes(reinterpret_cast<const char*>(out.data()),
+                         out.size());
+}
+
+int64_t ipc_open(int64_t device, const std::string& handle) {
+  TORCH_CHECK(static_cast<int>(handle.size()) == faabric_ipc_handle_size(),
+              "ipc_open: a handle is ", faabric_ipc_handle_size(), " bytes");
+  void* ptr = nullptr;
+  C10_CUDA_CHECK(static_cast<cudaError_t>(faabric_ipc_open(
+      static_cast<int>(device),
+      reinterpret_cast<const unsigned char*>(handle.data()), &ptr)));
+  return reinterpret_cast<int64_t>(ptr);
+}
+
+void ipc_close(int64_t device, int64_t ptr) {
+  C10_CUDA_CHECK(static_cast<cudaError_t>(faabric_ipc_close(
+      static_cast<int>(device), reinterpret_cast<void*>(ptr))));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -237,4 +310,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_bwd_dq", &flash_bwd_dq, "flash attention dQ kernel");
   m.def("flash_bwd_dkv", &flash_bwd_dkv, "flash attention dK/dV kernel");
   m.def("ring_permute", &ring_permute, "device-plane ring permute kernel");
+  m.def("ring_permute_ptrs", &ring_permute_ptrs,
+        "ring permute kernel into raw destination pointers");
+  m.def("ipc_alloc", &ipc_alloc, "cudaMalloc a window shared by IPC");
+  m.def("ipc_free", &ipc_free, "cudaFree a window");
+  m.def("ipc_handle", &ipc_handle, "a window's cudaIpcMemHandle_t bytes");
+  m.def("ipc_open", &ipc_open, "map another process's window");
+  m.def("ipc_close", &ipc_close, "unmap another process's window");
 }

@@ -7,6 +7,12 @@ TPU kernel runs once per chip as a remote DMA; on the card the ranks of
 one process share the device, so ``csrc/ring_permute.cu`` moves all n
 shards in one launch, with the n source and n destination pointers
 passed by value in the kernel's parameters (at most ``MAX_RANKS``).
+
+:func:`ring_permute_to` is the same kernel's lower-level entry: the
+destinations are raw device pointers, so that a shard can land in a
+window another process mapped for it (``device_plane/xproc.py``, the
+plane across processes on one card). It runs the kernel with shift 0,
+destination r receiving input r.
 """
 
 from __future__ import annotations
@@ -63,3 +69,24 @@ def ring_permute(ins, shift: int, outs=None) -> list[torch.Tensor]:
     _build.kernels().ring_permute(ins, outs, shift)
     _build.count_launch("ring_permute")
     return outs
+
+
+def ring_permute_to(ins, dst_ptrs) -> None:
+    """``dst_ptrs[r]`` (a device pointer of ``ins[r]``'s card, mapped in
+    this process) receives ``ins[r]``'s bytes, in one launch of the
+    ring-permute kernel. CUDA tensors only: a raw pointer has no plain
+    version, and the CPU plane moves its bytes over gloo instead."""
+    ins = list(ins)
+    dst_ptrs = [int(p) for p in dst_ptrs]
+    if not ins or len(dst_ptrs) != len(ins):
+        raise ValueError("ring_permute_to takes one destination per input, "
+                         "at least one")
+    _check(ins, ins)
+    if ins[0].device.type != "cuda":
+        raise ValueError(f"ring_permute_to: CUDA tensors only, got "
+                         f"{ins[0].device}")
+    if len(ins) > MAX_RANKS:
+        raise ValueError(f"ring_permute kernel takes at most {MAX_RANKS} "
+                         f"ranks, got {len(ins)}")
+    _build.kernels().ring_permute_ptrs(ins, dst_ptrs)
+    _build.count_launch("ring_permute")

@@ -1,11 +1,22 @@
 """The mesh substrate: device collectives, meshes and shard specs, ring
-attention and pipeline parallelism (counterpart of
-``faabric_tpu/parallel/``). ``distributed.py`` is not ported yet
-(``ROADMAP.md`` Queue 1 #8)."""
+attention, pipeline parallelism and the device plane across worker
+processes (counterpart of ``faabric_tpu/parallel/``). Across processes
+the collectives' addressable forms run (``distributed.py``); the train
+steps there wait for ``ROADMAP.md`` Queue 1 step 8."""
 
 from faabric_tpu_torch.parallel.collectives import (
     DeviceCollectives,
     local_devices_for_ids,
+)
+from faabric_tpu_torch.parallel.distributed import (
+    DevicePlaneSpec,
+    PlaneDevice,
+    current_plane,
+    global_devices,
+    join_device_plane,
+    leave_device_plane,
+    plane_summary,
+    request_device_plane,
 )
 from faabric_tpu_torch.parallel.mesh import (
     MESH_AXES,
@@ -33,6 +44,14 @@ from faabric_tpu_torch.parallel.ring_attention import ring_attention, shard_sequ
 
 __all__ = [
     "DeviceCollectives",
+    "DevicePlaneSpec",
+    "PlaneDevice",
+    "current_plane",
+    "global_devices",
+    "join_device_plane",
+    "leave_device_plane",
+    "plane_summary",
+    "request_device_plane",
     "MESH_AXES",
     "Mesh",
     "MeshConfig",

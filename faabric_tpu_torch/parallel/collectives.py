@@ -19,9 +19,9 @@ copies and folds. The convention is otherwise the reference's:
   reaches get zeros.
 
 Every output is a tensor of its own, on its rank's device, even where
-the ranks share a device. Folds run in rank order. allreduce SUM,
-allgather and permute (with ``send_recv`` and ``shift``) are
-``torch.autograd.Function``s whose backward is again a collective:
+the ranks share a device. Folds run in rank order. In one process
+allreduce SUM, allgather and permute (with ``send_recv`` and ``shift``)
+are ``torch.autograd.Function``s whose backward is again a collective:
 allreduce's is an allreduce, allgather's each rank's slice summed over
 the group, a permutation's the inverse permutation. A permute that
 rotates the whole ring by a fixed distance over ranks of one device
@@ -29,6 +29,12 @@ goes through ``ops/ring_permute.py``: on CUDA one launch of the
 ring-permute kernel, forward and backward (it raises past its
 ``MAX_RANKS``), on the CPU its plain version. Only permutes of other
 patterns, or over ranks on several devices, copy buffer by buffer.
+
+Over the device plane's global devices (``parallel/distributed.py``)
+other processes' ranks are ``None`` in every per-rank list; there
+allreduce, allgather, reduce_scatter and broadcast run through
+``device_plane/xproc.py``, forward only (a buffer that needs a gradient
+raises), and the rest raise.
 """
 
 from __future__ import annotations
@@ -91,15 +97,41 @@ def _ring_shift(pairs, n: int) -> int | None:
     return d if all(dst[r] == (r + d) % n for r in range(n)) else None
 
 
+_XPROC_QUEUED = ("across processes only allreduce, allgather, "
+                 "reduce_scatter and broadcast run so far; the rest waits "
+                 "for the sharded train step across processes (ROADMAP.md "
+                 "Queue 1 step 8)")
+_XPROC_NO_GRAD = ("across processes the collectives have no backward yet: "
+                  "it waits for the sharded train step across processes "
+                  "(ROADMAP.md Queue 1 step 8); run them on buffers that "
+                  "need no gradient, or under torch.no_grad()")
+
+
 class DeviceCollectives:
     """Collectives bound to an ordered list of devices (rank i ↔ device
-    i, devices may repeat)."""
+    i, devices may repeat). Entries of the plane's global device table
+    (``distributed.PlaneDevice``) place each rank in its process."""
 
     def __init__(self, devices: Sequence) -> None:
-        self.devices = [torch.device(d) for d in devices]
+        from faabric_tpu_torch.parallel.distributed import (
+            PlaneDevice,
+            process_index,
+        )
+
+        devices = list(devices)
+        self.processes = [d.process_index if isinstance(d, PlaneDevice)
+                          else 0 for d in devices]
+        self.devices = [torch.device(d.device if isinstance(d, PlaneDevice)
+                                     else d) for d in devices]
         self.n = len(self.devices)
         if self.n == 0:
             raise ValueError("DeviceCollectives needs at least one device")
+        self.process_index = (process_index() if any(
+            isinstance(d, PlaneDevice) for d in devices) else 0)
+        self.local_ranks = [r for r, p in enumerate(self.processes)
+                            if p == self.process_index]
+        # Ranks in other processes: per-rank lists hold None for them
+        self.multiprocess = len(self.local_ranks) != self.n
 
     # ------------------------------------------------------------------
     def shard_stacked(self, per_rank: Sequence) -> list[torch.Tensor]:
@@ -112,27 +144,48 @@ class DeviceCollectives:
                 for b, d in zip(per_rank, self.devices)]
 
     def shard_stacked_addressable(self, local_per_rank, buf_shape: tuple,
-                                  dtype):
-        raise NotImplementedError(
-            "shard_stacked_addressable assembles ranks owned by several "
-            "processes; the port runs one process so far (ROADMAP.md "
-            "Queue 1 #8, device planes across processes)")
+                                  dtype) -> list:
+        """Multi-process form of :meth:`shard_stacked`: each process
+        supplies buffers only for its own ranks (``local_per_rank``: rank
+        → buffer), which land on their devices; other processes' ranks
+        are ``None``. Raises ``KeyError`` for a local rank with no
+        buffer."""
+        out: list = [None] * self.n
+        for r in self.local_ranks:
+            if r not in local_per_rank:
+                raise KeyError(
+                    f"process {self.process_index} owns rank {r} (device "
+                    f"{self.devices[r]}) but no buffer was supplied for it")
+            buf = np.asarray(local_per_rank[r], dtype).reshape(buf_shape)
+            out[r] = torch.as_tensor(buf).to(self.devices[r], copy=True)
+        return out
 
-    def addressable_shard(self, x, rank: int):
-        raise NotImplementedError(
-            "addressable_shard reads a shard another process may own; the "
-            "port runs one process so far (ROADMAP.md Queue 1 #8, device "
-            "planes across processes)")
+    def addressable_shard(self, xs, rank: int) -> torch.Tensor:
+        """This process's buffer of ``rank`` in the per-rank list ``xs``;
+        raises ``KeyError`` for a rank of another process."""
+        if rank not in self.local_ranks:
+            raise KeyError(f"rank {rank}'s shard lives in process "
+                           f"{self.processes[rank]}, not in process "
+                           f"{self.process_index}")
+        return xs[rank]
 
     def to_per_rank(self, xs: Sequence[torch.Tensor]) -> list[np.ndarray]:
-        """Per-rank tensors back as host buffers."""
-        return [x.detach().cpu().numpy() for x in self._check(xs)]
+        """Per-rank tensors back as host buffers (None for other
+        processes' ranks)."""
+        return [None if x is None else x.detach().cpu().numpy()
+                for x in self._check(xs)]
 
     def _check(self, xs) -> list[torch.Tensor]:
         xs = list(xs)
         if len(xs) != self.n:
             raise ValueError(f"{len(xs)} buffers for {self.n} ranks")
         for r, (x, d) in enumerate(zip(xs, self.devices)):
+            if r not in self.local_ranks:
+                if x is not None:
+                    raise ValueError(f"rank {r} lives in process "
+                                     f"{self.processes[r]}: its entry is "
+                                     f"None here")
+                continue
             if x.device != d:
                 raise ValueError(f"rank {r}'s buffer is on {x.device}, its "
                                  f"device is {d}")
@@ -151,6 +204,62 @@ class DeviceCollectives:
                 out.append(made[d])
         return out
 
+    def _single_process(self, name: str) -> None:
+        if self.multiprocess:
+            raise NotImplementedError(f"{name}: {_XPROC_QUEUED}")
+
+    def _xproc(self, kind: str, xs, op: MpiOp = MpiOp.SUM, dim: int = 0,
+               root: int = 0) -> list:
+        """A collective over ranks of several processes: every process
+        gets every rank's buffer (``device_plane/xproc.py``), then the
+        local ranks' results are computed as in one process. Forward
+        only: a local buffer that needs a gradient raises, since the
+        peers' deposits reach the fold without one and a backward would
+        miss the other processes' cotangents."""
+        from faabric_tpu_torch.device_plane.xproc import named_exchanger
+
+        local = {r: xs[r] for r in self.local_ranks}
+        if torch.is_grad_enabled() and any(x.requires_grad
+                                           for x in local.values()):
+            raise NotImplementedError(f"{kind}: {_XPROC_NO_GRAD}")
+        first = local[self.local_ranks[0]]
+        if any(x.shape != first.shape or x.dtype != first.dtype
+               for x in local.values()):
+            raise ValueError(f"{kind} takes buffers of one shape and dtype")
+        devices = sorted({str(self.devices[r]) for r in self.local_ranks})
+        if len(devices) > 1:
+            raise NotImplementedError(
+                f"{kind}: local ranks on several devices ({devices}) wait "
+                f"for ROADMAP.md Queue 1 step 9")
+        ex = named_exchanger(
+            "coll/" + ",".join(map(str, self.processes)), self.processes,
+            first.device)
+        flat = {r: x.contiguous().reshape(-1) for r, x in local.items()}
+        out: list = [None] * self.n
+        with ex.gather(flat) as every:
+            parts = [t.view(first.shape) for t in every]
+            if kind == "reduce_scatter":
+                size = first.shape[dim]
+                if size % self.n:
+                    raise ValueError(f"reduce_scatter: dim {dim} of size "
+                                     f"{size} does not split over {self.n} "
+                                     f"ranks")
+                k = size // self.n
+                for r in self.local_ranks:
+                    out[r] = _fold([p.narrow(dim, r * k, k) for p in parts],
+                                   MpiOp.SUM)
+                return out
+            if kind == "allreduce":
+                one = _fold(parts, op)
+            elif kind == "allgather":
+                one = torch.cat(parts, dim)
+            else:
+                one = parts[root].clone()
+            # The first local rank takes the result, the others a copy
+            for i, r in enumerate(self.local_ranks):
+                out[r] = one if i == 0 else one.clone()
+        return out
+
     # ------------------------------------------------------------------
     # Collectives
     # ------------------------------------------------------------------
@@ -159,10 +268,13 @@ class DeviceCollectives:
             lambda d: _fold([x.to(d) for x in xs], op))
 
     def allreduce(self, xs, op: MpiOp = MpiOp.SUM) -> list[torch.Tensor]:
-        """SUM, MAX, MIN, PROD, LAND, LOR; SUM is differentiable (its
-        backward is the allreduce of the cotangents)."""
+        """SUM, MAX, MIN, PROD, LAND, LOR; in one process SUM is
+        differentiable (its backward is the allreduce of the cotangents).
+        Across processes it is forward only (see :meth:`_xproc`)."""
         xs = self._check(xs)
         op = MpiOp(op)
+        if self.multiprocess:
+            return self._xproc("allreduce", xs, op=op)
         if op == MpiOp.SUM:
             return list(_AllReduceSum.apply(self, *xs))
         return self._allreduce(xs, op)
@@ -180,6 +292,7 @@ class DeviceCollectives:
         op = MpiOp(op)
         if op not in (MpiOp.SUM, MpiOp.MAX, MpiOp.MIN):
             raise NotImplementedError(f"allreduce_loop op {op}")
+        self._single_process("allreduce_loop")
         ys = self._check(xs)
         for _ in range(n):
             ys = self._allreduce(ys, op)
@@ -200,8 +313,11 @@ class DeviceCollectives:
 
     def allgather(self, xs, dim: int = 0) -> list[torch.Tensor]:
         """Rank buffers of one shape, concatenated in rank order along
-        ``dim`` on every rank; differentiable."""
+        ``dim`` on every rank; differentiable in one process, forward
+        only across processes."""
         xs = self._check(xs)
+        if self.multiprocess:
+            return self._xproc("allgather", xs, dim=dim)
         if any(x.shape != xs[0].shape for x in xs):
             raise ValueError("allgather takes buffers of one shape")
         return list(_AllGather.apply(self, dim, *xs))
@@ -221,11 +337,14 @@ class DeviceCollectives:
         the sum (SUM only, as the reference)."""
         if MpiOp(op) != MpiOp.SUM:
             raise NotImplementedError("Device reduce_scatter supports SUM")
+        if self.multiprocess:
+            return self._xproc("reduce_scatter", self._check(xs), dim=dim)
         return self._reduce_scatter(self._check(xs), dim)
 
     def alltoall(self, xs) -> list[torch.Tensor]:
         """Rank buffers (n, *buf): row i of rank j lands as row j of
         rank i."""
+        self._single_process("alltoall")
         xs = self._check(xs)
         if any(x.shape[0] != self.n for x in xs):
             raise ValueError(f"alltoall takes ({self.n}, ...) buffers")
@@ -235,6 +354,8 @@ class DeviceCollectives:
     def broadcast(self, xs, root: int = 0) -> list[torch.Tensor]:
         """The root rank's buffer, as a tensor of its own on every rank."""
         xs = self._check(xs)
+        if self.multiprocess:
+            return self._xproc("broadcast", xs, root=root)
         return [xs[root].to(d, copy=True) for d in self.devices]
 
     def scan(self, xs, op: MpiOp = MpiOp.SUM) -> list[torch.Tensor]:
@@ -242,6 +363,7 @@ class DeviceCollectives:
         op = MpiOp(op)
         if op not in (MpiOp.SUM, MpiOp.PROD, MpiOp.MAX, MpiOp.MIN):
             raise NotImplementedError(f"Device scan op {op}")
+        self._single_process("scan")
         xs = self._check(xs)
         # Prefix by prefix in the buffers' dtype, as jnp.cumsum/cumprod
         fold = _op_fold(op)
@@ -274,6 +396,7 @@ class DeviceCollectives:
         most once and receives at most once); ranks that no pair reaches
         get zeros. Differentiable: the backward moves the cotangents
         along the reversed pairs."""
+        self._single_process("permute")
         xs = self._check(xs)
         pairs = tuple((int(s), int(t)) for s, t in pairs)
         srcs, dsts = [s for s, _ in pairs], [t for _, t in pairs]

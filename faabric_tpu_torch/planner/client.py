@@ -692,6 +692,20 @@ class PlannerClient(MessageEndpointClient):
                               idempotent=True)
         return int(resp.header["num_migrations"])
 
+    def join_device_plane(self, n_processes: int):
+        """One join or poll of the multi-process device plane
+        (parallel/distributed.py): None until the roster is full, then
+        this host's ``DevicePlaneSpec``. Idempotent: the planner keeps
+        this host's place across polls."""
+        from faabric_tpu_torch.parallel.distributed import DevicePlaneSpec
+
+        resp = self.sync_send(int(PlannerCalls.JOIN_DEVICE_PLANE), {
+            "host": self.this_host, "n_processes": n_processes,
+        }, idempotent=True)
+        if not resp.header.get("found"):
+            return None
+        return DevicePlaneSpec.from_dict(resp.header["spec"])
+
     def check_migration(self, app_id: int) -> Optional[SchedulingDecision]:
         """The app's new placement when the planner finds a better one,
         the MUST_FREEZE sentinel when the app must park, else None."""

@@ -257,9 +257,7 @@ class Planner:
     # ingress (internally synchronized), _journal_replay_stats/
     # _reconcile_stats (write-once diagnostics), _perf_agg_stats
     # (GIL-atomic whole-dict swap), _reconcile_timer
-    # (start/stop sequenced by recovery). The reference's _device_plane
-    # entry is left out: the port's planner keeps no cross-process
-    # device-plane roster yet (its rank planes live in one process).
+    # (start/stop sequenced by recovery).
     GUARDS = {
         "_hosts": "_lock",
         "_in_flight": "_lock",
@@ -280,6 +278,7 @@ class Planner:
         "_journal_last_hosts": "_lock",
         "_results_count": "_lock",
         "_results_failed": "_lock",
+        "_device_plane": "_lock",
     }
 
     # Completed apps' results are kept for late readers, oldest dropped
@@ -328,6 +327,10 @@ class Planner:
         self._state_masters: dict[str, str] = {}
         self._state_backups: dict[str, str] = {}
         self._state_epochs: dict[str, int] = {}
+        # The multi-process device plane's roster (parallel/
+        # distributed.py): hosts in join order, the plane's size and its
+        # coordinator's port
+        self._device_plane: dict = {"roster": [], "size": 0, "port": 0}
         self._results_failed = 0
         # The last /perf aggregation's summary, for the health view
         self._perf_agg_stats: Optional[dict] = None
@@ -483,6 +486,53 @@ class Planner:
         running there."""
         with self._lock:
             self._next_evicted_ips = set(ips)
+
+    # ------------------------------------------------------------------
+    # Multi-process device plane (parallel/distributed.py)
+    # ------------------------------------------------------------------
+    def join_device_plane(self, host: str,
+                          n_processes: int) -> Optional[dict]:
+        """Add ``host`` to the device-plane roster; once the roster is
+        full, return this host's spec (callers poll until then). Process
+        ids are assigned in join order and stay stable across polls; the
+        first joiner's host runs the plane's store on a port claimed from
+        its MPI pool."""
+        with self._lock:
+            dp = self._device_plane
+            if dp["size"] == 0:
+                dp["size"] = n_processes
+            elif dp["size"] != n_processes:
+                raise ValueError(
+                    f"device plane already sized {dp['size']}, host "
+                    f"{host} asked for {n_processes}")
+            if host not in dp["roster"]:
+                if len(dp["roster"]) >= dp["size"]:
+                    raise ValueError(
+                        f"device plane full ({dp['size']}); {host} "
+                        "cannot join")
+                dp["roster"].append(host)
+            if len(dp["roster"]) < dp["size"]:
+                return None
+            if not dp["port"]:
+                coord = dp["roster"][0]
+                h = self._hosts.get(coord)
+                # The pool's last port when the coordinator never
+                # registered (a planner driven directly)
+                dp["port"] = (h.claim_mpi_port() if h is not None
+                              else MPI_BASE_PORT + MPI_PORTS_PER_HOST - 1)
+            return {"coordinator_host": dp["roster"][0],
+                    "coordinator_port": dp["port"],
+                    "num_processes": dp["size"],
+                    "process_id": dp["roster"].index(host)}
+
+    def clear_device_plane(self) -> None:
+        with self._lock:
+            dp = self._device_plane
+            if dp["port"]:
+                h = self._hosts.get(dp["roster"][0]) if dp["roster"] else None
+                if h is not None:
+                    h.release_mpi_port(dp["port"])
+            self._device_plane = {"roster": [], "size": 0, "port": 0}
 
     # ------------------------------------------------------------------
     # Scheduling (reference Planner::callBatch)
@@ -2259,6 +2309,7 @@ class Planner:
             self._results_count = 0
             self._results_failed = 0
             self._num_migrations = 0
+            self._device_plane = {"roster": [], "size": 0, "port": 0}
         _IN_FLIGHT_APPS.set(0)
         self._clients.close_all()
         self._snapshot_clients.close_all()

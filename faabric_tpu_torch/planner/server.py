@@ -88,6 +88,8 @@ class PlannerCalls(enum.IntEnum):
     CLAIM_STATE_MASTER = 12
     DROP_STATE_MASTER = 13
     CHECK_MIGRATION = 14
+    # A worker's join (or poll) of the multi-process device plane
+    JOIN_DEVICE_PLANE = 15
     # A worker's results buffered while the planner was down, delivered
     # with a confirmation (the push is fire and forget)
     FLUSH_RESULTS = 16
@@ -296,6 +298,12 @@ class PlannerServer(MessageEndpointServer):
                 return handler_response(header={"found": False})
             return handler_response(header={"found": True,
                                             "decision": decision.to_dict()})
+
+        if code == int(PlannerCalls.JOIN_DEVICE_PLANE):
+            spec = planner.join_device_plane(h["host"], h["n_processes"])
+            if spec is None:
+                return handler_response(header={"found": False})
+            return handler_response(header={"found": True, "spec": spec})
 
         if code == int(PlannerCalls.CLAIM_STATE_MASTER):
             master, backup, epoch = planner.claim_state_master(

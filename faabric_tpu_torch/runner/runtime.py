@@ -27,8 +27,14 @@ process's time-series sampler (with its executor count as a series)
 and of the stack profiler. With ``WORKER_HTTP_PORT`` set, it serves the
 worker's HTTP endpoint (``endpoint/worker_endpoint.py``: ``/healthz``,
 ``/metrics``, ``/timeseries``, ``/flight``, ``/profile``) on that port
-while it runs. Not ported: the multi-process device plane (``ROADMAP.md``
-Queue 1 #8, step 7).
+while it runs.
+
+``device_plane_size`` over 1 joins the multi-process device plane
+(``parallel/distributed.py``) at ``start()``, once the host is
+registered: the worker asks the planner for its place and joins with
+``plane_devices`` (every visible card by default; ``["cpu"] * 4`` gives
+four CPU entries). ``shutdown()`` leaves it, without waiting on a peer
+that is gone.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from __future__ import annotations
 from typing import Optional
 
 import os
+import time
 
 import torch
 
@@ -93,8 +100,18 @@ class WorkerRuntime:
     def __init__(self, host: str = LOCALHOST, slots: int | None = None,
                  n_devices: int | None = None,
                  factory: Optional[ExecutorFactory] = None,
-                 planner_host: str | None = None) -> None:
+                 planner_host: str | None = None,
+                 device_plane_size: int = 0,
+                 plane_devices=None) -> None:
         self.host = host
+        # Over 1: this worker is one of device_plane_size processes of
+        # the device plane, contributing plane_devices
+        self.device_plane_size = device_plane_size
+        self.plane_devices = plane_devices
+        # Host seconds of the last join (planner roster and rendezvous)
+        # and of the last leave
+        self.plane_join_s: float | None = None
+        self.plane_leave_s: float | None = None
         # Traces of co-located workers merge on one timeline; the label
         # tells their rows apart
         from faabric_tpu_torch.faults import set_fault_identity
@@ -162,6 +179,8 @@ class WorkerRuntime:
             self.planner_client.register_host(
                 self.slots, self.n_devices, overwrite=True,
                 start_keep_alive=True)
+            if self.device_plane_size > 1:
+                self._join_plane()
         except Exception:
             # A half-up worker must not keep its ports bound
             self._started = False
@@ -177,6 +196,18 @@ class WorkerRuntime:
             raise
         logger.debug("Worker %s up (slots=%d devices=%d)", self.host,
                      self.slots, self.n_devices)
+
+    def _join_plane(self) -> None:
+        from faabric_tpu_torch.parallel.distributed import (
+            join_device_plane,
+            request_device_plane,
+        )
+
+        t0 = time.perf_counter()
+        spec = request_device_plane(self.planner_client,
+                                    self.device_plane_size)
+        join_device_plane(spec, local_devices=self.plane_devices)
+        self.plane_join_s = time.perf_counter() - t0
 
     def _start_sampling(self) -> None:
         """Take shares of the refcounted sampler (with this runtime's
@@ -218,6 +249,14 @@ class WorkerRuntime:
         self._started = False
         self._stop_sampling()
         self.planner_client.remove_host()
+        if self.device_plane_size > 1:
+            from faabric_tpu_torch.parallel.distributed import (
+                leave_device_plane,
+            )
+
+            t0 = time.perf_counter()
+            leave_device_plane()
+            self.plane_leave_s = time.perf_counter() - t0
         if self.http_endpoint is not None:
             self.http_endpoint.stop()
         self.scheduler.shutdown()

@@ -1325,3 +1325,132 @@ def test_processes_step_on_the_card(cuda_device, monkeypatch):
         == steps * 2 * L + served * serve_L
     assert launches["rms_norm"] == steps * (4 * L + 1) + served * (
         2 * serve_L + 1) * (1 + n_new)
+
+
+def _hold_listening(ports) -> list:
+    """Listening sockets on every port of ``ports``, or [] when one is
+    taken."""
+    import socket
+
+    held = []
+    for port in ports:
+        s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        try:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            s.bind(("0.0.0.0", port))
+            s.listen(1)
+        except OSError:
+            s.close()
+            for h in held:
+                h.close()
+            return []
+        held.append(s)
+    return held
+
+
+@pytest.mark.cuda
+def test_world_across_two_processes_on_one_card(cuda_device):
+    """``tests/test_torch_distributed.py``'s two-process world on the
+    card: 2 + 2 ranks on ``cuda:0`` in two processes of one device
+    plane, its bytes moved through CUDA IPC windows. Every collective
+    bitwise against the host ring and numpy, the fp32 allreduce against
+    the single-process plane's fold, zero host↔device copies for
+    resident rounds, zero bytes on the host planes, and the ring permute
+    across the processes bitwise against its plain version with one
+    ring-kernel launch a round in each process."""
+    import chip_smoke
+    from tests.test_torch_distributed import N_PROCS, world_across_processes
+
+    _build.kernels()  # built once here; the children load it
+    for _ in range(20):
+        reports = world_across_processes(
+            str(cuda_device), chip_smoke.random_port_base(), _hold_listening)
+        if reports:
+            break
+    assert len(reports) == N_PROCS
+
+
+def planeworker_pair(device: str, base: int) -> list[str]:
+    """A planner process and two ``planeworker`` processes of
+    ``tests/test_torch_procs.py`` at port offsets ``base``, + 1000 and
+    + 2000, each worker joining a 2-process plane with four entries of
+    ``device``: each worker's ``PLANE-`` line ("" for one that printed
+    none)."""
+    import os
+    import subprocess
+    import sys
+
+    from tests.test_torch_distributed import CHILD_TIMEOUT_S, _read_line
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(root, "tests", "test_torch_procs.py")
+    hosts = {"cpwpl": base, "cpw1": base + 1000, "cpw2": base + 2000}
+    env = {**os.environ, "PYTHONPATH": root, "FAABRIC_HOST_ALIASES": ",".join(
+        f"{h}=127.0.0.1+{o}" for h, o in hosts.items())}
+    env.pop("FAABRIC_LOCKCHECK", None)
+
+    def spawn(*args):
+        return subprocess.Popen(
+            [sys.executable, script, *args], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+            cwd=root, env=env)
+
+    procs = [spawn("planner", str(base))]
+    try:
+        assert _read_line(procs[0], "READY", CHILD_TIMEOUT_S) == "READY"
+        procs += [spawn("planeworker", h, "cpwpl", "1", "2", device)
+                  for h in ("cpw1", "cpw2")]
+        lines = [_read_line(p, "PLANE-", CHILD_TIMEOUT_S) for p in procs[1:]]
+    finally:
+        # The workers leave the plane together, then the planner stops
+        for p in procs[1:] + procs[:1]:
+            p.stdin.close()
+        for p in procs[1:] + procs[:1]:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(30)
+            p.stdout.close()
+    return lines
+
+
+@pytest.mark.cuda
+def test_planeworkers_on_one_card(cuda_device):
+    """``tests/test_torch_distributed.py``'s ``planeworker`` pair on the
+    card: two processes, four entries of ``cuda:0`` each, form an
+    8-device plane through a planner process, and ``DeviceCollectives``'
+    addressable allreduce, allgather, reduce_scatter and broadcast run
+    across them over CUDA IPC windows (which grow between the four
+    shapes), each process checking its own shards against closed-form
+    values; an allreduce of buffers that need a gradient raises in both."""
+    import chip_smoke
+
+    _build.kernels()  # built once here; the children load it
+    lines = planeworker_pair(str(cuda_device), chip_smoke.random_port_base())
+    assert all(line.startswith("PLANE-OK") for line in lines), lines
+    assert {line.split("gdev=")[1].split()[0] for line in lines} == {"8"}
+    assert {line.split("ldev=")[1].split()[0] for line in lines} == {"4"}
+    ranks = {line.split("ranks=")[1] for line in lines}
+    assert ranks == {"[0, 1, 2, 3]", "[4, 5, 6, 7]"}, ranks
+
+
+@pytest.mark.cuda
+def test_cross_process_plane_phase_on_the_card(cuda_device, monkeypatch):
+    """``chip_smoke.py``'s phase 29 alone: a planner process and two
+    worker processes that join a 2-process device plane at boot on
+    ``cuda:0``, and a gang of 2 + 2 ranks across them on the plane at the
+    flagship gradient's size (181,422,080 bytes a rank): int32
+    collectives bitwise against the host ring and numpy, the resident
+    fp32 allreduce with zero host↔device copies and bitwise equal to the
+    single-process plane's fold, the ring permute bitwise against its
+    plain version. The ring kernel launches once a ring round in each
+    process: a checked hop and five timed ones."""
+    import chip_smoke
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    _build.kernels()
+    launches = chip_smoke.processes_phase(
+        cuda_device, _build, {"start": torch.zeros(8)}, parts=("29",))
+    assert launches == {"ring_permute": 2 * 6}, launches

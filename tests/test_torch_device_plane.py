@@ -29,6 +29,7 @@ from faabric_tpu_torch.device_plane import (  # noqa: E402
 )
 from faabric_tpu_torch.mpi import MpiOp, MpiWorld, UserOp  # noqa: E402
 from faabric_tpu_torch.mpi.types import MpiMessageType  # noqa: E402
+from faabric_tpu_torch.parallel import PlaneDevice  # noqa: E402
 from faabric_tpu_torch.transport import PointToPointBroker  # noqa: E402
 from tests.test_torch_mpi import N, make_worlds, on_ranks  # noqa: E402
 
@@ -313,9 +314,14 @@ def test_resolve_mesh_verdicts():
     with pytest.raises(MeshMismatch, match="disagrees with device"):
         resolve_mesh(good, N, local_ranks=range(1, N))
     bad = good.copy()
-    bad[0, 3] = 99  # rank 0 registered from another process
+    bad[0, 3] = 1  # rank 0 registered from another process
     with pytest.raises(MeshMismatch, match="another process"):
         resolve_mesh(bad, N, local_ranks=range(1, N))
+    # With a joined plane whose table holds that process's device, the
+    # same rows resolve
+    plane = [PlaneDevice(p, torch.device("cpu")) for p in (0, 1)]
+    assert resolve_mesh(bad, N, local_ranks=range(1, N),
+                        table=plane) == [torch.device("cpu")] * N
     with pytest.raises(MeshMismatch, match="rows for a"):
         resolve_mesh(good[:2], N, range(N))
     bad = good.copy()
@@ -326,7 +332,9 @@ def test_resolve_mesh_verdicts():
 
 def test_resolve_mesh_refuses_several_cards(monkeypatch):
     """Cards this process does not have are not in the backend; local
-    ranks on two cards, or on the CPU and a card, refuse activation."""
+    ranks on two cards, or on the CPU and a card, refuse activation, as
+    do ranks of another process on another card (another UUID in the
+    plane's table); on the same card they resolve."""
     cuda0 = _rows("cuda:0")
     with pytest.raises(MeshMismatch, match="not in this backend"):
         resolve_mesh(cuda0, N, range(N))
@@ -339,6 +347,15 @@ def test_resolve_mesh_refuses_several_cards(monkeypatch):
     mixed = np.concatenate([_rows("cpu")[:2], cuda0[2:]])
     with pytest.raises(MeshMismatch, match="span devices"):
         resolve_mesh(mixed, N, range(N))
+    two = cuda0.copy()
+    two[2:, 3] = 1
+    card = torch.device("cuda", 0)
+    with pytest.raises(MeshMismatch, match="another card"):
+        resolve_mesh(two, N, range(2), table=[
+            PlaneDevice(0, card, "GPU-a"), PlaneDevice(1, card, "GPU-b")])
+    assert resolve_mesh(two, N, range(2), table=[
+        PlaneDevice(0, card, "GPU-a"), PlaneDevice(1, card, "GPU-a")]) == \
+        [card] * N
 
 
 def test_aliased_devices_activate_where_the_reference_refuses():

@@ -10,8 +10,10 @@ until each child binds them, never from fixed aliases.
 
 The planner serves its REST endpoint, and the telemetry cases (``:241``,
 ``:341``, ``:401``) read ``/metrics``, ``/trace``, ``/commmatrix`` and
-``/healthz`` from it. Waiting for a later step (``ROADMAP.md`` #10): the
-device plane across processes (``:618``, step 7).
+``/healthz`` from it. The first half of the device plane across
+processes (``:618``) is ``tests/test_torch_distributed.py``'s
+planeworker case on this module's ``ProcCluster``; its train steps wait
+for ``ROADMAP.md`` Queue 1 step 8.
 """
 
 import os
@@ -163,11 +165,14 @@ class ProcCluster:
     ``host_env[host]`` in one host's. With ``http`` the planner serves
     its REST endpoint (``http_url``), and each host of ``worker_http``
     its worker endpoint (``worker_url(host)``), each on its own offset
-    plus ``HTTP_PORT``."""
+    plus ``HTTP_PORT``. The workers run ``worker_role``'s body of
+    ``tests/test_torch_procs.py``, with ``worker_args`` after their
+    slots."""
 
     def __init__(self, tag: str, workers: dict, extra_env: dict | None = None,
                  worker_env: dict | None = None, http: bool = False,
-                 host_env: dict | None = None, worker_http=()):
+                 host_env: dict | None = None, worker_http=(),
+                 worker_role: str = "worker", worker_args=()):
         assert len(workers) <= 2
         self.tag = tag
         self.planner_host = f"{tag}pl"
@@ -179,6 +184,8 @@ class ProcCluster:
         self.host_env = {h: dict(e) for h, e in (host_env or {}).items()}
         self.http = http
         self.worker_http = set(worker_http)
+        self.worker_role = worker_role
+        self.worker_args = [str(a) for a in worker_args]
         self.children: dict[str, Child] = {}
         self.ready: dict[str, dict] = {}
         self.me = None
@@ -245,7 +252,8 @@ class ProcCluster:
         if host == self.planner_host:
             args = ["planner", str(self.base)]
         else:
-            args = ["worker", host, self.planner_host, str(self.slots[host])]
+            args = [self.worker_role, host, self.planner_host,
+                    str(self.slots[host]), *self.worker_args]
         try:
             child = Child(host, args, self.env(host), held)
         finally:

@@ -326,11 +326,23 @@ def test_a_buffer_off_its_rank_device_is_refused():
 
 
 def test_addressable_forms_wait_for_cross_process_planes(colls):
-    port, _ = colls
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        port.shard_stacked_addressable({0: np.zeros(2)}, (2,), np.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        port.addressable_shard([], 0)
+    """In one process every rank is addressable: the addressable forms
+    give the JAX package's shards, and both refuse a missing local rank.
+    Across processes (tests/test_torch_distributed.py) the other
+    processes' ranks are None here and raise in addressable_shard."""
+    port, ref = colls
+    bufs = {r: b for r, b in enumerate(per_rank((3, 2), seed0=40))}
+    xs = port.shard_stacked_addressable(bufs, (3, 2), np.float32)
+    got = ref.shard_stacked_addressable(bufs, (3, 2), np.float32)
+    for r in range(N):
+        want = ref.addressable_shard(got, r).reshape(3, 2)
+        assert port.addressable_shard(xs, r).dtype == torch.float32
+        np.testing.assert_array_equal(port.addressable_shard(xs, r).numpy(),
+                                      want)
+    for coll in (port, ref):
+        with pytest.raises(KeyError, match="no buffer was supplied"):
+            coll.shard_stacked_addressable({0: bufs[0]}, (3, 2), np.float32)
+    assert port.local_ranks == list(range(N)) and not port.multiprocess
 
 
 # ---------------------------------------------------------------------------

@@ -15,9 +15,11 @@ full width, without patching the world's chunk size (the children would
 not see a patch). The kernels run only on the card; here the children
 count their plain norm and attention calls under the kernels' names, so
 that the launch counts they carry back can be checked. The children run
-under the lock-order detector, and phase 28 (``kill_phase``) SIGKILLs
-one of them under a serving batch of a small model, whose requests the
-planner requeues onto the other.
+under the lock-order detector and join a 2-process device plane at
+boot; phase 29 (``xproc_phase``) runs a gang across them on that plane
+(gloo on the CPU), and phase 28 (``kill_phase``) SIGKILLs one of them
+under a serving batch of a small model, whose requests the planner
+requeues onto the other.
 """
 
 import os
@@ -38,6 +40,8 @@ SMALL = dict(vocab_size=4096, d_model=256, n_layers=2, n_heads=4, d_ff=512,
 SEQ, STEPS = 32, 3
 # Phase 28's serving batch: 8 requests of SERVE_LEN tokens, N_NEW more
 SERVE_LEN, N_NEW = 16, 4
+# Phase 29's fp32 elements a rank
+XPROC_ELEMS = 4096
 
 # A worker child whose plain norm and attention count launches under the
 # kernels' names (the CPU runs no kernel), on one intra-op thread
@@ -127,7 +131,8 @@ def _processes_phase_small(monkeypatch):
         launches = chip_smoke.processes_phase(
             torch.device("cpu"), _build, keep, cfg=cfg, seq=SEQ, steps=STEPS,
             base=base, child_argv=[sys.executable, "-c", COUNTING_CHILD],
-            serve_cfg=cfg, serve_len=SERVE_LEN, n_new=N_NEW)
+            serve_cfg=cfg, serve_len=SERVE_LEN, n_new=N_NEW,
+            xproc_elems=XPROC_ELEMS)
     finally:
         sentinel[0].close()
     assert _children_of(os.getpid()) <= before
@@ -173,6 +178,18 @@ def _processes_phase_small(monkeypatch):
         assert any(what in w for w in killed), (what, killed)
     assert any(w == "26: the planner process stopped on SIGTERM with 0"
                for w in passed), passed
+    # Phase 29: the children joined the plane at boot, and its gang's
+    # collectives across them agree with the host ring, numpy, the
+    # plain ring and the single-process plane
+    joined = [w for w in passed if "device plane at boot" in w]
+    assert len(joined) == 2, passed
+    across = [w for w in passed if w.startswith("29: ")]
+    for what in ("split 2 + 2", "activated on every rank over 2 processes",
+                 "int32 allreduce", "int32 allgather", "int32 reduce_scatter",
+                 "zero host<->device copies", "zero bytes on rings",
+                 "bitwise its plain version",
+                 "bitwise equal to the single-process plane's fold"):
+        assert any(what in w for w in across), (what, across)
 
 
 def _serving_calls(cfg, monkeypatch) -> dict:

@@ -8,6 +8,8 @@ JAX package. Run as a script::
 
     python tests/test_torch_procs.py planner [port_offset]
     python tests/test_torch_procs.py worker <host> [planner_host] [slots]
+    python tests/test_torch_procs.py planeworker <host> <planner_host> \
+        <slots> <n_procs> [device]
 
 A body prints ``READY`` once it serves, then one JSON line: its role and
 host, the top-level modules it loaded (so a test can show that no
@@ -1015,6 +1017,86 @@ def run_worker(host: str, planner_host: str = "127.0.0.1",
         w.shutdown()
 
 
+def run_plane_worker(host: str, planner_host: str, slots: int,
+                     n_procs: int, device: str = "cpu") -> None:
+    """One process of a multi-process device plane (counterpart of the
+    first half of ``tests/dist/procs.py::run_plane_worker``): a
+    ``WorkerRuntime`` that joins an ``n_procs``-process plane through the
+    planner at boot with four entries of ``device`` (``cpu``: gloo;
+    ``cuda:0``: CUDA IPC windows on one card), then an allreduce, an
+    allgather, a reduce_scatter and a broadcast over
+    ``shard_stacked_addressable`` whose shards live in every process,
+    each process checking its own with ``addressable_shard``, and an
+    allreduce of buffers that need a gradient, which must raise
+    ``NotImplementedError`` (these forms have no backward across
+    processes). Prints one ``PLANE-OK``/``PLANE-FAIL`` line with the
+    global and local device counts and its ranks (the ready line
+    carries it too)."""
+    from faabric_tpu_torch.mpi import MpiOp
+    from faabric_tpu_torch.parallel import (
+        DeviceCollectives,
+        global_devices,
+        plane_summary,
+    )
+    from faabric_tpu_torch.runner import WorkerRuntime
+
+    w = WorkerRuntime(host=host, slots=slots, n_devices=4,
+                      factory=DistFactory(), planner_host=planner_host,
+                      device_plane_size=n_procs,
+                      plane_devices=[device] * 4)
+    _release_held_ports()
+    try:
+        w.start()
+        s = plane_summary()
+        col = DeviceCollectives(global_devices())
+        mine = col.local_ranks
+        x = col.shard_stacked_addressable(
+            {r: np.full(4096, float(r + 1), np.float32) for r in mine},
+            (4096,), np.float32)
+        out = col.allreduce(x, MpiOp.SUM)
+        expected = col.n * (col.n + 1) / 2
+        ok = all(bool((col.addressable_shard(out, r) == expected).all())
+                 for r in mine)
+        # Forward only across processes: a buffer that needs a gradient
+        # is refused in every process, before any exchange
+        try:
+            col.allreduce([None if t is None
+                           else t.detach().clone().requires_grad_()
+                           for t in x], MpiOp.SUM)
+            ok = False
+        except NotImplementedError:
+            pass
+        g = col.allgather(col.shard_stacked_addressable(
+            {r: np.full(8, float(r), np.float32) for r in mine}, (8,),
+            np.float32))
+        got = col.addressable_shard(g, mine[0]).reshape(col.n, 8)
+        ok = ok and all(bool((got[r] == r).all()) for r in range(col.n))
+        # The other two forms: rank r gets segment r of the sum, and the
+        # last rank's buffer reaches every rank
+        rs = col.reduce_scatter(col.shard_stacked_addressable(
+            {r: np.arange(4 * col.n) * (r + 1) for r in mine},
+            (4 * col.n,), np.int64))
+        total = np.arange(4 * col.n) * sum(range(1, col.n + 1))
+        ok = ok and all(np.array_equal(
+            col.addressable_shard(rs, r).cpu().numpy(),
+            total[4 * r:4 * (r + 1)])
+                        for r in mine)
+        b = col.broadcast(x, root=col.n - 1)
+        ok = ok and all(bool((col.addressable_shard(b, r) == col.n).all())
+                        for r in mine)
+        line = (f"PLANE-{'OK' if ok else 'FAIL'} "
+                f"gdev={s['global_devices']} ldev={s['local_devices']} "
+                f"ranks={mine}")
+    except Exception as e:  # noqa: BLE001 — reported on the line
+        line = f"PLANE-FAIL err={e!r}"
+    print(line, flush=True)
+    try:
+        _serve_until_stdin_closes({"role": "planeworker", "host": host,
+                                   "plane": line})
+    finally:
+        w.shutdown()
+
+
 if __name__ == "__main__":
     from faabric_tpu_torch.telemetry.flight import install_signal_dump
     from faabric_tpu_torch.util.crash import install_crash_handler
@@ -1024,6 +1106,9 @@ if __name__ == "__main__":
     role = sys.argv[1]
     if role == "planner":
         run_planner(int(sys.argv[2]) if len(sys.argv) > 2 else 0)
+    elif role == "planeworker":
+        run_plane_worker(sys.argv[2], sys.argv[3], int(sys.argv[4]),
+                         int(sys.argv[5]), *sys.argv[6:7])
     else:
         run_worker(sys.argv[2],
                    sys.argv[3] if len(sys.argv) > 3 else "127.0.0.1",
