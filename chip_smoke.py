@@ -103,7 +103,11 @@ serving batch: 8 requests of the full-width model at 2 layers over the
 two worker processes, the share of one held in its guests when that
 process is killed; the planner finds the lost host by its host timeout
 and requeues the share onto the other, every token equal to direct
-serving. Every phase prints ``phase N: start`` and
+serving. Last, the model split over processes: a planner and two
+processes of a 2-process device plane, 4 ranks each on the card, run 2
+full-width steps over (dp 4, tp 2) and 2 1F1B steps over (dp 2, tp 2, pp
+2) whose every pp hop crosses the processes, held bitwise to this
+script's own 8-rank run of the same steps. Every phase prints ``phase N: start`` and
 ``phase N: ok in X s``, and a failed check its phase. For each path
 it checks the outputs and shows from the kernels' launch counts that
 the path ran through them; it times the kernels, their plain versions and the nearest
@@ -330,7 +334,8 @@ def world_ms(n: int, fn, iters: int = 10) -> float:
 
 def ring_kernel_phase(dev) -> tuple[dict, dict, float]:
     """Phase 11: the ring-permute kernel against its plain version,
-    bitwise, then its times at the main path's shape (4 ranks of
+    bitwise (also at 524,288 elements a rank, phase 30's (2, 512, 512)
+    pp hops), then its times at the main path's shape (4 ranks of
     11,338,880 fp32, the flagship's 45,355,520 parameters over 4: phase
     23a's round, too)."""
     from faabric_tpu_torch.ops.ring_permute import (
@@ -342,7 +347,7 @@ def ring_kernel_phase(dev) -> tuple[dict, dict, float]:
     gen = torch.Generator(device=dev).manual_seed(11)
     n, m_main = MPI_RANKS, GRAD_ELEMS // MPI_RANKS
     worst = 0.0
-    sizes = (m_main, 1_000_003, 1)
+    sizes = (m_main, 1_000_003, 2 * 512 * 512, 1)
     for dtype in (torch.int32, torch.float32, torch.bfloat16, torch.uint8):
         for m in sizes:
             for off in (0, 1):
@@ -2116,8 +2121,7 @@ def sharded_serving_phase(dev, build) -> dict:
     busy_pl, _ = profile_top(plain_decode, "18: unsharded bf16 decode", top=4)
     xs = [torch.randn(batch // 2, 1, cfg.d_model, device=dev,
                       dtype=torch.bfloat16) for _ in range(mesh.size)]
-    ar_ms = host_ms(lambda: mesh.over(
-        "tp", xs, lambda coll, t: coll.allreduce(t)), iters=20)
+    ar_ms = host_ms(lambda: mesh.over("tp", xs, "allreduce"), iters=20)
     log(f"  18 bf16 decode of {n_new} tokens from ({batch}, {s_p}): sharded "
         f"{ms_sh:.1f} ms ({batch * n_new / ms_sh * 1e3:.1f} tokens/s, "
         f"{busy_sh:.0f} us of device time), unsharded {ms_pl:.1f} ms "
@@ -6777,6 +6781,433 @@ def processes_phase(dev, build, keep: dict, cfg=None, per_rank: int = 2,
     return path
 
 
+# Phase 30: the pipeline's device order (every pp pair spans the two
+# processes, as the reference's), its microbatches, and the steps a run
+PLANE_PP_ORDER = (0, 1, 4, 5, 2, 3, 6, 7)
+PLANE_MICROBATCHES = 2
+PLANE_STEPS = 2
+PLANE_HOSTS = ("plane-host-a", "plane-host-b")
+
+
+def _fingerprints(model, ranks) -> dict:
+    """Each of ``ranks``' shards of every weight as two int64 sums over
+    its fp32 bit patterns (plain and weighted by position; exact, so any
+    order of summation gives the same numbers): {rank: {weight: [a,
+    b]}}, read back in one copy."""
+    names = list(model.specs)
+    sums = []
+    for r in ranks:
+        for name in names:
+            bits = model.copies(name)[r].detach().reshape(-1).view(
+                torch.int32).long()
+            pos = torch.arange(1, bits.numel() + 1, device=bits.device)
+            sums.append(torch.stack([bits.sum(), (bits * pos).sum()]))
+    flat = torch.stack(sums).tolist()
+    return {str(r): {name: flat[i * len(names) + j]
+                     for j, name in enumerate(names)}
+            for i, r in enumerate(ranks)}
+
+
+def run_plane_steps(entries, cfg, batch: int, seq: int, dev,
+                steps: int = PLANE_STEPS) -> dict:
+    """Phase 30's two runs over the 8 rank entries ``entries`` (the
+    plane's global devices in the children; 8 entries of ``dev`` in the
+    script, the single-process mesh): ``steps`` steps of the (dp 4, tp
+    2) train step, then ``steps`` 1F1B steps over (dp 2, tp 2, pp 2) in
+    ``PLANE_PP_ORDER`` with ``PLANE_MICROBATCHES`` microbatches, each run
+    from ``init_train_state``'s weights of seed 0 drawn on ``dev`` and
+    (batch, seq) batches of a CPU generator's seed 30 (31 for the
+    pipeline). Returns per run: this process's ranks, whether every pp
+    pair crosses processes, and per step the loss (``float.hex`` of this
+    process's first rank's copy, every local copy checked equal), the
+    shards' fingerprints after the step, the wall ms (host clock ending
+    in a synchronize) and the exchange rounds; and the run's kernel
+    launches."""
+    from faabric_tpu_torch.device_plane import xproc
+    from faabric_tpu_torch.models import (
+        data_sharding,
+        init_train_state,
+        make_train_step,
+    )
+    from faabric_tpu_torch.ops import _build
+    from faabric_tpu_torch.parallel import MeshConfig, build_mesh
+    from faabric_tpu_torch.parallel.pipeline import (
+        init_pp_train_state,
+        make_pp_train_step,
+    )
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    out = {}
+    for run, order, axes in (("dense", tuple(range(8)), {"tp": 2}),
+                             ("pp", PLANE_PP_ORDER, {"tp": 2, "pp": 2})):
+        mesh = build_mesh([entries[i] for i in order], MeshConfig(**axes))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        if run == "dense":
+            model, opt = init_train_state(gen, cfg, mesh=mesh)
+            step = make_train_step(cfg)
+        else:
+            model, opt = init_pp_train_state(gen, cfg, mesh)
+            step = make_pp_train_step(cfg, n_microbatches=PLANE_MICROBATCHES,
+                                      schedule_name="1f1b")
+        data = torch.Generator().manual_seed(30 + (run == "pp"))
+        sync()
+        launches0 = dict(_build.LAUNCHES)
+        got = {"ranks": mesh.local_ranks, "steps": [],
+               "crossing": all(len({mesh.rank_process[r] for r in g}) == 2
+                               for g in mesh.groups("pp"))}
+        for _ in range(steps):
+            tok, tgt = (torch.randint(0, cfg.vocab_size, (batch, seq),
+                                      generator=data) for _ in range(2))
+            if run == "dense":
+                shard = data_sharding(mesh).shard
+                tok, tgt = shard(tok), shard(tgt)
+            rounds0 = xproc.round_total()
+            t0 = time.perf_counter()
+            loss = step(model, opt, tok, tgt)
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+            mine = {float(x).hex() for x in loss if x is not None}
+            check(len(mine) == 1, f"30 ({run}): this process's ranks hold one "
+                  f"loss ({mine})")
+            got["steps"].append({
+                "loss": mine.pop(), "ms": wall,
+                "rounds": xproc.round_total() - rounds0,
+                "shards": _fingerprints(model, mesh.local_ranks)})
+        sync()
+        got["launches"] = {k: v - launches0.get(k, 0)
+                           for k, v in _build.LAUNCHES.items()
+                           if v != launches0.get(k, 0)}
+        out[run] = got
+        del model, opt, step
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def plane_hop_check(entries, cfg, batch: int, seq: int, dev) -> dict:
+    """One pp hop of phase 30's 1F1B mesh (``PLANE_PP_ORDER``: every pp
+    pair spans the processes) at the shape the step's hops move, a (batch
+    / dp / microbatches, seq, d_model) tensor a rank in the compute
+    dtype, all 8 ranks' drawn from one CPU generator in every process.
+    Returns whether each local rank's output is bitwise
+    ``_reference_ring_permute`` over its pp pair on the same inputs, the
+    worst |err|, the shape and the ring launches the hop made."""
+    from faabric_tpu_torch.ops import _build
+    from faabric_tpu_torch.ops.ring_permute import _reference_ring_permute
+    from faabric_tpu_torch.parallel import MeshConfig, build_mesh
+    from faabric_tpu_torch.parallel.pipeline import _hop
+
+    mesh = build_mesh([entries[i] for i in PLANE_PP_ORDER],
+                      MeshConfig(tp=2, pp=2))
+    shape = (batch // mesh.shape["dp"] // PLANE_MICROBATCHES, seq,
+             cfg.d_model)
+    gen = torch.Generator().manual_seed(32)
+    every = [torch.randn(shape, generator=gen).to(cfg.compute_dtype).to(dev)
+             for _ in range(mesh.size)]
+    before = _build.LAUNCHES["ring_permute"]
+    got = _hop(mesh, [every[r] if r in mesh.local_ranks else None
+                      for r in range(mesh.size)], 1)
+    launches = _build.LAUNCHES["ring_permute"] - before
+    want: list = [None] * mesh.size
+    for g in mesh.groups("pp"):
+        outs = [torch.empty_like(every[r]) for r in g]
+        _reference_ring_permute([every[r] for r in g], outs, 1)
+        for r, o in zip(g, outs):
+            want[r] = o
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    mine = mesh.local_ranks
+    return {"bitwise": all(torch.equal(got[r], want[r]) for r in mine),
+            "max_abs_err": max(max_err(got[r], want[r]) for r in mine),
+            "shape": list(shape), "launches": launches}
+
+
+def _cfg_spec(cfg) -> dict:
+    spec = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+            if f.name not in ("compute_dtype", "param_dtype")}
+    spec["compute_dtype"] = str(cfg.compute_dtype).split(".")[-1]
+    return spec
+
+
+def _cfg_of(spec: dict):
+    from faabric_tpu_torch.models import ModelConfig
+
+    return ModelConfig(**{**spec, "compute_dtype": getattr(
+        torch, spec["compute_dtype"])})
+
+
+def plane_child(argv: list[str]) -> int:
+    """``chip_smoke.py --plane-child <spec>``: one process of phase 30's
+    2-process device plane. ``spec`` is JSON: the host's name, the
+    planner's host, the device, the model config and the batch shape. It
+    loads the kernels this script built (it never builds them), then
+    takes lines on its standard input: ``boot`` (once the planner
+    serves) starts a 1-slot ``WorkerRuntime`` that joins the plane with
+    four entries of the device and prints ``ready`` with the plane's
+    summary, the seconds of the join and the top-level modules it
+    loaded; ``run`` runs :func:`run_plane_steps` and then
+    :func:`plane_hop_check` over the plane's global devices and prints
+    ``steps`` with their results and the modules. When
+    its standard input closes it shuts the runtime down (the plane's
+    leave within it) and prints ``stopped``. On the CPU it computes on
+    one intra-op thread, as the script's own run it is held against."""
+    from faabric_tpu_torch.executor import TorchExecutorFactory
+    from faabric_tpu_torch.ops import _build
+    from faabric_tpu_torch.parallel import global_devices, plane_summary
+    from faabric_tpu_torch.runner import WorkerRuntime
+
+    spec = json.loads(argv[0])
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _build.kernels()
+    else:
+        torch.set_num_threads(1)
+    cfg = _cfg_of(spec["cfg"])
+
+    def modules():
+        return sorted({m.split(".")[0] for m in sys.modules})
+
+    runtime = None
+    try:
+        for line in sys.stdin:
+            cmd = line.strip()
+            if cmd == "boot":
+                runtime = WorkerRuntime(
+                    host=spec["host"], slots=1,
+                    factory=TorchExecutorFactory(dev.type),
+                    planner_host=spec["planner"], device_plane_size=2,
+                    plane_devices=[dev] * 4)
+                runtime.start()
+                print(json.dumps({"ready": True, "host": spec["host"],
+                                  "plane": plane_summary(),
+                                  "plane_join_s": runtime.plane_join_s,
+                                  "modules": modules()}), flush=True)
+            elif cmd == "run":
+                got = run_plane_steps(global_devices(), cfg, spec["batch"],
+                                  spec["seq"], dev)
+                hop = plane_hop_check(global_devices(), cfg, spec["batch"],
+                                      spec["seq"], dev)
+                print(json.dumps({"steps": got, "hop": hop,
+                                  "host": spec["host"],
+                                  "modules": modules()}), flush=True)
+    finally:
+        if runtime is not None:
+            runtime.shutdown()
+    print(json.dumps({"stopped": True, "plane_leave_s": (
+        runtime.plane_leave_s if runtime is not None else None)}),
+        flush=True)
+    return 0
+
+
+def plane_steps_phase(dev, build, cfg=None, batch: int = 8, seq: int = 512,
+                      base: int | None = None,
+                      child_argv: list[str] | None = None) -> dict:
+    """Phase 30: the sharded train steps across two processes of one
+    device plane. A planner process (``python -m faabric_tpu_torch.runner
+    planner``) and two ``chip_smoke.py --plane-child`` processes
+    (:func:`plane_child`; ``child_argv`` replaces that command line),
+    spawned together, each joining a 2-process plane through the planner
+    with four entries of ``dev``, so that 8 global ranks split 4 + 4.
+    While they start, this script runs :func:`run_plane_steps` over an
+    8-rank mesh of ``dev`` in one process; then each child runs the same
+    steps over the plane: 2 steps over (dp 4, tp 2), 2 1F1B steps over
+    (dp 2, tp 2, pp 2) whose every pp hop crosses the processes, at
+    ``cfg`` (``ModelConfig()`` by default: full width, bf16 compute,
+    remat). Checked: both processes' losses and their ranks' shards after
+    every step bitwise equal to the single-process run's; on the card
+    each child's flash forward, dQ and dK/dV launches half the
+    single-process run's over the same mesh, every forward on ``wgmma``,
+    and its ring launches one a pp hop (``hop_counts``' 1F1B count a
+    step), each hop one ring round; the children loaded nothing of JAX or
+    of the JAX package; one pp hop of each child at the step's hop shape
+    bitwise the plain ring permute on the same inputs (one ring launch on
+    the card, outside the step's counts). Logs each step's wall ms
+    beside the single-process step's, and the exchange rounds a step.
+    Returns the children's launches."""
+    import signal
+
+    from faabric_tpu_torch.models import ModelConfig
+    from faabric_tpu_torch.parallel.pipeline import hop_counts
+
+    log("phase 30: the sharded train steps across two processes")
+    on_card = dev.type == "cuda"
+    if on_card:
+        log("  30 card: " + subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip())
+    cfg = cfg or ModelConfig()
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase30-", dir=os.path.join(here, "build"))
+    base = random_port_base() if base is None else base
+    planner_host = "plane-planner"
+    offsets = {planner_host: base}
+    for i, h in enumerate(PLANE_HOSTS):
+        offsets[h] = base + 1000 * (i + 1)
+    wait_ports_free(base, label="30")
+    for h in PLANE_HOSTS:
+        wait_ports_free(offsets[h], label="30", ports=worker_ports())
+    env = {"FAABRIC_HOST_ALIASES": ",".join(
+        f"{h}=127.0.0.1+{o}" for h, o in offsets.items())}
+    argv = child_argv or [sys.executable, os.path.abspath(__file__),
+                          "--plane-child"]
+    planner = None
+    children: dict = {}
+    launches: dict = {}
+    t_phase = time.perf_counter()
+    plog = open(os.path.join(work, "planner.log"), "ab")
+    try:
+        # Everything starts at once: the children load while the planner
+        # starts and while this script runs the single-process steps
+        planner = subprocess.Popen(
+            [sys.executable, "-m", "faabric_tpu_torch.runner", "planner",
+             "--port-offset", str(base)], cwd=here, stdin=subprocess.DEVNULL,
+            stdout=subprocess.DEVNULL, stderr=plog, env={**os.environ, **env})
+        for h in PLANE_HOSTS:
+            spec = {"host": h, "planner": planner_host, "device": str(dev),
+                    "cfg": _cfg_spec(cfg), "batch": batch, "seq": seq}
+            children[h] = JsonChild([*argv, json.dumps(spec)], env,
+                                    os.path.join(work, f"{h}.log"),
+                                    f"30: the {h} child")
+        single = run_plane_steps([dev] * 8, cfg, batch, seq, dev)
+        # The planner serves once its sync port takes a connection
+        import socket
+
+        from faabric_tpu_torch.transport.common import PLANNER_SYNC_PORT
+
+        deadline = time.monotonic() + 180
+        while True:
+            try:
+                socket.create_connection(
+                    ("127.0.0.1", base + PLANNER_SYNC_PORT), 1).close()
+                break
+            except OSError:
+                check(time.monotonic() < deadline and planner.poll() is None,
+                      f"30: the planner process serves (exit code "
+                      f"{planner.poll()})")
+                time.sleep(0.1)
+        for c in children.values():
+            c.send("boot")
+        for h, c in children.items():
+            ready = c.expect("ready", 180)
+            plane = ready["plane"]
+            check(plane["process_count"] == 2 and plane["global_devices"] == 8
+                  and plane["local_devices"] == 4,
+                  f"30: the {h} child joined a 2-process plane of 8 devices, "
+                  f"4 its own ({plane}; join {ready['plane_join_s']:.3f} s)")
+        for c in children.values():
+            c.send("run")
+        got = {h: c.expect("steps", 600) for h, c in children.items()}
+        for h, rep in got.items():
+            bad = sorted(set(rep["modules"])
+                         & {"jax", "jaxlib", "faabric_tpu", "tests"})
+            check(not bad, f"30: the {h} child loaded nothing of JAX or the "
+                  f"JAX package ({bad})")
+            hop = rep["hop"]
+            check(hop["bitwise"] and (not on_card or hop["launches"] == 1),
+                  f"30: the {h} process's pp hop across the processes, "
+                  f"{hop['shape']} {str(cfg.compute_dtype)[6:]} a rank, is "
+                  f"bitwise _reference_ring_permute over each pp pair (max "
+                  f"|err| {hop['max_abs_err']:.3g}; {hop['launches']} ring "
+                  f"launch)")
+        ranks = sorted(tuple(rep["steps"]["dense"]["ranks"])
+                       for rep in got.values())
+        check(ranks == [(0, 1, 2, 3), (4, 5, 6, 7)],
+              f"30: the (dp 4, tp 2) mesh's ranks split 4 + 4 ({ranks})")
+        hops = hop_counts(2, PLANE_MICROBATCHES)["1f1b"]
+        for run, label in (("dense", "(dp 4, tp 2) step"),
+                           ("pp", "1F1B step over (dp 2, tp 2, pp 2)")):
+            want = single[run]
+            for h, rep in got.items():
+                mine = rep["steps"][run]
+                if run == "pp":
+                    check(mine["crossing"], f"30: every pp hop of the {h} "
+                          f"process's mesh crosses the processes")
+                for i, (a, b) in enumerate(zip(mine["steps"], want["steps"])):
+                    check(a["loss"] == b["loss"],
+                          f"30 ({run}): the {h} process's loss after step "
+                          f"{i + 1} ({float.fromhex(a['loss']):.6f}) is "
+                          f"bitwise the single-process run's "
+                          f"({float.fromhex(b['loss']):.6f})")
+                    diff = sorted(f"{r}/{name}" for r, leaves in
+                                  a["shards"].items() for name, fp in
+                                  leaves.items()
+                                  if fp != b["shards"][r][name])
+                    check(not diff, f"30 ({run}): the {h} process's ranks "
+                          f"{mine['ranks']}' shards after step {i + 1} are "
+                          f"bitwise the single-process run's "
+                          f"({len(diff)} differ: {diff[:6]})")
+                if on_card and run == "dense":
+                    for name in ("flash_attention", "flash_bwd_dq",
+                                 "flash_bwd_dkv"):
+                        n = mine["launches"].get(name, 0)
+                        check(2 * n == want["launches"].get(name, -1),
+                              f"30 ({run}): {name} launched {n} times in the "
+                              f"{h} process, half the single-process run's "
+                              f"{want['launches'].get(name, 0)}")
+                    check(mine["launches"].get("flash_attention.wgmma", 0)
+                          == mine["launches"].get("flash_attention", -1),
+                          f"30 ({run}): every flash forward in the {h} "
+                          f"process took the wgmma body")
+                if on_card and run == "pp":
+                    n = mine["launches"].get("ring_permute", 0)
+                    check(n == hops * PLANE_STEPS,
+                          f"30 (pp): the ring kernel launched {n} times in "
+                          f"the {h} process = one a pp hop, {hops} a step "
+                          f"(hop_counts) x {PLANE_STEPS} steps")
+                if run == "pp":
+                    rounds = [s["rounds"] for s in mine["steps"]]
+                    check(all(r >= hops for r in rounds),
+                          f"30 (pp): each step of the {h} process made its "
+                          f"{hops} hops as rounds ({rounds} rounds a step)")
+                for k, v in mine["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+            log(f"  30 {label} wall ms by step: " + "; ".join(
+                f"{h} " + ", ".join(f"{s['ms']:.1f}"
+                                    for s in rep["steps"][run]["steps"])
+                for h, rep in got.items()) + "; single-process " + ", ".join(
+                f"{s['ms']:.1f}" for s in want["steps"]) + "; exchange "
+                "rounds a step: " + "; ".join(
+                f"{h} " + ", ".join(str(s["rounds"])
+                                    for s in rep["steps"][run]["steps"])
+                for h, rep in got.items()) + "; losses " + ", ".join(
+                f"{float.fromhex(s['loss']):.6f}" for s in want["steps"]))
+            log(f"  30 {label} launches: single-process {want['launches']}; "
+                + "; ".join(f"{h} {rep['steps'][run]['launches']}"
+                            for h, rep in got.items()))
+    finally:
+        try:
+            # Both leave the plane together
+            for c in children.values():
+                c.proc.stdin.close()
+            for h, c in children.items():
+                left = c.expect("stopped", 60)["plane_leave_s"]
+                check(c.proc.wait(60) == 0, f"{c.label} exited 0")
+                log(f"  30 the {h} child left the device plane in "
+                    f"{_s(left)} s at its stop")
+            if planner is not None and planner.poll() is None:
+                planner.send_signal(signal.SIGTERM)
+                check(planner.wait(60) == 0,
+                      "30: the planner process stopped on SIGTERM with 0")
+        finally:
+            for c in children.values():
+                c.kill()
+            if planner is not None and planner.poll() is None:
+                planner.kill()
+                planner.wait(60)
+            plog.close()
+            shutil.rmtree(work, ignore_errors=True)
+    log(f"  phase 30 launches: {launches}")
+    log(f"  phase 30 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if (sys.argv[1:2] == ["--planner-child"]
@@ -6801,6 +7232,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--worker-child"]:
         # Phase 26's worker hosts
         return worker_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--plane-child"]:
+        # Phase 30's plane processes
+        return plane_child(sys.argv[2:])
     # Arm the fault registry before the port loads (an inert rule on a
     # point nothing fires): its call sites keep live handles, and phase
     # 23's install_faults arms them
@@ -6902,7 +7336,8 @@ def main() -> int:
     # its scorings (1, 512, 8 heads); phases 22-23's ranks (2, 512, 8
     # heads); phase 24's ranks (2, 512, 8 heads), its spot scorings
     # (1, 2048, 8 heads) and its served requests (1, 512, 8 heads), as
-    # QKV views
+    # QKV views; phase 30's ranks (2, 512, 4 heads) in both its steps,
+    # as QKV views
     for b, s_q, s_k, h, causal, dtype, views in [
             (8, 512, 512, 8, True, torch.bfloat16, False),
             (8, 128, 512, 8, True, torch.bfloat16, False),
@@ -6918,6 +7353,8 @@ def main() -> int:
             (2, 512, 512, 8, True, torch.bfloat16, True),
             (4, 512, 512, 4, True, torch.bfloat16, False),
             (4, 512, 512, 4, True, torch.bfloat16, True),
+            (2, 512, 512, 4, True, torch.bfloat16, False),
+            (2, 512, 512, 4, True, torch.bfloat16, True),
             (2, 512, 512, 2, True, torch.float32, False),
             (2, 512, 512, 2, True, torch.float32, True),
             (4, 512, 512, 8, True, torch.float32, False)]:
@@ -7130,7 +7567,8 @@ def main() -> int:
     # (2, 512, 8 heads) and (4, 512, 4 heads): each rank's attention in
     # the MoE train steps of phase 16 (dp 4 x ep 2; dp 2 x tp 2 x ep 2)
     # and each thread's step of phase 21, each rank's step of phases
-    # 22-23; (8, 512, 8 heads) also phase 20's steps
+    # 22-23; (8, 512, 8 heads) also phase 20's steps; (2, 512, 4 heads)
+    # each rank's attention in phase 30's steps
     bwd_cases = [(b, s_q, s_k, h, d, causal, dtype, g_lse, strided)
                  for dtype in (torch.bfloat16, torch.float32)
                  for b, s_q, s_k, h, d, causal, g_lse, strided in [
@@ -7145,7 +7583,9 @@ def main() -> int:
                      (2, 512, 512, 8, 64, True, False, False),
                      (2, 512, 512, 8, 64, True, False, True),
                      (4, 512, 512, 4, 64, True, False, False),
-                     (4, 512, 512, 4, 64, True, False, True)]]
+                     (4, 512, 512, 4, 64, True, False, True),
+                     (2, 512, 512, 4, 64, True, False, False),
+                     (2, 512, 512, 4, 64, True, False, True)]]
     for b, s_q, s_k, h, d, causal, dtype, g_lse, strided in bwd_cases:
         ins = bwd_inputs(b, s_q, s_k, h, d, causal, dtype, g_lse, strided)
         q, k, v, do, out, lse, g = ins
@@ -7451,6 +7891,9 @@ def main() -> int:
     begin_phase(26)
     process_launches = processes_phase(dev, _build, plane_steps)
     del plane_steps
+    # -- 30. the sharded train steps across two processes of one plane ---
+    begin_phase(30)
+    plane_steps_launches = plane_steps_phase(dev, _build)
     end_phase()
     # Each row's launches: the serving kernels' on the direct serving
     # path (phase 5) and under the executors (13), the backward kernels'
@@ -7459,7 +7902,8 @@ def main() -> int:
     # data-parallel (17), sharded decode and perplexity (18), state (19),
     # snapshot (20), THREADS and chaining (21), data-plane (22),
     # telemetry (23), migration, spot and recovery (24), planner restart
-    # (25) and host-process (26, launched in its worker processes) paths
+    # (25), host-process (26, launched in its worker processes) and
+    # cross-process step (30, launched in its plane processes) paths
     path_launches = {
         name: sum(p.get(name, 0) for p in paths) + sum(
             p.get(name, 0) for p in (mesh_launches, pp_launches, moe_launches,
@@ -7467,7 +7911,8 @@ def main() -> int:
                                      state_launches, snapshot_launches,
                                      threads_launches, planes_launches,
                                      telemetry_launches, migration_launches,
-                                     restart_launches, process_launches))
+                                     restart_launches, process_launches,
+                                     plane_steps_launches))
         for name, paths in (
             ("rms_norm", (launches, faabric_launches)),
             ("flash_attention", (launches, faabric_launches)),

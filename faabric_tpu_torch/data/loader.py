@@ -73,7 +73,7 @@ class DataLoader:
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.mesh = mesh
-        self.device = (mesh.rank_devices[0] if mesh is not None
+        self.device = (mesh.device if mesh is not None
                        else resolve_device(device))
         self.seed = seed
         self.drop_last = drop_last
@@ -111,7 +111,8 @@ class DataLoader:
             from faabric_tpu_torch.models.train import data_sharding
 
             spec = data_sharding(self.mesh)
-            on_cuda = any(d.type == "cuda" for d in self.mesh.rank_devices)
+            on_cuda = any(d is not None and d.type == "cuda"
+                          for d in self.mesh.rank_devices)
             return tuple(spec.shard(torch.from_numpy(a).pin_memory()
                                     if on_cuda else a) for a in (xs, ys))
         if self.device.type == "cpu":

@@ -1,10 +1,10 @@
 """One round's exchange between the processes of a device plane.
 
 Used by the MPI world's device rung when its ranks live in several
-processes (``plane.py``) and by the addressable forms of
-``DeviceCollectives`` (``parallel/collectives.py``). The reference has no
-such module: its cross-process rounds are XLA collectives over one
-``jax.distributed`` plane. The simplest design that is right: every
+processes (``plane.py``), and by ``DeviceCollectives`` and ``Mesh.over``
+over ranks of several processes (``parallel/collectives.py::
+cross_process``). The reference has no such module: its cross-process
+rounds are XLA collectives over one ``jax.distributed`` plane. The simplest design that is right: every
 process gets every rank's deposit, and every process folds them in rank
 order with the single-process code, so the results are bitwise those of
 the single-process plane on the same inputs.
@@ -25,10 +25,11 @@ group of its own, made from the joined plane's store at the first round
   deposits into the window (device to device), synchronizes the stream,
   passes a gloo barrier, reads the peers' windows in place, and
   synchronizes and passes a second barrier before any window is written
-  again. A ring round instead writes each local shard straight into its
-  destination, a local output or a peer's window, in one launch of the
-  ring-permute kernel (``ops/ring_permute.py::ring_permute_to``), which
-  a CUDA event pair times alone (:meth:`Exchanger.ring_kernel_ms`). A
+  again. A permute round (a ring hop, or any other permutation) instead
+  writes each local shard straight into its destination, a local output
+  or a peer's window, in one launch of the ring-permute kernel
+  (``ops/ring_permute.py::ring_permute_to``), which a CUDA event pair
+  times alone (:meth:`Exchanger.ring_kernel_ms`). A
   window grows by re-exchanging handles, and a peer unmaps a window
   before its owner frees it. The group carries handles and barriers,
   never payload: there is no host staging and no fallback to one, so a
@@ -135,6 +136,7 @@ class Exchanger:
         "_peers": "_lock",
         "_closed": "_lock",
         "_ring_ms": "_lock",
+        "_rounds": "_lock",
     }
 
     def __init__(self, name: str, rank_process: Sequence[int],
@@ -170,6 +172,8 @@ class Exchanger:
         # CUDA-event ms of the ring kernel's launches, latest last
         self._ring_ms: collections.deque = collections.deque(
             maxlen=RING_TIMES_KEPT)
+        # Rounds made so far (gathers and ring rounds alike)
+        self._rounds = 0
         with _registry_lock:
             _live.add(self)
 
@@ -224,6 +228,7 @@ class Exchanger:
         first = local[self.local_ranks[0]]
         nbytes = first.numel() * first.element_size()
         with self._lock:
+            self._rounds += 1
             if self.device.type == "cuda":
                 ins = self._gather_cuda_locked(local, first, nbytes)
                 try:
@@ -277,55 +282,78 @@ class Exchanger:
              shift: int) -> dict[int, torch.Tensor]:
         """One ring hop over every rank: rank r's flat deposit lands on
         rank ``(r + shift) % n``. Returns the local ranks' outputs, fresh
-        tensors. On the card one launch of the ring-permute kernel writes
-        every local shard into its destination, a local output or a
-        peer's window; on the CPU the plain version runs over the
-        gathered deposits."""
-        from faabric_tpu_torch.ops.ring_permute import ring_permute
+        tensors (see :meth:`permute`)."""
+        return self.permute(local, {r: (r + shift) % self.n
+                                    for r in range(self.n)})
 
-        shift %= self.n
+    def permute(self, local: dict[int, torch.Tensor],
+                dest: dict[int, int]) -> dict[int, torch.Tensor]:
+        """One round in which rank r's deposit lands on rank ``dest[r]``
+        (each rank a destination at most once; a rank that no source
+        reaches gets zeros). ``local`` holds a deposit for every local
+        rank, of one dtype and size. Returns the local ranks' outputs,
+        fresh tensors. On the card one launch of the ring-permute kernel
+        writes every local source's shard into its destination, a local
+        output or a peer's window (no launch where this process holds no
+        source); on the CPU the deposits are gathered and copied."""
         if self.device.type != "cuda":
             with self.gather(local) as ins:
-                outs = ring_permute(ins, shift)
-                return {r: outs[r] for r in self.local_ranks}
-        return self._ring_cuda(local, shift)
+                outs = {d: torch.zeros_like(local[d])
+                        for d in self.local_ranks}
+                for s, d in dest.items():
+                    if d in outs:
+                        outs[d].copy_(ins[s])
+                return outs
+        return self._permute_cuda(local, dest)
 
-    def _ring_cuda(self, local, shift: int) -> dict[int, torch.Tensor]:
+    def _permute_cuda(self, local, dest) -> dict[int, torch.Tensor]:
         from faabric_tpu_torch.ops.ring_permute import ring_permute_to
 
         first = local[self.local_ranks[0]]
         nbytes = first.numel() * first.element_size()
         stream = torch.cuda.current_stream(self.device)
-        outs = {r: torch.empty_like(first) for r in self.local_ranks}
+        source_of = {d: s for s, d in dest.items()}
+        outs = {r: (torch.empty_like(first) if r in source_of
+                    else torch.zeros_like(first)) for r in self.local_ranks}
         with self._lock:
+            self._rounds += 1
             stride = self._ensure_window_locked(nbytes)
             srcs, dsts = [], []
             for r in self.local_ranks:
-                d = (r + shift) % self.n
+                if r not in dest:
+                    continue
+                d = dest[r]
                 srcs.append(local[r])
                 if d in outs:
                     dsts.append(outs[d].data_ptr())
                 else:
                     dsts.append(self._peers[self.member_of[d]]
                                 + self.slot[d] * stride)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record(stream)
-            ring_permute_to(srcs, dsts)
-            end.record(stream)
+            if srcs:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record(stream)
+                ring_permute_to(srcs, dsts)
+                end.record(stream)
             # Every shard has landed before the round is published
             stream.synchronize()
-            self._ring_ms.append(start.elapsed_time(end))
+            if srcs:
+                self._ring_ms.append(start.elapsed_time(end))
             self._barrier_locked()
             own = _device_bytes(self._own, self._cap, self.device)
             for d in self.local_ranks:
-                if (d - shift) % self.n not in outs:
+                if d in source_of and source_of[d] not in local:
                     i = self.slot[d]
                     _as_bytes(outs[d]).copy_(
                         own[i * stride:i * stride + nbytes])
             stream.synchronize()
             self._barrier_locked()
         return outs
+
+    def round_count(self) -> int:
+        """The rounds this exchanger made in this process so far."""
+        with self._lock:
+            return self._rounds
 
     def ring_kernel_ms(self) -> list[float]:
         """The ring kernel's CUDA-event ms in this process's latest ring
@@ -406,6 +434,13 @@ def named_exchanger(name: str, rank_process: Sequence[int],
         with _registry_lock:
             ex = _named.setdefault(key, ex)
     return ex
+
+
+def round_total() -> int:
+    """The rounds this process's named exchangers made so far, summed."""
+    with _registry_lock:
+        live = list(_named.values())
+    return sum(ex.round_count() for ex in live)
 
 
 def close_all(wait_s: float = 0.0) -> int:

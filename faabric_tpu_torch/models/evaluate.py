@@ -29,6 +29,10 @@ def _sharded_nll_sum(model: ShardedTransformer, tokens, targets):
     from faabric_tpu_torch.models.train import data_sharding
 
     mesh = model.mesh
+    if mesh.multiprocess:
+        from faabric_tpu_torch.models.generate import SERVING_XPROC
+
+        raise NotImplementedError(SERVING_XPROC)
     if not isinstance(tokens, (list, tuple)):
         spec = data_sharding(mesh)
         tokens = spec.shard(torch.as_tensor(tokens))
@@ -39,7 +43,7 @@ def _sharded_nll_sum(model: ShardedTransformer, tokens, targets):
         c = mesh.coords(r)
         if c["tp"] == c["pp"] == c["ep"] == 0:
             nll = token_nll(lg, tgt.to(lg.device))
-            total = total + nll.sum().double().to(mesh.rank_devices[0])
+            total = total + nll.sum().double().to(mesh.device)
             n += nll.numel()
     return total, n
 
@@ -53,7 +57,7 @@ def evaluate_perplexity(model: Transformer, batches: Iterable,
     if max_batches is not None:
         batches = itertools.islice(iter(batches), max_batches)
     sharded = isinstance(model, ShardedTransformer)
-    device = model.mesh.rank_devices[0] if sharded else model.device
+    device = model.mesh.device if sharded else model.device
     total = torch.zeros((), dtype=torch.float64, device=device)
     n_tokens = 0
     for tokens, targets in batches:

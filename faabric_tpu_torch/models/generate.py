@@ -68,12 +68,19 @@ def init_sharded_kv_cache(model: ShardedTransformer,
             for dev in mesh.rank_devices]
 
 
+SERVING_XPROC = ("sharded serving (decode, perplexity) over a mesh whose "
+                 "ranks live in several processes is not ported yet "
+                 "(ROADMAP.md Queue 1 step 13)")
+
+
 def _check_decode_mesh(model: ShardedTransformer):
     _check_family(model)
     mesh = model.mesh
     if mesh.shape["pp"] > 1:
         raise ValueError("decode over a pipeline mesh (pp > 1) is not "
                          "supported; lay the model over dp and tp")
+    if mesh.multiprocess:
+        raise NotImplementedError(SERVING_XPROC)
     return mesh
 
 
@@ -123,7 +130,7 @@ def _sharded_block_with_cache(xs, blks, caches, start: int, length: int,
     allreduce over tp, then the sharded forward's FFN sublayer."""
     outs = mesh.over("tp", [_cached_attn(x, blk, cache, start, length, cfg)
                             for x, blk, cache in zip(xs, blks, caches)],
-                     lambda coll, t: coll.allreduce(t))
+                     "allreduce")
     xs = [x + o for x, o in zip(xs, outs)]
     return _sharded_ffn_sublayer(xs, blks, cfg, mesh)
 
@@ -134,12 +141,12 @@ def _sharded_forward_with_cache(model: ShardedTransformer, tokens,
     if len(tokens) != mesh.size or len(cache) != mesh.size:
         raise ValueError(f"{len(tokens)} token shards and {len(cache)} "
                          f"caches for {mesh.size} ranks")
-    cfg = resolve_impls(model.cfg, mesh.rank_devices[0])
+    cfg = resolve_impls(model.cfg, mesh.device)
     s = tokens[0].shape[1]
     if start + s > cfg.max_seq:
         raise ValueError(f"positions up to {start + s} exceed max_seq "
                          f"{cfg.max_seq}")
-    shards = list(model.ranks)
+    shards = model.shards()
     xs = _sharded_embed(shards, tokens, cfg, mesh)
     for i in range(cfg.n_layers):
         xs = _sharded_block_with_cache(

@@ -151,10 +151,21 @@ def _moe_param_shapes(cfg: MoEConfig) -> dict:
     return shapes
 
 
+MOE_XPROC = ("the MoE family over a mesh whose ranks live in several "
+             "processes is not ported yet (ROADMAP.md Queue 1 step 11)")
+
+
 class ShardedMoETransformer(ShardedTransformer):
     """A MoETransformer's weights laid over a mesh (``ranks[r]`` holds
     rank r's shards, :func:`moe_param_shardings`); ``model(tokens)`` runs
-    :func:`moe_forward` on per-rank token lists."""
+    :func:`moe_forward` on per-rank token lists. Over a mesh whose
+    ranks live in several processes it raises (``ROADMAP.md`` Queue 1
+    step 11)."""
+
+    def __init__(self, cfg: MoEConfig, mesh, params: dict):
+        if mesh.multiprocess:
+            raise NotImplementedError(MOE_XPROC)
+        super().__init__(cfg, mesh, params)
 
     @staticmethod
     def _shardings(mesh, cfg: MoEConfig) -> dict:
@@ -255,7 +266,7 @@ def _ep_moe_ffn(hs, blks, cfg: MoEConfig, mesh):
     Returns (outputs, each rank's aux over its rows)."""
     sp = mesh.shape["sp"]
     if sp > 1:
-        hs = mesh.over("sp", hs, lambda coll, t: coll.allgather(t, dim=1))
+        hs = mesh.over("sp", hs, "allgather", dim=1)
     outs, combs, auxs = [], [], []
     for r, (h, b) in enumerate(zip(hs, blks)):
         dispatch, combine, aux = moe_dispatch_combine(h, b.router, cfg)
@@ -265,9 +276,9 @@ def _ep_moe_ffn(hs, blks, cfg: MoEConfig, mesh):
                              b.w1, b.w2))
         combs.append(combine[:, :, lo:lo + e_loc])
         auxs.append(aux)
-    outs = mesh.over("tp", outs, lambda coll, t: coll.allreduce(t))
+    outs = mesh.over("tp", outs, "allreduce")
     outs = [torch.einsum("bsec,ebcd->bsd", c, o) for c, o in zip(combs, outs)]
-    outs = mesh.over("ep", outs, lambda coll, t: coll.allreduce(t))
+    outs = mesh.over("ep", outs, "allreduce")
     outs = [o.to(h.dtype) for o, h in zip(outs, hs)]
     if sp > 1:
         s_l = outs[0].shape[1] // sp
@@ -314,8 +325,8 @@ def moe_forward(model, tokens):
 def _sharded_moe_parts(model: ShardedTransformer, tokens):
     """Per-rank logits and each rank's aux over its own rows."""
     mesh = _check_sharded(model, tokens)
-    cfg = resolve_impls(model.cfg, mesh.rank_devices[0], mesh)
-    shards = list(model.ranks)
+    cfg = resolve_impls(model.cfg, mesh.device, mesh)
+    shards = model.shards()
     positions = _sharded_positions(tokens, mesh)
     xs = _sharded_embed(shards, tokens, cfg, mesh)
     aux_total = None
@@ -333,7 +344,7 @@ def _global_aux(auxs, mesh) -> list:
     the dp shards (equal shards; every rank of a dp shard holds the same
     value, so the sum over all ranks over the mesh size is that mean)."""
     return mesh.over(mesh.axis_names, [a / mesh.size for a in auxs],
-                     lambda coll, t: coll.allreduce(t))
+                     "allreduce")
 
 
 def _sharded_moe_forward(model: ShardedTransformer, tokens):
@@ -352,7 +363,7 @@ def moe_loss_fn(model, tokens, targets):
     logits, auxs = _sharded_moe_parts(model, tokens)
     parts = [p + cfg.aux_loss_weight * a / mesh.size for p, a in zip(
         _token_parts(logits, targets, mesh), auxs)]
-    return mesh.over(mesh.axis_names, parts, lambda coll, t: coll.allreduce(t))
+    return mesh.over(mesh.axis_names, parts, "allreduce")
 
 
 def make_moe_train_step(cfg: MoEConfig, optimizer=None):
@@ -373,7 +384,7 @@ def init_moe_train_state(generator: torch.Generator | None = None,
 
     optimizer = optimizer or make_optimizer()
     if mesh is not None and device is None:
-        device = mesh.rank_devices[0]
+        device = mesh.device
     model = MoETransformer(cfg, device=device, generator=generator)
     if mesh is not None:
         model = shard_moe_params(model, mesh, cfg)

@@ -13,6 +13,15 @@ gives each rank's copies their gradients; ``allreduce_grads`` sums each
 shard's over the ranks that hold it (the dp allreduce XLA inserts), and
 the same AdamW then updates every rank's copies alike. The loss comes
 back as a per-rank list of the replicated global loss.
+
+Over a mesh whose ranks live in several processes of a device plane the
+same step runs in every process, each over its own ranks (``None`` in
+the per-rank lists for the others'). Each process backpropagates its
+own loss copies with cotangent 1 at global rank 0 and 0 elsewhere: the
+loss allreduce's backward, across the processes, then gives every
+rank's share exactly 1, as in one process (a 1 in every process would
+scale the gradients by the process count). The clip norm counts each
+shard once over the plane (``ShardedTransformer.grad_norm``).
 """
 
 from __future__ import annotations
@@ -83,17 +92,17 @@ def make_optimizer(lr: float = 3e-4, weight_decay: float = 0.01,
 
 
 def _update(model: torch.nn.Module, opt: torch.optim.Optimizer,
-            spec: OptimizerSpec, unique=None) -> None:
+            spec: OptimizerSpec) -> None:
     """Clip the gradients as optax.clip_by_global_norm does (g·max/‖g‖
-    when ‖g‖ >= max), then one AdamW update at the schedule's rate. The
-    norm is over ``unique`` parameters (a sharded model's one copy of
-    each shard) where given. The update count lives in the optimizer's
-    param groups, so it is saved and restored with the optimizer's
+    when ‖g‖ >= max), then one AdamW update at the schedule's rate. A
+    sharded model's norm is over one copy of each shard
+    (``grad_norm``). The update count lives in the optimizer's param
+    groups, so it is saved and restored with the optimizer's
     state_dict."""
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     if spec.clip_norm is not None:
-        norm = torch.nn.utils.get_total_norm(
-            grads if unique is None else [p.grad for p in unique])
+        norm = (model.grad_norm() if isinstance(model, ShardedTransformer)
+                else torch.nn.utils.get_total_norm(grads))
         scale = torch.where(norm < spec.clip_norm, torch.ones_like(norm),
                             spec.clip_norm / norm)
         by_device: dict[torch.device, list] = {}
@@ -108,17 +117,32 @@ def _update(model: torch.nn.Module, opt: torch.optim.Optimizer,
     opt.step()
 
 
+def backward_copies(copies: list) -> None:
+    """Backpropagate a sharded model's per-rank loss copies (``None``
+    for other processes' ranks): cotangent 1 at global rank 0 and 0 at
+    every other rank this process holds. In one process this is rank
+    0's copy's backward; across processes every process runs it over its
+    own copies, and the loss allreduce's backward sums the cotangents to
+    exactly 1 on every rank."""
+    roots = [(c, torch.ones_like(c) if r == 0 else torch.zeros_like(c))
+             for r, c in enumerate(copies) if c is not None]
+    torch.autograd.backward([c for c, _ in roots], [g for _, g in roots])
+
+
 def _microbatches(batch, accum_steps: int) -> list:
     """``accum_steps`` equal microbatches of a batch: of the tensor, or of
     every rank's shard (each microbatch then stays split over dp)."""
-    first = batch if isinstance(batch, torch.Tensor) else batch[0]
+    first = (batch if isinstance(batch, torch.Tensor)
+             else next(t for t in batch if t is not None))
     if first.shape[0] % accum_steps:
         raise ValueError(f"batch {first.shape[0]} "
                          f"{'' if first is batch else 'per rank '}"
                          f"not divisible by accum_steps={accum_steps}")
     if first is batch:
         return list(batch.chunk(accum_steps))
-    return [list(mb) for mb in zip(*(t.chunk(accum_steps) for t in batch))]
+    return [list(mb) for mb in zip(*(
+        [None] * accum_steps if t is None else t.chunk(accum_steps)
+        for t in batch))]
 
 
 def _build_step(cfg: ModelConfig, optimizer: OptimizerSpec,
@@ -136,23 +160,21 @@ def _build_step(cfg: ModelConfig, optimizer: OptimizerSpec,
                             _microbatches(targets, accum_steps)):
             mb_loss = loss(model, tok, tgt)
             copies = mb_loss if sharded else [mb_loss]
-            # Over a mesh every rank holds the loss; one copy's backward
-            # reaches every rank's shards
-            copies[0].backward()
-            copies = [x.detach() for x in copies]
+            # Over a mesh every rank holds the loss; rank 0's copy's
+            # backward reaches every rank's shards
+            backward_copies(copies)
+            copies = [None if x is None else x.detach() for x in copies]
             total = copies if total is None else [
-                a + b for a, b in zip(total, copies)]
+                None if a is None else a + b for a, b in zip(total, copies)]
         if accum_steps > 1:
             # Means over equal microbatches equal the full-batch gradient
-            total = [x / accum_steps for x in total]
+            total = [None if x is None else x / accum_steps for x in total]
             torch._foreach_div_([p.grad for p in model.parameters()
                                  if p.grad is not None], accum_steps)
-        if not sharded:
-            _update(model, opt, optimizer)
-            return total[0]
-        model.allreduce_grads()
-        _update(model, opt, optimizer, model.unique_parameters())
-        return total
+        if sharded:
+            model.allreduce_grads()
+        _update(model, opt, optimizer)
+        return total if sharded else total[0]
 
     return step
 
@@ -181,7 +203,8 @@ def make_multi_step(cfg: ModelConfig, optimizer: OptimizerSpec | None = None,
     def run(model: Transformer, opt: torch.optim.Optimizer, tokens, targets,
             n: int):
         sharded = isinstance(model, ShardedTransformer)
-        first = tokens[0] if sharded else tokens
+        first = (next(t for t in tokens if t is not None) if sharded
+                 else tokens)
         per_step = first.dim() == 3
         if per_step and first.shape[0] != n:
             raise ValueError(
@@ -191,7 +214,8 @@ def make_multi_step(cfg: ModelConfig, optimizer: OptimizerSpec | None = None,
             if not per_step:
                 tok, tgt = tokens, targets
             elif sharded:
-                tok, tgt = [t[i] for t in tokens], [t[i] for t in targets]
+                tok, tgt = ([None if t is None else t[i] for t in ts]
+                            for ts in (tokens, targets))
             else:
                 tok, tgt = tokens[i], targets[i]
             loss = step(model, opt, tok, tgt)
@@ -205,11 +229,13 @@ def init_train_state(generator: torch.Generator | None = None,
                      optimizer: OptimizerSpec | None = None, mesh=None):
     """(model, opt): a :class:`Transformer` with weights drawn from
     ``generator`` on ``device`` (``cuda`` by default) and its AdamW. With
-    ``mesh``, the same weights (drawn on ``device``, by default rank 0's)
-    laid over the mesh as a ``ShardedTransformer``."""
+    ``mesh``, the same weights (drawn on ``device``, by default this
+    process's first rank's) laid over the mesh as a
+    ``ShardedTransformer``: across processes every process draws the
+    whole weights alike and keeps its own ranks' shards."""
     optimizer = optimizer or make_optimizer()
     if mesh is not None and device is None:
-        device = mesh.rank_devices[0]
+        device = mesh.device
     model = Transformer(cfg, device=device, generator=generator)
     if mesh is not None:
         model = shard_params(model, mesh, cfg)
@@ -218,7 +244,8 @@ def init_train_state(generator: torch.Generator | None = None,
 
 def data_sharding(mesh):
     """The per-rank split of a (B, S) batch: B over dp, S over sp
-    (``data_sharding(mesh).shard(tokens)`` places it)."""
+    (``data_sharding(mesh).shard(tokens)`` places it, ``None`` for other
+    processes' ranks)."""
     from faabric_tpu_torch.parallel.mesh import named
 
     return named(mesh, "dp", "sp")

@@ -28,6 +28,15 @@ row-parallel attention output and w2 end in an allreduce over tp, the
 sequence-split attention rotates (ring) or gathers (plain) K and V over
 sp, and the logits are gathered over tp on the vocab dim. This is what
 XLA inserts for the JAX package's sharding annotations.
+
+Over a mesh whose ranks live in several processes of a device plane
+(``parallel/mesh.py``), each process holds and runs only its own ranks'
+shards: every per-rank list holds ``None`` for the other processes'
+ranks, and the collectives that cross the boundary go through
+``device_plane/xproc.py``. With ``remat`` a checkpointed block reruns
+its collectives in the backward, so there the recomputation runs whole
+(no early stop): every process recomputes the same blocks through the
+same rounds in the same order.
 """
 
 from __future__ import annotations
@@ -39,7 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from faabric_tpu_torch.util.device import resolve_device
 
@@ -391,15 +400,32 @@ class _RankShards(nn.Module):
             setattr(self.get_submodule(path), key, nn.Parameter(leaf))
 
 
+class _Elsewhere(nn.Module):
+    """The place of a rank whose shards another process holds."""
+
+
+def _local(fn, *per_rank) -> list:
+    """``fn`` over the ranks of per-rank lists that this process holds
+    (their first list's entry not ``None``), ``None`` elsewhere."""
+    return [None if args[0] is None else fn(*args) for args in zip(*per_rank)]
+
+
+def _first(per_rank):
+    """The first entry of a per-rank list that this process holds."""
+    return next(x for x in per_rank if x is not None)
+
+
 class ShardedTransformer(nn.Module):
     """A Transformer's weights laid over a mesh: ``ranks[r]`` holds rank
     r's shard of every weight (``param_shardings``), a leaf of its own on
     the rank's device, so that a rank's program differentiates into its
-    own copies. ``params`` is the whole pytree (numpy arrays or tensors)
-    in the JAX package's layout; it is only sliced. Subclasses lay the
-    weights out otherwise through :meth:`_layout`, :meth:`_shardings` and
-    :meth:`_shapes` (the MoE family's experts, ``models/moe.py``; the
-    pipeline's stacked slabs, ``parallel/pipeline.py``)."""
+    own copies. Across processes only this process's ranks hold shards
+    (``shards()`` is ``None`` for the others). ``params`` is the whole
+    pytree (numpy arrays or tensors) in the JAX package's layout; it is
+    only sliced. Subclasses lay the weights out otherwise through
+    :meth:`_layout`, :meth:`_shardings` and :meth:`_shapes` (the MoE
+    family's experts, ``models/moe.py``; the pipeline's stacked slabs,
+    ``parallel/pipeline.py``)."""
 
     def __init__(self, cfg: ModelConfig, mesh, params: dict):
         super().__init__()
@@ -421,7 +447,10 @@ class ShardedTransformer(nn.Module):
             pieces = self.specs[name].shard(arr, cfg.param_dtype)
             for leaves, piece in zip(per_rank, pieces):
                 leaves[name] = piece
-        self.ranks = nn.ModuleList(_RankShards(leaves) for leaves in per_rank)
+        local = set(mesh.local_ranks)
+        self.ranks = nn.ModuleList(
+            _RankShards(leaves) if r in local else _Elsewhere()
+            for r, leaves in enumerate(per_rank))
 
     @staticmethod
     def _layout(params: dict, cfg: ModelConfig) -> dict:
@@ -441,40 +470,87 @@ class ShardedTransformer(nn.Module):
     def forward(self, tokens):
         return forward(self, tokens)
 
-    def copies(self, name: str) -> list[nn.Parameter]:
-        """Every rank's shard of weight ``name`` (``blocks.0.wqkv``)."""
-        return [r.get_parameter(name) for r in self.ranks]
+    def shards(self) -> list:
+        """Every rank's shards, ``None`` for other processes' ranks."""
+        return [None if isinstance(sh, _Elsewhere) else sh
+                for sh in self.ranks]
+
+    def copies(self, name: str) -> list:
+        """Every rank's shard of weight ``name`` (``blocks.0.wqkv``),
+        ``None`` for other processes' ranks."""
+        return _local(lambda sh: sh.get_parameter(name), self.shards())
+
+    def _unique(self) -> list[tuple[str, int]]:
+        """(weight, rank) of one copy of each distinct shard, in the
+        order of :meth:`unique_parameters`: the first rank of each
+        replica group, whichever process holds it."""
+        return [(name, g[0]) for name, spec in self.specs.items()
+                for g in spec.replica_groups()]
 
     def unique_parameters(self) -> list[nn.Parameter]:
         """One copy of each distinct shard: the whole model's weights
-        once each (for norms over the model, as gradient clipping takes)."""
-        return [self.copies(name)[g[0]] for name, spec in self.specs.items()
-                for g in spec.replica_groups()]
+        once each (for norms over the model, as gradient clipping takes).
+        Across processes, the copies whose first holder is this
+        process's: each shard counted once over the plane."""
+        local = set(self.mesh.local_ranks)
+        return [self.copies(name)[r] for name, r in self._unique()
+                if r in local]
+
+    def grad_norm(self) -> torch.Tensor:
+        """The 2-norm of the gradients of :meth:`unique_parameters`, as
+        ``torch.nn.utils.get_total_norm`` gives it over them in one
+        process. Across processes each process takes its copies' norms
+        (``torch._foreach_norm``, as that function does), each rank puts
+        them at their places in the model's order with zeros elsewhere,
+        and one allreduce over the plane brings every norm into that
+        order exactly (a sum with zeros), so the total is the same
+        function of the same norms."""
+        mesh = self.mesh
+        if not mesh.multiprocess:
+            return torch.nn.utils.get_total_norm(
+                [p.grad for p in self.unique_parameters()])
+        unique = self._unique()
+        mine = [(i, r, self.copies(name)[r].grad)
+                for i, (name, r) in enumerate(unique)
+                if r in mesh.local_ranks]
+        # A process may hold no first holder at all
+        norms = (torch._foreach_norm([g for _, _, g in mine], 2.0)
+                 if mine else [])
+        vecs = [None if d is None else torch.zeros(
+            len(unique), dtype=self.cfg.param_dtype, device=d)
+                for d in mesh.rank_devices]
+        for (i, r, _), nrm in zip(mine, norms):
+            vecs[r][i] = nrm
+        total = mesh.over(mesh.axis_names, vecs, "allreduce")
+        return torch.linalg.vector_norm(_first(total), 2.0)
 
     def gathered(self) -> dict:
         """The whole weights as the JAX package's pytree of tensors on
-        rank 0's device, each assembled from its shards."""
+        this process's first rank's device, each assembled from its
+        shards (across processes, in every process)."""
         return _tree({name: spec.gather(self.copies(name))
                       for name, spec in self.specs.items()})
 
     @torch.no_grad()
     def load_tree(self, params: dict) -> None:
         """Copy a whole pytree (this layout's, as :meth:`gathered` gives
-        it) into every rank's shards."""
+        it) into every local rank's shards."""
         for name, arr in _leaves(self._layout(params, self.cfg)):
             if not isinstance(arr, torch.Tensor):
                 arr = torch.from_numpy(np.require(arr, requirements=["C"]))
             for p, piece in zip(self.copies(name),
                                 self.specs[name].shard(arr.detach())):
-                p.copy_(piece)
+                if p is not None:
+                    p.copy_(piece)
 
     @torch.no_grad()
     def allreduce_grads(self) -> None:
         """Sum each shard's gradient over the ranks holding that shard
         (the gradient allreduce XLA inserts over dp): one flat allreduce
-        per replica group structure, through the mesh's collectives. A
-        copy its rank's program never used (a pipeline stage's embedding
-        off the first stage) counts as zero and then holds the sum."""
+        per replica group structure, through the mesh's collectives
+        (across processes, one exchange round each). A copy its rank's
+        program never used (a pipeline stage's embedding off the first
+        stage) counts as zero and then holds the sum."""
         by_axes: dict[tuple, list[str]] = {}
         for name, spec in self.specs.items():
             by_axes.setdefault(spec.replica_axes(), []).append(name)
@@ -482,12 +558,14 @@ class ShardedTransformer(nn.Module):
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         for axes, names in by_axes.items():
-            grads = [[r.get_parameter(n).grad for n in names]
-                     for r in self.ranks]
-            flats = [torch.cat([g.reshape(-1) for g in gs]) for gs in grads]
-            summed = self.mesh.over(axes, flats,
-                                    lambda coll, xs: coll.allreduce(xs))
+            grads = _local(lambda sh: [sh.get_parameter(n).grad
+                                       for n in names], self.shards())
+            flats = _local(lambda gs: torch.cat([g.reshape(-1) for g in gs]),
+                           grads)
+            summed = self.mesh.over(axes, flats, "allreduce")
             for gs, flat in zip(grads, summed):
+                if gs is None:
+                    continue
                 torch._foreach_copy_(gs, [piece.view_as(g) for piece, g in zip(
                     flat.split([g.numel() for g in gs]), gs)])
 
@@ -510,14 +588,15 @@ def _check_sharded(model: ShardedTransformer, tokens):
 def _sharded_embed(shards, tokens, cfg: ModelConfig, mesh) -> list:
     """Vocab-parallel lookup: each rank looks its tokens up in its own
     vocab range (zeros elsewhere), then an allreduce over tp."""
-    xs = []
-    for r, (sh, tok) in enumerate(zip(shards, tokens)):
+    def look_up(sh, tok, r):
         v_l = sh.embed.shape[0]
         ids = tok.long() - mesh.index(r, "tp") * v_l
         inside = (ids >= 0) & (ids < v_l)
         x = F.embedding(ids.clamp(0, v_l - 1), sh.embed) * inside[..., None]
-        xs.append(x.to(cfg.compute_dtype))
-    return mesh.over("tp", xs, lambda coll, t: coll.allreduce(t))
+        return x.to(cfg.compute_dtype)
+
+    xs = _local(look_up, shards, tokens, range(mesh.size))
+    return mesh.over("tp", xs, "allreduce")
 
 
 def _sharded_attention(qs, ks, vs, cfg: ModelConfig, mesh) -> list:
@@ -532,15 +611,17 @@ def _sharded_attention(qs, ks, vs, cfg: ModelConfig, mesh) -> list:
         # its own (B/dp, S, H/tp, D) slab
         from faabric_tpu_torch.ops.flash_attention import flash_attention
 
-        return [flash_attention(q, k, v, True) for q, k, v in zip(qs, ks, vs)]
+        return _local(lambda q, k, v: flash_attention(q, k, v, True),
+                      qs, ks, vs)
     if mesh.shape["sp"] == 1:
-        return [_attention(q, k, v) for q, k, v in zip(qs, ks, vs)]
+        return _local(_attention, qs, ks, vs)
     # A split sequence: each rank's queries see the whole sequence's
     # keys, gathered over sp, under the mask at their global rows
-    ks = mesh.over("sp", ks, lambda coll, t: coll.allgather(t, dim=1))
-    vs = mesh.over("sp", vs, lambda coll, t: coll.allgather(t, dim=1))
-    return [_attention(q, k, v, mesh.index(r, "sp") * q.shape[1])
-            for r, (q, k, v) in enumerate(zip(qs, ks, vs))]
+    ks = mesh.over("sp", ks, "allgather", dim=1)
+    vs = mesh.over("sp", vs, "allgather", dim=1)
+    return _local(lambda q, k, v, r: _attention(
+        q, k, v, mesh.index(r, "sp") * q.shape[1]), qs, ks, vs,
+                  range(mesh.size))
 
 
 def _sharded_attention_sublayer(xs, blks, positions, cfg: ModelConfig,
@@ -549,23 +630,27 @@ def _sharded_attention_sublayer(xs, blks, positions, cfg: ModelConfig,
     the dense and MoE families, sharded or in a pipeline stage): heads
     over tp, the row-parallel wo's partial sums completed by an
     allreduce over tp."""
-    qkvs = [_qkv(_norm(x, b.ln1, cfg), b, cfg) for x, b in zip(xs, blks)]
-    qs = [_rope(q, p, cfg.rope_theta) for (q, _, _), p in zip(qkvs, positions)]
-    ks = [_rope(k, p, cfg.rope_theta) for (_, k, _), p in zip(qkvs, positions)]
-    attn = _sharded_attention(qs, ks, [v for _, _, v in qkvs], cfg, mesh)
-    outs = mesh.over("tp", [_out_proj(a, b, cfg) for a, b in zip(attn, blks)],
-                     lambda coll, t: coll.allreduce(t))
-    return [x + o for x, o in zip(xs, outs)]
+    qkvs = _local(lambda x, b: _qkv(_norm(x, b.ln1, cfg), b, cfg), xs, blks)
+    qs = _local(lambda qkv, p: _rope(qkv[0], p, cfg.rope_theta),
+                qkvs, positions)
+    ks = _local(lambda qkv, p: _rope(qkv[1], p, cfg.rope_theta),
+                qkvs, positions)
+    attn = _sharded_attention(qs, ks, _local(lambda qkv: qkv[2], qkvs), cfg,
+                              mesh)
+    outs = mesh.over("tp", _local(lambda a, b: _out_proj(a, b, cfg),
+                                  attn, blks),
+                     "allreduce")
+    return _local(lambda x, o: x + o, xs, outs)
 
 
 def _sharded_ffn_sublayer(xs, blks, cfg: ModelConfig, mesh) -> list:
     """Pre-norm FFN and residual on each rank's shards: the row-parallel
     w2's partial sums over the rank's hidden units are completed by an
     allreduce over tp."""
-    ffs = mesh.over("tp", [_ffn(_norm(x, b.ln2, cfg), b, cfg)
-                           for x, b in zip(xs, blks)],
-                    lambda coll, t: coll.allreduce(t))
-    return [x + f for x, f in zip(xs, ffs)]
+    ffs = mesh.over("tp", _local(lambda x, b: _ffn(_norm(x, b.ln2, cfg), b,
+                                                   cfg), xs, blks),
+                    "allreduce")
+    return _local(lambda x, f: x + f, xs, ffs)
 
 
 def _sharded_block(xs, blks, positions, cfg: ModelConfig, mesh) -> list:
@@ -576,35 +661,45 @@ def _sharded_block(xs, blks, positions, cfg: ModelConfig, mesh) -> list:
 def _sharded_positions(tokens, mesh) -> list:
     """RoPE at global positions: a rank's sequence block starts at its
     sp index x S/sp."""
-    positions = []
-    for r, tok in enumerate(tokens):
+    def at(tok, r):
         b, s_l = tok.shape[-2:]
         start = mesh.index(r, "sp") * s_l
-        positions.append(torch.arange(start, start + s_l,
-                                      device=tok.device)[None].expand(b, s_l))
-    return positions
+        return torch.arange(start, start + s_l,
+                            device=tok.device)[None].expand(b, s_l)
+
+    return _local(at, tokens, range(len(tokens)))
 
 
 def _sharded_logits(shards, xs, cfg: ModelConfig, mesh) -> list:
-    logits = [(_norm(x, sh.ln_f, cfg) @ sh.lm_head.to(cfg.compute_dtype)).float()
-              for x, sh in zip(xs, shards)]
+    logits = _local(lambda x, sh: (_norm(x, sh.ln_f, cfg) @ sh.lm_head.to(
+        cfg.compute_dtype)).float(), xs, shards)
     # Gathered over tp on the vocab dim: the JAX package constrains the
     # logits to ("dp", "sp", None)
-    return mesh.over("tp", logits, lambda coll, t: coll.allgather(t, dim=-1))
+    return mesh.over("tp", logits, "allgather", dim=-1)
+
+
+def checkpointed(fn, *args, mesh):
+    """``fn(*args)`` under ``torch.utils.checkpoint``; over a mesh that
+    spans processes, its recomputation runs whole (no early stop), so
+    that every process reruns the same collectives."""
+    with set_checkpoint_early_stop(not mesh.multiprocess):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
 
 
 def _sharded_forward(model: ShardedTransformer, tokens) -> list:
     mesh = _check_sharded(model, tokens)
-    cfg = resolve_impls(model.cfg, mesh.rank_devices[0], mesh)
-    shards = list(model.ranks)
+    cfg = resolve_impls(model.cfg, mesh.device, mesh)
+    shards = model.shards()
     positions = _sharded_positions(tokens, mesh)
     xs = _sharded_embed(shards, tokens, cfg, mesh)
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        blks = [sh.blocks[i] for sh in shards]
+        blks = _local(lambda sh: sh.blocks[i], shards)
         if remat:
-            xs = checkpoint(_sharded_block, xs, blks, positions, cfg, mesh,
-                            use_reentrant=False, preserve_rng_state=False)
+            # The blocks draw no random numbers: no RNG state to replay
+            xs = checkpointed(_sharded_block, xs, blks, positions, cfg, mesh,
+                              mesh=mesh)
         else:
             xs = _sharded_block(xs, blks, positions, cfg, mesh)
     return _sharded_logits(shards, xs, cfg, mesh)
@@ -614,14 +709,14 @@ def _token_parts(logits, targets, mesh) -> list:
     """Each rank's share of the mean token NLL over the mesh. Each
     token's NLL is computed by every rank of its (dp, sp) cell;
     weighting each copy by 1/replicas counts every token once."""
-    b_l, s_l = targets[0].shape
+    b_l, s_l = _first(targets).shape
     n_tokens = b_l * mesh.shape["dp"] * s_l * mesh.shape["sp"]
     replicas = mesh.size // (mesh.shape["dp"] * mesh.shape["sp"])
-    return [token_nll(lg, tgt).sum() / (n_tokens * replicas)
-            for lg, tgt in zip(logits, targets)]
+    return _local(lambda lg, tgt: token_nll(lg, tgt).sum()
+                  / (n_tokens * replicas), logits, targets)
 
 
 def _sharded_loss(model: ShardedTransformer, tokens, targets):
     mesh = model.mesh
     parts = _token_parts(_sharded_forward(model, tokens), targets, mesh)
-    return mesh.over(mesh.axis_names, parts, lambda coll, t: coll.allreduce(t))
+    return mesh.over(mesh.axis_names, parts, "allreduce")

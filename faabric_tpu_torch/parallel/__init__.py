@@ -1,8 +1,11 @@
 """The mesh substrate: device collectives, meshes and shard specs, ring
 attention, pipeline parallelism and the device plane across worker
 processes (counterpart of ``faabric_tpu/parallel/``). Across processes
-the collectives' addressable forms run (``distributed.py``); the train
-steps there wait for ``ROADMAP.md`` Queue 1 step 8."""
+(``distributed.py``) a mesh lies over the plane's global devices, its
+collectives cross the boundary with their backward, and the sharded
+train step and the 1F1B step run there; GPipe, ring attention, the MoE
+family, alltoall and scan across processes wait for ``ROADMAP.md``
+Queue 1 steps 10-12."""
 
 from faabric_tpu_torch.parallel.collectives import (
     DeviceCollectives,

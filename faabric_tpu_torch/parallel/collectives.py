@@ -31,10 +31,21 @@ ring-permute kernel, forward and backward (it raises past its
 patterns, or over ranks on several devices, copy buffer by buffer.
 
 Over the device plane's global devices (``parallel/distributed.py``)
-other processes' ranks are ``None`` in every per-rank list; there
-allreduce, allgather, reduce_scatter and broadcast run through
-``device_plane/xproc.py``, forward only (a buffer that needs a gradient
-raises), and the rest raise.
+other processes' ranks are ``None`` in every per-rank list. There every
+collective but alltoall and scan runs through ``device_plane/xproc.py``
+in one exchange round a call (:func:`cross_process`, shared with
+``Mesh.over``): every process gets every rank's deposit and folds them
+in rank order with the single-process code, so the results are bitwise
+the single-process ones. A permutation is one permute round, which
+moves only the shards that land somewhere (on the card one launch of
+the ring kernel a process, into local outputs and the peers' IPC
+windows). Across processes
+allreduce SUM, allgather, reduce_scatter and permute are
+``torch.autograd.Function``s whose backward is again one round over
+every process's cotangents: allreduce's an allreduce, allgather's a
+reduce_scatter, reduce_scatter's an allgather, a permutation's the
+inverse permutation. alltoall and scan across processes, and the
+backward of the other forms, raise (``ROADMAP.md`` Queue 1 step 12).
 """
 
 from __future__ import annotations
@@ -97,14 +108,191 @@ def _ring_shift(pairs, n: int) -> int | None:
     return d if all(dst[r] == (r + d) % n for r in range(n)) else None
 
 
-_XPROC_QUEUED = ("across processes only allreduce, allgather, "
-                 "reduce_scatter and broadcast run so far; the rest waits "
-                 "for the sharded train step across processes (ROADMAP.md "
-                 "Queue 1 step 8)")
-_XPROC_NO_GRAD = ("across processes the collectives have no backward yet: "
-                  "it waits for the sharded train step across processes "
-                  "(ROADMAP.md Queue 1 step 8); run them on buffers that "
-                  "need no gradient, or under torch.no_grad()")
+_XPROC_QUEUED = ("across processes {} is not ported yet (ROADMAP.md Queue "
+                 "1 step 12)")
+_XPROC_NO_GRAD = ("across processes only allreduce SUM, allgather, "
+                  "reduce_scatter and permute (send_recv, shift) have a "
+                  "backward (ROADMAP.md Queue 1 step 12); run the others on "
+                  "buffers that need no gradient, or under torch.no_grad()")
+# The cross-process forms with a backward, and the form of each backward
+_ADJOINT = {"allreduce": "allreduce", "allgather": "reduce_scatter",
+            "reduce_scatter": "allgather", "permute": "permute"}
+
+
+def _check_pairs(pairs, n: int) -> tuple:
+    pairs = tuple((int(s), int(t)) for s, t in pairs)
+    srcs, dsts = [s for s, _ in pairs], [t for _, t in pairs]
+    if (len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts)
+            or not all(0 <= r < n for r in srcs + dsts)):
+        raise ValueError(f"permute pairs {pairs} must name each of {n} "
+                         "ranks at most once as a source and once as a "
+                         "destination")
+    return pairs
+
+
+def _exchanger(processes, device):
+    """The process's exchanger over ranks in ``processes`` (one per
+    layout of ranks over processes, whatever mesh or group asks)."""
+    from faabric_tpu_torch.device_plane.xproc import named_exchanger
+
+    return named_exchanger("coll/" + ",".join(map(str, processes)),
+                           processes, device)
+
+
+class _Plan:
+    """One cross-process call: the exchanger over every rank (rank r in
+    process ``processes[r]``), the groups of ranks the collective runs
+    over (each in its own rank order) and this process's ranks."""
+
+    def __init__(self, processes, groups, local_ranks, device) -> None:
+        self.local_ranks = local_ranks
+        # Only the groups that hold a rank of this process are computed
+        self.groups = [list(g) for g in groups if set(local_ranks) & set(g)]
+        self.exchanger = _exchanger(processes, device)
+
+    def run(self, kind: str, kw: dict, xs) -> list:
+        """The local ranks' outputs (in their order) of ``kind`` over the
+        local ranks' tensors ``xs`` (in the same order)."""
+        first = xs[0]
+        if any(x.shape != first.shape or x.dtype != first.dtype
+               or x.device != first.device for x in xs):
+            raise ValueError(f"{kind} across processes takes buffers of one "
+                             "shape, dtype and device")
+        flat = {r: x.contiguous().reshape(-1)
+                for r, x in zip(self.local_ranks, xs)}
+        out: dict = {}
+        if kind == "permute":
+            dest = {g[s]: g[t] for g in self.groups for s, t in kw["pairs"]}
+            got = self.exchanger.permute(flat, dest)
+            return [got[r].view(first.shape) for r in self.local_ranks]
+        with self.exchanger.gather(flat) as every:
+            parts = [t.view(first.shape) for t in every]
+            for g in self.groups:
+                mine = [r for r in g if r in flat]
+                if kind == "reduce_scatter":
+                    dim = kw["dim"]
+                    size = first.shape[dim]
+                    if size % len(g):
+                        raise ValueError(
+                            f"reduce_scatter: dim {dim} of size {size} does "
+                            f"not split over {len(g)} ranks")
+                    k = size // len(g)
+                    for r in mine:
+                        i = g.index(r)
+                        out[r] = _fold([parts[q].narrow(dim, i * k, k)
+                                        for q in g], MpiOp.SUM)
+                    continue
+                if kind == "allreduce":
+                    one = _fold([parts[q] for q in g], kw["op"])
+                elif kind == "allgather":
+                    one = torch.cat([parts[q] for q in g], kw["dim"])
+                else:
+                    one = parts[g[kw["root"]]].clone()
+                # The first local rank takes the result, the others a copy
+                for i, r in enumerate(mine):
+                    out[r] = one if i == 0 else one.clone()
+        return [out[r] for r in self.local_ranks]
+
+
+def gather_every(processes, xs) -> list:
+    """Every rank's tensor of the per-rank list ``xs`` (one shape and
+    dtype; ``None`` for other processes' ranks), in one gather round:
+    the local ones as given, the others' as copies."""
+    from faabric_tpu_torch.parallel.distributed import process_index
+
+    me = process_index()
+    local = {r: x for r, x in enumerate(xs) if processes[r] == me}
+    first = next(iter(local.values()))
+    with _exchanger(processes, first.device).gather(
+            {r: x.contiguous().reshape(-1)
+             for r, x in local.items()}) as every:
+        return [local[r] if r in local else t.view(first.shape).clone()
+                for r, t in enumerate(every)]
+
+
+class _CrossProcess(torch.autograd.Function):
+    """A cross-process collective as one autograd node: its backward is
+    one more round, of the adjoint form over every process's
+    cotangents, so every process meets its rounds in the same order."""
+
+    @staticmethod
+    def forward(ctx, plan, kind, kw, *xs):
+        ctx.plan, ctx.kind, ctx.kw = plan, kind, kw
+        return tuple(plan.run(kind, kw, xs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        kw = dict(ctx.kw)
+        if ctx.kind == "permute":
+            kw["pairs"] = tuple((t, s) for s, t in kw["pairs"])
+        return (None, None, None,
+                *ctx.plan.run(_ADJOINT[ctx.kind], kw, grads))
+
+
+def _cross_form(kind: str, kw: dict, n: int) -> tuple[str, dict]:
+    """``kind`` with the keyword arguments of its ``DeviceCollectives``
+    method over groups of ``n`` ranks → (form, keyword arguments) of a
+    cross-process round: ``send_recv`` and ``shift`` become permutes."""
+    if kind == "allreduce":
+        return kind, {"op": MpiOp(kw.get("op", MpiOp.SUM))}
+    if kind == "allgather":
+        return kind, {"dim": kw.get("dim", 0)}
+    if kind == "reduce_scatter":
+        if MpiOp(kw.get("op", MpiOp.SUM)) != MpiOp.SUM:
+            raise NotImplementedError("Device reduce_scatter supports SUM")
+        return kind, {"dim": kw.get("dim", 0)}
+    if kind == "broadcast":
+        return kind, {"root": kw.get("root", 0)}
+    if kind == "send_recv":
+        return "permute", {"pairs": ((kw["src"], kw["dst"]),)}
+    if kind == "shift":
+        disp = kw.get("disp", 1)
+        return "permute", {"pairs": tuple((i, (i + disp) % n)
+                                          for i in range(n))}
+    if kind == "permute":
+        return kind, {"pairs": kw["pairs"]}
+    if kind in ("alltoall", "scan"):
+        raise NotImplementedError(_XPROC_QUEUED.format(kind))
+    raise ValueError(f"unknown collective {kind!r}")
+
+
+def cross_process(processes, groups, xs, kind: str, **kw) -> list:
+    """``kind`` with the keyword arguments of its ``DeviceCollectives``
+    method (allreduce, allgather, reduce_scatter, broadcast, permute,
+    send_recv or shift; group positions for the last three) over every
+    group of ``groups`` at once, in one exchange round, whose ranks live
+    in the processes ``processes[r]``: per-rank outputs with ``None``
+    for other processes' ranks. Differentiable where :data:`_ADJOINT`
+    names a backward; a buffer that needs a gradient raises for the
+    others."""
+    from faabric_tpu_torch.parallel.distributed import process_index
+
+    me = process_index()
+    local = [r for r, p in enumerate(processes) if p == me]
+    for r, x in enumerate(xs):
+        if (x is None) == (r in local):
+            want = "a tensor" if r in local else "None"
+            raise ValueError(f"rank {r} lives in process {processes[r]}: "
+                             f"its entry is {want} in process {me}")
+    kind, kw = _cross_form(kind, kw, len(groups[0]))
+    if not local:
+        return [None] * len(xs)
+    ins = [xs[r] for r in local]
+    if kind == "permute":
+        kw["pairs"] = _check_pairs(kw["pairs"], len(groups[0]))
+    grad = torch.is_grad_enabled() and any(x.requires_grad for x in ins)
+    if grad and (kind not in _ADJOINT
+                 or (kind == "allreduce" and kw["op"] != MpiOp.SUM)):
+        raise NotImplementedError(f"{kind}: {_XPROC_NO_GRAD}")
+    plan = _Plan(processes, groups, local, ins[0].device)
+    if grad:
+        outs = _CrossProcess.apply(plan, kind, kw, *ins)
+    else:
+        outs = plan.run(kind, kw, ins)
+    got: list = [None] * len(xs)
+    for r, y in zip(local, outs):
+        got[r] = y
+    return got
 
 
 class DeviceCollectives:
@@ -206,59 +394,18 @@ class DeviceCollectives:
 
     def _single_process(self, name: str) -> None:
         if self.multiprocess:
-            raise NotImplementedError(f"{name}: {_XPROC_QUEUED}")
+            raise NotImplementedError(_XPROC_QUEUED.format(name))
 
-    def _xproc(self, kind: str, xs, op: MpiOp = MpiOp.SUM, dim: int = 0,
-               root: int = 0) -> list:
-        """A collective over ranks of several processes: every process
-        gets every rank's buffer (``device_plane/xproc.py``), then the
-        local ranks' results are computed as in one process. Forward
-        only: a local buffer that needs a gradient raises, since the
-        peers' deposits reach the fold without one and a backward would
-        miss the other processes' cotangents."""
-        from faabric_tpu_torch.device_plane.xproc import named_exchanger
-
-        local = {r: xs[r] for r in self.local_ranks}
-        if torch.is_grad_enabled() and any(x.requires_grad
-                                           for x in local.values()):
-            raise NotImplementedError(f"{kind}: {_XPROC_NO_GRAD}")
-        first = local[self.local_ranks[0]]
-        if any(x.shape != first.shape or x.dtype != first.dtype
-               for x in local.values()):
-            raise ValueError(f"{kind} takes buffers of one shape and dtype")
+    def _xproc(self, kind: str, xs, **kw) -> list:
+        """A collective over ranks of several processes, in one exchange
+        round (:func:`cross_process`); local ranks on one device."""
         devices = sorted({str(self.devices[r]) for r in self.local_ranks})
         if len(devices) > 1:
             raise NotImplementedError(
                 f"{kind}: local ranks on several devices ({devices}) wait "
                 f"for ROADMAP.md Queue 1 step 9")
-        ex = named_exchanger(
-            "coll/" + ",".join(map(str, self.processes)), self.processes,
-            first.device)
-        flat = {r: x.contiguous().reshape(-1) for r, x in local.items()}
-        out: list = [None] * self.n
-        with ex.gather(flat) as every:
-            parts = [t.view(first.shape) for t in every]
-            if kind == "reduce_scatter":
-                size = first.shape[dim]
-                if size % self.n:
-                    raise ValueError(f"reduce_scatter: dim {dim} of size "
-                                     f"{size} does not split over {self.n} "
-                                     f"ranks")
-                k = size // self.n
-                for r in self.local_ranks:
-                    out[r] = _fold([p.narrow(dim, r * k, k) for p in parts],
-                                   MpiOp.SUM)
-                return out
-            if kind == "allreduce":
-                one = _fold(parts, op)
-            elif kind == "allgather":
-                one = torch.cat(parts, dim)
-            else:
-                one = parts[root].clone()
-            # The first local rank takes the result, the others a copy
-            for i, r in enumerate(self.local_ranks):
-                out[r] = one if i == 0 else one.clone()
-        return out
+        return cross_process(self.processes, [list(range(self.n))], xs,
+                             kind, **kw)
 
     # ------------------------------------------------------------------
     # Collectives
@@ -268,9 +415,9 @@ class DeviceCollectives:
             lambda d: _fold([x.to(d) for x in xs], op))
 
     def allreduce(self, xs, op: MpiOp = MpiOp.SUM) -> list[torch.Tensor]:
-        """SUM, MAX, MIN, PROD, LAND, LOR; in one process SUM is
-        differentiable (its backward is the allreduce of the cotangents).
-        Across processes it is forward only (see :meth:`_xproc`)."""
+        """SUM, MAX, MIN, PROD, LAND, LOR; SUM is differentiable (its
+        backward is the allreduce of the cotangents), across processes
+        too."""
         xs = self._check(xs)
         op = MpiOp(op)
         if self.multiprocess:
@@ -313,8 +460,7 @@ class DeviceCollectives:
 
     def allgather(self, xs, dim: int = 0) -> list[torch.Tensor]:
         """Rank buffers of one shape, concatenated in rank order along
-        ``dim`` on every rank; differentiable in one process, forward
-        only across processes."""
+        ``dim`` on every rank; differentiable (across processes too)."""
         xs = self._check(xs)
         if self.multiprocess:
             return self._xproc("allgather", xs, dim=dim)
@@ -395,16 +541,12 @@ class DeviceCollectives:
         """Move rank buffers along (src, dst) pairs (each rank sends at
         most once and receives at most once); ranks that no pair reaches
         get zeros. Differentiable: the backward moves the cotangents
-        along the reversed pairs."""
-        self._single_process("permute")
+        along the reversed pairs. Across processes one permute round
+        moves the shards."""
         xs = self._check(xs)
-        pairs = tuple((int(s), int(t)) for s, t in pairs)
-        srcs, dsts = [s for s, _ in pairs], [t for _, t in pairs]
-        if (len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts)
-                or not all(0 <= r < self.n for r in srcs + dsts)):
-            raise ValueError(f"permute pairs {pairs} must name each of "
-                             f"{self.n} ranks at most once as a source "
-                             "and once as a destination")
+        pairs = _check_pairs(pairs, self.n)
+        if self.multiprocess:
+            return self._xproc("permute", xs, pairs=pairs)
         if any(x.shape != xs[0].shape or x.dtype != xs[0].dtype for x in xs):
             raise ValueError("permute takes buffers of one shape and dtype")
         return list(_Permute.apply(self, pairs, *xs))

@@ -21,8 +21,10 @@ dialled through the alias table, so clusters of aliased loopback ports
 and real multi-host clusters use the same spec.
 
 What rides the plane: the MPI world's device rung for worlds whose ranks
-live in several processes (``device_plane/plane.py``) and the addressable
-forms of ``DeviceCollectives`` (``parallel/collectives.py``), both through
+live in several processes (``device_plane/plane.py``), the addressable
+forms of ``DeviceCollectives`` (``parallel/collectives.py``) and meshes
+laid over the global devices (``parallel/mesh.py``), whose sharded train
+steps run split over the processes, all through
 ``device_plane/xproc.py``. Their payload moves on the gloo group on the
 CPU, and on the card through CUDA IPC windows; the group then carries
 only handles and barriers.

@@ -19,6 +19,34 @@ so tp is the fastest-varying axis over the rank order.
 Every movement of data between ranks goes through
 ``parallel/collectives.py::DeviceCollectives``; ``Mesh.collectives``
 hands out one per group of ranks along the named axes.
+
+Across the processes of a device plane (``parallel/distributed.py``) a
+mesh is laid over the plane's global devices, as the reference's over
+``jax.devices()``: ``build_mesh(global_devices(), MeshConfig(tp=2))``.
+Each process holds only its own ranks (``local_ranks``); every per-rank
+list, weights and activations alike, holds ``None`` for the others',
+and ``rank_devices`` holds ``None`` there too. :meth:`Mesh.over` decides
+per (mesh, axes), from the rank-to-process table that every process
+holds alike, whether a call crosses processes:
+
+- where every group along the axes lies in one process, each process
+  runs the single-process collectives, autograd included, on its own
+  groups, and makes no exchange;
+- where some group spans processes, the call is one exchange round over
+  every group at once (``collectives.py::cross_process``): every process
+  gets every rank's deposit (of a permute, only the shards that land on
+  its ranks), folds its own groups in rank order with the
+  single-process code (so results are bitwise the single-process
+  mesh's) and keeps its ranks' outputs. The call is one autograd node,
+  whose backward is one more round, so both processes meet the same
+  rounds in the same order as long as they run the same program over
+  their ranks, as the port's sharded steps do. A design of one round
+  per group would leave the order of independent groups' backward
+  rounds to each process's autograd engine; one round per call leaves
+  it nothing to order.
+
+So a call names its collective rather than running code on a group's
+collectives: ``mesh.over("tp", xs, "allreduce")``.
 """
 
 from __future__ import annotations
@@ -61,12 +89,32 @@ class Mesh:
 
     ``shape`` maps axis to size; ``ranks`` is the grid of rank numbers;
     ``devices`` the same grid of ``torch.device``s (as JAX's
-    ``Mesh.devices``), ``rank_devices`` the devices in rank order.
+    ``Mesh.devices``), ``rank_devices`` the devices in rank order. The
+    entries may be the device plane's ``PlaneDevice``s: ``rank_process``
+    then maps each rank to its process, ``local_ranks`` are this
+    process's, and other processes' ranks have ``None`` for a device.
     """
 
     def __init__(self, rank_devices: Sequence, sizes: dict[str, int]) -> None:
-        self.rank_devices = [torch.device(d) for d in rank_devices]
+        from faabric_tpu_torch.parallel.distributed import (
+            PlaneDevice,
+            process_index,
+        )
+
+        self.entries = list(rank_devices)
+        plane = any(isinstance(d, PlaneDevice) for d in self.entries)
+        self.rank_process = [d.process_index if isinstance(d, PlaneDevice)
+                             else 0 for d in self.entries]
+        self.process_index = process_index() if plane else 0
+        self.local_ranks = [r for r, p in enumerate(self.rank_process)
+                            if p == self.process_index]
+        self.rank_devices = [
+            torch.device(d.device if isinstance(d, PlaneDevice) else d)
+            if p == self.process_index else None
+            for d, p in zip(self.entries, self.rank_process)]
         self.size = len(self.rank_devices)
+        # Ranks in other processes: per-rank lists hold None for them
+        self.multiprocess = len(self.local_ranks) != self.size
         self.axis_names = MESH_AXES
         self.shape = {a: int(sizes[a]) for a in MESH_AXES}
         grid = np.arange(self.size).reshape(
@@ -80,10 +128,19 @@ class Mesh:
         self._coords = {int(r): dict(zip(MESH_AXES, idx))
                         for idx, r in np.ndenumerate(self.ranks)}
         self._collectives: dict[tuple, list] = {}
+        self._crosses: dict[tuple, bool] = {}
         self._lock = threading.Lock()
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, devices={sorted(set(map(str, self.rank_devices)))})"
+        devices = sorted({str(d) for d in self.rank_devices if d is not None})
+        return f"Mesh({self.shape}, devices={devices})"
+
+    @property
+    def device(self) -> Optional[torch.device]:
+        """This process's first rank's device (None where it holds no
+        rank): where whole values are made and gathered."""
+        return (self.rank_devices[self.local_ranks[0]] if self.local_ranks
+                else None)
 
     def coords(self, rank: int) -> dict[str, int]:
         """Rank → its coordinate on every axis."""
@@ -107,31 +164,57 @@ class Mesh:
         n_rest = int(np.prod([self.shape[a] for a in rest], dtype=int))
         return [list(map(int, g)) for g in grid.reshape(n_rest, -1)]
 
+    def crosses(self, axes: str | Sequence[str]) -> bool:
+        """Whether some group along ``axes`` spans processes: the same
+        answer in every process, made once per mesh and axes."""
+        if not self.multiprocess:
+            return False
+        key = _as_axes(axes)
+        with self._lock:
+            out = self._crosses.get(key)
+            if out is None:
+                out = any(len({self.rank_process[r] for r in g}) > 1
+                          for g in self.groups(key))
+                self._crosses[key] = out
+            return out
+
     def collectives(self, axes: str | Sequence[str]):
         """[(ranks, DeviceCollectives over them)] for every group along
-        ``axes``, made once per mesh."""
+        ``axes`` that lies in this process, made once per mesh."""
         from faabric_tpu_torch.parallel.collectives import DeviceCollectives
 
         key = _as_axes(axes)
         with self._lock:
             out = self._collectives.get(key)
             if out is None:
-                out = [(g, DeviceCollectives([self.rank_devices[r] for r in g]))
-                       for g in self.groups(key)]
+                local = set(self.local_ranks)
+                out = [(g, DeviceCollectives([self.rank_devices[r]
+                                              for r in g]))
+                       for g in self.groups(key) if set(g) <= local]
                 self._collectives[key] = out
             return out
 
-    def over(self, axes: str | Sequence[str], xs: Sequence, fn) -> list:
-        """Run ``fn(collectives, group's tensors) -> group's outputs`` on
-        every group along ``axes`` and return the outputs in rank order.
+    def over(self, axes: str | Sequence[str], xs: Sequence, kind: str,
+             **kw) -> list:
+        """The collective ``kind`` (a ``DeviceCollectives`` method, with
+        its keyword arguments ``kw``) on every group along ``axes``; the
+        outputs in rank order (``None`` for other processes' ranks).
         Where the groups are single ranks the inputs come back as they
-        are: there is nothing to communicate."""
+        are: there is nothing to communicate. Where a group spans
+        processes the call is one exchange round over every group (see
+        the module)."""
         key = _as_axes(axes)
         if all(self.shape[a] == 1 for a in key):
             return list(xs)
+        if self.crosses(key):
+            from faabric_tpu_torch.parallel.collectives import cross_process
+
+            return cross_process(self.rank_process, self.groups(key),
+                                 list(xs), kind, **kw)
         out: list = [None] * self.size
         for ranks, coll in self.collectives(key):
-            for r, y in zip(ranks, fn(coll, [xs[r] for r in ranks])):
+            ys = getattr(coll, kind)([xs[r] for r in ranks], **kw)
+            for r, y in zip(ranks, ys):
                 out[r] = y
         return out
 
@@ -213,24 +296,35 @@ class ShardSpec:
         return tuple(slice(i * n, (i + 1) * n)
                      for i, n in zip(idx, local[:len(idx)]))
 
-    def shard(self, x, dtype: torch.dtype | None = None) -> list[torch.Tensor]:
+    def shard(self, x, dtype: torch.dtype | None = None) -> list:
         """A whole value (numpy array or tensor) → each rank's piece, a
-        tensor of its own on the rank's device. A pinned host tensor's
-        pieces are copied without blocking."""
+        tensor of its own on the rank's device (``None`` for other
+        processes' ranks). A pinned host tensor's pieces are copied
+        without blocking."""
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.require(x, requirements=["C", "W"]))
         out = []
         for r, dev in enumerate(self.mesh.rank_devices):
+            if dev is None:
+                out.append(None)
+                continue
             piece = x[self._slices(x.shape, r)]
             out.append(piece.to(dev, dtype=dtype, copy=True,
                                 non_blocking=piece.is_pinned()))
         return out
 
-    def gather(self, xs: Sequence[torch.Tensor],
-               device=None) -> torch.Tensor:
-        """Per-rank pieces → the whole value on ``device`` (rank 0's by
-        default), each piece taken from the lowest rank that holds it."""
-        device = self.mesh.rank_devices[0] if device is None else device
+    def gather(self, xs: Sequence, device=None) -> torch.Tensor:
+        """Per-rank pieces → the whole value on ``device`` (this process's
+        first rank's by default), each piece taken from the lowest rank
+        that holds it. Across processes every process gets the whole
+        value: the other processes' pieces come over one exchange
+        round."""
+        device = self.mesh.device if device is None else device
+        if self.mesh.multiprocess:
+            from faabric_tpu_torch.parallel.collectives import gather_every
+
+            with torch.no_grad():
+                xs = gather_every(self.mesh.rank_process, xs)
         parts = self.parts()
         full = tuple(n * p for n, p in zip(xs[0].shape, parts)) + tuple(
             xs[0].shape[len(parts):])

@@ -38,6 +38,20 @@ body, whatever ``attention_impl`` says. MoE configs take MoE blocks, the
 expert FFN the ep-local one of ``models/moe.py``, without the aux loss
 (the reference's ``aux_loss_weight = 0`` semantics under pp).
 
+Across the processes of a device plane (``parallel/mesh.py``) each
+process runs the 1F1B units of its own ranks only, a stage whose ranks
+all live elsewhere not at all, and per-rank lists hold ``None`` for the
+other processes' ranks. The hops, the loss and the gradient allreduce
+cross the boundary where their groups do: a pp hop whose partners live
+in two processes is one permute round (on the card one launch of the
+ring kernel a process, into the peer's IPC window). The hopped values are
+detached, so no backward crosses with them. GPipe across processes
+raises: its backward is autograd through the hops, and a process whose
+loss copy does not reach its own stage in its local graph would give
+that stage's weights no gradient; it needs an explicit backward
+schedule, as 1F1B has (``ROADMAP.md`` Queue 1 step 10). MoE stages
+across processes raise too (step 11).
+
 Each rank's share of the loss is its last-stage NLL over the global
 token count and the tp x ep ranks that compute the same tokens, so the
 sum over ranks is the mean; every collective's backward is its exact
@@ -54,9 +68,9 @@ import dataclasses
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from faabric_tpu_torch.models.moe import (
+    MOE_XPROC,
     MoEConfig,
     MoETransformer,
     _moe_param_shapes,
@@ -69,8 +83,11 @@ from faabric_tpu_torch.models.transformer import (
     _param_shapes,
     _param_tree,
     _rms_norm,
+    _first,
+    _local,
     _sharded_block,
     _sharded_positions,
+    checkpointed,
     token_nll,
 )
 from faabric_tpu_torch.parallel.mesh import Mesh, named
@@ -240,6 +257,8 @@ class PipelinedTransformer(ShardedTransformer):
 
     def __init__(self, cfg: ModelConfig, mesh: Mesh, params: dict):
         n_stages = _validate_pp_mesh(cfg, mesh)
+        if isinstance(cfg, MoEConfig) and mesh.multiprocess:
+            raise NotImplementedError(MOE_XPROC)
         super().__init__(cfg, mesh, params)
         self.layers_per_stage = cfg.n_layers // n_stages
         sizes = {**mesh.shape, "pp": 1}
@@ -247,7 +266,7 @@ class PipelinedTransformer(ShardedTransformer):
         for s in range(n_stages):
             ranks = [r for r in range(mesh.size) if mesh.index(r, "pp") == s]
             self.stages.append(_Stage(ranks, Mesh(
-                [mesh.rank_devices[r] for r in ranks], sizes)))
+                [mesh.entries[r] for r in ranks], sizes)))
         # The reference's stage body ignores attention_impl/norm_impl
         self.stage_cfg = dataclasses.replace(cfg, attention_impl="reference",
                                              norm_impl="reference")
@@ -280,8 +299,9 @@ class PipelinedTransformer(ShardedTransformer):
     # -- the in-stage program --------------------------------------------
     def _embed(self, stage: _Stage, tokens: list) -> list:
         cfg = self.stage_cfg
-        return [F.embedding(tok, self.ranks[r].embed).to(cfg.compute_dtype)
-                for r, tok in zip(stage.ranks, tokens)]
+        return _local(lambda tok, r: F.embedding(
+            tok, self.ranks[r].embed).to(cfg.compute_dtype),
+                      tokens, stage.ranks)
 
     def _run_stage(self, stage: _Stage, xs: list, positions: list) -> list:
         """The stage's slab of layers on its ranks' activations."""
@@ -289,12 +309,14 @@ class PipelinedTransformer(ShardedTransformer):
         block = (_pp_moe_block if isinstance(cfg, MoEConfig)
                  else _sharded_block)
         remat = cfg.remat and torch.is_grad_enabled()
+        shards = self.shards()
         for i in range(self.layers_per_stage):
-            blks = [_Layer(self.ranks[r].stacked, i) for r in stage.ranks]
+            blks = _local(lambda sh: _Layer(sh.stacked, i),
+                          [shards[r] for r in stage.ranks])
             if remat:
                 # The blocks draw no random numbers: no RNG state to replay
-                xs = checkpoint(block, xs, blks, positions, cfg, stage.mesh,
-                                use_reentrant=False, preserve_rng_state=False)
+                xs = checkpointed(block, xs, blks, positions, cfg,
+                                  stage.mesh, mesh=stage.mesh)
             else:
                 xs = block(xs, blks, positions, cfg, stage.mesh)
         return xs
@@ -317,7 +339,7 @@ def _pp_moe_block(xs, blks, positions, cfg, mesh) -> list:
 def _hop(mesh: Mesh, xs: list, disp: int) -> list:
     """One whole-ring shift over pp: rank r's tensor lands on the rank of
     the same coordinates at stage (s + disp) % pp."""
-    return mesh.over("pp", xs, lambda coll, t: coll.shift(t, disp))
+    return mesh.over("pp", xs, "shift", disp=disp)
 
 
 class _Run:
@@ -329,12 +351,13 @@ class _Run:
         if len(tokens) != mesh.size or len(targets) != mesh.size:
             raise ValueError(f"{len(tokens)} token shards for {mesh.size} "
                              "ranks")
-        if tokens[0].dim() != 3:
+        first = _first(tokens)
+        if first.dim() != 3:
             raise ValueError("a pipeline takes per-rank (M, B/(M dp), S/sp) "
                              "shards (pp_data_sharding of microbatch)")
         self.mesh, self.tokens, self.targets = mesh, tokens, targets
         self.n_stages = mesh.shape["pp"]
-        self.m, b_l, s_l = tokens[0].shape
+        self.m, b_l, s_l = first.shape
         self.positions = _sharded_positions(tokens, mesh)
         # Each token's NLL is computed by the tp x ep ranks of its cell
         # on the last stage
@@ -342,29 +365,29 @@ class _Run:
                              * mesh.shape["sp"] * mesh.shape["tp"]
                              * mesh.shape["ep"])
         cfg = model.stage_cfg
-        self.zeros = [torch.zeros(b_l, s_l, cfg.d_model,
-                                  dtype=cfg.compute_dtype, device=d)
+        self.zeros = [None if d is None else torch.zeros(
+            b_l, s_l, cfg.d_model, dtype=cfg.compute_dtype, device=d)
                       for d in mesh.rank_devices]
 
     def at(self, stage: _Stage, values: list) -> list:
         return [values[r] for r in stage.ranks]
 
     def tokens_of(self, stage: _Stage, m: int) -> list:
-        return [self.tokens[r][m] for r in stage.ranks]
+        return _local(lambda tok: tok[m], self.at(stage, self.tokens))
 
     def hop(self, values: dict, disp: int) -> list:
         """A whole-ring shift of the ranks' ``values`` (zeros where a
         rank has none this tick)."""
-        return _hop(self.mesh, [values.get(r, z) for r, z in
-                                enumerate(self.zeros)], disp)
+        return _hop(self.mesh, _local(lambda z, r: values.get(r, z),
+                                      self.zeros, range(self.mesh.size)),
+                    disp)
 
     def total(self, parts: dict) -> list:
         """Per-rank copies of the loss from the last stage's shares."""
         mesh = self.mesh
-        xs = [parts.get(r, torch.zeros((), device=d))
-              for r, d in enumerate(mesh.rank_devices)]
-        return mesh.over(mesh.axis_names, xs,
-                         lambda coll, t: coll.allreduce(t))
+        xs = _local(lambda d, r: parts.get(r, torch.zeros((), device=d)),
+                    mesh.rank_devices, range(mesh.size))
+        return mesh.over(mesh.axis_names, xs, "allreduce")
 
 
 def _check_model(model, cfg: ModelConfig, mesh: Mesh) -> None:
@@ -376,7 +399,14 @@ def _check_model(model, cfg: ModelConfig, mesh: Mesh) -> None:
                          f"has {model.cfg} over {model.mesh.shape}")
 
 
+GPIPE_XPROC = ("GPipe over a mesh whose ranks live in several processes is "
+               "not ported yet: its backward needs an explicit schedule "
+               "(ROADMAP.md Queue 1 step 10); take schedule_name='1f1b'")
+
+
 def _gpipe_loss(model: PipelinedTransformer, tokens, targets) -> list:
+    if model.mesh.multiprocess:
+        raise NotImplementedError(GPIPE_XPROC)
     run = _Run(model, tokens, targets)
     last = run.n_stages - 1
     ticks = n_ticks(run.n_stages, run.m)
@@ -417,17 +447,24 @@ def _1f1b_value_and_grad(model: PipelinedTransformer, tokens, targets):
     n_stages, last = run.n_stages, run.n_stages - 1
     ticks = n_ticks_1f1b(n_stages, run.m)
     slots = ring_slots(n_stages)
-    saved: dict[int, list] = {r: [None] * slots for r in range(run.mesh.size)}
+    saved: dict[int, list] = {r: [None] * slots
+                              for r in run.mesh.local_ranks}
     parts: dict[int, torch.Tensor] = {}
     x_hop = dy_hop = None
 
     def leaves(xs):
-        return [x.detach().requires_grad_() for x in xs]
+        return _local(lambda x: x.detach().requires_grad_(), xs)
+
+    def present(xs):
+        return [x for x in xs if x is not None]
 
     for t in range(ticks):
         outs: dict[int, torch.Tensor] = {}
         dxs: dict[int, torch.Tensor] = {}
         for s, stage in enumerate(model.stages):
+            if not stage.mesh.local_ranks:
+                # Every rank of this stage lives in another process
+                continue
             pos = run.at(stage, run.positions)
             # -- forward unit: microbatch t − s ------------------------
             mf = t - s
@@ -437,6 +474,8 @@ def _1f1b_value_and_grad(model: PipelinedTransformer, tokens, targets):
                           if s == 0 else run.at(stage, x_hop))
                     ys = model._run_stage(stage, xs, pos)
                 for r, x, y in zip(stage.ranks, xs, ys):
+                    if y is None:
+                        continue
                     outs[r] = y
                     if s > 0:
                         saved[r][mf % slots] = x
@@ -447,23 +486,32 @@ def _1f1b_value_and_grad(model: PipelinedTransformer, tokens, targets):
                 continue
             xs = None if s == 0 else leaves(
                 run.at(stage, x_hop) if s == last
-                else [saved[r][mb % slots] for r in stage.ranks])
+                else [saved[r][mb % slots] if r in saved else None
+                      for r in stage.ranks])
             with torch.enable_grad():
                 ys = model._run_stage(
                     stage, model._embed(stage, run.tokens_of(stage, mb))
                     if s == 0 else xs, pos)
                 if s == last:
-                    heads = [model._head(r, y, run.targets[r][mb], run.weight)
-                             for r, y in zip(stage.ranks, ys)]
+                    heads = _local(lambda y, r: model._head(
+                        r, y, run.targets[r][mb], run.weight),
+                                   ys, stage.ranks)
             if s == last:
-                torch.autograd.backward(heads)
+                torch.autograd.backward(present(heads))
                 for r, h in zip(stage.ranks, heads):
+                    if h is None:
+                        continue
                     h = h.detach()
                     parts[r] = h if r not in parts else parts[r] + h
             else:
-                torch.autograd.backward(ys, run.at(stage, dy_hop))
+                dys = run.at(stage, dy_hop)
+                torch.autograd.backward(
+                    present(ys), [d for y, d in zip(ys, dys)
+                                  if y is not None])
             if s > 0:
                 for r, x in zip(stage.ranks, xs):
+                    if x is None:
+                        continue
                     dxs[r] = x.grad
                     saved[r][mb % slots] = None
         if t < ticks - 1:
@@ -507,8 +555,9 @@ def _as_microbatches(mesh: Mesh, batch, n_microbatches: int) -> list:
     """Per-rank microbatched shards as given, or a whole (B, S) batch
     microbatched and placed by ``pp_data_sharding``."""
     if isinstance(batch, (list, tuple)):
-        if batch[0].dim() != 3 or batch[0].shape[0] != n_microbatches:
-            raise ValueError(f"shards of shape {tuple(batch[0].shape)}: the "
+        first = _first(batch)
+        if first.dim() != 3 or first.shape[0] != n_microbatches:
+            raise ValueError(f"shards of shape {tuple(first.shape)}: the "
                              f"step takes ({n_microbatches}, B/(M dp), S/sp)")
         return list(batch)
     return pp_data_sharding(mesh).shard(microbatch(batch, n_microbatches))
@@ -539,7 +588,7 @@ def make_pp_train_step(cfg: ModelConfig, optimizer=None,
         tok, tgt = (_as_microbatches(model.mesh, a, n_microbatches)
                     for a in (tokens, targets))
         loss = value_and_grad(model, tok, tgt)
-        _update(model, opt, spec, model.unique_parameters())
+        _update(model, opt, spec)
         return loss
 
     return step
@@ -548,12 +597,13 @@ def make_pp_train_step(cfg: ModelConfig, optimizer=None,
 def init_pp_train_state(generator: torch.Generator | None, cfg: ModelConfig,
                         mesh: Mesh, optimizer=None):
     """(model, opt): weights drawn from ``generator`` exactly as
-    ``models.init_train_state`` (or the MoE family's) draws them, on rank
-    0's device, then laid over the pp mesh, and its AdamW."""
+    ``models.init_train_state`` (or the MoE family's) draws them, on
+    this process's first rank's device, then laid over the pp mesh (this
+    process's ranks' shards), and its AdamW."""
     from faabric_tpu_torch.models.train import make_optimizer
 
     optimizer = optimizer or make_optimizer()
-    device = mesh.rank_devices[0]
+    device = mesh.device
     family = MoETransformer if isinstance(cfg, MoEConfig) else Transformer
     whole = family(cfg, device=device, generator=generator)
     model = PipelinedTransformer(cfg, mesh, _param_tree(whole))

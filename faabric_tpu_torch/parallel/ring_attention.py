@@ -97,7 +97,13 @@ def ring_attention(q, k, v, mesh, axis: str = "sp", causal: bool = True,
     holds Q block i and, at step s, K/V block (i − s) mod n; masking uses
     the blocks' global positions. At an axis of size 1 each rank runs the
     plain attention on its blocks. ``block`` attends one pair of blocks
-    (the flash kernels; a test may give their plain versions)."""
+    (the flash kernels; a test may give their plain versions). Over a
+    mesh whose ranks live in several processes it raises (``ROADMAP.md``
+    Queue 1 step 11)."""
+    if mesh.multiprocess:
+        raise NotImplementedError(
+            "ring attention over a mesh whose ranks live in several "
+            "processes is not ported yet (ROADMAP.md Queue 1 step 11)")
     if mesh.shape[axis] == 1:
         from faabric_tpu_torch.ops.flash_attention import _reference_attention
 

@@ -1421,9 +1421,12 @@ def test_planeworkers_on_one_card(cuda_device):
     card: two processes, four entries of ``cuda:0`` each, form an
     8-device plane through a planner process, and ``DeviceCollectives``'
     addressable allreduce, allgather, reduce_scatter and broadcast run
-    across them over CUDA IPC windows (which grow between the four
-    shapes), each process checking its own shards against closed-form
-    values; an allreduce of buffers that need a gradient raises in both."""
+    across them over CUDA IPC windows (which grow between the shapes),
+    each process checking its own shards, and the backward of allreduce,
+    allgather, a ring shift and a swap, against closed-form values; then
+    the reference's two train steps over the 8 ranks (fp32, plain
+    attention: the flash kernels take no head dim 8), with equal losses
+    in both processes."""
     import chip_smoke
 
     _build.kernels()  # built once here; the children load it
@@ -1433,6 +1436,39 @@ def test_planeworkers_on_one_card(cuda_device):
     assert {line.split("ldev=")[1].split()[0] for line in lines} == {"4"}
     ranks = {line.split("ranks=")[1] for line in lines}
     assert ranks == {"[0, 1, 2, 3]", "[4, 5, 6, 7]"}, ranks
+    assert len({line.split(" loss=")[1].split()[0] for line in lines}) == 1
+    assert len({line.split("pp_loss=")[1].split()[0]
+                for line in lines}) == 1
+
+
+@pytest.mark.cuda
+def test_plane_steps_phase_on_the_card(cuda_device, monkeypatch):
+    """``chip_smoke.py``'s phase 30 alone: a planner process and two
+    plane processes on ``cuda:0``, 4 ranks each, run 2 full-width steps
+    over (dp 4, tp 2) and 2 1F1B steps over (dp 2, tp 2, pp 2) with
+    every pp hop across the processes, bitwise against the script's
+    single-process run of the same steps. Each process launches half the
+    single-process run's flash kernels, every forward on ``wgmma``, and
+    the ring kernel once a pp hop. ``tests/test_torch_processes.py``
+    rehearses the phase on the CPU."""
+    import chip_smoke
+    from faabric_tpu_torch.models import ModelConfig
+    from faabric_tpu_torch.parallel.pipeline import hop_counts
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    _build.kernels()
+    launches = chip_smoke.plane_steps_phase(cuda_device, _build)
+    L = ModelConfig().n_layers
+    per_step = 2 * 4 * L  # processes x ranks x layers, each a step
+    steps = chip_smoke.PLANE_STEPS
+    assert launches["flash_attention"] == launches["flash_attention.wgmma"] \
+        == 2 * per_step * steps  # remat runs each forward twice
+    assert launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] \
+        == per_step * steps
+    assert launches["ring_permute"] == 2 * hop_counts(
+        2, chip_smoke.PLANE_MICROBATCHES)["1f1b"] * steps
+    assert "rms_norm" not in launches
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
 """The device plane across processes: the port against the JAX package.
 
-Counterpart of ``tests/dist/test_device_plane.py`` and of the first half
-of ``tests/dist/test_multiprocess.py::test_device_plane_cross_process_
+Counterpart of ``tests/dist/test_device_plane.py`` and of
+``tests/dist/test_multiprocess.py::test_device_plane_cross_process_
 collectives``, plus the roster and the verdicts both packages compute
 in this process:
 
@@ -19,7 +19,22 @@ in this process:
   plain version, and 64-bit payloads on the plane (the port's
   divergence: the reference's plane narrows them, so it refuses them);
 - two ``planeworker`` processes through a planner process, whose
-  addressable collectives see an 8-device plane split 4 + 4.
+  addressable collectives (and their backward) see an 8-device plane
+  split 4 + 4, and which run the reference's sharded train steps across
+  the processes: 2 steps over (dp 4, tp 2) and one 1F1B step over (dp
+  2, tp 2, pp 2) with every pp hop crossing the processes. Both
+  processes report equal losses; the losses, the whole weights and the
+  last step's gradients are bitwise the port's single-process mesh's,
+  and within the JAX tests' tolerances of the JAX package's steps on
+  the conftest's 8 devices, from the same ``init_params(PRNGKey(0))``;
+- two processes joined directly at a coordinator, running the step with
+  tp crossing the processes under remat (activation allreduces with
+  gradients across the boundary, rerun in the recomputation) and with a
+  clip norm that bites, both bitwise the single-process mesh's;
+- in this process, over a mesh of plane devices of which another
+  process holds half: what each process holds and computes, and the
+  forms that stay refused across processes (GPipe, ring attention, the
+  MoE family, alltoall and scan), naming their ``ROADMAP.md`` items.
 
 The children import the port and nothing of JAX. Every process test
 takes its ports from ``tests/test_torch_multiprocess.py::port_slot()``
@@ -251,6 +266,99 @@ def _child_main(my_idx: int, coord_port: int, device: str) -> None:
         world.close()
         leave_device_plane()
     print("REPORT " + json.dumps(report), flush=True)
+
+
+def _steps_child_main(my_idx: int, coord_port: int, weights: str, out: str,
+                      runs: str) -> None:
+    """One process of a 2-process plane (four CPU entries), joined
+    directly at the coordinator: ``tests/test_torch_procs.py::
+    plane_step_runs`` of the comma-separated ``runs`` on one intra-op
+    thread, its results written to ``<out>/<my_idx>.npz``."""
+    for fd in filter(None, os.environ.pop("PROCS_HELD_FDS", "").split(",")):
+        os.close(int(fd))
+    torch.set_num_threads(1)
+    from faabric_tpu_torch.parallel import global_devices
+    from faabric_tpu_torch.parallel.distributed import (
+        DevicePlaneSpec,
+        join_device_plane,
+        leave_device_plane,
+    )
+    from tests.test_torch_procs import (
+        _step_weights,
+        plane_step_runs,
+        save_step_runs,
+    )
+
+    join_device_plane(DevicePlaneSpec(
+        coordinator_host=HOSTS[0], coordinator_port=coord_port,
+        num_processes=N_PROCS, process_id=my_idx),
+        local_devices=["cpu"] * 4, init_timeout_s=90)
+    print("READY", flush=True)
+    report = {"ok": True, "err": ""}
+    try:
+        got = plane_step_runs(global_devices(), _step_weights(weights),
+                              runs.split(","))
+        save_step_runs(os.path.join(out, f"{my_idx}.npz"), got)
+        report["ranks"] = {run: g["ranks"] for run, g in got.items()}
+        report["crossing"] = {run: g["crossing"] for run, g in got.items()}
+        modules = {m.split(".")[0] for m in sys.modules}
+        report["jax"] = sorted(modules & {"jax", "jaxlib", "faabric_tpu"})
+    except Exception as e:  # noqa: BLE001 — reported to the parent
+        import traceback
+
+        report = {"ok": False, "err": traceback.format_exc()[-2000:]}
+    finally:
+        leave_device_plane()
+    print("REPORT " + json.dumps(report), flush=True)
+
+
+def steps_across_processes(runs, weights: str, out: str, base: int,
+                           hold) -> list[dict]:
+    """Two ``--steps-child`` processes over a 2-process CPU plane whose
+    coordinator listens at ``base`` + 1000 plus the MPI range's last
+    port (held by ``hold(ports)`` until the first child binds it; []
+    when taken): each child's report, [] when the port was taken."""
+    from faabric_tpu_torch.transport.common import (
+        MPI_BASE_PORT,
+        MPI_PORTS_PER_HOST,
+    )
+
+    coord_port = MPI_BASE_PORT + MPI_PORTS_PER_HOST - 1
+    held = hold([base + 1000 + coord_port])
+    if not held:
+        return []
+    env = {**os.environ, "PYTHONPATH": ROOT, "FAABRIC_HOST_ALIASES": ",".join(
+        f"{h}=127.0.0.1+{base + 1000 * (i + 1)}"
+        for i, h in enumerate(HOSTS))}
+    env.pop("FAABRIC_LOCKCHECK", None)
+    children = []
+    try:
+        for i in range(N_PROCS):
+            fds = [s.fileno() for s in held] if i == 0 else []
+            children.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--steps-child",
+                 str(i), str(coord_port), weights, out, ",".join(runs)],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                stdin=subprocess.DEVNULL, text=True, cwd=ROOT, pass_fds=fds,
+                env={**env, "PROCS_HELD_FDS": ",".join(map(str, fds))}))
+    finally:
+        for sock in held:
+            sock.close()
+    reports = []
+    try:
+        for c in children:
+            line = _read_line(c, "REPORT ", CHILD_TIMEOUT_S)
+            assert line, f"child exited with {c.poll()} and no report"
+            reports.append(json.loads(line[len("REPORT "):]))
+    finally:
+        for c in children:
+            try:
+                c.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                c.kill()
+                c.wait(30)
+            c.stdout.close()
+    return reports
 
 
 def _single_process_plane(datas: dict, device: str) -> dict:
@@ -640,18 +748,44 @@ def test_plane_across_processes_needs_an_exchange_name():
 
 
 # ---------------------------------------------------------------------------
-# The planeworker pair through a planner process
+# The planeworker pair through a planner process, and its train steps
 # ---------------------------------------------------------------------------
 
-def test_planeworkers_form_an_eight_device_plane_through_the_planner():
-    """Two ``planeworker`` processes join a 2-process plane through a
-    planner process at boot, with four CPU entries each: both see 8
-    global devices, one owns ranks 0-3 and the other 4-7, and each
-    checks its own shards of an allreduce and an allgather."""
-    from tests.test_torch_multiprocess import ProcCluster
+@pytest.fixture(scope="module")
+def step_weights(tmp_path_factory):
+    """The JAX package's ``init_params(PRNGKey(0))`` at the planeworker's
+    config: (an ``.npz`` of its leaves by name, the pytree)."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
 
+    from faabric_tpu.models import ModelConfig as JaxConfig
+    from faabric_tpu.models import init_params
+
+    from faabric_tpu_torch.models.transformer import _leaves
+    from tests.test_torch_procs import STEP_CFG
+
+    jcfg = JaxConfig(**{k: v for k, v in STEP_CFG.items()
+                        if k not in ("attention_impl", "norm_impl")},
+                     compute_dtype=jnp.float32)
+    params = jax.tree.map(np.asarray, init_params(jax.random.PRNGKey(0),
+                                                  jcfg))
+    path = str(tmp_path_factory.mktemp("plane-steps") / "weights.npz")
+    np.savez(path, **dict(_leaves(params)))
+    return path, params
+
+
+@pytest.fixture(scope="module")
+def planeworkers(step_weights, tmp_path_factory):
+    """Two ``planeworker`` processes through a planner process, four CPU
+    entries each: (their ``PLANE-`` lines, their step results)."""
+    from tests.test_torch_multiprocess import ProcCluster
+    from tests.test_torch_procs import load_step_runs
+
+    out = tmp_path_factory.mktemp("planeworkers")
     cluster = ProcCluster("xpw", {"xpw1": 1, "xpw2": 1},
-                          worker_role="planeworker", worker_args=("2",))
+                          worker_role="planeworker", worker_args=("2",),
+                          worker_env={"PLANE_WEIGHTS": step_weights[0],
+                                      "PLANE_OUT": str(out)})
     try:
         cluster.start()
         lines = [cluster.ready[w]["plane"] for w in cluster.workers]
@@ -660,14 +794,434 @@ def test_planeworkers_form_an_eight_device_plane_through_the_planner():
             cluster.children[w].proc.stdin.close()
     finally:
         cluster.stop()
+    runs = [load_step_runs(str(out / f"{w}.npz"))
+            if (out / f"{w}.npz").exists() else None
+            for w in cluster.workers]
+    return lines, runs
+
+
+def _one_thread(fn):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return fn()
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def single_process_steps(step_weights):
+    """The same runs over the port's single-process mesh of 8 CPU ranks,
+    on one intra-op thread as the children."""
+    from tests.test_torch_procs import STEP_RUNS, plane_step_runs
+
+    return _one_thread(lambda: plane_step_runs(
+        [torch.device("cpu")] * 8, step_weights[1], tuple(STEP_RUNS)))
+
+
+def test_planeworkers_form_an_eight_device_plane_through_the_planner(
+        planeworkers):
+    """Two ``planeworker`` processes join a 2-process plane through a
+    planner process at boot, with four CPU entries each: both see 8
+    global devices, one owns ranks 0-3 and the other 4-7, each checks
+    its own shards of the addressable collectives and their backward,
+    and both ran the same train steps: equal ``loss`` and ``pp_loss``,
+    as the reference's test holds its two controllers."""
+    lines, runs = planeworkers
     assert all(line.startswith("PLANE-OK") for line in lines), lines
     assert {line.split("gdev=")[1].split()[0] for line in lines} == {"8"}
     assert {line.split("ldev=")[1].split()[0] for line in lines} == {"4"}
     ranks = {line.split("ranks=")[1] for line in lines}
     assert ranks == {"[0, 1, 2, 3]", "[4, 5, 6, 7]"}, ranks
+    assert len({line.split(" loss=")[1].split()[0] for line in lines}) == 1
+    assert len({line.split("pp_loss=")[1].split()[0]
+                for line in lines}) == 1
+    assert all(r is not None for r in runs)
+    for run in ("dense", "pp"):
+        assert runs[0][run]["losses"] == runs[1][run]["losses"], run
+
+
+@pytest.mark.parametrize("run", ["dense", "pp"])
+def test_planeworker_steps_are_bitwise_the_single_process_mesh(
+        planeworkers, single_process_steps, run):
+    """Each process's losses, whole weights after the steps and last
+    step's gradients (each shard's sum over its holders) are bitwise the
+    port's single-process mesh's on the same weights and batches: the
+    exchanger folds in rank order with the single-process code, and each
+    process seeds its loss copies so that the allreduce's backward gives
+    every rank exactly 1 (a 1 in each process would double every
+    gradient)."""
+    _, runs = planeworkers
+    want = single_process_steps[run]
+    for got in runs:
+        assert [float(x) for x in got[run]["losses"]] == want["losses"]
+        assert set(got[run]["params"]) == set(want["params"])
+        for name, arr in want["params"].items():
+            assert np.array_equal(got[run]["params"][name], arr), name
+        for name, arr in want["grads"].items():
+            assert np.array_equal(got[run]["grads"][name], arr), name
+
+
+def _jax_steps(run: str, params) -> tuple[list, dict]:
+    """The JAX package's steps of ``run`` on the conftest's 8 devices:
+    (losses, whole weights by leaf name)."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from faabric_tpu.models import ModelConfig as JaxConfig
+    from faabric_tpu.models import data_sharding as jax_data_sharding
+    from faabric_tpu.models import init_train_state as jax_init_train_state
+    from faabric_tpu.models import make_train_step as jax_make_train_step
+    from faabric_tpu.parallel import MeshConfig as JaxMeshConfig
+    from faabric_tpu.parallel import build_mesh as jax_build_mesh
+    from faabric_tpu.parallel.pipeline import (
+        init_pp_train_state as jax_init_pp_train_state,
+        make_pp_train_step as jax_make_pp_train_step,
+    )
+
+    from faabric_tpu_torch.models.transformer import _leaves
+    from tests.test_torch_procs import STEP_CFG
+
+    jcfg = JaxConfig(**{k: v for k, v in STEP_CFG.items()
+                        if k not in ("attention_impl", "norm_impl")},
+                     compute_dtype=jnp.float32)
+    rng = np.random.RandomState(0)
+    draws = [rng.randint(0, 128, (8, 16)).astype(np.int32) for _ in range(4)]
+    if run == "dense":
+        mesh = jax_build_mesh(jax.devices()[:8], JaxMeshConfig(tp=2))
+        p, state = jax_init_train_state(jax.random.PRNGKey(0), jcfg, mesh)
+        step = jax_make_train_step(jcfg, mesh)
+        losses = []
+        for tok, tgt in (draws[0:2], draws[2:4]):
+            p, state, loss = step(p, state,
+                                  jax.device_put(tok, jax_data_sharding(mesh)),
+                                  jax.device_put(tgt, jax_data_sharding(mesh)))
+            losses.append(float(loss))
+    else:
+        # The reference's run: its first two draws went to the dense step
+        ds = sorted(jax.devices()[:8], key=lambda d: d.id)
+        mesh = jax_build_mesh([ds[i] for i in (0, 1, 4, 5, 2, 3, 6, 7)],
+                              JaxMeshConfig(tp=2, pp=2))
+        rng = np.random.RandomState(0)
+        draws = [rng.randint(0, 128, (8, 16)).astype(np.int32)
+                 for _ in range(6)]
+        p, state = jax_init_pp_train_state(jax.random.PRNGKey(0), jcfg, mesh)
+        step = jax_make_pp_train_step(jcfg, mesh, n_microbatches=2,
+                                      schedule_name="1f1b")
+        batch = NamedSharding(mesh, P("dp", None))
+        p, state, loss = step(p, state, jax.device_put(draws[4], batch),
+                              jax.device_put(draws[5], batch))
+        losses = [float(loss)]
+    return losses, dict(_leaves(jax.tree.map(np.asarray, p)))
+
+
+@pytest.mark.parametrize("run", ["dense", "pp"])
+def test_planeworker_steps_match_the_jax_package(planeworkers, step_weights,
+                                                 run):
+    """The two processes' steps against the JAX package's
+    ``make_train_step`` and ``make_pp_train_step`` on the conftest's 8
+    devices, from the same ``init_train_state(PRNGKey(0))`` and batches:
+    the losses within 1e-5, the weights as ``assert_adam_close`` holds
+    them (every element within lr a step, all but one in a thousand
+    within 2e-6), as ``tests/test_torch_dryrun.py`` holds the
+    single-process step."""
+    from tests.test_torch_train import assert_adam_close
+
+    want_losses, want = _jax_steps(run, step_weights[1])
+    _, runs = planeworkers
+    for got in runs:
+        np.testing.assert_allclose([float(x) for x in got[run]["losses"]],
+                                   want_losses, atol=1e-5)
+        assert set(got[run]["params"]) == set(want)
+        assert_adam_close(got[run]["params"], want, 2e-6, 3e-4,
+                          len(want_losses))
+
+
+# The runs of STEP_RUNS held in two processes joined at a coordinator
+SPLIT_RUNS = ("tp_cross", "clip", "pp_split", "accum")
+
+
+@pytest.fixture(scope="module")
+def crossing_steps(step_weights, tmp_path_factory):
+    """``SPLIT_RUNS`` of ``STEP_RUNS`` in two processes joined directly
+    at a coordinator: (their reports, their step results)."""
+    from tests.test_torch_mpi import _hold_ports
+    from tests.test_torch_multiprocess import port_slot
+    from tests.test_torch_procs import load_step_runs
+
+    out = tmp_path_factory.mktemp("crossing-steps")
+    for _ in range(20):
+        reports = steps_across_processes(
+            SPLIT_RUNS, step_weights[0], str(out), port_slot(),
+            lambda ports: _hold_ports(ports, listen=True))
+        if reports:
+            break
+    assert len(reports) == N_PROCS
+    for i, rep in enumerate(reports):
+        assert rep["ok"], f"process {i}: {rep['err']}"
+    return reports, [load_step_runs(str(out / f"{i}.npz"))
+                     for i in range(N_PROCS)]
+
+
+def _assert_runs_bitwise(got: dict, want: dict) -> None:
+    assert [float(x) for x in got["losses"]] == want["losses"]
+    for kind in ("params", "grads"):
+        assert set(got[kind]) == set(want[kind])
+        for name, arr in want[kind].items():
+            assert np.array_equal(got[kind][name], arr), (kind, name)
+
+
+def test_tp_crossing_the_processes_under_remat_is_bitwise_one_process(
+        crossing_steps, single_process_steps):
+    """Two steps over (dp 4, tp 2) laid in the order (0, 4, 1, 5, 2, 6,
+    3, 7), so that every tp pair spans the processes, with remat on:
+    the activation allreduces cross the boundary with their gradients,
+    forward and again in each block's recomputation. Both processes'
+    losses, weights and gradients are bitwise the single-process
+    mesh's."""
+    reports, runs = crossing_steps
+    assert reports[0]["ranks"]["tp_cross"] == [0, 2, 4, 6]
+    assert reports[1]["ranks"]["tp_cross"] == [1, 3, 5, 7]
+    assert all(rep["crossing"]["tp_cross"] for rep in reports)
+    assert all(rep["jax"] == [] for rep in reports)
+    for got in runs:
+        _assert_runs_bitwise(got["tp_cross"], single_process_steps["tp_cross"])
+
+
+def test_clip_norm_across_the_processes_is_bitwise_one_process(
+        crossing_steps, single_process_steps, step_weights):
+    """Two steps with ``clip_norm`` 0.05, under the first step's gradient
+    norm, so that the clip scales every gradient: each shard's squares
+    counted once over the plane, whichever process holds its first
+    holder (here all of them the first process's), and the steps bitwise
+    the single-process mesh's."""
+    from faabric_tpu_torch.models import (
+        data_sharding,
+        loss_fn,
+        params_from_jax,
+    )
+    from faabric_tpu_torch.models.train import backward_copies
+    from faabric_tpu_torch.parallel import MeshConfig, build_mesh
+    from tests.test_torch_procs import STEP_RUNS, step_config
+
+    _, runs = crossing_steps
+    for got in runs:
+        _assert_runs_bitwise(got["clip"], single_process_steps["clip"])
+    # The clip bites on the first step
+    clip, seed = STEP_RUNS["clip"]["clip"], STEP_RUNS["clip"]["seed"]
+    mesh = build_mesh([torch.device("cpu")] * 8, MeshConfig(tp=2))
+    model = params_from_jax(step_weights[1], step_config(), mesh=mesh)
+    rng = np.random.RandomState(seed)
+    tok, tgt = (data_sharding(mesh).shard(
+        rng.randint(0, 128, (8, 16)).astype(np.int32)) for _ in range(2))
+    backward_copies(loss_fn(model, tok, tgt))
+    model.allreduce_grads()
+    assert float(model.grad_norm()) > 4 * clip
+
+
+@pytest.mark.parametrize("run,ranks", [
+    ("pp_split", ([0, 1, 2, 3], [4, 5, 6, 7])),
+    ("accum", ([0, 1, 2, 3], [4, 5, 6, 7]))])
+def test_split_layouts_are_bitwise_one_process(crossing_steps,
+                                               single_process_steps, run,
+                                               ranks):
+    """Two more layouts across the processes, bitwise the single-process
+    mesh's: 1F1B with each process holding half of each stage (the hops
+    inside a process, the stage's in-stage groups too, the stacked
+    slabs' gradients crossing over dp; remat on), and the (dp 4, tp 2)
+    step accumulating 2 microbatches (two backward passes across the
+    processes before the one update)."""
+    reports, runs = crossing_steps
+    assert tuple(rep["ranks"][run] for rep in reports) == ranks
+    assert not any(rep["crossing"][run] for rep in reports)
+    for got in runs:
+        _assert_runs_bitwise(got[run], single_process_steps[run])
+
+
+# ---------------------------------------------------------------------------
+# A mesh of which another process holds half, in this process
+# ---------------------------------------------------------------------------
+
+def _plane_entries(order=tuple(range(8))):
+    """Eight plane devices, 0-3 this process's (process 0 of an unjoined
+    plane), 4-7 another's, in ``order``."""
+    from faabric_tpu_torch.parallel import PlaneDevice
+
+    return [PlaneDevice(i // 4, torch.device("cpu")) for i in order]
+
+
+def test_mesh_over_plane_devices_holds_this_processes_ranks():
+    """A mesh over the plane's devices keeps each rank's process: this
+    process's ranks have their devices, the others' None; a shard spec
+    places only this process's pieces; whether an axis crosses the
+    processes is the same answer whichever process asks."""
+    from faabric_tpu_torch.parallel import MeshConfig, build_mesh, named
+
+    mesh = build_mesh(_plane_entries(), MeshConfig(tp=2))
+    assert mesh.multiprocess and mesh.local_ranks == [0, 1, 2, 3]
+    assert mesh.rank_process == [0] * 4 + [1] * 4
+    assert mesh.rank_devices[4:] == [None] * 4
+    assert mesh.device == torch.device("cpu")
+    assert not mesh.crosses("tp") and mesh.crosses("dp")
+    assert mesh.crosses(mesh.axis_names)
+    pieces = named(mesh, "dp", None).shard(np.arange(16.0).reshape(8, 2))
+    assert [p is None for p in pieces] == [False] * 4 + [True] * 4
+    assert torch.equal(pieces[2], torch.tensor([[4.0, 5.0], [6.0, 7.0]],
+                                               dtype=torch.float64))
+    pp = build_mesh(_plane_entries((0, 1, 4, 5, 2, 3, 6, 7)),
+                    MeshConfig(tp=2, pp=2))
+    assert pp.local_ranks == [0, 1, 4, 5]
+    assert pp.crosses("pp") and not pp.crosses("tp")
+    assert not pp.crosses("dp")
+
+
+def test_mesh_over_keeps_groups_inside_this_process_local():
+    """Over an axis whose groups all lie in one process, ``over`` runs
+    this process's groups with the single-process collectives (autograd
+    included) and makes no exchange: the results are the single-process
+    mesh's for this process's ranks, None for the others'."""
+    from faabric_tpu_torch.parallel import MeshConfig, build_mesh
+
+    xs = [torch.full((3,), float(r + 1), requires_grad=True)
+          for r in range(8)]
+    one = build_mesh([torch.device("cpu")] * 8, MeshConfig(tp=2))
+    want = one.over("tp", xs, "allreduce")
+    mesh = build_mesh(_plane_entries(), MeshConfig(tp=2))
+    got = mesh.over("tp", [x if r < 4 else None for r, x in enumerate(xs)],
+                    "allreduce")
+    assert got[4:] == [None] * 4
+    for r in range(4):
+        assert torch.equal(got[r], want[r])
+    torch.autograd.backward(got[:4], [torch.ones(3)] * 4)
+    assert [float(xs[r].grad[0]) for r in range(4)] == [2.0] * 4
+
+
+def test_sharded_model_over_plane_devices_holds_only_its_shards():
+    """A ``ShardedTransformer`` over such a mesh builds leaves for this
+    process's ranks alone, under the names a single-process model gives
+    them; its unique parameters are the copies whose replica group's
+    first rank is this process's."""
+    from faabric_tpu_torch.models import Transformer, shard_params
+    from faabric_tpu_torch.parallel import MeshConfig, build_mesh
+    from tests.test_torch_procs import step_config
+
+    cfg = step_config()
+    whole = Transformer(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    one = shard_params(whole, build_mesh([torch.device("cpu")] * 8,
+                                         MeshConfig(tp=2)), cfg)
+    mesh = build_mesh(_plane_entries(), MeshConfig(tp=2))
+    model = shard_params(whole, mesh, cfg)
+    assert [sh is None for sh in model.shards()] == [False] * 4 + [True] * 4
+    names = set(model.state_dict())
+    assert names == {k for k in one.state_dict()
+                     if int(k.split(".")[1]) < 4}
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, one.state_dict()[k]), k
+    assert len(model.unique_parameters()) == len(one.unique_parameters())
+    far = shard_params(whole, build_mesh(_plane_entries(
+        (4, 5, 6, 7, 0, 1, 2, 3)), MeshConfig(tp=2)), cfg)
+    assert far.unique_parameters() == []
+
+
+@pytest.mark.parametrize("form", ["gpipe", "gpipe_loss", "ring_attention",
+                                  "moe", "moe_pipeline", "alltoall", "scan",
+                                  "broadcast_grad", "decode", "perplexity"])
+def test_forms_not_ported_across_processes_raise_naming_their_items(form):
+    """What stays refused across processes raises ``NotImplementedError``
+    before any exchange, naming its ``ROADMAP.md`` item: GPipe (step
+    10: its backward needs an explicit schedule), ring attention and the
+    MoE family (step 11), alltoall, scan and a backward of the forms
+    that have none (step 12), sharded decode and perplexity (step 13)."""
+    from faabric_tpu_torch.models import MoEConfig, Transformer
+    from faabric_tpu_torch.models.moe import ShardedMoETransformer
+    from faabric_tpu_torch.models.transformer import _param_tree
+    from faabric_tpu_torch.parallel import (
+        DeviceCollectives,
+        MeshConfig,
+        PipelinedTransformer,
+        build_mesh,
+        make_pp_loss,
+        make_pp_train_step,
+        ring_attention,
+    )
+    from tests.test_torch_procs import PP_ORDER, step_config
+
+    cfg = step_config()
+    pp = build_mesh(_plane_entries(PP_ORDER), MeshConfig(tp=2, pp=2))
+    rng = np.random.RandomState(0)
+    tok, tgt = (rng.randint(0, 128, (8, 16)).astype(np.int32)
+                for _ in range(2))
+    item = {"gpipe": "step 10", "gpipe_loss": "step 10",
+            "ring_attention": "step 11", "moe": "step 11",
+            "moe_pipeline": "step 11", "decode": "step 13",
+            "perplexity": "step 13"}.get(form, "step 12")
+    with pytest.raises(NotImplementedError, match=item):
+        if form.startswith("gpipe"):
+            model = PipelinedTransformer(cfg, pp, _param_tree(Transformer(
+                cfg, device="cpu",
+                generator=torch.Generator().manual_seed(0))))
+            if form == "gpipe":
+                make_pp_train_step(cfg, n_microbatches=2)(
+                    model, torch.optim.AdamW(model.parameters()), tok, tgt)
+            else:
+                from faabric_tpu_torch.parallel import (
+                    microbatch,
+                    pp_data_sharding,
+                )
+
+                shard = pp_data_sharding(pp).shard
+                make_pp_loss(cfg, pp)(model, shard(microbatch(tok, 2)),
+                                      shard(microbatch(tgt, 2)))
+        elif form in ("decode", "perplexity"):
+            from faabric_tpu_torch.models import (
+                evaluate_perplexity,
+                generate,
+                shard_params,
+            )
+
+            mesh = build_mesh(_plane_entries(), MeshConfig(tp=2))
+            model = shard_params(Transformer(
+                cfg, device="cpu", generator=torch.Generator().manual_seed(0)),
+                mesh, cfg)
+            if form == "decode":
+                from faabric_tpu_torch.parallel import named
+
+                generate(model, named(mesh, "dp", None).shard(tok[:, :4]), 2)
+            else:
+                evaluate_perplexity(model, [(tok, tgt)])
+        elif form == "ring_attention":
+            sp = build_mesh(_plane_entries(), MeshConfig(sp=2, tp=2))
+            q = [None if d is None else torch.zeros(1, 4, 1, 8)
+                 for d in sp.rank_devices]
+            ring_attention(q, q, q, sp)
+        elif form.startswith("moe"):
+            moe = MoEConfig(**{k: getattr(cfg, k) for k in (
+                "vocab_size", "d_model", "n_layers", "n_heads", "d_ff",
+                "max_seq")}, n_experts=2, compute_dtype=torch.float32)
+            mesh = (pp if form == "moe_pipeline" else
+                    build_mesh(_plane_entries(), MeshConfig(ep=2)))
+            family = (PipelinedTransformer if form == "moe_pipeline"
+                      else ShardedMoETransformer)
+            from faabric_tpu_torch.models import MoETransformer
+
+            family(moe, mesh, _param_tree(MoETransformer(
+                moe, device="cpu",
+                generator=torch.Generator().manual_seed(0))))
+        else:
+            col = DeviceCollectives(_plane_entries())
+            xs = [torch.zeros(8, requires_grad=form == "broadcast_grad")
+                  if r < 4 else None for r in range(8)]
+            getattr(col, form.split("_")[0])(xs)
 
 
 if __name__ == "__main__":
+    if "--steps-child" in sys.argv:
+        i = sys.argv.index("--steps-child")
+        _steps_child_main(int(sys.argv[i + 1]), int(sys.argv[i + 2]),
+                          *sys.argv[i + 3:i + 6])
     if "--dp-child" in sys.argv:
         i = sys.argv.index("--dp-child")
         _child_main(int(sys.argv[i + 1]), int(sys.argv[i + 2]),

@@ -10,10 +10,10 @@ until each child binds them, never from fixed aliases.
 
 The planner serves its REST endpoint, and the telemetry cases (``:241``,
 ``:341``, ``:401``) read ``/metrics``, ``/trace``, ``/commmatrix`` and
-``/healthz`` from it. The first half of the device plane across
-processes (``:618``) is ``tests/test_torch_distributed.py``'s
-planeworker case on this module's ``ProcCluster``; its train steps wait
-for ``ROADMAP.md`` Queue 1 step 8.
+``/healthz`` from it. The device plane across processes (``:618``),
+its collectives and its two sharded train steps, is
+``tests/test_torch_distributed.py``'s planeworker case on this module's
+``ProcCluster``.
 """
 
 import os
@@ -190,6 +190,7 @@ class ProcCluster:
         self.ready: dict[str, dict] = {}
         self.me = None
         self._saved_env: dict = {}
+        self._saved_factory = None
         self.base = None
 
     def _offsets(self) -> dict:
@@ -264,6 +265,7 @@ class ProcCluster:
         return child
 
     def start(self) -> "ProcCluster":
+        from faabric_tpu_torch.executor import get_executor_factory
         from faabric_tpu_torch.runner import WorkerRuntime
         from faabric_tpu_torch.transport import register_host_alias
         from faabric_tpu_torch.util.config import get_system_config
@@ -286,6 +288,12 @@ class ProcCluster:
             get_system_config().reset()
             for host, off in self._offsets().items():
                 register_host_alias(host, "127.0.0.1", off)
+            # The client host replaces this process's executor factory
+            # until the cluster stops
+            try:
+                self._saved_factory = get_executor_factory()
+            except RuntimeError:
+                self._saved_factory = None
             self.me = WorkerRuntime(host=self.client_host, slots=0,
                                     factory=NullFactory(),
                                     planner_host=self.planner_host)
@@ -339,6 +347,7 @@ class ProcCluster:
         return [json.loads(p.read_text()) for p in paths.values()]
 
     def stop(self) -> None:
+        from faabric_tpu_torch.executor import set_executor_factory
         from faabric_tpu_torch.transport import clear_host_aliases
         from faabric_tpu_torch.util.config import get_system_config
 
@@ -346,6 +355,7 @@ class ProcCluster:
             if self.me is not None:
                 self.me.shutdown()
                 self.me = None
+                set_executor_factory(self._saved_factory)
         finally:
             for child in self.children.values():
                 child.stop()

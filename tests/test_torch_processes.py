@@ -218,10 +218,69 @@ def _serving_calls(cfg, monkeypatch) -> dict:
     return calls
 
 
-@pytest.mark.parametrize("argv", [["--worker-child", "{}"]])
+# Phase 30's child, as the script starts it but through this interpreter
+PLANE_CHILD = ("import sys, chip_smoke; "
+               "sys.exit(chip_smoke.plane_child(sys.argv[1:]))")
+
+
+def test_chip_smoke_plane_steps_phase_small(monkeypatch):
+    """Phase 30 at a small width: a planner process and two plane
+    processes, four CPU entries each, run the (dp 4, tp 2) step and the
+    1F1B step over (dp 2, tp 2, pp 2), every pp hop across the
+    processes; both processes' losses and their ranks' shards after
+    every step are bitwise this process's single-process run's, on one
+    intra-op thread as the children; the children load nothing of JAX
+    or of the JAX package, and none outlives the phase."""
+    cfg = ModelConfig(vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+                      d_ff=128, max_seq=64, attention_impl="reference",
+                      norm_impl="reference", compute_dtype=torch.float32)
+    passed = []
+    real_check = chip_smoke.check
+
+    def check(ok, what):
+        real_check(ok, what)
+        passed.append(what)
+
+    monkeypatch.setattr(chip_smoke, "check", check)
+    before = _children_of(os.getpid())
+    for _ in range(20):
+        base = port_slot()
+        sentinel = _hold_ports([base + STATE_ASYNC_PORT], listen=True)
+        if sentinel:
+            break
+    assert sentinel, "no free port slot"
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches = chip_smoke.plane_steps_phase(
+            torch.device("cpu"), _build, cfg=cfg, seq=32, base=base,
+            child_argv=[sys.executable, "-c", PLANE_CHILD])
+    finally:
+        torch.set_num_threads(threads)
+        sentinel[0].close()
+    assert _children_of(os.getpid()) <= before
+    assert launches == {}, launches
+    for run in ("dense", "pp"):
+        for what in ("loss after step 1", "loss after step 2",
+                     "shards after step 1", "shards after step 2"):
+            same = [w for w in passed if w.startswith(f"30 ({run}): ")
+                    and what in w and "bitwise" in w]
+            assert len(same) == 2, (run, what, passed)
+    for what in ("joined a 2-process plane of 8 devices",
+                 "loaded nothing of JAX", "every pp hop",
+                 "made its 6 hops as rounds"):
+        assert sum(what in w for w in passed) == 2, (what, passed)
+    assert any(w.startswith("30: the (dp 4, tp 2) mesh's ranks split 4 + 4")
+               for w in passed), passed
+    assert "30: the planner process stopped on SIGTERM with 0" in passed
+
+
+@pytest.mark.parametrize("argv", [["--worker-child", "{}"],
+                                  ["--plane-child", "{}"]])
 def test_worker_child_needs_a_card(argv):
-    """``chip_smoke.py --worker-child`` is dispatched after the CUDA
-    check: without a card it exits non-zero and prints no result."""
+    """``chip_smoke.py --worker-child`` and ``--plane-child`` are
+    dispatched after the CUDA check: without a card they exit non-zero
+    and print no result."""
     import subprocess
 
     if torch.cuda.is_available():

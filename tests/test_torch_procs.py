@@ -1017,21 +1017,225 @@ def run_worker(host: str, planner_host: str = "127.0.0.1",
         w.shutdown()
 
 
+# The reference planeworker's model (tests/dist/procs.py), fp32, remat
+# off; attention and norm plain, as "auto" resolves them on the CPU (the
+# flash kernels take no head dim 8)
+STEP_CFG = dict(vocab_size=128, d_model=32, n_layers=2, n_heads=4, d_ff=64,
+                max_seq=16, remat=False, attention_impl="reference",
+                norm_impl="reference")
+# The reference's pipeline order: every pp partner pair spans the two
+# processes; and an order in which every tp pair does
+PP_ORDER = (0, 1, 4, 5, 2, 3, 6, 7)
+TP_CROSS_ORDER = (0, 4, 1, 5, 2, 6, 3, 7)
+# Runs of plane_step_runs: the mesh's device order and axes, the pipeline
+# schedule (None: the dense step), steps, remat, clip norm, accumulation
+# steps, and the batches' RandomState seed (None continues the previous
+# run's draws, as the reference's pipeline step continues its dense
+# step's)
+STEP_RUNS = {
+    "dense": dict(order=tuple(range(8)), axes={"tp": 2}, steps=2, seed=0),
+    "pp": dict(order=PP_ORDER, axes={"tp": 2, "pp": 2}, schedule="1f1b",
+               steps=1),
+    "tp_cross": dict(order=TP_CROSS_ORDER, axes={"tp": 2}, steps=2,
+                     remat=True, seed=1),
+    "clip": dict(order=tuple(range(8)), axes={"tp": 2}, steps=2, clip=0.05,
+                 seed=2),
+    # Each process holds half of each stage: the hops stay inside a
+    # process, the stacked slabs' gradients cross over dp
+    "pp_split": dict(order=tuple(range(8)), axes={"tp": 2, "pp": 2},
+                     schedule="1f1b", steps=2, remat=True, seed=3),
+    "accum": dict(order=tuple(range(8)), axes={"tp": 2}, steps=2, accum=2,
+                  seed=4),
+}
+
+
+def step_config(**changes):
+    import torch
+
+    from faabric_tpu_torch.models import ModelConfig
+
+    return ModelConfig(**{**STEP_CFG, **changes}, compute_dtype=torch.float32)
+
+
+def plane_step_runs(devices, params, runs=("dense", "pp")) -> dict:
+    """The sharded train steps of ``STEP_RUNS`` over the 8 entries of
+    ``devices`` (the plane's global devices, or 8 entries of one device
+    for the single-process mesh), from the JAX-layout pytree ``params``
+    and ``RandomState`` batches. Returns, per run: the step losses of
+    this process's first rank (every local rank's copy checked equal to
+    it), the ranks this process holds, whether every pp (or tp) pair
+    crosses processes, and the whole weights after the last step
+    (``gathered()``, in every process), by leaf name."""
+    import numpy as np
+
+    from faabric_tpu_torch.models import (
+        data_sharding,
+        make_optimizer,
+        make_train_step,
+        params_from_jax,
+    )
+    from faabric_tpu_torch.models.transformer import _leaves
+    from faabric_tpu_torch.parallel import MeshConfig, build_mesh
+    from faabric_tpu_torch.parallel.pipeline import make_pp_train_step
+
+    out = {}
+    rng = None
+    for name in runs:
+        run = STEP_RUNS[name]
+        schedule = run.get("schedule")
+        cfg = step_config(remat=run.get("remat", False))
+        mesh = build_mesh([devices[i] for i in run["order"]],
+                          MeshConfig(**run["axes"]))
+        spec = make_optimizer(clip_norm=run.get("clip"))
+        model = params_from_jax(params, cfg, mesh=mesh)
+        opt = spec.init(model)
+        if run.get("seed") is not None:
+            rng = np.random.RandomState(run["seed"])
+        pair = "pp" if schedule else "tp"
+        crossing = all(len({mesh.rank_process[r] for r in g}) == 2
+                       for g in mesh.groups(pair))
+        if schedule:
+            step = make_pp_train_step(cfg, spec, n_microbatches=2,
+                                      schedule_name=schedule)
+        else:
+            step = make_train_step(cfg, spec,
+                                   accum_steps=run.get("accum", 1))
+        losses = []
+        for _ in range(run["steps"]):
+            tok, tgt = (rng.randint(0, cfg.vocab_size, (8, 16))
+                        .astype(np.int32) for _ in range(2))
+            if not schedule:
+                shard = data_sharding(mesh).shard
+                tok, tgt = shard(tok), shard(tgt)
+            loss = step(model, opt, tok, tgt)
+            mine = [float(x) for x in loss if x is not None]
+            assert len(set(mine)) == 1, mine
+            losses.append(mine[0])
+        grads = {k: spec.gather([None if p is None else p.grad
+                                 for p in model.copies(k)])
+                 for k, spec in model.specs.items()}
+        out[name] = {"losses": losses, "ranks": mesh.local_ranks,
+                     "crossing": crossing,
+                     "params": {k: v.cpu().numpy() for k, v in
+                                _leaves(model.gathered())},
+                     "grads": {k: v.cpu().numpy() for k, v in grads.items()}}
+    return out
+
+
+def save_step_runs(path: str, runs: dict) -> None:
+    """:func:`plane_step_runs`' results as an ``.npz``: per run its
+    losses, weights and last step's gradients."""
+    import numpy as np
+
+    np.savez(path, **{f"{run}/{k}": v for run, got in runs.items()
+                      for k, v in [("losses", np.array(got["losses"])),
+                                   *got["params"].items(),
+                                   *((f"grad/{g}", a) for g, a in
+                                     got["grads"].items())]})
+
+
+def load_step_runs(path: str) -> dict:
+    """The inverse of :func:`save_step_runs`."""
+    import numpy as np
+
+    out: dict = {}
+    with np.load(path) as f:
+        for key in f.files:
+            run, _, name = key.partition("/")
+            got = out.setdefault(run, {"params": {}, "grads": {}})
+            if name == "losses":
+                got["losses"] = list(f[key])
+            elif name.startswith("grad/"):
+                got["grads"][name[len("grad/"):]] = f[key]
+            else:
+                got["params"][name] = f[key]
+    return out
+
+
+def _step_weights(path: str) -> dict:
+    """The weights an ``.npz`` holds by leaf name (the JAX package's
+    ``init_params``), as the pytree."""
+    import numpy as np
+
+    from faabric_tpu_torch.models.transformer import _tree
+
+    with np.load(path) as f:
+        return _tree({k: f[k] for k in f.files})
+
+
+def _collective_backwards(col, mine) -> bool:
+    """``DeviceCollectives``' backward across processes, against closed
+    forms: each process backpropagates its own ranks' outputs with
+    cotangent ``c_r = r + 1`` on rank r (allgather's weighted by the
+    position), and checks its ranks' input gradients."""
+    import torch
+
+    n = col.n
+    dev = col.devices[mine[0]]
+
+    def leaves(k):
+        return [torch.full((k,), float(r + 1), device=dev,
+                           requires_grad=True) if r in mine else None
+                for r in range(n)]
+
+    def back(outs, weight):
+        roots = [(o, weight(r, o)) for r, o in enumerate(outs)
+                 if o is not None]
+        torch.autograd.backward([o for o, _ in roots], [g for _, g in roots])
+
+    c = sum(range(1, n + 1))
+    ok = True
+    # allreduce SUM: every input's gradient is the sum of every c_r
+    xs = leaves(4)
+    back(col.allreduce(xs), lambda r, o: torch.full_like(o, r + 1.0))
+    ok = ok and all(bool((xs[r].grad == c).all()) for r in mine)
+    # allgather: a piece's gradient is its positions' weights summed
+    # over every rank's output
+    xs = leaves(2)
+    w = torch.arange(2 * n, dtype=torch.float32, device=dev)
+    back(col.allgather(xs), lambda r, o: w * (r + 1))
+    ok = ok and all(torch.equal(xs[r].grad.cpu(),
+                                (w[2 * r:2 * r + 2] * c).cpu())
+                    for r in mine)
+    # shift by 1 (a ring hop) and a pair swap, each one permute round:
+    # the sender's value lands (zeros where nothing does), and the
+    # inverse permutation brings the receiver's c back
+    xs = leaves(3)
+    outs = col.shift(xs, 1)
+    ok = ok and all(bool((outs[r] == (r - 1) % n + 1).all()) for r in mine)
+    back(outs, lambda r, o: torch.full_like(o, r + 1.0))
+    ok = ok and all(bool((xs[r].grad == (r + 1) % n + 1).all())
+                    for r in mine)
+    xs = leaves(3)
+    outs = col.permute(xs, [(0, n - 1), (n - 1, 0)])
+    want = {0: n, n - 1: 1}
+    ok = ok and all(bool((outs[r] == want.get(r, 0)).all()) for r in mine)
+    back(outs, lambda r, o: torch.full_like(o, r + 1.0))
+    ok = ok and all(bool((xs[r].grad == want.get(r, 0)).all()) for r in mine)
+    return ok
+
+
 def run_plane_worker(host: str, planner_host: str, slots: int,
                      n_procs: int, device: str = "cpu") -> None:
-    """One process of a multi-process device plane (counterpart of the
-    first half of ``tests/dist/procs.py::run_plane_worker``): a
-    ``WorkerRuntime`` that joins an ``n_procs``-process plane through the
-    planner at boot with four entries of ``device`` (``cpu``: gloo;
-    ``cuda:0``: CUDA IPC windows on one card), then an allreduce, an
-    allgather, a reduce_scatter and a broadcast over
-    ``shard_stacked_addressable`` whose shards live in every process,
-    each process checking its own with ``addressable_shard``, and an
-    allreduce of buffers that need a gradient, which must raise
-    ``NotImplementedError`` (these forms have no backward across
-    processes). Prints one ``PLANE-OK``/``PLANE-FAIL`` line with the
-    global and local device counts and its ranks (the ready line
-    carries it too)."""
+    """One process of a multi-process device plane (counterpart of
+    ``tests/dist/procs.py::run_plane_worker``): a ``WorkerRuntime`` that
+    joins an ``n_procs``-process plane through the planner at boot with
+    four entries of ``device`` (``cpu``: gloo; ``cuda:0``: CUDA IPC
+    windows on one card), then an allreduce, an allgather, a
+    reduce_scatter and a broadcast over ``shard_stacked_addressable``
+    whose shards live in every process, each process checking its own
+    with ``addressable_shard``, and the backward of allreduce,
+    allgather, a shift and a swap across the processes. Then the
+    reference's two train steps over the plane's 8 devices: 2 steps over
+    (dp 4, tp 2), and one 1F1B step over (dp 2, tp 2, pp 2) in the
+    reference's interleaved order, where every pp hop crosses the
+    processes, both at ``STEP_CFG`` from the weights of the ``.npz``
+    named by ``PLANE_WEIGHTS`` (the JAX package's ``init_params``;
+    without it, a torch generator's seed 0). With ``PLANE_OUT`` set it
+    writes its losses and the whole weights after each run to
+    ``<PLANE_OUT>/<host>.npz``. Prints one ``PLANE-OK``/``PLANE-FAIL``
+    line with the global and local device counts, its ranks and the
+    losses (the ready line carries it too)."""
     from faabric_tpu_torch.mpi import MpiOp
     from faabric_tpu_torch.parallel import (
         DeviceCollectives,
@@ -1057,15 +1261,6 @@ def run_plane_worker(host: str, planner_host: str, slots: int,
         expected = col.n * (col.n + 1) / 2
         ok = all(bool((col.addressable_shard(out, r) == expected).all())
                  for r in mine)
-        # Forward only across processes: a buffer that needs a gradient
-        # is refused in every process, before any exchange
-        try:
-            col.allreduce([None if t is None
-                           else t.detach().clone().requires_grad_()
-                           for t in x], MpiOp.SUM)
-            ok = False
-        except NotImplementedError:
-            pass
         g = col.allgather(col.shard_stacked_addressable(
             {r: np.full(8, float(r), np.float32) for r in mine}, (8,),
             np.float32))
@@ -1084,9 +1279,32 @@ def run_plane_worker(host: str, planner_host: str, slots: int,
         b = col.broadcast(x, root=col.n - 1)
         ok = ok and all(bool((col.addressable_shard(b, r) == col.n).all())
                         for r in mine)
+        ok = ok and _collective_backwards(col, mine)
+        # The reference's train steps across the processes
+        import torch
+
+        weights = os.environ.get("PLANE_WEIGHTS")
+        if weights:
+            params = _step_weights(weights)
+        else:
+            from faabric_tpu_torch.models import Transformer
+            from faabric_tpu_torch.models.transformer import _param_tree
+
+            params = _param_tree(Transformer(
+                step_config(), device="cpu",
+                generator=torch.Generator().manual_seed(0)))
+        # One intra-op thread, as the single-process mesh it is held
+        # against: a CPU reduction's order follows its threads
+        torch.set_num_threads(1)
+        runs = plane_step_runs(global_devices(), params)
+        ok = ok and runs["pp"]["crossing"]
+        if os.environ.get("PLANE_OUT"):
+            save_step_runs(os.path.join(os.environ["PLANE_OUT"],
+                                        f"{host}.npz"), runs)
+        loss, pp_loss = runs["dense"]["losses"][-1], runs["pp"]["losses"][-1]
         line = (f"PLANE-{'OK' if ok else 'FAIL'} "
                 f"gdev={s['global_devices']} ldev={s['local_devices']} "
-                f"ranks={mine}")
+                f"pp_loss={pp_loss:.6f} loss={loss:.6f} ranks={mine}")
     except Exception as e:  # noqa: BLE001 — reported on the line
         line = f"PLANE-FAIL err={e!r}"
     print(line, flush=True)
