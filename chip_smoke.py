@@ -107,7 +107,13 @@ serving. Last, the model split over processes: a planner and two
 processes of a 2-process device plane, 4 ranks each on the card, run 2
 full-width steps over (dp 4, tp 2) and 2 1F1B steps over (dp 2, tp 2, pp
 2) whose every pp hop crosses the processes, held bitwise to this
-script's own 8-rank run of the same steps. Every phase prints ``phase N: start`` and
+script's own 8-rank run of the same steps; then, in the same processes,
+2 GPipe steps over (dp 2, tp 2, pp 2), 2 steps of the dense model whose
+attention over (dp 2, sp 2, tp 2) is the ring, a MoE step over (dp 2, tp
+2, ep 2), a 1F1B step of the MoE pipeline over (dp 2, pp 2, ep 2), every
+pair along each run's axis across the processes, and alltoall, scan and
+the backward of broadcast and allreduce MAX, all bitwise against the
+script's own runs. Every phase prints ``phase N: start`` and
 ``phase N: ok in X s``, and a failed check its phase. For each path
 it checks the outputs and shows from the kernels' launch counts that
 the path ran through them; it times the kernels, their plain versions and the nearest
@@ -840,25 +846,24 @@ def mesh_phase(dev, build, unsharded_step: tuple[float, float]) -> dict:
     cot = spec.shard(torch.randn(8, 512, 8, 64, device=dev, generator=gen))
 
     class PlainRing:
-        """The K/V rotation in plain PyTorch (list indexing, which
-        autograd differentiates), so that the plain schedule runs neither
-        the flash kernels nor the ring kernel."""
+        """The mesh with the K/V rotation in plain PyTorch (list
+        indexing, which autograd differentiates), so that the plain
+        schedule runs neither the flash kernels nor the ring kernel."""
 
-        def __init__(self, n):
-            self.n = n
+        def __init__(self, mesh):
+            self.mesh, self.shape = mesh, mesh.shape
+            self.local_ranks, self.index = mesh.local_ranks, mesh.index
 
-        def shift(self, xs, disp=1):
-            return [xs[(r - disp) % self.n].clone() for r in range(self.n)]
+        def over(self, axis, xs, kind, disp=1):
+            out = [None] * self.mesh.size
+            for g in self.mesh.groups(axis):
+                for i, r in enumerate(g):
+                    out[r] = xs[g[(i - disp) % len(g)]].clone()
+            return out
 
     def plain_ring_attention(q, k, v):
-        out = [None] * mesh.size
-        for ranks in mesh.groups("sp"):
-            ys = _ring(PlainRing(len(ranks)), [q[r] for r in ranks],
-                       [k[r] for r in ranks], [v[r] for r in ranks], True,
-                       _plain_block)
-            for r, y in zip(ranks, ys):
-                out[r] = y
-        return out
+        return _ring(PlainRing(mesh), "sp", list(q), list(k), list(v), True,
+                     _plain_block)
 
     def ring_run(kernels, dtype):
         qkv = [t.to(dtype) for t in per_rank]
@@ -6887,6 +6892,175 @@ def run_plane_steps(entries, cfg, batch: int, seq: int, dev,
     return out
 
 
+# Phase 31: the forms across the processes, each run's mesh axes in
+# PLANE_PP_ORDER (every pair of its crossing axis spans the processes),
+# its schedule, steps and the batches' CPU generator seed; and the
+# collectives' elements a rank
+FORM_RUNS = {
+    "gpipe": dict(axes={"tp": 2, "pp": 2}, pair="pp", schedule="gpipe",
+                  steps=PLANE_STEPS, seed=33),
+    "ring": dict(axes={"sp": 2, "tp": 2}, pair="sp", steps=PLANE_STEPS,
+                 seed=34),
+    "moe": dict(axes={"tp": 2, "ep": 2}, pair="ep", steps=1, seed=35),
+    "moe_pp": dict(axes={"pp": 2, "ep": 2}, pair="pp", schedule="1f1b",
+                   steps=1, seed=36),
+}
+FORM_ELEMS = 524_288
+
+
+def _moe_cfg(cfg):
+    """The MoE family at ``cfg``'s widths (``MoEConfig()`` for
+    ``ModelConfig()``: 4 experts)."""
+    from faabric_tpu_torch.models import ModelConfig, MoEConfig
+
+    return MoEConfig(**{f.name: getattr(cfg, f.name)
+                        for f in dataclasses.fields(ModelConfig)})
+
+
+def _bits(xs) -> list:
+    """Two int64 sums over each tensor's bit patterns (plain and weighted
+    by position; exact in any order), read back in one copy."""
+    sums = []
+    for x in xs:
+        bits = x.detach().reshape(-1).view(torch.int32).long()
+        pos = torch.arange(1, bits.numel() + 1, device=bits.device)
+        sums.append(torch.stack([bits.sum(), (bits * pos).sum()]))
+    return torch.stack(sums).tolist() if sums else []
+
+
+def run_plane_forms(entries, cfg, batch: int, seq: int, dev) -> dict:
+    """Phase 31's runs over the 8 rank entries ``entries`` (the plane's
+    global devices in the children; 8 entries of ``dev`` in the script):
+    ``FORM_RUNS`` in ``PLANE_PP_ORDER``, each from its family's
+    ``init_*_train_state`` weights of seed 0 drawn on ``dev`` and (batch,
+    seq) batches of its seed: GPipe over (dp 2, tp 2, pp 2) with
+    ``PLANE_MICROBATCHES`` microbatches, the dense step over (dp 2, sp 2,
+    tp 2) whose attention is the ring (``"auto"`` on the card), the MoE
+    step over (dp 2, tp 2, ep 2), and the MoE pipeline's 1F1B step over
+    (dp 2, pp 2, ep 2). Returns per run what :func:`run_plane_steps`
+    returns of one; and under ``collectives`` the fingerprints of this
+    process's ranks' outputs of alltoall, scan SUM and scan MAX, and of
+    their input gradients through broadcast and allreduce MAX, over
+    ``DeviceCollectives(entries)`` at ``FORM_ELEMS`` fp32 elements a rank
+    drawn from a CPU generator's seed 37, with the round count and the
+    launches of those calls."""
+    from faabric_tpu_torch.device_plane import xproc
+    from faabric_tpu_torch.models import (
+        data_sharding,
+        init_moe_train_state,
+        init_train_state,
+        make_moe_train_step,
+        make_train_step,
+    )
+    from faabric_tpu_torch.mpi import MpiOp
+    from faabric_tpu_torch.ops import _build
+    from faabric_tpu_torch.parallel import (
+        DeviceCollectives,
+        MeshConfig,
+        build_mesh,
+    )
+    from faabric_tpu_torch.parallel.pipeline import (
+        init_pp_train_state,
+        make_pp_train_step,
+    )
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    out = {}
+    for run, spec in FORM_RUNS.items():
+        mesh = build_mesh([entries[i] for i in PLANE_PP_ORDER],
+                          MeshConfig(**spec["axes"]))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        if run == "ring":
+            rcfg = dataclasses.replace(
+                cfg, attention_impl="auto" if dev.type == "cuda" else "ring")
+            model, opt = init_train_state(gen, rcfg, mesh=mesh)
+            step = make_train_step(rcfg)
+        elif run == "moe":
+            mcfg = _moe_cfg(cfg)
+            model, opt = init_moe_train_state(gen, mcfg, mesh=mesh)
+            step = make_moe_train_step(mcfg)
+        else:
+            fcfg = _moe_cfg(cfg) if run == "moe_pp" else cfg
+            model, opt = init_pp_train_state(gen, fcfg, mesh)
+            step = make_pp_train_step(fcfg, n_microbatches=PLANE_MICROBATCHES,
+                                      schedule_name=spec["schedule"])
+        data = torch.Generator().manual_seed(spec["seed"])
+        sync()
+        launches0 = dict(_build.LAUNCHES)
+        got = {"ranks": mesh.local_ranks, "steps": [],
+               "crossing": all(len({mesh.rank_process[r] for r in g}) == 2
+                               for g in mesh.groups(spec["pair"]))}
+        for _ in range(spec["steps"]):
+            tok, tgt = (torch.randint(0, cfg.vocab_size, (batch, seq),
+                                      generator=data) for _ in range(2))
+            if "schedule" not in spec:
+                shard = data_sharding(mesh).shard
+                tok, tgt = shard(tok), shard(tgt)
+            rounds0 = xproc.round_total()
+            t0 = time.perf_counter()
+            loss = step(model, opt, tok, tgt)
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+            mine = {float(x).hex() for x in loss if x is not None}
+            check(len(mine) == 1, f"31 ({run}): this process's ranks hold "
+                  f"one loss ({mine})")
+            got["steps"].append({
+                "loss": mine.pop(), "ms": wall,
+                "rounds": xproc.round_total() - rounds0,
+                "shards": _fingerprints(model, mesh.local_ranks)})
+        sync()
+        got["launches"] = {k: v - launches0.get(k, 0)
+                           for k, v in _build.LAUNCHES.items()
+                           if v != launches0.get(k, 0)}
+        out[run] = got
+        del model, opt, step
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    col = DeviceCollectives(entries)
+    mine = col.local_ranks
+    gen = torch.Generator().manual_seed(37)
+    every = [torch.rand((col.n, FORM_ELEMS // col.n), generator=gen) + 0.5
+             for _ in range(col.n)]
+    cots = [torch.rand((col.n, FORM_ELEMS // col.n), generator=gen) - 0.5
+            for _ in range(col.n)]
+
+    def local(xs, grad=False):
+        return [xs[r].to(dev, copy=True).requires_grad_(grad) if r in mine
+                else None for r in range(col.n)]
+
+    sync()
+    launches0 = dict(_build.LAUNCHES)
+    rounds0 = xproc.round_total()
+    coll: dict = {}
+    for name, fn in (("alltoall", col.alltoall),
+                     ("scan_sum", lambda xs: col.scan(xs, MpiOp.SUM)),
+                     ("scan_max", lambda xs: col.scan(xs, MpiOp.MAX))):
+        ys = fn(local(every))
+        coll[name] = dict(zip(map(str, mine), _bits([ys[r]
+                                                     for r in mine])))
+    for name, fn in (("broadcast_grad", lambda xs: col.broadcast(xs, 5)),
+                     ("allreduce_max_grad",
+                      lambda xs: col.allreduce(xs, MpiOp.MAX))):
+        xs = local(every, grad=True)
+        ys = fn(xs)
+        torch.autograd.backward([ys[r] for r in mine],
+                                [cots[r].to(dev) for r in mine])
+        coll[name] = dict(zip(map(str, mine), _bits([
+            xs[r].grad if xs[r].grad is not None else torch.zeros_like(xs[r])
+            for r in mine])))
+    sync()
+    coll["rounds"] = xproc.round_total() - rounds0
+    coll["launches"] = {k: v - launches0.get(k, 0)
+                        for k, v in _build.LAUNCHES.items()
+                        if v != launches0.get(k, 0)}
+    coll["ranks"] = mine
+    out["collectives"] = coll
+    return out
+
+
 def plane_hop_check(entries, cfg, batch: int, seq: int, dev) -> dict:
     """One pp hop of phase 30's 1F1B mesh (``PLANE_PP_ORDER``: every pp
     pair spans the processes) at the shape the step's hops move, a (batch
@@ -6950,7 +7124,9 @@ def plane_child(argv: list[str]) -> int:
     summary, the seconds of the join and the top-level modules it
     loaded; ``run`` runs :func:`run_plane_steps` and then
     :func:`plane_hop_check` over the plane's global devices and prints
-    ``steps`` with their results and the modules. When
+    ``steps`` with their results and the modules; ``forms`` (phase 31)
+    runs :func:`run_plane_forms` there and prints ``forms`` with its
+    results and the modules. When
     its standard input closes it shuts the runtime down (the plane's
     leave within it) and prints ``stopped``. On the CPU it computes on
     one intra-op thread, as the script's own run it is held against."""
@@ -6995,6 +7171,11 @@ def plane_child(argv: list[str]) -> int:
                 print(json.dumps({"steps": got, "hop": hop,
                                   "host": spec["host"],
                                   "modules": modules()}), flush=True)
+            elif cmd == "forms":
+                got = run_plane_forms(global_devices(), cfg, spec["batch"],
+                                      spec["seq"], dev)
+                print(json.dumps({"forms": got, "host": spec["host"],
+                                  "modules": modules()}), flush=True)
     finally:
         if runtime is not None:
             runtime.shutdown()
@@ -7004,10 +7185,141 @@ def plane_child(argv: list[str]) -> int:
     return 0
 
 
+def forms_phase(dev, cfg, children: dict, single: dict) -> dict:
+    """Phase 31, in phase 30's processes: each child runs
+    :func:`run_plane_forms` over the plane's global devices, held against
+    the script's single-process run ``single``. Checked: every pair of
+    each run's crossing axis spans the processes; both processes' losses
+    and their ranks' shards after every step, and the collectives'
+    outputs and input gradients, bitwise the single-process run's; on
+    the card each process's flash forward, dQ and dK/dV launches its
+    ranks' share of the single-process run's (half at sp 1; in a causal
+    ring a rank at position j folds j + 1 blocks), every forward on
+    ``wgmma``, and its ring
+    launches one an exchange round of a hop or a ring rotation
+    (``hop_counts`` and ``schedule_counts``); each step's exchange rounds
+    at least those hops and rotations; the children loaded nothing of
+    JAX or of the JAX package. Logs each step's wall ms beside the
+    single-process step's. Returns the children's launches."""
+    from faabric_tpu_torch.parallel import MeshConfig, build_mesh
+    from faabric_tpu_torch.parallel.pipeline import hop_counts
+    from faabric_tpu_torch.parallel.ring_attention import schedule_counts
+
+    log("phase 31: GPipe, the ring, the MoE family and the collectives "
+        "across the two processes")
+    on_card = dev.type == "cuda"
+    launches: dict = {}
+    t_phase = time.perf_counter()
+    for c in children.values():
+        c.send("forms")
+    got = {h: c.expect("forms", 600) for h, c in children.items()}
+    layers = cfg.n_layers
+    hops = hop_counts(2, PLANE_MICROBATCHES)
+    # A step's ring rotations across the processes: forward, the remat's
+    # recomputation and backward, each layer
+    rotations = (3 if cfg.remat else 2) * layers * schedule_counts(
+        8, 2)["rounds"]
+    # Each process's ring launches a step (one an exchange round of a
+    # hop or a rotation), and the rounds a step makes at least: those,
+    # and for the MoE step an ep allreduce and its adjoint a layer
+    want_ring = {"gpipe": hops["gpipe"], "ring": rotations, "moe": 0,
+                 "moe_pp": hops["1f1b"]}
+    want_rounds = {**want_ring, "moe": 2 * layers}
+    for h, rep in got.items():
+        bad = sorted(set(rep["modules"])
+                     & {"jax", "jaxlib", "faabric_tpu", "tests"})
+        check(not bad, f"31: the {h} child loaded nothing of JAX or the JAX "
+              f"package ({bad})")
+    for run, spec in FORM_RUNS.items():
+        want = single[run]
+        for h, rep in got.items():
+            mine = rep["forms"][run]
+            check(mine["crossing"], f"31 ({run}): every {spec['pair']} pair "
+                  f"of the {h} process's mesh {spec['axes']} crosses the "
+                  f"processes (ranks {mine['ranks']})")
+            for i, (a, b) in enumerate(zip(mine["steps"], want["steps"])):
+                check(a["loss"] == b["loss"],
+                      f"31 ({run}): the {h} process's loss after step "
+                      f"{i + 1} ({float.fromhex(a['loss']):.6f}) is bitwise "
+                      f"the single-process run's "
+                      f"({float.fromhex(b['loss']):.6f})")
+                diff = sorted(f"{r}/{name}" for r, leaves in
+                              a["shards"].items() for name, fp in
+                              leaves.items() if fp != b["shards"][r][name])
+                check(not diff, f"31 ({run}): the {h} process's ranks "
+                      f"{mine['ranks']}' shards after step {i + 1} are "
+                      f"bitwise the single-process run's ({len(diff)} "
+                      f"differ: {diff[:6]})")
+            rounds = [st["rounds"] for st in mine["steps"]]
+            check(all(r >= want_rounds[run] for r in rounds),
+                  f"31 ({run}): each step of the {h} process made at least "
+                  f"{want_rounds[run]} exchange rounds ({rounds} a step)")
+            if on_card:
+                n = mine["launches"].get("ring_permute", 0)
+                check(n == want_ring[run] * spec["steps"],
+                      f"31 ({run}): the ring kernel launched {n} times in the "
+                      f"{h} process = {want_ring[run]} a step (one a hop or "
+                      f"rotation round) x {spec['steps']} steps")
+            if on_card and run in ("ring", "moe"):
+                # A rank at ring position j folds j + 1 blocks (one at sp
+                # 1): each process launches its ranks' share
+                pos = build_mesh([dev] * 8, MeshConfig(**spec["axes"]))
+                share = sum(pos.index(r, "sp") + 1 for r in mine["ranks"])
+                total = sum(pos.index(r, "sp") + 1 for r in range(8))
+                for name in ("flash_attention", "flash_bwd_dq",
+                             "flash_bwd_dkv"):
+                    n = mine["launches"].get(name, 0)
+                    all_n = want["launches"].get(name, -1)
+                    check(n > 0 and n * total == all_n * share,
+                          f"31 ({run}): {name} launched {n} times in the {h} "
+                          f"process, its ranks' {share}/{total} of the "
+                          f"single-process run's {all_n}")
+                check(mine["launches"].get("flash_attention.wgmma", 0)
+                      == mine["launches"].get("flash_attention", -1),
+                      f"31 ({run}): every flash forward in the {h} process "
+                      f"took the wgmma body")
+            for k, v in mine["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        log(f"  31 {run} over {spec['axes']} wall ms by step: " + "; ".join(
+            f"{h} " + ", ".join(f"{st['ms']:.1f}"
+                                for st in rep["forms"][run]["steps"])
+            for h, rep in got.items()) + "; single-process " + ", ".join(
+            f"{st['ms']:.1f}" for st in want["steps"]) + "; exchange rounds "
+            "a step: " + "; ".join(
+            f"{h} " + ", ".join(str(st["rounds"])
+                                for st in rep["forms"][run]["steps"])
+            for h, rep in got.items())
+            + f" (at least {want_rounds[run]}); losses " + ", ".join(
+            f"{float.fromhex(st['loss']):.6f}" for st in want["steps"]))
+        log(f"  31 {run} launches: single-process {want['launches']}; "
+            + "; ".join(f"{h} {rep['forms'][run]['launches']}"
+                        for h, rep in got.items()))
+    want = single["collectives"]
+    for h, rep in got.items():
+        mine = rep["forms"]["collectives"]
+        for name in ("alltoall", "scan_sum", "scan_max", "broadcast_grad",
+                     "allreduce_max_grad"):
+            diff = [r for r, fp in mine[name].items()
+                    if fp != want[name][r]]
+            check(not diff, f"31: the {h} process's ranks {mine['ranks']}' "
+                  f"{name.replace('_grad', ' input gradients')} at "
+                  f"{FORM_ELEMS} fp32 elements a rank are bitwise the "
+                  f"single-process run's (ranks {diff} differ)")
+        check(not mine["launches"], f"31: the collectives' gather rounds "
+              f"launched no kernel in the {h} process ({mine['launches']})")
+        check(mine["rounds"] == 7, f"31: the {h} process's collectives made "
+              f"{mine['rounds']} exchange rounds: one a call (5) and one a "
+              f"backward (2)")
+    log(f"  phase 31 launches: {launches}")
+    log(f"  phase 31 took {time.perf_counter() - t_phase:.1f} s in the "
+        f"children")
+    return launches
+
+
 def plane_steps_phase(dev, build, cfg=None, batch: int = 8, seq: int = 512,
                       base: int | None = None,
                       child_argv: list[str] | None = None) -> dict:
-    """Phase 30: the sharded train steps across two processes of one
+    """Phases 30 and 31: the sharded train steps across two processes of one
     device plane. A planner process (``python -m faabric_tpu_torch.runner
     planner``) and two ``chip_smoke.py --plane-child`` processes
     (:func:`plane_child`; ``child_argv`` replaces that command line),
@@ -7028,7 +7340,9 @@ def plane_steps_phase(dev, build, cfg=None, batch: int = 8, seq: int = 512,
     bitwise the plain ring permute on the same inputs (one ring launch on
     the card, outside the step's counts). Logs each step's wall ms
     beside the single-process step's, and the exchange rounds a step.
-    Returns the children's launches."""
+    The script also runs :func:`run_plane_forms` in one process while
+    the children load, and phase 31 (:func:`forms_phase`) follows in the
+    same children before they stop. Returns the children's launches."""
     import signal
 
     from faabric_tpu_torch.models import ModelConfig
@@ -7076,6 +7390,7 @@ def plane_steps_phase(dev, build, cfg=None, batch: int = 8, seq: int = 512,
                                     os.path.join(work, f"{h}.log"),
                                     f"30: the {h} child")
         single = run_plane_steps([dev] * 8, cfg, batch, seq, dev)
+        single_forms = run_plane_forms([dev] * 8, cfg, batch, seq, dev)
         # The planner serves once its sync port takes a connection
         import socket
 
@@ -7181,6 +7496,9 @@ def plane_steps_phase(dev, build, cfg=None, batch: int = 8, seq: int = 512,
             log(f"  30 {label} launches: single-process {want['launches']}; "
                 + "; ".join(f"{h} {rep['steps'][run]['launches']}"
                             for h, rep in got.items()))
+        begin_phase(31)
+        for k, v in forms_phase(dev, cfg, children, single_forms).items():
+            launches[k] = launches.get(k, 0) + v
     finally:
         try:
             # Both leave the plane together
@@ -7891,7 +8209,9 @@ def main() -> int:
     begin_phase(26)
     process_launches = processes_phase(dev, _build, plane_steps)
     del plane_steps
-    # -- 30. the sharded train steps across two processes of one plane ---
+    # -- 30. the sharded train steps across two processes of one plane,
+    # and 31. in the same processes, GPipe, the ring, the MoE family and
+    # the collectives across them ----------------------------------------
     begin_phase(30)
     plane_steps_launches = plane_steps_phase(dev, _build)
     end_phase()
@@ -7903,7 +8223,8 @@ def main() -> int:
     # snapshot (20), THREADS and chaining (21), data-plane (22),
     # telemetry (23), migration, spot and recovery (24), planner restart
     # (25), host-process (26, launched in its worker processes) and
-    # cross-process step (30, launched in its plane processes) paths
+    # cross-process step and form (30 and 31, launched in its plane
+    # processes) paths
     path_launches = {
         name: sum(p.get(name, 0) for p in paths) + sum(
             p.get(name, 0) for p in (mesh_launches, pp_launches, moe_launches,

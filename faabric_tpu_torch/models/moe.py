@@ -23,7 +23,10 @@ computes the same routing, runs only its own experts' slab (each
 expert's hidden split over tp), and two allreduces reassemble the
 output, over tp after w2 and over ep after the combine. The reference's
 single-mesh layer gets there through sharding constraints and XLA's
-all_to_alls; the function computed is the same.
+all_to_alls; the function computed is the same. Over a mesh whose ranks
+live in several processes of a device plane each process runs its own
+ranks, and the allreduces (tp, ep and the aux's over the mesh) cross
+the boundary where their groups do (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ from faabric_tpu_torch.models.transformer import (
     ModelConfig,
     ShardedTransformer,
     _check_sharded,
+    _first,
+    _local,
     _param_shapes,
     _param_tree,
     _rms_norm,
@@ -151,21 +156,12 @@ def _moe_param_shapes(cfg: MoEConfig) -> dict:
     return shapes
 
 
-MOE_XPROC = ("the MoE family over a mesh whose ranks live in several "
-             "processes is not ported yet (ROADMAP.md Queue 1 step 11)")
-
-
 class ShardedMoETransformer(ShardedTransformer):
     """A MoETransformer's weights laid over a mesh (``ranks[r]`` holds
     rank r's shards, :func:`moe_param_shardings`); ``model(tokens)`` runs
-    :func:`moe_forward` on per-rank token lists. Over a mesh whose
-    ranks live in several processes it raises (``ROADMAP.md`` Queue 1
-    step 11)."""
-
-    def __init__(self, cfg: MoEConfig, mesh, params: dict):
-        if mesh.multiprocess:
-            raise NotImplementedError(MOE_XPROC)
-        super().__init__(cfg, mesh, params)
+    :func:`moe_forward` on per-rank token lists. Over a mesh whose ranks
+    live in several processes each process holds and runs its own
+    ranks (``None`` for the others')."""
 
     @staticmethod
     def _shardings(mesh, cfg: MoEConfig) -> dict:
@@ -267,33 +263,34 @@ def _ep_moe_ffn(hs, blks, cfg: MoEConfig, mesh):
     sp = mesh.shape["sp"]
     if sp > 1:
         hs = mesh.over("sp", hs, "allgather", dim=1)
-    outs, combs, auxs = [], [], []
-    for r, (h, b) in enumerate(zip(hs, blks)):
+
+    def route(h, b, r):
         dispatch, combine, aux = moe_dispatch_combine(h, b.router, cfg)
         e_loc = b.w1.shape[0]
         lo = mesh.index(r, "ep") * e_loc
-        outs.append(_experts(h.float(), dispatch[:, :, lo:lo + e_loc],
-                             b.w1, b.w2))
-        combs.append(combine[:, :, lo:lo + e_loc])
-        auxs.append(aux)
-    outs = mesh.over("tp", outs, "allreduce")
-    outs = [torch.einsum("bsec,ebcd->bsd", c, o) for c, o in zip(combs, outs)]
+        return (_experts(h.float(), dispatch[:, :, lo:lo + e_loc], b.w1,
+                         b.w2), combine[:, :, lo:lo + e_loc], aux)
+
+    parts = _local(route, hs, blks, range(mesh.size))
+    outs = mesh.over("tp", _local(lambda p: p[0], parts), "allreduce")
+    outs = _local(lambda p, o: torch.einsum("bsec,ebcd->bsd", p[1], o),
+                  parts, outs)
     outs = mesh.over("ep", outs, "allreduce")
-    outs = [o.to(h.dtype) for o, h in zip(outs, hs)]
+    outs = _local(lambda o, h: o.to(h.dtype), outs, hs)
     if sp > 1:
-        s_l = outs[0].shape[1] // sp
-        outs = [o.narrow(1, mesh.index(r, "sp") * s_l, s_l)
-                for r, o in enumerate(outs)]
-    return outs, auxs
+        s_l = _first(outs).shape[1] // sp
+        outs = _local(lambda o, r: o.narrow(1, mesh.index(r, "sp") * s_l,
+                                            s_l), outs, range(mesh.size))
+    return outs, _local(lambda p: p[2], parts)
 
 
 def _sharded_moe_block(xs, blks, positions, cfg: MoEConfig, mesh):
     """A MoE block on each rank's shards: the shared attention sublayer,
     then the ep-local expert FFN. Returns (outputs, auxs)."""
     xs = _sharded_attention_sublayer(xs, blks, positions, cfg, mesh)
-    ffs, auxs = _ep_moe_ffn([_rms_norm(x, b.ln2) for x, b in zip(xs, blks)],
-                            blks, cfg, mesh)
-    return [x + f for x, f in zip(xs, ffs)], auxs
+    ffs, auxs = _ep_moe_ffn(_local(lambda x, b: _rms_norm(x, b.ln2), xs,
+                                   blks), blks, cfg, mesh)
+    return _local(lambda x, f: x + f, xs, ffs), auxs
 
 
 # ---------------------------------------------------------------------------
@@ -331,11 +328,12 @@ def _sharded_moe_parts(model: ShardedTransformer, tokens):
     xs = _sharded_embed(shards, tokens, cfg, mesh)
     aux_total = None
     for i in range(cfg.n_layers):
-        xs, auxs = _sharded_moe_block(xs, [sh.blocks[i] for sh in shards],
-                                      positions, cfg, mesh)
-        aux_total = auxs if aux_total is None else [
-            a + b for a, b in zip(aux_total, auxs)]
-    aux_total = [a / max(1, cfg.n_layers) for a in aux_total]
+        xs, auxs = _sharded_moe_block(
+            xs, _local(lambda sh: sh.blocks[i], shards), positions, cfg,
+            mesh)
+        aux_total = auxs if aux_total is None else _local(
+            lambda a, b: a + b, aux_total, auxs)
+    aux_total = _local(lambda a: a / max(1, cfg.n_layers), aux_total)
     return _sharded_logits(shards, xs, cfg, mesh), aux_total
 
 
@@ -343,7 +341,7 @@ def _global_aux(auxs, mesh) -> list:
     """Each rank's aux over its rows -> per-rank copies of the mean over
     the dp shards (equal shards; every rank of a dp shard holds the same
     value, so the sum over all ranks over the mesh size is that mean)."""
-    return mesh.over(mesh.axis_names, [a / mesh.size for a in auxs],
+    return mesh.over(mesh.axis_names, _local(lambda a: a / mesh.size, auxs),
                      "allreduce")
 
 
@@ -361,8 +359,8 @@ def moe_loss_fn(model, tokens, targets):
         return token_nll(logits, targets).mean() + cfg.aux_loss_weight * aux
     mesh = model.mesh
     logits, auxs = _sharded_moe_parts(model, tokens)
-    parts = [p + cfg.aux_loss_weight * a / mesh.size for p, a in zip(
-        _token_parts(logits, targets, mesh), auxs)]
+    parts = _local(lambda p, a: p + cfg.aux_loss_weight * a / mesh.size,
+                   _token_parts(logits, targets, mesh), auxs)
     return mesh.over(mesh.axis_names, parts, "allreduce")
 
 

@@ -1,11 +1,10 @@
 """The mesh substrate: device collectives, meshes and shard specs, ring
 attention, pipeline parallelism and the device plane across worker
 processes (counterpart of ``faabric_tpu/parallel/``). Across processes
-(``distributed.py``) a mesh lies over the plane's global devices, its
-collectives cross the boundary with their backward, and the sharded
-train step and the 1F1B step run there; GPipe, ring attention, the MoE
-family, alltoall and scan across processes wait for ``ROADMAP.md``
-Queue 1 steps 10-12."""
+(``distributed.py``) a mesh lies over the plane's global devices, every
+collective crosses the boundary with its backward, and every training
+form runs there: the sharded train step, GPipe and 1F1B, ring
+attention and the MoE family, MoE stages in the pipeline included."""
 
 from faabric_tpu_torch.parallel.collectives import (
     DeviceCollectives,

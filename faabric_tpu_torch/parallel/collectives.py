@@ -32,20 +32,24 @@ patterns, or over ranks on several devices, copy buffer by buffer.
 
 Over the device plane's global devices (``parallel/distributed.py``)
 other processes' ranks are ``None`` in every per-rank list. There every
-collective but alltoall and scan runs through ``device_plane/xproc.py``
-in one exchange round a call (:func:`cross_process`, shared with
-``Mesh.over``): every process gets every rank's deposit and folds them
-in rank order with the single-process code, so the results are bitwise
-the single-process ones. A permutation is one permute round, which
-moves only the shards that land somewhere (on the card one launch of
-the ring kernel a process, into local outputs and the peers' IPC
-windows). Across processes
-allreduce SUM, allgather, reduce_scatter and permute are
-``torch.autograd.Function``s whose backward is again one round over
-every process's cotangents: allreduce's an allreduce, allgather's a
-reduce_scatter, reduce_scatter's an allgather, a permutation's the
-inverse permutation. alltoall and scan across processes, and the
-backward of the other forms, raise (``ROADMAP.md`` Queue 1 step 12).
+collective runs through ``device_plane/xproc.py`` in one exchange round
+a call (:func:`cross_process`, shared with ``Mesh.over``;
+``allreduce_loop`` in one round a hop): every process gets every rank's
+deposit and computes its own ranks' results from them in rank order
+with the single-process code, so the results are bitwise the
+single-process ones. A permutation is one permute round, which moves
+only the shards that land somewhere (on the card one launch of the ring
+kernel a process, into local outputs and the peers' IPC windows).
+Across processes every form is a ``torch.autograd.Function`` whose
+backward is one more round over every process's cotangents. allreduce
+SUM, allgather, reduce_scatter and permute take their adjoint form:
+allreduce's an allreduce, allgather's a reduce_scatter,
+reduce_scatter's an allgather, a permutation's the inverse permutation.
+The others (broadcast, alltoall, scan, allreduce of another op) gather
+every rank's cotangent and rerun the single-process form's own autograd
+over every rank's inputs, which their forward round delivered and kept:
+each process keeps its own ranks' input gradients, bitwise the
+single-process ones by construction.
 """
 
 from __future__ import annotations
@@ -74,25 +78,32 @@ def _fold(parts: Sequence[torch.Tensor], op: MpiOp) -> torch.Tensor:
     package's reductions on the CPU: PROD of a 16-bit float and SUM of
     bfloat16 fold in float32 and round once (``jnp.prod``; XLA's psum),
     the rest fold in the buffers' dtype; LAND and LOR give 0 or 1 in the
-    buffers' dtype."""
+    buffers' dtype. Under autograd the folds run out of place (the same
+    values), so that the fold is differentiable."""
     if op in (MpiOp.LAND, MpiOp.LOR):
         acc = parts[0].ne(0)
         for t in parts[1:]:
             acc = acc & t.ne(0) if op == MpiOp.LAND else acc | t.ne(0)
         return acc.to(parts[0].dtype)
     fold = _op_fold(op)
+    in_place = not (torch.is_grad_enabled()
+                    and any(t.requires_grad for t in parts))
+
+    def into(acc, t):
+        return fold(acc, t, out=acc) if in_place else fold(acc, t)
+
     dtype = parts[0].dtype
     if ((op == MpiOp.PROD and dtype in _HALF)
             or (op == MpiOp.SUM and dtype == torch.bfloat16)):
         acc = parts[0].float()
         for t in parts[1:]:
-            fold(acc, t, out=acc)
+            acc = into(acc, t)
         return acc.to(dtype)
     if len(parts) == 1:
         return parts[0].clone()
     acc = fold(parts[0], parts[1])
     for t in parts[2:]:
-        fold(acc, t, out=acc)
+        acc = into(acc, t)
     return acc
 
 
@@ -108,15 +119,20 @@ def _ring_shift(pairs, n: int) -> int | None:
     return d if all(dst[r] == (r + d) % n for r in range(n)) else None
 
 
-_XPROC_QUEUED = ("across processes {} is not ported yet (ROADMAP.md Queue "
-                 "1 step 12)")
-_XPROC_NO_GRAD = ("across processes only allreduce SUM, allgather, "
-                  "reduce_scatter and permute (send_recv, shift) have a "
-                  "backward (ROADMAP.md Queue 1 step 12); run the others on "
-                  "buffers that need no gradient, or under torch.no_grad()")
-# The cross-process forms with a backward, and the form of each backward
+# The cross-process forms whose backward is one round of another form
+# (the adjoint); the others' backward replays their single-process
+# autograd (``_Plan.replay``)
 _ADJOINT = {"allreduce": "allreduce", "allgather": "reduce_scatter",
             "reduce_scatter": "allgather", "permute": "permute"}
+_SCAN_OPS = (MpiOp.SUM, MpiOp.PROD, MpiOp.MAX, MpiOp.MIN)
+
+
+def _adjoint(kind: str, kw: dict) -> str | None:
+    """The form of ``kind``'s backward round where it has an adjoint
+    form (allreduce only for SUM), else None."""
+    if kind == "allreduce" and kw["op"] != MpiOp.SUM:
+        return None
+    return _ADJOINT.get(kind)
 
 
 def _check_pairs(pairs, n: int) -> tuple:
@@ -130,6 +146,31 @@ def _check_pairs(pairs, n: int) -> tuple:
     return pairs
 
 
+def _allreduce_loop(allreduce, xs, n: int, op, size: int) -> list:
+    """``n`` chained ``allreduce(ys)`` over groups of ``size`` ranks,
+    then SUM's one rescale (``DeviceCollectives.allreduce_loop``);
+    ``None`` entries (other processes' ranks) stay ``None``."""
+    op = MpiOp(op)
+    if op not in (MpiOp.SUM, MpiOp.MAX, MpiOp.MIN):
+        raise NotImplementedError(f"allreduce_loop op {op}")
+    ys = list(xs)
+    for _ in range(n):
+        ys = allreduce(ys)
+    growth = size ** (n - 1)
+    if op != MpiOp.SUM or growth == 1:
+        return ys
+
+    def rescale(y):
+        if y.is_floating_point():
+            # The reciprocal in the buffer's dtype, as the reference
+            return y * torch.tensor(1.0 / growth, dtype=y.dtype,
+                                    device=y.device)
+        # Exact: the interim value is growth·sum
+        return torch.div(y, growth, rounding_mode="floor")
+
+    return [None if y is None else rescale(y) for y in ys]
+
+
 def _exchanger(processes, device):
     """The process's exchanger over ranks in ``processes`` (one per
     layout of ranks over processes, whatever mesh or group asks)."""
@@ -137,6 +178,45 @@ def _exchanger(processes, device):
 
     return named_exchanger("coll/" + ",".join(map(str, processes)),
                            processes, device)
+
+
+def _group_outputs(kind: str, kw: dict, g: list, parts: list,
+                   mine: list) -> dict:
+    """The outputs of ``kind`` over group ``g`` for its ranks ``mine``
+    (rank → tensor), from every rank's input ``parts``, folded in rank
+    order as the single-process forms fold; every output a tensor of
+    its own."""
+    first = parts[g[0]]
+    if kind == "reduce_scatter":
+        dim = kw["dim"]
+        size = first.shape[dim]
+        if size % len(g):
+            raise ValueError(f"reduce_scatter: dim {dim} of size {size} "
+                             f"does not split over {len(g)} ranks")
+        k = size // len(g)
+        return {r: _fold([parts[q].narrow(dim, g.index(r) * k, k)
+                          for q in g], MpiOp.SUM) for r in mine}
+    if kind == "alltoall":
+        if first.shape[0] != len(g):
+            raise ValueError(f"alltoall takes ({len(g)}, ...) buffers")
+        return {r: torch.stack([parts[q][g.index(r)] for q in g])
+                for r in mine}
+    if kind == "scan":
+        # Prefix by prefix in the buffers' dtype, up to the last of mine
+        fold, out, acc = _op_fold(kw["op"]), {}, None
+        for q in g[:max(g.index(r) for r in mine) + 1]:
+            acc = parts[q].clone() if acc is None else fold(acc, parts[q])
+            if q in mine:
+                out[q] = acc
+        return out
+    if kind == "allreduce":
+        one = _fold([parts[q] for q in g], kw["op"])
+    elif kind == "allgather":
+        one = torch.cat([parts[q] for q in g], kw["dim"])
+    else:
+        one = parts[g[kw["root"]]].clone()
+    # The first local rank takes the result, the others a copy
+    return {r: one if i == 0 else one.clone() for i, r in enumerate(mine)}
 
 
 class _Plan:
@@ -150,47 +230,59 @@ class _Plan:
         self.groups = [list(g) for g in groups if set(local_ranks) & set(g)]
         self.exchanger = _exchanger(processes, device)
 
-    def run(self, kind: str, kw: dict, xs) -> list:
-        """The local ranks' outputs (in their order) of ``kind`` over the
-        local ranks' tensors ``xs`` (in the same order)."""
+    def _flat(self, kind: str, xs) -> dict:
         first = xs[0]
         if any(x.shape != first.shape or x.dtype != first.dtype
                or x.device != first.device for x in xs):
             raise ValueError(f"{kind} across processes takes buffers of one "
                              "shape, dtype and device")
-        flat = {r: x.contiguous().reshape(-1)
+        return {r: x.contiguous().reshape(-1)
                 for r, x in zip(self.local_ranks, xs)}
-        out: dict = {}
+
+    def run(self, kind: str, kw: dict, xs, keep: bool = False):
+        """The local ranks' outputs (in their order) of ``kind`` over the
+        local ranks' tensors ``xs`` (in the same order). With ``keep``,
+        (outputs, copies of the other processes' inputs to this
+        process's groups by rank) for :meth:`replay`, which takes the
+        local inputs besides."""
+        shape = xs[0].shape
+        flat = self._flat(kind, xs)
         if kind == "permute":
             dest = {g[s]: g[t] for g in self.groups for s, t in kw["pairs"]}
             got = self.exchanger.permute(flat, dest)
-            return [got[r].view(first.shape) for r in self.local_ranks]
+            return [got[r].view(shape) for r in self.local_ranks]
+        out, kept = {}, {}
         with self.exchanger.gather(flat) as every:
-            parts = [t.view(first.shape) for t in every]
+            parts = [t.view(shape) for t in every]
             for g in self.groups:
-                mine = [r for r in g if r in flat]
-                if kind == "reduce_scatter":
-                    dim = kw["dim"]
-                    size = first.shape[dim]
-                    if size % len(g):
-                        raise ValueError(
-                            f"reduce_scatter: dim {dim} of size {size} does "
-                            f"not split over {len(g)} ranks")
-                    k = size // len(g)
-                    for r in mine:
-                        i = g.index(r)
-                        out[r] = _fold([parts[q].narrow(dim, i * k, k)
-                                        for q in g], MpiOp.SUM)
-                    continue
-                if kind == "allreduce":
-                    one = _fold([parts[q] for q in g], kw["op"])
-                elif kind == "allgather":
-                    one = torch.cat([parts[q] for q in g], kw["dim"])
-                else:
-                    one = parts[g[kw["root"]]].clone()
-                # The first local rank takes the result, the others a copy
-                for i, r in enumerate(mine):
-                    out[r] = one if i == 0 else one.clone()
+                out.update(_group_outputs(kind, kw, g, parts,
+                                          [r for r in g if r in flat]))
+                if keep:
+                    kept.update((q, parts[q].clone()) for q in g
+                                if q not in flat)
+        outs = [out[r] for r in self.local_ranks]
+        return (outs, kept) if keep else outs
+
+    def replay(self, kind: str, kw: dict, kept: dict, xs, grads) -> list:
+        """The local ranks' input gradients of ``kind`` (``None`` where
+        an input takes none): one gather round of every rank's
+        cotangent, then in each of this process's groups the
+        single-process form's own autograd over every rank's input (the
+        local ``xs``, the others' ``kept``), backpropagated with every
+        rank's cotangent."""
+        shape = grads[0].shape
+        kept = {**kept, **dict(zip(self.local_ranks, xs))}
+        out = {}
+        with self.exchanger.gather(self._flat(kind, grads)) as every:
+            for g in self.groups:
+                leaves = [kept[q].detach().requires_grad_() for q in g]
+                coll = DeviceCollectives([leaves[0].device] * len(g))
+                with torch.enable_grad():
+                    ys = getattr(coll, kind)(leaves, **kw)
+                torch.autograd.backward(ys, [every[q].view(shape)
+                                             for q in g])
+                out.update((q, leaf.grad) for q, leaf in zip(g, leaves)
+                           if q in self.local_ranks)
         return [out[r] for r in self.local_ranks]
 
 
@@ -212,21 +304,34 @@ def gather_every(processes, xs) -> list:
 
 class _CrossProcess(torch.autograd.Function):
     """A cross-process collective as one autograd node: its backward is
-    one more round, of the adjoint form over every process's
-    cotangents, so every process meets its rounds in the same order."""
+    one more round over every process's cotangents (of the adjoint form,
+    or the gather that :meth:`_Plan.replay` folds), so every process
+    meets its rounds in the same order."""
 
     @staticmethod
     def forward(ctx, plan, kind, kw, *xs):
         ctx.plan, ctx.kind, ctx.kw = plan, kind, kw
-        return tuple(plan.run(kind, kw, xs))
+        if _adjoint(kind, kw) is not None:
+            return tuple(plan.run(kind, kw, xs))
+        outs, ctx.kept = plan.run(kind, kw, xs, keep=True)
+        # The local inputs go through autograd's version check: one
+        # changed in place before the backward raises there
+        ctx.save_for_backward(*xs)
+        return tuple(outs)
 
     @staticmethod
     def backward(ctx, *grads):
         kw = dict(ctx.kw)
-        if ctx.kind == "permute":
-            kw["pairs"] = tuple((t, s) for s, t in kw["pairs"])
-        return (None, None, None,
-                *ctx.plan.run(_ADJOINT[ctx.kind], kw, grads))
+        adjoint = _adjoint(ctx.kind, kw)
+        if adjoint is None:
+            dxs = ctx.plan.replay(ctx.kind, kw, ctx.kept, ctx.saved_tensors,
+                                  grads)
+            del ctx.kept
+        else:
+            if ctx.kind == "permute":
+                kw["pairs"] = tuple((t, s) for s, t in kw["pairs"])
+            dxs = ctx.plan.run(adjoint, kw, grads)
+        return (None, None, None, *dxs)
 
 
 def _cross_form(kind: str, kw: dict, n: int) -> tuple[str, dict]:
@@ -243,6 +348,13 @@ def _cross_form(kind: str, kw: dict, n: int) -> tuple[str, dict]:
         return kind, {"dim": kw.get("dim", 0)}
     if kind == "broadcast":
         return kind, {"root": kw.get("root", 0)}
+    if kind == "alltoall":
+        return kind, {}
+    if kind == "scan":
+        op = MpiOp(kw.get("op", MpiOp.SUM))
+        if op not in _SCAN_OPS:
+            raise NotImplementedError(f"Device scan op {op}")
+        return kind, {"op": op}
     if kind == "send_recv":
         return "permute", {"pairs": ((kw["src"], kw["dst"]),)}
     if kind == "shift":
@@ -251,22 +363,26 @@ def _cross_form(kind: str, kw: dict, n: int) -> tuple[str, dict]:
                                           for i in range(n))}
     if kind == "permute":
         return kind, {"pairs": kw["pairs"]}
-    if kind in ("alltoall", "scan"):
-        raise NotImplementedError(_XPROC_QUEUED.format(kind))
     raise ValueError(f"unknown collective {kind!r}")
 
 
 def cross_process(processes, groups, xs, kind: str, **kw) -> list:
     """``kind`` with the keyword arguments of its ``DeviceCollectives``
-    method (allreduce, allgather, reduce_scatter, broadcast, permute,
-    send_recv or shift; group positions for the last three) over every
-    group of ``groups`` at once, in one exchange round, whose ranks live
-    in the processes ``processes[r]``: per-rank outputs with ``None``
-    for other processes' ranks. Differentiable where :data:`_ADJOINT`
-    names a backward; a buffer that needs a gradient raises for the
-    others."""
+    method (allreduce, allreduce_loop, allgather, reduce_scatter,
+    alltoall, broadcast, scan, permute, send_recv or shift; group
+    positions for the last three) over every group of ``groups`` at
+    once, in one exchange round (``allreduce_loop`` one a hop), whose
+    ranks live in the processes ``processes[r]``: per-rank outputs with
+    ``None`` for other processes' ranks. Differentiable: a buffer that
+    needs a gradient makes the call one autograd node
+    (:class:`_CrossProcess`)."""
     from faabric_tpu_torch.parallel.distributed import process_index
 
+    if kind == "allreduce_loop":
+        return _allreduce_loop(
+            lambda ys: cross_process(processes, groups, ys, "allreduce",
+                                     op=kw.get("op", MpiOp.SUM)),
+            xs, kw["n"], kw.get("op", MpiOp.SUM), len(groups[0]))
     me = process_index()
     local = [r for r, p in enumerate(processes) if p == me]
     for r, x in enumerate(xs):
@@ -280,12 +396,8 @@ def cross_process(processes, groups, xs, kind: str, **kw) -> list:
     ins = [xs[r] for r in local]
     if kind == "permute":
         kw["pairs"] = _check_pairs(kw["pairs"], len(groups[0]))
-    grad = torch.is_grad_enabled() and any(x.requires_grad for x in ins)
-    if grad and (kind not in _ADJOINT
-                 or (kind == "allreduce" and kw["op"] != MpiOp.SUM)):
-        raise NotImplementedError(f"{kind}: {_XPROC_NO_GRAD}")
     plan = _Plan(processes, groups, local, ins[0].device)
-    if grad:
+    if torch.is_grad_enabled() and any(x.requires_grad for x in ins):
         outs = _CrossProcess.apply(plan, kind, kw, *ins)
     else:
         outs = plan.run(kind, kw, ins)
@@ -392,10 +504,6 @@ class DeviceCollectives:
                 out.append(made[d])
         return out
 
-    def _single_process(self, name: str) -> None:
-        if self.multiprocess:
-            raise NotImplementedError(_XPROC_QUEUED.format(name))
-
     def _xproc(self, kind: str, xs, **kw) -> list:
         """A collective over ranks of several processes, in one exchange
         round (:func:`cross_process`); local ranks on one device."""
@@ -416,8 +524,9 @@ class DeviceCollectives:
 
     def allreduce(self, xs, op: MpiOp = MpiOp.SUM) -> list[torch.Tensor]:
         """SUM, MAX, MIN, PROD, LAND, LOR; SUM is differentiable (its
-        backward is the allreduce of the cotangents), across processes
-        too."""
+        backward is the allreduce of the cotangents), MAX, MIN and PROD
+        through their folds; across processes every op but LAND and LOR
+        is."""
         xs = self._check(xs)
         op = MpiOp(op)
         if self.multiprocess:
@@ -429,30 +538,19 @@ class DeviceCollectives:
     def allreduce_loop(self, xs, n: int,
                        op: MpiOp = MpiOp.SUM) -> list[torch.Tensor]:
         """``n`` chained allreduces, returning exactly what a single
-        :meth:`allreduce` would: the benchmarking form. For SUM the value
-        grows ×ranks per extra hop, and one rescale by ranks^(n−1) after
-        the loop restores the plain sum. The rescale (a full elementwise
-        pass) exists only for n ≥ 2, so a two-point timing slope cancels
-        it only if both trip counts are ≥ 2. Interim SUM values must stay
-        within the dtype's range for the chosen n (MAX/MIN are
-        idempotent)."""
-        op = MpiOp(op)
-        if op not in (MpiOp.SUM, MpiOp.MAX, MpiOp.MIN):
-            raise NotImplementedError(f"allreduce_loop op {op}")
-        self._single_process("allreduce_loop")
-        ys = self._check(xs)
-        for _ in range(n):
-            ys = self._allreduce(ys, op)
-        growth = self.n ** (n - 1)
-        if op == MpiOp.SUM and growth > 1:
-            if ys[0].is_floating_point():
-                # The reciprocal in the buffer's dtype, as the reference
-                ys = [y * torch.tensor(1.0 / growth, dtype=y.dtype,
-                                       device=y.device) for y in ys]
-            else:
-                # Exact: the interim value is growth·sum
-                ys = [torch.div(y, growth, rounding_mode="floor") for y in ys]
-        return ys
+        :meth:`allreduce` would: the benchmarking form (across processes
+        one round a hop). For SUM the value grows ×ranks per extra hop,
+        and one rescale by ranks^(n−1) after the loop restores the plain
+        sum. The rescale (a full elementwise pass) exists only for n ≥ 2,
+        so a two-point timing slope cancels it only if both trip counts
+        are ≥ 2. Interim SUM values must stay within the dtype's range
+        for the chosen n (MAX/MIN are idempotent)."""
+        def hop(ys):
+            if self.multiprocess:
+                return self._xproc("allreduce", ys, op=op)
+            return self._allreduce(ys, MpiOp(op))
+
+        return _allreduce_loop(hop, self._check(xs), n, op, self.n)
 
     def _allgather(self, xs, dim: int) -> list[torch.Tensor]:
         return self._per_device(
@@ -489,28 +587,33 @@ class DeviceCollectives:
 
     def alltoall(self, xs) -> list[torch.Tensor]:
         """Rank buffers (n, *buf): row i of rank j lands as row j of
-        rank i."""
-        self._single_process("alltoall")
+        rank i (across processes, one round)."""
         xs = self._check(xs)
-        if any(x.shape[0] != self.n for x in xs):
+        if any(x is not None and x.shape[0] != self.n for x in xs):
             raise ValueError(f"alltoall takes ({self.n}, ...) buffers")
+        if self.multiprocess:
+            return self._xproc("alltoall", xs)
         return [torch.stack([x[r].to(d) for x in xs])
                 for r, d in enumerate(self.devices)]
 
     def broadcast(self, xs, root: int = 0) -> list[torch.Tensor]:
-        """The root rank's buffer, as a tensor of its own on every rank."""
+        """The root rank's buffer, as a tensor of its own on every rank;
+        differentiable (the root's gradient sums every rank's
+        cotangent), across processes too."""
         xs = self._check(xs)
         if self.multiprocess:
             return self._xproc("broadcast", xs, root=root)
         return [xs[root].to(d, copy=True) for d in self.devices]
 
     def scan(self, xs, op: MpiOp = MpiOp.SUM) -> list[torch.Tensor]:
-        """Inclusive prefix reduction across ranks (MPI_Scan)."""
+        """Inclusive prefix reduction across ranks (MPI_Scan; across
+        processes, one round)."""
         op = MpiOp(op)
-        if op not in (MpiOp.SUM, MpiOp.PROD, MpiOp.MAX, MpiOp.MIN):
+        if op not in _SCAN_OPS:
             raise NotImplementedError(f"Device scan op {op}")
-        self._single_process("scan")
         xs = self._check(xs)
+        if self.multiprocess:
+            return self._xproc("scan", xs, op=op)
         # Prefix by prefix in the buffers' dtype, as jnp.cumsum/cumprod
         fold = _op_fold(op)
         out, acc = [], None

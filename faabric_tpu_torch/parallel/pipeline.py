@@ -16,8 +16,12 @@ work at that tick:
   the last stage's head adds its NLL; after every tick but the last one
   whole-ring shift over pp (``DeviceCollectives.shift``, on one card the
   ring-permute kernel, one launch per pp group) moves each stage's
-  output to the next. The backward is autograd through the tick loop: a
-  shift's backward is the inverse shift.
+  output, detached, to the next, which takes it as a leaf. The backward
+  is an explicit schedule, as 1F1B's is written: the ticks in reverse,
+  the last stage seeding from its head, every other stage
+  backpropagating its saved graph with the cotangents hopped in from
+  stage s+1, and after every backward tick but the last one inverse
+  whole-ring shift carrying the input cotangents back.
 - 1F1B: each tick runs one forward unit (``mf = t − s``) and one backward
   unit (``mb = t − 2(S−1) + s``) per stage. A stage keeps a ring of
   ``ring_slots(S)`` saved inputs and recomputes its slab from one under
@@ -39,18 +43,18 @@ expert FFN the ep-local one of ``models/moe.py``, without the aux loss
 (the reference's ``aux_loss_weight = 0`` semantics under pp).
 
 Across the processes of a device plane (``parallel/mesh.py``) each
-process runs the 1F1B units of its own ranks only, a stage whose ranks
-all live elsewhere not at all, and per-rank lists hold ``None`` for the
+process runs the units of its own ranks only, a stage whose ranks all
+live elsewhere not at all, and per-rank lists hold ``None`` for the
 other processes' ranks. The hops, the loss and the gradient allreduce
 cross the boundary where their groups do: a pp hop whose partners live
 in two processes is one permute round (on the card one launch of the
-ring kernel a process, into the peer's IPC window). The hopped values are
-detached, so no backward crosses with them. GPipe across processes
-raises: its backward is autograd through the hops, and a process whose
-loss copy does not reach its own stage in its local graph would give
-that stage's weights no gradient; it needs an explicit backward
-schedule, as 1F1B has (``ROADMAP.md`` Queue 1 step 10). MoE stages
-across processes raise too (step 11).
+ring kernel a process, into the peer's IPC window). The hopped values
+are detached, so no backward crosses with them: both schedules carry
+the cotangents back in hops of their own, so every process meets the
+same rounds in the same order, and a process's stages get their
+gradients whoever holds the loss copy that is backpropagated. One code
+path serves one process and several, so a step across processes is
+bitwise the single-process step.
 
 Each rank's share of the loss is its last-stage NLL over the global
 token count and the tp x ep ranks that compute the same tokens, so the
@@ -70,7 +74,6 @@ import torch
 import torch.nn.functional as F
 
 from faabric_tpu_torch.models.moe import (
-    MOE_XPROC,
     MoEConfig,
     MoETransformer,
     _moe_param_shapes,
@@ -257,8 +260,6 @@ class PipelinedTransformer(ShardedTransformer):
 
     def __init__(self, cfg: ModelConfig, mesh: Mesh, params: dict):
         n_stages = _validate_pp_mesh(cfg, mesh)
-        if isinstance(cfg, MoEConfig) and mesh.multiprocess:
-            raise NotImplementedError(MOE_XPROC)
         super().__init__(cfg, mesh, params)
         self.layers_per_stage = cfg.n_layers // n_stages
         sizes = {**mesh.shape, "pp": 1}
@@ -399,46 +400,154 @@ def _check_model(model, cfg: ModelConfig, mesh: Mesh) -> None:
                          f"has {model.cfg} over {model.mesh.shape}")
 
 
-GPIPE_XPROC = ("GPipe over a mesh whose ranks live in several processes is "
-               "not ported yet: its backward needs an explicit schedule "
-               "(ROADMAP.md Queue 1 step 10); take schedule_name='1f1b'")
+def _leaves(xs: list) -> list:
+    """Stage inputs as leaves of their own, whose ``.grad`` the stage's
+    backward fills."""
+    return _local(lambda x: x.detach().requires_grad_(), xs)
+
+
+def _backward(roots: list) -> None:
+    """Backpropagate (output, cotangent) pairs (``None`` for other
+    processes' ranks) in one call."""
+    roots = [(y, d) for y, d in roots if y is not None]
+    torch.autograd.backward([y for y, _ in roots], [d for _, d in roots])
+
+
+class _GPipe:
+    """GPipe's schedule over one call. :meth:`forward` runs the forward
+    ticks: at tick t stage s runs microbatch t − s (stage 0 embeds, the
+    last stage's head gives each rank's share of the loss), and after
+    every tick but the last one whole-ring shift over pp carries the
+    outputs, detached, to the next stage. With ``keep`` each (stage,
+    microbatch) keeps its graph, its input as a leaf. :meth:`backward`
+    then runs the ticks in reverse: the last stage backpropagates its
+    heads from the seeds, every other stage its outputs with the
+    cotangents hopped in from stage s + 1, and after every backward tick
+    but the last one inverse whole-ring shift carries the input
+    cotangents back. So a step makes ``hop_counts(...)["gpipe"]`` hops,
+    the same rounds in the same order in every process, each of which
+    runs only the stages of its own ranks."""
+
+    def __init__(self, model: PipelinedTransformer, tokens, targets):
+        self.model = model
+        self.run = _Run(model, tokens, targets)
+        self.ticks = n_ticks(self.run.n_stages, self.run.m)
+        self.graphs: dict = {}
+
+    def _work(self, t: int):
+        """(stage index, stage, microbatch) of every stage with a unit at
+        tick t that holds a rank of this process."""
+        for s, stage in enumerate(self.model.stages):
+            if 0 <= t - s < self.run.m and stage.mesh.local_ranks:
+                yield s, stage, t - s
+
+    def forward(self, keep: bool) -> dict:
+        """Each last-stage rank's share of the loss (rank → detached
+        scalar)."""
+        model, run = self.model, self.run
+        last = run.n_stages - 1
+        parts: dict[int, torch.Tensor] = {}
+        hopped = None
+        for t in range(self.ticks):
+            outs: dict[int, torch.Tensor] = {}
+            for s, stage, m in self._work(t):
+                if s == 0:
+                    xs = model._embed(stage, run.tokens_of(stage, m))
+                else:
+                    xs = run.at(stage, hopped)
+                    if keep:
+                        xs = _leaves(xs)
+                ys = model._run_stage(stage, xs, run.at(stage, run.positions))
+                heads = None
+                if s == last:
+                    heads = _local(lambda y, r: model._head(
+                        r, y, run.targets[r][m], run.weight), ys, stage.ranks)
+                    for r, h in zip(stage.ranks, heads):
+                        if h is not None:
+                            h = h.detach()
+                            parts[r] = h if r not in parts else parts[r] + h
+                else:
+                    outs.update((r, y.detach()) for r, y in
+                                zip(stage.ranks, ys) if y is not None)
+                if keep:
+                    self.graphs[s, m] = (xs, ys, heads)
+            if t < self.ticks - 1:
+                hopped = run.hop(outs, 1)
+        return parts
+
+    def backward(self, seeds: dict) -> None:
+        """The backward ticks, each last-stage rank's heads seeded with
+        ``seeds[rank]``; the gradients land in the model's ``.grad``."""
+        run, last = self.run, self.run.n_stages - 1
+        dy_hop = None
+        for t in reversed(range(self.ticks)):
+            dxs: dict[int, torch.Tensor] = {}
+            for s, stage, m in self._work(t):
+                xs, ys, heads = self.graphs.pop((s, m))
+                if s == last:
+                    _backward([(h, seeds.get(r)) for r, h in
+                               zip(stage.ranks, heads)])
+                else:
+                    _backward(list(zip(ys, run.at(stage, dy_hop))))
+                if s > 0:
+                    dxs.update((r, x.grad) for r, x in zip(stage.ranks, xs)
+                               if x is not None)
+            if t > 0:
+                dy_hop = run.hop(dxs, -1)
+
+
+class _GPipeLoss(torch.autograd.Function):
+    """:func:`make_pp_loss`'s copies of the loss as one autograd node:
+    its forward runs GPipe's forward ticks, keeping their graphs, and its
+    backward GPipe's backward ticks, each head seeded with the sum over
+    every rank of its copy's cotangent (the loss allreduce's adjoint, one
+    round over the mesh)."""
+
+    @staticmethod
+    def forward(ctx, pipe, _anchor):
+        with torch.enable_grad():
+            parts = pipe.forward(keep=True)
+        ctx.pipe = pipe
+        loss = pipe.run.total(parts)
+        ctx.ranks = [r for r, x in enumerate(loss) if x is not None]
+        return tuple(loss[r] for r in ctx.ranks)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        pipe = ctx.pipe
+        mesh = pipe.run.mesh
+        cot = [None] * mesh.size
+        for r, g in zip(ctx.ranks, grads):
+            cot[r] = g
+        seeds = mesh.over(mesh.axis_names, cot, "allreduce")
+        pipe.backward(dict(enumerate(seeds)))
+        del ctx.pipe
+        return None, None
 
 
 def _gpipe_loss(model: PipelinedTransformer, tokens, targets) -> list:
-    if model.mesh.multiprocess:
-        raise NotImplementedError(GPIPE_XPROC)
-    run = _Run(model, tokens, targets)
-    last = run.n_stages - 1
-    ticks = n_ticks(run.n_stages, run.m)
-    parts: dict[int, torch.Tensor] = {}
-    hopped = None
-    for t in range(ticks):
-        outs: dict[int, torch.Tensor] = {}
-        for s, stage in enumerate(model.stages):
-            m = t - s
-            if not 0 <= m < run.m:
-                continue
-            xs = (model._embed(stage, run.tokens_of(stage, m)) if s == 0
-                  else run.at(stage, hopped))
-            ys = model._run_stage(stage, xs, run.at(stage, run.positions))
-            for r, y in zip(stage.ranks, ys):
-                if s == last:
-                    p = model._head(r, y, run.targets[r][m], run.weight)
-                    parts[r] = p if r not in parts else parts[r] + p
-                else:
-                    outs[r] = y
-        if t < ticks - 1:
-            hopped = run.hop(outs, 1)
-    return run.total(parts)
+    pipe = _GPipe(model, tokens, targets)
+    if not (torch.is_grad_enabled()
+            and any(p.requires_grad for p in model.parameters())):
+        return pipe.run.total(pipe.forward(keep=False))
+    # The node's one input only makes its outputs need a gradient: the
+    # weights' gradients reach their .grad from the schedule's backward
+    anchor = torch.empty(0, device=model.mesh.device, requires_grad=True)
+    copies = iter(_GPipeLoss.apply(pipe, anchor))
+    return [None if d is None else next(copies)
+            for d in model.mesh.rank_devices]
 
 
 def _gpipe_value_and_grad(model: PipelinedTransformer, tokens, targets):
     model.zero_grad(set_to_none=True)
-    loss = _gpipe_loss(model, tokens, targets)
-    # Every rank holds the loss; one copy's backward reaches every rank
-    loss[0].backward()
+    pipe = _GPipe(model, tokens, targets)
+    parts = pipe.forward(keep=True)
+    # Every rank's copy of the loss is the sum of the shares: each head
+    # takes cotangent 1, as the loss allreduce's backward gives it
+    pipe.backward({r: torch.ones_like(p) for r, p in parts.items()})
+    loss = pipe.run.total(parts)
     model.allreduce_grads()
-    return [x.detach() for x in loss]
+    return loss
 
 
 def _1f1b_value_and_grad(model: PipelinedTransformer, tokens, targets):
@@ -451,12 +560,6 @@ def _1f1b_value_and_grad(model: PipelinedTransformer, tokens, targets):
                               for r in run.mesh.local_ranks}
     parts: dict[int, torch.Tensor] = {}
     x_hop = dy_hop = None
-
-    def leaves(xs):
-        return _local(lambda x: x.detach().requires_grad_(), xs)
-
-    def present(xs):
-        return [x for x in xs if x is not None]
 
     for t in range(ticks):
         outs: dict[int, torch.Tensor] = {}
@@ -484,7 +587,7 @@ def _1f1b_value_and_grad(model: PipelinedTransformer, tokens, targets):
             mb = t - 2 * last + s
             if not 0 <= mb < run.m:
                 continue
-            xs = None if s == 0 else leaves(
+            xs = None if s == 0 else _leaves(
                 run.at(stage, x_hop) if s == last
                 else [saved[r][mb % slots] if r in saved else None
                       for r in stage.ranks])
@@ -497,17 +600,15 @@ def _1f1b_value_and_grad(model: PipelinedTransformer, tokens, targets):
                         r, y, run.targets[r][mb], run.weight),
                                    ys, stage.ranks)
             if s == last:
-                torch.autograd.backward(present(heads))
+                _backward([(h, torch.ones_like(h)) for h in heads
+                           if h is not None])
                 for r, h in zip(stage.ranks, heads):
                     if h is None:
                         continue
                     h = h.detach()
                     parts[r] = h if r not in parts else parts[r] + h
             else:
-                dys = run.at(stage, dy_hop)
-                torch.autograd.backward(
-                    present(ys), [d for y, d in zip(ys, dys)
-                                  if y is not None])
+                _backward(list(zip(ys, run.at(stage, dy_hop))))
             if s > 0:
                 for r, x in zip(stage.ranks, xs):
                     if x is None:
@@ -526,8 +627,14 @@ def make_pp_loss(cfg: ModelConfig, mesh: Mesh):
     """``loss(model, tokens_mb, targets_mb)`` of a
     :class:`PipelinedTransformer` under the GPipe schedule:
     ``tokens_mb`` per-rank (M, B/(M dp), S/sp) shards
-    (``pp_data_sharding``); per-rank copies of the mean NLL,
-    differentiable."""
+    (``pp_data_sharding``); per-rank copies of the mean NLL (``None``
+    for other processes' ranks). Differentiable through GPipe's explicit
+    backward schedule, across processes too: the copies are one autograd
+    node whose backward seeds every head with the sum over the ranks of
+    its copy's cotangent, so that, as with ``models.train.
+    backward_copies``, each process backpropagates its own copies with
+    cotangent 1 at global rank 0 and 0 elsewhere. Under
+    ``torch.no_grad()`` it runs the forward ticks alone."""
     _validate_pp_mesh(cfg, mesh)
 
     def loss(model, tokens_mb, targets_mb):
@@ -570,9 +677,11 @@ def make_pp_train_step(cfg: ModelConfig, optimizer=None,
     ``models.train``: clip norm over one copy of each weight). ``tokens``
     and ``targets`` are a whole (B, S) batch, microbatched here, or
     per-rank (M, B/(M dp), S/sp) shards; the loss is a per-rank list.
-    ``schedule_name``: ``"gpipe"`` (autograd through the tick loop,
-    activations O(M + S) per stage, remat inside stages) or ``"1f1b"``
-    (hand-scheduled, a ring of O(S) saved stage inputs)."""
+    ``schedule_name``: ``"gpipe"`` (every microbatch's graph kept
+    through the forward ticks, then the backward ticks: activations
+    O(M + S) per stage, remat inside stages) or ``"1f1b"`` (a ring of
+    O(S) saved stage inputs, recomputed); both hand-scheduled, across
+    processes too."""
     from faabric_tpu_torch.models.train import _update, make_optimizer
 
     spec = optimizer or make_optimizer()

@@ -1443,31 +1443,48 @@ def test_planeworkers_on_one_card(cuda_device):
 
 @pytest.mark.cuda
 def test_plane_steps_phase_on_the_card(cuda_device, monkeypatch):
-    """``chip_smoke.py``'s phase 30 alone: a planner process and two
-    plane processes on ``cuda:0``, 4 ranks each, run 2 full-width steps
-    over (dp 4, tp 2) and 2 1F1B steps over (dp 2, tp 2, pp 2) with
-    every pp hop across the processes, bitwise against the script's
-    single-process run of the same steps. Each process launches half the
-    single-process run's flash kernels, every forward on ``wgmma``, and
-    the ring kernel once a pp hop. ``tests/test_torch_processes.py``
-    rehearses the phase on the CPU."""
+    """``chip_smoke.py``'s phases 30 and 31 alone: a planner process and
+    two plane processes on ``cuda:0``, 4 ranks each, run 2 full-width
+    steps over (dp 4, tp 2) and 2 1F1B steps over (dp 2, tp 2, pp 2)
+    with every pp hop across the processes; then GPipe over (dp 2, tp 2,
+    pp 2), the ring step over (dp 2, sp 2, tp 2), the MoE step over (dp
+    2, tp 2, ep 2), the MoE pipeline's 1F1B step over (dp 2, pp 2, ep 2)
+    and the collectives with their backward, every pair of each run's
+    axis across the processes, bitwise against the script's
+    single-process runs. Over both processes the flash kernels launch
+    what one process launches alone, every forward on ``wgmma``, and the
+    ring kernel once a hop or rotation round in each process.
+    ``tests/test_torch_processes.py`` rehearses both phases on the
+    CPU."""
     import chip_smoke
     from faabric_tpu_torch.models import ModelConfig
     from faabric_tpu_torch.parallel.pipeline import hop_counts
+    from faabric_tpu_torch.parallel.ring_attention import schedule_counts
 
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     _build.kernels()
     launches = chip_smoke.plane_steps_phase(cuda_device, _build)
     L = ModelConfig().n_layers
-    per_step = 2 * 4 * L  # processes x ranks x layers, each a step
-    steps = chip_smoke.PLANE_STEPS
+    steps, m = chip_smoke.PLANE_STEPS, chip_smoke.PLANE_MICROBATCHES
+    hops = hop_counts(2, m)
+    ring = schedule_counts(8, 2)
+    # Phase 30: 2 processes x 4 ranks x L layers a step, remat's forward
+    # twice; phase 31's ring step the same over the causal ring's blocks,
+    # its MoE step (no remat) one forward a rank and layer
+    p30 = 2 * 4 * L * steps
+    ring_fwd = ring["flash_attention"] * L * steps
+    moe_fwd = 8 * L
     assert launches["flash_attention"] == launches["flash_attention.wgmma"] \
-        == 2 * per_step * steps  # remat runs each forward twice
+        == 2 * p30 + 2 * ring_fwd + moe_fwd
     assert launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] \
-        == per_step * steps
-    assert launches["ring_permute"] == 2 * hop_counts(
-        2, chip_smoke.PLANE_MICROBATCHES)["1f1b"] * steps
+        == p30 + ring_fwd + moe_fwd
+    # One launch a process a hop or rotation round: phase 30's 1F1B hops,
+    # GPipe's, the ring's rotations (forward, recomputation, backward)
+    # and the MoE pipeline's 1F1B hops
+    assert launches["ring_permute"] == 2 * (
+        hops["1f1b"] * steps + hops["gpipe"] * steps
+        + 3 * L * ring["rounds"] * steps + hops["1f1b"])
     assert "rms_norm" not in launches
 
 

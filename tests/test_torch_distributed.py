@@ -33,8 +33,10 @@ in this process:
   clip norm that bites, both bitwise the single-process mesh's;
 - in this process, over a mesh of plane devices of which another
   process holds half: what each process holds and computes, and the
-  forms that stay refused across processes (GPipe, ring attention, the
-  MoE family, alltoall and scan), naming their ``ROADMAP.md`` items.
+  forms that stay refused across processes (sharded serving, local
+  ranks on several devices), naming their ``ROADMAP.md`` items. The
+  other training forms across processes are
+  ``tests/test_torch_xproc_forms.py``'s.
 
 The children import the port and nothing of JAX. Every process test
 takes its ports from ``tests/test_torch_multiprocess.py::port_slot()``
@@ -273,7 +275,10 @@ def _steps_child_main(my_idx: int, coord_port: int, weights: str, out: str,
     """One process of a 2-process plane (four CPU entries), joined
     directly at the coordinator: ``tests/test_torch_procs.py::
     plane_step_runs`` of the comma-separated ``runs`` on one intra-op
-    thread, its results written to ``<out>/<my_idx>.npz``."""
+    thread, its results written to ``<out>/<my_idx>.npz``; the run
+    ``collectives`` is ``plane_collective_runs``, written to
+    ``<out>/<my_idx>-collectives.npz``, and the report takes
+    ``changed_input_error``'s message as ``inplace``."""
     for fd in filter(None, os.environ.pop("PROCS_HELD_FDS", "").split(",")):
         os.close(int(fd))
     torch.set_num_threads(1)
@@ -285,7 +290,10 @@ def _steps_child_main(my_idx: int, coord_port: int, weights: str, out: str,
     )
     from tests.test_torch_procs import (
         _step_weights,
+        changed_input_error,
+        plane_collective_runs,
         plane_step_runs,
+        save_collective_runs,
         save_step_runs,
     )
 
@@ -296,11 +304,18 @@ def _steps_child_main(my_idx: int, coord_port: int, weights: str, out: str,
     print("READY", flush=True)
     report = {"ok": True, "err": ""}
     try:
+        runs = runs.split(",")
+        steps = [run for run in runs if run != "collectives"]
         got = plane_step_runs(global_devices(), _step_weights(weights),
-                              runs.split(","))
+                              steps)
         save_step_runs(os.path.join(out, f"{my_idx}.npz"), got)
         report["ranks"] = {run: g["ranks"] for run, g in got.items()}
         report["crossing"] = {run: g["crossing"] for run, g in got.items()}
+        if "collectives" in runs:
+            save_collective_runs(
+                os.path.join(out, f"{my_idx}-collectives.npz"),
+                plane_collective_runs(global_devices()))
+            report["inplace"] = changed_input_error(global_devices())
         modules = {m.split(".")[0] for m in sys.modules}
         report["jax"] = sorted(modules & {"jax", "jaxlib", "faabric_tpu"})
     except Exception as e:  # noqa: BLE001 — reported to the parent
@@ -317,13 +332,31 @@ def steps_across_processes(runs, weights: str, out: str, base: int,
     """Two ``--steps-child`` processes over a 2-process CPU plane whose
     coordinator listens at ``base`` + 1000 plus the MPI range's last
     port (held by ``hold(ports)`` until the first child binds it; []
-    when taken): each child's report, [] when the port was taken."""
+    when taken): each child's report, [] when the port was taken. The
+    state port at ``base``, which neither child binds, stays held until
+    both have ended: other test workers' ``next_port_base()`` keeps off
+    the slot while the children start and run."""
     from faabric_tpu_torch.transport.common import (
         MPI_BASE_PORT,
         MPI_PORTS_PER_HOST,
+        STATE_ASYNC_PORT,
     )
 
     coord_port = MPI_BASE_PORT + MPI_PORTS_PER_HOST - 1
+    guard = hold([base + STATE_ASYNC_PORT])
+    try:
+        return _steps_children(runs, weights, out, base, coord_port,
+                               hold) if guard else []
+    finally:
+        for sock in guard:
+            sock.close()
+
+
+def _steps_children(runs, weights: str, out: str, base: int,
+                    coord_port: int, hold) -> list[dict]:
+    """:func:`steps_across_processes`' two children, their coordinator's
+    port held by ``hold`` until the first binds it: their reports, []
+    when the port was taken."""
     held = hold([base + 1000 + coord_port])
     if not held:
         return []
@@ -1126,56 +1159,34 @@ def test_sharded_model_over_plane_devices_holds_only_its_shards():
     assert far.unique_parameters() == []
 
 
-@pytest.mark.parametrize("form", ["gpipe", "gpipe_loss", "ring_attention",
-                                  "moe", "moe_pipeline", "alltoall", "scan",
-                                  "broadcast_grad", "decode", "perplexity"])
+@pytest.mark.parametrize("form", ["decode", "perplexity", "several_devices"])
 def test_forms_not_ported_across_processes_raise_naming_their_items(form):
     """What stays refused across processes raises ``NotImplementedError``
-    before any exchange, naming its ``ROADMAP.md`` item: GPipe (step
-    10: its backward needs an explicit schedule), ring attention and the
-    MoE family (step 11), alltoall, scan and a backward of the forms
-    that have none (step 12), sharded decode and perplexity (step 13)."""
-    from faabric_tpu_torch.models import MoEConfig, Transformer
-    from faabric_tpu_torch.models.moe import ShardedMoETransformer
-    from faabric_tpu_torch.models.transformer import _param_tree
+    before any exchange, naming its ``ROADMAP.md`` item: sharded decode
+    and perplexity (step 13), and a collective whose local ranks lie on
+    several devices (step 9)."""
+    from faabric_tpu_torch.models import Transformer
     from faabric_tpu_torch.parallel import (
         DeviceCollectives,
         MeshConfig,
-        PipelinedTransformer,
+        PlaneDevice,
         build_mesh,
-        make_pp_loss,
-        make_pp_train_step,
-        ring_attention,
     )
-    from tests.test_torch_procs import PP_ORDER, step_config
+    from tests.test_torch_procs import step_config
 
     cfg = step_config()
-    pp = build_mesh(_plane_entries(PP_ORDER), MeshConfig(tp=2, pp=2))
     rng = np.random.RandomState(0)
     tok, tgt = (rng.randint(0, 128, (8, 16)).astype(np.int32)
                 for _ in range(2))
-    item = {"gpipe": "step 10", "gpipe_loss": "step 10",
-            "ring_attention": "step 11", "moe": "step 11",
-            "moe_pipeline": "step 11", "decode": "step 13",
-            "perplexity": "step 13"}.get(form, "step 12")
+    item = "step 9" if form == "several_devices" else "step 13"
     with pytest.raises(NotImplementedError, match=item):
-        if form.startswith("gpipe"):
-            model = PipelinedTransformer(cfg, pp, _param_tree(Transformer(
-                cfg, device="cpu",
-                generator=torch.Generator().manual_seed(0))))
-            if form == "gpipe":
-                make_pp_train_step(cfg, n_microbatches=2)(
-                    model, torch.optim.AdamW(model.parameters()), tok, tgt)
-            else:
-                from faabric_tpu_torch.parallel import (
-                    microbatch,
-                    pp_data_sharding,
-                )
-
-                shard = pp_data_sharding(pp).shard
-                make_pp_loss(cfg, pp)(model, shard(microbatch(tok, 2)),
-                                      shard(microbatch(tgt, 2)))
-        elif form in ("decode", "perplexity"):
+        if form == "several_devices":
+            col = DeviceCollectives(
+                [PlaneDevice(0, torch.device("cpu")),
+                 PlaneDevice(0, torch.device("meta")),
+                 PlaneDevice(1, torch.device("cpu"))])
+            col.scan([torch.zeros(2), torch.zeros(2, device="meta"), None])
+        else:
             from faabric_tpu_torch.models import (
                 evaluate_perplexity,
                 generate,
@@ -1192,29 +1203,6 @@ def test_forms_not_ported_across_processes_raise_naming_their_items(form):
                 generate(model, named(mesh, "dp", None).shard(tok[:, :4]), 2)
             else:
                 evaluate_perplexity(model, [(tok, tgt)])
-        elif form == "ring_attention":
-            sp = build_mesh(_plane_entries(), MeshConfig(sp=2, tp=2))
-            q = [None if d is None else torch.zeros(1, 4, 1, 8)
-                 for d in sp.rank_devices]
-            ring_attention(q, q, q, sp)
-        elif form.startswith("moe"):
-            moe = MoEConfig(**{k: getattr(cfg, k) for k in (
-                "vocab_size", "d_model", "n_layers", "n_heads", "d_ff",
-                "max_seq")}, n_experts=2, compute_dtype=torch.float32)
-            mesh = (pp if form == "moe_pipeline" else
-                    build_mesh(_plane_entries(), MeshConfig(ep=2)))
-            family = (PipelinedTransformer if form == "moe_pipeline"
-                      else ShardedMoETransformer)
-            from faabric_tpu_torch.models import MoETransformer
-
-            family(moe, mesh, _param_tree(MoETransformer(
-                moe, device="cpu",
-                generator=torch.Generator().manual_seed(0))))
-        else:
-            col = DeviceCollectives(_plane_entries())
-            xs = [torch.zeros(8, requires_grad=form == "broadcast_grad")
-                  if r < 4 else None for r in range(8)]
-            getattr(col, form.split("_")[0])(xs)
 
 
 if __name__ == "__main__":

@@ -456,6 +456,33 @@ def test_1f1b_train_step_matches_gpipe_schedule():
     assert losses["1f1b"][-1] < losses["1f1b"][0]
 
 
+@pytest.mark.parametrize("seed_rank", [0, 5])
+def test_gpipe_loss_backward_is_the_steps_schedule(seed_rank):
+    """``make_pp_loss``'s copies backpropagate through GPipe's explicit
+    schedule: seeding any one rank's copy with 1 gives every weight
+    bitwise the gradient the step's schedule leaves (each head seeded
+    with 1), as the loss allreduce's backward gives every share the sum
+    of the copies' cotangents."""
+    from faabric_tpu_torch.parallel.pipeline import _gpipe_value_and_grad
+
+    jcfg, cfg = configs()
+    mesh = mesh8(dp=2, tp=2, pp=2)
+    model = PipelinedTransformer(
+        cfg, mesh, np_tree(init_params(jax.random.PRNGKey(0), jcfg)))
+    tok, tgt = (shard_mb(mesh, a, 4) for a in data(seed=8))
+    want_loss = _gpipe_value_and_grad(model, tok, tgt)
+    want = pp_grads(model)
+    model.zero_grad(set_to_none=True)
+    loss = make_pp_loss(cfg, mesh)(model, tok, tgt)
+    assert all(torch.equal(a, b) for a, b in zip(loss, want_loss))
+    loss[seed_rank].backward()
+    model.allreduce_grads()
+    got = pp_grads(model)
+    assert set(got) == set(want)
+    for name, g in want.items():
+        np.testing.assert_array_equal(got[name], g, err_msg=name)
+
+
 @pytest.mark.parametrize("schedule_name", ["gpipe", "1f1b"])
 def test_hops_are_whole_ring_shifts_of_the_schedules_count(schedule_name,
                                                            monkeypatch):

@@ -82,6 +82,19 @@ def _children_of(pid: int) -> set[int]:
     return out
 
 
+def held_slot() -> tuple[int, list]:
+    """A free port slot's base and a listening socket on its planner
+    offset's state port, which no phase binds: held while a phase's
+    servers or children start (children take seconds before they bind),
+    it keeps other test workers' ``next_port_base()`` off the slot."""
+    for _ in range(20):
+        base = port_slot()
+        sentinel = _hold_ports([base + STATE_ASYNC_PORT], listen=True)
+        if sentinel:
+            return base, sentinel
+    raise AssertionError("no free port slot")
+
+
 def test_chip_smoke_processes_phase_small(monkeypatch):
     """Phase 26 at a small width: on the shm rings across processes and
     on bulk TCP, each host process's ranks' parameters after the first
@@ -114,19 +127,14 @@ def _processes_phase_small(monkeypatch):
     monkeypatch.setattr(chip_smoke, "check", check)
     keep: dict = {}
     before = _children_of(os.getpid())
-    chip_smoke.planes_phase(torch.device("cpu"), _build, cfg=cfg, seq=SEQ,
-                            base=port_slot(), keep=keep)
+    base, sentinel = held_slot()
+    try:
+        chip_smoke.planes_phase(torch.device("cpu"), _build, cfg=cfg,
+                                seq=SEQ, base=base, keep=keep)
+    finally:
+        sentinel[0].close()
     assert {"start", "shm", "tcp", "step_ms"} <= set(keep)
-    # The children take seconds to start before they bind the slot's
-    # ports: a listening socket on a port of the slot that none of them
-    # binds (the planner's offset's state port) keeps other test
-    # workers' next_port_base() off the slot meanwhile
-    for _ in range(20):
-        base = port_slot()
-        sentinel = _hold_ports([base + STATE_ASYNC_PORT], listen=True)
-        if sentinel:
-            break
-    assert sentinel, "no free port slot"
+    base, sentinel = held_slot()
     try:
         launches = chip_smoke.processes_phase(
             torch.device("cpu"), _build, keep, cfg=cfg, seq=SEQ, steps=STEPS,
@@ -224,13 +232,17 @@ PLANE_CHILD = ("import sys, chip_smoke; "
 
 
 def test_chip_smoke_plane_steps_phase_small(monkeypatch):
-    """Phase 30 at a small width: a planner process and two plane
+    """Phases 30 and 31 at a small width: a planner process and two plane
     processes, four CPU entries each, run the (dp 4, tp 2) step and the
     1F1B step over (dp 2, tp 2, pp 2), every pp hop across the
-    processes; both processes' losses and their ranks' shards after
-    every step are bitwise this process's single-process run's, on one
-    intra-op thread as the children; the children load nothing of JAX
-    or of the JAX package, and none outlives the phase."""
+    processes; then GPipe, the ring step, the MoE step, the MoE
+    pipeline's 1F1B step and the collectives with their backward, every
+    pair of each run's axis across the processes. Both processes' losses
+    and their ranks' shards after every step, and the collectives'
+    outputs and gradients, are bitwise this process's single-process
+    run's, on one intra-op thread as the children; the children load
+    nothing of JAX or of the JAX package, and none outlives the
+    phase."""
     cfg = ModelConfig(vocab_size=512, d_model=64, n_layers=2, n_heads=4,
                       d_ff=128, max_seq=64, attention_impl="reference",
                       norm_impl="reference", compute_dtype=torch.float32)
@@ -243,12 +255,7 @@ def test_chip_smoke_plane_steps_phase_small(monkeypatch):
 
     monkeypatch.setattr(chip_smoke, "check", check)
     before = _children_of(os.getpid())
-    for _ in range(20):
-        base = port_slot()
-        sentinel = _hold_ports([base + STATE_ASYNC_PORT], listen=True)
-        if sentinel:
-            break
-    assert sentinel, "no free port slot"
+    base, sentinel = held_slot()
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -269,9 +276,24 @@ def test_chip_smoke_plane_steps_phase_small(monkeypatch):
     for what in ("joined a 2-process plane of 8 devices",
                  "loaded nothing of JAX", "every pp hop",
                  "made its 6 hops as rounds"):
-        assert sum(what in w for w in passed) == 2, (what, passed)
+        assert sum(what in w and w.startswith("30")
+                   for w in passed) == 2, (what, passed)
     assert any(w.startswith("30: the (dp 4, tp 2) mesh's ranks split 4 + 4")
                for w in passed), passed
+    for run, steps in (("gpipe", 2), ("ring", 2), ("moe", 1), ("moe_pp", 1)):
+        for i in range(1, steps + 1):
+            for what in (f"loss after step {i}", f"shards after step {i}"):
+                same = [w for w in passed if w.startswith(f"31 ({run}): ")
+                        and what in w and "bitwise" in w]
+                assert len(same) == 2, (run, what, passed)
+        assert sum(w.startswith(f"31 ({run}): every ") and "crosses" in w
+                   for w in passed) == 2, (run, passed)
+    for name in ("alltoall", "scan_sum", "scan_max", "broadcast input",
+                 "allreduce_max input"):
+        assert sum(f"' {name}" in w and "bitwise" in w
+                   for w in passed) == 2, (name, passed)
+    assert sum(w.startswith("31: the ") and "loaded nothing of JAX" in w
+               for w in passed) == 2, passed
     assert "30: the planner process stopped on SIGTERM with 0" in passed
 
 

@@ -1046,7 +1046,40 @@ STEP_RUNS = {
                      schedule="1f1b", steps=2, remat=True, seed=3),
     "accum": dict(order=tuple(range(8)), axes={"tp": 2}, steps=2, accum=2,
                   seed=4),
+    # The forms across processes: GPipe on its explicit backward
+    # schedule (every pp hop crossing, remat on), the ring over sp, the
+    # MoE step with ep crossing, and MoE stages under both schedules
+    # with every pp hop crossing
+    "gpipe": dict(order=PP_ORDER, axes={"tp": 2, "pp": 2}, schedule="gpipe",
+                  steps=2, remat=True, seed=5),
+    "ring": dict(order=PP_ORDER, axes={"sp": 2, "tp": 2}, steps=2,
+                 attention="ring", pair="sp", seed=6),
+    "moe": dict(order=PP_ORDER, axes={"tp": 2, "ep": 2}, family="moe",
+                steps=1, pair="ep", seed=7),
+    "moe_1f1b": dict(order=PP_ORDER, axes={"pp": 2, "ep": 2}, family="moe",
+                     schedule="1f1b", steps=1, seed=8),
+    "moe_gpipe": dict(order=PP_ORDER, axes={"pp": 2, "ep": 2}, family="moe",
+                      schedule="gpipe", steps=1, seed=9),
+    # make_pp_loss's copies backpropagated with backward_copies (no
+    # update), every pp hop crossing: its backward rounds follow the
+    # GPipe schedule's, seeded at global rank 0 alone
+    "pp_loss": dict(order=PP_ORDER, axes={"tp": 2, "pp": 2},
+                    schedule="gpipe", loss=True, steps=1, seed=12),
+    # Two more layouts: GPipe with each process holding half of each
+    # stage (the hops inside a process, the stages' dp groups across),
+    # and a ring of 4 with two positions in each process (three
+    # rotations, one crossing the processes each way), both under remat
+    "gpipe_split": dict(order=tuple(range(8)), axes={"tp": 2, "pp": 2},
+                        schedule="gpipe", steps=2, remat=True, seed=10),
+    "ring_sp4": dict(order=PP_ORDER, axes={"sp": 4}, steps=2, remat=True,
+                     attention="ring", pair="sp", seed=11),
 }
+# The forms' runs of STEP_RUNS, in the reference's pipeline order, and
+# the other layouts
+FORM_RUNS = ("gpipe", "ring", "moe", "moe_1f1b", "moe_gpipe", "pp_loss")
+FORM_LAYOUTS = ("gpipe_split", "ring_sp4")
+# The MoE runs' family: STEP_CFG's widths with 4 experts
+MOE_STEP_CFG = dict(n_experts=4)
 
 
 def step_config(**changes):
@@ -1057,6 +1090,28 @@ def step_config(**changes):
     return ModelConfig(**{**STEP_CFG, **changes}, compute_dtype=torch.float32)
 
 
+def moe_step_config(**changes):
+    import torch
+
+    from faabric_tpu_torch.models import MoEConfig
+
+    return MoEConfig(**{**STEP_CFG, **MOE_STEP_CFG, **changes},
+                     compute_dtype=torch.float32)
+
+
+def moe_step_params() -> dict:
+    """The MoE runs' weights, the same in every process: a
+    ``MoETransformer``'s draw from a CPU generator's seed 0, as the JAX
+    package's pytree of numpy arrays."""
+    import torch
+
+    from faabric_tpu_torch.models import MoETransformer, params_to_numpy
+
+    return params_to_numpy(MoETransformer(
+        moe_step_config(), device="cpu",
+        generator=torch.Generator().manual_seed(0)))
+
+
 def plane_step_runs(devices, params, runs=("dense", "pp")) -> dict:
     """The sharded train steps of ``STEP_RUNS`` over the 8 entries of
     ``devices`` (the plane's global devices, or 8 entries of one device
@@ -1065,38 +1120,67 @@ def plane_step_runs(devices, params, runs=("dense", "pp")) -> dict:
     this process's first rank (every local rank's copy checked equal to
     it), the ranks this process holds, whether every pp (or tp) pair
     crosses processes, and the whole weights after the last step
-    (``gathered()``, in every process), by leaf name."""
+    (``gathered()``, in every process), by leaf name. A ``loss`` run
+    backpropagates ``make_pp_loss``'s copies with ``backward_copies``
+    in place of a step, and leaves the weights as they were."""
     import numpy as np
 
     from faabric_tpu_torch.models import (
         data_sharding,
+        make_moe_train_step,
         make_optimizer,
         make_train_step,
         params_from_jax,
     )
+    from faabric_tpu_torch.models.train import backward_copies
     from faabric_tpu_torch.models.transformer import _leaves
     from faabric_tpu_torch.parallel import MeshConfig, build_mesh
-    from faabric_tpu_torch.parallel.pipeline import make_pp_train_step
+    from faabric_tpu_torch.parallel.pipeline import (
+        make_pp_loss,
+        make_pp_train_step,
+        microbatch,
+        pp_data_sharding,
+    )
 
     out = {}
     rng = None
     for name in runs:
         run = STEP_RUNS[name]
         schedule = run.get("schedule")
-        cfg = step_config(remat=run.get("remat", False))
+        moe = run.get("family") == "moe"
+        if moe:
+            cfg = moe_step_config(remat=run.get("remat", False))
+        else:
+            cfg = step_config(remat=run.get("remat", False),
+                              attention_impl=run.get("attention",
+                                                     "reference"))
         mesh = build_mesh([devices[i] for i in run["order"]],
                           MeshConfig(**run["axes"]))
         spec = make_optimizer(clip_norm=run.get("clip"))
-        model = params_from_jax(params, cfg, mesh=mesh)
+        model = params_from_jax(moe_step_params() if moe else params, cfg,
+                                mesh=mesh)
         opt = spec.init(model)
         if run.get("seed") is not None:
             rng = np.random.RandomState(run["seed"])
-        pair = "pp" if schedule else "tp"
+        pair = run.get("pair", "pp" if schedule else "tp")
         crossing = all(len({mesh.rank_process[r] for r in g}) == 2
                        for g in mesh.groups(pair))
-        if schedule:
+        if run.get("loss"):
+            pp_loss = make_pp_loss(cfg, mesh)
+
+            def step(model, opt, tok, tgt):
+                shard = pp_data_sharding(mesh).shard
+                model.zero_grad(set_to_none=True)
+                copies = pp_loss(model, shard(microbatch(tok, 2)),
+                                 shard(microbatch(tgt, 2)))
+                backward_copies(copies)
+                model.allreduce_grads()
+                return [None if c is None else c.detach() for c in copies]
+        elif schedule:
             step = make_pp_train_step(cfg, spec, n_microbatches=2,
                                       schedule_name=schedule)
+        elif moe:
+            step = make_moe_train_step(cfg, spec)
         else:
             step = make_train_step(cfg, spec,
                                    accum_steps=run.get("accum", 1))
@@ -1119,6 +1203,156 @@ def plane_step_runs(devices, params, runs=("dense", "pp")) -> dict:
                      "params": {k: v.cpu().numpy() for k, v in
                                 _leaves(model.gathered())},
                      "grads": {k: v.cpu().numpy() for k, v in grads.items()}}
+    return out
+
+
+# The collectives across processes: form → (method, keyword arguments;
+# an op by its MpiOp name). Every one but allreduce_loop is
+# backpropagated
+COLLECTIVE_FORMS = {
+    "alltoall": ("alltoall", {}),
+    "scan_sum": ("scan", {"op": "SUM"}),
+    "scan_prod": ("scan", {"op": "PROD"}),
+    "scan_max": ("scan", {"op": "MAX"}),
+    "scan_min": ("scan", {"op": "MIN"}),
+    "broadcast": ("broadcast", {"root": 5}),
+    "allreduce_max": ("allreduce", {"op": "MAX"}),
+    "allreduce_min": ("allreduce", {"op": "MIN"}),
+    "allreduce_prod": ("allreduce", {"op": "PROD"}),
+    "allreduce_loop_sum": ("allreduce_loop", {"n": 3, "op": "SUM"}),
+    "allreduce_loop_max": ("allreduce_loop", {"n": 3, "op": "MAX"}),
+}
+# Ring attention's blocks: (B, S, H, D) over (dp 2, sp 2, tp 2) in
+# PP_ORDER, every sp ring crossing the processes
+RING_SHAPE = (2, 32, 2, 16)
+
+
+def collective_inputs(n: int = 8):
+    """Every rank's (n, 6) fp32 buffer and cotangent (RandomState(40 + r)
+    and (60 + r)), and ring attention's whole q, k, v and output
+    cotangent (RandomState(80))."""
+    import numpy as np
+
+    bufs = [np.random.RandomState(40 + r).uniform(0.5, 1.5, (n, 6))
+            .astype(np.float32) for r in range(n)]
+    cots = [np.random.RandomState(60 + r).uniform(-1.0, 1.0, (n, 6))
+            .astype(np.float32) for r in range(n)]
+    rng = np.random.RandomState(80)
+    ring = [rng.randn(*RING_SHAPE).astype(np.float32) for _ in range(4)]
+    return bufs, cots, ring
+
+
+def plane_collective_runs(devices) -> dict:
+    """``COLLECTIVE_FORMS`` over ``DeviceCollectives`` of the 8 entries
+    of ``devices`` (the plane's global devices, or 8 entries of one
+    device), each rank's input :func:`collective_inputs`' buffer as a
+    leaf, backpropagated (but ``allreduce_loop``) with its cotangent;
+    and ``ring_attention`` over (dp 2, sp 2, tp 2) in ``PP_ORDER`` on
+    each rank's sequence block of q, k and v, backpropagated with its
+    block of the output cotangent. Returns {form: {"out": {rank: array},
+    "grad": {rank: array}}} for this process's ranks (a rank whose input
+    takes no gradient has none; ring attention's gradient stacks q's,
+    k's and v's)."""
+    import numpy as np
+    import torch
+
+    from faabric_tpu_torch.mpi import MpiOp
+    from faabric_tpu_torch.parallel import (
+        DeviceCollectives,
+        MeshConfig,
+        ShardSpec,
+        build_mesh,
+        ring_attention,
+    )
+
+    bufs, cots, ring = collective_inputs()
+    col = DeviceCollectives(devices)
+    mine = col.local_ranks
+    out = {}
+
+    def record(ys, leaves):
+        return {"out": {r: ys[r].detach().numpy() for r in mine},
+                "grad": {r: leaves[r].grad.numpy() for r in mine
+                         if leaves[r].grad is not None}}
+
+    for form, (method, kw) in COLLECTIVE_FORMS.items():
+        kw = {k: MpiOp[v] if k == "op" else v for k, v in kw.items()}
+        xs = [torch.tensor(bufs[r], requires_grad=True) if r in mine
+              else None for r in range(col.n)]
+        if method == "allreduce_loop":
+            with torch.no_grad():
+                ys = getattr(col, method)(xs, **kw)
+        else:
+            ys = getattr(col, method)(xs, **kw)
+            torch.autograd.backward([ys[r] for r in mine],
+                                    [torch.tensor(cots[r]) for r in mine])
+        out[form] = record(ys, xs)
+    mesh = build_mesh([devices[i] for i in PP_ORDER],
+                      MeshConfig(sp=2, tp=2))
+    spec = ShardSpec(mesh, (None, "sp"))
+    q, k, v, dout = (spec.shard(a) for a in ring)
+    for t in (*q, *k, *v):
+        if t is not None:
+            t.requires_grad_()
+    ys = ring_attention(q, k, v, mesh)
+    mine = mesh.local_ranks
+    torch.autograd.backward([ys[r] for r in mine], [dout[r] for r in mine])
+    out["ring_attention"] = {
+        "out": {r: ys[r].detach().numpy() for r in mine},
+        "grad": {r: np.stack([t[r].grad.numpy() for t in (q, k, v)])
+                 for r in mine}}
+    return out
+
+
+def changed_input_error(devices) -> str:
+    """An allreduce MAX over ``DeviceCollectives`` of the 8 entries of
+    ``devices`` whose local inputs change in place between its forward
+    and its backward: the error the backward raises ("" where none).
+    Across processes the replayed backward keeps the local inputs under
+    autograd's version check, so each process raises before its round."""
+    import torch
+
+    from faabric_tpu_torch.mpi import MpiOp
+    from faabric_tpu_torch.parallel import DeviceCollectives
+
+    bufs, cots, _ = collective_inputs()
+    col = DeviceCollectives(devices)
+    mine = col.local_ranks
+    leaves = [torch.tensor(bufs[r], requires_grad=True) if r in mine
+              else None for r in range(col.n)]
+    xs = [None if x is None else x * 1 for x in leaves]
+    ys = col.allreduce(xs, op=MpiOp.MAX)
+    with torch.no_grad():
+        for r in mine:
+            xs[r].add_(1)
+    try:
+        torch.autograd.backward([ys[r] for r in mine],
+                                [torch.tensor(cots[r]) for r in mine])
+    except RuntimeError as e:
+        return str(e)
+    return ""
+
+
+def save_collective_runs(path: str, runs: dict) -> None:
+    """:func:`plane_collective_runs`' results as an ``.npz``."""
+    import numpy as np
+
+    np.savez(path, **{f"{form}/{kind}/{r}": a
+                      for form, got in runs.items()
+                      for kind, by_rank in got.items()
+                      for r, a in by_rank.items()})
+
+
+def load_collective_runs(path: str) -> dict:
+    """The inverse of :func:`save_collective_runs`."""
+    import numpy as np
+
+    out: dict = {}
+    with np.load(path) as f:
+        for key in f.files:
+            form, kind, r = key.split("/")
+            got = out.setdefault(form, {"out": {}, "grad": {}})
+            got[kind][int(r)] = f[key]
     return out
 
 
